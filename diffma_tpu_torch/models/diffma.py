@@ -1,0 +1,172 @@
+"""DiffMa: conditional latent-diffusion denoiser with Spiral Mamba blocks.
+
+Counterpart of ``diffma_tpu/models/diffma.py``: patchify, + 2-D sincos
+pos-embed, ``depth`` Spiral blocks with U-Net-style long skips, adaLN final
+layer, unpatchify. The public API is NCHW. The conditioning vector is
+c = concat(t_emb + y, t_emb + mean(y2)), (N, 2D); w soft-masks the second
+branch of every block. Layer i scans spiral orders (2i) % 16 and (2i) % 16 + 1.
+
+The registry holds the 15 ``DiffMa-*`` names (spiral blocks). The other 65
+names of the JAX registry (ZigMa, ViM, VMamba, EMamba, DiT) are not ported
+yet, and ``build_model`` says so.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+from diffma_tpu_torch.models.layers import (
+    FinalLayer,
+    PatchEmbed,
+    TimestepEmbed,
+    get_2d_sincos_pos_embed,
+)
+from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+__all__ = ["DiffMa", "DiffMa_models", "NOT_PORTED", "build_model"]
+
+
+class DiffMa(nn.Module):
+    def __init__(
+        self,
+        input_size: int = 28,
+        patch_size: int = 2,
+        hidden_size: int = 512,
+        depth: int = 16,
+        dt_rank: Optional[int] = 16,  # accepted and unused, as in the JAX package
+        d_state: int = 16,
+    ):
+        super().__init__()
+        del dt_rank
+        self.patch_size = patch_size
+        self.in_channels = 4  # SD-VAE latent
+        self.out_channels = 8  # epsilon and the learned-range variance
+        self.grid_n = input_size // patch_size
+        self.depth = depth
+
+        self.x_embedder = PatchEmbed(patch_size, self.in_channels, hidden_size)
+        self.register_buffer(
+            "pos_embed",
+            torch.from_numpy(get_2d_sincos_pos_embed(hidden_size, self.grid_n)),
+            persistent=False,
+        )
+        self.t_embedder = TimestepEmbed(hidden_size)
+        self.blocks = nn.ModuleList(
+            SpiralMambaBlock(
+                hidden_size, build_scan_spec("spiral", self.grid_n, i), d_state=d_state
+            )
+            for i in range(depth)
+        )
+        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "DiffMa":
+        """The JAX package's effective init, drawn from ``generator``: xavier
+        linears with zero bias, N(0, 0.02) timestep MLP, zero adaLN and final
+        layer (so every block starts as the identity), torch Conv1d init for
+        the depthwise conv, A_log = log(1..n), D = 1."""
+
+        def xavier(w):
+            fan_out, fan_in = w.shape[0], w[0].numel()
+            bound = math.sqrt(6.0 / (fan_in + fan_out))
+            w.uniform_(-bound, bound, generator=generator)
+
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                xavier(m.weight)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        xavier(self.x_embedder.proj.weight)
+        self.x_embedder.proj.bias.zero_()
+        for lin in (self.t_embedder.mlp[0], self.t_embedder.mlp[2]):
+            lin.weight.normal_(0.0, 0.02, generator=generator)
+        for blk in self.blocks:
+            blk.adaLN_modulation[1].weight.zero_()
+            blk.adaLN_modulation[1].bias.zero_()
+            for mixer in (blk.mamba1, blk.mamba2):
+                bound = 1.0 / math.sqrt(mixer.conv1d.weight.shape[-1])
+                mixer.conv1d.weight.uniform_(-bound, bound, generator=generator)
+                mixer.conv1d.bias.uniform_(-bound, bound, generator=generator)
+                n = mixer.A_log.shape[1]
+                mixer.A_log.copy_(torch.log(torch.arange(1, n + 1.0)).expand_as(mixer.A_log))
+                mixer.D.fill_(1.0)
+        for lin in (self.final_layer.adaLN_modulation[1], self.final_layer.linear):
+            lin.weight.zero_()
+            lin.bias.zero_()
+        return self
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (N, C, H, W) latent
+        t: torch.Tensor,  # (N,)
+        y: torch.Tensor,  # (N, D) BiomedCLIP CT embedding
+        y2: torch.Tensor,  # (N, T, D) CT-encoder tokens
+        w: torch.Tensor,  # (N, T, 1) CT-encoder soft mask
+    ) -> torch.Tensor:
+        x = self.x_embedder(x) + self.pos_embed
+        t_emb = self.t_embedder(t)
+        c = torch.cat([t_emb + y, t_emb + y2.mean(dim=1)], dim=1)  # (N, 2D)
+
+        outputs = []
+        for i, block in enumerate(self.blocks):
+            if i == 0:
+                inp = x
+            elif i > self.depth / 2:
+                inp = outputs[-1] + outputs[self.depth - i - 1]
+            else:
+                inp = outputs[-1]
+            outputs.append(block(inp, c, w))
+        return self.unpatchify(self.final_layer(outputs[-1], c))
+
+    def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, T, p*p*C) -> (N, C, H, W)."""
+        N = x.shape[0]
+        p, c, h = self.patch_size, self.out_channels, self.grid_n
+        x = x.reshape(N, h, h, p, p, c)
+        x = torch.einsum("nhwpqc->nchpwq", x)
+        return x.reshape(N, c, h * p, h * p)
+
+
+def _names(prefix: str, sizes, extra=()):
+    return [f"{prefix}-{sz}/{p}" for sz in sizes for p in (2, 4, 7)] + [
+        f"{prefix}-{e}" for e in extra
+    ]
+
+
+_DIFFMA_DEPTHS = {"XXL": 56, "XL": 28, "L": 16, "B": 8, "S": 4}
+
+#: name -> (depth, patch size): the spiral-block entries of the registry.
+DiffMa_models = {
+    f"DiffMa-{sz}/{p}": (depth, p)
+    for sz, depth in _DIFFMA_DEPTHS.items()
+    for p in (2, 4, 7)
+}
+
+#: Registry names of the JAX package that the port does not build yet.
+NOT_PORTED = frozenset(
+    name
+    for prefix in ("ZigMa", "ViM", "VMamba", "EMamba")
+    for name in _names(prefix, ("XL", "L", "B", "S"), ("BL/2",))
+) | frozenset(_names("DiT", ("XL", "L", "B", "S"), ("SB/2",)))
+
+
+def build_model(name: str, **kwargs) -> DiffMa:
+    """Build a registry entry, e.g. ``build_model("DiffMa-B/2", input_size=28)``.
+
+    ``hidden_size`` defaults to 512 and may be overridden (tests shrink it).
+    """
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"{name} is not ported yet (only DiffMa-* spiral models)")
+    if name not in DiffMa_models:
+        raise KeyError(f"unknown model {name!r}")
+    depth, patch = DiffMa_models[name]
+    kwargs.setdefault("hidden_size", 512)
+    return DiffMa(depth=depth, patch_size=patch, **kwargs)

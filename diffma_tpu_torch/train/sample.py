@@ -1,0 +1,176 @@
+"""DiffMa sampling pipeline.
+
+Usage::
+
+    python -m diffma_tpu_torch.train.sample --config configs/brain.yaml \\
+        --model DiffMa-B/2 --device cuda
+
+Counterpart of ``diffma_tpu/train/sample.py::main``: build the registry
+model, take conditioning (y, y2, w), run the respaced DDPM chain (or DDIM
+with ``use_ddim``) with ``clip_denoised=False``, decode ``samples /
+SD_VAE_SCALE`` with the SD-VAE, and score the images against the ground-truth
+MRI with PSNR/SSIM. Image grids are written as PNG with the standard library
+alone.
+
+This slice samples from random weights (drawn from ``seed``) with synthetic
+conditioning. Checkpoint loading, the conditioning stack (CT encoder,
+BiomedCLIP, VAE encoder) and Mamba-2 come in later slices, and asking for
+them raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import struct
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets
+from diffma_tpu_torch.diffusion import create_diffusion
+from diffma_tpu_torch.models.diffma import build_model
+from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
+from diffma_tpu_torch.train.train import synthetic_batch
+from diffma_tpu_torch.utils.config import parse_cli
+from diffma_tpu_torch.utils.device import resolve_device
+from diffma_tpu_torch.utils.metrics import quality_report
+
+__all__ = ["main", "save_image_grid", "cli"]
+
+logger = logging.getLogger(__name__)
+
+
+def _png_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of an (H, W, 3) uint8 array."""
+    h, w, _ = rgb.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))  # filter 0 rows
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 4, value_range=(-1, 1)) -> None:
+    """PNG grid (torchvision ``save_image`` layout: values normalised into
+    ``value_range``, ``nrow`` images per row, 2 px padding)."""
+    lo, hi = value_range
+    imgs = np.clip((np.asarray(images, np.float32) - lo) / (hi - lo), 0, 1)
+    if imgs.shape[1] == 1:
+        imgs = np.repeat(imgs, 3, axis=1)
+    imgs = (imgs[:, :3].transpose(0, 2, 3, 1) * 255).astype(np.uint8)
+    n, h, w, _ = imgs.shape
+    ncol = int(np.ceil(n / nrow))
+    pad = 2
+    canvas = np.zeros((ncol * (h + pad) + pad, nrow * (w + pad) + pad, 3), np.uint8)
+    for i, img in enumerate(imgs):
+        r, c = divmod(i, nrow)
+        y, x = pad + r * (h + pad), pad + c * (w + pad)
+        canvas[y : y + h, x : x + w] = img
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_png_bytes(canvas))
+
+
+def main(cfg, device="cuda"):
+    """Sample ``cfg``'s model; returns one dict per batch with the decoded
+    ``images`` (N, 3, H, W), the batch's wall ``seconds`` and its ``quality``."""
+    device = resolve_device(device)
+    if cfg.get("use_mamba2"):
+        raise NotImplementedError("the Mamba-2 mixer is not ported yet")
+    if cfg.get("autocast"):
+        raise NotImplementedError("bf16 sampling is not ported yet")
+    seed = int(cfg.get("seed", 0))
+    latent = cfg.image_size // 8
+    model = build_model(
+        str(cfg.model),
+        input_size=latent,
+        dt_rank=int(cfg.get("dt_rank", 16)),
+        d_state=int(cfg.get("d_state", 16)),
+    )
+    ckpt_path = cfg.get("ckpt")
+    if ckpt_path and os.path.exists(str(ckpt_path)):
+        raise NotImplementedError("checkpoint loading is not ported yet")
+    logger.info("No checkpoint found; sampling from random weights")
+    model.init_weights(torch.Generator().manual_seed(seed + 1)).to(device).eval()
+    diffusion = create_diffusion(str(cfg.get("sample_num_steps", 250)), device=device)
+
+    folders = (
+        cfg.get("ct_image_folder_val"),
+        cfg.get("mask_image_folder_val"),
+        cfg.get("mir_image_folder_val"),
+    )
+    if not cfg.get("synthetic_data") and all(f and os.path.isdir(str(f)) for f in folders):
+        raise NotImplementedError(
+            "the conditioning stack is not ported yet; set synthetic_data: true"
+        )
+    logger.info("using synthetic conditioning")
+    dataset = SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", 8)), size=cfg.image_size)
+    vae = AutoencoderKL().init_weights(torch.Generator().manual_seed(seed + 2)).to(device).eval()
+
+    loop = diffusion.ddim_sample_loop if cfg.get("use_ddim") else diffusion.p_sample_loop
+    tokens = (latent // model.patch_size) ** 2
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch_size = int(cfg.get("sample_global_batch_size", 1))
+    save_dir = str(cfg.get("save_dir", "./result_sample"))
+    n_batches = int(cfg.get("sample_num_batches", 0)) or None
+
+    results = []
+    for item, (x_ct, _mask, z_mri) in enumerate(dataset.batches(batch_size), start=1):
+        n = x_ct.shape[0]
+        t0 = time.perf_counter()
+        z = torch.randn((n, 4, latent, latent), generator=gen, device=device)
+        b = synthetic_batch(gen, n, latent, tokens)
+        with torch.no_grad():
+            samples = loop(
+                model, z.shape, gen, noise=z, clip_denoised=False,
+                model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]},
+            )
+            images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
+        seconds = time.perf_counter() - t0
+        mri3 = np.concatenate([z_mri] * 3, axis=1)
+        save_image_grid(images, f"{save_dir}/{item}_sample_gen.png")
+        save_image_grid(mri3, f"{save_dir}/{item}_sample_ori.png")
+        save_image_grid(np.concatenate([x_ct] * 3, axis=1), f"{save_dir}/{item}_sample_ct.png")
+        q = quality_report(images, mri3)
+        logger.info(
+            f"saved sample grid {item} in {seconds:.3f} s  "
+            f"PSNR {q['psnr_db']:.2f} dB  SSIM {q['ssim']:.4f}"
+        )
+        results.append({"images": images, "seconds": seconds, "quality": q})
+        if n_batches and item >= n_batches:
+            break
+    if results:
+        logger.info(
+            "quality over %d batches: PSNR %.2f dB, SSIM %.4f",
+            len(results),
+            float(np.mean([r["quality"]["psnr_db"] for r in results])),
+            float(np.mean([r["quality"]["ssim"] for r in results])),
+        )
+    return results
+
+
+def cli(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--model", type=str, default=None, help="registry name, e.g. DiffMa-B/2")
+    parser.add_argument("--ckpt", type=str, default=None, help="checkpoint path")
+    parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true", default=None)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain PyTorch scan")
+    cfg = parse_cli(parser, argv)
+    device = cfg.pop("device")
+    logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(message)s")
+    return main(cfg, device=device)
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,0 +1,129 @@
+"""The port's sampling pipeline, config reader and import rules, on the CPU."""
+
+import ast
+import os
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from diffma_tpu.data.npy_dataset import SyntheticTriplets as JaxSyntheticTriplets
+from diffma_tpu.utils import metrics as jax_metrics
+from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets
+from diffma_tpu_torch.diffusion import create_diffusion
+from diffma_tpu_torch.train import sample
+from diffma_tpu_torch.utils import metrics
+from diffma_tpu_torch.utils.config import Config, load_config, parse_flat_yaml
+from diffma_tpu_torch.utils.device import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CONFIGS = sorted((ROOT / "configs").glob("*.yaml"))
+
+
+def _tiny_cfg(tmp_path, **kw):
+    cfg = Config(
+        model="DiffMa-S/2", image_size=32, sample_num_steps=3,
+        sample_global_batch_size=2, sample_num_batches=2, synthetic_data=True,
+        synthetic_dataset_size=3, save_dir=str(tmp_path), seed=0,
+    )
+    cfg.update(kw)
+    return cfg
+
+
+@pytest.mark.parametrize("use_ddim", [False, True])
+def test_sample_main_on_cpu(tmp_path, use_ddim):
+    results = sample.main(_tiny_cfg(tmp_path, use_ddim=use_ddim), device="cpu")
+    assert [r["images"].shape for r in results] == [(2, 3, 32, 32), (1, 3, 32, 32)]
+    for r in results:
+        assert np.isfinite(r["images"]).all()
+        assert set(r["quality"]) == {"psnr_db", "ssim"}
+    names = sorted(os.listdir(tmp_path))
+    assert names == sorted(f"{i}_sample_{k}.png" for i in (1, 2) for k in ("gen", "ori", "ct"))
+    again = sample.main(_tiny_cfg(tmp_path, use_ddim=use_ddim), device="cpu")
+    np.testing.assert_array_equal(again[0]["images"], results[0]["images"])  # seeded
+
+
+def test_sample_cli_parses_flags(tmp_path):
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(
+        "model: DiffMa-B/2\nimage_size: 32\nsample_num_steps: 2\nsynthetic_data: true\n"
+        "sample_num_batches: 1\nsynthetic_dataset_size: 1\n"
+        f"save_dir: \"{tmp_path / 'out'}\"\n"
+    )
+    results = sample.cli(["--config", str(cfg_path), "--model", "DiffMa-S/2", "--device", "cpu"])
+    assert results[0]["images"].shape == (1, 3, 32, 32)
+    with pytest.raises(NotImplementedError, match="Mamba-2"):
+        sample.cli(["--config", str(cfg_path), "--use-mamba2", "--device", "cpu"])
+
+
+def test_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample.main(_tiny_cfg(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_diffusion("10")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_png_grid_is_a_valid_png(tmp_path):
+    from PIL import Image
+
+    imgs = np.random.default_rng(0).uniform(-1, 1, (5, 3, 9, 7)).astype(np.float32)
+    path = tmp_path / "g.png"
+    sample.save_image_grid(imgs, str(path), nrow=4)
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"))
+    assert arr.shape == (2 * (9 + 2) + 2, 4 * (7 + 2) + 2, 3)
+    want = (np.clip((imgs[0] + 1) / 2, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(arr[2:11, 2:9], want)
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_yaml_reader_matches_pyyaml(path):
+    assert dict(load_config(str(path))) == yaml.safe_load(path.read_text())
+
+
+def test_yaml_reader_scalars_match_pyyaml():
+    text = "\n".join([
+        "a: 1e-4", "b: 1.0e-4", "c: 50_000", "d: null", "e: ~", "f: true", "g: off",
+        "h: 'it''s'", 'i: "x # y"', "j: x # comment", "k: -3", "l: .5", "m: 0x1f",
+        "n: 010", "o:", "p: .inf", "q: -.inf", "r: 3.", "s: +7", "t: 1_0.5",
+    ])
+    assert parse_flat_yaml(text) == yaml.safe_load(text)
+    for bad in ("a:\n  b: 1", "a: [1, 2]", "- 1", "a: 'open"):
+        with pytest.raises(ValueError):
+            parse_flat_yaml(bad)
+
+
+def test_synthetic_triplets_and_metrics_match_jax():
+    ours, ref = SyntheticTriplets(n=2, size=16), JaxSyntheticTriplets(n=2, size=16)
+    for i in range(2):
+        for a, b in zip(ours[i], ref[i]):
+            np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(0)
+    a, b = rng.uniform(-1, 1, (2, 3, 16, 16)), rng.uniform(-1, 1, (2, 3, 16, 16))
+    assert metrics.quality_report(a, b) == jax_metrics.quality_report(a, b)
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "diffma_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax", "diffma_tpu", "yaml", "PIL"), (
+                f"{path.relative_to(ROOT)} imports {mod}"
+            )
