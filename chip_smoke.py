@@ -6,14 +6,23 @@
 Run from the root of a checkout, on a machine with a CUDA card and nvcc. It
 needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
 
-1. build: compile every CUDA kernel of the sampling path from ``csrc/``;
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the DiffMa-B/2 sampler gives it, with times and bounds;
-3. forward: one full-width DiffMa-B/2 forward through the kernel and through
-   the plain scan, with the same random weights;
-4. sampler: ``diffma_tpu_torch.train.sample.main`` on ``configs/brain.yaml``
-   with DiffMa-B/2, DDPM-250, 2 batches of 1 image, synthetic conditioning;
-   the kernels' launch counts over this run must match the path.
+1. build: compile every CUDA kernel of the sampling paths from ``csrc/``,
+   one nvcc process per source, all at once;
+2. kernels: kernel A (the selective scan) and kernel C (the fused Mamba-1
+   mixer) each against its plain PyTorch version on the card, at the shapes
+   the DiffMa-B/2 sampler gives them, with times and bounds;
+3. forward: one full-width DiffMa-B/2 forward through the plain scan,
+   through kernel A (``scan_impl="pallas"``) and through kernel C
+   (``scan_impl="fused"``), with the same random weights;
+4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
+   ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
+   1 batch of 1 image, synthetic conditioning;
+5. fused sampler: the same with ``scan_impl`` left to its default, 2 batches;
+6. checkpoint: a reference-format checkpoint of seeded DiffMa-L/2 weights,
+   sampled by the sampler's CLI on ``configs/brain.yaml`` as it is, 1 batch.
+
+Each sampler phase sets the kernels' counts to 0 just before it and checks
+them just after: every kernel of the path ran, as often as the path says.
 
 The second line from the end is a JSON object with one entry per kernel, the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -56,21 +65,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, each launch timed with CUDA events."""
+def cuda_ms(fn, reps: int, windows: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: the median over ``windows``
+    windows of the mean over back-to-back calls, with CUDA events around each
+    window, so that the host's time between calls is hidden where the device
+    is the slower."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    per_window = max(1, reps // windows)
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per_window):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_window)
     return statistics.median(times)
 
 
@@ -110,12 +124,12 @@ def phase_build():
     from diffma_tpu_torch.ops import cuda_build
 
     print("== phase 1: build", flush=True)
-    res = cuda_build.build("selective_scan_fwd")
-    print(f"built {os.path.relpath(res.path, ROOT)} in {res.seconds:.2f} s")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
-    cuda_build.load("selective_scan_fwd")
+    for name, res in cuda_build.build_all().items():
+        print(f"built {os.path.relpath(res.path, ROOT)} in {res.seconds:.2f} s")
+        for line in res.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}")
+        cuda_build.load(name)
 
 
 def phase_kernels(card: str) -> dict:
@@ -123,7 +137,7 @@ def phase_kernels(card: str) -> dict:
 
     from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda, selective_scan_ref
 
-    print("== phase 2: kernel against its plain version on the card", flush=True)
+    print("== phase 2a: kernel A against its plain version on the card", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         # name, G, L, dtype, delta dtype, gated, tolerance
@@ -172,12 +186,118 @@ def phase_kernels(card: str) -> dict:
     }
 
 
+def random_(module, seed: int, scale: float = 0.1):
+    """Every parameter moved by seeded noise, A_log, D and the biases too: std
+    ``scale`` for vectors, ``scale / sqrt(fan-in)`` for the others, so that
+    activations stay of order 1."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            std = scale if p.dim() == 1 else scale / math.sqrt(p.shape[-1])
+            p.add_(std * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def mixer_bound_ms(M, B, L, h, d, n, r, S, K) -> tuple[float, str]:
+    """Least time for one fused-mixer call of M branches on an H100: the
+    weights, x, out and index tables moved once over the HBM rate, or the
+    operations (in_proj, conv, x_proj, dt_proj, scan, out_proj) over fp32."""
+    tokens, rows = B * L, B * S * L
+    ops = M * (
+        2 * tokens * h * 2 * d  # in_proj
+        + rows * d * 2 * K  # conv
+        + 2 * rows * d * (r + 2 * n)  # x_proj
+        + 2 * rows * r * d  # dt_proj
+        + rows * d * (6 * n + 8)  # scan, D skip, gate
+        + 2 * tokens * d * h  # out_proj
+    )
+    weights = 2 * d * h + d * K + d + (r + 2 * n) * d + d * r + d + d * n + d + h * d
+    nbytes = M * 4 * (weights + 2 * tokens * h) + 2 * S * L * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fused_mixer(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mixer import (
+        mamba_dual_mixer_fused,
+        mamba_mixer_fused,
+        mixer_ref,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2b: kernel C (fused mixer) against its plain version on the card",
+          flush=True)
+    h = 512  # DiffMa's width: d_inner 1024, d_state 16, dt_rank 32
+    path_err = None
+    for grid_n, layer in ((14, 0), (14, 3), (5, 0)):
+        spec = build_scan_spec("spiral", grid_n, layer)
+        L = grid_n * grid_n
+        m0, m1 = (random_(Mamba(h, spec), 10 * layer + i).cuda() for i in range(2))
+        gen = torch.Generator().manual_seed(layer)
+        x0, x1 = (torch.randn(1, L, h, generator=gen).cuda() for _ in range(2))
+        with torch.no_grad():
+            cases = {
+                "dual": (mamba_dual_mixer_fused(spec, x0, x1, m0.weights(), m1.weights()),
+                         (mixer_ref(spec, x0, m0.weights()), mixer_ref(spec, x1, m1.weights()))),
+                "single": ((mamba_mixer_fused(spec, x1, m1.weights()),),
+                           (mixer_ref(spec, x1, m1.weights()),)),
+            }
+        torch.cuda.synchronize()
+        for entry, (got, want) in cases.items():
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            tol = TOL_FP32 * max(1.0, max(w.abs().max().item() for w in want))
+            print(f"  {entry}, spiral layer {layer}: B=1 L={L} h={h} d=1024 n=16 r=32  "
+                  f"max|err| {err:.3e}  (tol {tol:.1e})")
+            if not all(g.shape == w.shape and torch.isfinite(g).all() for g, w in zip(got, want)):
+                fail(f"fused mixer gave a wrong shape or a non-finite value: {entry}, L={L}")
+            if err > tol:
+                fail(f"fused mixer disagrees with its plain version: {entry}, layer {layer}, L={L}")
+            if path_err is None:
+                path_err = err
+
+    spec = build_scan_spec("spiral", 14, 0)
+    m0, m1 = (random_(Mamba(h, spec), 100 + i).cuda().eval() for i in range(2))
+    gen = torch.Generator().manual_seed(100)
+    x0, x1 = (torch.randn(1, 196, h, generator=gen).cuda() for _ in range(2))
+    w0, w1 = m0.weights(), m1.weights()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mamba_dual_mixer_fused(spec, x0, x1, w0, w1), reps=50)
+        plain_ms = cuda_ms(lambda: (mixer_ref(spec, x0, w0), mixer_ref(spec, x1, w1)), reps=5)
+        m0.scan_impl = m1.scan_impl = "pallas"
+        pair_ms = cuda_ms(lambda: (m0(x0), m1(x1)), reps=50)
+    bound_ms, bound_by = mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, r=32, S=3, K=4)
+    print(f"  [{card}] mixer_fused_fwd fp32, both branches, B=1 L=196 h=512 d=1024: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by})")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer")
+    print(f"  [{card}] yardstick: the composable pair (two Mamba.forward through kernel A, "
+          f"same weights) {pair_ms:.4f} ms")
+    return {
+        "name": "mixer_fused_fwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_mixer_fwd.cu",
+        "replaces": "diffma_tpu/ops/fused_mixer.py:104",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def phase_forward(card: str) -> None:
     import torch
 
     from diffma_tpu_torch.models.diffma import build_model
 
-    print("== phase 3: full-width DiffMa-B/2 forward, kernel against plain scan", flush=True)
+    print("== phase 3: full-width DiffMa-B/2 forward: plain scan, kernel A, kernel C",
+          flush=True)
     model = build_model("DiffMa-B/2", input_size=28)
     gen = torch.Generator().manual_seed(0)
     model.init_weights(gen)
@@ -192,59 +312,137 @@ def phase_forward(card: str) -> None:
     w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).cuda()
 
     def run(impl):
-        for blk in model.blocks:
-            blk.mamba1.scan_impl = blk.mamba2.scan_impl = impl
+        model.set_scan_impl(impl)
         with torch.no_grad():
             return model(x, t, y, y2, w)
 
     want = run("ref")
-    got = run("kernel")
-    ms = cuda_ms(lambda: run("kernel"), reps=10)
-    err = (got - want).abs().max().item()
+    got_a = run("pallas")
+    ms_a = cuda_ms(lambda: run("pallas"), reps=10)
+    got_c = run("fused")
+    ms_c = cuda_ms(lambda: run("fused"), reps=10)
     scale = want.abs().max().item()
-    tol = 1e-3 * max(1.0, scale)  # fp32 through 8 blocks, 16 scans
-    print(f"  out {tuple(got.shape)}  max|ref| {scale:.3f}  max|kernel - plain| {err:.3e}  "
-          f"(tol {tol:.1e})")
-    print(f"  [{card}] one denoiser forward at batch 1 (kernel path): {ms:.3f} ms")
-    if tuple(got.shape) != (1, 8, 28, 28) or not torch.isfinite(got).all() or err > tol:
-        fail("DiffMa-B/2 forward through the kernel disagrees with the plain scan")
+    tol = 1e-3 * max(1.0, scale)  # fp32 through 8 blocks, 16 mixers
+    for name, got, ref, ref_name in (("kernel A", got_a, want, "plain"),
+                                     ("kernel C", got_c, got_a, "kernel A")):
+        err = (got - ref).abs().max().item()
+        print(f"  out {tuple(got.shape)}  max|ref| {scale:.3f}  max|{name} - {ref_name}| "
+              f"{err:.3e}  (tol {tol:.1e})")
+        if tuple(got.shape) != (1, 8, 28, 28) or not torch.isfinite(got).all() or err > tol:
+            fail(f"DiffMa-B/2 forward through {name} disagrees with the {ref_name} path")
+    print(f"  [{card}] one denoiser forward at batch 1: {ms_a:.3f} ms through kernel A "
+          f"(pallas), {ms_c:.3f} ms through kernel C (fused)")
 
 
-def phase_sampler(card: str) -> int:
-    import torch
-
-    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
-    from diffma_tpu_torch.train import sample
+def brain_config(**override):
     from diffma_tpu_torch.utils.config import load_config, merge
 
-    print("== phase 4: DDPM-250 sampler, DiffMa-B/2, 2 batches of 1", flush=True)
-    cfg = merge(load_config(os.path.join(ROOT, "configs", "brain.yaml")), {
-        "model": "DiffMa-B/2",
-        "synthetic_data": True,
-        "sample_global_batch_size": 1,
-        "sample_num_steps": 250,
-        "sample_num_batches": 2,
-        "save_dir": os.path.join(ROOT, "result_sample", "chip_smoke"),
-    })
-    selective_scan_cuda.launches = 0
+    return merge(load_config(os.path.join(ROOT, "configs", "brain.yaml")), override)
+
+
+def run_sampler(card: str, cfg, batches: int, expect: dict) -> list:
+    """``sample.main`` with the kernels' counts set to 0 just before it;
+    checks the images and that each kernel ran exactly ``expect[name]`` times."""
+    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_cuda
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
+    from diffma_tpu_torch.train import sample
+
+    counters = {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda}
+    for counter in counters.values():
+        counter.launches = 0
     results = sample.main(cfg, device="cuda")
-    launches = selective_scan_cuda.launches
-    expected = 2 * 8 * 250 * 2  # mixers x blocks x steps x batches
+    counts = {name: counter.launches for name, counter in counters.items()}
     for i, r in enumerate(results, start=1):
         img = r["images"]
         print(f"  batch {i}: images {img.shape}, {r['seconds']:.3f} s, "
               f"PSNR {r['quality']['psnr_db']:.2f} dB (random weights)")
         if img.shape != (1, 3, 224, 224) or not math.isfinite(float(abs(img).max())):
             fail(f"batch {i}: expected finite (1, 3, 224, 224) images, got {img.shape}")
-    if len(results) != 2:
-        fail(f"expected 2 batches, got {len(results)}")
+    if len(results) != batches:
+        fail(f"expected {batches} batches, got {len(results)}")
     seconds = [r["seconds"] for r in results]
-    print(f"  [{card}] seconds per batch {seconds[0]:.3f} (first), {seconds[1]:.3f} (second); "
-          f"images/s {2 / sum(seconds):.4f} over both, {1 / seconds[1]:.4f} steady")
-    print(f"  selective_scan_fwd launches {launches} (expected {expected})")
-    if launches != expected:
-        fail(f"the sampler launched the selective-scan kernel {launches} times, not {expected}")
-    return launches
+    print(f"  [{card}] seconds per batch {', '.join(f'{x:.3f}' for x in seconds)}; "
+          f"images/s {len(seconds) / sum(seconds):.4f} over all, {1 / seconds[-1]:.4f} last")
+    for name, n in counts.items():
+        print(f"  {name} calls {n} (expected {expect[name]})")
+        if n != expect[name]:
+            fail(f"the sampler ran {name} {n} times, not {expect[name]}")
+    return results
+
+
+def phase_sampler(card: str) -> int:
+    print("== phase 4: composable sampler (kernel A), DiffMa-B/2, DDPM-250, 1 batch of 1",
+          flush=True)
+    cfg = brain_config(
+        model="DiffMa-B/2", scan_impl="pallas", synthetic_data=True,
+        sample_global_batch_size=1, sample_num_steps=250, sample_num_batches=1,
+        save_dir=os.path.join(ROOT, "result_sample", "chip_smoke"),
+    )
+    expected = 2 * 8 * 250 * 1  # mixers x blocks x steps x batches
+    run_sampler(card, cfg, 1, {"selective_scan_fwd": expected, "mixer_fused_fwd": 0})
+    return expected
+
+
+def phase_fused_sampler(card: str) -> int:
+    print("== phase 5: default (fused) sampler, DiffMa-B/2, DDPM-250, 2 batches of 1",
+          flush=True)
+    cfg = brain_config(
+        model="DiffMa-B/2", synthetic_data=True, sample_global_batch_size=1,
+        sample_num_steps=250, sample_num_batches=2,
+        save_dir=os.path.join(ROOT, "result_sample", "chip_smoke_fused"),
+    )
+    if "scan_impl" in cfg:
+        fail("configs/brain.yaml sets scan_impl; this phase samples with the default")
+    expected = 8 * 250 * 2  # blocks x steps x batches: one call per block
+    run_sampler(card, cfg, 2, {"selective_scan_fwd": 0, "mixer_fused_fwd": expected})
+    return expected
+
+
+def phase_checkpoint(card: str) -> None:
+    import tempfile
+
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_cuda
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
+    from diffma_tpu_torch.train import sample
+
+    print("== phase 6: DiffMa-L/2 from a reference-format checkpoint, sampler CLI on "
+          "configs/brain.yaml, 1 batch", flush=True)
+    model = build_model("DiffMa-L/2", input_size=28)
+    model = random_(model.init_weights(torch.Generator().manual_seed(16)), 16, scale=0.3)
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    sd["module.pos_embed"] = model.pos_embed.reshape(1, 196, 512)  # upstream saves it too
+    out_dir = os.path.join(ROOT, "result_sample")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "0050000.pt")
+        torch.save({"model": sd, "ema": sd, "opt": {}, "args": None}, path)
+        mixer_fused_cuda.launches = selective_scan_cuda.launches = 0
+        t0 = time.perf_counter()
+        results = sample.cli([
+            "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--ckpt", path,
+            "--num-batches", "1",
+        ])
+        seconds = time.perf_counter() - t0
+        calls, scans = mixer_fused_cuda.launches, selective_scan_cuda.launches
+        loaded = sample.load_model(brain_config(ckpt=path), "cuda")
+    written = model.state_dict()
+    for key, value in loaded.state_dict().items():
+        if not torch.equal(value.cpu(), written[key]):
+            fail(f"the sampler's model does not hold the checkpoint's {key}")
+    print(f"  loaded {len(written)} tensors of {loaded.depth}-block "
+          f"{brain_config().model}, equal to the written ones")
+    img = results[0]["images"]
+    if len(results) != 1 or img.shape != (1, 3, 224, 224) or not math.isfinite(float(abs(img).max())):
+        fail(f"expected one batch of finite (1, 3, 224, 224) images, got {img.shape}")
+    print(f"  [{card}] batch 1: {results[0]['seconds']:.3f} s ({seconds:.3f} s with loading)")
+    expected = 16 * 250  # blocks x steps
+    print(f"  mixer_fused_fwd calls {calls} (expected {expected}), "
+          f"selective_scan_fwd launches {scans} (expected 0)")
+    if calls != expected or scans != 0:
+        fail("the checkpoint sampler did not run every block through kernel C")
 
 
 def main() -> int:
@@ -262,12 +460,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build()
-    kernel = phase_kernels(card)
+    scan = phase_kernels(card)
+    mixer = phase_fused_mixer(card)
     phase_forward(card)
-    kernel["launches"] = phase_sampler(card)
+    scan["launches"] = phase_sampler(card)
+    mixer["launches"] = phase_fused_sampler(card)
+    phase_checkpoint(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [scan, mixer]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -8,7 +8,9 @@ branch of every block. Layer i scans spiral orders (2i) % 16 and (2i) % 16 + 1.
 
 The registry holds the 15 ``DiffMa-*`` names (spiral blocks). The other 65
 names of the JAX registry (ZigMa, ViM, VMamba, EMamba, DiT) are not ported
-yet, and ``build_model`` says so.
+yet, and ``build_model`` says so. ``scan_impl`` picks the mixers' path for
+every block (``models/mamba.py``); the sampler's default on the card is
+``"fused"``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+from diffma_tpu_torch.models.mamba import Mamba, check_scan_impl
 from diffma_tpu_torch.models.layers import (
     FinalLayer,
     PatchEmbed,
@@ -40,6 +43,7 @@ class DiffMa(nn.Module):
         depth: int = 16,
         dt_rank: Optional[int] = 16,  # accepted and unused, as in the JAX package
         d_state: int = 16,
+        scan_impl: str = "auto",
     ):
         super().__init__()
         del dt_rank
@@ -58,11 +62,20 @@ class DiffMa(nn.Module):
         self.t_embedder = TimestepEmbed(hidden_size)
         self.blocks = nn.ModuleList(
             SpiralMambaBlock(
-                hidden_size, build_scan_spec("spiral", self.grid_n, i), d_state=d_state
+                hidden_size, build_scan_spec("spiral", self.grid_n, i), d_state=d_state,
+                scan_impl=scan_impl,
             )
             for i in range(depth)
         )
         self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
+
+    def set_scan_impl(self, scan_impl: str) -> "DiffMa":
+        """Switch every block and mixer to ``scan_impl``; the weights stay."""
+        check_scan_impl(scan_impl)
+        for m in self.modules():
+            if isinstance(m, (SpiralMambaBlock, Mamba)):
+                m.scan_impl = scan_impl
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DiffMa":

@@ -10,6 +10,7 @@ ignores.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -20,11 +21,14 @@ import tempfile
 import time
 from typing import NamedTuple
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "BuildResult", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "BuildResult", "build", "build_all", "load"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+#: Every kernel source of the port: kernel A, then kernel C.
+SOURCES = ("selective_scan_fwd", "fused_mixer_fwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -77,6 +81,13 @@ def build(name: str) -> BuildResult:
         if os.path.exists(tmp):
             os.remove(tmp)
     return BuildResult(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+def build_all(names=SOURCES) -> dict:
+    """Build several sources at once, one nvcc process each; name -> BuildResult."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: future.result() for name, future in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

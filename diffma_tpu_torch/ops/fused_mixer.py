@@ -1,0 +1,265 @@
+"""Whole Mamba-1 mixer forward: in_proj, streams, scan, merge, out_proj.
+
+Counterpart of ``diffma_tpu/ops/fused_mixer.py``. The mixer takes the tokens
+``x (B, L, h)`` of one layer to ``(B, L, h)``:
+
+    xz = in_proj(x); per stream s (token order fwd[s]): u = silu(conv(xz_u)),
+    [dt_r, B, C] = x_proj(u), delta = dt_proj(dt_r) in fp32,
+    y_s = selective_scan(u, delta, -exp(A_log), B, C, D, z=xz_z);
+    out = out_proj(scale * sum_s y_s, back in token order)
+
+Two implementations, one signature:
+
+* ``mixer_ref``: the plain PyTorch version, the CPU path and the yardstick
+  the kernel is held against. It is ``mixer_composable`` with the plain scan;
+  ``models/mamba.py`` runs the same function with the scan kernel A.
+* ``mixer_fused_cuda``: the hand-written CUDA kernel
+  (``csrc/fused_mixer_fwd.cu``), which replaces the TPU kernel
+  ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel``. One call runs one mixer or
+  both branches of a Spiral block; ``mixer_fused_cuda.launches`` counts calls
+  (each launches four device kernels).
+
+``mamba_mixer_fused`` and ``mamba_dual_mixer_fused`` dispatch on the tensors'
+device: the kernel for CUDA tensors, ``mixer_ref`` for CPU tensors.
+``impl="ref"`` takes the plain version on any device, to hold the kernel
+against it on the card. Weights are in torch layout (``MixerWeights``).
+Forward only, fp32 only. The Mamba-1 'vim' feature-flip quirk and partition
+specs (EfficientVMamba's atrous streams) raise ``NotImplementedError``: they
+come with their block families.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from diffma_tpu_torch.ops import cuda_build
+from diffma_tpu_torch.ops.conv import causal_conv1d
+from diffma_tpu_torch.ops.scan_orders import ScanSpec
+from diffma_tpu_torch.ops.selective_scan import selective_scan
+
+__all__ = [
+    "MixerWeights",
+    "index_tables",
+    "mamba_dual_mixer_fused",
+    "mamba_mixer_fused",
+    "mixer_composable",
+    "mixer_fused_cuda",
+    "mixer_fused_eligible",
+    "mixer_ref",
+]
+
+_KERNEL_SOURCE = "fused_mixer_fwd"
+_KERNEL_D_STATE = 16
+_KERNEL_CONV = 4
+_KERNEL_MAX_RANK = 32
+_KERNEL_MAX_STREAMS = 4
+
+
+class MixerWeights(NamedTuple):
+    """One Mamba-1 mixer's parameters, as its torch modules hold them."""
+
+    in_w: torch.Tensor  # in_proj.weight (2d, h)
+    conv_w: torch.Tensor  # conv1d.weight (d, 1, K)
+    conv_b: torch.Tensor  # conv1d.bias (d,)
+    xp_w: torch.Tensor  # x_proj.weight (r + 2n, d)
+    dt_w: torch.Tensor  # dt_proj.weight (d, r)
+    dt_b: torch.Tensor  # dt_proj.bias (d,)
+    A_log: torch.Tensor  # (d, n); A = -exp(A_log)
+    D: torch.Tensor  # (d,)
+    out_w: torch.Tensor  # out_proj.weight (h, d)
+
+
+def _exact_partition(spec: ScanSpec) -> bool:
+    """Streams jointly cover every token exactly once (atrous partition)."""
+    return sorted(spec.fwd.reshape(-1).tolist()) == list(range(spec.seq_len))
+
+
+def mixer_fused_eligible(spec: ScanSpec, partition: bool = False) -> bool:
+    """Full-length permutation streams (spiral / zigma / vim / vmamba) always
+    qualify; with ``partition``, exact disjoint partitions do too (the JAX
+    package's rule; the port's kernel takes only the full-length ones)."""
+    if spec.fwd.shape[1] == spec.seq_len:
+        return True
+    return partition and _exact_partition(spec)
+
+
+@functools.lru_cache(maxsize=None)
+def index_tables(spec: ScanSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spec's gather table ``fwd`` (S * Ls,) and merge table (L * k,) as
+    int64 tensors on ``device``, made once per spec and device so that a
+    forward pass copies no index from the host."""
+    fwd = torch.as_tensor(spec.fwd.reshape(-1), dtype=torch.long, device=device)
+    merge = torch.as_tensor(spec.merge.reshape(-1), dtype=torch.long, device=device)
+    return fwd, merge
+
+
+def mixer_composable(
+    spec: ScanSpec, x: torch.Tensor, w: MixerWeights, scan_impl: str = "auto"
+) -> torch.Tensor:
+    """The mixer from PyTorch operators, with ``selective_scan(impl=scan_impl)``.
+
+    The streams are gathered before in_proj (a per-token matmul commutes with
+    the token permutation), and merged before out_proj (it has no bias).
+    """
+    B_, L, _ = x.shape
+    S, Ls = spec.fwd.shape
+    d_in, n = w.A_log.shape
+    r = w.dt_w.shape[1]
+    fwd, merge = index_tables(spec, x.device)
+
+    xz = F.linear(x.index_select(1, fwd), w.in_w)  # (B, S*Ls, 2d)
+    u, z = xz.reshape(B_ * S, Ls, 2 * d_in).split(d_in, dim=-1)
+    u = causal_conv1d(u, w.conv_w[:, 0, :], w.conv_b)
+    dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w).split([r, n, n], dim=-1)
+    delta = F.linear(dt_r.float(), w.dt_w.float(), w.dt_b.float())
+    y = selective_scan(
+        u, delta, -torch.exp(w.A_log.float()), B_ssm.contiguous(), C_ssm.contiguous(),
+        w.D.float(), z=z.contiguous(), impl=scan_impl,
+    )
+    merged = y.reshape(B_, S * Ls, d_in).index_select(1, merge)
+    merged = merged.reshape(B_, L, spec.merge.shape[1], d_in).sum(dim=2) * spec.scale
+    return F.linear(merged, w.out_w)
+
+
+def mixer_ref(spec: ScanSpec, x: torch.Tensor, w: MixerWeights) -> torch.Tensor:
+    """The plain version: ``mixer_composable`` with the plain scan."""
+    return mixer_composable(spec, x, w, scan_impl="ref")
+
+
+def _check_spec(spec: ScanSpec) -> None:
+    if spec.mamba1_vim_quirk:
+        raise NotImplementedError("the fused mixer's vim quirk is not ported yet")
+    if not mixer_fused_eligible(spec):
+        raise NotImplementedError(
+            "the fused mixer takes full-length stream permutations; partition "
+            "specs are not ported yet"
+        )
+
+
+def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
+    """Raise on what the kernel does not take; return its dimensions."""
+    x0 = xs[0]
+    if x0.device.type != "cuda":
+        raise ValueError(f"the CUDA fused mixer needs CUDA tensors, got {x0.device}")
+    if x0.dim() != 3:
+        raise ValueError(f"x must be (B, L, h), got {tuple(x0.shape)}")
+    B_, L, h = x0.shape
+    if L != spec.seq_len:
+        raise ValueError(f"x has {L} tokens, the scan spec {spec.seq_len}")
+    d, n = ws[0].A_log.shape
+    r = ws[0].dt_w.shape[1]
+    K = ws[0].conv_w.shape[-1]
+    if n != _KERNEL_D_STATE:
+        raise ValueError(f"the kernel is built for d_state {_KERNEL_D_STATE}, got {n}")
+    if K != _KERNEL_CONV:
+        raise ValueError(f"the kernel is built for {_KERNEL_CONV} conv taps, got {K}")
+    if not 1 <= r <= _KERNEL_MAX_RANK:
+        raise ValueError(f"the kernel takes dt_rank up to {_KERNEL_MAX_RANK}, got {r}")
+    if spec.n_streams > _KERNEL_MAX_STREAMS:
+        raise ValueError(f"the kernel takes up to {_KERNEL_MAX_STREAMS} streams")
+    shapes = MixerWeights(
+        in_w=(2 * d, h), conv_w=(d, 1, K), conv_b=(d,), xp_w=(r + 2 * n, d),
+        dt_w=(d, r), dt_b=(d,), A_log=(d, n), D=(d,), out_w=(h, d),
+    )
+    named = [(f"x{i}", x, (B_, L, h)) for i, x in enumerate(xs)]
+    for i, w in enumerate(ws):
+        named += [(f"w{i}.{f}", t, s) for f, t, s in zip(MixerWeights._fields, w, shapes)]
+    for name, t, shape in named:
+        if t.device != x0.device:
+            raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for i, w in enumerate(ws):
+        if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
+            raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
+    return dict(B=B_, L=L, h=h, d=d, n=n, r=r, K=K, S=spec.n_streams)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.load(_KERNEL_SOURCE)
+    fwd = lib.mixer_fused_fwd
+    fwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    size = lib.mixer_fused_workspace_floats
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    return fwd, size
+
+
+def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
+    """Launch the CUDA kernel on the current stream for the mixers ``ws[m]``
+    applied to ``xs[m]`` (one or two of them); returns their outputs.
+
+    Raises on inputs the kernel does not take; ``mixer_fused_cuda.launches``
+    counts the calls.
+    """
+    _check_spec(spec)
+    dims = _check_kernel_inputs(spec, xs, ws)
+    M = len(xs)
+    fwd_fn, size_fn = _kernel_fns()
+    x0 = xs[0]
+    outs = tuple(torch.empty_like(x) for x in xs)
+    workspace = torch.empty(
+        size_fn(M, dims["B"], dims["L"], dims["d"], dims["r"], dims["S"]),
+        dtype=torch.float32, device=x0.device,
+    )
+    fwd, _ = index_tables(spec, x0.device)
+    ptrs = []
+    for x, w, out in zip(xs, ws, outs):
+        ptrs += [x.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr()]
+    err = fwd_fn(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
+        dims["r"], dims["K"], dims["S"], float(spec.scale),
+        torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mixer_fused_fwd launch failed: error {err}")
+    mixer_fused_cuda.launches += 1
+    return outs
+
+
+mixer_fused_cuda.launches = 0
+
+
+def _fused(spec: ScanSpec, xs, ws, impl: str) -> Tuple[torch.Tensor, ...]:
+    _check_spec(spec)
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"unknown impl: {impl!r}")
+    if impl == "ref" or xs[0].device.type != "cuda":
+        return tuple(mixer_ref(spec, x, w) for x, w in zip(xs, ws))
+    return mixer_fused_cuda(spec, xs, ws)
+
+
+def mamba_dual_mixer_fused(
+    spec: ScanSpec,
+    x0: torch.Tensor,
+    x1: torch.Tensor,
+    w0: MixerWeights,
+    w1: MixerWeights,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both branches of a dual block, ``x0 -> w0`` and ``x1 -> w1``, each
+    ``(B, L, h)``, in one kernel call on CUDA tensors."""
+    return _fused(spec, (x0, x1), (w0, w1), impl)
+
+
+def mamba_mixer_fused(
+    spec: ScanSpec, x: torch.Tensor, w: MixerWeights, impl: str = "auto"
+) -> torch.Tensor:
+    """One mixer, ``(B, L, h) -> (B, L, h)``, in one kernel call on CUDA tensors."""
+    return _fused(spec, (x,), (w,), impl)[0]

@@ -12,10 +12,13 @@ SD_VAE_SCALE`` with the SD-VAE, and score the images against the ground-truth
 MRI with PSNR/SSIM. Image grids are written as PNG with the standard library
 alone.
 
-This slice samples from random weights (drawn from ``seed``) with synthetic
-conditioning. Checkpoint loading, the conditioning stack (CT encoder,
-BiomedCLIP, VAE encoder) and Mamba-2 come in later slices, and asking for
-them raises.
+The mixers take ``scan_impl`` from the config, by default ``"fused"`` on the
+card (kernel C, as the JAX sampler defaults to it on the TPU) and ``"auto"``
+on the CPU. ``--ckpt`` loads a reference torch checkpoint's
+``load_ckpt_type`` weights (``train/checkpoints.py``); without one the
+weights are random, drawn from ``seed``. Conditioning is synthetic. The
+conditioning stack (CT encoder, BiomedCLIP, VAE encoder), Orbax checkpoints,
+bf16 and Mamba-2 come in later slices, and asking for them raises.
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets
 from diffma_tpu_torch.diffusion import create_diffusion
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
+from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
 from diffma_tpu_torch.train.train import synthetic_batch
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.metrics import quality_report
 
-__all__ = ["main", "save_image_grid", "cli"]
+__all__ = ["main", "load_model", "save_image_grid", "cli"]
 
 logger = logging.getLogger(__name__)
 
@@ -80,27 +84,39 @@ def save_image_grid(images: np.ndarray, path: str, nrow: int = 4, value_range=(-
         f.write(_png_bytes(canvas))
 
 
-def main(cfg, device="cuda"):
-    """Sample ``cfg``'s model; returns one dict per batch with the decoded
-    ``images`` (N, 3, H, W), the batch's wall ``seconds`` and its ``quality``."""
+def load_model(cfg, device="cuda"):
+    """``cfg``'s denoiser on ``device``, in eval mode: the checkpoint's weights
+    when ``cfg.ckpt`` names a file that exists, else random ones from ``seed``."""
     device = resolve_device(device)
     if cfg.get("use_mamba2"):
         raise NotImplementedError("the Mamba-2 mixer is not ported yet")
     if cfg.get("autocast"):
         raise NotImplementedError("bf16 sampling is not ported yet")
-    seed = int(cfg.get("seed", 0))
-    latent = cfg.image_size // 8
     model = build_model(
         str(cfg.model),
-        input_size=latent,
+        input_size=cfg.image_size // 8,
         dt_rank=int(cfg.get("dt_rank", 16)),
         d_state=int(cfg.get("d_state", 16)),
+        scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
     )
     ckpt_path = cfg.get("ckpt")
     if ckpt_path and os.path.exists(str(ckpt_path)):
-        raise NotImplementedError("checkpoint loading is not ported yet")
-    logger.info("No checkpoint found; sampling from random weights")
-    model.init_weights(torch.Generator().manual_seed(seed + 1)).to(device).eval()
+        kind = str(cfg.get("load_ckpt_type", "ema"))
+        load_diffma_checkpoint(model, str(ckpt_path), kind)
+        logger.info(f"Loaded {kind} weights from {ckpt_path}")
+    else:
+        logger.info("No checkpoint found; sampling from random weights")
+        model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 1))
+    return model.to(device).eval()
+
+
+def main(cfg, device="cuda"):
+    """Sample ``cfg``'s model; returns one dict per batch with the decoded
+    ``images`` (N, 3, H, W), the batch's wall ``seconds`` and its ``quality``."""
+    device = resolve_device(device)
+    model = load_model(cfg, device)
+    seed = int(cfg.get("seed", 0))
+    latent = cfg.image_size // 8
     diffusion = create_diffusion(str(cfg.get("sample_num_steps", 250)), device=device)
 
     folders = (
@@ -164,8 +180,12 @@ def cli(argv=None):
     parser.add_argument("--model", type=str, default=None, help="registry name, e.g. DiffMa-B/2")
     parser.add_argument("--ckpt", type=str, default=None, help="checkpoint path")
     parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true", default=None)
+    parser.add_argument("--scan-impl", dest="scan_impl", type=str, default=None,
+                        help="mixer path: fused (default on the card), auto/pallas, ref")
+    parser.add_argument("--num-batches", dest="sample_num_batches", type=int, default=None,
+                        help="stop after this many batches")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device; 'cpu' runs the plain PyTorch scan")
+                        help="torch device; 'cpu' runs the plain PyTorch versions")
     cfg = parse_cli(parser, argv)
     device = cfg.pop("device")
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s] %(message)s")

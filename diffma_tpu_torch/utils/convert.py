@@ -53,6 +53,16 @@ def _mamba1(out: dict, key: str, p: dict) -> None:
     _linear(out, f"{key}.out_proj", p["out_proj"])
 
 
+def _spiral_block(out: dict, key: str, blk: dict) -> None:
+    _linear(out, f"{key}.adaLN_modulation.1", blk["adaLN"]["fc"])
+    _norm(out, f"{key}.norm1", blk["norm1"])
+    _mamba1(out, f"{key}.mamba1", blk["mamba1"])
+    _mamba1(out, f"{key}.mamba2", blk["mamba2"])
+    _norm(out, f"{key}.attention_network.0", blk["attn_norm"])
+    _linear(out, f"{key}.attention_network.1", blk["attn_fc1"])
+    _linear(out, f"{key}.attention_network.3", blk["attn_fc2"])
+
+
 def diffma_params_from_jax(params: Dict, depth: int) -> Dict[str, torch.Tensor]:
     """JAX ``DiffMa`` params (spiral blocks, Mamba-1) -> port ``DiffMa`` state dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -65,14 +75,7 @@ def diffma_params_from_jax(params: Dict, depth: int) -> Dict[str, torch.Tensor]:
     _linear(out, "t_embedder.mlp.0", params["t_embedder"]["fc1"])
     _linear(out, "t_embedder.mlp.2", params["t_embedder"]["fc2"])
     for i in range(depth):
-        b, blk = f"blocks.{i}", params[f"block_{i}"]
-        _linear(out, f"{b}.adaLN_modulation.1", blk["adaLN"]["fc"])
-        _norm(out, f"{b}.norm1", blk["norm1"])
-        _mamba1(out, f"{b}.mamba1", blk["mamba1"])
-        _mamba1(out, f"{b}.mamba2", blk["mamba2"])
-        _norm(out, f"{b}.attention_network.0", blk["attn_norm"])
-        _linear(out, f"{b}.attention_network.1", blk["attn_fc1"])
-        _linear(out, f"{b}.attention_network.3", blk["attn_fc2"])
+        _spiral_block(out, f"blocks.{i}", params[f"block_{i}"])
     _linear(out, "final_layer.adaLN_modulation.1", params["final_layer"]["adaLN"])
     _linear(out, "final_layer.linear", params["final_layer"]["linear"])
     return out

@@ -6,10 +6,12 @@ Counterpart of ``diffma_tpu/utils/profiling.py`` (which drives
 busy time (the union of kernel intervals), its idle share, the kernels
 launched per call, and the kernels that take the most device time.
 
-    python -m diffma_tpu_torch.utils.profiling --batch 1
+    python -m diffma_tpu_torch.utils.profiling --batch 1 --scan-impl fused
 
 profiles DiffMa-B/2 at 224² (the sampler's model) on the card, with random
-weights and conditioning, 5 calls after one warm-up.
+weights and conditioning, 5 calls after one warm-up. ``--scan-impl`` picks the
+mixers' path: ``fused`` (kernel C, the sampler's default on the card) or
+``pallas`` (the composable path with kernel A).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from collections import defaultdict
 import torch
 
 from diffma_tpu_torch.models.diffma import build_model
+from diffma_tpu_torch.models.mamba import SCAN_IMPLS
 from diffma_tpu_torch.utils.device import resolve_device
 
 __all__ = ["profile_denoiser"]
@@ -69,6 +72,7 @@ def profile_denoiser(model, inputs, calls: int = 5, top: int = 8) -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser()
     parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--scan-impl", dest="scan_impl", default="fused", choices=sorted(SCAN_IMPLS))
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -76,7 +80,8 @@ def main(argv=None) -> dict:
 
     name, latent = "DiffMa-B/2", 28
     gen = torch.Generator().manual_seed(0)
-    model = build_model(name, input_size=latent).init_weights(gen).to(device).eval()
+    model = build_model(name, input_size=latent, scan_impl=args.scan_impl)
+    model = model.init_weights(gen).to(device).eval()
     tokens = (latent // model.patch_size) ** 2
     n = args.batch
     inputs = (
@@ -86,7 +91,8 @@ def main(argv=None) -> dict:
         torch.randn(n, tokens, 512, generator=gen).to(device),
         torch.sigmoid(torch.randn(n, tokens, 1, generator=gen)).to(device),
     )
-    report = {"model": name, "batch": n, "device": torch.cuda.get_device_name(0),
+    report = {"model": name, "batch": n, "scan_impl": args.scan_impl,
+              "device": torch.cuda.get_device_name(0),
               **profile_denoiser(model, inputs)}
     print(json.dumps(report, indent=1))
     return report

@@ -1,14 +1,30 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+Kernel A (the selective scan) and kernel C (the fused Mamba-1 mixer) are held
+against their plain versions at the sampler's widths; kernel C's tolerance is
+max |err| <= 1e-4 * max(1, max |ref|), since its fp32 sums over K = 1024 run in
+another order than cuBLAS's.
+
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. The file imports
 neither JAX nor ``diffma_tpu``, so it also runs on a machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import math
+
 import pytest
 import torch
 
+from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+from diffma_tpu_torch.models.mamba import Mamba
+from diffma_tpu_torch.ops.fused_mixer import (
+    mamba_dual_mixer_fused,
+    mamba_mixer_fused,
+    mixer_fused_cuda,
+    mixer_ref,
+)
+from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 from diffma_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_cuda,
@@ -78,3 +94,117 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                             C[..., :8].contiguous(), D)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         selective_scan_cuda(u.half(), delta, A, B, C, D)
+
+
+HIDDEN = 512  # DiffMa's width: d_inner 1024, d_state 16, dt_rank 32
+
+
+def _random_(module, seed):
+    """Every parameter of ``module`` moved by seeded noise (A_log, D and the
+    biases included), so that nothing sits at its init value: std 0.1 for
+    vectors, 0.1 / sqrt(fan-in) for the others."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            std = 0.1 if p.dim() == 1 else 0.1 / math.sqrt(p.shape[-1])
+            p.add_(std * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def _mixers(device, spec, seed, count=2):
+    return [
+        _random_(Mamba(HIDDEN, spec), seed + i).to(device).eval() for i in range(count)
+    ]
+
+
+def _x(device, L, seed, batch=1):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(batch, L, HIDDEN, generator=gen).to(device)
+
+
+def _assert_close_to_ref(got, want):
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert err <= tol, f"max |err| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("grid_n,layer,batch", [(14, 0, 1), (14, 3, 1), (5, 0, 2)])
+def test_fused_mixer_matches_plain_dual(cuda, grid_n, layer, batch):
+    spec = build_scan_spec("spiral", grid_n, layer)
+    m0, m1 = _mixers(cuda, spec, seed=layer)
+    x0, x1 = _x(cuda, grid_n * grid_n, 10, batch), _x(cuda, grid_n * grid_n, 11, batch)
+    with torch.no_grad():
+        got = mamba_dual_mixer_fused(spec, x0, x1, m0.weights(), m1.weights())
+        want = [mixer_ref(spec, x, m.weights()) for x, m in ((x0, m0), (x1, m1))]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_close_to_ref(g, w)
+
+
+@pytest.mark.parametrize("grid_n,layer", [(14, 3), (5, 1)])
+def test_fused_mixer_matches_plain_single(cuda, grid_n, layer):
+    spec = build_scan_spec("spiral", grid_n, layer)
+    (m,) = _mixers(cuda, spec, seed=7, count=1)
+    x = _x(cuda, grid_n * grid_n, 12)
+    with torch.no_grad():
+        got = mamba_mixer_fused(spec, x, m.weights())
+        want = mixer_ref(spec, x, m.weights())
+    torch.cuda.synchronize()
+    _assert_close_to_ref(got, want)
+
+
+def test_fused_mixer_counts_calls(cuda):
+    spec = build_scan_spec("spiral", 5, 0)
+    m0, m1 = _mixers(cuda, spec, seed=0)
+    x = _x(cuda, 25, 0)
+    before, scans = mixer_fused_cuda.launches, selective_scan_cuda.launches
+    with torch.no_grad():
+        mamba_dual_mixer_fused(spec, x, x, m0.weights(), m1.weights())
+        assert mixer_fused_cuda.launches == before + 1
+        mamba_mixer_fused(spec, x, m0.weights())
+        assert mixer_fused_cuda.launches == before + 2
+        mamba_mixer_fused(spec, x, m0.weights(), impl="ref")
+        m0.scan_impl = "fused"
+        m0(x)
+    assert mixer_fused_cuda.launches == before + 3
+    assert selective_scan_cuda.launches == scans  # the fused path never launches kernel A
+
+
+def test_fused_mixer_rejects_what_it_does_not_take(cuda):
+    spec = build_scan_spec("spiral", 5, 0)
+    (m,) = _mixers(cuda, spec, seed=0, count=1)
+    w, x = m.weights(), _x(cuda, 25, 0)
+    with pytest.raises(ValueError, match="float32"):
+        mixer_fused_cuda(spec, (x.double(),), (w,))
+    with pytest.raises(ValueError, match="tokens"):
+        mixer_fused_cuda(spec, (x[:, :24].contiguous(),), (w,))
+    with pytest.raises(ValueError, match="is on cpu"):
+        mixer_fused_cuda(spec, (x,), (w._replace(D=w.D.cpu()),))
+    with pytest.raises(ValueError, match="contiguous"):
+        mixer_fused_cuda(spec, (x,), (w._replace(in_w=w.in_w.t().contiguous().t()),))
+    with pytest.raises(ValueError, match="shape"):
+        mixer_fused_cuda(spec, (x,), (w._replace(out_w=w.out_w[:, :-1]),))
+    with pytest.raises(ValueError, match="d_state"):
+        mixer_fused_cuda(spec, (x,), (w._replace(A_log=w.A_log[:, :8].contiguous()),))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mixer_fused_cuda(spec, (x.cpu(),), (w,))
+    shifted = torch.empty(w.conv_w.numel() + 1, device=cuda)[1:].view_as(w.conv_w)
+    with pytest.raises(ValueError, match="aligned"):
+        mixer_fused_cuda(spec, (x,), (w._replace(conv_w=shifted.copy_(w.conv_w)),))
+
+
+def test_fused_block_matches_pallas_block(cuda):
+    spec = build_scan_spec("spiral", 14, 3)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec), 3).to(cuda).eval()
+    gen = torch.Generator().manual_seed(4)
+    x = _x(cuda, 196, 5)
+    c = torch.randn(1, 2 * HIDDEN, generator=gen).to(cuda)
+    w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).to(cuda)
+    with torch.no_grad():
+        block.scan_impl = "fused"
+        got = block(x, c, w)
+        block.scan_impl = "pallas"
+        want = block(x, c, w)
+    torch.cuda.synchronize()
+    _assert_close_to_ref(got, want)

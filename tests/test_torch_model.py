@@ -32,37 +32,50 @@ def randomize(tree, seed):
     )
 
 
-def _inputs(batch=2, seed=3):
+def _inputs(batch=2, seed=3, input_size=INPUT):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((batch, 4, INPUT, INPUT)).astype(np.float32)
+    tokens = (input_size // 2) ** 2
+    x = rng.standard_normal((batch, 4, input_size, input_size)).astype(np.float32)
     t = np.array([37, 912][:batch], np.int32)
     y = rng.standard_normal((batch, HIDDEN)).astype(np.float32)
-    y2 = rng.standard_normal((batch, TOKENS, HIDDEN)).astype(np.float32)
-    w = (1 / (1 + np.exp(-rng.standard_normal((batch, TOKENS, 1))))).astype(np.float32)
+    y2 = rng.standard_normal((batch, tokens, HIDDEN)).astype(np.float32)
+    w = (1 / (1 + np.exp(-rng.standard_normal((batch, tokens, 1))))).astype(np.float32)
     return x, t, y, y2, w
 
 
-def build_pair(name="DiffMa-S/2", seed=0):
-    """The JAX model with random params, and the port model carrying them."""
-    jmodel = jax_build_model(name, input_size=INPUT, hidden_size=HIDDEN, scan_impl="pallas")
-    x, t, y, y2, w = _inputs(1)
+def build_pair(name="DiffMa-S/2", seed=0, scan_impl="pallas", input_size=INPUT):
+    """The JAX model with random params, and the port model carrying them;
+    both take ``scan_impl``."""
+    jmodel = jax_build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl)
+    x, t, y, y2, w = _inputs(1, input_size=input_size)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed), *map(jnp.asarray, (x, t, y, y2, w)))
     params = params["params"]
     params = randomize(params, seed + 1)
-    model = build_model(name, input_size=INPUT, hidden_size=HIDDEN)
+    model = build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl)
     model.load_state_dict(diffma_params_from_jax(params, depth=model.depth), strict=True)
     return jmodel, params, model.eval()
 
 
 def test_forward_matches_jax():
-    jmodel, params, model = build_pair()
-    x, t, y, y2, w = _inputs()
+    _check_forward("pallas", INPUT)
+
+
+@pytest.mark.parametrize("input_size", [INPUT, 10])
+def test_fused_forward_matches_jax(input_size):
+    """JAX's fused path (kernel C in interpret mode) against the port's on the
+    CPU (kernel C's plain version), at 16 and 25 tokens."""
+    _check_forward("fused", input_size)
+
+
+def _check_forward(scan_impl, input_size):
+    jmodel, params, model = build_pair(scan_impl=scan_impl, input_size=input_size)
+    x, t, y, y2, w = _inputs(input_size=input_size)
     want = np.asarray(
         jax.jit(jmodel.apply)({"params": params}, *map(jnp.asarray, (x, t, y, y2, w)))
     )
     with torch.no_grad():
         got = model(*map(torch.from_numpy, (x, t.astype(np.int64), y, y2, w))).numpy()
-    assert got.shape == want.shape == (2, 8, INPUT, INPUT)
+    assert got.shape == want.shape == (2, 8, input_size, input_size)
     mae = np.abs(got - want).mean()
     assert mae < 1e-4, f"forward MAE {mae}"
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

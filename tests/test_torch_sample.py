@@ -58,6 +58,33 @@ def test_sample_cli_parses_flags(tmp_path):
         sample.cli(["--config", str(cfg_path), "--use-mamba2", "--device", "cpu"])
 
 
+def test_sample_cli_ckpt_and_scan_impl_flags(tmp_path):
+    """``--ckpt`` loads perturbed weights (so that the mixers matter), and the
+    fused path's images match the composable path's on the CPU."""
+    from diffma_tpu_torch.models.diffma import build_model
+
+    model = build_model("DiffMa-S/2", input_size=4).init_weights(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(2)))
+    ckpt = tmp_path / "ckpt.pt"
+    torch.save({"ema": {f"module.{k}": v for k, v in model.state_dict().items()}}, ckpt)
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(
+        "model: DiffMa-S/2\nimage_size: 32\nsample_num_steps: 3\nsynthetic_data: true\n"
+        f"save_dir: \"{tmp_path / 'out'}\"\n"
+    )
+    images = {}
+    for impl in ("fused", "ref"):
+        results = sample.cli(["--config", str(cfg_path), "--ckpt", str(ckpt), "--scan-impl", impl,
+                              "--num-batches", "1", "--device", "cpu"])
+        assert len(results) == 1
+        images[impl] = results[0]["images"]
+    np.testing.assert_allclose(images["fused"], images["ref"], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="unknown scan_impl"):
+        sample.cli(["--config", str(cfg_path), "--scan-impl", "xla", "--device", "cpu"])
+
+
 def test_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
