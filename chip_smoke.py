@@ -6,27 +6,38 @@
 Run from the root of a checkout, on a machine with a CUDA card and nvcc. It
 needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
 
-1. build: compile every CUDA kernel of the sampling paths from ``csrc/``,
-   one nvcc process per source, all at once;
+1. build: compile every CUDA kernel of the sampling and training paths from
+   ``csrc/``, one nvcc process per source, all at once;
 2. kernels: kernel A (the selective scan) and kernel C (the fused Mamba-1
    mixer) each against its plain PyTorch version on the card, at the shapes
-   the DiffMa-B/2 sampler gives them, with times and bounds;
+   the DiffMa-B/2 sampler gives them (2a, 2b), and their backward kernels B
+   and D against theirs at the training shapes, batch 8 (2c, 2d), with times
+   and bounds;
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
-   (``scan_impl="fused"``), with the same random weights;
+   (``scan_impl="fused"``), with the same random weights; 3b: one
+   full-width DiffMa-B/2 training step (loss and every parameter's gradient)
+   through the plain path, through kernels A + B and through kernels C + D;
 4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
    ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
    1 batch of 1 image, synthetic conditioning;
 5. fused sampler: the same with ``scan_impl`` left to its default, 2 batches;
 6. checkpoint: a reference-format checkpoint of seeded DiffMa-L/2 weights,
-   sampled by the sampler's CLI on ``configs/brain.yaml`` as it is, 1 batch.
+   sampled by the sampler's CLI on ``configs/brain.yaml`` as it is, 1 batch;
+7. trainer: the trainer's CLI on ``configs/brain.yaml`` as it is (DiffMa-L/2,
+   batch 8, synthetic batches), 20 steps on the default (fused) path, with a
+   checkpoint at step 20 that the sampler's loader reads back;
+8. composable trainer: DiffMa-B/2, batch 8, 5 steps through kernels A + B;
+9. learning: DiffMa-B/2 on the fused path trained 100 steps on one fixed
+   batch; the loss's MSE term at a fixed (t, noise) must fall at least 2x.
 
-Each sampler phase sets the kernels' counts to 0 just before it and checks
-them just after: every kernel of the path ran, as often as the path says.
+Each sampler and trainer phase sets the kernels' counts to 0 just before it
+and checks them just after: every kernel of the path ran, as often as the
+path says.
 
-The second line from the end is a JSON object with one entry per kernel, the
-last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before those lines are printed.
+The third line from the end is a JSON object with one entry per kernel, the
+second the card's name and power limit, the last ``{"ok": true, "device":
+{...}}``. Any failure exits non-zero before those lines are printed.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +61,11 @@ FP32_FLOPS = 67e12
 # The kernel's stated tolerances against its plain version.
 TOL_FP32 = 1e-4  # rtol = atol; fp32 sums in another order than the plain loop
 TOL_BF16 = 2e-2  # rtol = atol, compared in fp32; the output is rounded to bf16
+# Gradients, per tensor: max |err| <= TOL_GRAD * max(1, max |ref|), the JAX
+# package's gradient bar (tests/test_selective_scan.py). A whole model's
+# gradients through 8 blocks: TOL_MODEL, the forward phase's bar.
+TOL_GRAD = 2e-4
+TOL_MODEL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -186,6 +204,122 @@ def phase_kernels(card: str) -> dict:
     }
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
+
+    return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
+            "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda}
+
+
+def reset_counts() -> None:
+    for counter in kernel_counters().values():
+        counter.launches = 0
+
+
+def check_counts(what: str, expect: dict) -> dict:
+    counts = {name: counter.launches for name, counter in kernel_counters().items()}
+    print("  launches: " + ", ".join(f"{k} {v} (expected {expect[k]})" for k, v in counts.items()))
+    for name, n in counts.items():
+        if n != expect[name]:
+            fail(f"{what} ran {name} {n} times, not {expect[name]}")
+    return counts
+
+
+def grad_errors(got, want, tol: float):
+    """(name, max |err|, bar) of each pair of gradients, the bar being
+    tol * max(1, max |ref|); fails on a shape, a non-finite value or an error
+    over its bar."""
+    if set(got) != set(want):
+        fail(f"gradients of {sorted(set(got) ^ set(want))} are missing on one side")
+    rows = []
+    for name, b in want.items():
+        a = got[name]
+        bar = tol * max(1.0, b.abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        if a.shape != b.shape or not bool(a.isfinite().all()) or err > bar:
+            fail(f"gradient {name}: max |err| {err:.3e} over its bar {bar:.3e}, or bad values")
+        rows.append((name, err, bar))
+    return rows
+
+
+def scan_bwd_bound_ms(x, g) -> tuple[float, str]:
+    """Least time for one scan backward on an H100: its inputs (kernel A's and
+    g) read once and its outputs (du, ddelta, dz, dB, dC, dA, dD) written
+    once over the HBM rate, or its operations over the fp32 rate: the forward
+    once (6n + 8 per channel and step, as kernel A's bound) and the adjoint
+    (17 per state and step: the adjoint state, its decay, dA, ddelta, du, dB,
+    dC; 12 per channel and step for the gate, the softplus and the D skip)."""
+    G, L, d = x["u"].shape
+    n = x["A"].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in x.values() if t is not None)
+    nbytes += g.numel() * g.element_size()
+    nbytes += 4 * (G * L * d * (3 if x["z"] is not None else 2) + 2 * G * L * n + d * n + d)
+    ops = G * L * d * ((6 * n + 8) + (17 * n + 12))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_scan_bwd(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_bwd_ref
+
+    print("== phase 2c: kernel B (scan backward) against its plain version on the card",
+          flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz")
+    cases = [
+        # name, G, L, dtype, delta dtype, gated: G = 24 is batch 8 x 3 streams
+        ("fp32 gated (path)", 24, 196, f32, f32, True),
+        ("fp32 ungated", 24, 196, f32, f32, False),
+        ("fp32 gated, prime L=197", 24, 197, f32, f32, True),
+        ("bf16 gated, fp32 delta", 24, 196, bf16, f32, True),
+    ]
+    path_err = None
+    for i, (name, G, L, dtype, ddtype, gated) in enumerate(cases):
+        x = scan_inputs(G, L, 1024, 16, dtype, ddtype, seed=10 + i)
+        if not gated:
+            x["z"] = None
+        g = torch.randn(G, L, 1024, generator=torch.Generator(device="cuda").manual_seed(i),
+                        device="cuda").to(dtype)
+        got = dict(zip(names, selective_scan_bwd_cuda(**x, g=g)))
+        want = dict(zip(names, selective_scan_bwd_ref(**x, g=g)))
+        torch.cuda.synchronize()
+        if not gated:
+            if got.pop("dz") is not None or want.pop("dz") is not None:
+                fail("an ungated scan's backward gave a dz")
+        rows = grad_errors(got, want, TOL_GRAD)
+        err = max(e for _, e, _ in rows)
+        print(f"  {name}: G={G} L={L} d=1024 n=16  max|err| per gradient "
+              + ", ".join(f"{n} {e:.2e}/{b:.1e}" for n, e, b in rows))
+        if path_err is None:
+            path_err = err
+
+    x = scan_inputs(24, 196, 1024, 16, f32, f32, seed=10)
+    g = torch.randn(24, 196, 1024, generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    ms = cuda_ms(lambda: selective_scan_bwd_cuda(**x, g=g), reps=20)
+    plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(**x, g=g), reps=5)
+    bound_ms, bound_by = scan_bwd_bound_ms(x, g)
+    print(f"  [{card}] selective_scan_bwd fp32 G=24 L=196 d=1024 n=16: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    print("  library_ms: none; no single PyTorch call computes the scan's backward")
+    return {
+        "name": "selective_scan_bwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "diffma_tpu/ops/selective_scan.py:323",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def random_(module, seed: int, scale: float = 0.1):
     """Every parameter moved by seeded noise, A_log, D and the biases too: std
     ``scale`` for vectors, ``scale / sqrt(fan-in)`` for the others, so that
@@ -291,6 +425,112 @@ def phase_fused_mixer(card: str) -> dict:
     }
 
 
+def mixer_bwd_bound_ms(M, B, L, h, d, n, r, S, K) -> tuple[float, str]:
+    """Least time for one fused-mixer backward of M branches on an H100: the
+    weights, x and g read once, gx and the weight gradients written once,
+    over the HBM rate; or the operations over the fp32 rate: the forward as
+    far as the backward needs it, once (in_proj, conv, x_proj, dt_proj, the
+    scan; not out_proj), and the backward, two products per projection (the
+    input's and the weight's gradient), the conv's two adjoints, and the
+    scan's adjoint (17 per state and step, 12 per channel and step)."""
+    tokens, rows = B * L, B * S * L
+    r2n = r + 2 * n
+    fwd_ops = M * (
+        2 * tokens * h * 2 * d + rows * d * 2 * K + 2 * rows * d * r2n + 2 * rows * r * d
+        + rows * d * (6 * n + 8)
+    )
+    bwd_ops = M * (
+        2 * 2 * tokens * d * h  # g W_out, dW_out
+        + rows * d * (17 * n + 12)  # the scan's adjoint
+        + 2 * 2 * rows * r * d  # d dt_r, dW_dt
+        + 2 * 2 * rows * r2n * d  # dpre's product, dW_x
+        + 2 * 2 * rows * d * K  # the conv's input and weight adjoints
+        + 2 * 2 * tokens * 2 * d * h  # gx, dW_in
+    )
+    weights = 2 * d * h + d * K + d + r2n * d + d * r + d + d * n + d + h * d
+    nbytes = M * 4 * (2 * weights + 3 * tokens * h) + 2 * S * L * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, (fwd_ops + bwd_ops) / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_mixer_bwd(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mixer import MixerWeights, mixer_bwd_ref, mixer_fused_bwd_cuda
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2d: kernel D (fused mixer backward) against its plain version on the card",
+          flush=True)
+    h, batch = 512, 8
+
+    def grads_of(gx, gw, m):
+        return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(MixerWeights._fields, gw)}}
+
+    path_err = None
+    for grid_n, layer in ((14, 0), (14, 3), (5, 0)):
+        spec = build_scan_spec("spiral", grid_n, layer)
+        L = grid_n * grid_n
+        mixers = [random_(Mamba(h, spec), 20 * layer + i).cuda() for i in range(2)]
+        ws = [m.weights() for m in mixers]
+        gen = torch.Generator().manual_seed(50 + layer)
+        xs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
+        gs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
+        want = {}
+        for m in range(2):
+            want.update(grads_of(*mixer_bwd_ref(spec, xs[m], gs[m], ws[m]), m))
+        for entry, M in (("dual", 2), ("single", 1)):
+            gxs, gws = mixer_fused_bwd_cuda(spec, xs[:M], gs[:M], ws[:M])
+            torch.cuda.synchronize()
+            got = {}
+            for m in range(M):
+                got.update(grads_of(gxs[m], gws[m], m))
+            rows = grad_errors(got, {k: want[k] for k in got}, TOL_GRAD)
+            err = max(e for _, e, _ in rows)
+            worst = max(rows, key=lambda row: row[1] / row[2])
+            print(f"  {entry}, spiral layer {layer}: B={batch} L={L} h={h} d=1024 n=16 r=32  "
+                  f"max|err| {err:.3e} over {len(rows)} gradients; nearest its bar: "
+                  f"{worst[0]} {worst[1]:.2e} (bar {worst[2]:.1e})")
+            if path_err is None:
+                path_err = err
+
+    spec = build_scan_spec("spiral", 14, 0)
+    mixers = [random_(Mamba(h, spec), 200 + i).cuda() for i in range(2)]
+    ws = [m.weights() for m in mixers]
+    gen = torch.Generator().manual_seed(200)
+    xs = [torch.randn(batch, 196, h, generator=gen).cuda() for _ in range(2)]
+    gs = [torch.randn(batch, 196, h, generator=gen).cuda() for _ in range(2)]
+    ms = cuda_ms(lambda: mixer_fused_bwd_cuda(spec, xs, gs, ws), reps=10)
+    plain_ms = cuda_ms(lambda: [mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(xs, gs, ws)],
+                       reps=5)
+    for m in mixers:
+        m.scan_impl = "pallas"
+    leaves = [x.clone().requires_grad_() for x in xs]
+    outs = [m(x) for m, x in zip(mixers, leaves)]
+    inputs = leaves + [p for m in mixers for p in m.parameters()]
+    pair_ms = cuda_ms(lambda: torch.autograd.grad(outs, inputs, gs, retain_graph=True), reps=10)
+    bound_ms, bound_by = mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, r=32, S=3,
+                                            K=4)
+    print(f"  [{card}] mixer_fused_bwd fp32, both branches, B={batch} L=196 h=512 d=1024: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by})")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer's backward")
+    print(f"  [{card}] yardstick: the composable pair's backward (autograd through kernels "
+          f"A and B, same weights) {pair_ms:.4f} ms")
+    return {
+        "name": "mixer_fused_bwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_mixer_bwd.cu",
+        "replaces": "diffma_tpu/ops/fused_mixer.py:565",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def phase_forward(card: str) -> None:
     import torch
 
@@ -334,6 +574,60 @@ def phase_forward(card: str) -> None:
           f"(pallas), {ms_c:.3f} ms through kernel C (fused)")
 
 
+def phase_train_step(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train.train import make_loss_fn, synthetic_batch
+
+    print("== phase 3b: full-width DiffMa-B/2 training step, batch 2: plain path, "
+          "kernels A + B, kernels C + D", flush=True)
+    # Weights as phase 6 draws them (std 0.3 / sqrt(fan-in)), so that every
+    # block's gate is open and the mixers' gradients are of order 1.
+    model = build_model("DiffMa-B/2", input_size=28)
+    model = random_(model.init_weights(torch.Generator().manual_seed(3)), 3, scale=0.3)
+    model = model.cuda()
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(3), 2, 28, 196)
+    batch["t"] = torch.tensor([10, 900], device="cuda")
+    batch["noise"] = torch.randn(2, 4, 28, 28, generator=torch.Generator().manual_seed(4)).cuda()
+    loss_fn = make_loss_fn(model, create_diffusion("", device="cuda"))
+    losses, grads = {}, {}
+    zero = {name: 0 for name in kernel_counters()}
+    expect = {"ref": zero, "pallas": {**zero, "selective_scan_fwd": 16, "selective_scan_bwd": 16},
+              "fused": {**zero, "mixer_fused_fwd": 8, "mixer_fused_bwd": 8}}
+    for impl in ("ref", "pallas", "fused"):
+        model.set_scan_impl(impl)
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        loss, _ = loss_fn(batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        check_counts(f"the {impl} training step", expect[impl])
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+        if any(g is None for g in grads[impl].values()):
+            fail(f"the {impl} path left a parameter without a gradient")
+    mixer_grads = [g for n, g in grads["ref"].items() if ".mamba" in n]
+    print(f"  plain path: max |gradient| {max(g.abs().max().item() for g in grads['ref'].values()):.3e} "
+          f"over all parameters, {max(g.abs().max().item() for g in mixer_grads):.3e} over the "
+          f"mixers' ({len(mixer_grads)} tensors)")
+    for impl, what in (("pallas", "kernels A + B"), ("fused", "kernels C + D")):
+        rows = grad_errors(grads[impl], grads["ref"], TOL_MODEL)
+        worst = max(rows, key=lambda row: row[1] / row[2])
+        rel = max((got - grads["ref"][n]).abs().max().item()
+                  / max(grads["ref"][n].abs().max().item(), 1e-30)
+                  for n, got in grads[impl].items())
+        loss_err = abs(losses[impl] - losses["ref"])
+        print(f"  {what}: loss {losses[impl]:.6f} (plain {losses['ref']:.6f}, |err| "
+              f"{loss_err:.2e}); {len(rows)} gradients, max |err| "
+              f"{max(e for _, e, _ in rows):.3e}, largest error relative to its tensor's "
+              f"max |ref| {rel:.2e}; nearest its bar: {worst[0]} {worst[1]:.2e} "
+              f"(bar {worst[2]:.1e})")
+        if not math.isfinite(losses[impl]) or loss_err > TOL_MODEL * max(1.0, abs(losses["ref"])):
+            fail(f"the training loss through {what} disagrees with the plain path's")
+
+
 def brain_config(**override):
     from diffma_tpu_torch.utils.config import load_config, merge
 
@@ -343,15 +637,11 @@ def brain_config(**override):
 def run_sampler(card: str, cfg, batches: int, expect: dict) -> list:
     """``sample.main`` with the kernels' counts set to 0 just before it;
     checks the images and that each kernel ran exactly ``expect[name]`` times."""
-    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_cuda
-    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
     from diffma_tpu_torch.train import sample
 
-    counters = {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda}
-    for counter in counters.values():
-        counter.launches = 0
+    reset_counts()
     results = sample.main(cfg, device="cuda")
-    counts = {name: counter.launches for name, counter in counters.items()}
+    check_counts("the sampler", {name: expect.get(name, 0) for name in kernel_counters()})
     for i, r in enumerate(results, start=1):
         img = r["images"]
         print(f"  batch {i}: images {img.shape}, {r['seconds']:.3f} s, "
@@ -363,10 +653,6 @@ def run_sampler(card: str, cfg, batches: int, expect: dict) -> list:
     seconds = [r["seconds"] for r in results]
     print(f"  [{card}] seconds per batch {', '.join(f'{x:.3f}' for x in seconds)}; "
           f"images/s {len(seconds) / sum(seconds):.4f} over all, {1 / seconds[-1]:.4f} last")
-    for name, n in counts.items():
-        print(f"  {name} calls {n} (expected {expect[name]})")
-        if n != expect[name]:
-            fail(f"the sampler ran {name} {n} times, not {expect[name]}")
     return results
 
 
@@ -404,8 +690,6 @@ def phase_checkpoint(card: str) -> None:
     import torch
 
     from diffma_tpu_torch.models.diffma import build_model
-    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_cuda
-    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
     from diffma_tpu_torch.train import sample
 
     print("== phase 6: DiffMa-L/2 from a reference-format checkpoint, sampler CLI on "
@@ -419,14 +703,15 @@ def phase_checkpoint(card: str) -> None:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         path = os.path.join(tmp, "0050000.pt")
         torch.save({"model": sd, "ema": sd, "opt": {}, "args": None}, path)
-        mixer_fused_cuda.launches = selective_scan_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         results = sample.cli([
             "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--ckpt", path,
             "--num-batches", "1",
         ])
         seconds = time.perf_counter() - t0
-        calls, scans = mixer_fused_cuda.launches, selective_scan_cuda.launches
+        check_counts("the checkpoint sampler", {name: 0 for name in kernel_counters()}
+                     | {"mixer_fused_fwd": 16 * 250})  # blocks x steps
         loaded = sample.load_model(brain_config(ckpt=path), "cuda")
     written = model.state_dict()
     for key, value in loaded.state_dict().items():
@@ -438,11 +723,142 @@ def phase_checkpoint(card: str) -> None:
     if len(results) != 1 or img.shape != (1, 3, 224, 224) or not math.isfinite(float(abs(img).max())):
         fail(f"expected one batch of finite (1, 3, 224, 224) images, got {img.shape}")
     print(f"  [{card}] batch 1: {results[0]['seconds']:.3f} s ({seconds:.3f} s with loading)")
-    expected = 16 * 250  # blocks x steps
-    print(f"  mixer_fused_fwd calls {calls} (expected {expected}), "
-          f"selective_scan_fwd launches {scans} (expected 0)")
-    if calls != expected or scans != 0:
-        fail("the checkpoint sampler did not run every block through kernel C")
+
+
+def trainer_log_rate(exp_dir: str) -> tuple[float, float]:
+    """The last (steps/s, images/s) the trainer logged in ``exp_dir``."""
+    with open(os.path.join(exp_dir, "log_0.txt")) as f:
+        found = re.findall(r"Train Steps/Sec: ([0-9.]+), Images/Sec: ([0-9.]+)", f.read())
+    if not found:
+        fail(f"the trainer logged no throughput in {exp_dir}")
+    return float(found[-1][0]), float(found[-1][1])
+
+
+def moved_from_init(module, init_state: dict) -> int:
+    """How many of ``module``'s parameters still equal their init."""
+    import torch
+
+    state = module.state_dict()
+    return sum(torch.equal(state[k].cpu(), v) for k, v in init_state.items())
+
+
+def phase_trainer(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import sample, train
+
+    print("== phase 7: trainer CLI on configs/brain.yaml (DiffMa-L/2, batch 8, synthetic), "
+          "20 steps, checkpoint at step 20", flush=True)
+    cfg = brain_config()
+    if "scan_impl" in cfg:
+        fail("configs/brain.yaml sets scan_impl; this phase trains with the default")
+    results = os.path.join(ROOT, "results", "chip_smoke_train")
+    shutil.rmtree(results, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train.cli([
+        "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--max-steps", "20",
+        "--ckpt-every", "20", "--results-dir", results,
+    ])
+    seconds = time.perf_counter() - t0
+    zero = {name: 0 for name in kernel_counters()}
+    calls = 16 * 20  # blocks x steps: one C and one D call per block and step
+    counts = check_counts("the trainer", {**zero, "mixer_fused_fwd": calls,
+                                          "mixer_fused_bwd": calls})
+    if state.step != 20:
+        fail(f"the trainer counted {state.step} finite steps of 20")
+    init = build_model(cfg.model, input_size=28).init_weights(
+        torch.Generator().manual_seed(int(cfg.global_seed))).state_dict()
+    for what, module in (("params", state.model), ("EMA", state.ema)):
+        still = moved_from_init(module, init)
+        if still:
+            fail(f"{still} tensors of the {what} did not move in 20 steps")
+    (exp,) = os.listdir(results)
+    ckpt = os.path.join(results, exp, "checkpoints", "0000020.pt")
+    if not os.path.exists(ckpt):
+        fail(f"the trainer wrote no checkpoint at {ckpt}")
+    loaded = sample.load_model(brain_config(ckpt=ckpt), "cuda")
+    ema = state.ema.state_dict()
+    for key, value in loaded.state_dict().items():
+        if not torch.equal(value, ema[key]):
+            fail(f"the sampler's model does not hold the checkpoint's EMA {key}")
+    steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
+    print(f"  20 steps, every loss finite; params and EMA moved; checkpoint "
+          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB read back by the sampler, EMA equal")
+    print(f"  [{card}] DiffMa-L/2 fused training, batch 8, steps 11-20: {steps_s} steps/s, "
+          f"{images_s} images/s ({seconds:.1f} s for the whole CLI run, build and init included)")
+    shutil.rmtree(results, ignore_errors=True)
+    return counts
+
+
+def phase_composable_trainer(card: str) -> dict:
+    from diffma_tpu_torch.train import train
+
+    print("== phase 8: composable trainer (kernels A + B), DiffMa-B/2, batch 8, 5 steps",
+          flush=True)
+    results = os.path.join(ROOT, "results", "chip_smoke_train_composable")
+    shutil.rmtree(results, ignore_errors=True)
+    cfg = brain_config(model="DiffMa-B/2", scan_impl="pallas", max_steps=5, log_every=5,
+                       ckpt_every=10**9, results_dir=results)
+    reset_counts()
+    state = train.main(cfg, device="cuda")
+    zero = {name: 0 for name in kernel_counters()}
+    calls = 2 * 8 * 5  # mixers x blocks x steps
+    counts = check_counts("the composable trainer", {**zero, "selective_scan_fwd": calls,
+                                                     "selective_scan_bwd": calls})
+    if state.step != 5:
+        fail(f"the composable trainer counted {state.step} finite steps of 5")
+    (exp,) = os.listdir(results)
+    steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
+    print(f"  [{card}] DiffMa-B/2 composable training, batch 8, steps 1-5 (first step "
+          f"included): {steps_s} steps/s, {images_s} images/s")
+    shutil.rmtree(results, ignore_errors=True)
+    return counts
+
+
+def phase_learning(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import train
+
+    steps = 100
+    print(f"== phase 9: does it learn: DiffMa-B/2 fused, one fixed batch of 8, lr 1e-3, "
+          f"{steps} steps", flush=True)
+    results = os.path.join(ROOT, "results", "chip_smoke_overfit")
+    shutil.rmtree(results, ignore_errors=True)
+    cfg = brain_config(model="DiffMa-B/2", overfit_fixed_batch=True, lr=1e-3, max_steps=steps,
+                       log_every=10, ckpt_every=10**9, results_dir=results)
+    seed = int(cfg.global_seed)
+    # The trainer's fixed batch, and one fixed (t, noise) to evaluate at.
+    batch = train.synthetic_batch(torch.Generator(device="cuda").manual_seed(seed + 1), 8, 28,
+                                  196)
+    t = torch.randint(0, 1000, (8,), generator=torch.Generator().manual_seed(7)).cuda()
+    noise = torch.randn(8, 4, 28, 28, generator=torch.Generator().manual_seed(8)).cuda()
+    diffusion = create_diffusion("", device="cuda")
+
+    def mse(model) -> float:
+        with torch.no_grad():
+            terms = diffusion.training_losses(
+                model, batch["z"], t, noise=noise,
+                model_kwargs={"y": batch["y"], "y2": batch["y2"], "w": batch["w"]})
+        return terms["mse"].mean().item()
+
+    init = build_model("DiffMa-B/2", input_size=28, scan_impl="fused")
+    before = mse(init.init_weights(torch.Generator().manual_seed(seed)).cuda().eval())
+    state = train.main(cfg, device="cuda")
+    after = mse(state.model.eval())
+    (exp,) = os.listdir(results)
+    steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
+    print(f"  MSE term at the fixed (t, noise): {before:.5f} before, {after:.5f} after "
+          f"{steps} steps: fell {before / after:.2f}x (at least 2x required)")
+    print(f"  [{card}] DiffMa-B/2 fused training, batch 8, steps {steps - 9}-{steps}: "
+          f"{steps_s} steps/s, {images_s} images/s")
+    if state.step != steps or not after * 2 <= before:
+        fail(f"the MSE term fell {before / after:.2f}x in {steps} steps, not 2x")
+    shutil.rmtree(results, ignore_errors=True)
 
 
 def main() -> int:
@@ -462,13 +878,19 @@ def main() -> int:
     phase_build()
     scan = phase_kernels(card)
     mixer = phase_fused_mixer(card)
+    scan_bwd = phase_scan_bwd(card)
+    mixer_bwd = phase_mixer_bwd(card)
     phase_forward(card)
+    phase_train_step(card)
     scan["launches"] = phase_sampler(card)
     mixer["launches"] = phase_fused_sampler(card)
     phase_checkpoint(card)
+    mixer_bwd["launches"] = phase_trainer(card)["mixer_fused_bwd"]
+    scan_bwd["launches"] = phase_composable_trainer(card)["selective_scan_bwd"]
+    phase_learning(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [scan, mixer]}))
+    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd]}))
     print(card)
     print(json.dumps({
         "ok": True,

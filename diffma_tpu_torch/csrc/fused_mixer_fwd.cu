@@ -62,9 +62,9 @@
 // The TPU kernel's one-hot permutation matmuls and its 8-row padding of L
 // exist for the MXU and VMEM; here they are index gathers and masks.
 //
-// Forward only. The backward, diffma_tpu/ops/fused_mixer.py::
-// _mixer_bwd_kernel, comes with training. The vim feature-flip quirk and
-// partition specs are not built: the wrapper raises for them.
+// The backward, diffma_tpu/ops/fused_mixer.py::_mixer_bwd_kernel, is kernel
+// D, fused_mixer_bwd.cu. The vim feature-flip quirk and partition specs are
+// not built: the wrapper raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

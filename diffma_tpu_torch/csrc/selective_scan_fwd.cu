@@ -35,8 +35,8 @@
 // - loads of u, delta, z and the store of out are coalesced along d;
 // - the time loop runs t < L exactly: no chunk padding, any L works.
 //
-// Forward only. The backward, diffma_tpu/ops/selective_scan.py::_bwd_kernel,
-// comes with the training slice.
+// The backward, diffma_tpu/ops/selective_scan.py::_bwd_kernel, is kernel B,
+// selective_scan_bwd.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

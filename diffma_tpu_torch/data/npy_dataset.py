@@ -1,17 +1,20 @@
-"""Synthetic (CT, mask, MRI) triplets.
+"""Synthetic (CT, mask, MRI) triplets and the batch loader.
 
-Counterpart of ``diffma_tpu/data/npy_dataset.py::SyntheticTriplets``: the
-same seeded numpy draws, so both packages see the same images. The ``.npy``
+Counterpart of ``diffma_tpu/data/npy_dataset.py``: ``SyntheticTriplets``
+makes the same seeded numpy draws, so both packages see the same images, and
+``make_loader`` batches a dataset in the same shuffled order. The ``.npy``
 folder dataset comes with the conditioning stack.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import queue
+import threading
+from typing import Iterator, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticTriplets"]
+__all__ = ["SyntheticTriplets", "make_loader"]
 
 Triplet = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -40,3 +43,53 @@ class SyntheticTriplets:
         for start in range(0, self.n, batch_size):
             items = [self[i] for i in range(start, min(start + batch_size, self.n))]
             yield tuple(np.stack(parts) for parts in zip(*items))
+
+
+def make_loader(
+    dataset,
+    batch_size: int,
+    *,
+    seed: int = 0,
+    epoch: int = 0,
+    prefetch: int = 2,
+) -> Iterator[Triplet]:
+    """Yield batches of stacked (ct, mask, mri) arrays, in one process.
+
+    The index order is shuffled with (seed, epoch), as the JAX package's
+    loader shuffles it for training, and a short last batch is dropped. A
+    background thread builds up to ``prefetch`` batches ahead; it stops when
+    the iterator is closed or exhausted.
+    """
+    order = np.random.default_rng((seed, epoch)).permutation(len(dataset))
+    n_batches = len(order) // batch_size
+    done = object()
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        for b in range(n_batches):
+            items = [dataset[int(i)] for i in order[b * batch_size : (b + 1) * batch_size]]
+            if not put(tuple(np.stack([it[k] for it in items]) for k in range(3))):
+                return
+        put(done)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join()

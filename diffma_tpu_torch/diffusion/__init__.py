@@ -19,11 +19,21 @@ __all__ = ["create_diffusion", "GaussianDiffusion", "space_timesteps"]
 def create_diffusion(
     timestep_respacing,
     noise_schedule: str = "linear",
+    use_kl: bool = False,
+    rescale_learned_sigmas: bool = False,
     diffusion_steps: int = 1000,
     device="cuda",
 ) -> GaussianDiffusion:
     """The 1000-step schedule respaced to ``timestep_respacing`` (e.g. "250",
-    "ddim50"): the kept steps' betas are rebuilt from their alphas_cumprod."""
+    "ddim50"): the kept steps' betas are rebuilt from their alphas_cumprod.
+    The loss is the hybrid MSE + VB unless ``use_kl`` (VB alone, rescaled)
+    or ``rescale_learned_sigmas`` (the VB term rescaled)."""
+    if use_kl:
+        loss_type = "rescaled_kl"
+    elif rescale_learned_sigmas:
+        loss_type = "rescaled_mse"
+    else:
+        loss_type = "mse"
     betas = get_named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
@@ -43,4 +53,5 @@ def create_diffusion(
         betas=np.array(new_betas),
         timestep_map=None if identity_map else timestep_map,
         device=device,
+        loss_type=loss_type,
     )

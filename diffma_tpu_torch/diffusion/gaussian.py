@@ -1,16 +1,18 @@
-"""Gaussian diffusion: coefficient tables and the samplers.
+"""Gaussian diffusion: coefficient tables, the samplers and the hybrid loss.
 
-Counterpart of the sampling half of ``diffma_tpu/diffusion/gaussian.py``, for
-the configuration DiffMa trains and samples with: the model predicts epsilon
-and a learned-range variance (``learn_sigma``), which is the JAX package's
-default. Tables are derived in float64 numpy and stored as float32 tensors on
-the chosen device; only those the samplers read are kept, the ones the
-training losses need come with training. Respacing carries a
-``timestep_map``: the model is called with the original timesteps.
+Counterpart of ``diffma_tpu/diffusion/gaussian.py`` for the configuration
+DiffMa trains and samples with: the model predicts epsilon and a
+learned-range variance (``learn_sigma``), which is the JAX package's default.
+The loss is the JAX package's ``LossType``: ``"mse"`` (MSE + VB, the
+default), ``"rescaled_mse"`` (the VB term times T / 1000) or ``"rescaled_kl"``
+(VB alone, times T). Tables are derived in float64 numpy and stored as
+float32 tensors on the chosen device. Respacing carries a ``timestep_map``:
+the model is called with the original timesteps.
 
 Noise is drawn from a caller-given ``torch.Generator``. The loops also take
-``step_noise``, a sequence of per-step noise tensors, so a test can feed the
-exact noise another implementation drew. The loops are Python loops.
+``step_noise``, a sequence of per-step noise tensors, and
+``training_losses`` takes ``noise``, so a test can feed the exact noise
+another implementation drew. The loops are Python loops.
 """
 
 from __future__ import annotations
@@ -24,7 +26,19 @@ import torch
 
 from diffma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["GaussianDiffusion", "get_named_beta_schedule", "space_timesteps"]
+__all__ = [
+    "LOSS_TYPES",
+    "GaussianDiffusion",
+    "approx_standard_normal_cdf",
+    "discretized_gaussian_log_likelihood",
+    "get_named_beta_schedule",
+    "mean_flat",
+    "normal_kl",
+    "space_timesteps",
+]
+
+#: The JAX package's ``LossType`` values that a learned-range model trains with.
+LOSS_TYPES = ("mse", "rescaled_mse", "rescaled_kl")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +134,42 @@ def space_timesteps(num_timesteps: int, section_counts) -> Set[int]:
     return set(all_steps)
 
 
+# ---------------------------------------------------------------------------
+# Math utilities
+# ---------------------------------------------------------------------------
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL divergence between two gaussians, elementwise."""
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+        + (mean1 - mean2) ** 2 * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of x under a gaussian discretised to 8-bit bins in [-1, 1]."""
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp_min(1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp_min(1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp_min(1e-12))
+    return torch.where(
+        x < -0.999, log_cdf_plus,
+        torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta),
+    )
+
+
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-timestep coefficients, broadcast over the trailing dims."""
     out = arr[t]
@@ -141,6 +191,9 @@ class GaussianDiffusion:
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_variance: torch.Tensor
@@ -149,6 +202,7 @@ class GaussianDiffusion:
     posterior_mean_coef2: torch.Tensor
     log_betas: torch.Tensor
     timestep_map: Optional[torch.Tensor]  # respacing (None => identity)
+    loss_type: str = "mse"
 
     # -- construction -------------------------------------------------------
 
@@ -157,8 +211,11 @@ class GaussianDiffusion:
         betas: np.ndarray,
         timestep_map: Optional[Sequence[int]] = None,
         device="cuda",
+        loss_type: str = "mse",
     ) -> "GaussianDiffusion":
         device = resolve_device(device)
+        if loss_type not in LOSS_TYPES:
+            raise ValueError(f"unknown loss_type {loss_type!r}; expected one of {LOSS_TYPES}")
         betas = np.asarray(betas, dtype=np.float64)
         if betas.ndim != 1 or not ((betas > 0).all() and (betas <= 1).all()):
             raise ValueError("betas must be a 1-D array in (0, 1]")
@@ -176,6 +233,9 @@ class GaussianDiffusion:
             betas=f32(betas),
             alphas_cumprod=f32(acp),
             alphas_cumprod_prev=f32(acp_prev),
+            sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
+            log_one_minus_alphas_cumprod=f32(np.log(1.0 - acp)),
             sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
             posterior_variance=f32(post_var),
@@ -188,6 +248,7 @@ class GaussianDiffusion:
                 if timestep_map is not None
                 else None
             ),
+            loss_type=loss_type,
         )
 
     @property
@@ -199,6 +260,20 @@ class GaussianDiffusion:
         return t if self.timestep_map is None else self.timestep_map[t]
 
     # -- q and p distributions -------------------------------------------------
+
+    def q_mean_variance(self, x_start, t):
+        nd = x_start.ndim
+        mean = _extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+        variance = _extract(1.0 - self.alphas_cumprod, t, nd)
+        log_variance = _extract(self.log_one_minus_alphas_cumprod, t, nd)
+        return mean, variance, log_variance
+
+    def q_sample(self, x_start, t, noise):
+        nd = x_start.ndim
+        return (
+            _extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+            + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+        )
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         nd = x_t.ndim
@@ -233,8 +308,12 @@ class GaussianDiffusion:
     ) -> Dict[str, torch.Tensor]:
         """Statistics of p(x_{t-1} | x_t); ``model`` gets the remapped
         timesteps and returns [eps, v] on the channel axis, where v places the
-        log-variance between the posterior's and beta's."""
-        model_output = model(x, self._map_t(t), **(model_kwargs or {}))
+        log-variance between the posterior's and beta's. ``model`` may also be
+        that output itself, as the hybrid loss passes it."""
+        if callable(model):
+            model_output = model(x, self._map_t(t), **(model_kwargs or {}))
+        else:
+            model_output = model
         nd = x.ndim
         eps, model_var_values = model_output.chunk(2, dim=1)
         min_log = _extract(self.posterior_log_variance_clipped, t, nd)
@@ -252,6 +331,51 @@ class GaussianDiffusion:
             "log_variance": model_log_variance,
             "pred_xstart": pred_xstart,
         }
+
+    # -- losses ----------------------------------------------------------------
+
+    def _vb_terms_bpd(self, model, x_start, x_t, t, clip_denoised=True, model_kwargs=None):
+        """The variational bound's term at t in bits per dimension: the KL to
+        the true posterior, or at t = 0 the discretised decoder NLL."""
+        true_mean, _, true_logvar = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(
+            model, x_t, t, clip_denoised=clip_denoised, model_kwargs=model_kwargs
+        )
+        kl = mean_flat(normal_kl(true_mean, true_logvar, out["mean"], out["log_variance"]))
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+        )
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        output = torch.where(t == 0, decoder_nll, kl / math.log(2.0))
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(
+        self, model: ModelFn, x_start, t, generator: Optional[torch.Generator] = None,
+        model_kwargs=None, noise=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Per-example terms of the hybrid loss at timesteps t: ``loss``, and
+        ``mse`` and ``vb`` unless the loss is VB alone. The VB term sees the
+        model's epsilon detached, so it trains the variance only."""
+        model_kwargs = model_kwargs or {}
+        if noise is None:
+            noise = torch.randn(
+                x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype
+            )
+        x_t = self.q_sample(x_start, t, noise)
+        if self.loss_type == "rescaled_kl":
+            vb = self._vb_terms_bpd(
+                model, x_start, x_t, t, clip_denoised=False, model_kwargs=model_kwargs
+            )["output"]
+            return {"loss": vb * self.num_timesteps}
+
+        model_output = model(x_t, self._map_t(t), **model_kwargs)
+        eps_pred, var_values = model_output.chunk(2, dim=1)
+        frozen = torch.cat([eps_pred.detach(), var_values], dim=1)
+        vb = self._vb_terms_bpd(frozen, x_start, x_t, t, clip_denoised=False)["output"]
+        if self.loss_type == "rescaled_mse":
+            vb = vb * (self.num_timesteps / 1000.0)
+        mse = mean_flat((noise - eps_pred) ** 2)
+        return {"loss": mse + vb, "mse": mse, "vb": vb}
 
     # -- sampling ------------------------------------------------------------
 

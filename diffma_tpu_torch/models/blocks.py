@@ -5,10 +5,10 @@ Counterpart of ``diffma_tpu/models/blocks.py::SpiralMambaBlock`` without
 vector c (N, 2D), two Mamba branches where the second sees the soft-masked
 tokens ``x_mod * w``, mixed by a learned per-token sigmoid weight, and a
 gated residual. With ``scan_impl="fused"`` both branches run in one call of
-the fused mixer (kernel C on the card); otherwise each mixer runs its own
-path. Parameter names follow upstream DiffMa's ``block/mamba_block.py``
-(``adaLN_modulation.1``, ``norm1``, ``mamba1``, ``mamba2``,
-``attention_network.{0,1,3}``) on both paths.
+the fused mixer (kernel C on the card, and kernel D in the backward);
+otherwise each mixer runs its own path. Parameter names follow upstream
+DiffMa's ``block/mamba_block.py`` (``adaLN_modulation.1``, ``norm1``,
+``mamba1``, ``mamba2``, ``attention_network.{0,1,3}``) on both paths.
 """
 
 from __future__ import annotations

@@ -52,6 +52,7 @@ class DiffMa(nn.Module):
         self.out_channels = 8  # epsilon and the learned-range variance
         self.grid_n = input_size // patch_size
         self.depth = depth
+        self.hidden_size = hidden_size
 
         self.x_embedder = PatchEmbed(patch_size, self.in_channels, hidden_size)
         self.register_buffer(

@@ -5,12 +5,15 @@ Counterpart of the single-device paths of
 JAX package's values:
 
 * ``"auto"`` or ``"pallas"``: the composable path
-  (``ops/fused_mixer.py::mixer_composable``) with the selective-scan kernel A
-  on CUDA tensors and the plain scan on CPU tensors;
+  (``ops/fused_mixer.py::mixer_composable``) with the selective-scan kernels
+  A (forward) and B (backward) on CUDA tensors and the plain scan on CPU
+  tensors;
 * ``"ref"``: the composable path with the plain scan on any device;
-* ``"fused"``: the whole mixer in one call of kernel C
-  (``ops/fused_mixer.py::mamba_mixer_fused``) on CUDA tensors, its plain
-  version on CPU tensors.
+* ``"fused"``: the whole mixer in one call of kernel C forward and one of
+  kernel D backward (``ops/fused_mixer.py::mamba_mixer_fused``) on CUDA
+  tensors, its plain version on CPU tensors.
+
+Every path carries gradients to the input and to every parameter.
 
 Parameter names follow mamba_ssm's ``Mamba`` state dict, whatever the path.
 d_inner is 2 * d_model, the conv has 4 taps, and ``dt_rank`` is

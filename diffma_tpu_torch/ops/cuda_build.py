@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. Building takes
 seconds, so it happens at first use in each process; the library's file name
-carries a hash of its source, so an edited source is rebuilt and an unchanged
-one is reused. Libraries go into ``diffma_tpu_torch/_build/``, which git
-ignores.
+carries a hash of its source and of every header in ``csrc/`` (kernels B and
+D share ``scan_bwd.cuh``), so an edited source or header is rebuilt and an
+unchanged one is reused. Libraries go into ``diffma_tpu_torch/_build/``,
+which git ignores.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-#: Every kernel source of the port: kernel A, then kernel C.
-SOURCES = ("selective_scan_fwd", "fused_mixer_fwd")
+#: Every kernel source of the port: kernels A, C, B and D.
+SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,8 +58,12 @@ def _nvcc() -> str:
 def build(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless a library of the same source exists."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()
     path = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
     if os.path.exists(path):
         return BuildResult(path, 0.0, "cached")

@@ -1,4 +1,5 @@
-"""Whole Mamba-1 mixer forward: in_proj, streams, scan, merge, out_proj.
+"""Whole Mamba-1 mixer: in_proj, streams, scan, merge, out_proj; forward and
+backward.
 
 Counterpart of ``diffma_tpu/ops/fused_mixer.py``. The mixer takes the tokens
 ``x (B, L, h)`` of one layer to ``(B, L, h)``:
@@ -8,24 +9,30 @@ Counterpart of ``diffma_tpu/ops/fused_mixer.py``. The mixer takes the tokens
     y_s = selective_scan(u, delta, -exp(A_log), B, C, D, z=xz_z);
     out = out_proj(scale * sum_s y_s, back in token order)
 
-Two implementations, one signature:
+Two implementations of each direction:
 
 * ``mixer_ref``: the plain PyTorch version, the CPU path and the yardstick
-  the kernel is held against. It is ``mixer_composable`` with the plain scan;
-  ``models/mamba.py`` runs the same function with the scan kernel A.
-* ``mixer_fused_cuda``: the hand-written CUDA kernel
+  the kernels are held against. It is ``mixer_composable`` with the plain
+  scan; ``models/mamba.py`` runs the same function with the scan kernels A
+  and B. ``mixer_bwd_ref`` is autograd over it.
+* ``mixer_fused_cuda``: the hand-written CUDA kernel C
   (``csrc/fused_mixer_fwd.cu``), which replaces the TPU kernel
-  ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel``. One call runs one mixer or
-  both branches of a Spiral block; ``mixer_fused_cuda.launches`` counts calls
-  (each launches four device kernels).
+  ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel``; ``mixer_fused_bwd_cuda``
+  is kernel D (``csrc/fused_mixer_bwd.cu``), which replaces
+  ``_mixer_bwd_kernel``. One call runs one mixer or both branches of a Spiral
+  block; their ``launches`` attributes count calls (each launches a chain of
+  device kernels).
 
-``mamba_mixer_fused`` and ``mamba_dual_mixer_fused`` dispatch on the tensors'
-device: the kernel for CUDA tensors, ``mixer_ref`` for CPU tensors.
-``impl="ref"`` takes the plain version on any device, to hold the kernel
-against it on the card. Weights are in torch layout (``MixerWeights``).
-Forward only, fp32 only. The Mamba-1 'vim' feature-flip quirk and partition
-specs (EfficientVMamba's atrous streams) raise ``NotImplementedError``: they
-come with their block families.
+``FusedMixerFn`` joins them for autograd: forward through kernel C, backward
+through kernel D, saving only the inputs and the weights, as the JAX
+monolithic VJP does. ``mamba_mixer_fused`` and ``mamba_dual_mixer_fused``
+dispatch on the tensors' device: ``FusedMixerFn`` for CUDA tensors,
+``mixer_ref`` (plain autograd) for CPU tensors. ``impl="ref"`` takes the
+plain version on any device, to hold the kernels against it on the card.
+Weights are in torch layout (``MixerWeights``), fp32 only. The Mamba-1 'vim'
+feature-flip quirk and partition specs (EfficientVMamba's atrous streams)
+raise ``NotImplementedError``, forward and backward: they come with their
+block families.
 """
 
 from __future__ import annotations
@@ -43,17 +50,21 @@ from diffma_tpu_torch.ops.scan_orders import ScanSpec
 from diffma_tpu_torch.ops.selective_scan import selective_scan
 
 __all__ = [
+    "FusedMixerFn",
     "MixerWeights",
     "index_tables",
     "mamba_dual_mixer_fused",
     "mamba_mixer_fused",
+    "mixer_bwd_ref",
     "mixer_composable",
+    "mixer_fused_bwd_cuda",
     "mixer_fused_cuda",
     "mixer_fused_eligible",
     "mixer_ref",
 ]
 
 _KERNEL_SOURCE = "fused_mixer_fwd"
+_BWD_SOURCE = "fused_mixer_bwd"
 _KERNEL_D_STATE = 16
 _KERNEL_CONV = 4
 _KERNEL_MAX_RANK = 32
@@ -129,6 +140,18 @@ def mixer_composable(
 def mixer_ref(spec: ScanSpec, x: torch.Tensor, w: MixerWeights) -> torch.Tensor:
     """The plain version: ``mixer_composable`` with the plain scan."""
     return mixer_composable(spec, x, w, scan_impl="ref")
+
+
+def mixer_bwd_ref(
+    spec: ScanSpec, x: torch.Tensor, g: torch.Tensor, w: MixerWeights
+) -> Tuple[torch.Tensor, MixerWeights]:
+    """The mixer's backward by autograd over ``mixer_ref``: the gradients of
+    ``<g, mixer_ref(spec, x, w)>`` with respect to x and each weight."""
+    leaves = [t.detach().requires_grad_() for t in (x, *w)]
+    with torch.enable_grad():
+        out = mixer_ref(spec, leaves[0], MixerWeights(*leaves[1:]))
+        grads = torch.autograd.grad(out, leaves, g)
+    return grads[0], MixerWeights(*grads[1:])
 
 
 def _check_spec(spec: ScanSpec) -> None:
@@ -236,13 +259,109 @@ def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
 mixer_fused_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fns():
+    lib = cuda_build.load(_BWD_SOURCE)
+    bwd = lib.mixer_fused_bwd
+    bwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+    size = lib.mixer_fused_bwd_workspace_floats
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    return bwd, size
+
+
+def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
+    """Launch kernel D on the current stream: the backward of the mixers
+    ``ws[m]`` applied to ``xs[m]``, given ``gs[m]`` = dL/dout (one or two of
+    them). Returns ``(gxs, grads)``, ``grads[m]`` a ``MixerWeights`` of
+    gradients (dA_log for A_log). Nothing from the forward's call is needed:
+    the kernel recomputes the forward from x and the weights.
+
+    Raises on inputs the kernel does not take; ``mixer_fused_bwd_cuda.launches``
+    counts the calls.
+    """
+    _check_spec(spec)
+    dims = _check_kernel_inputs(spec, xs, ws)
+    if len(gs) != len(xs):
+        raise ValueError(f"{len(xs)} inputs but {len(gs)} output gradients")
+    for i, (g, x) in enumerate(zip(gs, xs)):
+        if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+            raise ValueError(f"g{i} must match x{i}: {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not g.is_contiguous():
+            raise ValueError(f"g{i} must be contiguous")
+    M = len(xs)
+    bwd_fn, size_fn = _bwd_kernel_fns()
+    x0 = xs[0]
+    gxs = tuple(torch.empty_like(x) for x in xs)
+    grads = tuple(MixerWeights(*(torch.empty_like(t) for t in w)) for w in ws)
+    workspace = torch.empty(
+        size_fn(M, dims["B"], dims["L"], dims["d"], dims["r"], dims["S"]),
+        dtype=torch.float32, device=x0.device,
+    )
+    fwd, merge = index_tables(spec, x0.device)
+    ptrs = []
+    for x, g, w, gx, gw in zip(xs, gs, ws, gxs, grads):
+        ptrs += [x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in w),
+                 gx.data_ptr(), *(t.data_ptr() for t in gw)]
+    err = bwd_fn(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), merge.data_ptr(),
+        workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
+        dims["r"], dims["K"], dims["S"], float(spec.scale),
+        torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mixer_fused_bwd launch failed: error {err}")
+    mixer_fused_bwd_cuda.launches += 1
+    return gxs, grads
+
+
+mixer_fused_bwd_cuda.launches = 0
+
+
+class FusedMixerFn(torch.autograd.Function):
+    """One or two mixers with kernel C forward and kernel D backward.
+
+    ``apply(spec, M, *xs, *weights)`` with the M inputs first, then the 9
+    weights of each mixer in ``MixerWeights`` order; returns the M outputs.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, M, *tensors):
+        ctx.spec, ctx.M = spec, M
+        ctx.save_for_backward(*tensors)
+        xs, ws = _split(M, tensors)
+        return mixer_fused_cuda(spec, xs, ws)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        xs, ws = _split(ctx.M, ctx.saved_tensors)
+        gs = tuple(
+            torch.zeros_like(x) if g is None else g.contiguous() for g, x in zip(gouts, xs)
+        )
+        gxs, grads = mixer_fused_bwd_cuda(ctx.spec, xs, gs, ws)
+        return (None, None, *gxs, *(t for gw in grads for t in gw))
+
+
+def _split(M: int, tensors):
+    n = len(MixerWeights._fields)
+    xs = tuple(tensors[:M])
+    ws = tuple(MixerWeights(*tensors[M + n * i : M + n * (i + 1)]) for i in range(M))
+    return xs, ws
+
+
 def _fused(spec: ScanSpec, xs, ws, impl: str) -> Tuple[torch.Tensor, ...]:
     _check_spec(spec)
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "ref" or xs[0].device.type != "cuda":
         return tuple(mixer_ref(spec, x, w) for x, w in zip(xs, ws))
-    return mixer_fused_cuda(spec, xs, ws)
+    return FusedMixerFn.apply(spec, len(xs), *xs, *(t for w in ws for t in w))
 
 
 def mamba_dual_mixer_fused(
@@ -254,12 +373,14 @@ def mamba_dual_mixer_fused(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both branches of a dual block, ``x0 -> w0`` and ``x1 -> w1``, each
-    ``(B, L, h)``, in one kernel call on CUDA tensors."""
+    ``(B, L, h)``, in one call of kernel C on CUDA tensors (and one of kernel
+    D in the backward)."""
     return _fused(spec, (x0, x1), (w0, w1), impl)
 
 
 def mamba_mixer_fused(
     spec: ScanSpec, x: torch.Tensor, w: MixerWeights, impl: str = "auto"
 ) -> torch.Tensor:
-    """One mixer, ``(B, L, h) -> (B, L, h)``, in one kernel call on CUDA tensors."""
+    """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel C on CUDA
+    tensors (and one of kernel D in the backward)."""
     return _fused(spec, (x,), (w,), impl)[0]

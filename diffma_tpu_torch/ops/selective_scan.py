@@ -1,4 +1,4 @@
-"""Selective scan (Mamba-1 SSM recurrence), forward.
+"""Selective scan (Mamba-1 SSM recurrence), forward and backward.
 
 Counterpart of ``diffma_tpu/ops/selective_scan.py``. The recurrence, per
 (g, channel):
@@ -11,17 +11,20 @@ Counterpart of ``diffma_tpu/ops/selective_scan.py``. The recurrence, per
 Shapes: u, delta, z (G, L, d); A (d, n); B, C (G, L, n); D (d,). The state
 and the arithmetic are fp32; the output has u's dtype.
 
-Two implementations, one signature:
+Two implementations of each direction, one signature each:
 
 * ``selective_scan_ref``: the plain PyTorch version, a loop over time. The
-  CPU path and the yardstick the kernel is held against.
-* ``selective_scan_cuda``: the hand-written CUDA kernel
+  CPU path and the yardstick the kernels are held against;
+  ``selective_scan_bwd_ref`` is autograd over it.
+* ``selective_scan_cuda``: the hand-written CUDA kernel A
   (``csrc/selective_scan_fwd.cu``), which replaces the TPU kernel
-  ``diffma_tpu/ops/selective_scan.py::_fwd_kernel``.
+  ``diffma_tpu/ops/selective_scan.py::_fwd_kernel``;
+  ``selective_scan_bwd_cuda`` is kernel B (``csrc/selective_scan_bwd.cu``),
+  which replaces ``_bwd_kernel``.
 
-``selective_scan(impl="auto")`` launches the kernel for CUDA tensors and takes
-the plain version for CPU tensors. Forward only: the backward kernel comes
-with training.
+``SelectiveScanFn`` joins them for autograd: forward through kernel A,
+backward through kernel B. ``selective_scan(impl="auto")`` takes it for CUDA
+tensors and the plain version (plain autograd) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,16 +38,26 @@ import torch.nn.functional as F
 
 from diffma_tpu_torch.ops import cuda_build
 
-__all__ = ["selective_scan", "selective_scan_ref", "selective_scan_cuda"]
+__all__ = [
+    "SelectiveScanFn",
+    "selective_scan",
+    "selective_scan_bwd_cuda",
+    "selective_scan_bwd_ref",
+    "selective_scan_cuda",
+    "selective_scan_ref",
+]
 
 _KERNEL_SOURCE = "selective_scan_fwd"
+_BWD_SOURCE = "selective_scan_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_D_STATE = (16,)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) without overflow, as jax.nn.softplus computes it."""
-    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+    """log(1 + exp(x)) without overflow, as jax.nn.softplus computes it:
+    logaddexp(x, 0). Its gradient is sigmoid(x) everywhere, x = 0 included,
+    where max(x, 0) + log1p(exp(-|x|)) would give autograd 1."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def selective_scan_ref(
@@ -154,6 +167,93 @@ def selective_scan_cuda(
 selective_scan_cuda.launches = 0
 
 
+def selective_scan_bwd_ref(u, delta, A, B, C, D, z, g):
+    """The scan's backward by autograd over ``selective_scan_ref``, in fp32.
+
+    Returns ``(du, ddelta, dA, dB, dC, dD, dz)`` in fp32, as the JAX launcher
+    ``_selective_scan_pallas_bwd_impl`` does: dA is (d, n), dD (d,), and dz is
+    None when the scan is ungated.
+    """
+    leaves = [t.detach().float().requires_grad_() for t in (u, delta, A, B, C, D)]
+    if z is not None:
+        leaves.append(z.detach().float().requires_grad_())
+    with torch.enable_grad():
+        out = selective_scan_ref(*leaves[:6], leaves[6] if z is not None else None)
+        grads = torch.autograd.grad(out, leaves, g.float())
+    return (*grads[:6], grads[6] if z is not None else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fn():
+    lib = cuda_build.load(_BWD_SOURCE)
+    fn = lib.selective_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size = lib.selective_scan_bwd_workspace_floats
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g):
+    """Launch kernel B on the current stream; returns what
+    ``selective_scan_bwd_ref`` returns, fp32 throughout.
+
+    The kernel writes dA and dD per sequence g; they are summed over g here,
+    as the JAX launcher sums them outside its kernel. Raises on inputs the
+    kernel does not take; ``selective_scan_bwd_cuda.launches`` counts the
+    launches.
+    """
+    _check_kernel_inputs(u, delta, A, B, C, D, z)
+    G, L, d = u.shape
+    n = A.shape[1]
+    if tuple(g.shape) != (G, L, d) or g.dtype != u.dtype or g.device != u.device:
+        raise ValueError(f"g must be {u.dtype} of shape {(G, L, d)} on {u.device}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    fn, size_fn = _bwd_kernel_fn()
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddelta = torch.empty(G, L, d, **f32), torch.empty(G, L, d, **f32)
+    dz = torch.empty(G, L, d, **f32) if z is not None else None
+    dB, dC = torch.empty(G, L, n, **f32), torch.empty(G, L, n, **f32)
+    dA_part, dD_part = torch.empty(G, d, n, **f32), torch.empty(G, d, **f32)
+    workspace = torch.empty(size_fn(G, L, d, n), **f32)
+    err = fn(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        D.data_ptr(), z.data_ptr() if z is not None else None, g.data_ptr(),
+        du.data_ptr(), ddelta.data_ptr(), dz.data_ptr() if dz is not None else None,
+        dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(), dD_part.data_ptr(),
+        workspace.data_ptr(), G, L, d, n, _DTYPE_CODE[u.dtype],
+        _DTYPE_CODE[delta.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd launch failed: error {err}")
+    selective_scan_bwd_cuda.launches += 1
+    return du, ddelta, dA_part.sum(0), dB, dC, dD_part.sum(0), dz
+
+
+selective_scan_bwd_cuda.launches = 0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan with kernel A forward and kernel B backward. Saves only the
+    inputs, as the JAX custom VJP does; the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z):
+        ctx.save_for_backward(u, delta, A, B, C, D, z)
+        return selective_scan_cuda(u, delta, A, B, C, D, z)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, A, B, C, D, z = ctx.saved_tensors
+        grads = selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g.contiguous())
+        return tuple(
+            None if gr is None else gr.to(x.dtype)
+            for gr, x in zip(grads, (u, delta, A, B, C, D, z))
+        )
+
+
 def selective_scan(
     u: torch.Tensor,
     delta: torch.Tensor,
@@ -166,14 +266,15 @@ def selective_scan(
 ) -> torch.Tensor:
     """Selective scan with a chosen implementation.
 
-    ``impl="auto"`` launches the kernel for CUDA tensors and runs the plain
-    version for CPU tensors; ``"kernel"`` always launches the kernel (and
-    raises on CPU tensors); ``"ref"`` always runs the plain version.
+    ``impl="auto"`` takes ``SelectiveScanFn`` (kernels A and B) for CUDA
+    tensors and runs the plain version for CPU tensors; ``"kernel"`` always
+    takes the kernels (and raises on CPU tensors); ``"ref"`` always runs the
+    plain version. Either way the result carries its gradient.
     """
     if impl == "auto":
         impl = "kernel" if u.device.type == "cuda" else "ref"
     if impl == "ref":
         return selective_scan_ref(u, delta, A, B, C, D, z)
     if impl == "kernel":
-        return selective_scan_cuda(u, delta, A, B, C, D, z)
+        return SelectiveScanFn.apply(u, delta, A, B, C, D, z)
     raise ValueError(f"unknown impl: {impl!r}")

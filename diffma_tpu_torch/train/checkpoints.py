@@ -1,13 +1,15 @@
-"""Read reference DiffMa checkpoints into the port's model.
+"""DiffMa checkpoints in the reference's torch layout: write and read.
 
-Counterpart of ``find_model`` and ``load_diffma_params`` in
-``diffma_tpu/train/checkpoints.py``. Upstream's trainer saves a torch pickle
-``{"model": sd, "ema": sd, "opt": ..., "args": ...}`` (its train.py), whose
-state dicts carry upstream's key names, a ``module.`` prefix when the model
-was wrapped in DDP, and the fixed ``pos_embed`` buffer. The port keeps those
-key names, so loading is a strict ``load_state_dict`` after the prefix and
-``pos_embed`` are dropped. The JAX package's Orbax directories are not read:
-their conversion is queued.
+Counterpart of ``save_checkpoint``, ``find_model`` and ``load_diffma_params``
+in ``diffma_tpu/train/checkpoints.py``. Upstream's trainer saves a torch
+pickle ``{"model": sd, "ema": sd, "opt": ..., "args": ...}`` (its train.py)
+as ``checkpoints/<step:07d>.pt``, whose state dicts carry upstream's key
+names, a ``module.`` prefix when the model was wrapped in DDP, and the fixed
+``pos_embed`` buffer. The port keeps those key names and writes that layout,
+so loading is a strict ``load_state_dict`` after the prefix and ``pos_embed``
+are dropped, and a checkpoint the port's trainer wrote is sampled by
+``train/sample.py --ckpt``. The JAX package's Orbax directories are neither
+written nor read: their conversion is queued.
 """
 
 from __future__ import annotations
@@ -19,7 +21,16 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-__all__ = ["find_model", "load_diffma_checkpoint"]
+__all__ = ["find_model", "load_diffma_checkpoint", "save_checkpoint"]
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any]) -> str:
+    """Write ``tree`` (``model``, ``ema``, ``opt`` and ``args``: tensors,
+    containers and plain values only) to ``<ckpt_dir>/<step:07d>.pt``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{step:07d}.pt")
+    torch.save(tree, path)
+    return path
 
 
 def find_model(path: str, load_ckpt_type: str = "ema") -> Dict[str, Any]:

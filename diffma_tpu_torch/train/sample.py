@@ -98,6 +98,7 @@ def load_model(cfg, device="cuda"):
         dt_rank=int(cfg.get("dt_rank", 16)),
         d_state=int(cfg.get("d_state", 16)),
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
+        **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     ckpt_path = cfg.get("ckpt")
     if ckpt_path and os.path.exists(str(ckpt_path)):

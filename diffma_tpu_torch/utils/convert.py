@@ -10,6 +10,10 @@ port's modules, with upstream key names. Layout changes:
 * The Mamba ``conv1d_weight`` is (d_in, K); the depthwise Conv1d weight is
   (d_in, 1, K).
 * Flax ``Conv`` kernels are HWIO; torch Conv2d weights OIHW.
+
+The mapping changes layouts only, so it applies to a tree of JAX gradients as
+well (``jax.grad`` of the same parameters) and gives them the port's
+parameter names; the tests compare the two packages' gradients that way.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Kernel A (the selective scan) and kernel C (the fused Mamba-1 mixer) are held
-against their plain versions at the sampler's widths; kernel C's tolerance is
-max |err| <= 1e-4 * max(1, max |ref|), since its fp32 sums over K = 1024 run in
-another order than cuBLAS's.
+Kernels A and B (the selective scan, forward and backward) and kernels C and
+D (the fused Mamba-1 mixer, forward and backward) are held against their
+plain versions at the model's widths; kernel C's tolerance is max |err| <=
+1e-4 * max(1, max |ref|), since its fp32 sums over K = 1024 run in another
+order than cuBLAS's. Gradients, from B, D and the autograd Functions, are
+held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
+(``tests/test_selective_scan.py``).
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. The file imports
 neither JAX nor ``diffma_tpu``, so it also runs on a machine without them:
@@ -21,12 +24,16 @@ from diffma_tpu_torch.models.mamba import Mamba
 from diffma_tpu_torch.ops.fused_mixer import (
     mamba_dual_mixer_fused,
     mamba_mixer_fused,
+    mixer_bwd_ref,
+    mixer_fused_bwd_cuda,
     mixer_fused_cuda,
     mixer_ref,
 )
 from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 from diffma_tpu_torch.ops.selective_scan import (
     selective_scan,
+    selective_scan_bwd_cuda,
+    selective_scan_bwd_ref,
     selective_scan_cuda,
     selective_scan_ref,
 )
@@ -208,3 +215,104 @@ def test_fused_block_matches_pallas_block(cuda):
         want = block(x, c, w)
     torch.cuda.synchronize()
     _assert_close_to_ref(got, want)
+
+
+GRAD_TOL = 2e-4
+
+
+def _assert_grad_close(got, want, name):
+    tol = GRAD_TOL * max(1.0, want.abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.shape == want.shape and torch.isfinite(got).all(), name
+    assert err <= tol, f"{name}: max |err| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize(
+    "G,L,dtype,delta_dtype,gated",
+    [(3, 196, torch.float32, None, True), (2, 13, torch.float32, None, False),
+     (2, 197, torch.float32, None, True), (2, 67, torch.bfloat16, torch.float32, True)],
+)
+def test_scan_bwd_kernel_matches_plain(cuda, G, L, dtype, delta_dtype, gated):
+    u, delta, A, B, C, D, z = _inputs(cuda, G, L, 256, 16, dtype, delta_dtype)
+    z = z if gated else None
+    g = torch.randn(G, L, 256, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
+    got = selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g)
+    want = selective_scan_bwd_ref(u, delta, A, B, C, D, z, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz"), got, want):
+        if b is None:
+            assert a is None
+        else:
+            _assert_grad_close(a, b, name)
+
+
+def test_scan_autograd_matches_plain_autograd(cuda):
+    """SelectiveScanFn (kernels A and B) gives the inputs the gradients that
+    plain autograd through the plain scan gives them."""
+    x = _inputs(cuda, 2, 50, 64, 16, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in x]
+    refs = [t.clone().requires_grad_() for t in x]
+    out = selective_scan(*leaves, impl="kernel")
+    assert out.grad_fn is not None
+    g = torch.randn_like(out)
+    before = selective_scan_bwd_cuda.launches
+    out.backward(g)
+    assert selective_scan_bwd_cuda.launches == before + 1
+    selective_scan(*refs, impl="ref").backward(g)
+    for name, a, b in zip("u delta A B C D z".split(), leaves, refs):
+        _assert_grad_close(a.grad, b.grad, name)
+
+
+@pytest.mark.parametrize(
+    "family,grid_n,layer,batch",
+    [("spiral", 14, 0, 2), ("spiral", 14, 3, 1), ("spiral", 5, 1, 2),
+     ("zig", 14, 2, 1), ("vmamba", 14, 0, 1)],  # 3, 1 and 4 streams
+)
+def test_fused_mixer_bwd_matches_plain(cuda, family, grid_n, layer, batch):
+    spec = build_scan_spec(family, grid_n, layer)
+    m0, m1 = _mixers(cuda, spec, seed=layer)
+    L = grid_n * grid_n
+    xs = [_x(cuda, L, 20 + i, batch) for i in range(2)]
+    gs = [_x(cuda, L, 30 + i, batch) for i in range(2)]
+    ws = [m0.weights(), m1.weights()]
+    for M in (2, 1):
+        gxs, grads = mixer_fused_bwd_cuda(spec, xs[:M], gs[:M], ws[:M])
+        torch.cuda.synchronize()
+        for m in range(M):
+            gx_ref, gw_ref = mixer_bwd_ref(spec, xs[m], gs[m], ws[m])
+            _assert_grad_close(gxs[m], gx_ref, f"M={M} gx{m}")
+            for name, a, b in zip(gw_ref._fields, grads[m], gw_ref):
+                _assert_grad_close(a, b, f"M={M} w{m}.{name}")
+
+
+def test_fused_autograd_gives_mixer_weights_their_gradients(cuda):
+    """The repaired fault: through kernel C, every mixer weight gets the
+    gradient plain autograd gives it, and the input too."""
+    spec = build_scan_spec("spiral", 14, 3)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec), 5).to(cuda)
+    gen = torch.Generator().manual_seed(6)
+    x = _x(cuda, 196, 7, batch=2)
+    c = torch.randn(2, 2 * HIDDEN, generator=gen).to(cuda)
+    w = torch.sigmoid(torch.randn(2, 196, 1, generator=gen)).to(cuda)
+    g = torch.randn(2, 196, HIDDEN, generator=gen).to(cuda)
+    grads = {}
+    for impl in ("fused", "ref"):
+        block.zero_grad()
+        block.scan_impl = impl
+        xi = x.clone().requires_grad_()
+        calls = mixer_fused_bwd_cuda.launches
+        block(xi, c, w).backward(g)
+        assert mixer_fused_bwd_cuda.launches == calls + (impl == "fused")
+        grads[impl] = {"x": xi.grad, **{k: p.grad for k, p in block.named_parameters()}}
+    for name, want in grads["ref"].items():
+        got = grads["fused"][name]
+        assert got is not None, f"{name} got no gradient through the kernels"
+        _assert_grad_close(got, want, name)
+
+
+def test_fused_backward_rejects_what_is_not_ported(cuda):
+    w = _mixers(cuda, build_scan_spec("spiral", 4, 0), seed=0, count=1)[0].weights()
+    x = _x(cuda, 16, 0)
+    for family, match in (("vim", "vim"), ("eff", "partition")):
+        with pytest.raises(NotImplementedError, match=match):
+            mixer_fused_bwd_cuda(build_scan_spec(family, 4, 0), (x,), (x,), (w,))

@@ -1,11 +1,13 @@
 """The port's fused Mamba-1 mixer against the JAX package's, on the CPU.
 
-On the JAX side the fused mixer runs kernel C (``_mixer_kernel``) in
-interpret mode, as ``tests/test_fused_mixer.py`` runs it; on the port's side
-CPU tensors take kernel C's plain version, ``mixer_ref``. Inputs come from
-numpy with fixed seeds. Bars: 2e-5 with inputs at the scales of
-``tests/test_fused_mixer.py::_args`` (that file's bar), 2e-4 with parameter
-trees put through ``randomize`` (the composable mixer test's bar).
+On the JAX side the fused mixer runs kernel C (``_mixer_kernel``) and its
+backward kernel D (``_mixer_bwd_kernel``, through ``_monolithic_bwd``) in
+interpret mode, as ``tests/test_fused_mixer.py`` runs them; on the port's
+side CPU tensors take the plain versions, ``mixer_ref`` and
+``mixer_bwd_ref``. Inputs come from numpy with fixed seeds. Bars: 2e-5 with
+inputs at the scales of ``tests/test_fused_mixer.py::_args`` (that file's
+bar), 2e-4 for gradients and with parameter trees put through ``randomize``
+(the composable mixer test's bar).
 """
 
 import jax
@@ -175,3 +177,60 @@ def test_unknown_scan_impl_raises():
         mixer(torch.zeros(1, 16, 32))
     model.set_scan_impl("fused")
     assert {m.scan_impl for m in model.modules() if hasattr(m, "scan_impl")} == {"fused"}
+
+
+def _grad_case(L, M, seed, h=16, d=32, n=4):
+    ws = [_weights(seed + m, h=h, d=d, n=n) for m in range(M)]
+    xs = [_x(L, seed + 10 + m, h=h) for m in range(M)]
+    gs = [_x(L, seed + 20 + m, h=h) for m in range(M)]
+    return ws, xs, gs
+
+
+def _assert_mixer_grads(spec_t, ws, xs, gs, want_gx, want_w):
+    """``mixer_bwd_ref`` against JAX's gradients (JAX weight layout), with
+    A's gradient carried to A_log through A = -exp(A_log)."""
+    for m, (w, x, g) in enumerate(zip(ws, xs, gs)):
+        gx, gw = fused_mixer.mixer_bwd_ref(spec_t, torch.from_numpy(x), torch.from_numpy(g),
+                                           _torch_weights(w))
+        np.testing.assert_allclose(gx.numpy(), want_gx[m], rtol=2e-4, atol=2e-4)
+        jw = {k: np.asarray(v[m]) for k, v in want_w.items()}
+        jw["A_log"] = jw.pop("A") * w["A"]
+        for name, got in zip(fused_mixer.MixerWeights._fields, gw):
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(_torch_weights({**w, **jw})._asdict()[name]),
+                rtol=2e-4, atol=2e-4, err_msg=name,
+            )
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("grid_n,layer", [(4, 3), (5, 0)])
+def test_mixer_bwd_matches_jax_monolithic(grid_n, layer, stacked):
+    """The plain backward against JAX's monolithic backward (kernel D in
+    interpret mode), one mixer or both branches stacked."""
+    spec_j, spec_t = jax_spec("spiral", grid_n, layer), build_scan_spec("spiral", grid_n, layer)
+    M = 2 if stacked else 1
+    ws, xs, gs = _grad_case(grid_n * grid_n, M, seed=layer)
+    if stacked:
+        args = [jnp.stack([w[k] for w in ws]) for k in JAX_ORDER]
+        out = jax_fused._monolithic_bwd(spec_j, jnp.stack(xs), jnp.stack(gs), *args, stacked=True)
+    else:
+        out = jax_fused._monolithic_bwd(spec_j, xs[0], gs[0], *(ws[0][k] for k in JAX_ORDER))
+        out = [o[None] for o in out]
+    want_w = dict(zip(JAX_ORDER, out[1:]))
+    _assert_mixer_grads(spec_t, ws, xs, gs, np.asarray(out[0]), want_w)
+
+
+def test_a_log_gradient_through_the_fused_vjp_matches_jax():
+    """JAX's gradient of the fused mixer's A_log, through its custom VJP and
+    A = -exp(A_log) outside the kernel, equals the port's."""
+    spec_j, spec_t = jax_spec("spiral", 4, 1), build_scan_spec("spiral", 4, 1)
+    (w,), (x,), (g,) = _grad_case(16, 1, seed=40)
+
+    def f(A_log):
+        args = [w[k] if k != "A" else -jnp.exp(A_log) for k in JAX_ORDER]
+        return jnp.sum(jax_fused.mamba_mixer_fused(spec_j, jnp.asarray(x), *args) * g)
+
+    want = np.asarray(jax.grad(f)(jnp.asarray(w["A_log"])))
+    _, gw = fused_mixer.mixer_bwd_ref(spec_t, torch.from_numpy(x), torch.from_numpy(g),
+                                      _torch_weights(w))
+    np.testing.assert_allclose(gw.A_log.numpy(), want, rtol=2e-4, atol=2e-4)
