@@ -12,12 +12,18 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    mixer) each against its plain PyTorch version on the card, at the shapes
    the DiffMa-B/2 sampler gives them (2a, 2b), and their backward kernels B
    and D against theirs at the training shapes, batch 8 (2c, 2d), with times
-   and bounds;
+   and bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
+   modes, 196 and 25 tokens, a finite dt_limit, a wide decay span) and
+   kernel G (the Spiral block's tail) against theirs, and the Mamba-2 block
+   on its three routes (2e, 2f);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
    (``scan_impl="fused"``), with the same random weights; 3b: one
    full-width DiffMa-B/2 training step (loss and every parameter's gradient)
    through the plain path, through kernels A + B and through kernels C + D;
+   3c: the Mamba-2 DiffMa-B/2 forward on its three routes (composable, dual
+   kernel E, ``fuse_block``: kernel E in prologue mode + kernel G), with
+   the device kernels per forward and the idle share of each;
 4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
    ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
    1 batch of 1 image, synthetic conditioning;
@@ -29,7 +35,15 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    checkpoint at step 20 that the sampler's loader reads back;
 8. composable trainer: DiffMa-B/2, batch 8, 5 steps through kernels A + B;
 9. learning: DiffMa-B/2 on the fused path trained 100 steps on one fixed
-   batch; the loss's MSE term at a fixed (t, noise) must fall at least 2x.
+   batch; the loss's MSE term at a fixed (t, noise) must fall at least 2x;
+10. Mamba-2 sampler: the sampler's CLI on ``configs/brain.yaml`` with
+    ``--model DiffMa-B/2 --use-mamba2`` and a reference-format checkpoint of
+    seeded weights, DDPM-250, 2 batches of 1 on the default (fused) route:
+    2000 kernel E calls per image;
+11. block-fused Mamba-2 sampler: the same checkpoint loaded into a model
+    built with ``fuse_block=True`` and handed to the sampler's loop, same
+    seed, 1 batch: 2000 kernel E and 2000 kernel G calls, and an image that
+    agrees with phase 10's first.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -66,6 +80,11 @@ TOL_BF16 = 2e-2  # rtol = atol, compared in fp32; the output is rounded to bf16
 # gradients through 8 blocks: TOL_MODEL, the forward phase's bar.
 TOL_GRAD = 2e-4
 TOL_MODEL = 1e-3
+# Two routes of one model through a whole DDPM-250 chain and the VAE decoder,
+# same seed and weights: max |diff| <= TOL_IMAGE * max(1, max |image|). Each
+# forward agrees to fp32 rounding (TOL_MODEL holds it); 250 steps feed the
+# differences back in.
+TOL_IMAGE = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -207,10 +226,12 @@ def phase_kernels(card: str) -> dict:
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
+    from diffma_tpu_torch.ops.fused_ssd import spiral_epilogue_cuda, ssd_mixer_fused_cuda
     from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
 
     return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
-            "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda}
+            "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda,
+            "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda}
 
 
 def reset_counts() -> None:
@@ -531,6 +552,267 @@ def phase_mixer_bwd(card: str) -> dict:
     }
 
 
+def close_to_ref(what: str, got, want, tol: float = TOL_FP32) -> float:
+    """max |got - want|, held to ``tol * max(1, max |want|)``; fails on a
+    shape, a non-finite value or an error over the bar."""
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: wrong shape {tuple(got.shape)} or a non-finite value")
+    err = (got - want).abs().max().item()
+    bar = tol * max(1.0, want.abs().max().item())
+    if err > bar:
+        fail(f"{what}: max |err| {err:.3e} over its bar {bar:.1e}")
+    return err
+
+
+def ssd_mixer_bound_ms(M, B, L, h, d, n, H, S, K, prologue=False) -> tuple[float, str]:
+    """Least time for one fused-SSD-mixer call of M branches on an H100: the
+    weights, x, out and the index table moved once over the HBM rate, or the
+    operations over fp32: in_proj, the conv, per stream C . B^T on the causal
+    pairs (once, it is the same for every head) and per head and causal pair
+    the decay (exp, two products) and the 2 * headdim of the product with
+    dt * x, then gate, norm and merge (about 8 per channel and stream row),
+    out_proj, and in prologue mode LayerNorm and modulation (about 10 per
+    input element)."""
+    tokens, rows = B * L, B * S * L
+    dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
+    pairs = B * S * L * (L + 1) // 2
+    ops = M * (
+        2 * tokens * h * dproj  # in_proj
+        + rows * conv_dim * 2 * K  # conv
+        + pairs * 2 * n  # C . B^T
+        + pairs * H * (3 + 2 * hd)  # decay and the product with dt * x
+        + rows * d * 8  # D skip, gate, norm, merge
+        + 2 * tokens * d * h  # out_proj
+    ) + (10 * tokens * h if prologue else 0)
+    weights = dproj * h + conv_dim * K + conv_dim + 3 * H + d + h * d
+    x_bytes = (tokens * h + tokens + 2 * h + 2 * B * h) if prologue else M * tokens * h
+    nbytes = 4 * (M * weights + x_bytes + M * tokens * h) + S * L * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def epilogue_bound_ms(B, L, h) -> tuple[float, str]:
+    """Least time for one call of the Spiral block's tail on an H100: o0, o1,
+    x and the weights read and out written once over the HBM rate, or the
+    operations over fp32: the 2h -> h product, about 8 per concat element for
+    the LayerNorm, and about 12 per output element for the SiLU, the h -> 1
+    product, the mix and the residual."""
+    rows = B * L
+    ops = 2 * rows * 2 * h * h + rows * 2 * h * 8 + rows * h * 12
+    nbytes = 4 * (4 * rows * h + B * h + 2 * h * h + 4 * h + h + h + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mamba2_mixers(spec, seed: int, wide: bool = False):
+    """Two Mamba-2 mixers at DiffMa's width on the card, every parameter off
+    its init. ``wide``: decay rates from 1 to 16 and dt above 1, so that each
+    head's span of dt * A over the sequence is in the hundreds or thousands,
+    far beyond what exp can hold."""
+    import torch
+
+    from diffma_tpu_torch.models.mamba2 import Mamba2
+
+    mixers = [random_(Mamba2(512, spec), seed + i) for i in range(2)]
+    if wide:
+        with torch.no_grad():
+            for m in mixers:
+                m.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, m.A_log.numel())))
+                m.dt_bias.fill_(1.0)
+    return [m.cuda().eval() for m in mixers]
+
+
+def block_inputs(L: int, seed: int, batch: int, h: int = 512):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, L, h, generator=gen).cuda()
+    c = torch.randn(batch, 2 * h, generator=gen).cuda()
+    w = torch.sigmoid(torch.randn(batch, L, 1, generator=gen)).cuda()
+    return x, c, w
+
+
+def phase_fused_ssd(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.layers import modulate
+    from diffma_tpu_torch.ops.fused_ssd import (
+        Prologue,
+        mamba2_dual_mixer_fused,
+        mamba2_mixer_fused,
+        ssd_mixer_fused_cuda,
+        ssd_mixer_ref,
+    )
+    from diffma_tpu_torch.ops.norm import layer_norm
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2e: kernel E (fused Mamba-2 mixer) against its plain version on the card",
+          flush=True)
+    h = 512  # DiffMa's width: d_inner 1024, d_state 16, 16 heads of 64
+    no_limit = (0.0, float("inf"))
+    path_err = None
+    cases = [
+        # grid, layer, batch, dt_limit, wide span
+        (14, 0, 1, no_limit, False), (14, 3, 8, no_limit, False), (5, 0, 2, no_limit, False),
+        (14, 1, 1, (0.01, 0.05), False), (14, 2, 1, no_limit, True),
+    ]
+    for grid_n, layer, batch, dt_limit, wide in cases:
+        spec = build_scan_spec("spiral", grid_n, layer)
+        L = grid_n * grid_n
+        m0, m1 = mamba2_mixers(spec, 10 * layer, wide)
+        w0, w1 = m0.weights(), m1.weights()
+        x0, c, wmask = block_inputs(L, layer, batch)
+        x1 = x0 * wmask
+        gen = torch.Generator(device="cuda").manual_seed(layer)
+        ln_w = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+        ln_b = 0.1 * torch.randn(h, generator=gen, device="cuda")
+        shift, scale = (0.3 * c).chunk(2, dim=-1)  # rows a stride apart, as adaLN's chunks
+        with torch.no_grad():
+            want = [ssd_mixer_ref(spec, x, w, dt_limit) for x, w in ((x0, w0), (x1, w1))]
+            xm = modulate(layer_norm(x0, ln_w, ln_b, eps=1e-5), shift, scale)
+            want_pro = [ssd_mixer_ref(spec, xm, w0, dt_limit),
+                        ssd_mixer_ref(spec, xm * wmask, w1, dt_limit)]
+            got = {
+                "dual": (mamba2_dual_mixer_fused(spec, x0, x1, w0, w1, dt_limit), want),
+                "single": ((mamba2_mixer_fused(spec, x1, w1, dt_limit),), want[1:]),
+                "prologue": (ssd_mixer_fused_cuda(
+                    spec, (x0,), (w0, w1), dt_limit,
+                    prologue=Prologue(wmask, ln_w, ln_b, shift, scale)), want_pro),
+            }
+        torch.cuda.synchronize()
+        span = max((torch.nn.functional.softplus(
+            torch.nn.functional.linear(x0, w.in_w)[..., -16:] + w.dt_bias).sum(1)
+            * torch.exp(w.A_log)).max().item() for w in (w0, w1))
+        tag = (f"spiral layer {layer}: B={batch} L={L} h={h} d=1024 H=16 n=16 "
+               f"dt_limit={dt_limit} max span of dt*|A| {span:.0f}")
+        for mode, (outs, refs) in got.items():
+            err = max(close_to_ref(f"fused SSD mixer, {mode}, {tag}", o, r)
+                      for o, r in zip(outs, refs))
+            bar = TOL_FP32 * max(1.0, max(r.abs().max().item() for r in refs))
+            print(f"  {mode}, {tag}  max|err| {err:.3e}  (tol {bar:.1e})")
+            if path_err is None:
+                path_err = err
+        if wide and span < 200:
+            fail(f"the wide-span case has a span of only {span:.0f}")
+
+    spec = build_scan_spec("spiral", 14, 0)
+    m0, m1 = mamba2_mixers(spec, 100)
+    w0, w1 = m0.weights(), m1.weights()
+    x0, c, wmask = block_inputs(196, 100, 1)
+    x1 = x0 * wmask
+    pro = Prologue(wmask, torch.ones_like(c[0, :h]), torch.zeros_like(c[0, :h]),
+                   *(0.3 * c).chunk(2, dim=-1))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mamba2_dual_mixer_fused(spec, x0, x1, w0, w1), reps=50)
+        pro_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, (x0,), (w0, w1), prologue=pro),
+                         reps=50)
+        plain_ms = cuda_ms(lambda: (ssd_mixer_ref(spec, x0, w0), ssd_mixer_ref(spec, x1, w1)),
+                           reps=10)
+        pair_ms = cuda_ms(lambda: (m0(x0), m1(x1)), reps=10)  # scan_impl "auto"
+    bound_ms, bound_by = ssd_mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
+    pro_bound_ms, _ = ssd_mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, H=16, S=3, K=4,
+                                         prologue=True)
+    print(f"  [{card}] ssd_mixer_fwd fp32, both branches, B=1 L=196 h=512 d=1024: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}); prologue mode {pro_ms:.4f} ms, bound {pro_bound_ms * 1e3:.2f} us")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer")
+    print(f"  [{card}] yardstick: the composable pair (two Mamba2.forward with "
+          f"scan_impl='auto': torch operators and cuBLAS, the plain version's own path, "
+          f"same weights) {pair_ms:.4f} ms")
+    return {
+        "name": "ssd_mixer_fwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_ssd_fwd.cu",
+        "replaces": "diffma_tpu/ops/fused_ssd.py:174",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_spiral_epilogue(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+    from diffma_tpu_torch.ops.fused_ssd import spiral_epilogue_cuda, spiral_epilogue_ref
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2f: kernel G (the Spiral block's tail) against its plain version, and the "
+          "Mamba-2 block on its three routes", flush=True)
+    h = 512
+    path_err = None
+    for grid_n, layer, batch in ((14, 0, 1), (14, 3, 8), (5, 1, 2)):
+        spec = build_scan_spec("spiral", grid_n, layer)
+        L = grid_n * grid_n
+        block = random_(SpiralMambaBlock(h, spec, use_mamba2=True), 30 + layer).cuda().eval()
+        x, c, w = block_inputs(L, 30 + layer, batch)
+        o0, o1 = (block_inputs(L, seed + layer, batch)[0] for seed in (40, 50))
+        an, fc1, _, fc2 = block.attention_network
+        with torch.no_grad():
+            gate = block.adaLN_modulation(c).chunk(3, dim=-1)[2]
+            tail = (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight,
+                    fc2.bias)
+            err = close_to_ref(f"spiral epilogue, B={batch} L={L}", spiral_epilogue_cuda(*tail),
+                               spiral_epilogue_ref(*tail))
+            routes = {}
+            for route, impl, fuse in (("two composable mixers", "auto", False),
+                                      ("dual kernel E", "fused", False),
+                                      ("fuse_block: E prologue + G", "fused", True)):
+                block.scan_impl = block.mamba1.scan_impl = block.mamba2.scan_impl = impl
+                block.fuse_block = fuse
+                reset_counts()
+                routes[route] = block(x, c, w)
+                counts = {k: v.launches for k, v in kernel_counters().items() if v.launches}
+                expect = {"auto": {}, "fused": {"ssd_mixer_fwd": 1}}[impl] | (
+                    {"spiral_epilogue": 1} if fuse else {})
+                if counts != expect:
+                    fail(f"the block's route '{route}' launched {counts}, not {expect}")
+        torch.cuda.synchronize()
+        want = routes.pop("two composable mixers")
+        errs = {r: close_to_ref(f"Mamba-2 block, {r}, B={batch} L={L}", got, want)
+                for r, got in routes.items()}
+        print(f"  spiral layer {layer}: B={batch} L={L} h={h}  kernel G max|err| {err:.3e}; "
+              f"block against its composable route: "
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+              + f"  (tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
+        if path_err is None:
+            path_err = err
+
+    spec = build_scan_spec("spiral", 14, 0)
+    block = random_(SpiralMambaBlock(h, spec, use_mamba2=True), 300).cuda().eval()
+    x, c, _ = block_inputs(196, 300, 1)
+    o0, o1 = (block_inputs(196, seed, 1)[0] for seed in (301, 302))
+    an, fc1, _, fc2 = block.attention_network
+    with torch.no_grad():
+        gate = block.adaLN_modulation(c).chunk(3, dim=-1)[2]
+        tail = (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight,
+                fc2.bias)
+        ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
+        plain_ms = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
+    bound_ms, bound_by = epilogue_bound_ms(B=1, L=196, h=h)
+    print(f"  [{card}] spiral_epilogue fp32, B=1 L=196 h=512: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    print("  library_ms: none; no single PyTorch call computes the block's tail; the plain "
+          "version is the unfused tail in torch operators (cuBLAS), the yardstick")
+    return {
+        "name": "spiral_epilogue",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/spiral_epilogue.cu",
+        "replaces": "diffma_tpu/ops/fused_ssd.py:1131",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def phase_forward(card: str) -> None:
     import torch
 
@@ -628,6 +910,145 @@ def phase_train_step(card: str) -> None:
             fail(f"the training loss through {what} disagrees with the plain path's")
 
 
+def phase_mamba2_forward(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.utils.profiling import profile_denoiser
+
+    print("== phase 3c: full-width Mamba-2 DiffMa-B/2 forward: composable, dual kernel E, "
+          "fuse_block (kernel E prologue + kernel G)", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, 28, 28, generator=gen).cuda()
+    t = torch.tensor([500], device="cuda")
+    y = torch.randn(1, 512, generator=gen).cuda()
+    y2 = torch.randn(1, 196, 512, generator=gen).cuda()
+    w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).cuda()
+    inputs = (x, t, y, y2, w)
+
+    def build(use_mamba2):
+        model = build_model("DiffMa-B/2", input_size=28, use_mamba2=use_mamba2)
+        g = torch.Generator().manual_seed(1)
+        model.init_weights(g)
+        with torch.no_grad():
+            for p in model.parameters():  # every parameter random, adaLN included
+                p.add_(0.02 * torch.randn(p.shape, generator=g))
+        return model.cuda().eval()
+
+    model = build(True)
+    routes = (("composable", "auto", False, {}),
+              ("dual kernel E", "fused", False, {"ssd_mixer_fwd": 8}),
+              ("fuse_block", "fused", True, {"ssd_mixer_fwd": 8, "spiral_epilogue": 8}))
+    outs, reports = {}, {}
+    for route, impl, fuse, expect in routes:
+        model.set_scan_impl(impl)
+        for blk in model.blocks:
+            blk.fuse_block = fuse
+        reset_counts()
+        with torch.no_grad():
+            outs[route] = model(*inputs)
+        check_counts(f"the Mamba-2 forward, {route}",
+                     {name: expect.get(name, 0) for name in kernel_counters()})
+        reports[route] = profile_denoiser(model, inputs, calls=5)
+        with torch.no_grad():
+            reports[route]["event_ms"] = cuda_ms(lambda: model(*inputs), reps=10)
+    mamba1 = build(False).set_scan_impl("fused")
+    reports["Mamba-1 fused (kernel C)"] = profile_denoiser(mamba1, inputs, calls=5)
+    with torch.no_grad():
+        reports["Mamba-1 fused (kernel C)"]["event_ms"] = cuda_ms(lambda: mamba1(*inputs), reps=10)
+    want = outs.pop("composable")
+    scale = want.abs().max().item()
+    for route, got in outs.items():
+        if tuple(got.shape) != (1, 8, 28, 28):
+            fail(f"the Mamba-2 forward gave shape {tuple(got.shape)}")
+        err = close_to_ref(f"Mamba-2 DiffMa-B/2 forward, {route}", got, want, TOL_MODEL)
+        print(f"  out {tuple(got.shape)}  max|ref| {scale:.3f}  max|{route} - composable| "
+              f"{err:.3e}  (tol {TOL_MODEL * max(1.0, scale):.1e})")
+    for route, r in reports.items():
+        print(f"  [{card}] {route}: {r['event_ms']:.3f} ms per forward at batch 1 (CUDA events); "
+              f"under the profiler {r['ms_per_call']:.3f} ms wall, device busy "
+              f"{r['device_busy_ms_per_call']:.3f} ms, idle share {r['device_idle_share']:.3f}, "
+              f"{r['kernels_per_call']:.0f} device kernels per forward")
+
+
+def write_mamba2_checkpoint(path: str) -> dict:
+    """A reference-format checkpoint of a Mamba-2 DiffMa-B/2 whose every
+    parameter is seeded noise (std 0.3 / sqrt(fan-in), as phase 6's), so that
+    the blocks' gates are open and the mixers shape the image; returns the
+    state dict written."""
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+
+    model = build_model("DiffMa-B/2", input_size=28, use_mamba2=True)
+    model = random_(model.init_weights(torch.Generator().manual_seed(42)), 42, scale=0.3)
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    sd["module.pos_embed"] = model.pos_embed.reshape(1, 196, 512)  # upstream saves it too
+    torch.save({"model": sd, "ema": sd, "opt": {}, "args": None}, path)
+    return model.state_dict()
+
+
+def phase_mamba2_samplers(card: str) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import sample
+    from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
+
+    out_dir = os.path.join(ROOT, "result_sample")
+    os.makedirs(out_dir, exist_ok=True)
+    calls = 8 * 250  # blocks x steps: one kernel E call per block and step, per image
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "0050000.pt")
+        written = write_mamba2_checkpoint(path)
+
+        print("== phase 10: Mamba-2 sampler, CLI on configs/brain.yaml --model DiffMa-B/2 "
+              "--use-mamba2 from a checkpoint, DDPM-250, 2 batches of 1 (kernel E)", flush=True)
+        reset_counts()
+        dual = sample.cli([
+            "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--model", "DiffMa-B/2",
+            "--use-mamba2", "--ckpt", path, "--num-batches", "2",
+        ])
+        counts = check_counts("the Mamba-2 sampler", {name: 0 for name in kernel_counters()}
+                              | {"ssd_mixer_fwd": 2 * calls})
+        loaded = sample.load_model(
+            brain_config(model="DiffMa-B/2", use_mamba2=True, ckpt=path), "cuda")
+        for key, value in loaded.state_dict().items():
+            if not torch.equal(value.cpu(), written[key]):
+                fail(f"the sampler's model does not hold the checkpoint's {key}")
+        if loaded.blocks[0].scan_impl != "fused" or loaded.blocks[0].fuse_block:
+            fail("the Mamba-2 sampler's default route is not the dual fused one")
+
+        print("== phase 11: block-fused Mamba-2 sampler (fuse_block: kernel E prologue + "
+              "kernel G), same checkpoint and seed, 1 batch of 1", flush=True)
+        cfg = brain_config(
+            model="DiffMa-B/2", synthetic_data=True, sample_global_batch_size=1,
+            sample_num_steps=250, sample_num_batches=1,
+            save_dir=os.path.join(ROOT, "result_sample", "chip_smoke_fuse_block"),
+        )
+        model = build_model("DiffMa-B/2", input_size=28, scan_impl="fused", use_mamba2=True,
+                            fuse_block=True)
+        load_diffma_checkpoint(model, path, "ema")
+        reset_counts()
+        whole = sample.sample_batches(model.cuda().eval(), cfg, device="cuda")
+        counts |= {"spiral_epilogue": check_counts(
+            "the block-fused Mamba-2 sampler", {name: 0 for name in kernel_counters()}
+            | {"ssd_mixer_fwd": calls, "spiral_epilogue": calls})["spiral_epilogue"]}
+    check_images(card, "the Mamba-2 sampler", dual, 2)
+    check_images(card, "the block-fused Mamba-2 sampler", whole, 1)
+    a, b = dual[0]["images"], whole[0]["images"]
+    err, scale = float(np.abs(a - b).max()), float(np.abs(a).max())
+    bar = TOL_IMAGE * max(1.0, scale)
+    print(f"  first image, dual route against fuse_block, same seed: max |diff| {err:.3e} "
+          f"(max |image| {scale:.3f}, bar {bar:.1e}); image std {a.std():.4f}")
+    if err > bar:
+        fail(f"the two Mamba-2 routes' images differ by {err:.3e}, over the bar {bar:.1e}")
+    return counts
+
+
 def brain_config(**override):
     from diffma_tpu_torch.utils.config import load_config, merge
 
@@ -642,18 +1063,29 @@ def run_sampler(card: str, cfg, batches: int, expect: dict) -> list:
     reset_counts()
     results = sample.main(cfg, device="cuda")
     check_counts("the sampler", {name: expect.get(name, 0) for name in kernel_counters()})
+    check_images(card, "the sampler", results, batches)
+    return results
+
+
+def check_images(card: str, what: str, results: list, batches: int) -> None:
+    """``batches`` batches of one finite (1, 3, 224, 224) image each, whose
+    values vary and stay in the thousands (the VAE's weights are random, so
+    its range is its own); prints the seconds per batch."""
+    import numpy as np
+
+    if len(results) != batches:
+        fail(f"{what}: expected {batches} batches, got {len(results)}")
     for i, r in enumerate(results, start=1):
         img = r["images"]
         print(f"  batch {i}: images {img.shape}, {r['seconds']:.3f} s, "
               f"PSNR {r['quality']['psnr_db']:.2f} dB (random weights)")
-        if img.shape != (1, 3, 224, 224) or not math.isfinite(float(abs(img).max())):
-            fail(f"batch {i}: expected finite (1, 3, 224, 224) images, got {img.shape}")
-    if len(results) != batches:
-        fail(f"expected {batches} batches, got {len(results)}")
+        if img.shape != (1, 3, 224, 224) or not np.isfinite(img).all():
+            fail(f"{what}, batch {i}: expected finite (1, 3, 224, 224) images, got {img.shape}")
+        if float(np.abs(img).max()) > 1e3 or float(img.std()) == 0.0:
+            fail(f"{what}, batch {i}: image values out of range or constant")
     seconds = [r["seconds"] for r in results]
-    print(f"  [{card}] seconds per batch {', '.join(f'{x:.3f}' for x in seconds)}; "
+    print(f"  [{card}] {what}: seconds per batch {', '.join(f'{x:.3f}' for x in seconds)}; "
           f"images/s {len(seconds) / sum(seconds):.4f} over all, {1 / seconds[-1]:.4f} last")
-    return results
 
 
 def phase_sampler(card: str) -> int:
@@ -665,7 +1097,7 @@ def phase_sampler(card: str) -> int:
         save_dir=os.path.join(ROOT, "result_sample", "chip_smoke"),
     )
     expected = 2 * 8 * 250 * 1  # mixers x blocks x steps x batches
-    run_sampler(card, cfg, 1, {"selective_scan_fwd": expected, "mixer_fused_fwd": 0})
+    run_sampler(card, cfg, 1, {"selective_scan_fwd": expected})
     return expected
 
 
@@ -680,7 +1112,7 @@ def phase_fused_sampler(card: str) -> int:
     if "scan_impl" in cfg:
         fail("configs/brain.yaml sets scan_impl; this phase samples with the default")
     expected = 8 * 250 * 2  # blocks x steps x batches: one call per block
-    run_sampler(card, cfg, 2, {"selective_scan_fwd": 0, "mixer_fused_fwd": expected})
+    run_sampler(card, cfg, 2, {"mixer_fused_fwd": expected})
     return expected
 
 
@@ -880,17 +1312,22 @@ def main() -> int:
     mixer = phase_fused_mixer(card)
     scan_bwd = phase_scan_bwd(card)
     mixer_bwd = phase_mixer_bwd(card)
+    ssd = phase_fused_ssd(card)
+    epilogue = phase_spiral_epilogue(card)
     phase_forward(card)
     phase_train_step(card)
+    phase_mamba2_forward(card)
     scan["launches"] = phase_sampler(card)
     mixer["launches"] = phase_fused_sampler(card)
     phase_checkpoint(card)
     mixer_bwd["launches"] = phase_trainer(card)["mixer_fused_bwd"]
     scan_bwd["launches"] = phase_composable_trainer(card)["selective_scan_bwd"]
     phase_learning(card)
+    counts = phase_mamba2_samplers(card)
+    ssd["launches"], epilogue["launches"] = counts["ssd_mixer_fwd"], counts["spiral_epilogue"]
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd]}))
+    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -36,10 +36,10 @@
 // (mixer_fused_workspace_floats); at batch 1 it is 13 MB and stays in L2.
 // blockIdx.z selects the branch in every kernel, so both branches share each
 // launch.
-// 1. in_proj: a tiled GEMM (64 x 64 tiles, 16-deep k-slabs in shared memory,
-//    a 4 x 4 register tile per thread, the next slab loaded into registers
-//    during the products) over the B * L token rows; the ragged edge of L is
-//    masked. 4 x 32 tiles per branch at batch 1.
+// 1. in_proj: the tiled GEMM of gemm_nt.cuh (64 x 64 tiles, 16-deep k-slabs
+//    in shared memory, a 4 x 4 register tile per thread, the next slab loaded
+//    into registers during the products) over the B * L token rows; the
+//    ragged edge of L is masked. 4 x 32 tiles per branch at batch 1.
 //    Each thread resolves its tile rows into pointers once, before the
 //    k-loop, so the loop's loads need no index arithmetic, and no load in a
 //    loader waits on another: a chain of dependent loads outlasts the
@@ -68,6 +68,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_nt.cuh"
 
 namespace {
 
@@ -113,10 +115,10 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-// Each GEMM stage computes c[row, col] = sum_k a(row, k) * w[col, k] for one
-// branch: w is a torch Linear weight (cols, depth), row-major. A thread's
-// rows stay the same over the k-loop, so it resolves each into a Row (the
-// pointers its loads need) once, before the loop.
+// The stages of gemm_nt.cuh's GEMM: c[row, col] = sum_k a(row, k) * w[col, k]
+// for one branch, w a torch Linear weight (cols, depth), row-major. A thread
+// resolves each of its rows into a Row (the pointers its loads need) once,
+// before the k-loop.
 
 struct InProj {  // xz = x . W_in^T
   struct Row {
@@ -230,104 +232,6 @@ struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
   }
 };
 
-// Tiled fp32 GEMM over one branch (blockIdx.z). Thread (tx, ty) owns rows
-// ty + i * (BM / TM) and columns tx + j * (BN / TN) of the tile, so that its
-// shared-memory reads of W are conflict-free and its stores coalesce. Each
-// thread loads its share of the next k-slab into registers while the block
-// multiplies the current one out of shared memory: elements tid + q * threads
-// of the slab, all at depth tid % BK.
-template <int BM, int BN, int BK, int TM, int TN, class Stage>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    gemm_nt_kernel(const Params p) {
-  constexpr int kThreads = (BM / TM) * (BN / TN);
-  constexpr int kRowStep = BM / TM;
-  constexpr int kColStep = BN / TN;
-  constexpr int kALoads = BM * BK / kThreads;
-  constexpr int kWLoads = BN * BK / kThreads;
-  constexpr int kSlabRows = kThreads / BK;  // rows a slab's pass of the block covers
-  static_assert(kThreads % BK == 0 && BM % kSlabRows == 0 && BN % kSlabRows == 0,
-                "each thread loads whole elements of a slab, at one depth");
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Ws[BK][BN + 1];
-
-  const Stage st(p, blockIdx.z);
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % kColStep;
-  const int ty = threadIdx.x / kColStep;
-  const int kk = threadIdx.x % BK;
-  const int r0 = threadIdx.x / BK;
-
-  typename Stage::Row arow[kALoads];
-  bool a_ok[kALoads];
-#pragma unroll
-  for (int q = 0; q < kALoads; ++q) {
-    const int row = row0 + r0 + q * kSlabRows;
-    a_ok[q] = row < st.rows;
-    arow[q] = st.row(a_ok[q] ? row : row0);
-  }
-  const float* wrow[kWLoads];
-  bool w_ok[kWLoads];
-#pragma unroll
-  for (int q = 0; q < kWLoads; ++q) {
-    const int col = col0 + r0 + q * kSlabRows;
-    w_ok[q] = col < st.cols;
-    wrow[q] = st.w + static_cast<size_t>(w_ok[q] ? col : col0) * st.depth + kk;
-  }
-
-  float ra[kALoads], rw[kWLoads];
-  auto load_slab = [&](int k0) {
-    const bool k_ok = k0 + kk < st.depth;
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) {
-      ra[q] = (a_ok[q] && k_ok) ? st.a(arow[q], k0 + kk) : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < kWLoads; ++q) rw[q] = (w_ok[q] && k_ok) ? wrow[q][k0] : 0.0f;
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  load_slab(0);
-
-  for (int k0 = 0; k0 < st.depth; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) As[kk][r0 + q * kSlabRows] = ra[q];
-#pragma unroll
-    for (int q = 0; q < kWLoads; ++q) Ws[kk][r0 + q * kSlabRows] = rw[q];
-    __syncthreads();
-    if (k0 + BK < st.depth) load_slab(k0 + BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[TM], wv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k][ty + i * kRowStep];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) wv[j] = Ws[k][tx + j * kColStep];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty + i * kRowStep;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx + j * kColStep;
-      if (row < st.rows && col < st.cols) {
-        st.c[static_cast<size_t>(row) * st.cols + col] = acc[i][j];
-      }
-    }
-  }
-}
-
 // The selective scan with dt_proj, softplus, the D skip and the gate fused.
 // grid (ceil(d / 32), B * S, M); one thread per channel.
 __global__ void __launch_bounds__(kScanThreads) scan_kernel(const Params p) {
@@ -420,14 +324,6 @@ size_t workspace_floats(int M, int B, int L, int d, int r, int S) {
          + stream_rows * d                // u
          + stream_rows * (r + 2 * kN)     // xdb
          + stream_rows * d;               // y
-}
-
-template <int BM, int BN, int BK, int TM, int TN, class Stage>
-int launch_gemm(const Params& p, int rows, int cols, int M, cudaStream_t stream) {
-  const dim3 grid((rows + BM - 1) / BM, (cols + BN - 1) / BN, M);
-  gemm_nt_kernel<BM, BN, BK, TM, TN, Stage>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

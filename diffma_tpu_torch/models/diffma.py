@@ -10,7 +10,9 @@ The registry holds the 15 ``DiffMa-*`` names (spiral blocks). The other 65
 names of the JAX registry (ZigMa, ViM, VMamba, EMamba, DiT) are not ported
 yet, and ``build_model`` says so. ``scan_impl`` picks the mixers' path for
 every block (``models/mamba.py``); the sampler's default on the card is
-``"fused"``.
+``"fused"``. ``use_mamba2`` builds the blocks on the Mamba-2 mixer
+(``models/mamba2.py``), and ``fuse_block`` with it sends each whole block
+through ``spiral_block_fused`` (inference only).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from diffma_tpu_torch.models.blocks import SpiralMambaBlock
 from diffma_tpu_torch.models.mamba import Mamba, check_scan_impl
+from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.models.layers import (
     FinalLayer,
     PatchEmbed,
@@ -44,6 +47,8 @@ class DiffMa(nn.Module):
         dt_rank: Optional[int] = 16,  # accepted and unused, as in the JAX package
         d_state: int = 16,
         scan_impl: str = "auto",
+        use_mamba2: bool = False,
+        fuse_block: bool = False,
     ):
         super().__init__()
         del dt_rank
@@ -64,7 +69,7 @@ class DiffMa(nn.Module):
         self.blocks = nn.ModuleList(
             SpiralMambaBlock(
                 hidden_size, build_scan_spec("spiral", self.grid_n, i), d_state=d_state,
-                scan_impl=scan_impl,
+                scan_impl=scan_impl, use_mamba2=use_mamba2, fuse_block=fuse_block,
             )
             for i in range(depth)
         )
@@ -74,7 +79,7 @@ class DiffMa(nn.Module):
         """Switch every block and mixer to ``scan_impl``; the weights stay."""
         check_scan_impl(scan_impl)
         for m in self.modules():
-            if isinstance(m, (SpiralMambaBlock, Mamba)):
+            if isinstance(m, (SpiralMambaBlock, Mamba, Mamba2)):
                 m.scan_impl = scan_impl
         return self
 
@@ -83,7 +88,9 @@ class DiffMa(nn.Module):
         """The JAX package's effective init, drawn from ``generator``: xavier
         linears with zero bias, N(0, 0.02) timestep MLP, zero adaLN and final
         layer (so every block starts as the identity), torch Conv1d init for
-        the depthwise conv, A_log = log(1..n), D = 1."""
+        the depthwise conv, D = 1; Mamba-1: A_log = log(1..n); Mamba-2:
+        A_log = log U(1, 16), dt_bias the softplus inverse of a log-uniform dt
+        in [1e-3, 1e-1] floored at 1e-4, norm weight 1."""
 
         def xavier(w):
             fan_out, fan_in = w.shape[0], w[0].numel()
@@ -109,9 +116,18 @@ class DiffMa(nn.Module):
                 bound = 1.0 / math.sqrt(mixer.conv1d.weight.shape[-1])
                 mixer.conv1d.weight.uniform_(-bound, bound, generator=generator)
                 mixer.conv1d.bias.uniform_(-bound, bound, generator=generator)
-                n = mixer.A_log.shape[1]
-                mixer.A_log.copy_(torch.log(torch.arange(1, n + 1.0)).expand_as(mixer.A_log))
                 mixer.D.fill_(1.0)
+                if isinstance(mixer, Mamba2):
+                    u = torch.rand(mixer.dt_bias.shape, generator=generator)
+                    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+                    dt = dt.clamp(min=1e-4)
+                    mixer.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                    a = torch.rand(mixer.A_log.shape, generator=generator) * 15.0 + 1.0
+                    mixer.A_log.copy_(torch.log(a))
+                    mixer.norm.weight.fill_(1.0)
+                else:
+                    n = mixer.A_log.shape[1]
+                    mixer.A_log.copy_(torch.log(torch.arange(1, n + 1.0)).expand_as(mixer.A_log))
         for lin in (self.final_layer.adaLN_modulation[1], self.final_layer.linear):
             lin.weight.zero_()
             lin.bias.zero_()

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. Building takes
 seconds, so it happens at first use in each process; the library's file name
 carries a hash of its source and of every header in ``csrc/`` (kernels B and
-D share ``scan_bwd.cuh``), so an edited source or header is rebuilt and an
-unchanged one is reused. Libraries go into ``diffma_tpu_torch/_build/``,
-which git ignores.
+D share ``scan_bwd.cuh``; C, E and G ``gemm_nt.cuh``), so an edited source or
+header is rebuilt and an unchanged one is reused. Libraries go into
+``diffma_tpu_torch/_build/``, which git ignores.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-#: Every kernel source of the port: kernels A, C, B and D.
-SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd")
+#: Every kernel source of the port: kernels A, C, B, D, E and G.
+SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd",
+           "fused_ssd_fwd", "spiral_epilogue")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

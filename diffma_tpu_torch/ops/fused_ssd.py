@@ -1,0 +1,446 @@
+"""Whole Mamba-2 (SSD) mixer and the Spiral block around it: forward.
+
+Counterpart of ``diffma_tpu/ops/fused_ssd.py``. The mixer takes the tokens
+``x (B, L, h)`` of one layer to ``(B, L, h)``, with in_proj's columns in the
+order ``[z | x | B | C | dt]``:
+
+    zx = in_proj(x); per stream s (token order fwd[s]):
+      [xs | Bs | Cs] = silu(conv(zx[xBC columns])), dt = clip(softplus(dt + dt_bias)),
+      y_s = SSD(xs by head, dt, -exp(A_log), Bs, Cs, D),
+      n_s = rmsnorm(y_s * silu(z)) * norm_w        (per stream: the norm is nonlinear)
+    out = out_proj(scale * sum_s n_s, back in token order)
+
+and the Spiral block wraps two of them: LayerNorm + adaLN modulation in
+front (the second branch sees the soft-masked tokens), the learned mix of
+the two outputs and the gated residual behind.
+
+Two implementations of each:
+
+* ``ssd_mixer_ref``: the plain PyTorch version, built on ``ssd_chunked`` and
+  ``rms_norm_gated``. It is the composable Mamba-2 path of
+  ``models/mamba2.py``, the CPU path, and what kernel E is held against.
+  ``spiral_epilogue_ref`` is the block's tail and ``spiral_block_ref`` the
+  whole block from these.
+* ``ssd_mixer_fused_cuda``: the hand-written CUDA kernel E
+  (``csrc/fused_ssd_fwd.cu``), which replaces the TPU kernel
+  ``diffma_tpu/ops/fused_ssd.py::_ssd_kernel``: one or two mixers per call,
+  and in prologue mode the block's LayerNorm + modulate + soft mask too.
+  ``spiral_epilogue_cuda`` is kernel G (``csrc/spiral_epilogue.cu``), which
+  replaces ``_spiral_epilogue_kernel``. Their ``launches`` attributes count
+  calls (each launches a short chain of device kernels).
+
+``mamba2_mixer_fused``, ``mamba2_dual_mixer_fused`` and ``spiral_block_fused``
+dispatch on the tensors' device: the kernels for CUDA tensors, the plain
+versions for CPU tensors; ``impl="ref"`` takes the plain version on any
+device. The kernels have no backward yet (the TPU kernel ``_ssd_bwd_kernel``
+is not ported): on CUDA tensors that need a gradient the entry points raise,
+and the composable route (``scan_impl="auto"``) carries gradients instead.
+fp32, one B/C group, full-length stream permutations; partition specs
+(EfficientVMamba's atrous streams) raise ``NotImplementedError``. The decay
+is always the quadratic form, exact at every span.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from diffma_tpu_torch.ops import cuda_build
+from diffma_tpu_torch.ops.conv import causal_conv1d
+from diffma_tpu_torch.ops.fused_mixer import index_tables, mixer_fused_eligible
+from diffma_tpu_torch.ops.norm import layer_norm, rms_norm_gated
+from diffma_tpu_torch.ops.scan_orders import ScanSpec
+from diffma_tpu_torch.ops.ssd import ssd_chunked_grouped
+
+__all__ = [
+    "Mamba2Weights",
+    "Prologue",
+    "mamba2_dual_mixer_fused",
+    "mamba2_mixer_fused",
+    "spiral_block_fused",
+    "spiral_block_ref",
+    "spiral_epilogue_cuda",
+    "spiral_epilogue_ref",
+    "ssd_mixer_fused_cuda",
+    "ssd_mixer_ref",
+]
+
+_KERNEL_SOURCE = "fused_ssd_fwd"
+_EPILOGUE_SOURCE = "spiral_epilogue"
+_KERNEL_D_STATE = 16
+_KERNEL_HEADDIM = 64
+_KERNEL_CONV = 4
+_KERNEL_MAX_STREAMS = 4
+_KERNEL_MAX_D_INNER = 2048
+_NO_LIMIT = (0.0, float("inf"))
+_LN_EPS = 1e-5  # the block's LayerNorms (torch's default)
+
+
+class Mamba2Weights(NamedTuple):
+    """One Mamba-2 mixer's parameters, as its torch modules hold them."""
+
+    in_w: torch.Tensor  # in_proj.weight (2d + 2n + H, h), rows [z | x | B | C | dt]
+    conv_w: torch.Tensor  # conv1d.weight (d + 2n, 1, K)
+    conv_b: torch.Tensor  # conv1d.bias (d + 2n,)
+    dt_bias: torch.Tensor  # (H,)
+    A_log: torch.Tensor  # (H,); A = -exp(A_log)
+    D: torch.Tensor  # (H,)
+    norm_w: torch.Tensor  # norm.weight (d,)
+    out_w: torch.Tensor  # out_proj.weight (h, d)
+
+
+class Prologue(NamedTuple):
+    """What kernel E's prologue mode computes in front of in_proj:
+    ``LN(x) * ln_w + ln_b``, ``* (1 + scale) + shift``, and for the second
+    branch ``* wmask``."""
+
+    wmask: torch.Tensor  # (B, L, 1) soft mask
+    ln_w: torch.Tensor  # (h,)
+    ln_b: torch.Tensor  # (h,)
+    shift: torch.Tensor  # (B, h)
+    scale: torch.Tensor  # (B, h)
+
+
+def ssd_mixer_ref(
+    spec: ScanSpec,
+    x: torch.Tensor,
+    w: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT,
+    eps: float = 1e-5,
+    chunk_size: int = 256,
+    ngroups: int = 1,
+) -> torch.Tensor:
+    """The mixer from PyTorch operators: project, then fan out the streams (a
+    per-token matmul commutes with the token permutation, and projecting first
+    is S times less work), conv, ``ssd_chunked``, the gated norm per stream,
+    merge, out_proj."""
+    B_, L, _ = x.shape
+    S, Ls = spec.fwd.shape
+    d = w.out_w.shape[1]
+    H = w.A_log.shape[0]
+    gn = (w.conv_w.shape[0] - d) // 2  # ngroups * d_state
+    fwd, merge = index_tables(spec, x.device)
+
+    zxbcdt = F.linear(x, w.in_w)  # (B, L, 2d + 2gn + H)
+    xs = zxbcdt.index_select(1, fwd).reshape(B_ * S, Ls, -1)
+    z, xBC, dt = xs.split([d, d + 2 * gn, H], dim=-1)
+    xBC = causal_conv1d(xBC, w.conv_w[:, 0, :], w.conv_b)
+    x_ssm, B_ssm, C_ssm = xBC.split([d, gn, gn], dim=-1)
+    y = ssd_chunked_grouped(
+        x_ssm.reshape(B_ * S, Ls, H, d // H), dt.float(), -torch.exp(w.A_log.float()),
+        B_ssm, C_ssm, w.D, ngroups=ngroups, dt_bias=w.dt_bias, dt_softplus=True,
+        dt_limit=dt_limit, chunk_size=chunk_size,
+    ).reshape(B_ * S, Ls, d)
+    y = rms_norm_gated(y, w.norm_w, z, eps=eps, group_size=d // ngroups, norm_before_gate=False)
+    merged = y.reshape(B_, S * Ls, d).index_select(1, merge)
+    merged = merged.reshape(B_, L, spec.merge.shape[1], d).sum(dim=2) * spec.scale
+    return F.linear(merged, w.out_w)
+
+
+def spiral_epilogue_ref(
+    o0: torch.Tensor, o1: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+    an_w: torch.Tensor, an_b: torch.Tensor, fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+) -> torch.Tensor:
+    """The block's tail: LayerNorm over the concat of the branch outputs, a
+    2h -> h SiLU layer, a sigmoid h -> 1 head alpha, and
+    ``x + gate * (alpha * o0 + (1 - alpha) * o1)``. Weights in torch layout:
+    ``fc1_w (h, 2h)``, ``fc2_w (1, h)``."""
+    hmid = layer_norm(torch.cat([o0, o1], dim=-1), an_w, an_b, eps=_LN_EPS)
+    alpha = torch.sigmoid(F.linear(F.silu(F.linear(hmid, fc1_w, fc1_b)), fc2_w, fc2_b))
+    return x + gate[:, None, :] * (alpha * o0 + (1.0 - alpha) * o1)
+
+
+def _modulated(x: torch.Tensor, pro: Prologue) -> Tuple[torch.Tensor, torch.Tensor]:
+    xm = layer_norm(x, pro.ln_w, pro.ln_b, eps=_LN_EPS)
+    xm = xm * (1.0 + pro.scale[:, None, :]) + pro.shift[:, None, :]
+    return xm, xm * pro.wmask
+
+
+def spiral_block_ref(
+    spec: ScanSpec, x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b,
+    fc2_w, fc2_b, w0: Mamba2Weights, w1: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+) -> torch.Tensor:
+    """The whole Spiral block from the plain versions."""
+    x0, x1 = _modulated(x, Prologue(wmask, ln_w, ln_b, shift, scale))
+    o0 = ssd_mixer_ref(spec, x0, w0, dt_limit, eps)
+    o1 = ssd_mixer_ref(spec, x1, w1, dt_limit, eps)
+    return spiral_epilogue_ref(o0, o1, x, gate, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
+
+
+def _check_spec(spec: ScanSpec) -> None:
+    # Mamba-2 never takes the Mamba-1 vim quirk: vim specs merge the standard way.
+    if not mixer_fused_eligible(spec):
+        raise NotImplementedError(
+            "the fused SSD mixer takes full-length stream permutations; partition "
+            "specs are not ported yet"
+        )
+
+
+def _check_tensors(named, device) -> None:
+    for name, t, shape in named:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows(name: str, t: torch.Tensor, B_: int, h: int, device) -> None:
+    """A (B, h) chunk of the adaLN output: rows may lie a stride apart."""
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (B_, h):
+        raise ValueError(f"{name} must be float32 ({B_}, {h}) on {device}")
+    if t.stride(1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis")
+
+
+def _check_kernel_inputs(spec: ScanSpec, xs, ws, pro: Optional[Prologue]) -> dict:
+    """Raise on what kernel E does not take; return its dimensions."""
+    x0 = xs[0]
+    if x0.device.type != "cuda":
+        raise ValueError(f"the CUDA fused SSD mixer needs CUDA tensors, got {x0.device}")
+    if x0.dim() != 3:
+        raise ValueError(f"x must be (B, L, h), got {tuple(x0.shape)}")
+    B_, L, h = x0.shape
+    if L != spec.seq_len:
+        raise ValueError(f"x has {L} tokens, the scan spec {spec.seq_len}")
+    d = ws[0].out_w.shape[-1]
+    H = ws[0].A_log.shape[0]
+    K = ws[0].conv_w.shape[-1]
+    n, rem = divmod(ws[0].conv_w.shape[0] - d, 2)
+    if rem or n != _KERNEL_D_STATE:
+        raise ValueError(
+            f"the kernel is built for one B/C group of d_state {_KERNEL_D_STATE}, got "
+            f"{ws[0].conv_w.shape[0] - d} B and C columns"
+        )
+    if d != H * _KERNEL_HEADDIM:
+        raise ValueError(f"the kernel is built for headdim {_KERNEL_HEADDIM}, got d {d}, H {H}")
+    if d > _KERNEL_MAX_D_INNER:
+        raise ValueError(f"the kernel takes d_inner up to {_KERNEL_MAX_D_INNER}, got {d}")
+    if K != _KERNEL_CONV:
+        raise ValueError(f"the kernel is built for {_KERNEL_CONV} conv taps, got {K}")
+    if spec.n_streams > _KERNEL_MAX_STREAMS:
+        raise ValueError(f"the kernel takes up to {_KERNEL_MAX_STREAMS} streams")
+    dproj, conv_dim = 2 * d + 2 * n + H, d + 2 * n
+    shapes = Mamba2Weights(
+        in_w=(dproj, h), conv_w=(conv_dim, 1, K), conv_b=(conv_dim,), dt_bias=(H,),
+        A_log=(H,), D=(H,), norm_w=(d,), out_w=(h, d),
+    )
+    named = [(f"x{i}", x, (B_, L, h)) for i, x in enumerate(xs)]
+    for i, w in enumerate(ws):
+        named += [(f"w{i}.{f}", t, s) for f, t, s in zip(Mamba2Weights._fields, w, shapes)]
+    if pro is not None:
+        named += [("wmask", pro.wmask, (B_, L, 1)), ("ln_w", pro.ln_w, (h,)),
+                  ("ln_b", pro.ln_b, (h,))]
+        for name in ("shift", "scale"):
+            _check_rows(name, getattr(pro, name), B_, h, x0.device)
+        if pro.shift.stride(0) != pro.scale.stride(0):
+            raise ValueError("shift and scale must have the same row stride")
+    _check_tensors(named, x0.device)
+    for i, w in enumerate(ws):
+        if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
+            raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
+    return dict(B=B_, L=L, h=h, d=d, n=n, H=H, K=K, S=spec.n_streams)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.load(_KERNEL_SOURCE)
+    fwd = lib.ssd_mixer_fwd
+    fwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_float]
+        + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 4
+        + [ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    size = lib.ssd_mixer_workspace_floats
+    size.argtypes = [ctypes.c_int] * 8
+    size.restype = ctypes.c_longlong
+    lib.ssd_mixer_max_tokens.argtypes = []
+    lib.ssd_mixer_max_tokens.restype = ctypes.c_int
+    return fwd, size, lib.ssd_mixer_max_tokens()
+
+
+def ssd_mixer_fused_cuda(
+    spec: ScanSpec, xs, ws, dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+    prologue: Optional[Prologue] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel E on the current stream for the mixers ``ws[m]`` applied
+    to ``xs[m]`` (one or two of them); returns their outputs. With
+    ``prologue``, ``xs`` is the block's one input ``(x,)``, ``ws`` both
+    branches' weights, and the kernel computes LayerNorm, modulation and the
+    second branch's soft mask itself; the two outputs are the halves of one
+    ``(2, B, L, h)`` tensor.
+
+    Raises on inputs the kernel does not take;
+    ``ssd_mixer_fused_cuda.launches`` counts the calls.
+    """
+    _check_spec(spec)
+    M = len(ws)
+    if M not in (1, 2) or len(xs) != (1 if prologue is not None else M):
+        raise ValueError(f"{len(xs)} inputs for {M} mixers")
+    if prologue is not None and M != 2:
+        raise ValueError("prologue mode runs both branches of a block")
+    dims = _check_kernel_inputs(spec, xs, ws, prologue)
+    fwd_fn, size_fn, max_tokens = _kernel_fns()
+    if dims["L"] > max_tokens:
+        raise ValueError(f"the kernel takes up to {max_tokens} tokens, got {dims['L']}")
+    x0 = xs[0]
+    out = torch.empty((M, *x0.shape), dtype=x0.dtype, device=x0.device)
+    workspace = torch.empty(
+        size_fn(M, dims["B"], dims["L"], dims["h"], dims["d"], dims["H"], dims["S"],
+                int(prologue is not None)),
+        dtype=torch.float32, device=x0.device,
+    )
+    fwd, _ = index_tables(spec, x0.device)
+    ptrs = []
+    for m, w in enumerate(ws):
+        x = x0 if prologue is not None else xs[m]
+        ptrs += [x.data_ptr(), *(t.data_ptr() for t in w), out[m].data_ptr()]
+    pro_ptrs, mod_stride = None, 0
+    if prologue is not None:
+        pro_ptrs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in prologue))
+        mod_stride = prologue.shift.stride(0)
+    err = fwd_fn(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(),
+        pro_ptrs, mod_stride, _LN_EPS, dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
+        dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps), float(dt_limit[0]),
+        float(dt_limit[1]), torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_mixer_fwd launch failed: error {err}")
+    ssd_mixer_fused_cuda.launches += 1
+    return tuple(out.unbind(0))
+
+
+ssd_mixer_fused_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _epilogue_fns():
+    lib = cuda_build.load(_EPILOGUE_SOURCE)
+    fwd = lib.spiral_epilogue_fwd
+    fwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    size = lib.spiral_epilogue_workspace_floats
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    return fwd, size
+
+
+def spiral_epilogue_cuda(
+    o0: torch.Tensor, o1: torch.Tensor, x: torch.Tensor, gate: torch.Tensor,
+    an_w: torch.Tensor, an_b: torch.Tensor, fc1_w: torch.Tensor, fc1_b: torch.Tensor,
+    fc2_w: torch.Tensor, fc2_b: torch.Tensor,
+) -> torch.Tensor:
+    """Launch kernel G on the current stream: ``spiral_epilogue_ref`` of the
+    same arguments. ``gate (B, h)`` may be a chunk of the adaLN output (rows a
+    stride apart); everything else is contiguous fp32.
+
+    Raises on inputs the kernel does not take;
+    ``spiral_epilogue_cuda.launches`` counts the calls.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA spiral epilogue needs CUDA tensors, got {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, L, h), got {tuple(x.shape)}")
+    B_, L, h = x.shape
+    _check_tensors(
+        [("o0", o0, (B_, L, h)), ("o1", o1, (B_, L, h)), ("x", x, (B_, L, h)),
+         ("an_w", an_w, (2 * h,)), ("an_b", an_b, (2 * h,)), ("fc1_w", fc1_w, (h, 2 * h)),
+         ("fc1_b", fc1_b, (h,)), ("fc2_w", fc2_w, (1, h)), ("fc2_b", fc2_b, (1,))],
+        x.device,
+    )
+    _check_rows("gate", gate, B_, h, x.device)
+    fwd_fn, size_fn = _epilogue_fns()
+    out = torch.empty_like(x)
+    workspace = torch.empty(size_fn(B_, L, h), dtype=torch.float32, device=x.device)
+    tensors = (o0, o1, x, gate, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b, out)
+    err = fwd_fn(
+        (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors)),
+        workspace.data_ptr(), B_, L, h, gate.stride(0), _LN_EPS,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"spiral_epilogue_fwd launch failed: error {err}")
+    spiral_epilogue_cuda.launches += 1
+    return out
+
+
+spiral_epilogue_cuda.launches = 0
+
+
+def _use_kernels(impl: str, tensors) -> bool:
+    """Whether the call goes to the CUDA kernels; raises where they cannot
+    carry the gradient that the call would need."""
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"unknown impl: {impl!r}")
+    if impl == "ref" or tensors[0].device.type != "cuda":
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the fused SSD kernels have no backward yet (kernel F, the port of "
+            "_ssd_bwd_kernel, comes with Mamba-2 training): run under torch.no_grad(), or "
+            "take the composable route (scan_impl='auto'), which carries gradients"
+        )
+    return True
+
+
+def mamba2_mixer_fused(
+    spec: ScanSpec, x: torch.Tensor, w: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5, chunk_size: int = 256,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel E on CUDA
+    tensors. ``chunk_size`` matters to the plain version only: the kernel
+    treats the sequence as one chunk."""
+    _check_spec(spec)
+    if _use_kernels(impl, (x, *w)):
+        return ssd_mixer_fused_cuda(spec, (x,), (w,), dt_limit, eps)[0]
+    return ssd_mixer_ref(spec, x, w, dt_limit, eps, chunk_size)
+
+
+def mamba2_dual_mixer_fused(
+    spec: ScanSpec, x0: torch.Tensor, x1: torch.Tensor, w0: Mamba2Weights, w1: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5, chunk_size: int = 256,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both branches of a dual block, ``x0 -> w0`` and ``x1 -> w1``, each
+    ``(B, L, h)``, in one call of kernel E on CUDA tensors."""
+    _check_spec(spec)
+    if _use_kernels(impl, (x0, x1, *w0, *w1)):
+        return ssd_mixer_fused_cuda(spec, (x0, x1), (w0, w1), dt_limit, eps)
+    return (ssd_mixer_ref(spec, x0, w0, dt_limit, eps, chunk_size),
+            ssd_mixer_ref(spec, x1, w1, dt_limit, eps, chunk_size))
+
+
+def spiral_block_fused(
+    spec: ScanSpec, x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b,
+    fc2_w, fc2_b, w0: Mamba2Weights, w1: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5, impl: str = "auto",
+) -> torch.Tensor:
+    """The whole Spiral block (LayerNorm, modulate, both SSD mixers, the
+    learned mix, the gated residual) in one call of kernel E in prologue mode
+    and one of kernel G on CUDA tensors; ``spiral_block_ref`` elsewhere."""
+    _check_spec(spec)
+    block = (x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
+    if _use_kernels(impl, (*block, *w0, *w1)):
+        o0, o1 = ssd_mixer_fused_cuda(
+            spec, (x,), (w0, w1), dt_limit, eps, Prologue(wmask, ln_w, ln_b, shift, scale)
+        )
+        return spiral_epilogue_cuda(o0, o1, x, gate, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
+    return spiral_block_ref(spec, *block, w0, w1, dt_limit, eps)

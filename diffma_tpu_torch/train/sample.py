@@ -13,12 +13,16 @@ MRI with PSNR/SSIM. Image grids are written as PNG with the standard library
 alone.
 
 The mixers take ``scan_impl`` from the config, by default ``"fused"`` on the
-card (kernel C, as the JAX sampler defaults to it on the TPU) and ``"auto"``
-on the CPU. ``--ckpt`` loads a reference torch checkpoint's
-``load_ckpt_type`` weights (``train/checkpoints.py``); without one the
-weights are random, drawn from ``seed``. Conditioning is synthetic. The
-conditioning stack (CT encoder, BiomedCLIP, VAE encoder), Orbax checkpoints,
-bf16 and Mamba-2 come in later slices, and asking for them raises.
+card (kernel C, or kernel E with ``--use-mamba2``, as the JAX sampler
+defaults to it on the TPU) and ``"auto"`` on the CPU. ``use_mamba2`` builds
+the Mamba-2 mixers. ``main`` is ``sample_batches`` around ``load_model``'s
+model; a model built otherwise (``build_model(..., fuse_block=True)``, a
+model option in the JAX package too) goes to ``sample_batches`` directly.
+``--ckpt`` loads a reference torch checkpoint's ``load_ckpt_type`` weights
+(``train/checkpoints.py``); without one the weights are random, drawn from
+``seed``. Conditioning is synthetic. The conditioning stack (CT encoder,
+BiomedCLIP, VAE encoder), Orbax checkpoints and bf16 come in later slices,
+and asking for them raises.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.metrics import quality_report
 
-__all__ = ["main", "load_model", "save_image_grid", "cli"]
+__all__ = ["main", "load_model", "sample_batches", "save_image_grid", "cli"]
 
 logger = logging.getLogger(__name__)
 
@@ -88,8 +92,6 @@ def load_model(cfg, device="cuda"):
     """``cfg``'s denoiser on ``device``, in eval mode: the checkpoint's weights
     when ``cfg.ckpt`` names a file that exists, else random ones from ``seed``."""
     device = resolve_device(device)
-    if cfg.get("use_mamba2"):
-        raise NotImplementedError("the Mamba-2 mixer is not ported yet")
     if cfg.get("autocast"):
         raise NotImplementedError("bf16 sampling is not ported yet")
     model = build_model(
@@ -98,6 +100,7 @@ def load_model(cfg, device="cuda"):
         dt_rank=int(cfg.get("dt_rank", 16)),
         d_state=int(cfg.get("d_state", 16)),
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
+        use_mamba2=bool(cfg.get("use_mamba2")),
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     ckpt_path = cfg.get("ckpt")
@@ -115,7 +118,13 @@ def main(cfg, device="cuda"):
     """Sample ``cfg``'s model; returns one dict per batch with the decoded
     ``images`` (N, 3, H, W), the batch's wall ``seconds`` and its ``quality``."""
     device = resolve_device(device)
-    model = load_model(cfg, device)
+    return sample_batches(load_model(cfg, device), cfg, device)
+
+
+def sample_batches(model, cfg, device="cuda"):
+    """``main``'s loop over ``cfg``'s batches with ``model``, a denoiser on
+    ``device`` in eval mode; returns what ``main`` returns."""
+    device = resolve_device(device)
     seed = int(cfg.get("seed", 0))
     latent = cfg.image_size // 8
     diffusion = create_diffusion(str(cfg.get("sample_num_steps", 250)), device=device)

@@ -18,7 +18,7 @@ card (kernels C and D, as the JAX trainer defaults to its fused kernels on
 the TPU) and ``"auto"`` on the CPU (the plain versions). The trainer runs on
 synthetic batches, as the JAX trainer falls back to them when the dataset
 folders are missing. Real data (it needs the conditioning stack), bf16
-(``autocast``), Mamba-2, ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp``
+(``autocast``), Mamba-2 training (it waits for kernel F), ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp``
 above 1 are not ported, and asking for them raises.
 """
 
@@ -84,7 +84,8 @@ def make_loss_fn(model, diffusion):
 
 def _refuse_unported(cfg) -> None:
     for key, what in (("autocast", "bf16 training (kernels C and D are fp32 only)"),
-                      ("use_mamba2", "the Mamba-2 mixer"),
+                      ("use_mamba2", "Mamba-2 training (it waits for kernel F, the fused SSD "
+                                     "mixer's backward)"),
                       ("remat", "rematerialisation"),
                       ("resume_from", "resuming from Orbax checkpoints")):
         if cfg.get(key):

@@ -7,8 +7,8 @@ port's modules, with upstream key names. Layout changes:
 * Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights (out, in).
 * ``PatchEmbed``'s kernel is (C*p*p, D) over channel-major patch vectors; the
   Conv2d weight is (D, C, p, p).
-* The Mamba ``conv1d_weight`` is (d_in, K); the depthwise Conv1d weight is
-  (d_in, 1, K).
+* The mixers' ``conv1d_weight`` is (channels, K); the depthwise Conv1d weight
+  is (channels, 1, K). Mamba-2's ``norm_weight`` is ``norm.weight``.
 * Flax ``Conv`` kernels are HWIO; torch Conv2d weights OIHW.
 
 The mapping changes layouts only, so it applies to a tree of JAX gradients as
@@ -57,18 +57,33 @@ def _mamba1(out: dict, key: str, p: dict) -> None:
     _linear(out, f"{key}.out_proj", p["out_proj"])
 
 
-def _spiral_block(out: dict, key: str, blk: dict) -> None:
+def _mamba2(out: dict, key: str, p: dict) -> None:
+    _linear(out, f"{key}.in_proj", p["in_proj"])
+    out[f"{key}.conv1d.weight"] = _t(np.asarray(p["conv1d_weight"])[:, None, :])
+    out[f"{key}.conv1d.bias"] = _t(p["conv1d_bias"])
+    out[f"{key}.dt_bias"] = _t(p["dt_bias"])
+    out[f"{key}.A_log"] = _t(p["A_log"])
+    out[f"{key}.D"] = _t(p["D"])
+    out[f"{key}.norm.weight"] = _t(p["norm_weight"])
+    _linear(out, f"{key}.out_proj", p["out_proj"])
+
+
+def _spiral_block(out: dict, key: str, blk: dict, use_mamba2: bool = False) -> None:
+    mixer = _mamba2 if use_mamba2 else _mamba1
     _linear(out, f"{key}.adaLN_modulation.1", blk["adaLN"]["fc"])
     _norm(out, f"{key}.norm1", blk["norm1"])
-    _mamba1(out, f"{key}.mamba1", blk["mamba1"])
-    _mamba1(out, f"{key}.mamba2", blk["mamba2"])
+    mixer(out, f"{key}.mamba1", blk["mamba1"])
+    mixer(out, f"{key}.mamba2", blk["mamba2"])
     _norm(out, f"{key}.attention_network.0", blk["attn_norm"])
     _linear(out, f"{key}.attention_network.1", blk["attn_fc1"])
     _linear(out, f"{key}.attention_network.3", blk["attn_fc2"])
 
 
-def diffma_params_from_jax(params: Dict, depth: int) -> Dict[str, torch.Tensor]:
-    """JAX ``DiffMa`` params (spiral blocks, Mamba-1) -> port ``DiffMa`` state dict."""
+def diffma_params_from_jax(
+    params: Dict, depth: int, use_mamba2: bool = False
+) -> Dict[str, torch.Tensor]:
+    """JAX ``DiffMa`` params (spiral blocks; Mamba-1 mixers, or Mamba-2 with
+    ``use_mamba2``) -> port ``DiffMa`` state dict."""
     out: Dict[str, torch.Tensor] = {}
     kernel = np.asarray(params["x_embedder"]["kernel"])  # (C*p*p, D), C = 4
     p = int(round((kernel.shape[0] // 4) ** 0.5))
@@ -79,7 +94,7 @@ def diffma_params_from_jax(params: Dict, depth: int) -> Dict[str, torch.Tensor]:
     _linear(out, "t_embedder.mlp.0", params["t_embedder"]["fc1"])
     _linear(out, "t_embedder.mlp.2", params["t_embedder"]["fc2"])
     for i in range(depth):
-        _spiral_block(out, f"blocks.{i}", params[f"block_{i}"])
+        _spiral_block(out, f"blocks.{i}", params[f"block_{i}"], use_mamba2)
     _linear(out, "final_layer.adaLN_modulation.1", params["final_layer"]["adaLN"])
     _linear(out, "final_layer.linear", params["final_layer"]["linear"])
     return out

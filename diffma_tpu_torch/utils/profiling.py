@@ -19,7 +19,8 @@ forwards of DiffMa-B/2 at 224² (the sampler's model) after one warm-up, or 5
 training steps (hybrid loss, backward, AdamW, EMA, the per-step loss check)
 after 3 warm-up steps. ``--scan-impl`` picks the mixers' path: ``fused``
 (kernels C and D, the default on the card) or ``pallas`` (the composable
-path with kernels A and B).
+path with kernels A and B). The denoiser profile takes ``--use-mamba2``
+(``fused`` is then kernel E) and with it ``--fuse-block`` (kernels E and G).
 """
 
 from __future__ import annotations
@@ -199,7 +200,13 @@ def main(argv=None) -> dict:
     parser.add_argument("--scan-impl", dest="scan_impl", default="fused", choices=sorted(SCAN_IMPLS))
     parser.add_argument("--train", action="store_true", help="profile training steps")
     parser.add_argument("--model", default="DiffMa-B/2", help="registry name (with --train)")
+    parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true",
+                        help="Mamba-2 mixers (the denoiser profile only)")
+    parser.add_argument("--fuse-block", dest="fuse_block", action="store_true",
+                        help="whole-block kernels, with --use-mamba2 and --scan-impl fused")
     args = parser.parse_args(argv)
+    if args.train and args.use_mamba2:
+        raise NotImplementedError("Mamba-2 training waits for kernel F")
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -212,7 +219,8 @@ def main(argv=None) -> dict:
 
     name, latent = "DiffMa-B/2", 28
     gen = torch.Generator().manual_seed(0)
-    model = build_model(name, input_size=latent, scan_impl=args.scan_impl)
+    model = build_model(name, input_size=latent, scan_impl=args.scan_impl,
+                        use_mamba2=args.use_mamba2, fuse_block=args.fuse_block)
     model = model.init_weights(gen).to(device).eval()
     tokens = (latent // model.patch_size) ** 2
     n = args.batch
@@ -224,6 +232,7 @@ def main(argv=None) -> dict:
         torch.sigmoid(torch.randn(n, tokens, 1, generator=gen)).to(device),
     )
     report = {"model": name, "batch": n, "scan_impl": args.scan_impl,
+              "use_mamba2": args.use_mamba2, "fuse_block": args.fuse_block,
               "device": torch.cuda.get_device_name(0),
               **profile_denoiser(model, inputs)}
     print(json.dumps(report, indent=1))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from diffma_tpu.train.checkpoints import load_diffma_params
+from diffma_tpu.utils.torch_io import diffma_params_from_torch
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.train import sample
 from diffma_tpu_torch.train.checkpoints import find_model, load_diffma_checkpoint
@@ -121,3 +122,68 @@ def test_sampler_loads_ckpt_on_cpu(tmp_path, scan_impl):
     results = sample.main(cfg, device="cpu")
     assert len(results) == 1 and results[0]["images"].shape == (1, 3, 32, 32)
     assert np.isfinite(results[0]["images"]).all()
+
+
+def test_mamba2_checkpoint_loads_and_goes_back_to_the_jax_tree(tmp_path):
+    """A reference-layout Mamba-2 checkpoint (mamba_ssm's ``Mamba2`` key names
+    under ``blocks.{i}.mamba{1,2}``), written from a JAX tree carried into the
+    port: the JAX package's importer recovers the tree exactly, the port's
+    loader fills a fresh model that matches JAX, and the sampler's loader
+    builds it with ``use_mamba2``."""
+    jmodel, params, model = build_pair(seed=7, scan_impl="auto", use_mamba2=True)
+    sd = _reference_dict(model)
+    assert {"module.blocks.0.mamba1.dt_bias", "module.blocks.3.mamba2.norm.weight",
+            "module.blocks.1.mamba2.conv1d.weight"} <= set(sd)
+    assert not any("x_proj" in k or "dt_proj" in k for k in sd)
+    tree = diffma_params_from_torch({k: v.numpy() for k, v in sd.items()}, depth=4,
+                                    use_mamba2=True)["params"]
+    flat_want = jax.tree_util.tree_flatten_with_path(params)[0]
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    assert len(flat_got) == len(flat_want)
+    for key, want in flat_want:
+        np.testing.assert_array_equal(np.asarray(flat_got[key]), np.asarray(want), err_msg=str(key))
+
+    path = _save(tmp_path / "ckpt.pt", sd)
+    fresh = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, use_mamba2=True).eval()
+    load_diffma_checkpoint(fresh, path)
+    x, t, y, y2, w = _inputs()
+    want = np.asarray(jax.jit(jmodel.apply)({"params": params}, *map(jnp.asarray, (x, t, y, y2, w))))
+    with torch.no_grad():
+        got = fresh(*map(torch.from_numpy, (x, t.astype(np.int64), y, y2, w))).numpy()
+    assert np.abs(got - want).mean() < 1e-4
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(KeyError, match=r"mamba1\.x_proj.*mamba1\.dt_bias"):  # a Mamba-1 model
+        load_diffma_checkpoint(build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN), path)
+
+    cfg = Config(model="DiffMa-S/2", image_size=8 * INPUT, hidden_size=HIDDEN, ckpt=path,
+                 use_mamba2=True)
+    loaded = sample.load_model(cfg, device="cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+
+
+def test_sampler_samples_a_mamba2_ckpt_on_cpu(tmp_path):
+    """``use_mamba2`` with ``--ckpt`` on the fused route, and the same weights
+    in a model built with ``fuse_block=True`` handed to the sampler's loop,
+    against the composable route: same seed, same images."""
+    model = build_model("DiffMa-S/2", input_size=4, use_mamba2=True)
+    model.init_weights(torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=torch.Generator().manual_seed(6)))
+    path = _save(tmp_path / "ckpt.pt", _reference_dict(model))
+    cfg = Config(
+        model="DiffMa-S/2", image_size=32, sample_num_steps=3, sample_global_batch_size=1,
+        sample_num_batches=1, synthetic_data=True, save_dir=str(tmp_path / "out"), seed=0,
+        ckpt=path, load_ckpt_type="ema", use_mamba2=True, scan_impl="fused",
+    )
+    results = sample.main(cfg, device="cpu")
+    assert len(results) == 1 and results[0]["images"].shape == (1, 3, 32, 32)
+    assert np.isfinite(results[0]["images"]).all()
+    ref = sample.main(Config(cfg, scan_impl="auto"), device="cpu")
+    np.testing.assert_allclose(results[0]["images"], ref[0]["images"], rtol=1e-4, atol=1e-4)
+    whole = build_model("DiffMa-S/2", input_size=4, use_mamba2=True, scan_impl="fused",
+                        fuse_block=True)
+    load_diffma_checkpoint(whole, path)
+    got = sample.sample_batches(whole.eval(), cfg, device="cpu")
+    np.testing.assert_allclose(got[0]["images"], ref[0]["images"], rtol=1e-4, atol=1e-4)

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Kernels A and B (the selective scan, forward and backward) and kernels C and
-D (the fused Mamba-1 mixer, forward and backward) are held against their
-plain versions at the model's widths; kernel C's tolerance is max |err| <=
-1e-4 * max(1, max |ref|), since its fp32 sums over K = 1024 run in another
-order than cuBLAS's. Gradients, from B, D and the autograd Functions, are
+Kernels A and B (the selective scan, forward and backward), kernels C and
+D (the fused Mamba-1 mixer, forward and backward), kernel E (the fused
+Mamba-2 mixer: single, dual and prologue modes) and kernel G (the Spiral
+block's tail) are held against their plain versions at the model's widths;
+the tolerance of C, E and G is max |err| <= 1e-4 * max(1, max |ref|), since
+their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's. Gradients, from B, D and the autograd Functions, are
 held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
 (``tests/test_selective_scan.py``).
 
@@ -21,6 +22,7 @@ import torch
 
 from diffma_tpu_torch.models.blocks import SpiralMambaBlock
 from diffma_tpu_torch.models.mamba import Mamba
+from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.ops.fused_mixer import (
     mamba_dual_mixer_fused,
     mamba_mixer_fused,
@@ -28,6 +30,17 @@ from diffma_tpu_torch.ops.fused_mixer import (
     mixer_fused_bwd_cuda,
     mixer_fused_cuda,
     mixer_ref,
+)
+from diffma_tpu_torch.ops.fused_ssd import (
+    Prologue,
+    mamba2_dual_mixer_fused,
+    mamba2_mixer_fused,
+    spiral_block_fused,
+    spiral_block_ref,
+    spiral_epilogue_cuda,
+    spiral_epilogue_ref,
+    ssd_mixer_fused_cuda,
+    ssd_mixer_ref,
 )
 from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 from diffma_tpu_torch.ops.selective_scan import (
@@ -316,3 +329,196 @@ def test_fused_backward_rejects_what_is_not_ported(cuda):
     for family, match in (("vim", "vim"), ("eff", "partition")):
         with pytest.raises(NotImplementedError, match=match):
             mixer_fused_bwd_cuda(build_scan_spec(family, 4, 0), (x,), (x,), (w,))
+
+
+# ---- kernel E (the fused Mamba-2 mixer) and kernel G (the Spiral block's tail)
+
+NO_LIMIT = (0.0, float("inf"))
+
+
+def _mixers2(device, spec, seed, count=2, wide=False):
+    """Mamba-2 mixers with every parameter off its init. ``wide``: decay rates
+    up to 16 and dt near 1, so that each head's span of dt * A over the
+    sequence is far beyond what exp can hold (hundreds to thousands)."""
+    mixers = [_random_(Mamba2(HIDDEN, spec), seed + i) for i in range(count)]
+    if wide:
+        with torch.no_grad():
+            for m in mixers:
+                m.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, m.A_log.numel())))
+                m.dt_bias.fill_(1.0)
+    return [m.to(device).eval() for m in mixers]
+
+
+def _block_inputs(device, L, seed, batch):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(batch, L, HIDDEN, generator=gen).to(device)
+    c = torch.randn(batch, 2 * HIDDEN, generator=gen).to(device)
+    w = torch.sigmoid(torch.randn(batch, L, 1, generator=gen)).to(device)
+    return x, c, w
+
+
+@pytest.mark.parametrize(
+    "family,grid_n,layer,batch,dt_limit,wide",
+    [("spiral", 14, 0, 1, NO_LIMIT, False), ("spiral", 14, 3, 2, NO_LIMIT, False),
+     ("spiral", 5, 1, 2, NO_LIMIT, False), ("spiral", 14, 2, 1, (0.01, 0.05), False),
+     ("spiral", 14, 1, 1, NO_LIMIT, True), ("zig", 14, 2, 1, NO_LIMIT, False),
+     ("vmamba", 14, 0, 1, NO_LIMIT, False), ("vim", 14, 0, 1, NO_LIMIT, False)],
+)
+def test_fused_ssd_matches_plain(cuda, family, grid_n, layer, batch, dt_limit, wide):
+    """Kernel E, dual and single, against ``ssd_mixer_ref``: 196 and 25 tokens,
+    1 to 4 streams, a finite dt_limit, and a wide decay span."""
+    spec = build_scan_spec(family, grid_n, layer)
+    m0, m1 = _mixers2(cuda, spec, seed=layer, wide=wide)
+    L = grid_n * grid_n
+    x0, x1 = _x(cuda, L, 40, batch), _x(cuda, L, 41, batch)
+    with torch.no_grad():
+        got = mamba2_dual_mixer_fused(spec, x0, x1, m0.weights(), m1.weights(), dt_limit)
+        single = mamba2_mixer_fused(spec, x1, m1.weights(), dt_limit)
+        want = [ssd_mixer_ref(spec, x, m.weights(), dt_limit) for x, m in ((x0, m0), (x1, m1))]
+    torch.cuda.synchronize()
+    for g, w in zip((*got, single), (*want, want[1])):
+        _assert_close_to_ref(g, w)
+
+
+@pytest.mark.parametrize("grid_n,layer,batch", [(14, 3, 1), (14, 0, 2), (5, 1, 2)])
+def test_fused_ssd_prologue_and_epilogue_match_plain(cuda, grid_n, layer, batch):
+    """Kernel E's prologue mode and kernel G, each against its plain version,
+    fed by a block's own adaLN chunks (rows a stride apart)."""
+    spec = build_scan_spec("spiral", grid_n, layer)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True), 8 + layer).to(cuda).eval()
+    x, c, w = _block_inputs(cuda, grid_n * grid_n, 9 + layer, batch)
+    an, fc1, _, fc2 = block.attention_network
+    with torch.no_grad():
+        shift, scale, gate = block.adaLN_modulation(c).chunk(3, dim=-1)
+        pro = Prologue(w, block.norm1.weight, block.norm1.bias, shift, scale)
+        ws = (block.mamba1.weights(), block.mamba2.weights())
+        o0, o1 = ssd_mixer_fused_cuda(spec, (x,), ws, prologue=pro)
+        xm = torch.nn.functional.layer_norm(x, (HIDDEN,), pro.ln_w, pro.ln_b, 1e-5)
+        xm = xm * (1 + scale[:, None]) + shift[:, None]
+        want0, want1 = ssd_mixer_ref(spec, xm, ws[0]), ssd_mixer_ref(spec, xm * w, ws[1])
+        tail = (gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        got_tail = spiral_epilogue_cuda(want0, want1, x, *tail)
+        want_tail = spiral_epilogue_ref(want0, want1, x, *tail)
+    torch.cuda.synchronize()
+    _assert_close_to_ref(o0, want0)
+    _assert_close_to_ref(o1, want1)
+    _assert_close_to_ref(got_tail, want_tail)
+
+
+def test_mamba2_block_routes_agree(cuda):
+    """The Mamba-2 Spiral block: two composable mixers, dual kernel E, and
+    ``fuse_block`` (kernel E in prologue mode + kernel G), one parameter set."""
+    spec = build_scan_spec("spiral", 14, 3)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True), 3).to(cuda).eval()
+    x, c, w = _block_inputs(cuda, 196, 4, 2)
+    e0, g0 = ssd_mixer_fused_cuda.launches, spiral_epilogue_cuda.launches
+    with torch.no_grad():
+        block.scan_impl = "auto"
+        want = block(x, c, w)
+        assert (ssd_mixer_fused_cuda.launches, spiral_epilogue_cuda.launches) == (e0, g0)
+        block.scan_impl = "fused"
+        dual = block(x, c, w)
+        assert (ssd_mixer_fused_cuda.launches, spiral_epilogue_cuda.launches) == (e0 + 1, g0)
+        block.fuse_block = True
+        whole = block(x, c, w)
+        assert (ssd_mixer_fused_cuda.launches, spiral_epilogue_cuda.launches) == (e0 + 2, g0 + 1)
+        shift, scale, gate = block.adaLN_modulation(c).chunk(3, dim=-1)
+        an, fc1, _, fc2 = block.attention_network
+        args = (spec, x, w, shift, scale, gate, block.norm1.weight, block.norm1.bias, an.weight,
+                an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias, block.mamba1.weights(),
+                block.mamba2.weights())
+        ref = spiral_block_ref(*args)
+        by_impl = spiral_block_fused(*args, impl="ref")
+    torch.cuda.synchronize()
+    assert (ssd_mixer_fused_cuda.launches, spiral_epilogue_cuda.launches) == (e0 + 2, g0 + 1)
+    for got in (dual, whole, ref, by_impl):
+        _assert_close_to_ref(got, want)
+
+
+def test_fused_ssd_counts_calls(cuda):
+    spec = build_scan_spec("spiral", 5, 0)
+    m0, m1 = _mixers2(cuda, spec, seed=0)
+    x = _x(cuda, 25, 0)
+    before = ssd_mixer_fused_cuda.launches
+    with torch.no_grad():
+        mamba2_dual_mixer_fused(spec, x, x, m0.weights(), m1.weights())
+        assert ssd_mixer_fused_cuda.launches == before + 1
+        mamba2_mixer_fused(spec, x, m0.weights())
+        assert ssd_mixer_fused_cuda.launches == before + 2
+        mamba2_mixer_fused(spec, x, m0.weights(), impl="ref")
+        m0(x)  # scan_impl "auto": the composable path
+        assert ssd_mixer_fused_cuda.launches == before + 2
+        m0.scan_impl = "fused"
+        m0(x)
+    assert ssd_mixer_fused_cuda.launches == before + 3
+
+
+def test_fused_ssd_raises_where_a_gradient_is_needed(cuda):
+    """Kernel F is not ported: on CUDA tensors that need a gradient the fused
+    entry points raise; the composable route carries the gradient."""
+    spec = build_scan_spec("spiral", 5, 0)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True, scan_impl="fused"), 1).to(cuda)
+    x, c, w = _block_inputs(cuda, 25, 2, 1)
+    before = ssd_mixer_fused_cuda.launches
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        block(x, c, w)  # the parameters require grad
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        block.mamba1(x)
+    block.fuse_block = True
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        block(x, c, w)
+    block.requires_grad_(False)
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        mamba2_mixer_fused(spec, x.clone().requires_grad_(), block.mamba1.weights())
+    assert ssd_mixer_fused_cuda.launches == before
+    assert block(x, c, w).grad_fn is None  # nothing requires grad: the kernels run
+    assert ssd_mixer_fused_cuda.launches == before + 1
+    block.requires_grad_(True)
+    block.fuse_block, block.scan_impl = False, "auto"
+    block.mamba1.scan_impl = block.mamba2.scan_impl = "auto"
+    block(x, c, w).sum().backward()
+    assert all(p.grad is not None for p in block.parameters())
+
+
+def test_fused_ssd_rejects_what_it_does_not_take(cuda):
+    spec = build_scan_spec("spiral", 5, 0)
+    (m,) = _mixers2(cuda, spec, seed=0, count=1)
+    w, x = m.weights(), _x(cuda, 25, 0)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_mixer_fused_cuda(spec, (x.double(),), (w,))
+    with pytest.raises(ValueError, match="tokens"):
+        ssd_mixer_fused_cuda(spec, (x[:, :24].contiguous(),), (w,))
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_mixer_fused_cuda(spec, (x,), (w._replace(D=w.D.cpu()),))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_mixer_fused_cuda(spec, (x,), (w._replace(in_w=w.in_w.t().contiguous().t()),))
+    with pytest.raises(ValueError, match="shape"):
+        ssd_mixer_fused_cuda(spec, (x,), (w._replace(norm_w=w.norm_w[:-1]),))
+    with pytest.raises(ValueError, match="headdim"):
+        ssd_mixer_fused_cuda(spec, (x,), (w._replace(A_log=w.A_log[:8].contiguous()),))
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_mixer_fused_cuda(spec, (x,), (w._replace(conv_w=w.conv_w[:-16].contiguous()),))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_mixer_fused_cuda(spec, (x.cpu(),), (w,))
+    with pytest.raises(ValueError, match="inputs for"):
+        ssd_mixer_fused_cuda(spec, (x, x), (w,))
+    with pytest.raises(ValueError, match="both branches"):
+        ssd_mixer_fused_cuda(spec, (x,), (w,), prologue=Prologue(x, x, x, x, x))
+    with pytest.raises(NotImplementedError, match="partition"):
+        ssd_mixer_fused_cuda(build_scan_spec("eff", 4, 0), (x,), (w,))
+    big = build_scan_spec("spiral", 24, 0)  # 576 tokens: the SSD block's staging outgrows an SM
+    with pytest.raises(ValueError, match="up to"):
+        ssd_mixer_fused_cuda(big, (_x(cuda, 576, 0),), (w,))
+    o = _x(cuda, 25, 1)
+    gate = torch.zeros(1, HIDDEN, device=cuda)
+    an = torch.ones(2 * HIDDEN, device=cuda)
+    fc1_w, fc1_b = torch.zeros(HIDDEN, 2 * HIDDEN, device=cuda), torch.zeros(HIDDEN, device=cuda)
+    fc2_w, fc2_b = torch.zeros(1, HIDDEN, device=cuda), torch.zeros(1, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        spiral_epilogue_cuda(o, o[:, :24], x, gate, an, an, fc1_w, fc1_b, fc2_w, fc2_b)
+    with pytest.raises(ValueError, match="float32"):
+        spiral_epilogue_cuda(o, o, x, gate, an.double(), an, fc1_w, fc1_b, fc2_w, fc2_b)
+    with pytest.raises(ValueError, match="gate"):
+        spiral_epilogue_cuda(o, o, x, gate[:, :-1], an, an, fc1_w, fc1_b, fc2_w, fc2_b)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        spiral_epilogue_cuda(o, o, x.cpu(), gate, an, an, fc1_w, fc1_b, fc2_w, fc2_b)

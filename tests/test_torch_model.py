@@ -16,6 +16,7 @@ from diffma_tpu.models.diffma import DiffMa_models as JAX_REGISTRY
 from diffma_tpu.models.diffma import build_model as jax_build_model
 from diffma_tpu_torch.models.diffma import NOT_PORTED, DiffMa_models, build_model
 from diffma_tpu_torch.models.mamba import Mamba
+from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 from diffma_tpu_torch.utils.convert import _mamba1, diffma_params_from_jax
 
@@ -43,16 +44,18 @@ def _inputs(batch=2, seed=3, input_size=INPUT):
     return x, t, y, y2, w
 
 
-def build_pair(name="DiffMa-S/2", seed=0, scan_impl="pallas", input_size=INPUT):
+def build_pair(name="DiffMa-S/2", seed=0, scan_impl="pallas", input_size=INPUT, **kw):
     """The JAX model with random params, and the port model carrying them;
-    both take ``scan_impl``."""
-    jmodel = jax_build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl)
+    both take ``scan_impl`` and ``kw`` (``use_mamba2``, ``fuse_block``)."""
+    jmodel = jax_build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl,
+                             **kw)
     x, t, y, y2, w = _inputs(1, input_size=input_size)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed), *map(jnp.asarray, (x, t, y, y2, w)))
     params = params["params"]
     params = randomize(params, seed + 1)
-    model = build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl)
-    model.load_state_dict(diffma_params_from_jax(params, depth=model.depth), strict=True)
+    model = build_model(name, input_size=input_size, hidden_size=HIDDEN, scan_impl=scan_impl, **kw)
+    state = diffma_params_from_jax(params, depth=model.depth, use_mamba2=kw.get("use_mamba2", False))
+    model.load_state_dict(state, strict=True)
     return jmodel, params, model.eval()
 
 
@@ -67,8 +70,19 @@ def test_fused_forward_matches_jax(input_size):
     _check_forward("fused", input_size)
 
 
-def _check_forward(scan_impl, input_size):
-    jmodel, params, model = build_pair(scan_impl=scan_impl, input_size=input_size)
+@pytest.mark.parametrize(
+    "scan_impl,fuse_block,input_size",
+    [("auto", False, INPUT), ("fused", False, 10), ("fused", True, INPUT)],
+)
+def test_mamba2_forward_matches_jax(scan_impl, fuse_block, input_size):
+    """``use_mamba2``: JAX's composable path, its fused SSD kernel and its
+    whole-block kernels (interpret mode) against the port's three routes on
+    the CPU (the plain versions), at 16 and 25 tokens."""
+    _check_forward(scan_impl, input_size, use_mamba2=True, fuse_block=fuse_block)
+
+
+def _check_forward(scan_impl, input_size, **kw):
+    jmodel, params, model = build_pair(scan_impl=scan_impl, input_size=input_size, **kw)
     x, t, y, y2, w = _inputs(input_size=input_size)
     want = np.asarray(
         jax.jit(jmodel.apply)({"params": params}, *map(jnp.asarray, (x, t, y, y2, w)))
@@ -125,3 +139,58 @@ def test_init_is_identity_at_start():
     assert torch.count_nonzero(out) == 0  # zero final layer
     a = model.blocks[0].mamba1.A_log
     np.testing.assert_allclose(a[0].detach().numpy(), np.log(np.arange(1, 17)), rtol=1e-6)
+
+
+def test_mamba2_init_statistics():
+    """The Mamba-2 specials as the JAX package draws them: dt_bias the
+    softplus inverse of a log-uniform dt in [1e-3, 1e-1], A_log = log U(1, 16),
+    D and the norm weight 1, the conv U(+-1/2); adaLN and the final layer zero,
+    so the model is the identity at the start."""
+    model = build_model("DiffMa-B/2", input_size=INPUT, hidden_size=HIDDEN, use_mamba2=True)
+    model.init_weights(torch.Generator().manual_seed(0))
+    mixers = [m for m in model.modules() if isinstance(m, Mamba2)]
+    assert len(mixers) == 16
+    dt = torch.cat([torch.nn.functional.softplus(m.dt_bias.detach()) for m in mixers])
+    a = torch.cat([torch.exp(m.A_log.detach()) for m in mixers])
+    assert 1e-3 * (1 - 1e-4) <= dt.min() and dt.max() <= 1e-1 * (1 + 1e-4)
+    assert abs(torch.log(dt).mean().item() - 0.5 * (np.log(1e-3) + np.log(1e-1))) < 0.6
+    assert 1.0 <= a.min() and a.max() <= 16.0 and 5.0 < a.mean() < 12.0
+    for m in mixers:
+        assert torch.all(m.D == 1) and torch.all(m.norm.weight == 1)
+        assert m.conv1d.weight.abs().max() <= 0.5 and m.conv1d.weight.std() > 0.2
+        assert m.in_proj.weight.shape == (4 * HIDDEN + 2 * 16 + 2, HIDDEN)
+    x, t, y, y2, w = map(torch.from_numpy, _inputs())
+    with torch.no_grad():
+        out = model(x, t.long(), y, y2, w)
+    assert torch.count_nonzero(out) == 0
+    # the JAX package's own draws lie in the same ranges
+    jm = jax_build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, use_mamba2=True)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), *map(jnp.asarray, _inputs(1)))["params"]
+    jdt = np.concatenate([np.asarray(jax.nn.softplus(params[f"block_{i}"][m]["dt_bias"]))
+                          for i in range(4) for m in ("mamba1", "mamba2")])
+    assert 1e-3 * (1 - 1e-4) <= jdt.min() and jdt.max() <= 1e-1 * (1 + 1e-4)
+
+
+def test_build_model_mamba2_kwargs():
+    model = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, use_mamba2=True,
+                        fuse_block=True, scan_impl="fused")
+    assert all(isinstance(b.mamba1, Mamba2) and isinstance(b.mamba2, Mamba2) and b.fuse_block
+               and b.use_mamba2 for b in model.blocks)
+    model.set_scan_impl("auto")
+    assert {m.scan_impl for m in model.modules() if hasattr(m, "scan_impl")} == {"auto"}
+    plain = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN)
+    assert all(isinstance(b.mamba1, Mamba) and not b.fuse_block for b in plain.blocks)
+    assert set(model.state_dict()) != set(plain.state_dict())
+    assert "blocks.0.mamba1.norm.weight" in model.state_dict()
+    # fuse_block without Mamba-2 changes nothing, as in the JAX block
+    m1 = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, fuse_block=True)
+    m1.load_state_dict(plain.state_dict())
+    x, t, y, y2, w = map(torch.from_numpy, _inputs())
+    for m in (plain, m1):
+        m.init_weights(torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(4)))
+    with torch.no_grad():
+        torch.testing.assert_close(m1(x, t.long(), y, y2, w), plain(x, t.long(), y, y2, w),
+                                   rtol=0, atol=0)

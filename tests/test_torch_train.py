@@ -328,7 +328,8 @@ def test_trainer_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "override,match",
-    [({"autocast": True}, "bf16"), ({"use_mamba2": True}, "Mamba-2"), ({"remat": True}, "remat"),
+    [({"autocast": True}, "bf16"), ({"use_mamba2": True}, "Mamba-2"),
+     ({"use_mamba2": True}, "kernel F"), ({"remat": True}, "remat"),
      ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"), ({"sp": 2}, "parallel")],
 )
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):
