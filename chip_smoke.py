@@ -15,7 +15,11 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    and bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
    modes, 196 and 25 tokens, a finite dt_limit, a wide decay span) and
    kernel G (the Spiral block's tail) against theirs, and the Mamba-2 block
-   on its three routes (2e, 2f);
+   on its three routes (2e, 2f); kernel F (the fused Mamba-2 mixer's
+   backward) against its plain version at the training shapes, batch 8:
+   single and dual, 196 and 25 tokens, a dt_limit that clips some steps, a
+   wide decay span, twice in a row; and kernel E's residual mode against its
+   plain mode, bit for bit (2g);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
    (``scan_impl="fused"``), with the same random weights; 3b: one
@@ -23,7 +27,10 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    through the plain path, through kernels A + B and through kernels C + D;
    3c: the Mamba-2 DiffMa-B/2 forward on its three routes (composable, dual
    kernel E, ``fuse_block``: kernel E in prologue mode + kernel G), with
-   the device kernels per forward and the idle share of each;
+   the device kernels per forward and the idle share of each; 3d: one
+   full-width Mamba-2 DiffMa-B/2 training step on the same three routes
+   (torch autograd; kernels E + F; ``fuse_block``: kernels E + G forward,
+   the recomputing backward through E + F);
 4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
    ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
    1 batch of 1 image, synthetic conditioning;
@@ -43,7 +50,14 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
 11. block-fused Mamba-2 sampler: the same checkpoint loaded into a model
     built with ``fuse_block=True`` and handed to the sampler's loop, same
     seed, 1 batch: 2000 kernel E and 2000 kernel G calls, and an image that
-    agrees with phase 10's first.
+    agrees with phase 10's first;
+12. Mamba-2 trainer: the trainer's CLI on ``configs/brain.yaml
+    --use-mamba2`` (DiffMa-L/2, batch 8, synthetic batches), 20 steps on the
+    default (fused) path: 320 kernel E and 320 kernel F calls; its
+    checkpoint at step 20 sampled back by the sampler's CLI with
+    ``--use-mamba2`` (DDPM-250, 1 image, 4000 kernel E calls);
+13. Mamba-2 learning: DiffMa-B/2 with ``use_mamba2`` on the fused path
+    trained 100 steps on one fixed batch; the MSE term must fall at least 2x.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -226,12 +240,17 @@ def phase_kernels(card: str) -> dict:
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
-    from diffma_tpu_torch.ops.fused_ssd import spiral_epilogue_cuda, ssd_mixer_fused_cuda
+    from diffma_tpu_torch.ops.fused_ssd import (
+        spiral_epilogue_cuda,
+        ssd_mixer_fused_bwd_cuda,
+        ssd_mixer_fused_cuda,
+    )
     from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
 
     return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
             "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda,
-            "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda}
+            "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda,
+            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda}
 
 
 def reset_counts() -> None:
@@ -813,6 +832,151 @@ def phase_spiral_epilogue(card: str) -> dict:
     }
 
 
+def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K) -> tuple[float, str]:
+    """Least time for one fused-SSD-mixer backward of M branches on an H100:
+    x, g, the residual zx and the weights read once, gx and the weight
+    gradients written once, over the HBM rate; or the operations over the
+    fp32 rate: four GEMMs over the token rows (g W_out, gW_out, gx, gW_in),
+    the conv recomputed and its two adjoints, per stream C . B^T on the
+    causal pairs (once, it is the same for every head), g_C and g_B, and per
+    head and causal pair the decay (exp, three products) and the 2 * headdim
+    of each of y_pre, M^T g_y and g_y xdt^T; about 30 per channel and stream
+    row for the gate, the norm, the D skip and their adjoints."""
+    tokens, rows = B * L, B * S * L
+    dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
+    pairs = B * S * L * (L + 1) // 2
+    ops = M * (
+        2 * 2 * tokens * d * h  # g W_out, gW_out
+        + 2 * 2 * tokens * dproj * h  # gx, gW_in
+        + 3 * rows * conv_dim * 2 * K  # the conv again and its two adjoints
+        + 3 * pairs * 2 * n  # C . B^T, g_C, g_B
+        + pairs * H * (4 + 3 * 2 * hd)  # decay; y_pre, M^T g_y, g_y xdt^T
+        + rows * d * 30  # gate, norm, D skip, their adjoints
+    )
+    weights = dproj * h + conv_dim * K + conv_dim + 3 * H + d + h * d
+    nbytes = M * 4 * (2 * weights + 3 * tokens * h + tokens * dproj) + 2 * S * L * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssd_bwd(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import (
+        Mamba2Weights,
+        ssd_mixer_bwd_ref,
+        ssd_mixer_fused_bwd_cuda,
+        ssd_mixer_fused_cuda,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2g: kernel F (fused Mamba-2 mixer backward) against its plain version on "
+          "the card, and kernel E's residual mode against its plain mode", flush=True)
+    h, batch = 512, 8
+    no_limit = (0.0, float("inf"))
+
+    def grads_of(gx, gw, m):
+        return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
+
+    def inputs(L, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return ([torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)],
+                [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)])
+
+    path_err = None
+    cases = [
+        # grid, layer, dt_limit, wide span
+        (14, 0, no_limit, False), (14, 3, no_limit, False), (5, 0, no_limit, False),
+        (14, 1, (0.5, 0.9), False), (14, 2, no_limit, True),
+    ]
+    for grid_n, layer, dt_limit, wide in cases:
+        spec = build_scan_spec("spiral", grid_n, layer)
+        L = grid_n * grid_n
+        ws = [m.weights() for m in mamba2_mixers(spec, 20 * layer, wide)]
+        xs, gs = inputs(L, 60 + layer)
+        sp = torch.nn.functional.softplus(
+            torch.nn.functional.linear(xs[0], ws[0].in_w)[..., -16:] + ws[0].dt_bias)
+        inside = ((sp >= dt_limit[0]) & (sp <= dt_limit[1])).float().mean().item()
+        span = (sp.sum(1) * torch.exp(ws[0].A_log)).max().item()
+        if dt_limit != no_limit and not 0.05 < inside < 0.95:
+            fail(f"dt_limit {dt_limit} leaves {inside:.2f} of the steps unclipped: it must clip "
+                 f"some and not others")
+        if wide and span < 200:
+            fail(f"the wide-span case has a span of only {span:.0f}")
+        with torch.no_grad():
+            plain = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit)
+            outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
+            outs1, zx1 = ssd_mixer_fused_cuda(spec, xs[:1], ws[:1], dt_limit, want_res=True)
+        if not all(torch.equal(a, b) for a, b in zip((*outs, *outs1), (*plain, plain[0]))):
+            fail(f"kernel E's residual mode changed its outputs: layer {layer}, L={L}")
+        want = {}
+        for m in range(2):
+            want.update(grads_of(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
+        tag = (f"spiral layer {layer}: B={batch} L={L} h={h} d=1024 H=16 n=16 dt_limit={dt_limit} "
+               f"(unclipped {inside:.2f}) max span of dt*|A| {span:.0f}")
+        for entry, M, res in (("dual", 2, zx), ("single", 1, zx1)):
+            first = None
+            for call in (1, 2):  # two calls in a row: nothing is left over from the first
+                gxs, gws = ssd_mixer_fused_bwd_cuda(spec, xs[:M], gs[:M], ws[:M], res, dt_limit)
+                torch.cuda.synchronize()
+                got = {}
+                for m in range(M):
+                    got.update(grads_of(gxs[m], gws[m], m))
+                rows = grad_errors(got, {k: want[k] for k in got}, TOL_GRAD)
+                if first is not None and not all(torch.equal(got[k], first[k]) for k in got):
+                    fail(f"kernel F gave other bits on its second call: {entry}, {tag}")
+                first = got
+            err = max(e for _, e, _ in rows)
+            worst = max(rows, key=lambda row: row[1] / row[2])
+            print(f"  {entry}, {tag}  max|err| {err:.3e} over {len(rows)} gradients, twice, "
+                  f"same bits; nearest its bar: {worst[0]} {worst[1]:.2e} (bar {worst[2]:.1e}); "
+                  f"residual mode's outputs equal plain E's")
+            if path_err is None:
+                path_err = err
+
+    spec = build_scan_spec("spiral", 14, 0)
+    mixers = mamba2_mixers(spec, 200)
+    ws = [m.weights() for m in mixers]
+    xs, gs = inputs(196, 200)
+    with torch.no_grad():
+        _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+        e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws), reps=20)
+        e_res_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws, want_res=True), reps=20)
+    ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), reps=10)
+    plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(xs, gs, ws)],
+                       reps=5)
+    for m in mixers:
+        m.train()
+    leaves = [x.clone().requires_grad_() for x in xs]
+    outs = [m(x) for m, x in zip(mixers, leaves)]  # scan_impl "auto": the composable path
+    params = leaves + [p for m in mixers for p in m.parameters()]
+    pair_ms = cuda_ms(lambda: torch.autograd.grad(outs, params, gs, retain_graph=True), reps=10)
+    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=3,
+                                                K=4)
+    e_bound_ms, _ = ssd_mixer_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
+    print(f"  [{card}] ssd_mixer_bwd fp32, both branches, B={batch} L=196 h=512 d=1024: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (forward and autograd backward), bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by})")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer's backward")
+    print(f"  [{card}] yardstick: the composable pair's backward (autograd through "
+          f"ssd_mixer_ref: torch operators and cuBLAS, same weights) {pair_ms:.4f} ms")
+    print(f"  [{card}] ssd_mixer_fwd at the training shapes (B={batch}, both branches): plain "
+          f"mode {e_ms:.4f} ms, residual mode {e_res_ms:.4f} ms (bound {e_bound_ms * 1e3:.2f} us); "
+          f"the residual is {zx.numel() * 4 / 1e6:.1f} MB per call")
+    return {
+        "name": "ssd_mixer_bwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_ssd_bwd.cu",
+        "replaces": "diffma_tpu/ops/fused_ssd.py:555",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def phase_forward(card: str) -> None:
     import torch
 
@@ -971,6 +1135,68 @@ def phase_mamba2_forward(card: str) -> None:
               f"{r['kernels_per_call']:.0f} device kernels per forward")
 
 
+def phase_mamba2_train_step(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train.train import make_loss_fn, synthetic_batch
+
+    print("== phase 3d: full-width Mamba-2 DiffMa-B/2 training step, batch 2: composable "
+          "(torch autograd), dual (kernels E + F), fuse_block (E + G forward, recomputing "
+          "backward)", flush=True)
+    model = build_model("DiffMa-B/2", input_size=28, use_mamba2=True)
+    model = random_(model.init_weights(torch.Generator().manual_seed(5)), 5, scale=0.3)
+    model = model.cuda()
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(5), 2, 28, 196)
+    batch["t"] = torch.tensor([10, 900], device="cuda")
+    batch["noise"] = torch.randn(2, 4, 28, 28, generator=torch.Generator().manual_seed(6)).cuda()
+    loss_fn = make_loss_fn(model, create_diffusion("", device="cuda"))
+    zero = {name: 0 for name in kernel_counters()}
+    routes = (
+        ("composable", "auto", False, zero),
+        ("dual (E + F)", "fused", False, {**zero, "ssd_mixer_fwd": 8, "ssd_mixer_bwd": 8}),
+        # forward E (prologue) + G per block; backward E (residual) + F per block
+        ("fuse_block", "fused", True,
+         {**zero, "ssd_mixer_fwd": 16, "spiral_epilogue": 8, "ssd_mixer_bwd": 8}),
+    )
+    losses, grads = {}, {}
+    for route, impl, fuse, expect in routes:
+        model.set_scan_impl(impl)
+        for blk in model.blocks:
+            blk.fuse_block = fuse
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        loss, _ = loss_fn(batch, None)
+        loss.backward()
+        torch.cuda.synchronize()
+        check_counts(f"the Mamba-2 training step, {route}", expect)
+        losses[route] = loss.item()
+        grads[route] = {n: p.grad for n, p in model.named_parameters()}
+        if any(g is None for g in grads[route].values()):
+            fail(f"the Mamba-2 {route} route left a parameter without a gradient")
+    ref = grads["composable"]
+    mixer_grads = [g for n, g in ref.items() if ".mamba" in n]
+    print(f"  composable route: max |gradient| {max(g.abs().max().item() for g in ref.values()):.3e} "
+          f"over all parameters, {max(g.abs().max().item() for g in mixer_grads):.3e} over the "
+          f"mixers' ({len(mixer_grads)} tensors)")
+    for route in ("dual (E + F)", "fuse_block"):
+        rows = grad_errors(grads[route], ref, TOL_MODEL)
+        worst = max(rows, key=lambda row: row[1] / row[2])
+        rel = max((got - ref[n]).abs().max().item() / max(ref[n].abs().max().item(), 1e-30)
+                  for n, got in grads[route].items())
+        loss_err = abs(losses[route] - losses["composable"])
+        print(f"  {route}: loss {losses[route]:.6f} (composable {losses['composable']:.6f}, |err| "
+              f"{loss_err:.2e}); {len(rows)} gradients, max |err| "
+              f"{max(e for _, e, _ in rows):.3e}, largest error relative to its tensor's "
+              f"max |ref| {rel:.2e}; nearest its bar: {worst[0]} {worst[1]:.2e} "
+              f"(bar {worst[2]:.1e})")
+        if (not math.isfinite(losses[route])
+                or loss_err > TOL_MODEL * max(1.0, abs(losses["composable"]))):
+            fail(f"the Mamba-2 training loss on the {route} route disagrees with the "
+                 f"composable route's")
+
+
 def write_mamba2_checkpoint(path: str) -> dict:
     """A reference-format checkpoint of a Mamba-2 DiffMa-B/2 whose every
     parameter is seeded noise (std 0.3 / sqrt(fan-in), as phase 6's), so that
@@ -1046,6 +1272,66 @@ def phase_mamba2_samplers(card: str) -> dict:
           f"(max |image| {scale:.3f}, bar {bar:.1e}); image std {a.std():.4f}")
     if err > bar:
         fail(f"the two Mamba-2 routes' images differ by {err:.3e}, over the bar {bar:.1e}")
+    return counts
+
+
+def phase_mamba2_trainer(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import sample, train
+
+    print("== phase 12: Mamba-2 trainer CLI on configs/brain.yaml --use-mamba2 (DiffMa-L/2, "
+          "batch 8, synthetic), 20 steps, checkpoint at step 20, sampled back", flush=True)
+    cfg = brain_config()
+    results = os.path.join(ROOT, "results", "chip_smoke_train_mamba2")
+    shutil.rmtree(results, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train.cli([
+        "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--use-mamba2",
+        "--max-steps", "20", "--ckpt-every", "20", "--results-dir", results,
+    ])
+    seconds = time.perf_counter() - t0
+    zero = {name: 0 for name in kernel_counters()}
+    calls = 16 * 20  # blocks x steps: one E and one F call per block and step
+    counts = check_counts("the Mamba-2 trainer", {**zero, "ssd_mixer_fwd": calls,
+                                                  "ssd_mixer_bwd": calls})
+    if state.step != 20:
+        fail(f"the Mamba-2 trainer counted {state.step} finite steps of 20")
+    if not state.model.blocks[0].use_mamba2 or state.model.blocks[0].scan_impl != "fused":
+        fail("the Mamba-2 trainer's default path is not the fused Mamba-2 one")
+    init = build_model(cfg.model, input_size=28, use_mamba2=True).init_weights(
+        torch.Generator().manual_seed(int(cfg.global_seed))).state_dict()
+    for what, module in (("params", state.model), ("EMA", state.ema)):
+        still = moved_from_init(module, init)
+        if still:
+            fail(f"{still} tensors of the Mamba-2 {what} did not move in 20 steps")
+    (exp,) = os.listdir(results)
+    ckpt = os.path.join(results, exp, "checkpoints", "0000020.pt")
+    if not os.path.exists(ckpt):
+        fail(f"the Mamba-2 trainer wrote no checkpoint at {ckpt}")
+    loaded = sample.load_model(brain_config(ckpt=ckpt, use_mamba2=True), "cuda")
+    ema = state.ema.state_dict()
+    for key, value in loaded.state_dict().items():
+        if not torch.equal(value, ema[key]):
+            fail(f"the sampler's model does not hold the Mamba-2 checkpoint's EMA {key}")
+    steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
+    print(f"  20 steps, every loss finite; params and EMA moved; checkpoint "
+          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB read back by the sampler, EMA equal")
+    print(f"  [{card}] DiffMa-L/2 Mamba-2 fused training, batch 8, steps 11-20: {steps_s} "
+          f"steps/s, {images_s} images/s ({seconds:.1f} s for the whole CLI run, init included)")
+    del state, loaded
+    torch.cuda.empty_cache()
+    reset_counts()
+    images = sample.cli([
+        "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--use-mamba2", "--ckpt", ckpt,
+        "--num-batches", "1",
+    ])
+    check_counts("the sampler on the Mamba-2 trainer's checkpoint",
+                 {**zero, "ssd_mixer_fwd": 16 * 250})  # blocks x steps, no backward
+    check_images(card, "the sampler on the Mamba-2 trainer's checkpoint", images, 1)
+    shutil.rmtree(results, ignore_errors=True)
     return counts
 
 
@@ -1249,7 +1535,7 @@ def phase_composable_trainer(card: str) -> dict:
     return counts
 
 
-def phase_learning(card: str) -> None:
+def phase_learning(card: str, phase: int, use_mamba2: bool) -> None:
     import torch
 
     from diffma_tpu_torch.diffusion import create_diffusion
@@ -1257,12 +1543,14 @@ def phase_learning(card: str) -> None:
     from diffma_tpu_torch.train import train
 
     steps = 100
-    print(f"== phase 9: does it learn: DiffMa-B/2 fused, one fixed batch of 8, lr 1e-3, "
-          f"{steps} steps", flush=True)
-    results = os.path.join(ROOT, "results", "chip_smoke_overfit")
+    family = "Mamba-2 (use_mamba2) " if use_mamba2 else ""
+    print(f"== phase {phase}: does it learn: DiffMa-B/2 {family}fused, one fixed batch of 8, "
+          f"lr 1e-3, {steps} steps", flush=True)
+    results = os.path.join(ROOT, "results", f"chip_smoke_overfit_{phase}")
     shutil.rmtree(results, ignore_errors=True)
     cfg = brain_config(model="DiffMa-B/2", overfit_fixed_batch=True, lr=1e-3, max_steps=steps,
-                       log_every=10, ckpt_every=10**9, results_dir=results)
+                       log_every=10, ckpt_every=10**9, results_dir=results,
+                       use_mamba2=use_mamba2)
     seed = int(cfg.global_seed)
     # The trainer's fixed batch, and one fixed (t, noise) to evaluate at.
     batch = train.synthetic_batch(torch.Generator(device="cuda").manual_seed(seed + 1), 8, 28,
@@ -1278,7 +1566,7 @@ def phase_learning(card: str) -> None:
                 model_kwargs={"y": batch["y"], "y2": batch["y2"], "w": batch["w"]})
         return terms["mse"].mean().item()
 
-    init = build_model("DiffMa-B/2", input_size=28, scan_impl="fused")
+    init = build_model("DiffMa-B/2", input_size=28, scan_impl="fused", use_mamba2=use_mamba2)
     before = mse(init.init_weights(torch.Generator().manual_seed(seed)).cuda().eval())
     state = train.main(cfg, device="cuda")
     after = mse(state.model.eval())
@@ -1286,7 +1574,7 @@ def phase_learning(card: str) -> None:
     steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
     print(f"  MSE term at the fixed (t, noise): {before:.5f} before, {after:.5f} after "
           f"{steps} steps: fell {before / after:.2f}x (at least 2x required)")
-    print(f"  [{card}] DiffMa-B/2 fused training, batch 8, steps {steps - 9}-{steps}: "
+    print(f"  [{card}] DiffMa-B/2 {family}fused training, batch 8, steps {steps - 9}-{steps}: "
           f"{steps_s} steps/s, {images_s} images/s")
     if state.step != steps or not after * 2 <= before:
         fail(f"the MSE term fell {before / after:.2f}x in {steps} steps, not 2x")
@@ -1314,20 +1602,24 @@ def main() -> int:
     mixer_bwd = phase_mixer_bwd(card)
     ssd = phase_fused_ssd(card)
     epilogue = phase_spiral_epilogue(card)
+    ssd_bwd = phase_ssd_bwd(card)
     phase_forward(card)
     phase_train_step(card)
     phase_mamba2_forward(card)
+    phase_mamba2_train_step(card)
     scan["launches"] = phase_sampler(card)
     mixer["launches"] = phase_fused_sampler(card)
     phase_checkpoint(card)
     mixer_bwd["launches"] = phase_trainer(card)["mixer_fused_bwd"]
     scan_bwd["launches"] = phase_composable_trainer(card)["selective_scan_bwd"]
-    phase_learning(card)
+    phase_learning(card, 9, use_mamba2=False)
     counts = phase_mamba2_samplers(card)
     ssd["launches"], epilogue["launches"] = counts["ssd_mixer_fwd"], counts["spiral_epilogue"]
+    ssd_bwd["launches"] = phase_mamba2_trainer(card)["ssd_mixer_bwd"]
+    phase_learning(card, 13, use_mamba2=True)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue]}))
+    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -57,7 +57,7 @@
 // 6. gx = dxz W_in, dW_in = dxz^T x, dW_out = g^T merged: GEMMs.
 // 7. a pass that sums every partial in a fixed order. Nothing uses atomics,
 //    so the result is deterministic.
-// All GEMMs are one tiled template (64 x 64 tiles or smaller, 16-deep
+// All GEMMs are one tiled template (gemm_ops.cuh; 64 x 64 tiles or smaller, 16-deep
 // k-slabs in shared memory, register tiles, the next slab loaded into
 // registers during the products); each operand is read along whichever of
 // its axes is contiguous, so the loads coalesce. The TPU kernel's one-hot
@@ -72,6 +72,7 @@
 
 #include <algorithm>
 
+#include "gemm_ops.cuh"
 #include "scan_bwd.cuh"
 
 namespace {
@@ -166,112 +167,8 @@ __device__ __forceinline__ float dsilu(float x) {
   return s * (1.0f + x * (1.0f - s));
 }
 
-// ---------------------------------------------------------------------------
-// The GEMM template. An operand class gives, for branch m:
-//   rows, cols, depth       c (rows x cols) = sum over k < depth of a(row, k) b(col, k)
-//   kAByRow, kBByRow        true when a (b) is contiguous along row (col), false
-//                           when along k: the tile loads follow the contiguous axis
-//   kSplit                  split the depth over p.splits blocks (blockIdx.z =
-//                           m * splits + split) and store per-split partials
-//   a(row, k), b(col, k), store(row, col, split, value)
-// ---------------------------------------------------------------------------
-
-template <int BM, int BN, int BK, int TM, int TN, class Op>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN)) gemm_kernel(const Params p) {
-  constexpr int kThreads = (BM / TM) * (BN / TN);
-  constexpr int kRowStep = BM / TM;
-  constexpr int kColStep = BN / TN;
-  constexpr int kALoads = BM * BK / kThreads;
-  constexpr int kBLoads = BN * BK / kThreads;
-  static_assert(BM * BK % kThreads == 0 && BN * BK % kThreads == 0, "whole loads per thread");
-  static_assert(Op::kAByRow ? kThreads % BM == 0 : kThreads % BK == 0, "fixed row or k per thread");
-  static_assert(Op::kBByRow ? kThreads % BN == 0 : kThreads % BK == 0, "fixed col or k per thread");
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-
-  const int splits = Op::kSplit ? p.splits : 1;
-  const int m = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const Op op(p, m);
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int per_split = (op.depth + splits * BK - 1) / (splits * BK) * BK;
-  const int k_begin = split * per_split;
-  const int k_end = min(op.depth, k_begin + per_split);
-  const int tid = threadIdx.x;
-  const int tx = tid % kColStep;
-  const int ty = tid / kColStep;
-
-  int ar[kALoads], ak[kALoads], br[kBLoads], bk[kBLoads];
-#pragma unroll
-  for (int q = 0; q < kALoads; ++q) {
-    const int e = tid + q * kThreads;
-    ar[q] = Op::kAByRow ? e % BM : e / BK;
-    ak[q] = Op::kAByRow ? e / BM : e % BK;
-  }
-#pragma unroll
-  for (int q = 0; q < kBLoads; ++q) {
-    const int e = tid + q * kThreads;
-    br[q] = Op::kBByRow ? e % BN : e / BK;
-    bk[q] = Op::kBByRow ? e / BN : e % BK;
-  }
-
-  float ra[kALoads], rb[kBLoads];
-  auto load_slab = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) {
-      const int row = row0 + ar[q], k = k0 + ak[q];
-      ra[q] = (row < op.rows && k < k_end) ? op.a(row, k) : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < kBLoads; ++q) {
-      const int col = col0 + br[q], k = k0 + bk[q];
-      rb[q] = (col < op.cols && k < k_end) ? op.b(col, k) : 0.0f;
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  if (k_begin < k_end) load_slab(k_begin);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) As[ak[q]][ar[q]] = ra[q];
-#pragma unroll
-    for (int q = 0; q < kBLoads; ++q) Bs[bk[q]][br[q]] = rb[q];
-    __syncthreads();
-    if (k0 + BK < k_end) load_slab(k0 + BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k][ty + i * kRowStep];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx + j * kColStep];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + ty + i * kRowStep;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx + j * kColStep;
-      if (row < op.rows && col < op.cols) op.store(row, col, split, acc[i][j]);
-    }
-  }
-}
-
 struct InProj {  // xz = x W_in^T
-  static constexpr bool kAByRow = false, kBByRow = false, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = false;
   const float *x, *w;
   float* c;
   int rows, cols, depth;
@@ -284,7 +181,7 @@ struct InProj {  // xz = x W_in^T
 };
 
 struct ConvXProj {  // pre = conv(gathered xz_u) + conv_b; u = silu(pre); xdb = u W_x^T
-  static constexpr bool kAByRow = false, kBByRow = false, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = false;
   const float *xz, *conv_w, *conv_b, *w;
   const int64_t* fwd;
   float *u, *pre, *c;
@@ -317,7 +214,7 @@ struct ConvXProj {  // pre = conv(gathered xz_u) + conv_b; u = silu(pre); xdb = 
 };
 
 struct GradOutProj {  // gm = g W_out
-  static constexpr bool kAByRow = false, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = true;
   const float *g, *w;
   float* c;
   int rows, cols, depth;
@@ -330,7 +227,7 @@ struct GradOutProj {  // gm = g W_out
 };
 
 struct GradDtRank {  // d dt_r = draw W_dt, into dxdb[:, :r]
-  static constexpr bool kAByRow = false, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = true;
   const float *ddb, *w;
   float* c;
   int rows, cols, depth, ld;
@@ -343,7 +240,7 @@ struct GradDtRank {  // d dt_r = draw W_dt, into dxdb[:, :r]
 };
 
 struct GradXProjW {  // dW_x = dxdb^T u, per split
-  static constexpr bool kAByRow = true, kBByRow = true, kSplit = true;
+  static constexpr bool kAByRow = true, kBByRow = true;
   const float *dxdb, *u;
   float* c;
   int rows, cols, depth;
@@ -358,7 +255,7 @@ struct GradXProjW {  // dW_x = dxdb^T u, per split
 };
 
 struct GradDtW {  // dW_dt = draw^T dt_r, per split
-  static constexpr bool kAByRow = true, kBByRow = true, kSplit = true;
+  static constexpr bool kAByRow = true, kBByRow = true;
   const float *ddb, *xdb;
   float* c;
   int rows, cols, depth, ld;
@@ -373,7 +270,7 @@ struct GradDtW {  // dW_dt = draw^T dt_r, per split
 };
 
 struct GradPre {  // dpre = (du + dxdb W_x) silu'(pre), in place of du
-  static constexpr bool kAByRow = false, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = true;
   const float *dxdb, *w, *pre;
   float* du;
   int rows, cols, depth;
@@ -389,7 +286,7 @@ struct GradPre {  // dpre = (du + dxdb W_x) silu'(pre), in place of du
 };
 
 struct GradX {  // gx = dxz W_in
-  static constexpr bool kAByRow = false, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = false, kBByRow = true;
   const float *dxz, *w;
   float* c;
   int rows, cols, depth;
@@ -402,7 +299,7 @@ struct GradX {  // gx = dxz W_in
 };
 
 struct GradInW {  // dW_in = dxz^T x
-  static constexpr bool kAByRow = true, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = true, kBByRow = true;
   const float *dxz, *x;
   float* c;
   int rows, cols, depth;
@@ -415,7 +312,7 @@ struct GradInW {  // dW_in = dxz^T x
 };
 
 struct GradOutW {  // dW_out = g^T merged, merged = scale sum_s y_s in token order
-  static constexpr bool kAByRow = true, kBByRow = true, kSplit = false;
+  static constexpr bool kAByRow = true, kBByRow = true;
   const float *g, *y;
   float* c;
   float scale;
@@ -753,14 +650,6 @@ void set_dims(Params& p, int B, int L, int h, int d, int r, int S, float scale) 
   p.scale = scale;
 }
 
-template <int BM, int BN, int BK, int TM, int TN, class Op>
-int launch_gemm(const Params& p, int rows, int cols, int M, cudaStream_t stream) {
-  const int splits = Op::kSplit ? p.splits : 1;
-  const dim3 grid((rows + BM - 1) / BM, (cols + BN - 1) / BN, M * splits);
-  gemm_kernel<BM, BN, BK, TM, TN, Op><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 unsigned blocks_for(size_t n, int threads) { return static_cast<unsigned>((n + threads - 1) / threads); }
 
 }  // namespace
@@ -801,9 +690,9 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * L, R = B * S * L, r2 = r + 2 * kN;
 
-  int err = launch_gemm<64, 64, 16, 4, 4, InProj>(p, T, 2 * d, M, st);
-  if (err == 0) err = launch_gemm<16, 64, 16, 1, 4, ConvXProj>(p, R, r2, M, st);
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradOutProj>(p, T, d, M, st);
+  int err = launch_gemm_op<64, 64, 16, 4, 4, InProj>(p, T, 2 * d, M, st);
+  if (err == 0) err = launch_gemm_op<16, 64, 16, 1, 4, ConvXProj>(p, R, r2, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutProj>(p, T, d, M, st);
   if (err == 0) {
     scan_bwd_kernel<<<dim3(p.nblk, B * S, M), kWarp, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
@@ -812,18 +701,18 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
     reduce_bc_kernel<<<dim3(blocks_for(static_cast<size_t>(R) * kWarp, 256), M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_gemm<64, 32, 16, 4, 2, GradDtRank>(p, R, r, M, st);
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradXProjW>(p, r2, d, M, st);
+  if (err == 0) err = launch_gemm_op<64, 32, 16, 4, 2, GradDtRank>(p, R, r, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradXProjW>(p, r2, d, M, st, p.splits);
   if (err == 0) {
     sum_splits_kernel<<<dim3(blocks_for(static_cast<size_t>(r2) * d, 256), M), 256, 0, st>>>(p, 0, r2 * d);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_gemm<64, 32, 16, 4, 2, GradDtW>(p, d, r, M, st);
+  if (err == 0) err = launch_gemm_op<64, 32, 16, 4, 2, GradDtW>(p, d, r, M, st, p.splits);
   if (err == 0) {
     sum_splits_kernel<<<dim3(blocks_for(static_cast<size_t>(d) * r, 256), M), 256, 0, st>>>(p, 1, d * r);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradPre>(p, R, d, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradPre>(p, R, d, M, st);
   if (err == 0) {
     grad_xz_kernel<<<dim3(blocks_for(static_cast<size_t>(T) * 2 * d, 256), M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
@@ -832,9 +721,9 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
     grad_conv_kernel<<<dim3(p.nblk, kConvSplits, M), dim3(kWarp, 8), 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradX>(p, T, h, M, st);
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradInW>(p, 2 * d, h, M, st);
-  if (err == 0) err = launch_gemm<64, 64, 16, 4, 4, GradOutW>(p, h, d, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradX>(p, T, h, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradInW>(p, 2 * d, h, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutW>(p, h, d, M, st);
   if (err == 0) {
     finalize_kernel<<<dim3(blocks_for(d, 128), M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());

@@ -40,9 +40,9 @@
 // operations bound it.
 //
 // Design, simple and right first. One call launches four kernels on the
-// stream (five in prologue mode), with the intermediates in a workspace the
-// caller allocates (ssd_mixer_workspace_floats); at batch 1 it is 10 MB and
-// stays in L2. blockIdx.z (or a grid axis) selects the branch in every
+// stream (five in prologue mode), with the intermediates in zx and a
+// workspace that the caller allocates (ssd_mixer_workspace_floats); at batch
+// 1 they are 10 MB and stay in L2. blockIdx.z (or a grid axis) selects the branch in every
 // kernel, so both branches share each launch.
 // 0. prologue (only in that mode): one block per token row; LayerNorm,
 //    modulate, and both branches' inputs written to the workspace.
@@ -65,29 +65,39 @@
 // tril-matmul cumsum and its 8-row padding of L exist for the MXU and VMEM;
 // here they are index gathers, c / 64, a warp scan and exact t < L.
 //
-// The backward (_ssd_bwd_kernel) and the residual outputs it reads are not
-// built yet; neither are partition specs, several B/C groups or bf16: the
-// wrapper raises for them.
+// Stage 2 and the staging of a head live in ssd_core.cuh, which the backward
+// (kernel F, fused_ssd_bwd.cu) shares.
+//
+// The residual: the TPU kernel's want_res outputs, the permuted conv + dt
+// columns xs and the gate z, exist so that its backward need not repeat
+// in_proj or a permutation (a matmul there). Here a permutation is an index,
+// and zx in token order holds both. So zx is not part of the workspace but a
+// tensor the caller owns: a caller that needs the backward keeps it for
+// kernel F, any other drops it. The kernel does the same work either way.
+//
+// Partition specs, several B/C groups and bf16 are not built: the wrapper
+// raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_nt.cuh"
+#include "ssd_core.cuh"
 
 namespace {
 
-constexpr int kN = 16;         // d_state
-constexpr int kHd = 64;        // channels per head
-constexpr int kConv = 4;       // conv taps
-constexpr int kMaxStreams = 4;
+using ssd::block_sum;
+using ssd::kConv;
+using ssd::kHd;
+using ssd::kMaxSharedBytes;
+using ssd::kMaxStreams;
+using ssd::kN;
+using ssd::silu;
+
 constexpr int kBranchPtrs = 10;
-constexpr int kSsdThreads = 256;
-constexpr int kTile = 32;      // steps t per tile of the SSD product
-constexpr int kBStride = kN + 1;  // Bs rows padded: lanes read different rows
 constexpr int kRowThreads = 256;  // gate + norm + merge
 constexpr int kMaxPerThread = 8;  // so d <= 2048
 constexpr int kProThreads = 128;
-constexpr int kMaxSharedBytes = 227 * 1024;
 
 struct Branch {
   const float* x;        // (B, L, h)
@@ -120,26 +130,6 @@ struct Params {
   int B, L, h, d, H, S, dproj;
   float scale, eps, dt_lo, dt_hi;
 };
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-// softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-// Sum of v over the block; every thread gets it. `red` holds one float per warp.
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // the last call's reads of red are done
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < blockDim.x / 32; ++w) total += red[w];  // the same order in every thread
-  return total;
-}
 
 // 0. LayerNorm + modulate (+ soft mask for branch 1). grid B * L.
 __global__ void __launch_bounds__(kProThreads) prologue_kernel(const Params p) {
@@ -208,148 +198,6 @@ struct OutProj {  // out = merged . W_out^T
   __device__ float a(const Row& r, int k) const { return r.a[k]; }
 };
 
-// Shared memory of one SSD block, in floats (the token order is ints of the
-// same size).
-__host__ __device__ constexpr size_t ssd_smem_floats(int L) {
-  return static_cast<size_t>(L) * (kHd + kBStride + kN + 3) + kTile * static_cast<size_t>(L + 1);
-}
-
-// 2. The SSD of one (branch, b, stream, head). grid (H, B * S, M).
-__global__ void __launch_bounds__(kSsdThreads) ssd_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int L = p.L, d = p.d;
-  float* X = smem;                    // (L, 64)   xs, this head's channels
-  float* Bs = X + L * kHd;            // (L, 17)
-  float* Cs = Bs + L * kBStride;      // (L, 16)
-  float* dts = Cs + L * kN;           // (L,)
-  float* css = dts + L;               // (L,)
-  int* tok = reinterpret_cast<int*>(css + L);  // (L,)
-  float* Mt = css + 2 * L;            // (kTile, L + 1)
-  const int mstride = L + 1;
-
-  const int head = blockIdx.x;
-  const int bs = blockIdx.y;  // b * S + s
-  const int s = bs % p.S;
-  const int b = bs / p.S;
-  const int m = blockIdx.z;
-  const int tid = threadIdx.x;
-  const Branch& br = p.br[m];
-  const float* zx_b = p.zx + (static_cast<size_t>(m) * p.B + b) * L * p.dproj;
-  const int conv_dim = d + 2 * kN;
-
-  for (int t = tid; t < L; t += kSsdThreads) {
-    tok[t] = static_cast<int>(p.fwd[static_cast<size_t>(s) * L + t]);
-  }
-  __syncthreads();
-
-  // conv + SiLU over this head's 64 x channels and the 32 B and C channels,
-  // in stream order, zero left pad; dt.
-  constexpr int kCols = kHd + 2 * kN;
-  for (int i = tid; i < L * kCols; i += kSsdThreads) {
-    const int t = i / kCols, j = i % kCols;
-    const int cc = j < kHd ? head * kHd + j : d + (j - kHd);  // conv channel
-    const float4 wk = reinterpret_cast<const float4*>(br.conv_w)[cc];  // taps 0..3
-    const float wt[kConv] = {wk.x, wk.y, wk.z, wk.w};
-    float acc = br.conv_b[cc];
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) {
-      const int tt = t - (kConv - 1) + k;
-      if (tt >= 0) acc = fmaf(wt[k], zx_b[static_cast<size_t>(tok[tt]) * p.dproj + d + cc], acc);
-    }
-    const float v = silu(acc);
-    if (j < kHd) {
-      X[t * kHd + j] = v;
-    } else if (j < kHd + kN) {
-      Bs[t * kBStride + (j - kHd)] = v;
-    } else {
-      Cs[t * kN + (j - kHd - kN)] = v;
-    }
-  }
-  const float A = -expf(br.A_log[head]);
-  const float dtb = br.dt_bias[head];
-  for (int t = tid; t < L; t += kSsdThreads) {
-    const float raw = zx_b[static_cast<size_t>(tok[t]) * p.dproj + d + conv_dim + head];
-    dts[t] = fminf(fmaxf(softplus(raw + dtb), p.dt_lo), p.dt_hi);
-  }
-  __syncthreads();
-
-  // cs: inclusive cumsum of dt * A, by warp 0 in fp64, 32 steps at a time.
-  if (tid < 32) {
-    double carry = 0.0;
-    for (int t0 = 0; t0 < L; t0 += 32) {
-      const int t = t0 + tid;
-      double v = t < L ? static_cast<double>(dts[t] * A) : 0.0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double up = __shfl_up_sync(0xffffffffu, v, o);
-        if (tid >= o) v += up;
-      }
-      v += carry;
-      if (t < L) css[t] = static_cast<float>(v);
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-  __syncthreads();
-
-  const float Dh = br.D[head];
-  float* y_bs = p.y + (static_cast<size_t>(m) * p.B * p.S + bs) * L * d + head * kHd;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16;  // columns tx + 16 j
-  const int ty = tid / 16;  // rows ty and ty + 16 of the tile
-
-  for (int t0 = 0; t0 < L; t0 += kTile) {
-    const int rows = min(kTile, L - t0);
-    const int t_end = t0 + rows;  // the tile's rows need u < t_end
-    // M[i, u] for the tile's rows: each warp takes rows warp, warp + 8, ...
-    for (int i = warp; i < rows; i += kSsdThreads / 32) {
-      const int t = t0 + i;
-      float c[kN];
-#pragma unroll
-      for (int k = 0; k < kN; ++k) c[k] = Cs[t * kN + k];
-      const float cs_t = css[t];
-      for (int u = lane; u < t_end; u += 32) {
-        float v = 0.0f;
-        if (u <= t) {
-          float cb = 0.0f;
-#pragma unroll
-          for (int k = 0; k < kN; ++k) cb = fmaf(c[k], Bs[u * kBStride + k], cb);
-          v = cb * expf(cs_t - css[u]) * dts[u];
-        }
-        Mt[i * mstride + u] = v;
-      }
-    }
-    __syncthreads();
-    // y tile = M (rows x t_end) . X (t_end x 64)
-    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-    const bool ok0 = ty < rows, ok1 = ty + 16 < rows;
-    const float* m0 = Mt + (ok0 ? ty : 0) * mstride;
-    const float* m1 = Mt + (ok1 ? ty + 16 : 0) * mstride;
-    for (int u = 0; u < t_end; ++u) {
-      const float a0 = m0[u], a1 = m1[u];
-      const float* xr = X + u * kHd + tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float xv = xr[16 * j];
-        acc[0][j] = fmaf(a0, xv, acc[0][j]);
-        acc[1][j] = fmaf(a1, xv, acc[1][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = t0 + ty + 16 * i;
-      if (i == 0 ? ok0 : ok1) {
-        float* yrow = y_bs + static_cast<size_t>(tok[t]) * d;  // back in token order
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          yrow[c] = acc[i][j] + Dh * X[t * kHd + c];
-        }
-      }
-    }
-    __syncthreads();  // Mt is rebuilt by the next tile
-  }
-}
-
 // 3. Gate with silu(z), RMSNorm over d per stream, sum over streams, * scale.
 // grid (B * L, M).
 __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Params p) {
@@ -395,7 +243,6 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Para
 size_t workspace_floats(int M, int B, int L, int h, int d, int H, int S, int prologue) {
   const size_t tokens = static_cast<size_t>(M) * B * L;
   return (prologue ? tokens * h : 0)                // xmod
-         + tokens * (2 * d + 2 * kN + H)            // zx
          + tokens * S * d                           // y
          + tokens * d;                              // merged
 }
@@ -411,7 +258,7 @@ extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int h, int 
 // The longest sequence whose SSD block fits in a block's shared memory.
 extern "C" int ssd_mixer_max_tokens() {
   int L = 0;
-  while (ssd_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
+  while (ssd::fwd_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
   return L;
 }
 
@@ -420,16 +267,18 @@ extern "C" int ssd_mixer_max_tokens() {
 // each of its rows a permutation of 0 .. L-1. `pro` is null, or five
 // pointers for prologue mode (then M = 2 and both branches' x is the block's
 // input): wmask (B, L), ln_w (h,), ln_b (h,), shift and scale (B, h) whose
-// rows lie `mod_stride` floats apart. Launches its kernels on `stream`;
+// rows lie `mod_stride` floats apart. `zx` (M, B * L, dproj) takes in_proj's
+// output, the residual that kernel F reads. Launches its kernels on `stream`;
 // returns the first cudaError_t that is not 0, or -1 for shapes that are not
 // built.
 extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* workspace,
-                             void* const* pro, int mod_stride, float ln_eps, int B, int L,
+                             void* zx, void* const* pro, int mod_stride, float ln_eps,
+                             int B, int L,
                              int h, int d, int n, int H, int K, int S, float scale,
                              float eps, float dt_lo, float dt_hi, void* stream) {
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
       d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 ||
-      ssd_smem_floats(L) * sizeof(float) > kMaxSharedBytes || (pro && M != 2)) {
+      ssd::fwd_smem_floats(L) * sizeof(float) > kMaxSharedBytes || (pro && M != 2)) {
     return -1;
   }
   Params p{};
@@ -458,8 +307,8 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
     p.mod_stride = mod_stride;
     p.ln_eps = ln_eps;
   }
-  p.zx = ws;
-  p.y = p.zx + tokens * dproj;
+  p.zx = static_cast<float*>(zx);
+  p.y = ws;
   p.merged = p.y + tokens * S * d;
   p.B = B;
   p.L = L;
@@ -482,13 +331,22 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
   }
   err = launch_gemm<64, 64, 16, 4, 4, InProj>(p, B * L, dproj, M, st);
   if (err != 0) return err;
-  const size_t smem = ssd_smem_floats(L) * sizeof(float);
-  err = static_cast<int>(
-      cudaFuncSetAttribute(ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)));
-  if (err != 0) return err;
-  ssd_kernel<<<dim3(H, B * S, M), kSsdThreads, smem, st>>>(p);
-  err = static_cast<int>(cudaGetLastError());
+  ssd::FwdArgs core{};
+  for (int m = 0; m < M; ++m) {
+    const Branch& br = p.br[m];
+    core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
+  }
+  core.fwd = p.fwd;
+  core.zx = p.zx;
+  core.y = p.y;
+  core.B = B;
+  core.L = L;
+  core.d = d;
+  core.S = S;
+  core.dproj = dproj;
+  core.dt_lo = dt_lo;
+  core.dt_hi = dt_hi;
+  err = ssd::launch_ssd_fwd(core, M, H, st);
   if (err != 0) return err;
   gate_norm_merge_kernel<<<dim3(B * L, M), kRowThreads, 0, st>>>(p);
   err = static_cast<int>(cudaGetLastError());

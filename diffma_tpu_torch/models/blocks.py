@@ -8,9 +8,11 @@ weight, and a gated residual. Three routes, as in the JAX block:
 
 * ``fuse_block`` with ``use_mamba2`` and ``scan_impl="fused"``: the whole
   block in one call of ``spiral_block_fused`` (on the card kernel E in
-  prologue mode and kernel G; inference only);
+  prologue mode and kernel G; its backward recomputes the block through the
+  next route, so it is the inference route);
 * ``scan_impl="fused"``: both branches in one call of the fused mixer
-  (Mamba-1: kernel C, and kernel D in the backward; Mamba-2: kernel E);
+  (Mamba-1: kernel C, and kernel D in the backward; Mamba-2: kernel E, and
+  kernel F in the backward);
 * otherwise each mixer runs its own path.
 
 Parameter names follow upstream DiffMa's ``block/mamba_block.py``

@@ -12,7 +12,8 @@ yet, and ``build_model`` says so. ``scan_impl`` picks the mixers' path for
 every block (``models/mamba.py``); the sampler's default on the card is
 ``"fused"``. ``use_mamba2`` builds the blocks on the Mamba-2 mixer
 (``models/mamba2.py``), and ``fuse_block`` with it sends each whole block
-through ``spiral_block_fused`` (inference only).
+through ``spiral_block_fused`` (its backward recomputes the block, so
+training takes the mixer-level route).
 """
 
 from __future__ import annotations

@@ -10,9 +10,9 @@ the JAX package's values:
   PyTorch operators on any device; it carries gradients;
 * ``"fused"``: the whole mixer in one call of kernel E
   (``ops/fused_ssd.py::mamba2_mixer_fused``) on CUDA tensors, its plain
-  version on CPU tensors. Only for one B/C group; with ``ngroups > 1`` the
-  composable path runs, as in the JAX package. Kernel E has no backward yet,
-  so on CUDA tensors that need a gradient this path raises.
+  version on CPU tensors; where a gradient is needed, kernel E keeps its
+  residual and kernel F is the backward. Only for one B/C group; with
+  ``ngroups > 1`` the composable path runs, as in the JAX package.
 
 Parameter names follow mamba_ssm's ``Mamba2`` state dict, whatever the path:
 ``in_proj.weight`` with rows ``[z | x | B | C | dt]``, ``conv1d`` over the

@@ -1,4 +1,5 @@
-"""Whole Mamba-2 (SSD) mixer and the Spiral block around it: forward.
+"""Whole Mamba-2 (SSD) mixer and the Spiral block around it: forward and
+backward.
 
 Counterpart of ``diffma_tpu/ops/fused_ssd.py``. The mixer takes the tokens
 ``x (B, L, h)`` of one layer to ``(B, L, h)``, with in_proj's columns in the
@@ -19,25 +20,38 @@ Two implementations of each:
 * ``ssd_mixer_ref``: the plain PyTorch version, built on ``ssd_chunked`` and
   ``rms_norm_gated``. It is the composable Mamba-2 path of
   ``models/mamba2.py``, the CPU path, and what kernel E is held against.
+  ``ssd_mixer_bwd_ref`` is autograd over it, what kernel F is held against.
   ``spiral_epilogue_ref`` is the block's tail and ``spiral_block_ref`` the
   whole block from these.
 * ``ssd_mixer_fused_cuda``: the hand-written CUDA kernel E
   (``csrc/fused_ssd_fwd.cu``), which replaces the TPU kernel
   ``diffma_tpu/ops/fused_ssd.py::_ssd_kernel``: one or two mixers per call,
-  and in prologue mode the block's LayerNorm + modulate + soft mask too.
-  ``spiral_epilogue_cuda`` is kernel G (``csrc/spiral_epilogue.cu``), which
-  replaces ``_spiral_epilogue_kernel``. Their ``launches`` attributes count
-  calls (each launches a short chain of device kernels).
+  and in prologue mode the block's LayerNorm + modulate + soft mask too. In
+  residual mode (``want_res``) it also returns ``zx = in_proj(x)`` in token
+  order, ``(M, B * L, 2d + 2n + H)``, which holds everything the TPU kernel's
+  two residuals hold. ``ssd_mixer_fused_bwd_cuda`` is kernel F
+  (``csrc/fused_ssd_bwd.cu``), which replaces ``_ssd_bwd_kernel``: the
+  gradients of x and the 8 weights from x, dL/dout, the weights and that
+  residual. ``spiral_epilogue_cuda`` is kernel G
+  (``csrc/spiral_epilogue.cu``), which replaces ``_spiral_epilogue_kernel``.
+  Their ``launches`` attributes count calls (each launches a chain of device
+  kernels).
+
+``FusedSsdFn`` joins E and F for autograd: forward through kernel E in
+residual mode, backward through one call of kernel F. ``SpiralBlockFn`` is
+the whole block: forward through kernel E in prologue mode and kernel G,
+backward by recomputing the block through ``FusedSsdFn`` and differentiating
+that, as the JAX package's ``spiral_block_fused`` does (exact gradients for
+one more forward).
 
 ``mamba2_mixer_fused``, ``mamba2_dual_mixer_fused`` and ``spiral_block_fused``
-dispatch on the tensors' device: the kernels for CUDA tensors, the plain
-versions for CPU tensors; ``impl="ref"`` takes the plain version on any
-device. The kernels have no backward yet (the TPU kernel ``_ssd_bwd_kernel``
-is not ported): on CUDA tensors that need a gradient the entry points raise,
-and the composable route (``scan_impl="auto"``) carries gradients instead.
-fp32, one B/C group, full-length stream permutations; partition specs
-(EfficientVMamba's atrous streams) raise ``NotImplementedError``. The decay
-is always the quadratic form, exact at every span.
+dispatch on the tensors' device: the kernels for CUDA tensors (through the
+autograd Functions when a gradient is needed, else plain kernel E with no
+residual written), the plain versions under autograd for CPU tensors;
+``impl="ref"`` takes the plain version on any device. fp32, one B/C group,
+full-length stream permutations; partition specs (EfficientVMamba's atrous
+streams) raise ``NotImplementedError``. The decay is always the quadratic
+form, exact at every span, forward and backward.
 """
 
 from __future__ import annotations
@@ -57,19 +71,24 @@ from diffma_tpu_torch.ops.scan_orders import ScanSpec
 from diffma_tpu_torch.ops.ssd import ssd_chunked_grouped
 
 __all__ = [
+    "FusedSsdFn",
     "Mamba2Weights",
     "Prologue",
+    "SpiralBlockFn",
     "mamba2_dual_mixer_fused",
     "mamba2_mixer_fused",
     "spiral_block_fused",
     "spiral_block_ref",
     "spiral_epilogue_cuda",
     "spiral_epilogue_ref",
+    "ssd_mixer_bwd_ref",
+    "ssd_mixer_fused_bwd_cuda",
     "ssd_mixer_fused_cuda",
     "ssd_mixer_ref",
 ]
 
 _KERNEL_SOURCE = "fused_ssd_fwd"
+_BWD_SOURCE = "fused_ssd_bwd"
 _EPILOGUE_SOURCE = "spiral_epilogue"
 _KERNEL_D_STATE = 16
 _KERNEL_HEADDIM = 64
@@ -139,6 +158,20 @@ def ssd_mixer_ref(
     merged = y.reshape(B_, S * Ls, d).index_select(1, merge)
     merged = merged.reshape(B_, L, spec.merge.shape[1], d).sum(dim=2) * spec.scale
     return F.linear(merged, w.out_w)
+
+
+def ssd_mixer_bwd_ref(
+    spec: ScanSpec, x: torch.Tensor, g: torch.Tensor, w: Mamba2Weights,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+) -> Tuple[torch.Tensor, Mamba2Weights]:
+    """The mixer's backward by autograd over ``ssd_mixer_ref``: the gradients
+    of ``<g, ssd_mixer_ref(spec, x, w, dt_limit, eps)>`` with respect to x and
+    each weight."""
+    leaves = [t.detach().requires_grad_() for t in (x, *w)]
+    with torch.enable_grad():
+        out = ssd_mixer_ref(spec, leaves[0], Mamba2Weights(*leaves[1:]), dt_limit, eps)
+        grads = torch.autograd.grad(out, leaves, g)
+    return grads[0], Mamba2Weights(*grads[1:])
 
 
 def spiral_epilogue_ref(
@@ -256,8 +289,9 @@ def _kernel_fns():
     lib = cuda_build.load(_KERNEL_SOURCE)
     fwd = lib.ssd_mixer_fwd
     fwd.argtypes = (
-        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_float]
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        + [ctypes.c_void_p] * 3
+        + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_float]
         + [ctypes.c_int] * 8
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p]
@@ -273,14 +307,20 @@ def _kernel_fns():
 
 def ssd_mixer_fused_cuda(
     spec: ScanSpec, xs, ws, dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
-    prologue: Optional[Prologue] = None,
-) -> Tuple[torch.Tensor, ...]:
+    prologue: Optional[Prologue] = None, want_res: bool = False,
+):
     """Launch kernel E on the current stream for the mixers ``ws[m]`` applied
     to ``xs[m]`` (one or two of them); returns their outputs. With
     ``prologue``, ``xs`` is the block's one input ``(x,)``, ``ws`` both
     branches' weights, and the kernel computes LayerNorm, modulation and the
     second branch's soft mask itself; the two outputs are the halves of one
     ``(2, B, L, h)`` tensor.
+
+    With ``want_res`` (residual mode) it returns ``(outputs, zx)``: ``zx (M,
+    B * L, 2d + 2n + H)`` is in_proj's output in token order, which kernel F
+    reads in the backward. The kernel writes it into a tensor of its own in
+    either mode, so the outputs are the same bit for bit; without
+    ``want_res`` it is dropped with the workspace.
 
     Raises on inputs the kernel does not take;
     ``ssd_mixer_fused_cuda.launches`` counts the calls.
@@ -291,6 +331,8 @@ def ssd_mixer_fused_cuda(
         raise ValueError(f"{len(xs)} inputs for {M} mixers")
     if prologue is not None and M != 2:
         raise ValueError("prologue mode runs both branches of a block")
+    if prologue is not None and want_res:
+        raise ValueError("prologue mode writes no residual: kernel F takes the mixers' inputs")
     dims = _check_kernel_inputs(spec, xs, ws, prologue)
     fwd_fn, size_fn, max_tokens = _kernel_fns()
     if dims["L"] > max_tokens:
@@ -302,6 +344,8 @@ def ssd_mixer_fused_cuda(
                 int(prologue is not None)),
         dtype=torch.float32, device=x0.device,
     )
+    dproj = 2 * dims["d"] + 2 * dims["n"] + dims["H"]
+    zx = torch.empty((M, dims["B"] * dims["L"], dproj), dtype=torch.float32, device=x0.device)
     fwd, _ = index_tables(spec, x0.device)
     ptrs = []
     for m, w in enumerate(ws):
@@ -313,17 +357,129 @@ def ssd_mixer_fused_cuda(
         mod_stride = prologue.shift.stride(0)
     err = fwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(),
-        pro_ptrs, mod_stride, _LN_EPS, dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
+        zx.data_ptr(), pro_ptrs, mod_stride, _LN_EPS, dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
         dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps), float(dt_limit[0]),
         float(dt_limit[1]), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_mixer_fwd launch failed: error {err}")
     ssd_mixer_fused_cuda.launches += 1
-    return tuple(out.unbind(0))
+    outs = tuple(out.unbind(0))
+    return (outs, zx) if want_res else outs
 
 
 ssd_mixer_fused_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fns():
+    lib = cuda_build.load(_BWD_SOURCE)
+    bwd = lib.ssd_mixer_bwd
+    bwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 4
+        + [ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+    size = lib.ssd_mixer_bwd_workspace_floats
+    size.argtypes = [ctypes.c_int] * 6
+    size.restype = ctypes.c_longlong
+    lib.ssd_mixer_bwd_max_tokens.argtypes = []
+    lib.ssd_mixer_bwd_max_tokens.restype = ctypes.c_int
+    return bwd, size, lib.ssd_mixer_bwd_max_tokens()
+
+
+def ssd_mixer_fused_bwd_cuda(
+    spec: ScanSpec, xs, gs, ws, residual: torch.Tensor,
+    dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+):
+    """Launch kernel F on the current stream: the backward of the mixers
+    ``ws[m]`` applied to ``xs[m]``, given ``gs[m]`` = dL/dout (one or two of
+    them) and the ``residual`` that ``ssd_mixer_fused_cuda(..., want_res=True)``
+    returned for the same inputs. Returns ``(gxs, grads)``, ``grads[m]`` a
+    ``Mamba2Weights`` of gradients.
+
+    Raises on inputs the kernel does not take;
+    ``ssd_mixer_fused_bwd_cuda.launches`` counts the calls.
+    """
+    _check_spec(spec)
+    M = len(ws)
+    if M not in (1, 2) or len(xs) != M:
+        raise ValueError(f"{len(xs)} inputs for {M} mixers")
+    dims = _check_kernel_inputs(spec, xs, ws, None)
+    if len(gs) != M:
+        raise ValueError(f"{M} inputs but {len(gs)} output gradients")
+    x0 = xs[0]
+    dproj = 2 * dims["d"] + 2 * dims["n"] + dims["H"]
+    _check_tensors(
+        [(f"g{i}", g, tuple(x0.shape)) for i, g in enumerate(gs)]
+        + [("residual", residual, (M, dims["B"] * dims["L"], dproj))],
+        x0.device,
+    )
+    bwd_fn, size_fn, max_tokens = _bwd_kernel_fns()
+    if dims["L"] > max_tokens:
+        raise ValueError(f"the kernel takes up to {max_tokens} tokens, got {dims['L']}")
+    gxs = tuple(torch.empty_like(x) for x in xs)
+    grads = tuple(Mamba2Weights(*(torch.empty_like(t) for t in w)) for w in ws)
+    workspace = torch.empty(
+        size_fn(M, dims["B"], dims["L"], dims["d"], dims["H"], dims["S"]),
+        dtype=torch.float32, device=x0.device,
+    )
+    fwd, merge = index_tables(spec, x0.device)
+    ptrs = []
+    for x, g, w, gx, gw in zip(xs, gs, ws, gxs, grads):
+        ptrs += [x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in w),
+                 gx.data_ptr(), *(t.data_ptr() for t in gw)]
+    err = bwd_fn(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), merge.data_ptr(),
+        residual.data_ptr(), workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"],
+        dims["n"], dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps),
+        float(dt_limit[0]), float(dt_limit[1]), torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_mixer_bwd launch failed: error {err}")
+    ssd_mixer_fused_bwd_cuda.launches += 1
+    return gxs, grads
+
+
+ssd_mixer_fused_bwd_cuda.launches = 0
+
+
+def _split(M: int, tensors):
+    n = len(Mamba2Weights._fields)
+    xs = tuple(tensors[:M])
+    ws = tuple(Mamba2Weights(*tensors[M + n * i : M + n * (i + 1)]) for i in range(M))
+    return xs, ws
+
+
+class FusedSsdFn(torch.autograd.Function):
+    """One or two Mamba-2 mixers with kernel E forward and kernel F backward.
+
+    ``apply(spec, M, dt_limit, eps, *xs, *weights)`` with the M inputs first,
+    then the 8 weights of each mixer in ``Mamba2Weights`` order; returns the
+    M outputs. The forward runs kernel E in residual mode and keeps the
+    inputs, the weights and the residual for the backward's one call of F.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, M, dt_limit, eps, *tensors):
+        xs, ws = _split(M, tensors)
+        outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, eps, want_res=True)
+        ctx.spec, ctx.M, ctx.dt_limit, ctx.eps = spec, M, dt_limit, eps
+        ctx.save_for_backward(*tensors, zx)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        *tensors, zx = ctx.saved_tensors
+        xs, ws = _split(ctx.M, tensors)
+        gs = tuple(
+            torch.zeros_like(x) if g is None else g.contiguous() for g, x in zip(gouts, xs)
+        )
+        gxs, grads = ssd_mixer_fused_bwd_cuda(ctx.spec, xs, gs, ws, zx, ctx.dt_limit, ctx.eps)
+        return (None, None, None, None, *gxs, *(t for gw in grads for t in gw))
 
 
 @functools.lru_cache(maxsize=None)
@@ -385,19 +541,76 @@ spiral_epilogue_cuda.launches = 0
 
 
 def _use_kernels(impl: str, tensors) -> bool:
-    """Whether the call goes to the CUDA kernels; raises where they cannot
-    carry the gradient that the call would need."""
+    """Whether the call goes to the CUDA kernels."""
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "ref" or tensors[0].device.type != "cuda":
-        return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the fused SSD kernels have no backward yet (kernel F, the port of "
-            "_ssd_bwd_kernel, comes with Mamba-2 training): run under torch.no_grad(), or "
-            "take the composable route (scan_impl='auto'), which carries gradients"
-        )
-    return True
+    return impl != "ref" and tensors[0].device.type == "cuda"
+
+
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _mixers_cuda(spec: ScanSpec, xs, ws, dt_limit, eps) -> Tuple[torch.Tensor, ...]:
+    """Kernel E on CUDA tensors: through ``FusedSsdFn`` when a gradient is
+    needed, else plainly, with no residual written."""
+    flat = (*xs, *(t for w in ws for t in w))
+    if _needs_grad(flat):
+        return FusedSsdFn.apply(spec, len(ws), tuple(dt_limit), eps, *flat)
+    return ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, eps)
+
+
+def _spiral_block_composed(spec: ScanSpec, block, w0, w1, dt_limit, eps) -> torch.Tensor:
+    """The block as the backward differentiates it on the card: the prologue
+    and the tail from torch operators around ``FusedSsdFn``."""
+    x, wmask, shift, scale, gate, ln_w, ln_b, *tail = block
+    x0, x1 = _modulated(x, Prologue(wmask, ln_w, ln_b, shift, scale))
+    o0, o1 = _mixers_cuda(spec, (x0, x1), (w0, w1), dt_limit, eps)
+    return spiral_epilogue_ref(o0, o1, x, gate, *tail)
+
+
+_N_BLOCK = 13  # x, wmask, shift, scale, gate, ln_w, ln_b and the tail's six
+
+
+def _split_block(tensors):
+    n = len(Mamba2Weights._fields)
+    return (tuple(tensors[:_N_BLOCK]), Mamba2Weights(*tensors[_N_BLOCK : _N_BLOCK + n]),
+            Mamba2Weights(*tensors[_N_BLOCK + n :]))
+
+
+class SpiralBlockFn(torch.autograd.Function):
+    """The whole Spiral block with kernel E in prologue mode and kernel G
+    forward; the backward recomputes the block through
+    ``_spiral_block_composed`` (kernel E in residual mode) and differentiates
+    that (kernel F and torch autograd), so the gradients are exact and cost
+    one more forward.
+
+    ``apply(spec, dt_limit, eps, *block, *w0, *w1)`` with the 13 block
+    tensors in ``spiral_block_fused``'s order.
+    """
+
+    @staticmethod
+    def forward(ctx, spec, dt_limit, eps, *tensors):
+        ctx.spec, ctx.dt_limit, ctx.eps = spec, dt_limit, eps
+        ctx.save_for_backward(*tensors)
+        return _spiral_block_kernels(spec, *_split_block(tensors), dt_limit, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[3:]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = _spiral_block_composed(ctx.spec, *_split_block(leaves), ctx.dt_limit, ctx.eps)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, needs) if n], g))
+        return (None, None, None, *(next(grads) if n else None for n in needs))
+
+
+def _spiral_block_kernels(spec: ScanSpec, block, w0, w1, dt_limit, eps) -> torch.Tensor:
+    x, wmask, shift, scale, gate, ln_w, ln_b, *tail = block
+    o0, o1 = ssd_mixer_fused_cuda(
+        spec, (x,), (w0, w1), dt_limit, eps, Prologue(wmask, ln_w, ln_b, shift, scale)
+    )
+    return spiral_epilogue_cuda(o0, o1, x, gate, *tail)
 
 
 def mamba2_mixer_fused(
@@ -406,11 +619,11 @@ def mamba2_mixer_fused(
     impl: str = "auto",
 ) -> torch.Tensor:
     """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel E on CUDA
-    tensors. ``chunk_size`` matters to the plain version only: the kernel
-    treats the sequence as one chunk."""
+    tensors (and one of kernel F in the backward). ``chunk_size`` matters to
+    the plain version only: the kernel treats the sequence as one chunk."""
     _check_spec(spec)
     if _use_kernels(impl, (x, *w)):
-        return ssd_mixer_fused_cuda(spec, (x,), (w,), dt_limit, eps)[0]
+        return _mixers_cuda(spec, (x,), (w,), dt_limit, eps)[0]
     return ssd_mixer_ref(spec, x, w, dt_limit, eps, chunk_size)
 
 
@@ -420,10 +633,11 @@ def mamba2_dual_mixer_fused(
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both branches of a dual block, ``x0 -> w0`` and ``x1 -> w1``, each
-    ``(B, L, h)``, in one call of kernel E on CUDA tensors."""
+    ``(B, L, h)``, in one call of kernel E on CUDA tensors (and one of kernel
+    F in the backward)."""
     _check_spec(spec)
     if _use_kernels(impl, (x0, x1, *w0, *w1)):
-        return ssd_mixer_fused_cuda(spec, (x0, x1), (w0, w1), dt_limit, eps)
+        return _mixers_cuda(spec, (x0, x1), (w0, w1), dt_limit, eps)
     return (ssd_mixer_ref(spec, x0, w0, dt_limit, eps, chunk_size),
             ssd_mixer_ref(spec, x1, w1, dt_limit, eps, chunk_size))
 
@@ -435,12 +649,12 @@ def spiral_block_fused(
 ) -> torch.Tensor:
     """The whole Spiral block (LayerNorm, modulate, both SSD mixers, the
     learned mix, the gated residual) in one call of kernel E in prologue mode
-    and one of kernel G on CUDA tensors; ``spiral_block_ref`` elsewhere."""
+    and one of kernel G on CUDA tensors (``SpiralBlockFn`` when a gradient is
+    needed); ``spiral_block_ref`` elsewhere."""
     _check_spec(spec)
     block = (x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
     if _use_kernels(impl, (*block, *w0, *w1)):
-        o0, o1 = ssd_mixer_fused_cuda(
-            spec, (x,), (w0, w1), dt_limit, eps, Prologue(wmask, ln_w, ln_b, shift, scale)
-        )
-        return spiral_epilogue_cuda(o0, o1, x, gate, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
+        if _needs_grad((*block, *w0, *w1)):
+            return SpiralBlockFn.apply(spec, tuple(dt_limit), eps, *block, *w0, *w1)
+        return _spiral_block_kernels(spec, block, w0, w1, dt_limit, eps)
     return spiral_block_ref(spec, *block, w0, w1, dt_limit, eps)

@@ -15,7 +15,12 @@ sequence into chunks whose inner work is dense products,
     Y_inter[t] = C_t . (exp(cs_t) * S_entering)
 
 with ``cs`` the inclusive cumsum of dt * A inside the chunk, and carries the
-state from chunk to chunk. State, decays and sums are fp32. These functions
+state from chunk to chunk. State, decays and sums are fp32, except ``cs``
+and its differences, which are fp64 and rounded only after the exp, as in
+the fused kernels: in fp32, with dt * |A| in the thousands over a sequence,
+``cs_t - cs_s`` loses the digits the decay needs, and the backward's sums
+over ``cs`` (rows less columns of one matrix, then a reverse cumsum) cancel
+to rounding noise as large as the gradients of A and dt. These functions
 are the composable Mamba-2 path (``models/mamba2.py``) and what the fused
 mixer's plain version is built on (``ops/fused_ssd.py``). The single-token
 ``ssd_state_update`` comes with decode.
@@ -85,7 +90,7 @@ def _segsum_decay(cs: torch.Tensor) -> torch.Tensor:
     Q = cs.shape[-1]
     mask = torch.ones(Q, Q, dtype=torch.bool, device=cs.device).tril()
     diff = cs[..., :, None] - cs[..., None, :]
-    return torch.exp(diff.masked_fill(~mask, float("-inf")))
+    return torch.exp(diff.masked_fill(~mask, float("-inf"))).float()
 
 
 def ssd_chunked(
@@ -124,7 +129,7 @@ def ssd_chunked(
     dtf = _dt(dt, dt_bias, dt_softplus, dt_limit).reshape(G, nc, Q, H)
     Bf = B.float().reshape(G, nc, Q, N)
     Cf = C.float().reshape(G, nc, Q, N)
-    cs = torch.cumsum(dtf * A.float(), dim=2)  # (G, nc, Q, H), inside each chunk
+    cs = torch.cumsum((dtf * A.float()).double(), dim=2)  # (G, nc, Q, H), inside each chunk
 
     # Inside the chunks: dense, causally masked products.
     cb = torch.einsum("gctn,gcsn->gcts", Cf, Bf)
@@ -133,16 +138,16 @@ def ssd_chunked(
 
     # Each chunk's state, and the recurrence from chunk to chunk.
     cs_last = cs[:, :, -1]  # (G, nc, H)
-    state_decay = torch.exp(cs_last[:, :, None] - cs)  # (G, nc, Q, H)
+    state_decay = torch.exp(cs_last[:, :, None] - cs).float()  # (G, nc, Q, H)
     S_chunk = torch.einsum("gcqh,gcqn,gcqhp->gchpn", state_decay * dtf, Bf, xf)
-    chunk_decay = torch.exp(cs_last)
+    chunk_decay = torch.exp(cs_last).float()
     state = xf.new_zeros(G, H, P, N) if initial_state is None else initial_state.float()
     entering = []
     for c in range(nc):
         entering.append(state)
         state = chunk_decay[:, c, :, None, None] * state + S_chunk[:, c]
     S_in = torch.stack(entering, dim=1)  # (G, nc, H, P, N)
-    y_inter = torch.einsum("gcqh,gcqn,gchpn->gcqhp", torch.exp(cs), Cf, S_in)
+    y_inter = torch.einsum("gcqh,gcqn,gchpn->gcqhp", torch.exp(cs).float(), Cf, S_in)
 
     y = (y_intra + y_inter).reshape(G, L, H, P)[:, :L0]
     y = (y + _skip(D) * x0.float()).to(out_dtype)

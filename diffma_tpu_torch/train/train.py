@@ -14,12 +14,13 @@ reference's torch layout, ``<results_dir>/NNN-<model>/checkpoints/<step>.pt``,
 which ``train/sample.py --ckpt`` reads. Everything is fp32 on one device.
 
 The mixers take ``scan_impl`` from the config: by default ``"fused"`` on the
-card (kernels C and D, as the JAX trainer defaults to its fused kernels on
-the TPU) and ``"auto"`` on the CPU (the plain versions). The trainer runs on
-synthetic batches, as the JAX trainer falls back to them when the dataset
-folders are missing. Real data (it needs the conditioning stack), bf16
-(``autocast``), Mamba-2 training (it waits for kernel F), ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp``
-above 1 are not ported, and asking for them raises.
+card (kernels C and D; with ``use_mamba2`` the Mamba-2 mixers and kernels E
+and F; as the JAX trainer defaults to its fused kernels on the TPU) and
+``"auto"`` on the CPU (the plain versions). The trainer runs on synthetic
+batches, as the JAX trainer falls back to them when the dataset folders are
+missing. Real data (it needs the conditioning stack), bf16 (``autocast``),
+``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported,
+and asking for them raises.
 """
 
 from __future__ import annotations
@@ -83,9 +84,7 @@ def make_loss_fn(model, diffusion):
 
 
 def _refuse_unported(cfg) -> None:
-    for key, what in (("autocast", "bf16 training (kernels C and D are fp32 only)"),
-                      ("use_mamba2", "Mamba-2 training (it waits for kernel F, the fused SSD "
-                                     "mixer's backward)"),
+    for key, what in (("autocast", "bf16 training (the fused mixers' kernels are fp32 only)"),
                       ("remat", "rematerialisation"),
                       ("resume_from", "resuming from Orbax checkpoints")):
         if cfg.get(key):
@@ -123,6 +122,7 @@ def main(cfg, device="cuda"):
         dt_rank=int(cfg.get("dt_rank", 16)),
         d_state=int(cfg.get("d_state", 16)),
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
+        use_mamba2=bool(cfg.get("use_mamba2")),
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -136,7 +136,8 @@ def main(cfg, device="cuda"):
         start_step = 0
     model = model.to(device).train()
     logger.info(f"DiffMa Parameters: {sum(p.numel() for p in model.parameters()):,}")
-    logger.info(f"mixer path: scan_impl={model.blocks[0].scan_impl}, device {device}")
+    logger.info(f"mixer path: scan_impl={model.blocks[0].scan_impl}, "
+                f"use_mamba2={model.blocks[0].use_mamba2}, device {device}")
 
     diffusion = create_diffusion("", device=device)
     optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,

@@ -19,8 +19,9 @@ forwards of DiffMa-B/2 at 224² (the sampler's model) after one warm-up, or 5
 training steps (hybrid loss, backward, AdamW, EMA, the per-step loss check)
 after 3 warm-up steps. ``--scan-impl`` picks the mixers' path: ``fused``
 (kernels C and D, the default on the card) or ``pallas`` (the composable
-path with kernels A and B). The denoiser profile takes ``--use-mamba2``
-(``fused`` is then kernel E) and with it ``--fuse-block`` (kernels E and G).
+path with kernels A and B). ``--use-mamba2`` takes the Mamba-2 mixers
+(``fused`` is then kernel E, and kernel F in a training step), and with it
+the denoiser profile takes ``--fuse-block`` (kernels E and G).
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ def profile_denoiser(model, inputs, calls: int = 5, top: int = 8) -> dict:
 
 
 def profile_train_step(name: str, batch: int, scan_impl: str, calls: int = 5,
-                       warmup: int = 3, top: int = 10) -> dict:
+                       warmup: int = 3, top: int = 10, use_mamba2: bool = False) -> dict:
     """Profile ``calls`` of the trainer's steps on ``name`` at 224² and batch
     ``batch`` (lr 1e-4, synthetic batches drawn on the card), after
     ``warmup`` steps; then time the step with and without its host-side loss
@@ -155,7 +156,7 @@ def profile_train_step(name: str, batch: int, scan_impl: str, calls: int = 5,
     from diffma_tpu_torch.train.train import make_loss_fn, synthetic_batch
 
     latent = 28
-    model = build_model(name, input_size=latent, scan_impl=scan_impl)
+    model = build_model(name, input_size=latent, scan_impl=scan_impl, use_mamba2=use_mamba2)
     model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
     optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=0.0)
@@ -201,19 +202,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--train", action="store_true", help="profile training steps")
     parser.add_argument("--model", default="DiffMa-B/2", help="registry name (with --train)")
     parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true",
-                        help="Mamba-2 mixers (the denoiser profile only)")
+                        help="Mamba-2 mixers")
     parser.add_argument("--fuse-block", dest="fuse_block", action="store_true",
                         help="whole-block kernels, with --use-mamba2 and --scan-impl fused")
     args = parser.parse_args(argv)
-    if args.train and args.use_mamba2:
-        raise NotImplementedError("Mamba-2 training waits for kernel F")
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         report = {"train_step": args.model, "batch": args.batch, "scan_impl": args.scan_impl,
-                  "device": torch.cuda.get_device_name(0),
-                  **profile_train_step(args.model, args.batch, args.scan_impl)}
+                  "use_mamba2": args.use_mamba2, "device": torch.cuda.get_device_name(0),
+                  **profile_train_step(args.model, args.batch, args.scan_impl,
+                                       use_mamba2=args.use_mamba2)}
         print(json.dumps(report, indent=1))
         return report
 

@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Kernels A and B (the selective scan, forward and backward), kernels C and
-D (the fused Mamba-1 mixer, forward and backward), kernel E (the fused
-Mamba-2 mixer: single, dual and prologue modes) and kernel G (the Spiral
-block's tail) are held against their plain versions at the model's widths;
+D (the fused Mamba-1 mixer, forward and backward), kernels E and F (the
+fused Mamba-2 mixer: single, dual, prologue and residual modes, and its
+backward) and kernel G (the Spiral block's tail) are held against their
+plain versions at the model's widths;
 the tolerance of C, E and G is max |err| <= 1e-4 * max(1, max |ref|), since
-their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's. Gradients, from B, D and the autograd Functions, are
+their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's.
+Gradients, from B, D, F and the autograd Functions, are
 held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
 (``tests/test_selective_scan.py``).
 
@@ -32,6 +34,7 @@ from diffma_tpu_torch.ops.fused_mixer import (
     mixer_ref,
 )
 from diffma_tpu_torch.ops.fused_ssd import (
+    Mamba2Weights,
     Prologue,
     mamba2_dual_mixer_fused,
     mamba2_mixer_fused,
@@ -39,6 +42,8 @@ from diffma_tpu_torch.ops.fused_ssd import (
     spiral_block_ref,
     spiral_epilogue_cuda,
     spiral_epilogue_ref,
+    ssd_mixer_bwd_ref,
+    ssd_mixer_fused_bwd_cuda,
     ssd_mixer_fused_cuda,
     ssd_mixer_ref,
 )
@@ -453,31 +458,161 @@ def test_fused_ssd_counts_calls(cuda):
     assert ssd_mixer_fused_cuda.launches == before + 3
 
 
-def test_fused_ssd_raises_where_a_gradient_is_needed(cuda):
-    """Kernel F is not ported: on CUDA tensors that need a gradient the fused
-    entry points raise; the composable route carries the gradient."""
+def test_fused_ssd_carries_gradients(cuda):
+    """On CUDA tensors that need a gradient the fused entry points return a
+    tensor with a ``grad_fn`` (kernel E in residual mode forward, kernel F
+    backward), and the gradients are the composable route's; when nothing
+    requires grad, plain kernel E runs and nothing is kept."""
     spec = build_scan_spec("spiral", 5, 0)
     block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True, scan_impl="fused"), 1).to(cuda)
     x, c, w = _block_inputs(cuda, 25, 2, 1)
-    before = ssd_mixer_fused_cuda.launches
-    with pytest.raises(NotImplementedError, match="kernel F"):
-        block(x, c, w)  # the parameters require grad
-    with pytest.raises(NotImplementedError, match="kernel F"):
-        block.mamba1(x)
-    block.fuse_block = True
-    with pytest.raises(NotImplementedError, match="kernel F"):
-        block(x, c, w)
+    g = _x(cuda, 25, 3)
+    e0, f0 = ssd_mixer_fused_cuda.launches, ssd_mixer_fused_bwd_cuda.launches
+    grads = {}
+    for route, fuse in (("dual", False), ("fuse_block", True)):
+        block.fuse_block = fuse
+        block.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        out = block(xi, c, w)  # the parameters require grad
+        assert out.grad_fn is not None
+        out.backward(g)
+        grads[route] = {"x": xi.grad, **{k: p.grad for k, p in block.named_parameters()}}
+    # dual: 1 E + 1 F; fuse_block: E (prologue) forward, E (residual) + F backward
+    assert ssd_mixer_fused_cuda.launches == e0 + 3
+    assert ssd_mixer_fused_bwd_cuda.launches == f0 + 2
+    out = block.mamba1(x)
+    assert out.grad_fn is not None and ssd_mixer_fused_cuda.launches == e0 + 4
+    out = mamba2_mixer_fused(spec, x.clone().requires_grad_(), block.mamba1.weights())
+    assert out.grad_fn is not None
     block.requires_grad_(False)
-    with pytest.raises(NotImplementedError, match="kernel F"):
-        mamba2_mixer_fused(spec, x.clone().requires_grad_(), block.mamba1.weights())
-    assert ssd_mixer_fused_cuda.launches == before
-    assert block(x, c, w).grad_fn is None  # nothing requires grad: the kernels run
-    assert ssd_mixer_fused_cuda.launches == before + 1
+    assert block(x, c, w).grad_fn is None  # nothing requires grad: plain kernel E
+    assert ssd_mixer_fused_bwd_cuda.launches == f0 + 2
     block.requires_grad_(True)
     block.fuse_block, block.scan_impl = False, "auto"
     block.mamba1.scan_impl = block.mamba2.scan_impl = "auto"
-    block(x, c, w).sum().backward()
-    assert all(p.grad is not None for p in block.parameters())
+    block.zero_grad(set_to_none=True)
+    xi = x.clone().requires_grad_()
+    block(xi, c, w).backward(g)
+    want = {"x": xi.grad, **{k: p.grad for k, p in block.named_parameters()}}
+    for route, got in grads.items():
+        for name, ref in want.items():
+            assert got[name] is not None, f"{route}: {name} got no gradient through the kernels"
+            _assert_grad_close(got[name], ref, f"{route} {name}")
+
+
+def _ssd_grads(gx, gw, m):
+    return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
+
+
+@pytest.mark.parametrize(
+    "family,grid_n,layer,batch,dt_limit,wide",
+    [("spiral", 14, 0, 2, NO_LIMIT, False), ("spiral", 14, 3, 1, NO_LIMIT, False),
+     ("spiral", 5, 1, 2, NO_LIMIT, False), ("spiral", 14, 2, 1, (0.5, 0.9), False),
+     ("spiral", 14, 1, 1, NO_LIMIT, True), ("zig", 14, 2, 1, NO_LIMIT, False),
+     ("vmamba", 14, 0, 1, NO_LIMIT, False)],
+)
+def test_fused_ssd_bwd_matches_plain(cuda, family, grid_n, layer, batch, dt_limit, wide):
+    """Kernel F, dual and single, against ``ssd_mixer_bwd_ref``: 196 and 25
+    tokens, 1 to 4 streams, a dt_limit that clips some steps and not others,
+    and a wide decay span; twice in a row with the same bits; and kernel E's
+    residual mode gives plain kernel E's outputs."""
+    spec = build_scan_spec(family, grid_n, layer)
+    mixers = _mixers2(cuda, spec, seed=layer, wide=wide)
+    ws = [m.weights() for m in mixers]
+    L = grid_n * grid_n
+    xs = [_x(cuda, L, 60 + i, batch) for i in range(2)]
+    gs = [_x(cuda, L, 70 + i, batch) for i in range(2)]
+    if dt_limit != NO_LIMIT:
+        sp = torch.nn.functional.softplus(
+            torch.nn.functional.linear(xs[0], ws[0].in_w)[..., -16:] + ws[0].dt_bias)
+        inside = ((sp >= dt_limit[0]) & (sp <= dt_limit[1])).float().mean().item()
+        assert 0.05 < inside < 0.95, inside
+    with torch.no_grad():
+        plain = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit)
+        outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
+        _, zx1 = ssd_mixer_fused_cuda(spec, xs[1:], ws[1:], dt_limit, want_res=True)
+    for a, b in zip(outs, plain):
+        assert torch.equal(a, b)
+    want = {}
+    for m in range(2):
+        want.update(_ssd_grads(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
+    for M, res in ((2, zx), (1, zx1)):
+        first = None
+        for _ in range(2):
+            gxs, gws = ssd_mixer_fused_bwd_cuda(spec, xs[2 - M:], gs[2 - M:], ws[2 - M:], res,
+                                                dt_limit)
+            torch.cuda.synchronize()
+            got = {}
+            for m in range(M):
+                got.update(_ssd_grads(gxs[m], gws[m], m + 2 - M))
+            for name, a in got.items():
+                _assert_grad_close(a, want[name], f"M={M} {name}")
+            if first is not None:
+                for name, a in got.items():
+                    assert torch.equal(a, first[name]), f"M={M} {name} differs between two calls"
+            first = got
+
+
+def test_fused_ssd_autograd_matches_plain_autograd(cuda):
+    """``FusedSsdFn`` under ``torch.autograd.grad``: one call of E (residual
+    mode) and one of F; a missing output gradient counts as zeros."""
+    spec = build_scan_spec("spiral", 14, 3)
+    m0, m1 = _mixers2(cuda, spec, seed=5)
+    x0, x1, g = _x(cuda, 196, 80, 2), _x(cuda, 196, 81, 2), _x(cuda, 196, 82, 2)
+    leaves = [x0.clone().requires_grad_(), x1.clone().requires_grad_(),
+              *m0.parameters(), *m1.parameters()]
+    e0, f0 = ssd_mixer_fused_cuda.launches, ssd_mixer_fused_bwd_cuda.launches
+    o0, o1 = mamba2_dual_mixer_fused(spec, leaves[0], leaves[1], m0.weights(), m1.weights())
+    got = torch.autograd.grad(o0, leaves, g, allow_unused=True)  # o1's gradient is None
+    assert (ssd_mixer_fused_cuda.launches, ssd_mixer_fused_bwd_cuda.launches) == (e0 + 1, f0 + 1)
+    r0, r1 = mamba2_dual_mixer_fused(spec, leaves[0], leaves[1], m0.weights(), m1.weights(),
+                                     impl="ref")
+    want = torch.autograd.grad(r0, leaves, g, allow_unused=True)
+    assert (ssd_mixer_fused_cuda.launches, ssd_mixer_fused_bwd_cuda.launches) == (e0 + 1, f0 + 1)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:  # branch 1 did not reach o0
+            assert a is None or a.abs().max().item() == 0.0, i
+        else:
+            _assert_grad_close(a, b, f"leaf {i}")
+
+
+def test_fused_ssd_bwd_rejects_what_it_does_not_take(cuda):
+    spec = build_scan_spec("spiral", 5, 0)
+    (m,) = _mixers2(cuda, spec, seed=0, count=1)
+    w, x = m.weights(), _x(cuda, 25, 0)
+    with torch.no_grad():
+        _, zx = ssd_mixer_fused_cuda(spec, (x,), (w,), want_res=True)
+    before = ssd_mixer_fused_bwd_cuda.launches
+    with pytest.raises(ValueError, match="g0 must have shape"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x[:, :24].contiguous(),), (w,), zx)
+    with pytest.raises(ValueError, match="g0 must be float32"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x.double(),), (w,), zx)
+    with pytest.raises(ValueError, match="g0 is on cpu"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x.cpu(),), (w,), zx)
+    with pytest.raises(ValueError, match="g0 must be contiguous"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (torch.zeros(1, 25, 2 * HIDDEN, device=cuda)[..., ::2],),
+                                 (w,), zx)
+    with pytest.raises(ValueError, match="residual must have shape"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x,), (w,), zx[:, :-1])
+    with pytest.raises(ValueError, match="output gradients"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x, x), (w,), zx)
+    with pytest.raises(ValueError, match="inputs for"):
+        ssd_mixer_fused_bwd_cuda(spec, (x, x), (x,), (w,), zx)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_mixer_fused_bwd_cuda(spec, (x.cpu(),), (x,), (w,), zx)
+    with pytest.raises(ValueError, match="headdim"):
+        ssd_mixer_fused_bwd_cuda(spec, (x,), (x,), (w._replace(A_log=w.A_log[:8].contiguous()),), zx)
+    with pytest.raises(NotImplementedError, match="partition"):
+        ssd_mixer_fused_bwd_cuda(build_scan_spec("eff", 4, 0), (x,), (x,), (w,), zx)
+    big = build_scan_spec("spiral", 16, 0)  # 256 tokens: the adjoint block's staging outgrows an SM
+    xb = _x(cuda, 256, 0)
+    with torch.no_grad():
+        _, zxb = ssd_mixer_fused_cuda(big, (xb,), (w,), want_res=True)  # kernel E takes them
+    with pytest.raises(ValueError, match="up to"):
+        ssd_mixer_fused_bwd_cuda(big, (xb,), (xb,), (w,), zxb)
+    with pytest.raises(ValueError, match="no residual"):
+        ssd_mixer_fused_cuda(spec, (x,), (w, w), prologue=Prologue(x, x, x, x, x), want_res=True)
+    assert ssd_mixer_fused_bwd_cuda.launches == before
 
 
 def test_fused_ssd_rejects_what_it_does_not_take(cuda):

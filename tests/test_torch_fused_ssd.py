@@ -4,7 +4,9 @@ On the JAX side ``mamba2_mixer_fused``, ``mamba2_dual_mixer_fused`` and
 ``spiral_block_fused`` run their Pallas kernels (``_ssd_kernel``,
 ``_spiral_epilogue_kernel``) in interpret mode, as ``tests/test_fused_ssd.py``
 runs them; on the port's side CPU tensors take the plain versions,
-``ssd_mixer_ref`` and ``spiral_block_ref``. Inputs come from numpy with fixed
+``ssd_mixer_ref`` and ``spiral_block_ref``; ``ssd_mixer_bwd_ref``, the plain
+version of the backward kernel, is held against JAX's ``_ssd_bwd_kernel``
+(through the fused mixers' custom VJPs). Inputs come from numpy with fixed
 seeds. Bars: 2e-5 with inputs at the scales of
 ``tests/test_fused_ssd.py::_args`` (that file's bar), 2e-4 for gradients and
 with parameter trees put through ``randomize`` (the model tests' bar).
@@ -259,6 +261,135 @@ def test_mixer_gradients_match_jax_backward_kernel():
     _assert_mixer_grads(spec_t, x, g, w, _jax_mixer_grads(spec_j, x, g, w, fused))
 
 
+def _span(x, w):
+    dt = jax.nn.softplus((x @ w["in_w"])[..., -w["dt_bias"].shape[0]:] + w["dt_bias"])
+    return float(jnp.max(jnp.sum(dt, axis=1) * jnp.exp(w["A_log"])))
+
+
+def _wide(seed):
+    """Weights whose largest per-head span of dt * |A| is near 90, as in
+    ``test_wide_span_matches_jax``."""
+    w = _weights(seed, dt_bias=0.65)
+    w["A_log"] = np.linspace(0.5, 1.6, 4).astype(np.float32)
+    return w
+
+
+def _assert_bwd_ref(spec_t, x, g, w, dt_limit, want):
+    """``ssd_mixer_bwd_ref`` against JAX's nine cotangents (x, then the
+    weights in the JAX layout), at 2e-4 (the JAX package's gradient bar)."""
+    gx, gw = fused_ssd.ssd_mixer_bwd_ref(
+        spec_t, torch.from_numpy(x), torch.from_numpy(g), _torch_weights(w), dt_limit)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(want[0]), rtol=2e-4, atol=2e-4)
+    jw = dict(zip(JAX_ORDER, (np.asarray(v) for v in want[1:])))
+    for name, got, ref in zip(fused_ssd.Mamba2Weights._fields, gw, _torch_weights(jw)):
+        assert got.shape == ref.shape, name
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+# (grid, layer, dt_limit, wide span): spiral layers 0 and 3, 16 and 25 tokens
+# (25 is not a multiple of 8, which the TPU kernel pads to), a dt_limit that
+# clips some steps and not others, and a span of dt * |A| near 90.
+BWD_CASES = [(4, 0, NO_LIMIT, False), (4, 3, NO_LIMIT, False), (5, 0, NO_LIMIT, False),
+             (5, 3, NO_LIMIT, False), (4, 1, (0.55, 0.75), False), (4, 2, NO_LIMIT, True)]
+
+
+@pytest.mark.parametrize("grid_n,layer,dt_limit,wide", BWD_CASES)
+def test_bwd_ref_matches_jax_backward_kernel(grid_n, layer, dt_limit, wide):
+    """The plain version of kernel F against JAX's ``_ssd_bwd_kernel`` in
+    interpret mode, through ``mamba2_mixer_fused``'s custom VJP."""
+    spec_j, spec_t = jax_spec("spiral", grid_n, layer), build_scan_spec("spiral", grid_n, layer)
+    L = grid_n * grid_n
+    x, g = _x(L, layer + 100), _x(L, layer + 101)
+    w = _wide(layer + 102) if wide else _weights(layer + 102)
+    if wide:
+        assert _span(x, w) > 80.0
+    if dt_limit != NO_LIMIT:
+        dt = np.asarray(jax.nn.softplus((x @ w["in_w"])[..., -4:] + w["dt_bias"]))
+        inside = ((dt >= dt_limit[0]) & (dt <= dt_limit[1])).mean()
+        assert 0.1 < inside < 0.9, inside
+    fused = lambda spec, x, *ws: jax_fused.mamba2_mixer_fused(  # noqa: E731
+        spec, x, *ws, dt_limit, 1e-5, 256)
+    _assert_bwd_ref(spec_t, x, g, w, dt_limit, _jax_mixer_grads(spec_j, x, g, w, fused))
+
+
+@pytest.mark.parametrize("grid_n,layer", [(4, 3), (5, 0)])
+def test_bwd_ref_matches_jax_dual_backward_kernel(grid_n, layer):
+    """The same through ``mamba2_dual_mixer_fused``'s custom VJP: both
+    branches in one call of the JAX kernel, each branch's weight gradients
+    its own."""
+    spec_j, spec_t = jax_spec("spiral", grid_n, layer), build_scan_spec("spiral", grid_n, layer)
+    L = grid_n * grid_n
+    xs = [_x(L, layer + 110 + i) for i in range(2)]
+    gs = [_x(L, layer + 120 + i) for i in range(2)]
+    ws = [_weights(layer + 130 + i) for i in range(2)]
+
+    def loss(x12, *stacked):
+        out = jax_fused.mamba2_dual_mixer_fused(spec_j, x12, *stacked, NO_LIMIT, 1e-5, 256)
+        return jnp.sum(out * jnp.stack(gs))
+
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(9))))(
+        jnp.stack(xs), *(jnp.stack([ws[0][k], ws[1][k]]) for k in JAX_ORDER))
+    for m in range(2):
+        _assert_bwd_ref(spec_t, xs[m], gs[m], ws[m], NO_LIMIT, [v[m] for v in want])
+
+
+def test_fused_block_gradients_match_jax_fused_block():
+    """The ``fuse_block`` route's gradients at 16 tokens: the port's block
+    (on the CPU ``spiral_block_ref`` under autograd) against ``jax.grad``
+    through JAX's ``spiral_block_fused``, whose custom VJP recomputes the
+    block through the dual mixer kernel and its backward kernel."""
+    grid_n, layer = 4, 1
+    params, (x, c, w), _ = _block_case(grid_n, layer, 95, scan_impl="fused", fuse_block=True)
+    spec_j = jax_spec("spiral", grid_n, layer)
+    g = np.random.default_rng(96).standard_normal(x.shape).astype(np.float32)
+    jb = JaxSpiralMambaBlock(hidden=HIDDEN, use_mamba2=True, scan_impl="fused", fuse_block=True)
+    gp, gx = jax.jit(jax.grad(
+        lambda p, x: jnp.sum(jb.apply({"params": p}, x, c, w, spec_j) * g), argnums=(0, 1)
+    ))(params, jnp.asarray(x))
+    want = {}
+    _spiral_block(want, "b", jax.tree.map(np.asarray, gp), use_mamba2=True)
+    block = _port_block(params, grid_n, layer, scan_impl="fused", fuse_block=True)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = block(xt, torch.from_numpy(c), torch.from_numpy(w))
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=2e-4, atol=2e-4)
+    for name, p in block.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[f"b.{name}"].numpy(), rtol=2e-4,
+                                   atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["single", "dual", "block"])
+def test_fused_entry_points_carry_gradients_on_cpu(entry):
+    """On CPU tensors that need a gradient each fused entry point returns a
+    tensor with a ``grad_fn`` (the plain version under autograd), whose
+    gradients are ``ssd_mixer_bwd_ref``'s; without one, none."""
+    spec = build_scan_spec("spiral", 4, 1)
+    w0, w1 = _torch_weights(_weights(1)), _torch_weights(_weights(2))
+    x = torch.from_numpy(_x(16, 1)).requires_grad_()
+    g = torch.from_numpy(_x(16, 2))
+    if entry == "single":
+        out = fused_ssd.mamba2_mixer_fused(spec, x, w0)
+        assert fused_ssd.mamba2_mixer_fused(spec, x.detach(), w0).grad_fn is None
+        want, _ = fused_ssd.ssd_mixer_bwd_ref(spec, x, g, w0)
+    elif entry == "dual":
+        out, other = fused_ssd.mamba2_dual_mixer_fused(spec, x, x.detach(), w0, w1)
+        assert other.grad_fn is None
+        want, _ = fused_ssd.ssd_mixer_bwd_ref(spec, x, g, w0)
+    else:
+        rng = np.random.default_rng(3)
+        t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+        args = (torch.sigmoid(t(2, 16, 1)), 0.3 * t(2, 32), 0.3 * t(2, 32), t(2, 32),
+                1 + 0.1 * t(32), 0.1 * t(32), 1 + 0.1 * t(64), 0.1 * t(64), 0.2 * t(32, 64),
+                0.1 * t(32), 0.2 * t(1, 32), 0.1 * t(1), w0, w1)
+        out = fused_ssd.spiral_block_fused(spec, x, *args)
+        assert fused_ssd.spiral_block_fused(spec, x.detach(), *args).grad_fn is None
+        (want,) = torch.autograd.grad(fused_ssd.spiral_block_ref(spec, x, *args), x, g)
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, x, g)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("fuse_block", [False, True])
 def test_block_gradients_match_jax(fuse_block):
     """Every parameter's and the input's gradient through the port's Mamba-2
@@ -295,6 +426,12 @@ def test_cpu_tensors_take_the_plain_versions():
     assert after == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_ssd.ssd_mixer_fused_cuda(spec, (x,), (w,))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_ssd.ssd_mixer_fused_cuda(spec, (x,), (w,), want_res=True)
+    backward = fused_ssd.ssd_mixer_fused_bwd_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_ssd.ssd_mixer_fused_bwd_cuda(spec, (x,), (x,), (w,), torch.zeros(1, 32, 148))
+    assert fused_ssd.ssd_mixer_fused_bwd_cuda.launches == backward
     gate, an = torch.zeros(2, 32), torch.ones(64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_ssd.spiral_epilogue_cuda(x, x, x, gate, an, an, torch.zeros(32, 64),
