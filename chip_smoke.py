@@ -19,7 +19,12 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    backward) against its plain version at the training shapes, batch 8:
    single and dual, 196 and 25 tokens, a dt_limit that clips some steps, a
    wide decay span, twice in a row; and kernel E's residual mode against its
-   plain mode, bit for bit (2g);
+   plain mode, bit for bit (2g); kernel H (the Mamba-1 mixer's inner part)
+   against its plain version, values and gradients, at the shapes of the
+   DiffMa-B/2 streams at batch 1 and 8, ragged lengths and dt_bias near -2
+   and +2 (2h); kernel C's one-mixer form on the vim quirk, on
+   EfficientVMamba's partition, on one stream (zig) and four (vmamba) (2i);
+   kernel E on the partition (2j);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
    (``scan_impl="fused"``), with the same random weights; 3b: one
@@ -30,7 +35,14 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    the device kernels per forward and the idle share of each; 3d: one
    full-width Mamba-2 DiffMa-B/2 training step on the same three routes
    (torch autograd; kernels E + F; ``fuse_block``: kernels E + G forward,
-   the recomputing backward through E + F);
+   the recomputing backward through E + F); 3e: ``Mamba`` on a hand-made
+   scan spec that kernel C cannot run (the four atrous streams and their
+   reverses), which takes kernel H: against the plain route at batch 1 and
+   8, then 2000 forwards at batch 1 (a DDPM-250 chain's worth for 8 blocks),
+   2000 kernel H calls and no kernel C call; 3f: one full-width forward of
+   ZigMa-, ViM-, VMamba-, EMamba- and DiT-B/2, on Mamba-1 and (not DiT) on
+   Mamba-2, fused route against the plain one, 8 kernel C or E calls each
+   (none for DiT), with the device kernels per forward and the idle share;
 4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
    ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
    1 batch of 1 image, synthetic conditioning;
@@ -57,7 +69,16 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     checkpoint at step 20 sampled back by the sampler's CLI with
     ``--use-mamba2`` (DDPM-250, 1 image, 4000 kernel E calls);
 13. Mamba-2 learning: DiffMa-B/2 with ``use_mamba2`` on the fused path
-    trained 100 steps on one fixed batch; the MSE term must fall at least 2x.
+    trained 100 steps on one fixed batch; the MSE term must fall at least 2x;
+14. family samplers: the sampler's CLI on ``configs/brain.yaml`` with
+    ``--model`` and a reference-format checkpoint of seeded weights, DDPM-250,
+    1 image each: ViM-B/2 and EMamba-B/2 (2000 kernel C calls each),
+    VMamba-BL/2 (depth 13: 3250), EMamba-B/2 and ZigMa-B/2 with
+    ``--use-mamba2`` (2000 kernel E calls each), DiT-SB/2 (no kernel call);
+15. family trainers: VMamba-B/2, batch 8, 5 steps on the fused path (40
+    kernel C and 40 kernel D calls); ViM-B/2 with ``scan_impl: auto``, 5
+    steps (40 kernel A and 40 kernel B calls); and ViM-B/2 on the fused path,
+    which must raise and name kernel D's missing branch.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -239,6 +260,7 @@ def phase_kernels(card: str) -> dict:
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
     from diffma_tpu_torch.ops.fused_ssd import (
         spiral_epilogue_cuda,
@@ -250,7 +272,7 @@ def kernel_counters() -> dict:
     return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
             "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda,
             "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda,
-            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda}
+            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda, "mamba_inner_fwd": mamba_inner_fused_cuda}
 
 
 def reset_counts() -> None:
@@ -374,21 +396,24 @@ def random_(module, seed: int, scale: float = 0.1):
     return module
 
 
-def mixer_bound_ms(M, B, L, h, d, n, r, S, K) -> tuple[float, str]:
+def mixer_bound_ms(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[float, str]:
     """Least time for one fused-mixer call of M branches on an H100: the
     weights, x, out and index tables moved once over the HBM rate, or the
-    operations (in_proj, conv, x_proj, dt_proj, scan, out_proj) over fp32."""
-    tokens, rows = B * L, B * S * L
+    operations (in_proj, conv, x_proj, dt_proj, scan, out_proj) over fp32.
+    ``Ls`` is the steps per stream (L unless the streams partition the
+    tokens); the vim quirk runs out_proj once per stream."""
+    Ls = L if Ls is None else Ls
+    tokens, rows = B * L, B * S * Ls
     ops = M * (
         2 * tokens * h * 2 * d  # in_proj
         + rows * d * 2 * K  # conv
         + 2 * rows * d * (r + 2 * n)  # x_proj
         + 2 * rows * r * d  # dt_proj
         + rows * d * (6 * n + 8)  # scan, D skip, gate
-        + 2 * tokens * d * h  # out_proj
+        + 2 * tokens * d * h * (S if quirk else 1)  # out_proj
     )
     weights = 2 * d * h + d * K + d + (r + 2 * n) * d + d * r + d + d * n + d + h * d
-    nbytes = M * 4 * (weights + 2 * tokens * h) + 2 * S * L * 8
+    nbytes = M * 4 * (weights + 2 * tokens * h) + 2 * S * Ls * 8
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -585,7 +610,7 @@ def close_to_ref(what: str, got, want, tol: float = TOL_FP32) -> float:
     return err
 
 
-def ssd_mixer_bound_ms(M, B, L, h, d, n, H, S, K, prologue=False) -> tuple[float, str]:
+def ssd_mixer_bound_ms(M, B, L, h, d, n, H, S, K, prologue=False, Ls=None) -> tuple[float, str]:
     """Least time for one fused-SSD-mixer call of M branches on an H100: the
     weights, x, out and the index table moved once over the HBM rate, or the
     operations over fp32: in_proj, the conv, per stream C . B^T on the causal
@@ -593,10 +618,12 @@ def ssd_mixer_bound_ms(M, B, L, h, d, n, H, S, K, prologue=False) -> tuple[float
     the decay (exp, two products) and the 2 * headdim of the product with
     dt * x, then gate, norm and merge (about 8 per channel and stream row),
     out_proj, and in prologue mode LayerNorm and modulation (about 10 per
-    input element)."""
-    tokens, rows = B * L, B * S * L
+    input element). ``Ls`` is the steps per stream (L unless the streams
+    partition the tokens)."""
+    Ls = L if Ls is None else Ls
+    tokens, rows = B * L, B * S * Ls
     dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
-    pairs = B * S * L * (L + 1) // 2
+    pairs = B * S * Ls * (Ls + 1) // 2
     ops = M * (
         2 * tokens * h * dproj  # in_proj
         + rows * conv_dim * 2 * K  # conv
@@ -975,6 +1002,425 @@ def phase_ssd_bwd(card: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def inner_bound_ms(G, L, d, n, r, K) -> tuple[float, str]:
+    """Least time for one call of the mixer's inner part on an H100: xz and
+    the weights read and the output written once over the HBM rate, or the
+    operations (conv, x_proj, dt_proj, scan with the D skip and the gate)
+    over fp32."""
+    rows = G * L
+    ops = rows * d * 2 * K + 2 * rows * d * (r + 2 * n) + 2 * rows * r * d + rows * d * (6 * n + 8)
+    weights = d * K + d + (r + 2 * n) * d + d * r + d + d * n + d
+    nbytes = 4 * (rows * 2 * d + rows * d + weights)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def inner_inputs(G, L, seed, dt_bias=0.0):
+    """xz (G, L, 2048) and one mixer's inner weights at DiffMa's width on the
+    card, every parameter off its init, dt_proj's bias moved by ``dt_bias``."""
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    m = random_(Mamba(512, build_scan_spec("zig", 2, 0)), seed)
+    with torch.no_grad():
+        m.dt_proj.bias.add_(dt_bias)
+    w = m.cuda().weights()
+    xz = torch.randn(G, L, 2048, generator=torch.Generator().manual_seed(seed + 1)).cuda()
+    return (xz, w.conv_w[:, 0, :].detach(), w.conv_b.detach(), w.xp_w.detach(),
+            w.dt_w.detach(), w.dt_b.detach(), -torch.exp(w.A_log.detach()), w.D.detach())
+
+
+def doubled_atrous_spec(grid_n: int):
+    """A scan spec that the whole-mixer kernel C cannot run: the four atrous
+    streams of the grid and their reverses (every token twice, in 8 streams
+    of L / 4 steps, merged with scale 0.5)."""
+    import numpy as np
+
+    from diffma_tpu_torch.ops.scan_orders import ScanSpec, _build_merge_table, build_scan_spec
+
+    eff = build_scan_spec("efficientVMamba", grid_n, 0)
+    fwd = np.concatenate([eff.fwd, eff.fwd[:, ::-1]])
+    return ScanSpec(fwd=fwd, merge=_build_merge_table(fwd, grid_n * grid_n), scale=0.5)
+
+
+def stage_ms(report: dict, *needles: str) -> float:
+    """ms per call of the profiled device kernels whose name holds every needle."""
+    return sum(ms for name, ms in report["top_kernels_ms_per_call"].items()
+               if all(n in name for n in needles))
+
+
+def phase_mamba_inner(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mamba import (
+        mamba_inner_fused,
+        mamba_inner_fused_cuda,
+        mamba_inner_ref,
+    )
+    from diffma_tpu_torch.ops.fused_mixer import mamba_mixer_fused
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    print("== phase 2h: kernel H (the Mamba-1 mixer's inner part) against its plain version "
+          "on the card, values and gradients", flush=True)
+    names = ("xz", "conv_w", "conv_b", "xp_w", "dt_w", "dt_b", "A", "D")
+    cases = [
+        # G, L, dt_bias: the path's shape (8 atrous streams of 49 steps at batch 1) first,
+        # the three B/2 streams at batch 1 and 8, ragged lengths
+        (8, 49, 0.0), (3, 196, 0.0), (24, 196, 0.0), (64, 49, 0.0), (3, 25, -2.0), (5, 13, 2.0),
+    ]
+    path_err = None
+    for i, (G, L, dt_bias) in enumerate(cases):
+        args = inner_inputs(G, L, seed=300 + i, dt_bias=dt_bias)
+        with torch.no_grad():
+            got, want = mamba_inner_fused_cuda(*args), mamba_inner_ref(*args)
+        torch.cuda.synchronize()
+        err = close_to_ref(f"fused Mamba inner, G={G} L={L}", got, want)
+        g = torch.randn(got.shape, generator=torch.Generator().manual_seed(i)).cuda()
+        leaves = [t.clone().requires_grad_() for t in args]
+        refs = [t.clone().requires_grad_() for t in args]
+        mamba_inner_fused(*leaves).backward(g)  # MambaInnerFn: H, then A and B
+        mamba_inner_ref(*refs).backward(g)
+        rows = grad_errors(dict(zip(names, (t.grad for t in leaves))),
+                           dict(zip(names, (t.grad for t in refs))), TOL_GRAD)
+        worst = max(rows, key=lambda row: row[1] / row[2])
+        print(f"  G={G} L={L} d=1024 n=16 r=32, dt_bias {dt_bias:+.0f} + noise: max|err| {err:.3e} "
+              f"(tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e}); 8 gradients through "
+              f"MambaInnerFn, nearest its bar: {worst[0]} {worst[1]:.2e} (bar {worst[2]:.1e})")
+        if path_err is None:
+            path_err = err
+
+    times = {}
+    with torch.no_grad():
+        for G, L in ((8, 49), (3, 196), (24, 196)):
+            args = inner_inputs(G, L, seed=400 + G)
+            bound_ms, bound_by = inner_bound_ms(G, L, 1024, 16, 32, 4)
+            times[G, L] = (cuda_ms(lambda: mamba_inner_fused_cuda(*args), reps=50),
+                           cuda_ms(lambda: mamba_inner_ref(*args), reps=5), bound_ms, bound_by)
+            print(f"  [{card}] mamba_inner_fwd fp32 G={G} L={L} d=1024: kernel {times[G, L][0]:.4f} ms, "
+                  f"plain {times[G, L][1]:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        # The same two stages inside kernel C (one mixer, 3 spiral streams, batch 1).
+        args = inner_inputs(3, 196, seed=403)
+        h_prof = profile_calls(lambda: mamba_inner_fused_cuda(*args), calls=20)
+        spec = build_scan_spec("spiral", 14, 0)
+        m = random_(Mamba(512, spec), 404).cuda()
+        x = torch.randn(1, 196, 512, generator=torch.Generator().manual_seed(405)).cuda()
+        c_prof = profile_calls(lambda: mamba_mixer_fused(spec, x, m.weights()), calls=20)
+    print(f"  [{card}] device ms per call by stage (torch.profiler, G=3 L=196): kernel H conv + "
+          f"x_proj {stage_ms(h_prof, 'ConvXProj'):.4f}, scan {stage_ms(h_prof, 'scan_kernel'):.4f}; "
+          f"kernel C (one mixer, 3 streams) conv + x_proj {stage_ms(c_prof, 'ConvXProj'):.4f}, scan "
+          f"{stage_ms(c_prof, 'scan_kernel'):.4f}, in_proj {stage_ms(c_prof, 'InProj'):.4f}, "
+          f"merge + out_proj {stage_ms(c_prof, 'MergeOutProj'):.4f}")
+    print("  library_ms: none; no single PyTorch call computes the mixer's inner part")
+    ms, plain_ms, bound_ms, bound_by = times[8, 49]
+    return {
+        "name": "mamba_inner_fwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_mamba_fwd.cu",
+        "replaces": "diffma_tpu/ops/fused_mamba.py:42",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "other_shapes": {f"G{G}_L{L}": {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]}
+                         for (G, L), t in times.items()},
+    }
+
+
+def phase_mixer_families(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mixer import mamba_mixer_fused, mixer_ref
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2i: kernel C's one-mixer form on the vim quirk, the EfficientVMamba "
+          "partition, one stream (zig) and four (vmamba), against its plain version", flush=True)
+    h = 512
+    times = {}
+    for family, batches in (("vim", (1, 8)), ("efficientVMamba", (1, 8)), ("zig", (1,)),
+                            ("vmamba", (1,))):
+        for grid_n in (14, 4):  # 196 tokens, and 16 (streams of 4 steps in the partition)
+            spec = build_scan_spec(family, grid_n, 1)
+            L = grid_n * grid_n
+            S, Ls = spec.fwd.shape
+            m = random_(Mamba(h, spec), 500 + grid_n).cuda()
+            for batch in batches:
+                x = torch.randn(batch, L, h, generator=torch.Generator().manual_seed(batch)).cuda()
+                with torch.no_grad():
+                    got, want = mamba_mixer_fused(spec, x, m.weights()), mixer_ref(spec, x, m.weights())
+                torch.cuda.synchronize()
+                err = close_to_ref(f"fused mixer, {family}, B={batch} L={L}", got, want)
+                print(f"  {family}: B={batch} L={L} S={S} Ls={Ls} quirk={spec.mamba1_vim_quirk}  "
+                      f"max|err| {err:.3e}  (tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
+        spec = build_scan_spec(family, 14, 1)
+        S, Ls = spec.fwd.shape
+        m = random_(Mamba(h, spec), 600).cuda()
+        x = torch.randn(1, 196, h, generator=torch.Generator().manual_seed(600)).cuda()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: mamba_mixer_fused(spec, x, m.weights()), reps=50)
+            plain_ms = cuda_ms(lambda: mixer_ref(spec, x, m.weights()), reps=5)
+        bound_ms, bound_by = mixer_bound_ms(M=1, B=1, L=196, h=h, d=1024, n=16, r=32, S=S, K=4,
+                                            Ls=Ls, quirk=spec.mamba1_vim_quirk)
+        times[family] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        print(f"  [{card}] mixer_fused_fwd fp32, one mixer, {family} (S={S}, Ls={Ls}), B=1 L=196: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return times
+
+
+def phase_ssd_partition(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import (
+        mamba2_dual_mixer_fused,
+        mamba2_mixer_fused,
+        ssd_mixer_ref,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2j: kernel E on the EfficientVMamba partition against its plain version",
+          flush=True)
+    h = 512
+    for grid_n, batch in ((14, 1), (14, 8), (4, 1), (4, 8)):
+        spec = build_scan_spec("efficientVMamba", grid_n, 0)
+        L = grid_n * grid_n
+        m0, m1 = mamba2_mixers(spec, 700 + grid_n)
+        w0, w1 = m0.weights(), m1.weights()
+        x0, _, wmask = block_inputs(L, 700 + batch, batch)
+        x1 = x0 * wmask
+        with torch.no_grad():
+            want = [ssd_mixer_ref(spec, x, w) for x, w in ((x0, w0), (x1, w1))]
+            got = (*mamba2_dual_mixer_fused(spec, x0, x1, w0, w1),
+                   mamba2_mixer_fused(spec, x1, w1))
+        torch.cuda.synchronize()
+        err = max(close_to_ref(f"fused SSD mixer, partition, B={batch} L={L}", o, r)
+                  for o, r in zip(got, (*want, want[1])))
+        print(f"  dual and single: B={batch} L={L} S=4 Ls={L // 4}  max|err| {err:.3e}  "
+              f"(tol {TOL_FP32 * max(1.0, max(r.abs().max().item() for r in want)):.1e})")
+    spec = build_scan_spec("efficientVMamba", 14, 0)
+    (m0, _) = mamba2_mixers(spec, 800)
+    x0 = block_inputs(196, 800, 1)[0]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mamba2_mixer_fused(spec, x0, m0.weights()), reps=50)
+        plain_ms = cuda_ms(lambda: ssd_mixer_ref(spec, x0, m0.weights()), reps=10)
+    bound_ms, bound_by = ssd_mixer_bound_ms(M=1, B=1, L=196, h=h, d=1024, n=16, H=16, S=4, K=4,
+                                            Ls=49)
+    print(f"  [{card}] ssd_mixer_fwd fp32, one mixer, partition (S=4, Ls=49), B=1 L=196: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    return {"efficientVMamba": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}}
+
+
+def phase_inner_path(card: str) -> int:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+
+    print("== phase 3e: Mamba(512, scan_impl='fused') on a spec kernel C cannot run (4 atrous "
+          "streams and their reverses): kernel H on the path", flush=True)
+    spec = doubled_atrous_spec(14)
+    if spec.fwd.shape != (8, 49) or spec.merge.shape != (196, 2):
+        fail(f"the doubled-atrous spec has streams {spec.fwd.shape} and merge {spec.merge.shape}")
+    m = random_(Mamba(512, spec, scan_impl="fused"), 900).cuda().eval()
+    zero = {name: 0 for name in kernel_counters()}
+    for batch in (1, 8):
+        x = torch.randn(batch, 196, 512, generator=torch.Generator().manual_seed(batch)).cuda()
+        with torch.no_grad():
+            reset_counts()
+            got = m(x)
+            check_counts(f"Mamba on the doubled-atrous spec, B={batch}",
+                         {**zero, "mamba_inner_fwd": 1})
+            m.scan_impl = "ref"
+            want = m(x)
+            m.scan_impl = "fused"
+        torch.cuda.synchronize()
+        err = close_to_ref(f"Mamba through kernel H, B={batch}", got, want)
+        print(f"  B={batch} L=196, 8 streams of 49 steps: max|fused - plain route| {err:.3e}  "
+              f"(tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
+    calls = 8 * 250  # blocks x steps: a DDPM-250 chain's worth of one B/2 model's mixers
+    x = torch.randn(1, 196, 512, generator=torch.Generator().manual_seed(3)).cuda()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(calls):
+            x = x + 0.01 * m(x)  # each call feeds the next, as a chain's steps do
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = check_counts("2000 Mamba forwards through kernel H", {**zero, "mamba_inner_fwd": calls})
+    if not bool(torch.isfinite(x).all()):
+        fail("2000 Mamba forwards through kernel H left a non-finite value")
+    print(f"  [{card}] {calls} forwards at batch 1 in {seconds:.3f} s ({seconds / calls * 1e3:.4f} ms "
+          f"each, host clock), every one through kernel H, none through kernel C")
+    return counts["mamba_inner_fwd"]
+
+
+FAMILY_MODELS = ("ZigMa-B/2", "ViM-B/2", "VMamba-B/2", "EMamba-B/2", "DiT-B/2")
+
+
+def seeded_model(name: str, seed: int, **kw):
+    """A registry model on the CPU whose every parameter is seeded noise (std
+    0.3 / sqrt(fan-in) on top of the init), so that the blocks' gates are
+    open and the mixers shape the output."""
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+
+    model = build_model(name, input_size=28, **kw)
+    return random_(model.init_weights(torch.Generator().manual_seed(seed)), seed, scale=0.3)
+
+
+def phase_family_forwards(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.utils.profiling import profile_denoiser
+
+    print("== phase 3f: full-width forward of each other family (B/2: depth 8, hidden 512, 196 "
+          "tokens), fused route against the plain one", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 4, 28, 28, generator=gen).cuda()
+    t = torch.tensor([500], device="cuda")
+    y = torch.randn(1, 512, generator=gen).cuda()
+    y2 = torch.randn(1, 196, 512, generator=gen).cuda()
+    w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).cuda()
+    inputs = (x, t, y, y2, w)
+    zero = {name: 0 for name in kernel_counters()}
+    for name in FAMILY_MODELS:
+        for use_mamba2 in (False, True):
+            dit = name.startswith("DiT")
+            if dit and use_mamba2:
+                continue  # DiT has no mixer
+            model = seeded_model(name, 21, scan_impl="fused", use_mamba2=use_mamba2).cuda().eval()
+            kernel = "ssd_mixer_fwd" if use_mamba2 else "mixer_fused_fwd"
+            reset_counts()
+            with torch.no_grad():
+                got = model(*inputs)
+            check_counts(f"the {name} forward", zero if dit else {**zero, kernel: 8})
+            report = profile_denoiser(model, inputs, calls=5)
+            with torch.no_grad():
+                event_ms = cuda_ms(lambda: model(*inputs), reps=10)
+                if not dit:
+                    model.set_scan_impl("ref")
+                want = model(*inputs)
+            if tuple(got.shape) != (1, 8, 28, 28):
+                fail(f"the {name} forward gave shape {tuple(got.shape)}")
+            err = close_to_ref(f"{name} forward, use_mamba2={use_mamba2}", got, want, TOL_MODEL)
+            mixer = "no mixer" if dit else ("Mamba-2, kernel E" if use_mamba2 else "Mamba-1, kernel C")
+            print(f"  [{card}] {name} ({mixer}): max|fused - plain| {err:.3e} (max|ref| "
+                  f"{want.abs().max().item():.3f}, tol {TOL_MODEL * max(1.0, want.abs().max().item()):.1e}); "
+                  f"{event_ms:.3f} ms per forward at batch 1 (CUDA events); under the profiler "
+                  f"{report['ms_per_call']:.3f} ms wall, device busy "
+                  f"{report['device_busy_ms_per_call']:.3f} ms, idle share "
+                  f"{report['device_idle_share']:.3f}, {report['kernels_per_call']:.0f} device "
+                  f"kernels per forward")
+            del model
+    torch.cuda.empty_cache()
+
+
+def write_checkpoint(path: str, name: str, seed: int, use_mamba2: bool = False) -> None:
+    """A reference-format checkpoint of ``seeded_model(name, seed)``."""
+    import torch
+
+    model = seeded_model(name, seed, use_mamba2=use_mamba2)
+    sd = {f"module.{k}": v for k, v in model.state_dict().items()}
+    sd["module.pos_embed"] = model.pos_embed.reshape(1, 196, 512)  # upstream saves it too
+    torch.save({"model": sd, "ema": sd, "opt": {}, "args": None}, path)
+
+
+def phase_family_samplers(card: str) -> None:
+    import tempfile
+
+    from diffma_tpu_torch.train import sample
+
+    out_dir = os.path.join(ROOT, "result_sample")
+    os.makedirs(out_dir, exist_ok=True)
+    zero = {name: 0 for name in kernel_counters()}
+    runs = (
+        # name, use_mamba2, the kernel of its path, its calls: blocks x 250 steps
+        ("ViM-B/2", False, "mixer_fused_fwd", 8 * 250),
+        ("EMamba-B/2", False, "mixer_fused_fwd", 8 * 250),
+        ("VMamba-BL/2", False, "mixer_fused_fwd", 13 * 250),
+        ("EMamba-B/2", True, "ssd_mixer_fwd", 8 * 250),
+        ("ZigMa-B/2", True, "ssd_mixer_fwd", 8 * 250),
+        ("DiT-SB/2", False, None, 0),
+    )
+    for i, (name, use_mamba2, kernel, calls) in enumerate(runs):
+        flag = ["--use-mamba2"] if use_mamba2 else []
+        print(f"== phase 14.{i + 1}: sampler CLI on configs/brain.yaml --model {name} "
+              f"{' '.join(flag)} from a checkpoint, DDPM-250, 1 image", flush=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            path = os.path.join(tmp, "0050000.pt")
+            write_checkpoint(path, name, 50 + i, use_mamba2)
+            reset_counts()
+            images = sample.cli([
+                "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--model", name, *flag,
+                "--ckpt", path, "--num-batches", "1",
+            ])
+        check_counts(f"the {name} sampler", {**zero, kernel: calls} if kernel else zero)
+        check_images(card, f"the {name}{' --use-mamba2' if use_mamba2 else ''} sampler", images, 1)
+
+
+def phase_family_trainers(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import train
+
+    zero = {name: 0 for name in kernel_counters()}
+    calls = 8 * 5  # blocks x steps: one mixer per block
+    runs = (
+        ("VMamba-B/2", {}, "fused (kernels C + D, 4 streams)",
+         {"mixer_fused_fwd": calls, "mixer_fused_bwd": calls}),
+        ("ViM-B/2", {"scan_impl": "auto"}, "scan_impl: auto (kernels A + B)",
+         {"selective_scan_fwd": calls, "selective_scan_bwd": calls}),
+    )
+    for i, (name, extra, what, expect) in enumerate(runs):
+        print(f"== phase 15.{i + 1}: trainer on configs/brain.yaml, {name}, batch 8, 5 steps, {what}",
+              flush=True)
+        results = os.path.join(ROOT, "results", f"chip_smoke_train_family_{i}")
+        shutil.rmtree(results, ignore_errors=True)
+        cfg = brain_config(model=name, max_steps=5, log_every=5, ckpt_every=10**9,
+                           results_dir=results, **extra)
+        reset_counts()
+        state = train.main(cfg, device="cuda")
+        check_counts(f"the {name} trainer", {**zero, **expect})
+        if state.step != 5:
+            fail(f"the {name} trainer counted {state.step} finite steps of 5")
+        init = build_model(name, input_size=28).init_weights(
+            torch.Generator().manual_seed(int(cfg.global_seed))).state_dict()
+        still = moved_from_init(state.model, init)
+        if still:
+            fail(f"{still} tensors of the {name} params did not move in 5 steps")
+        (exp,) = os.listdir(results)
+        steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
+        print(f"  [{card}] {name} training, batch 8, steps 1-5 (first step included): {steps_s} "
+              f"steps/s, {images_s} images/s; every parameter moved")
+        shutil.rmtree(results, ignore_errors=True)
+        del state
+        torch.cuda.empty_cache()
+
+    print("== phase 15.3: trainer on ViM-B/2 on the fused route must raise: kernel D has no vim "
+          "branch yet", flush=True)
+    results = os.path.join(ROOT, "results", "chip_smoke_train_family_raise")
+    shutil.rmtree(results, ignore_errors=True)
+    cfg = brain_config(model="ViM-B/2", max_steps=1, results_dir=results)
+    reset_counts()
+    try:
+        train.main(cfg, device="cuda")
+    except NotImplementedError as e:
+        if "kernel D" not in str(e) or "scan_impl: auto" not in str(e):
+            fail(f"the fused ViM trainer raised, but does not name the branch or the route: {e}")
+        print(f"  raised NotImplementedError: {e}")
+    else:
+        fail("the fused ViM trainer did not raise")
+    check_counts("the refused ViM trainer", zero)
+    shutil.rmtree(results, ignore_errors=True)
 
 
 def phase_forward(card: str) -> None:
@@ -1603,10 +2049,15 @@ def main() -> int:
     ssd = phase_fused_ssd(card)
     epilogue = phase_spiral_epilogue(card)
     ssd_bwd = phase_ssd_bwd(card)
+    inner = phase_mamba_inner(card)
+    mixer["branches"] = phase_mixer_families(card)
+    ssd["branches"] = phase_ssd_partition(card)
     phase_forward(card)
     phase_train_step(card)
     phase_mamba2_forward(card)
     phase_mamba2_train_step(card)
+    inner["launches"] = phase_inner_path(card)
+    phase_family_forwards(card)
     scan["launches"] = phase_sampler(card)
     mixer["launches"] = phase_fused_sampler(card)
     phase_checkpoint(card)
@@ -1617,9 +2068,12 @@ def main() -> int:
     ssd["launches"], epilogue["launches"] = counts["ssd_mixer_fwd"], counts["spiral_epilogue"]
     ssd_bwd["launches"] = phase_mamba2_trainer(card)["ssd_mixer_bwd"]
     phase_learning(card, 13, use_mamba2=True)
+    phase_family_samplers(card)
+    phase_family_trainers(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd]}))
+    print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
+                                  inner]}))
     print(card)
     print(json.dumps({
         "ok": True,

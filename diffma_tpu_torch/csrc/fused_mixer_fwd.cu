@@ -6,7 +6,8 @@
 // Replaces the TPU kernel diffma_tpu/ops/fused_mixer.py::_mixer_kernel, as
 // its launchers _fwd_impl (one mixer) and _dual_fwd_impl (both branches of a
 // dual block) drive it. Per branch m and batch element b, with x (L, h),
-// d = d_inner, n = d_state = 16, r = dt_rank <= 32, K = 4 taps, S streams:
+// d = d_inner, n = d_state = 16, r = dt_rank <= 32, K = 4 taps, S streams of
+// Ls steps each:
 //
 //     xz    = x . W_in^T                                     (L, 2d)
 //     for each stream s, in token order fwd[s]:
@@ -17,6 +18,19 @@
 //       y_s = y * silu(xz[fwd[s], d:])
 //     merged[l] = scale * sum_s y_s[position of token l in stream s]
 //     out   = merged . W_out^T                               (L, h)
+//
+// Three kinds of scan spec:
+// * full-length streams (Ls = L, each a permutation of the tokens: spiral,
+//   zig, vmamba), one or two branches;
+// * an exact partition (Ls = L / S, every token in exactly one stream:
+//   EfficientVMamba's atrous streams), one branch. Each stream is a sequence
+//   of its own: the conv's pad and the scan's state start at its first step,
+//   and the merge is a scatter (the scan writes each token's row once);
+// * the Mamba-1 vim quirk (S = 2, the tokens forward and reversed), one
+//   branch. Nothing is merged: out_proj runs per stream in the stream's own
+//   order, and the second stream's output features are flipped,
+//     out[t, j] = scale * (sum_c y_0[t, c] W[j, c] + sum_c y_1[t, c] W[h-1-j, c])
+//   with y_s[t] the stream's step t (for the reverse stream, token L-1-t).
 //
 // Everything is fp32, on the CUDA cores (no TF32), so that the kernel agrees
 // with its plain PyTorch version to fp32 rounding.
@@ -32,10 +46,10 @@
 // than that (kernel A, the same recurrence, takes 0.145 ms).
 //
 // Design, simple and right first. One call launches four kernels on the
-// stream, with the intermediates in a workspace the caller allocates
-// (mixer_fused_workspace_floats); at batch 1 it is 13 MB and stays in L2.
-// blockIdx.z selects the branch in every kernel, so both branches share each
-// launch.
+// stream (five with the vim quirk), with the intermediates in a workspace
+// the caller allocates (mixer_fused_workspace_floats); at batch 1 it is 13 MB
+// and stays in L2. blockIdx.z selects the branch in every kernel, so both
+// branches share each launch.
 // 1. in_proj: the tiled GEMM of gemm_nt.cuh (64 x 64 tiles, 16-deep k-slabs
 //    in shared memory, a 4 x 4 register tile per thread, the next slab loaded
 //    into registers during the products) over the B * L token rows; the
@@ -44,44 +58,37 @@
 //    k-loop, so the loop's loads need no index arithmetic, and no load in a
 //    loader waits on another: a chain of dependent loads outlasts the
 //    products that the next slab's loads should hide behind.
-// 2. conv + x_proj: the same GEMM, whose A-tile loader gathers the 4 conv
-//    taps of each stream position from xz (rows looked up through fwd when
-//    the thread resolves its row), adds the bias, applies SiLU, and stores u
-//    for the scan. 16-row tiles, to spread the 588 stream rows over 74 blocks.
-// 3. the scan: kernel A's design, one thread per (branch, b, s, channel) with
-//    its 16 states and its row of A = -exp(A_log) in registers, in blocks of
-//    32 channels. Each block stages 64 steps of dt_r, B, C and the token
-//    index in shared memory. The channel's 32 dt_proj weights live in
-//    registers, so dt_proj and softplus run inside the recurrence; its dot
-//    product and C . h run as 4 partial sums each, to shorten the step's
-//    dependent chain. z is read straight out of xz through the token index,
-//    one step ahead like u, and y is written back in token order (each
-//    stream is a permutation, so no two writes meet).
+// 2. conv + x_proj and 3. the scan: mixer_core.cuh, which kernel H
+//    (fused_mamba_fwd.cu) shares. The scan writes y at the step's token
+//    index: per stream for full-length specs (each stream is a permutation,
+//    so no two writes meet), into one row per token for a partition.
 // 4. merge + out_proj: the GEMM, whose A-tile loader sums the S streams'
-//    rows of each token, in stream order, times scale. 32-row tiles.
+//    rows of each token, in stream order, times scale (a partition has one
+//    row per token). 32-row tiles. With the vim quirk the loader reads the
+//    2d-wide row [y_0 at step t | y_1 at step t] instead, against the weight
+//    [W | flip_h(W)] (h, 2d), which a small kernel writes into the workspace
+//    first.
 // The TPU kernel's one-hot permutation matmuls and its 8-row padding of L
 // exist for the MXU and VMEM; here they are index gathers and masks.
 //
 // The backward, diffma_tpu/ops/fused_mixer.py::_mixer_bwd_kernel, is kernel
-// D, fused_mixer_bwd.cu. The vim feature-flip quirk and partition specs are
-// not built: the wrapper raises for them.
+// D, fused_mixer_bwd.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_nt.cuh"
+#include "mixer_core.cuh"
 
 namespace {
 
-constexpr int kN = 16;        // d_state
-constexpr int kConv = 4;      // conv taps
-constexpr int kMaxRank = 32;  // dt_rank
+using mixer::kConv;
+using mixer::kMaxRank;
+using mixer::kN;
+
 constexpr int kMaxStreams = 4;
 constexpr int kBranchPtrs = 11;
-constexpr int kScanThreads = 32;
-constexpr int kScanChunk = 64;
-constexpr int kSums = 4;  // partial sums per dot product in the scan
-static_assert(kSums == 4, "the scan adds its partial sums as two pairs");
+constexpr int kFlipThreads = 256;
 
 struct Branch {
   const float* x;       // (B, L, h)
@@ -99,21 +106,14 @@ struct Branch {
 
 struct Params {
   Branch br[2];
-  const int64_t* fwd;  // (S, L): stream s visits tokens fwd[s, 0..L-1]
+  const int64_t* fwd;  // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
   float* xz;           // (M, B * L, 2d)
-  float* u;            // (M, B * S * L, d), stream order
-  float* xdb;          // (M, B * S * L, r + 2n), stream order
-  float* y;            // (M, B * S * L, d), token order: y_s[l] at (b * S + s) * L + l
-  int B, L, h, d, r, S;
+  float* y;            // (M, B * y_streams * L, d), token order: y_s[l] at
+                       // (b * S + s) * L + l, or y[l] at b * L + l for a partition
+  float* wcat;         // (M, h, 2d): [W_out | flip_h(W_out)], vim quirk only
+  int B, L, h, d, S, y_streams;
   float scale;
 };
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-// softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
 
 // The stages of gemm_nt.cuh's GEMM: c[row, col] = sum_k a(row, k) * w[col, k]
 // for one branch, w a torch Linear weight (cols, depth), row-major. A thread
@@ -139,64 +139,6 @@ struct InProj {  // xz = x . W_in^T
   __device__ float a(const Row& r, int k) const { return r.x[k]; }
 };
 
-struct ConvXProj {  // u = silu(conv(gathered xz[:, :d])); xdb = u . W_x^T
-  struct Row {
-    const float* tap[kConv];  // xz row of each tap; in the left pad, any row
-    float live[kConv];        // 1 for a tap inside the stream, 0 in the pad
-    float* u;
-  };
-  const float* xz;
-  const float* conv_w;
-  const float* conv_b;
-  const int64_t* fwd;
-  float* u;
-  const float* w;
-  float* c;
-  int rows, cols, depth, L, S;
-  bool store_u;
-  __device__ ConvXProj(const Params& p, int m)
-      : xz(p.xz + static_cast<size_t>(m) * p.B * p.L * 2 * p.d),
-        conv_w(p.br[m].conv_w),
-        conv_b(p.br[m].conv_b),
-        fwd(p.fwd),
-        u(p.u + static_cast<size_t>(m) * p.B * p.S * p.L * p.d),
-        w(p.br[m].xp_w),
-        c(p.xdb + static_cast<size_t>(m) * p.B * p.S * p.L * (p.r + 2 * kN)),
-        rows(p.B * p.S * p.L),
-        cols(p.r + 2 * kN),
-        depth(p.d),
-        L(p.L),
-        S(p.S),
-        store_u(blockIdx.y == 0) {}  // the first column tile writes u once
-  __device__ Row row(int i) const {  // i = (b * S + s) * L + t
-    const int t = i % L, bs = i / L;
-    const int64_t* order = fwd + static_cast<size_t>(bs % S) * L;
-    const float* xz_b = xz + static_cast<size_t>(bs / S) * L * 2 * depth;
-    Row r;
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) {
-      const int tt = t - (kConv - 1) + k;
-      r.tap[k] = xz_b + order[max(tt, 0)] * 2 * depth;
-      r.live[k] = tt >= 0 ? 1.0f : 0.0f;
-    }
-    r.u = u + static_cast<size_t>(i) * depth;
-    return r;
-  }
-  __device__ float a(const Row& r, int ch) const {
-    const float4 wk = reinterpret_cast<const float4*>(conv_w)[ch];  // taps 0..3
-    const float wt[kConv] = {wk.x, wk.y, wk.z, wk.w};
-    float xv[kConv];
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) xv[k] = r.tap[k][ch];
-    float acc = conv_b[ch];
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) acc = fmaf(wt[k] * r.live[k], xv[k], acc);
-    const float v = silu(acc);
-    if (store_u) r.u[ch] = v;
-    return v;
-  }
-};
-
 struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
   struct Row {
     const float* y;  // stream 0's row of the token; stream s is s * L rows on
@@ -207,7 +149,7 @@ struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
   float scale;
   int rows, cols, depth, L, S;
   __device__ MergeOutProj(const Params& p, int m)
-      : y(p.y + static_cast<size_t>(m) * p.B * p.S * p.L * p.d),
+      : y(p.y + static_cast<size_t>(m) * p.B * p.y_streams * p.L * p.d),
         w(p.br[m].out_w),
         c(p.br[m].out),
         scale(p.scale),
@@ -215,7 +157,7 @@ struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
         cols(p.h),
         depth(p.d),
         L(p.L),
-        S(p.S) {}
+        S(p.y_streams) {}
   __device__ Row row(int i) const {  // i = b * L + l
     return {y + (static_cast<size_t>(i / L) * S * L + i % L) * depth};
   }
@@ -232,119 +174,84 @@ struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
   }
 };
 
-// The selective scan with dt_proj, softplus, the D skip and the gate fused.
-// grid (ceil(d / 32), B * S, M); one thread per channel.
-__global__ void __launch_bounds__(kScanThreads) scan_kernel(const Params p) {
-  __shared__ float sDt[kScanChunk][kMaxRank];
-  __shared__ float sB[kScanChunk][kN];
-  __shared__ float sC[kScanChunk][kN];
-  __shared__ int64_t sTok[kScanChunk];
-
-  const int m = blockIdx.z;
-  const int bs = blockIdx.y;  // b * S + s
-  const int s = bs % p.S;
-  const int b = bs / p.S;
-  const int c = blockIdx.x * kScanThreads + threadIdx.x;
-  const int d = p.d, L = p.L, r = p.r, r2n = p.r + 2 * kN;
-  const bool active = c < d;
-  const float* A_log = p.br[m].A_log;
-  const float* dt_w = p.br[m].dt_w;
-
-  float a[kN], h[kN], wdt[kMaxRank];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) {
-    a[k] = active ? -expf(A_log[static_cast<size_t>(c) * kN + k]) : 0.0f;
-    h[k] = 0.0f;
+// The vim quirk's out_proj: out = scale * (y_0 . W^T + flip_h(y_1 . W^T)), each
+// stream's rows in its own order, as one product of depth 2d against wcat.
+struct QuirkOutProj {
+  struct Row {
+    const float* y0;  // stream 0's row at this step
+    const float* y1;  // stream 1's row at this step, less d floats
+  };
+  const float* y;
+  const int64_t* fwd;
+  const float* w;
+  float* c;
+  float scale;
+  int rows, cols, depth, L, d;
+  __device__ QuirkOutProj(const Params& p, int m)
+      : y(p.y + static_cast<size_t>(m) * p.B * 2 * p.L * p.d),
+        fwd(p.fwd),
+        w(p.wcat + static_cast<size_t>(m) * p.h * 2 * p.d),
+        c(p.br[m].out),
+        scale(p.scale),
+        rows(p.B * p.L),
+        cols(p.h),
+        depth(2 * p.d),
+        L(p.L),
+        d(p.d) {}
+  __device__ Row row(int i) const {  // i = b * L + t; y_s[token] at (b * 2 + s) * L + token
+    const int t = i % L;
+    const float* y_b = y + static_cast<size_t>(i / L) * 2 * L * d;
+    return {y_b + fwd[t] * d, y_b + (L + fwd[L + t]) * d - d};
   }
-#pragma unroll
-  for (int j = 0; j < kMaxRank; ++j) {
-    wdt[j] = (active && j < r) ? dt_w[static_cast<size_t>(c) * r + j] : 0.0f;
-  }
-  const float dtb = active ? p.br[m].dt_b[c] : 0.0f;
-  const float Dc = active ? p.br[m].D[c] : 0.0f;
+  __device__ float a(const Row& r, int k) const { return (k < d ? r.y0[k] : r.y1[k]) * scale; }
+};
 
-  // Row of (m, b, s, t = 0) in u, xdb and y.
-  const size_t row0 = (static_cast<size_t>(m) * p.B * p.S + bs) * L;
-  const float* xz_b = p.xz + (static_cast<size_t>(m) * p.B + b) * L * 2 * d;
-  const int64_t* order = p.fwd + static_cast<size_t>(s) * L;
-
-  for (int t0 = 0; t0 < L; t0 += kScanChunk) {
-    const int steps = min(kScanChunk, L - t0);
-    __syncthreads();  // the previous chunk's staging is no longer read
-    const float* xrow = p.xdb + (row0 + t0) * r2n;
-    for (int i = threadIdx.x; i < steps * kMaxRank; i += kScanThreads) {
-      const int t = i / kMaxRank, j = i % kMaxRank;
-      sDt[t][j] = j < r ? xrow[static_cast<size_t>(t) * r2n + j] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < steps * kN; i += kScanThreads) {
-      const int t = i / kN, k = i % kN;
-      sB[t][k] = xrow[static_cast<size_t>(t) * r2n + r + k];
-      sC[t][k] = xrow[static_cast<size_t>(t) * r2n + r + kN + k];
-    }
-    for (int i = threadIdx.x; i < steps; i += kScanThreads) sTok[i] = order[t0 + i];
-    __syncthreads();
-    if (!active) continue;
-    const float* u_t = p.u + (row0 + t0) * d + c;
-    float u_next = u_t[0];
-    float z_next = xz_b[sTok[0] * 2 * d + d + c];
-    for (int t = 0; t < steps; ++t) {
-      const float uv = u_next, zv = z_next;
-      if (t + 1 < steps) {  // the next step's loads fly during this step
-        u_next = u_t[static_cast<size_t>(t + 1) * d];
-        z_next = xz_b[sTok[t + 1] * 2 * d + d + c];
-      }
-      // The dot products run as kSums independent partial sums: a chain of
-      // 32 or 16 dependent adds would set each step's latency.
-      float part[kSums];
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) part[q] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kMaxRank; ++j) {
-        part[j % kSums] = fmaf(wdt[j], sDt[t][j], part[j % kSums]);
-      }
-      const float dt = softplus((part[0] + part[1]) + (part[2] + part[3]) + dtb);
-      const float du = dt * uv;
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) part[q] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kN; ++k) {
-        h[k] = expf(dt * a[k]) * h[k] + du * sB[t][k];
-        part[k % kSums] = fmaf(h[k], sC[t][k], part[k % kSums]);
-      }
-      const float yv = (part[0] + part[1]) + (part[2] + part[3]) + Dc * uv;
-      p.y[(row0 + sTok[t]) * d + c] = yv * silu(zv);  // back in token order
-    }
-  }
+// wcat[j, :] = [W_out[j, :] | W_out[h - 1 - j, :]]. grid (ceil(h * 2d / 256), M).
+__global__ void __launch_bounds__(kFlipThreads) flip_cat_kernel(const Params p) {
+  const int m = blockIdx.y;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kFlipThreads + threadIdx.x;
+  const size_t width = 2 * static_cast<size_t>(p.d);
+  if (i >= p.h * width) return;
+  const int j = static_cast<int>(i / width), k = static_cast<int>(i % width);
+  const float* w = p.br[m].out_w;
+  p.wcat[static_cast<size_t>(m) * p.h * width + i] =
+      k < p.d ? w[static_cast<size_t>(j) * p.d + k]
+              : w[static_cast<size_t>(p.h - 1 - j) * p.d + (k - p.d)];
 }
 
-size_t workspace_floats(int M, int B, int L, int d, int r, int S) {
+size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int r, int S, int quirk) {
   const size_t tokens = static_cast<size_t>(M) * B * L;
-  const size_t stream_rows = tokens * S;
+  const size_t stream_rows = static_cast<size_t>(M) * B * S * Ls;
+  const size_t y_streams = Ls == L ? S : 1;
   return tokens * 2 * d                   // xz
          + stream_rows * d                // u
          + stream_rows * (r + 2 * kN)     // xdb
-         + stream_rows * d;               // y
+         + tokens * y_streams * d         // y
+         + (quirk ? static_cast<size_t>(M) * h * 2 * d : 0);  // wcat
 }
 
 }  // namespace
 
 // Floats of workspace that mixer_fused_fwd needs for these shapes.
-extern "C" long long mixer_fused_workspace_floats(int M, int B, int L, int d,
-                                                  int r, int S) {
-  return static_cast<long long>(workspace_floats(M, B, L, d, r, S));
+extern "C" long long mixer_fused_workspace_floats(int M, int B, int L, int Ls, int h, int d,
+                                                  int r, int S, int quirk) {
+  return static_cast<long long>(workspace_floats(M, B, L, Ls, h, d, r, S, quirk));
 }
 
 // `ptrs` holds 11 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, L) is int64 and
-// each of its rows a permutation of 0 .. L-1. Launches four kernels on
-// `stream`; returns the first launch's cudaError_t that is not 0, or -1 for
-// shapes that are not built.
+// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) is int64: with
+// Ls = L each of its rows is a permutation of 0 .. L-1, with Ls = L / S its
+// rows partition them (M = 1). `quirk` (M = 1, S = 2, Ls = L) asks for the vim
+// merge. Launches its kernels on `stream`; returns the first launch's
+// cudaError_t that is not 0, or -1 for shapes that are not built.
 extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
-                               void* workspace, int B, int L, int h, int d,
-                               int n, int r, int K, int S, float scale,
+                               void* workspace, int B, int L, int Ls, int h, int d,
+                               int n, int r, int K, int S, int quirk, float scale,
                                void* stream) {
+  const bool partition = Ls != L;
   if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank ||
-      S < 1 || S > kMaxStreams) {
+      S < 1 || S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
+      (quirk && (S != 2 || partition || M != 1))) {
     return -1;
   }
   Params p{};
@@ -361,26 +268,46 @@ extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
   p.fwd = static_cast<const int64_t*>(fwd);
   float* ws = static_cast<float*>(workspace);
   const size_t tokens = static_cast<size_t>(M) * B * L;
+  const size_t stream_rows = static_cast<size_t>(M) * B * S * Ls;
+  p.y_streams = partition ? 1 : S;
   p.xz = ws;
-  p.u = p.xz + tokens * 2 * d;
-  p.xdb = p.u + tokens * S * d;
-  p.y = p.xdb + tokens * S * (r + 2 * kN);
+  mixer::Inner in{};
+  in.u = p.xz + tokens * 2 * d;
+  in.xdb = in.u + stream_rows * d;
+  p.y = in.xdb + stream_rows * (r + 2 * kN);
+  p.wcat = p.y + tokens * p.y_streams * d;
   p.B = B;
   p.L = L;
   p.h = h;
   p.d = d;
-  p.r = r;
   p.S = S;
   p.scale = scale;
+  for (int m = 0; m < M; ++m) {
+    const Branch& br = p.br[m];
+    in.w[m] = mixer::Weights{br.conv_w, br.conv_b, br.xp_w, br.dt_w, br.dt_b, br.A_log, br.D};
+  }
+  in.fwd = p.fwd;
+  in.xz = p.xz;
+  in.y = p.y;
+  in.B = B;
+  in.L = L;
+  in.Ls = Ls;
+  in.d = d;
+  in.r = r;
+  in.S = S;
+  in.y_streams = p.y_streams;
+  in.a_is_log = true;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   int err = launch_gemm<64, 64, 16, 4, 4, InProj>(p, B * L, 2 * d, M, s);
   if (err != 0) return err;
-  err = launch_gemm<16, 64, 16, 1, 4, ConvXProj>(p, B * S * L, r + 2 * kN, M, s);
+  err = mixer::launch_inner(in, M, s);
   if (err != 0) return err;
-  const dim3 scan_grid((d + kScanThreads - 1) / kScanThreads, B * S, M);
-  scan_kernel<<<scan_grid, kScanThreads, 0, s>>>(p);
+  if (!quirk) return launch_gemm<32, 64, 16, 2, 4, MergeOutProj>(p, B * L, h, M, s);
+  const size_t flips = static_cast<size_t>(h) * 2 * d;
+  flip_cat_kernel<<<dim3(static_cast<unsigned>((flips + kFlipThreads - 1) / kFlipThreads), M),
+                    kFlipThreads, 0, s>>>(p);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_gemm<32, 64, 16, 2, 4, MergeOutProj>(p, B * L, h, M, s);
+  return launch_gemm<32, 64, 16, 2, 4, QuirkOutProj>(p, B * L, h, M, s);
 }

@@ -793,8 +793,10 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     core.y = p.y;
     core.B = B;
     core.L = L;
+    core.Lt = L;
     core.d = d;
     core.S = S;
+    core.y_streams = S;
     core.dproj = p.dproj;
     core.dt_lo = dt_lo;
     core.dt_hi = dt_hi;

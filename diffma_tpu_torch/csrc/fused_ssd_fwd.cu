@@ -8,8 +8,10 @@
 // Replaces the TPU kernel diffma_tpu/ops/fused_ssd.py::_ssd_kernel, as its
 // launcher _launch drives it (single, dual-stacked and prologue modes). Per
 // branch m and batch element b, with x (L, h), d = d_inner, n = d_state = 16,
-// H heads of 64 channels, K = 4 taps, S streams, and in_proj's columns in the
-// order [z (d) | x (d) | B (n) | C (n) | dt (H)]:
+// H heads of 64 channels, K = 4 taps, S streams of Ls steps (Ls = L: each a
+// permutation of the tokens; Ls = L / S: an exact partition, EfficientVMamba's
+// atrous streams, each a sequence of its own whose merge is a scatter), and
+// in_proj's columns in the order [z (d) | x (d) | B (n) | C (n) | dt (H)]:
 //
 //     zx    = x . W_in^T                                      (L, 2d + 2n + H)
 //     for each stream s, in token order fwd[s]:
@@ -55,11 +57,14 @@
 //    M[t, u] = (Cs_t . Bs_u) exp(cs_t - cs_u) dt_u for u <= t (0 above the
 //    diagonal) in shared memory and multiplies M (32 x t_end) by xs
 //    (t_end x 64) with a 2 x 4 register tile per thread, stopping at the
-//    tile's last step. y goes to the workspace in token order (each stream
-//    is a permutation, so no two writes meet).
+//    tile's last step. y goes to the workspace in token order: per stream
+//    for full-length specs (each stream is a permutation, so no two writes
+//    meet), one row per token for a partition. The block holds Ls steps, so
+//    the shared-memory cap is on Ls.
 // 3. gate + norm + merge: one block per token row and branch; each thread
 //    holds d / 256 channels; per stream the gated row's sum of squares is
-//    reduced over the block, and the normed rows add up in stream order.
+//    reduced over the block, and the normed rows add up in stream order (a
+//    partition has one row per token).
 // 4. out_proj: the GEMM again, 32 x 64 tiles.
 // The TPU kernel's one-hot permutation and head-expansion matmuls, its
 // tril-matmul cumsum and its 8-row padding of L exist for the MXU and VMEM;
@@ -75,8 +80,8 @@
 // tensor the caller owns: a caller that needs the backward keeps it for
 // kernel F, any other drops it. The kernel does the same work either way.
 //
-// Partition specs, several B/C groups and bf16 are not built: the wrapper
-// raises for them.
+// Several B/C groups, bf16 and a partition spec in prologue mode are not
+// built: the wrapper raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,10 +119,11 @@ struct Branch {
 
 struct Params {
   Branch br[2];
-  const int64_t* fwd;  // (S, L): stream s visits tokens fwd[s, 0..L-1]
+  const int64_t* fwd;  // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
   float* xmod;         // (M, B * L, h), prologue mode only
   float* zx;           // (M, B * L, dproj)
-  float* y;            // (M, B * S * L, d), token order: y_s[l] at (b * S + s) * L + l
+  float* y;            // (M, B * y_streams * L, d), token order: y_s[l] at
+                       // (b * S + s) * L + l, or y[l] at b * L + l for a partition
   float* merged;       // (M, B * L, d)
   // prologue mode
   const float* wmask;  // (B, L)
@@ -127,7 +133,7 @@ struct Params {
   const float* scale_;  // (B, h), rows mod_stride apart
   int mod_stride;
   float ln_eps;
-  int B, L, h, d, H, S, dproj;
+  int B, L, h, d, H, S, y_streams, dproj;
   float scale, eps, dt_lo, dt_hi;
 };
 
@@ -215,9 +221,9 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Para
     sz[i] = c < d ? silu(z[c]) : 0.0f;
     acc[i] = 0.0f;
   }
-  for (int s = 0; s < p.S; ++s) {
+  for (int s = 0; s < p.y_streams; ++s) {
     const float* y =
-        p.y + (((static_cast<size_t>(m) * p.B + b) * p.S + s) * p.L + l) * d;
+        p.y + (((static_cast<size_t>(m) * p.B + b) * p.y_streams + s) * p.L + l) * d;
     float q = 0.0f;
 #pragma unroll
     for (int i = 0; i < kMaxPerThread; ++i) {
@@ -240,22 +246,23 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Para
   }
 }
 
-size_t workspace_floats(int M, int B, int L, int h, int d, int H, int S, int prologue) {
+size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int H, int S,
+                        int prologue) {
   const size_t tokens = static_cast<size_t>(M) * B * L;
   return (prologue ? tokens * h : 0)                // xmod
-         + tokens * S * d                           // y
+         + tokens * (Ls == L ? S : 1) * d           // y
          + tokens * d;                              // merged
 }
 
 }  // namespace
 
 // Floats of workspace that ssd_mixer_fwd needs for these shapes.
-extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int h, int d, int H,
-                                                int S, int prologue) {
-  return static_cast<long long>(workspace_floats(M, B, L, h, d, H, S, prologue));
+extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int Ls, int h, int d,
+                                                int H, int S, int prologue) {
+  return static_cast<long long>(workspace_floats(M, B, L, Ls, h, d, H, S, prologue));
 }
 
-// The longest sequence whose SSD block fits in a block's shared memory.
+// The longest stream whose SSD block fits in a block's shared memory.
 extern "C" int ssd_mixer_max_tokens() {
   int L = 0;
   while (ssd::fwd_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
@@ -263,8 +270,9 @@ extern "C" int ssd_mixer_max_tokens() {
 }
 
 // `ptrs` holds 10 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, L) is int64 and
-// each of its rows a permutation of 0 .. L-1. `pro` is null, or five
+// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) is int64: with
+// Ls = L each of its rows is a permutation of 0 .. L-1, with Ls = L / S its
+// rows partition them (not in prologue mode). `pro` is null, or five
 // pointers for prologue mode (then M = 2 and both branches' x is the block's
 // input): wmask (B, L), ln_w (h,), ln_b (h,), shift and scale (B, h) whose
 // rows lie `mod_stride` floats apart. `zx` (M, B * L, dproj) takes in_proj's
@@ -273,12 +281,14 @@ extern "C" int ssd_mixer_max_tokens() {
 // built.
 extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* workspace,
                              void* zx, void* const* pro, int mod_stride, float ln_eps,
-                             int B, int L,
+                             int B, int L, int Ls,
                              int h, int d, int n, int H, int K, int S, float scale,
                              float eps, float dt_lo, float dt_hi, void* stream) {
+  const bool partition = Ls != L;
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
-      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 ||
-      ssd::fwd_smem_floats(L) * sizeof(float) > kMaxSharedBytes || (pro && M != 2)) {
+      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || Ls < 1 ||
+      (partition && (Ls * S != L || pro)) ||
+      ssd::fwd_smem_floats(Ls) * sizeof(float) > kMaxSharedBytes || (pro && M != 2)) {
     return -1;
   }
   Params p{};
@@ -308,8 +318,9 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
     p.ln_eps = ln_eps;
   }
   p.zx = static_cast<float*>(zx);
+  p.y_streams = partition ? 1 : S;
   p.y = ws;
-  p.merged = p.y + tokens * S * d;
+  p.merged = p.y + tokens * p.y_streams * d;
   p.B = B;
   p.L = L;
   p.h = h;
@@ -340,9 +351,11 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
   core.zx = p.zx;
   core.y = p.y;
   core.B = B;
-  core.L = L;
+  core.L = Ls;
+  core.Lt = L;
   core.d = d;
   core.S = S;
+  core.y_streams = p.y_streams;
   core.dproj = dproj;
   core.dt_lo = dt_lo;
   core.dt_hi = dt_hi;

@@ -17,6 +17,13 @@
 // after it goes through exp(cs_t - cs_u). The causal mask is a selection
 // (u <= t), never a product: above the diagonal cs_t - cs_u is positive and
 // exp would overflow at wide spans. Everything else is fp32 FMA.
+//
+// A stream has L steps over the Lt tokens of its batch element: L = Lt when
+// every stream visits every token, L = Lt / S when the streams partition
+// them (each stream then is a sequence of its own: the conv's pad and the
+// cumsum start at its first step). y goes out at the step's token index: per
+// stream ((b * S + s) * Lt + token) when `y_streams` is S, or (b * Lt + token)
+// when it is 1 (a partition, where each token lies in one stream).
 
 #pragma once
 
@@ -162,9 +169,9 @@ __device__ inline void stage_head(const Head& hd) {
 struct FwdArgs {
   Mixer mx[2];
   const int64_t* fwd;  // (S, L): stream s visits tokens fwd[s, 0..L-1]
-  const float* zx;     // (M, B * L, dproj)
-  float* y;            // (M, B * S * L, d), token order: y_s[l] at (b * S + s) * L + l
-  int B, L, d, S, dproj;
+  const float* zx;     // (M, B * Lt, dproj)
+  float* y;            // (M, B * y_streams * Lt, d), token order (see above)
+  int B, L, Lt, d, S, y_streams, dproj;
   float dt_lo, dt_hi;
 };
 
@@ -179,7 +186,8 @@ __host__ __device__ constexpr size_t fwd_smem_floats(int L) {
 // exp(cs_t - cs_u) dt_u for u <= t (0 above the diagonal) in shared memory
 // and multiplies M (32 x t_end) by xs (t_end x 64) with a 2 x 4 register tile
 // per thread, stopping at the tile's last step. y goes out in token order
-// (each stream is a permutation, so no two writes meet).
+// (no two writes meet: a stream visits a token once, and in a partition
+// each token lies in one stream).
 static __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(const FwdArgs a) {
   float* smem = dynamic_smem();
   const int L = a.L, d = a.d;
@@ -191,7 +199,7 @@ static __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(const FwdArgs 
   const int tid = threadIdx.x;
 
   Head hd;
-  hd.zx_b = a.zx + (static_cast<size_t>(m) * a.B + b) * L * a.dproj;
+  hd.zx_b = a.zx + (static_cast<size_t>(m) * a.B + b) * a.Lt * a.dproj;
   hd.order = a.fwd + static_cast<size_t>(s) * L;
   hd.mx = a.mx[m];
   hd.head = head;
@@ -216,7 +224,9 @@ static __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(const FwdArgs 
   const int* tok = hd.tok;
 
   const float Dh = hd.mx.D[head];
-  float* y_bs = a.y + (static_cast<size_t>(m) * a.B * a.S + bs) * L * d + head * kHd;
+  const size_t y_seq = a.y_streams == 1 ? static_cast<size_t>(m) * a.B + b
+                                        : static_cast<size_t>(m) * a.B * a.S + bs;
+  float* y_bs = a.y + y_seq * a.Lt * d + head * kHd;
   const int warp = tid / 32, lane = tid % 32;
   const int tx = tid % 16;  // columns tx + 16 j
   const int ty = tid / 16;  // rows ty and ty + 16 of the tile

@@ -1,7 +1,10 @@
-"""The Spiral Mamba block.
+"""The six DiffMa backbone blocks.
 
-Counterpart of ``diffma_tpu/models/blocks.py::SpiralMambaBlock``: adaLN-Zero
-modulation from the conditioning vector c (N, 2D), two mixer branches
+Counterpart of ``diffma_tpu/models/blocks.py``. Every block is called as
+``block(x, c, w)`` and modulates with adaLN-Zero from the conditioning vector
+c (N, 2D), so it is the identity while its adaLN layer is zero.
+
+``SpiralMambaBlock``: adaLN-Zero modulation from the conditioning vector c (N, 2D), two mixer branches
 (Mamba-1, or Mamba-2 with ``use_mamba2``) where the second sees the
 soft-masked tokens ``x_mod * w``, mixed by a learned per-token sigmoid
 weight, and a gated residual. Three routes, as in the JAX block:
@@ -18,9 +21,24 @@ weight, and a gated residual. Three routes, as in the JAX block:
 Parameter names follow upstream DiffMa's ``block/mamba_block.py``
 (``adaLN_modulation.1``, ``norm1``, ``mamba1``, ``mamba2``,
 ``attention_network.{0,1,3}``) on every route.
+
+``ZigMambaBlock``, ``ViMMambaBlock``, ``VMambaMambaBlock`` and
+``EfficientVMambaBlock`` are one shape (``_SingleMixerBlock``): adaLN with
+three outputs, an affine LayerNorm at eps 1e-5, one mixer named ``mamba``
+(Mamba-1 or Mamba-2) over the family's scan spec, and a gated residual. They
+drop the soft mask ``w``. The mixer takes its own route from ``scan_impl``
+(``models/mamba.py``, ``models/mamba2.py``).
+
+``DiTBlock`` is the attention baseline: adaLN with six outputs, LayerNorms
+without affine at eps 1e-6, 8-head attention with a qkv bias and an MLP of
+ratio 4 with the tanh GELU. It drops ``w`` and has no scan spec. Attention
+is torch operators, as it is plain ``einsum`` in the JAX package. Parameter
+names are upstream's (``attn.{qkv,proj}``, ``mlp.{fc1,fc2}``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +52,15 @@ from diffma_tpu_torch.ops.fused_ssd import mamba2_dual_mixer_fused, spiral_block
 from diffma_tpu_torch.ops.norm import layer_norm
 from diffma_tpu_torch.ops.scan_orders import ScanSpec
 
-__all__ = ["SpiralMambaBlock"]
+__all__ = [
+    "BLOCKS",
+    "DiTBlock",
+    "EfficientVMambaBlock",
+    "SpiralMambaBlock",
+    "ViMMambaBlock",
+    "VMambaMambaBlock",
+    "ZigMambaBlock",
+]
 
 
 class SpiralMambaBlock(nn.Module):
@@ -63,6 +89,9 @@ class SpiralMambaBlock(nn.Module):
             nn.SiLU(),
             nn.Linear(hidden, 1),
         )
+
+    def mixers(self):
+        return (self.mamba1, self.mamba2)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c).chunk(3, dim=-1)
@@ -97,3 +126,111 @@ class SpiralMambaBlock(nn.Module):
         alpha = torch.sigmoid(fc2(F.silu(fc1(h))))
         mixed = alpha * x_ssm + (1.0 - alpha) * w_ssm
         return x + gate[:, None, :] * mixed
+
+
+class _SingleMixerBlock(nn.Module):
+    """The shape that the Zig, ViM, VMamba and EfficientVMamba blocks share."""
+
+    def __init__(
+        self,
+        hidden: int,
+        spec: ScanSpec,
+        d_state: int = 16,
+        scan_impl: str = "auto",
+        use_mamba2: bool = False,
+    ):
+        super().__init__()
+        self.spec = spec
+        self.scan_impl = check_scan_impl(scan_impl)
+        self.use_mamba2 = bool(use_mamba2)
+        mixer = Mamba2 if use_mamba2 else Mamba
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
+        self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
+        self.mamba = mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl)
+
+    def mixers(self):
+        return (self.mamba,)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        del w  # only the Spiral block reads the soft mask
+        shift, scale, gate = self.adaLN_modulation(c).chunk(3, dim=-1)
+        x_mod = modulate(
+            layer_norm(x, self.norm1.weight, self.norm1.bias, eps=self.norm1.eps),
+            shift, scale,
+        )
+        return x + gate[:, None, :] * self.mamba(x_mod)
+
+
+class ZigMambaBlock(_SingleMixerBlock):
+    pass
+
+
+class ViMMambaBlock(_SingleMixerBlock):
+    pass
+
+
+class VMambaMambaBlock(_SingleMixerBlock):
+    pass
+
+
+class EfficientVMambaBlock(_SingleMixerBlock):
+    pass
+
+
+class _Attention(nn.Module):
+    """Multi-head self-attention with a qkv bias; the softmax runs in fp32."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, D = x.shape
+        H = self.num_heads
+        q, k, v = self.qkv(x).reshape(B, L, 3, H, D // H).permute(2, 0, 3, 1, 4)
+        att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(D // H)
+        att = torch.softmax(att.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", att, v)
+        return self.proj(out.transpose(1, 2).reshape(B, L, D))
+
+
+class _Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, hidden: int, num_heads: int = 8, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 6 * hidden))
+        self.attn = _Attention(hidden, num_heads)
+        self.mlp = _Mlp(hidden, int(hidden * mlp_ratio))
+
+    def mixers(self):
+        return ()
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        del w
+        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = self.adaLN_modulation(c).chunk(6, dim=-1)
+        x = x + g_msa[:, None, :] * self.attn(modulate(layer_norm(x, eps=1e-6), s_msa, sc_msa))
+        return x + g_mlp[:, None, :] * self.mlp(modulate(layer_norm(x, eps=1e-6), s_mlp, sc_mlp))
+
+
+#: ``block_type`` -> block class, with the JAX package's names.
+BLOCKS = {
+    "spiral": SpiralMambaBlock,
+    "zig": ZigMambaBlock,
+    "vim": ViMMambaBlock,
+    "vmamba": VMambaMambaBlock,
+    "efficientVMamba": EfficientVMambaBlock,
+    "DiT": DiTBlock,
+}

@@ -1,19 +1,25 @@
-"""DiffMa: conditional latent-diffusion denoiser with Spiral Mamba blocks.
+"""DiffMa: conditional latent-diffusion denoiser with Mamba backbones.
 
 Counterpart of ``diffma_tpu/models/diffma.py``: patchify, + 2-D sincos
-pos-embed, ``depth`` Spiral blocks with U-Net-style long skips, adaLN final
-layer, unpatchify. The public API is NCHW. The conditioning vector is
-c = concat(t_emb + y, t_emb + mean(y2)), (N, 2D); w soft-masks the second
-branch of every block. Layer i scans spiral orders (2i) % 16 and (2i) % 16 + 1.
+pos-embed, ``depth`` blocks of one family (``block_type``) with U-Net-style
+long skips, adaLN final layer, unpatchify. The public API is NCHW. The
+conditioning vector is c = concat(t_emb + y, t_emb + mean(y2)), (N, 2D); w
+soft-masks the second branch of every Spiral block (the other families drop
+it). Layer i of a Mamba family scans ``build_scan_spec(block_type, grid, i)``:
+the spiral orders (2i) % 16 and (2i) % 16 + 1, zig variant i % 8, and so on;
+a DiT block has no scan spec.
 
-The registry holds the 15 ``DiffMa-*`` names (spiral blocks). The other 65
-names of the JAX registry (ZigMa, ViM, VMamba, EMamba, DiT) are not ported
-yet, and ``build_model`` says so. ``scan_impl`` picks the mixers' path for
-every block (``models/mamba.py``); the sampler's default on the card is
-``"fused"``. ``use_mamba2`` builds the blocks on the Mamba-2 mixer
-(``models/mamba2.py``), and ``fuse_block`` with it sends each whole block
-through ``spiral_block_fused`` (its backward recomputes the block, so
-training takes the mixer-level route).
+The registry holds the JAX package's 80 names: ``DiffMa-`` (spiral, with an
+XXL size), ``ZigMa-``, ``ViM-``, ``VMamba-``, ``EMamba-`` (EfficientVMamba)
+and ``DiT-``, each in sizes XL, L, B, S (depths 28, 16, 8, 4) at patch 2, 4
+and 7, the four Mamba families' ``-BL/2`` at depth 13 and ``DiT-SB/2`` at
+depth 7. ``scan_impl`` picks the mixers' path for every block
+(``models/mamba.py``); the sampler's default on the card is ``"fused"``.
+``use_mamba2`` builds the blocks on the Mamba-2 mixer (``models/mamba2.py``),
+and ``fuse_block`` with it sends each whole Spiral block through
+``spiral_block_fused`` (its backward recomputes the block, so training takes
+the mixer-level route); the other families ignore ``fuse_block``, and DiT
+ignores all three.
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from diffma_tpu_torch.models.blocks import SpiralMambaBlock
-from diffma_tpu_torch.models.mamba import Mamba, check_scan_impl
+from diffma_tpu_torch.models.blocks import BLOCKS
+from diffma_tpu_torch.models.mamba import check_scan_impl
 from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.models.layers import (
     FinalLayer,
@@ -35,7 +41,7 @@ from diffma_tpu_torch.models.layers import (
 )
 from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 
-__all__ = ["DiffMa", "DiffMa_models", "NOT_PORTED", "build_model"]
+__all__ = ["DiffMa", "DiffMa_models", "build_model"]
 
 
 class DiffMa(nn.Module):
@@ -45,6 +51,7 @@ class DiffMa(nn.Module):
         patch_size: int = 2,
         hidden_size: int = 512,
         depth: int = 16,
+        block_type: str = "spiral",
         dt_rank: Optional[int] = 16,  # accepted and unused, as in the JAX package
         d_state: int = 16,
         scan_impl: str = "auto",
@@ -53,6 +60,10 @@ class DiffMa(nn.Module):
     ):
         super().__init__()
         del dt_rank
+        if block_type not in BLOCKS:
+            raise ValueError(f"unknown block_type {block_type!r}; expected one of {sorted(BLOCKS)}")
+        check_scan_impl(scan_impl)
+        self.block_type = block_type
         self.patch_size = patch_size
         self.in_channels = 4  # SD-VAE latent
         self.out_channels = 8  # epsilon and the learned-range variance
@@ -67,11 +78,12 @@ class DiffMa(nn.Module):
             persistent=False,
         )
         self.t_embedder = TimestepEmbed(hidden_size)
+        mixer_kw = dict(d_state=d_state, scan_impl=scan_impl, use_mamba2=use_mamba2)
+        if block_type == "spiral":
+            mixer_kw["fuse_block"] = fuse_block
         self.blocks = nn.ModuleList(
-            SpiralMambaBlock(
-                hidden_size, build_scan_spec("spiral", self.grid_n, i), d_state=d_state,
-                scan_impl=scan_impl, use_mamba2=use_mamba2, fuse_block=fuse_block,
-            )
+            BLOCKS[block_type](hidden_size) if block_type == "DiT" else
+            BLOCKS[block_type](hidden_size, build_scan_spec(block_type, self.grid_n, i), **mixer_kw)
             for i in range(depth)
         )
         self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
@@ -80,7 +92,7 @@ class DiffMa(nn.Module):
         """Switch every block and mixer to ``scan_impl``; the weights stay."""
         check_scan_impl(scan_impl)
         for m in self.modules():
-            if isinstance(m, (SpiralMambaBlock, Mamba, Mamba2)):
+            if hasattr(m, "scan_impl"):  # the Mamba blocks and their mixers
                 m.scan_impl = scan_impl
         return self
 
@@ -103,7 +115,7 @@ class DiffMa(nn.Module):
                 xavier(m.weight)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
+            elif isinstance(m, nn.LayerNorm) and m.elementwise_affine:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         xavier(self.x_embedder.proj.weight)
@@ -113,7 +125,7 @@ class DiffMa(nn.Module):
         for blk in self.blocks:
             blk.adaLN_modulation[1].weight.zero_()
             blk.adaLN_modulation[1].bias.zero_()
-            for mixer in (blk.mamba1, blk.mamba2):
+            for mixer in blk.mixers():
                 bound = 1.0 / math.sqrt(mixer.conv1d.weight.shape[-1])
                 mixer.conv1d.weight.uniform_(-bound, bound, generator=generator)
                 mixer.conv1d.bias.uniform_(-bound, bound, generator=generator)
@@ -166,38 +178,36 @@ class DiffMa(nn.Module):
         return x.reshape(N, c, h * p, h * p)
 
 
-def _names(prefix: str, sizes, extra=()):
-    return [f"{prefix}-{sz}/{p}" for sz in sizes for p in (2, 4, 7)] + [
-        f"{prefix}-{e}" for e in extra
-    ]
+_DEPTHS = {"XL": 28, "L": 16, "B": 8, "S": 4}
 
 
-_DIFFMA_DEPTHS = {"XXL": 56, "XL": 28, "L": 16, "B": 8, "S": 4}
+def _family(prefix: str, block_type: str, sizes: dict, extra: dict) -> dict:
+    out = {f"{prefix}-{sz}/{p}": (depth, p, block_type)
+           for sz, depth in sizes.items() for p in (2, 4, 7)}
+    out.update({f"{prefix}-{name}": (depth, p, block_type) for name, (depth, p) in extra.items()})
+    return out
 
-#: name -> (depth, patch size): the spiral-block entries of the registry.
+
+#: name -> (depth, patch size, block type): the JAX package's 80 registry names.
 DiffMa_models = {
-    f"DiffMa-{sz}/{p}": (depth, p)
-    for sz, depth in _DIFFMA_DEPTHS.items()
-    for p in (2, 4, 7)
+    **_family("DiffMa", "spiral", {"XXL": 56, **_DEPTHS}, {}),
+    **_family("ZigMa", "zig", _DEPTHS, {"BL/2": (13, 2)}),
+    **_family("ViM", "vim", _DEPTHS, {"BL/2": (13, 2)}),
+    **_family("VMamba", "vmamba", _DEPTHS, {"BL/2": (13, 2)}),
+    **_family("EMamba", "efficientVMamba", _DEPTHS, {"BL/2": (13, 2)}),
+    **_family("DiT", "DiT", _DEPTHS, {"SB/2": (7, 2)}),
 }
-
-#: Registry names of the JAX package that the port does not build yet.
-NOT_PORTED = frozenset(
-    name
-    for prefix in ("ZigMa", "ViM", "VMamba", "EMamba")
-    for name in _names(prefix, ("XL", "L", "B", "S"), ("BL/2",))
-) | frozenset(_names("DiT", ("XL", "L", "B", "S"), ("SB/2",)))
 
 
 def build_model(name: str, **kwargs) -> DiffMa:
-    """Build a registry entry, e.g. ``build_model("DiffMa-B/2", input_size=28)``.
+    """Build a registry entry, e.g. ``build_model("ViM-B/2", input_size=28)``.
 
     ``hidden_size`` defaults to 512 and may be overridden (tests shrink it).
+    An ``EMamba-`` name on an odd token grid raises ``ValueError``: the atrous
+    streams need an even grid, in both packages and upstream.
     """
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet (only DiffMa-* spiral models)")
     if name not in DiffMa_models:
         raise KeyError(f"unknown model {name!r}")
-    depth, patch = DiffMa_models[name]
+    depth, patch, block_type = DiffMa_models[name]
     kwargs.setdefault("hidden_size", 512)
-    return DiffMa(depth=depth, patch_size=patch, **kwargs)
+    return DiffMa(depth=depth, patch_size=patch, block_type=block_type, **kwargs)

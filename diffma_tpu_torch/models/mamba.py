@@ -11,9 +11,17 @@ JAX package's values:
 * ``"ref"``: the composable path with the plain scan on any device;
 * ``"fused"``: the whole mixer in one call of kernel C forward and one of
   kernel D backward (``ops/fused_mixer.py::mamba_mixer_fused``) on CUDA
-  tensors, its plain version on CPU tensors.
+  tensors, its plain version on CPU tensors. Every scan spec that
+  ``build_scan_spec`` makes goes this way (full-length streams, the vim
+  quirk, EfficientVMamba's exact partition). A hand-made spec that kernel C
+  cannot run (streams that are neither full-length nor an exact partition)
+  keeps the composable path's gather, in_proj, merge and out_proj and sends
+  what lies between them through ``ops/fused_mamba.py::mamba_inner_fused``
+  (kernel H on CUDA tensors), as the JAX mixer does.
 
-Every path carries gradients to the input and to every parameter.
+Every path carries gradients to the input and to every parameter, except
+that kernel D has no branch yet for the vim quirk and for partition specs:
+there the fused route raises on CUDA tensors when a gradient is needed.
 
 Parameter names follow mamba_ssm's ``Mamba`` state dict, whatever the path.
 d_inner is 2 * d_model, the conv has 4 taps, and ``dt_rank`` is
@@ -27,7 +35,12 @@ import math
 import torch
 from torch import nn
 
-from diffma_tpu_torch.ops.fused_mixer import MixerWeights, mamba_mixer_fused, mixer_composable
+from diffma_tpu_torch.ops.fused_mixer import (
+    MixerWeights,
+    mamba_mixer_fused,
+    mixer_composable,
+    mixer_fused_eligible,
+)
 from diffma_tpu_torch.ops.scan_orders import ScanSpec
 
 __all__ = ["Mamba", "SCAN_IMPLS", "check_scan_impl"]
@@ -47,8 +60,6 @@ class Mamba(nn.Module):
 
     def __init__(self, d_model: int, spec: ScanSpec, d_state: int = 16, scan_impl: str = "auto"):
         super().__init__()
-        if spec.mamba1_vim_quirk:
-            raise NotImplementedError("the vim scan family is not ported yet")
         self.spec = spec
         self.scan_impl = check_scan_impl(scan_impl)
         d_in, n, r = 2 * d_model, d_state, math.ceil(d_model / 16)
@@ -71,6 +82,8 @@ class Mamba(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         impl = SCAN_IMPLS[check_scan_impl(self.scan_impl)]
-        if impl is None:
+        if impl is not None:
+            return mixer_composable(self.spec, x, self.weights(), scan_impl=impl)
+        if mixer_fused_eligible(self.spec, partition=True):
             return mamba_mixer_fused(self.spec, x, self.weights())
-        return mixer_composable(self.spec, x, self.weights(), scan_impl=impl)
+        return mixer_composable(self.spec, x, self.weights(), fused_inner=True)

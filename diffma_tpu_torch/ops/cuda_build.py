@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. Building takes
 seconds, so it happens at first use in each process; the library's file name
 carries a hash of its source and of every header in ``csrc/`` (kernels B and
-D share ``scan_bwd.cuh``; C, E and G ``gemm_nt.cuh``; D and F ``gemm_ops.cuh``;
-E and F ``ssd_core.cuh``), so an edited source or
+D share ``scan_bwd.cuh``; C, E, G and H ``gemm_nt.cuh``; C and H
+``mixer_core.cuh``; D and F ``gemm_ops.cuh``; E and F ``ssd_core.cuh``), so an
+edited source or
 header is rebuilt and an unchanged one is reused. Libraries go into
 ``diffma_tpu_torch/_build/``, which git ignores.
 """
@@ -29,9 +30,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-#: Every kernel source of the port: kernels A, C, B, D, E, G and F.
+#: Every kernel source of the port: kernels A, C, B, D, E, G, F and H.
 SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd",
-           "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd")
+           "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd", "fused_mamba_fwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

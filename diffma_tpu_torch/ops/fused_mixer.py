@@ -29,10 +29,16 @@ monolithic VJP does. ``mamba_mixer_fused`` and ``mamba_dual_mixer_fused``
 dispatch on the tensors' device: ``FusedMixerFn`` for CUDA tensors,
 ``mixer_ref`` (plain autograd) for CPU tensors. ``impl="ref"`` takes the
 plain version on any device, to hold the kernels against it on the card.
-Weights are in torch layout (``MixerWeights``), fp32 only. The Mamba-1 'vim'
-feature-flip quirk and partition specs (EfficientVMamba's atrous streams)
-raise ``NotImplementedError``, forward and backward: they come with their
-block families.
+Weights are in torch layout (``MixerWeights``), fp32 only.
+
+Every registry scan spec runs forward through kernel C in its one-mixer
+form: full-length permutation streams (spiral, zig, vmamba), the Mamba-1
+'vim' spec with its feature-flip quirk (out_proj per stream, the reverse
+stream left in reversed token order and its output features flipped), and
+exact partitions (EfficientVMamba's four quarter-length atrous streams, each
+a sequence of its own). Kernel D has the full-length branch only: where a
+gradient is needed on CUDA tensors, a vim or partition spec raises
+``NotImplementedError`` and names the route that trains.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 
 from diffma_tpu_torch.ops import cuda_build
 from diffma_tpu_torch.ops.conv import causal_conv1d
+from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused
 from diffma_tpu_torch.ops.scan_orders import ScanSpec
 from diffma_tpu_torch.ops.selective_scan import selective_scan
 
@@ -92,8 +99,8 @@ def _exact_partition(spec: ScanSpec) -> bool:
 
 def mixer_fused_eligible(spec: ScanSpec, partition: bool = False) -> bool:
     """Full-length permutation streams (spiral / zigma / vim / vmamba) always
-    qualify; with ``partition``, exact disjoint partitions do too (the JAX
-    package's rule; the port's kernel takes only the full-length ones)."""
+    qualify; with ``partition``, exact disjoint partitions (EfficientVMamba's
+    atrous streams) do too. The JAX package's rule."""
     if spec.fwd.shape[1] == spec.seq_len:
         return True
     return partition and _exact_partition(spec)
@@ -110,12 +117,18 @@ def index_tables(spec: ScanSpec, device: torch.device) -> Tuple[torch.Tensor, to
 
 
 def mixer_composable(
-    spec: ScanSpec, x: torch.Tensor, w: MixerWeights, scan_impl: str = "auto"
+    spec: ScanSpec, x: torch.Tensor, w: MixerWeights, scan_impl: str = "auto",
+    fused_inner: bool = False,
 ) -> torch.Tensor:
     """The mixer from PyTorch operators, with ``selective_scan(impl=scan_impl)``.
 
     The streams are gathered before in_proj (a per-token matmul commutes with
-    the token permutation), and merged before out_proj (it has no bias).
+    the token permutation), and merged before out_proj (it has no bias). With
+    ``fused_inner`` everything between in_proj and the merge is one call of
+    ``mamba_inner_fused`` (kernel H on CUDA tensors) and ``scan_impl`` is not
+    read. A spec with the Mamba-1 vim quirk is not merged: out_proj runs per
+    stream, the reverse stream stays in reversed token order, and its output
+    features are flipped before the average.
     """
     B_, L, _ = x.shape
     S, Ls = spec.fwd.shape
@@ -123,15 +136,23 @@ def mixer_composable(
     r = w.dt_w.shape[1]
     fwd, merge = index_tables(spec, x.device)
 
-    xz = F.linear(x.index_select(1, fwd), w.in_w)  # (B, S*Ls, 2d)
-    u, z = xz.reshape(B_ * S, Ls, 2 * d_in).split(d_in, dim=-1)
-    u = causal_conv1d(u, w.conv_w[:, 0, :], w.conv_b)
-    dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w).split([r, n, n], dim=-1)
-    delta = F.linear(dt_r.float(), w.dt_w.float(), w.dt_b.float())
-    y = selective_scan(
-        u, delta, -torch.exp(w.A_log.float()), B_ssm.contiguous(), C_ssm.contiguous(),
-        w.D.float(), z=z.contiguous(), impl=scan_impl,
-    )
+    xz = F.linear(x.index_select(1, fwd), w.in_w).reshape(B_ * S, Ls, 2 * d_in)
+    A = -torch.exp(w.A_log.float())
+    if fused_inner:
+        y = mamba_inner_fused(xz, w.conv_w[:, 0, :], w.conv_b, w.xp_w, w.dt_w, w.dt_b, A, w.D)
+    else:
+        u, z = xz.split(d_in, dim=-1)
+        u = causal_conv1d(u, w.conv_w[:, 0, :], w.conv_b)
+        dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w).split([r, n, n], dim=-1)
+        delta = F.linear(dt_r.float(), w.dt_w.float(), w.dt_b.float())
+        y = selective_scan(
+            u, delta, A, B_ssm.contiguous(), C_ssm.contiguous(), w.D.float(),
+            z=z.contiguous(), impl=scan_impl,
+        )
+    if spec.mamba1_vim_quirk:
+        ys = y.reshape(B_, S, Ls, d_in)
+        out = F.linear(ys[:, 0], w.out_w) + F.linear(ys[:, 1], w.out_w).flip(-1)
+        return out * spec.scale
     merged = y.reshape(B_, S * Ls, d_in).index_select(1, merge)
     merged = merged.reshape(B_, L, spec.merge.shape[1], d_in).sum(dim=2) * spec.scale
     return F.linear(merged, w.out_w)
@@ -154,13 +175,29 @@ def mixer_bwd_ref(
     return grads[0], MixerWeights(*grads[1:])
 
 
-def _check_spec(spec: ScanSpec) -> None:
-    if spec.mamba1_vim_quirk:
-        raise NotImplementedError("the fused mixer's vim quirk is not ported yet")
-    if not mixer_fused_eligible(spec):
+def _check_spec(spec: ScanSpec, M: int = 1) -> None:
+    """Raise on a spec that kernel C does not run."""
+    if not mixer_fused_eligible(spec, partition=True):
         raise NotImplementedError(
-            "the fused mixer takes full-length stream permutations; partition "
-            "specs are not ported yet"
+            "the fused mixer takes full-length stream permutations and exact partitions "
+            "of the tokens; other specs go through mamba_inner_fused (models/mamba.py)"
+        )
+    if M == 2 and spec.mamba1_vim_quirk:
+        raise ValueError("a dual (two-branch) call never carries the vim quirk")
+
+
+def _has_bwd_kernel(spec: ScanSpec) -> bool:
+    """Whether kernel D runs this spec: full-length streams without the vim
+    quirk. Its vim and partition branches are not ported yet."""
+    return mixer_fused_eligible(spec) and not spec.mamba1_vim_quirk
+
+
+def _check_spec_bwd(spec: ScanSpec) -> None:
+    if not _has_bwd_kernel(spec):
+        raise NotImplementedError(
+            "kernel D (the fused mixer's backward) has no branch yet for the vim quirk or for "
+            "partition specs (ViM, EfficientVMamba); train them with scan_impl: auto, the "
+            "composable path with the scan kernels A and B"
         )
 
 
@@ -185,6 +222,8 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
         raise ValueError(f"the kernel takes dt_rank up to {_KERNEL_MAX_RANK}, got {r}")
     if spec.n_streams > _KERNEL_MAX_STREAMS:
         raise ValueError(f"the kernel takes up to {_KERNEL_MAX_STREAMS} streams")
+    if spec.mamba1_vim_quirk and spec.n_streams != 2:
+        raise ValueError("the vim quirk needs a forward and a reverse stream")
     shapes = MixerWeights(
         in_w=(2 * d, h), conv_w=(d, 1, K), conv_b=(d,), xp_w=(r + 2 * n, d),
         dt_w=(d, r), dt_b=(d,), A_log=(d, n), D=(d,), out_w=(h, d),
@@ -204,7 +243,8 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
     for i, w in enumerate(ws):
         if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
             raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
-    return dict(B=B_, L=L, h=h, d=d, n=n, r=r, K=K, S=spec.n_streams)
+    return dict(B=B_, L=L, Ls=spec.stream_len, h=h, d=d, n=n, r=r, K=K, S=spec.n_streams,
+                quirk=int(spec.mamba1_vim_quirk))
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,31 +254,33 @@ def _kernel_fns():
     fwd.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 8
+        + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     size = lib.mixer_fused_workspace_floats
-    size.argtypes = [ctypes.c_int] * 6
+    size.argtypes = [ctypes.c_int] * 9
     size.restype = ctypes.c_longlong
     return fwd, size
 
 
 def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel on the current stream for the mixers ``ws[m]``
-    applied to ``xs[m]`` (one or two of them); returns their outputs.
+    applied to ``xs[m]`` (one or two of them); returns their outputs. One
+    mixer may carry the vim quirk or a partition spec.
 
     Raises on inputs the kernel does not take; ``mixer_fused_cuda.launches``
     counts the calls.
     """
-    _check_spec(spec)
-    dims = _check_kernel_inputs(spec, xs, ws)
     M = len(xs)
+    _check_spec(spec, M)
+    dims = _check_kernel_inputs(spec, xs, ws)
     fwd_fn, size_fn = _kernel_fns()
     x0 = xs[0]
     outs = tuple(torch.empty_like(x) for x in xs)
     workspace = torch.empty(
-        size_fn(M, dims["B"], dims["L"], dims["d"], dims["r"], dims["S"]),
+        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["r"],
+                dims["S"], dims["quirk"]),
         dtype=torch.float32, device=x0.device,
     )
     fwd, _ = index_tables(spec, x0.device)
@@ -246,8 +288,9 @@ def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
     for x, w, out in zip(xs, ws, outs):
         ptrs += [x.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr()]
     err = fwd_fn(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
-        dims["r"], dims["K"], dims["S"], float(spec.scale),
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(),
+        dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["n"], dims["r"], dims["K"],
+        dims["S"], dims["quirk"], float(spec.scale),
         torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
@@ -286,7 +329,8 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
     Raises on inputs the kernel does not take; ``mixer_fused_bwd_cuda.launches``
     counts the calls.
     """
-    _check_spec(spec)
+    _check_spec(spec, len(xs))
+    _check_spec_bwd(spec)
     dims = _check_kernel_inputs(spec, xs, ws)
     if len(gs) != len(xs):
         raise ValueError(f"{len(xs)} inputs but {len(gs)} output gradients")
@@ -356,12 +400,17 @@ def _split(M: int, tensors):
 
 
 def _fused(spec: ScanSpec, xs, ws, impl: str) -> Tuple[torch.Tensor, ...]:
-    _check_spec(spec)
+    _check_spec(spec, len(xs))
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "ref" or xs[0].device.type != "cuda":
         return tuple(mixer_ref(spec, x, w) for x, w in zip(xs, ws))
-    return FusedMixerFn.apply(spec, len(xs), *xs, *(t for w in ws for t in w))
+    flat = (*xs, *(t for w in ws for t in w))
+    if _has_bwd_kernel(spec):
+        return FusedMixerFn.apply(spec, len(xs), *flat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        _check_spec_bwd(spec)  # raises: no quiet change of route
+    return mixer_fused_cuda(spec, xs, ws)
 
 
 def mamba_dual_mixer_fused(
@@ -382,5 +431,6 @@ def mamba_mixer_fused(
     spec: ScanSpec, x: torch.Tensor, w: MixerWeights, impl: str = "auto"
 ) -> torch.Tensor:
     """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel C on CUDA
-    tensors (and one of kernel D in the backward)."""
+    tensors (and one of kernel D in the backward, which vim and partition
+    specs do not have yet: there a needed gradient raises)."""
     return _fused(spec, (x,), (w,), impl)[0]

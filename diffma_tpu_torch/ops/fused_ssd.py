@@ -48,10 +48,16 @@ one more forward).
 dispatch on the tensors' device: the kernels for CUDA tensors (through the
 autograd Functions when a gradient is needed, else plain kernel E with no
 residual written), the plain versions under autograd for CPU tensors;
-``impl="ref"`` takes the plain version on any device. fp32, one B/C group,
-full-length stream permutations; partition specs (EfficientVMamba's atrous
-streams) raise ``NotImplementedError``. The decay is always the quadratic
-form, exact at every span, forward and backward.
+``impl="ref"`` takes the plain version on any device. fp32, one B/C group.
+Kernel E runs full-length stream permutations (a vim spec merges the standard
+way here: Mamba-2 never takes Mamba-1's quirk) and, in its one- and
+two-mixer modes, exact partitions of the tokens (EfficientVMamba's four
+quarter-length atrous streams, each a sequence of its own, whose merge is a
+scatter). Kernel F has the full-length branch only: where a gradient is
+needed on CUDA tensors a partition spec raises ``NotImplementedError`` and
+names the route that trains; so does prologue mode (the Spiral block's specs
+are full-length). The decay is always the quadratic form, exact at every
+span, forward and backward.
 """
 
 from __future__ import annotations
@@ -207,11 +213,22 @@ def spiral_block_ref(
 
 
 def _check_spec(spec: ScanSpec) -> None:
+    """Raise on a spec that kernel E does not run."""
     # Mamba-2 never takes the Mamba-1 vim quirk: vim specs merge the standard way.
+    if not mixer_fused_eligible(spec, partition=True):
+        raise NotImplementedError(
+            "the fused SSD mixer takes full-length stream permutations and exact partitions "
+            "of the tokens"
+        )
+
+
+def _check_spec_bwd(spec: ScanSpec) -> None:
+    """Raise on a spec that kernel F (and prologue mode) does not run."""
     if not mixer_fused_eligible(spec):
         raise NotImplementedError(
-            "the fused SSD mixer takes full-length stream permutations; partition "
-            "specs are not ported yet"
+            "kernel F (the fused SSD mixer's backward) and kernel E's prologue mode have no "
+            "branch yet for partition specs (EfficientVMamba); train them with scan_impl: auto, "
+            "the composable path"
         )
 
 
@@ -281,7 +298,7 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws, pro: Optional[Prologue]) -> dic
     for i, w in enumerate(ws):
         if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
             raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
-    return dict(B=B_, L=L, h=h, d=d, n=n, H=H, K=K, S=spec.n_streams)
+    return dict(B=B_, L=L, Ls=spec.stream_len, h=h, d=d, n=n, H=H, K=K, S=spec.n_streams)
 
 
 @functools.lru_cache(maxsize=None)
@@ -292,13 +309,13 @@ def _kernel_fns():
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 3
         + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_float]
-        + [ctypes.c_int] * 8
+        + [ctypes.c_int] * 9
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     size = lib.ssd_mixer_workspace_floats
-    size.argtypes = [ctypes.c_int] * 8
+    size.argtypes = [ctypes.c_int] * 9
     size.restype = ctypes.c_longlong
     lib.ssd_mixer_max_tokens.argtypes = []
     lib.ssd_mixer_max_tokens.restype = ctypes.c_int
@@ -314,7 +331,8 @@ def ssd_mixer_fused_cuda(
     ``prologue``, ``xs`` is the block's one input ``(x,)``, ``ws`` both
     branches' weights, and the kernel computes LayerNorm, modulation and the
     second branch's soft mask itself; the two outputs are the halves of one
-    ``(2, B, L, h)`` tensor.
+    ``(2, B, L, h)`` tensor. A partition spec runs in the one- and two-mixer
+    modes, not in prologue mode.
 
     With ``want_res`` (residual mode) it returns ``(outputs, zx)``: ``zx (M,
     B * L, 2d + 2n + H)`` is in_proj's output in token order, which kernel F
@@ -333,14 +351,19 @@ def ssd_mixer_fused_cuda(
         raise ValueError("prologue mode runs both branches of a block")
     if prologue is not None and want_res:
         raise ValueError("prologue mode writes no residual: kernel F takes the mixers' inputs")
+    if prologue is not None:
+        _check_spec_bwd(spec)
     dims = _check_kernel_inputs(spec, xs, ws, prologue)
     fwd_fn, size_fn, max_tokens = _kernel_fns()
-    if dims["L"] > max_tokens:
-        raise ValueError(f"the kernel takes up to {max_tokens} tokens, got {dims['L']}")
+    if dims["Ls"] > max_tokens:
+        raise ValueError(
+            f"the kernel holds one stream of one head in shared memory: it takes up to "
+            f"{max_tokens} steps per stream, got {dims['Ls']}"
+        )
     x0 = xs[0]
     out = torch.empty((M, *x0.shape), dtype=x0.dtype, device=x0.device)
     workspace = torch.empty(
-        size_fn(M, dims["B"], dims["L"], dims["h"], dims["d"], dims["H"], dims["S"],
+        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["H"], dims["S"],
                 int(prologue is not None)),
         dtype=torch.float32, device=x0.device,
     )
@@ -357,8 +380,9 @@ def ssd_mixer_fused_cuda(
         mod_stride = prologue.shift.stride(0)
     err = fwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(),
-        zx.data_ptr(), pro_ptrs, mod_stride, _LN_EPS, dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
-        dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps), float(dt_limit[0]),
+        zx.data_ptr(), pro_ptrs, mod_stride, _LN_EPS, dims["B"], dims["L"], dims["Ls"], dims["h"],
+        dims["d"], dims["n"], dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps),
+        float(dt_limit[0]),
         float(dt_limit[1]), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
@@ -405,6 +429,7 @@ def ssd_mixer_fused_bwd_cuda(
     ``ssd_mixer_fused_bwd_cuda.launches`` counts the calls.
     """
     _check_spec(spec)
+    _check_spec_bwd(spec)
     M = len(ws)
     if M not in (1, 2) or len(xs) != M:
         raise ValueError(f"{len(xs)} inputs for {M} mixers")
@@ -556,6 +581,7 @@ def _mixers_cuda(spec: ScanSpec, xs, ws, dt_limit, eps) -> Tuple[torch.Tensor, .
     needed, else plainly, with no residual written."""
     flat = (*xs, *(t for w in ws for t in w))
     if _needs_grad(flat):
+        _check_spec_bwd(spec)  # a partition spec raises here: no quiet change of route
         return FusedSsdFn.apply(spec, len(ws), tuple(dt_limit), eps, *flat)
     return ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, eps)
 
@@ -654,6 +680,7 @@ def spiral_block_fused(
     _check_spec(spec)
     block = (x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
     if _use_kernels(impl, (*block, *w0, *w1)):
+        _check_spec_bwd(spec)  # prologue mode runs full-length specs only
         if _needs_grad((*block, *w0, *w1)):
             return SpiralBlockFn.apply(spec, tuple(dt_limit), eps, *block, *w0, *w1)
         return _spiral_block_kernels(spec, block, w0, w1, dt_limit, eps)

@@ -154,7 +154,7 @@ def sample_batches(model, cfg, device="cuda"):
         n = x_ct.shape[0]
         t0 = time.perf_counter()
         z = torch.randn((n, 4, latent, latent), generator=gen, device=device)
-        b = synthetic_batch(gen, n, latent, tokens)
+        b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
         with torch.no_grad():
             samples = loop(
                 model, z.shape, gen, noise=z, clip_denoised=False,

@@ -16,7 +16,11 @@ which ``train/sample.py --ckpt`` reads. Everything is fp32 on one device.
 The mixers take ``scan_impl`` from the config: by default ``"fused"`` on the
 card (kernels C and D; with ``use_mamba2`` the Mamba-2 mixers and kernels E
 and F; as the JAX trainer defaults to its fused kernels on the TPU) and
-``"auto"`` on the CPU (the plain versions). The trainer runs on synthetic
+``"auto"`` on the CPU (the plain versions). ``--model`` takes any of the
+registry's 80 names; the fused route trains the Spiral, Zig and VMamba
+families and DiT (which has no mixer), while ViM and EfficientVMamba train
+with ``scan_impl: auto`` until kernels D and F have their vim and partition
+branches (the fused route raises for them). The trainer runs on synthetic
 batches, as the JAX trainer falls back to them when the dataset folders are
 missing. Real data (it needs the conditioning stack), bf16 (``autocast``),
 ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported,
@@ -136,8 +140,9 @@ def main(cfg, device="cuda"):
         start_step = 0
     model = model.to(device).train()
     logger.info(f"DiffMa Parameters: {sum(p.numel() for p in model.parameters()):,}")
-    logger.info(f"mixer path: scan_impl={model.blocks[0].scan_impl}, "
-                f"use_mamba2={model.blocks[0].use_mamba2}, device {device}")
+    logger.info(f"blocks: {model.block_type}; mixer path: "
+                f"scan_impl={getattr(model.blocks[0], 'scan_impl', None)}, "
+                f"use_mamba2={getattr(model.blocks[0], 'use_mamba2', None)}, device {device}")
 
     diffusion = create_diffusion("", device=device)
     optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
@@ -224,6 +229,9 @@ def _finish(state: TrainState, history: Optional[list]):
 def cli(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--model", type=str, default=None, help="registry name, e.g. ViM-B/2")
+    parser.add_argument("--scan-impl", dest="scan_impl", type=str, default=None,
+                        help="mixer path: fused (default on the card), auto/pallas, ref")
     parser.add_argument("--wandb", action="store_true", default=None)
     parser.add_argument("--autocast", action="store_true", default=None)
     parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true", default=None)

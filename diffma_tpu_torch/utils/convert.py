@@ -79,11 +79,40 @@ def _spiral_block(out: dict, key: str, blk: dict, use_mamba2: bool = False) -> N
     _linear(out, f"{key}.attention_network.3", blk["attn_fc2"])
 
 
+def _single_mixer_block(out: dict, key: str, blk: dict, use_mamba2: bool = False) -> None:
+    """A Zig, ViM, VMamba or EfficientVMamba block: one mixer, ``mamba``."""
+    _linear(out, f"{key}.adaLN_modulation.1", blk["adaLN"]["fc"])
+    _norm(out, f"{key}.norm1", blk["norm1"])
+    (_mamba2 if use_mamba2 else _mamba1)(out, f"{key}.mamba", blk["mamba"])
+
+
+def _dit_block(out: dict, key: str, blk: dict) -> None:
+    """A DiT block; its LayerNorms have no parameters."""
+    _linear(out, f"{key}.adaLN_modulation.1", blk["adaLN"]["fc"])
+    _linear(out, f"{key}.attn.qkv", blk["attn"]["qkv"])
+    _linear(out, f"{key}.attn.proj", blk["attn"]["proj"])
+    _linear(out, f"{key}.mlp.fc1", blk["mlp_fc1"])
+    _linear(out, f"{key}.mlp.fc2", blk["mlp_fc2"])
+
+
+def _block(out: dict, key: str, blk: dict, use_mamba2: bool = False) -> None:
+    """One block of any family, told apart by what its tree holds."""
+    if "attn" in blk:
+        _dit_block(out, key, blk)
+    elif "mamba" in blk:
+        _single_mixer_block(out, key, blk, use_mamba2)
+    else:
+        _spiral_block(out, key, blk, use_mamba2)
+
+
 def diffma_params_from_jax(
     params: Dict, depth: int, use_mamba2: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """JAX ``DiffMa`` params (spiral blocks; Mamba-1 mixers, or Mamba-2 with
-    ``use_mamba2``) -> port ``DiffMa`` state dict."""
+    """JAX ``DiffMa`` params of any block family (Mamba-1 mixers, or Mamba-2
+    with ``use_mamba2``) -> port ``DiffMa`` state dict, with upstream's key
+    names (``blocks.{i}.mamba1``/``mamba2`` and ``attention_network`` in a
+    Spiral block, ``blocks.{i}.mamba`` in the single-mixer families,
+    ``blocks.{i}.attn.{qkv,proj}`` and ``mlp.{fc1,fc2}`` in DiT)."""
     out: Dict[str, torch.Tensor] = {}
     kernel = np.asarray(params["x_embedder"]["kernel"])  # (C*p*p, D), C = 4
     p = int(round((kernel.shape[0] // 4) ** 0.5))
@@ -94,7 +123,7 @@ def diffma_params_from_jax(
     _linear(out, "t_embedder.mlp.0", params["t_embedder"]["fc1"])
     _linear(out, "t_embedder.mlp.2", params["t_embedder"]["fc2"])
     for i in range(depth):
-        _spiral_block(out, f"blocks.{i}", params[f"block_{i}"], use_mamba2)
+        _block(out, f"blocks.{i}", params[f"block_{i}"], use_mamba2)
     _linear(out, "final_layer.adaLN_modulation.1", params["final_layer"]["adaLN"])
     _linear(out, "final_layer.linear", params["final_layer"]["linear"])
     return out

@@ -39,7 +39,8 @@ from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.mamba import SCAN_IMPLS
 from diffma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["StepProfiler", "Throughput", "profile_denoiser", "profile_train_step"]
+__all__ = ["StepProfiler", "Throughput", "profile_calls", "profile_denoiser",
+           "profile_train_step"]
 
 
 class StepProfiler:
@@ -138,6 +139,14 @@ def _profile(fn, calls: int, top: int) -> dict:
     }
 
 
+def profile_calls(fn, calls: int = 5, top: int = 8) -> dict:
+    """Profile ``calls`` calls of ``fn`` after one warm-up call: wall and device
+    busy ms per call, the idle share, the device kernels per call and the
+    ``top`` kernels' ms per call by name."""
+    fn()
+    return _profile(fn, calls, top)
+
+
 def profile_denoiser(model, inputs, calls: int = 5, top: int = 8) -> dict:
     """Profile ``calls`` forwards of ``model(*inputs)`` after one warm-up."""
     with torch.no_grad():
@@ -200,7 +209,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--scan-impl", dest="scan_impl", default="fused", choices=sorted(SCAN_IMPLS))
     parser.add_argument("--train", action="store_true", help="profile training steps")
-    parser.add_argument("--model", default="DiffMa-B/2", help="registry name (with --train)")
+    parser.add_argument("--model", default="DiffMa-B/2", help="registry name, e.g. ViM-B/2")
     parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true",
                         help="Mamba-2 mixers")
     parser.add_argument("--fuse-block", dest="fuse_block", action="store_true",
@@ -217,7 +226,7 @@ def main(argv=None) -> dict:
         print(json.dumps(report, indent=1))
         return report
 
-    name, latent = "DiffMa-B/2", 28
+    name, latent = args.model, 28
     gen = torch.Generator().manual_seed(0)
     model = build_model(name, input_size=latent, scan_impl=args.scan_impl,
                         use_mamba2=args.use_mamba2, fuse_block=args.fuse_block)

@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Kernels A and B (the selective scan, forward and backward), kernels C and
-D (the fused Mamba-1 mixer, forward and backward), kernels E and F (the
-fused Mamba-2 mixer: single, dual, prologue and residual modes, and its
-backward) and kernel G (the Spiral block's tail) are held against their
-plain versions at the model's widths;
-the tolerance of C, E and G is max |err| <= 1e-4 * max(1, max |ref|), since
+D (the fused Mamba-1 mixer, forward and backward; C also on the vim quirk
+and on EfficientVMamba's partition), kernels E and F (the fused Mamba-2
+mixer: single, dual, prologue and residual modes, partition specs, and its
+backward), kernel G (the Spiral block's tail) and kernel H (the Mamba-1
+mixer's inner part, and the ``Mamba`` route that reaches it) are held
+against their plain versions at the model's widths;
+the tolerance of C, E, G and H is max |err| <= 1e-4 * max(1, max |ref|), since
 their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's.
 Gradients, from B, D, F and the autograd Functions, are
 held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
@@ -25,6 +27,11 @@ import torch
 from diffma_tpu_torch.models.blocks import SpiralMambaBlock
 from diffma_tpu_torch.models.mamba import Mamba
 from diffma_tpu_torch.models.mamba2 import Mamba2
+from diffma_tpu_torch.ops.fused_mamba import (
+    mamba_inner_fused,
+    mamba_inner_fused_cuda,
+    mamba_inner_ref,
+)
 from diffma_tpu_torch.ops.fused_mixer import (
     mamba_dual_mixer_fused,
     mamba_mixer_fused,
@@ -47,7 +54,7 @@ from diffma_tpu_torch.ops.fused_ssd import (
     ssd_mixer_fused_cuda,
     ssd_mixer_ref,
 )
-from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+from diffma_tpu_torch.ops.scan_orders import ScanSpec, _build_merge_table, build_scan_spec
 from diffma_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_bwd_cuda,
@@ -509,11 +516,12 @@ def _ssd_grads(gx, gw, m):
     [("spiral", 14, 0, 2, NO_LIMIT, False), ("spiral", 14, 3, 1, NO_LIMIT, False),
      ("spiral", 5, 1, 2, NO_LIMIT, False), ("spiral", 14, 2, 1, (0.5, 0.9), False),
      ("spiral", 14, 1, 1, NO_LIMIT, True), ("zig", 14, 2, 1, NO_LIMIT, False),
-     ("vmamba", 14, 0, 1, NO_LIMIT, False)],
+     ("vmamba", 14, 0, 1, NO_LIMIT, False), ("vim", 14, 0, 2, NO_LIMIT, False)],
 )
 def test_fused_ssd_bwd_matches_plain(cuda, family, grid_n, layer, batch, dt_limit, wide):
     """Kernel F, dual and single, against ``ssd_mixer_bwd_ref``: 196 and 25
-    tokens, 1 to 4 streams, a dt_limit that clips some steps and not others,
+    tokens, 1 to 4 streams (Mamba-2's vim spec among them: two streams merged
+    the standard way), a dt_limit that clips some steps and not others,
     and a wide decay span; twice in a row with the same bits; and kernel E's
     residual mode gives plain kernel E's outputs."""
     spec = build_scan_spec(family, grid_n, layer)
@@ -639,8 +647,10 @@ def test_fused_ssd_rejects_what_it_does_not_take(cuda):
         ssd_mixer_fused_cuda(spec, (x, x), (w,))
     with pytest.raises(ValueError, match="both branches"):
         ssd_mixer_fused_cuda(spec, (x,), (w,), prologue=Prologue(x, x, x, x, x))
-    with pytest.raises(NotImplementedError, match="partition"):
-        ssd_mixer_fused_cuda(build_scan_spec("eff", 4, 0), (x,), (w,))
+    x16 = _x(cuda, 16, 0)
+    with pytest.raises(NotImplementedError, match="partition"):  # not in prologue mode
+        ssd_mixer_fused_cuda(build_scan_spec("eff", 4, 0), (x16,), (w, w),
+                             prologue=Prologue(x16, x16, x16, x16, x16))
     big = build_scan_spec("spiral", 24, 0)  # 576 tokens: the SSD block's staging outgrows an SM
     with pytest.raises(ValueError, match="up to"):
         ssd_mixer_fused_cuda(big, (_x(cuda, 576, 0),), (w,))
@@ -657,3 +667,205 @@ def test_fused_ssd_rejects_what_it_does_not_take(cuda):
         spiral_epilogue_cuda(o, o, x, gate[:, :-1], an, an, fc1_w, fc1_b, fc2_w, fc2_b)
     with pytest.raises(ValueError, match="CUDA tensors"):
         spiral_epilogue_cuda(o, o, x.cpu(), gate, an, an, fc1_w, fc1_b, fc2_w, fc2_b)
+
+
+# ---- kernel C's vim and partition branches, kernel E's partition, kernel H
+
+
+@pytest.mark.parametrize(
+    "family,grid_n,layer,batch",
+    [("vim", 14, 0, 1), ("vim", 14, 0, 8), ("vim", 5, 0, 2), ("eff", 14, 0, 1),
+     ("eff", 14, 0, 8), ("eff", 6, 0, 2), ("zig", 14, 3, 8), ("vmamba", 14, 0, 8)],
+)
+def test_fused_mixer_families_match_plain(cuda, family, grid_n, layer, batch):
+    """Kernel C's one-mixer form on every single-mixer family's spec: the vim
+    quirk (out_proj per stream, the reverse stream's features flipped), the
+    EfficientVMamba partition (4 streams of L / 4 steps), one stream (zig)
+    and four (vmamba)."""
+    spec = build_scan_spec(family, grid_n, layer)
+    (m,) = _mixers(cuda, spec, seed=11 + layer, count=1)
+    x = _x(cuda, grid_n * grid_n, 13, batch)
+    before = mixer_fused_cuda.launches
+    with torch.no_grad():
+        got = mamba_mixer_fused(spec, x, m.weights())
+        m.scan_impl = "fused"
+        by_module = m(x)
+        want = mixer_ref(spec, x, m.weights())
+    torch.cuda.synchronize()
+    assert mixer_fused_cuda.launches == before + 2
+    _assert_close_to_ref(got, want)
+    assert torch.equal(got, by_module)
+
+
+def test_vim_quirk_flips_features_not_tokens(cuda):
+    """The quirk's output is what its definition says, from two one-stream
+    calls of kernel C: 0.5 * (mixer(x) + flip_features(mixer(x reversed))),
+    the second left in reversed token order."""
+    spec = build_scan_spec("vim", 14, 0)
+    (m,) = _mixers(cuda, spec, seed=3, count=1)
+    w, x = m.weights(), _x(cuda, 196, 2)
+    plain = ScanSpec(fwd=spec.fwd, merge=spec.merge, scale=spec.scale)  # the standard merge
+    one = ScanSpec(fwd=spec.fwd[:1], merge=spec.merge[:, :1], scale=1.0)  # the tokens in order
+    with torch.no_grad():
+        got = mamba_mixer_fused(spec, x, w)
+        streams = [mamba_mixer_fused(one, xi, w) for xi in (x, x.flip(1))]
+        standard = mamba_mixer_fused(plain, x, w)
+    want = 0.5 * (streams[0] + streams[1].flip(-1))
+    _assert_close_to_ref(got, want)
+    assert (got - standard).abs().max().item() > 1e-2  # the quirk is not the standard merge
+
+
+def test_fused_routes_raise_where_the_backward_has_no_branch(cuda):
+    """Kernel D has no vim or partition branch and kernel F no partition
+    branch: where a gradient is needed the fused route raises and names the
+    route that trains; without one it runs."""
+    for family in ("vim", "eff"):
+        spec = build_scan_spec(family, 4, 0)
+        (m,) = _mixers(cuda, spec, seed=0, count=1)
+        m.scan_impl = "fused"
+        x = _x(cuda, 16, 0)
+        with pytest.raises(NotImplementedError, match="kernel D.*scan_impl: auto"):
+            m.train()(x)
+        with torch.no_grad():
+            assert m(x).shape == x.shape
+        m.scan_impl = "auto"
+        m(x).sum().backward()  # kernels A and B
+        assert m.A_log.grad is not None
+    eff = build_scan_spec("eff", 4, 0)
+    (m2,) = _mixers2(cuda, eff, seed=0, count=1)
+    m2.scan_impl = "fused"
+    with pytest.raises(NotImplementedError, match="kernel F.*scan_impl: auto"):
+        m2.train()(_x(cuda, 16, 0))
+    with torch.no_grad():
+        assert m2(_x(cuda, 16, 0)).shape == (1, 16, HIDDEN)
+
+
+@pytest.mark.parametrize("grid_n,batch,dt_limit",
+                         [(14, 1, NO_LIMIT), (14, 8, NO_LIMIT), (4, 2, NO_LIMIT),
+                          (14, 2, (0.01, 0.05))])
+def test_fused_ssd_partition_matches_plain(cuda, grid_n, batch, dt_limit):
+    """Kernel E on EfficientVMamba's partition (4 streams of L / 4 steps),
+    one mixer and two, against ``ssd_mixer_ref``."""
+    spec = build_scan_spec("eff", grid_n, 0)
+    m0, m1 = _mixers2(cuda, spec, seed=grid_n)
+    L = grid_n * grid_n
+    x0, x1 = _x(cuda, L, 44, batch), _x(cuda, L, 45, batch)
+    with torch.no_grad():
+        got = mamba2_dual_mixer_fused(spec, x0, x1, m0.weights(), m1.weights(), dt_limit)
+        single = mamba2_mixer_fused(spec, x1, m1.weights(), dt_limit)
+        want = [ssd_mixer_ref(spec, x, m.weights(), dt_limit) for x, m in ((x0, m0), (x1, m1))]
+    torch.cuda.synchronize()
+    for g, w in zip((*got, single), (*want, want[1])):
+        _assert_close_to_ref(g, w)
+
+
+def _inner_inputs(device, G, L, seed, dt_bias=0.0):
+    """xz and one mixer's inner weights at DiffMa's width, off their init."""
+    spec = build_scan_spec("zig", 2, 0)
+    m = _random_(Mamba(HIDDEN, spec), seed)
+    with torch.no_grad():
+        m.dt_proj.bias.add_(dt_bias)
+    m = m.to(device)
+    w = m.weights()
+    gen = torch.Generator().manual_seed(seed + 1)
+    xz = torch.randn(G, L, 4 * HIDDEN, generator=gen).to(device)
+    return (xz, w.conv_w[:, 0, :].detach(), w.conv_b.detach(), w.xp_w.detach(), w.dt_w.detach(),
+            w.dt_b.detach(), -torch.exp(w.A_log.detach()), w.D.detach())
+
+
+@pytest.mark.parametrize("G,L,dt_bias", [(3, 196, 0.0), (24, 196, 0.0), (2, 25, -2.0),
+                                         (5, 13, 2.0), (1, 1, 0.0), (2, 130, 0.0)])
+def test_mamba_inner_matches_plain(cuda, G, L, dt_bias):
+    """Kernel H against ``mamba_inner_ref``: the B/2 streams at batch 1 and 8,
+    ragged lengths, one step, more than one staging chunk, dt_bias near -2
+    and +2."""
+    args = _inner_inputs(cuda, G, L, seed=G + L, dt_bias=dt_bias)
+    before = mamba_inner_fused_cuda.launches
+    got = mamba_inner_fused(*args)
+    want = mamba_inner_ref(*args)
+    torch.cuda.synchronize()
+    assert mamba_inner_fused_cuda.launches == before + 1
+    assert mamba_inner_fused(*args, impl="ref").shape == want.shape
+    assert mamba_inner_fused_cuda.launches == before + 1
+    _assert_close_to_ref(got, want)
+
+
+def test_mamba_inner_gradients_match_plain_autograd(cuda):
+    """``MambaInnerFn``: forward through kernel H, backward by recomputing
+    through the composable operators (kernels A and B); against autograd over
+    the plain version."""
+    args = _inner_inputs(cuda, 3, 50, seed=9)
+    g = torch.randn(3, 50, 2 * HIDDEN, generator=torch.Generator().manual_seed(1)).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in args]
+    refs = [t.clone().requires_grad_() for t in args]
+    calls = (mamba_inner_fused_cuda.launches, selective_scan_cuda.launches,
+             selective_scan_bwd_cuda.launches)
+    out = mamba_inner_fused(*leaves)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert (mamba_inner_fused_cuda.launches, selective_scan_cuda.launches,
+            selective_scan_bwd_cuda.launches) == tuple(c + 1 for c in calls)
+    mamba_inner_ref(*refs).backward(g)
+    for name, a, b in zip("xz conv_w conv_b xp_w dt_w dt_b A D".split(), leaves, refs):
+        _assert_grad_close(a.grad, b.grad, name)
+
+
+def _doubled_atrous(grid_n):
+    """A spec kernel C cannot run: the four atrous streams and their reverses
+    (every token twice, in streams of L / 4 steps)."""
+    eff = build_scan_spec("eff", grid_n, 0)
+    fwd = torch.from_numpy(eff.fwd)
+    fwd = torch.cat([fwd, fwd.flip(1)]).numpy()
+    return ScanSpec(fwd=fwd, merge=_build_merge_table(fwd, grid_n * grid_n), scale=0.5)
+
+
+@pytest.mark.parametrize("grid_n,batch", [(14, 1), (14, 8), (6, 2)])
+def test_mamba_route_through_kernel_h(cuda, grid_n, batch):
+    """``Mamba(scan_impl="fused")`` on a spec that is neither full-length nor
+    an exact partition: gather, in_proj, kernel H, merge, out_proj, and no
+    call of kernel C; values and gradients against the plain route."""
+    spec = _doubled_atrous(grid_n)
+    (m,) = _mixers(cuda, spec, seed=2, count=1)
+    m.train()
+    x = _x(cuda, grid_n * grid_n, 3, batch)
+    g = _x(cuda, grid_n * grid_n, 4, batch)
+    grads = {}
+    for impl in ("fused", "ref"):
+        m.scan_impl = impl
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        h0, c0 = mamba_inner_fused_cuda.launches, mixer_fused_cuda.launches
+        out = m(xi)
+        assert (mamba_inner_fused_cuda.launches, mixer_fused_cuda.launches) == (
+            h0 + (impl == "fused"), c0)
+        out.backward(g)
+        grads[impl] = {"out": out.detach(), "x": xi.grad,
+                       **{k: p.grad for k, p in m.named_parameters()}}
+    _assert_close_to_ref(grads["fused"].pop("out"), grads["ref"].pop("out"))
+    for name, want in grads["ref"].items():
+        _assert_grad_close(grads["fused"][name], want, name)
+
+
+def test_mamba_inner_rejects_what_it_does_not_take(cuda):
+    args = _inner_inputs(cuda, 2, 9, seed=0)
+    names = "xz conv_w conv_b xp_w dt_w dt_b A D".split()
+
+    def call(**kw):
+        return mamba_inner_fused_cuda(*(kw.get(n, a) for n, a in zip(names, args)))
+
+    before = mamba_inner_fused_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(xz=args[0].cpu())
+    with pytest.raises(ValueError, match="float32"):
+        call(D=args[7].double())
+    with pytest.raises(ValueError, match="is on cpu"):
+        call(dt_b=args[5].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(xp_w=args[3].t().contiguous().t())
+    with pytest.raises(ValueError, match="shape"):
+        call(dt_w=args[4][:-1])
+    with pytest.raises(ValueError, match="d_state"):
+        call(A=args[6][:, :8].contiguous())
+    with pytest.raises(ValueError, match=r"\(G, L, 2d\)"):
+        call(xz=args[0][0])
+    assert mamba_inner_fused_cuda.launches == before

@@ -24,7 +24,7 @@ from diffma_tpu_torch.models.blocks import SpiralMambaBlock
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.mamba import Mamba
 from diffma_tpu_torch.ops import fused_mixer
-from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+from diffma_tpu_torch.ops.scan_orders import ScanSpec, _build_merge_table, build_scan_spec
 from diffma_tpu_torch.utils.convert import _mamba1, _spiral_block
 from test_torch_model import HIDDEN, randomize
 
@@ -147,17 +147,32 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_what_is_not_ported_raises():
+    """The forward takes every registry spec now. What still raises is the
+    backward kernel D on a vim or partition spec (its branches are not ported:
+    the error names kernel D and the route that trains), a dual call with the
+    vim quirk, and a spec that is neither full-length nor an exact partition
+    (it goes through ``mamba_inner_fused``, not through kernel C)."""
     w = _torch_weights(_weights(0))
     x = torch.from_numpy(_x(16, 0))
     vim, eff = build_scan_spec("vim", 4, 0), build_scan_spec("eff", 4, 0)
-    with pytest.raises(NotImplementedError, match="vim"):
-        fused_mixer.mamba_mixer_fused(vim, x, w)
-    with pytest.raises(NotImplementedError, match="vim"):
-        Mamba(32, vim, scan_impl="fused")
-    with pytest.raises(NotImplementedError, match="partition"):
-        fused_mixer.mamba_mixer_fused(eff, x, w)
-    with pytest.raises(NotImplementedError, match="partition"):
-        Mamba(32, eff, d_state=8, scan_impl="fused")(x)
+    for spec in (vim, eff):
+        assert fused_mixer.mamba_mixer_fused(spec, x, w).shape == x.shape
+        assert not fused_mixer._has_bwd_kernel(spec)
+        with pytest.raises(NotImplementedError, match="kernel D.*scan_impl: auto"):
+            fused_mixer._check_spec_bwd(spec)
+        with pytest.raises(NotImplementedError, match="kernel D"):
+            fused_mixer.mixer_fused_bwd_cuda(spec, (x,), (x,), (w,))
+    assert Mamba(32, vim, scan_impl="fused").spec is vim
+    assert Mamba(32, eff, d_state=8, scan_impl="fused")(x).shape == x.shape
+    with pytest.raises(ValueError, match="vim quirk"):
+        fused_mixer.mamba_dual_mixer_fused(vim, x, x, w, w)
+    for family in ("spiral", "zig", "vmamba"):
+        assert fused_mixer._has_bwd_kernel(build_scan_spec(family, 4, 0))
+    doubled = ScanSpec(fwd=np.concatenate([eff.fwd, eff.fwd[:, ::-1]]),
+                       merge=_build_merge_table(np.concatenate([eff.fwd, eff.fwd[:, ::-1]]), 16),
+                       scale=0.5)
+    with pytest.raises(NotImplementedError, match="mamba_inner_fused"):
+        fused_mixer.mamba_mixer_fused(doubled, x, w)
 
 
 def test_unknown_scan_impl_raises():

@@ -441,20 +441,23 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_what_is_not_ported_raises():
-    """Partition specs (EfficientVMamba's atrous streams) are not built into
-    kernel E, so the fused entry points refuse them on any device; the
-    composable path takes them."""
+    """Kernel E takes partition specs (EfficientVMamba's atrous streams) now,
+    so the fused entry points run them; what still raises is the backward
+    kernel F and prologue mode on a partition spec (the error names kernel F
+    and the route that trains)."""
     eff = build_scan_spec("eff", 4, 0)
     x, w = torch.from_numpy(_x(16, 0)), _torch_weights(_weights(0))
-    with pytest.raises(NotImplementedError, match="partition"):
-        fused_ssd.mamba2_mixer_fused(eff, x, w)
-    with pytest.raises(NotImplementedError, match="partition"):
-        fused_ssd.mamba2_dual_mixer_fused(eff, x, x, w, w)
-    with pytest.raises(NotImplementedError, match="partition"):
-        Mamba2(32, eff, d_state=8, headdim=16, scan_impl="fused")(x)
     want = _jax_single(jax_spec("eff", 4, 0), x.numpy(), _weights(0))
-    got = fused_ssd.ssd_mixer_ref(eff, x, w)
-    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    for got in (fused_ssd.mamba2_mixer_fused(eff, x, w),
+                fused_ssd.mamba2_dual_mixer_fused(eff, x, x, w, w)[1],
+                fused_ssd.ssd_mixer_ref(eff, x, w)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    assert Mamba2(32, eff, d_state=8, headdim=16, scan_impl="fused")(x).shape == x.shape
+    with pytest.raises(NotImplementedError, match="kernel F.*scan_impl: auto"):
+        fused_ssd._check_spec_bwd(eff)
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        fused_ssd.ssd_mixer_fused_bwd_cuda(eff, (x,), (x,), (w,), torch.zeros(1, 32, 148))
+    fused_ssd._check_spec_bwd(build_scan_spec("vim", 4, 0))  # Mamba-2's vim spec trains
     with pytest.raises(ValueError, match="headdim"):
         Mamba2(40, eff)
     with pytest.raises(ValueError, match="ngroups"):

@@ -14,7 +14,7 @@ import torch
 
 from diffma_tpu.models.diffma import DiffMa_models as JAX_REGISTRY
 from diffma_tpu.models.diffma import build_model as jax_build_model
-from diffma_tpu_torch.models.diffma import NOT_PORTED, DiffMa_models, build_model
+from diffma_tpu_torch.models.diffma import DiffMa_models, build_model
 from diffma_tpu_torch.models.mamba import Mamba
 from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.ops.scan_orders import build_scan_spec
@@ -116,18 +116,27 @@ def test_mixer_matches_jax():
 
 
 def test_registry_covers_jax_names():
-    assert len(DiffMa_models) == 15
-    assert all(name.startswith("DiffMa-") for name in DiffMa_models)
-    assert len(NOT_PORTED) == 65
-    assert set(DiffMa_models) | NOT_PORTED == set(JAX_REGISTRY)
-    assert DiffMa_models["DiffMa-B/2"] == (8, 2)
-    assert DiffMa_models["DiffMa-L/2"] == (16, 2)
+    assert len(DiffMa_models) == 80
+    assert set(DiffMa_models) == set(JAX_REGISTRY)
+    assert sum(name.startswith("DiffMa-") for name in DiffMa_models) == 15
+    assert DiffMa_models["DiffMa-B/2"] == (8, 2, "spiral")
+    assert DiffMa_models["DiffMa-L/2"] == (16, 2, "spiral")
+    assert DiffMa_models["EMamba-BL/2"] == (13, 2, "efficientVMamba")
+    assert DiffMa_models["DiT-SB/2"] == (7, 2, "DiT")
 
 
 @pytest.mark.parametrize("name", ["ZigMa-B/2", "DiT-SB/2", "EMamba-BL/2"])
 def test_unported_names_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(name)
+    """No registry name is refused any more: these three, which once raised
+    as not ported, build with the JAX entry's depth, patch and block family;
+    only a name outside the registry raises."""
+    model = build_model(name, input_size=8, hidden_size=32)
+    jmodel = jax_build_model(name, input_size=8, hidden_size=32)
+    assert (model.depth, model.patch_size, model.block_type) == (
+        jmodel.depth, jmodel.patch_size, jmodel.block_type)
+    assert len(model.blocks) == jmodel.depth
+    with pytest.raises(KeyError, match="unknown model"):
+        build_model(name.replace("/2", "/3"))
 
 
 def test_init_is_identity_at_start():

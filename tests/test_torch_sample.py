@@ -71,9 +71,39 @@ def test_load_model_builds_mamba2(tmp_path):
                                         hidden_size=64), device="cpu")
     assert all(isinstance(b.mamba1, Mamba2) and not b.fuse_block and b.scan_impl == "fused"
                for b in model.blocks)
+    # the conditioning is drawn at the model's width, not at 512
+    results = sample.main(_tiny_cfg(tmp_path, use_mamba2=True, scan_impl="fused", hidden_size=64,
+                                    sample_num_batches=1), device="cpu")
+    assert results[0]["images"].shape == (2, 3, 32, 32) and np.isfinite(results[0]["images"]).all()
     plain = sample.load_model(_tiny_cfg(tmp_path), device="cpu")
     assert not any(isinstance(m, Mamba2) for m in plain.modules())
     assert plain.blocks[0].scan_impl == "auto"
+
+
+@pytest.mark.parametrize("hidden_size", [64, 32])
+def test_sampler_draws_conditioning_at_the_models_width(tmp_path, hidden_size):
+    """``hidden_size`` in the config: ``sample.main`` runs (it once drew y and
+    y2 512 wide whatever the model's width), and a checkpoint that the trainer
+    wrote with a ``hidden_size`` is sampled back."""
+    from diffma_tpu_torch.train import train
+
+    results = sample.main(_tiny_cfg(tmp_path, hidden_size=hidden_size, sample_num_batches=1),
+                          device="cpu")
+    assert results[0]["images"].shape == (2, 3, 32, 32) and np.isfinite(results[0]["images"]).all()
+    state = train.main(Config(
+        epochs=1, log_every=1, ckpt_every=2, lr=1e-3, results_dir=str(tmp_path / "results"),
+        model="DiffMa-S/2", image_size=32, global_batch_size=2, global_seed=0,
+        hidden_size=hidden_size, synthetic_data=True, synthetic_dataset_size=4, max_steps=2,
+    ), device="cpu")
+    (exp,) = (tmp_path / "results").iterdir()
+    cfg = _tiny_cfg(tmp_path, hidden_size=hidden_size, sample_num_batches=1,
+                    ckpt=str(exp / "checkpoints" / "0000002.pt"))
+    loaded = sample.load_model(cfg, device="cpu")
+    assert loaded.hidden_size == hidden_size
+    for k, v in state.ema.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    sampled = sample.main(cfg, device="cpu")
+    assert sampled[0]["images"].shape == (2, 3, 32, 32) and np.isfinite(sampled[0]["images"]).all()
 
 
 @pytest.mark.parametrize("fuse_block", [False, pytest.param(True, marks=pytest.mark.slow)])
