@@ -24,7 +24,14 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    DiffMa-B/2 streams at batch 1 and 8, ragged lengths and dt_bias near -2
    and +2 (2h); kernel C's one-mixer form on the vim quirk, on
    EfficientVMamba's partition, on one stream (zig) and four (vmamba) (2i);
-   kernel E on the partition (2j);
+   kernel E on the partition (2j); kernel D's vim and partition branches
+   (2k) and kernel F's partition branch (2l) against their plain versions,
+   every gradient tensor, at 196 tokens and at 25 (the vim quirk) or streams
+   of 25 steps (the partition); kernel P (the split SSD probe's core) against
+   its plain version at zx (48, 196, 2096) and (6, 196, 2096), the probe's
+   split form against whole kernel E, and the times of P, of E's two SSD
+   stages inside E and of whole E (2m); the probe's entry point,
+   ``tools/probes/probe_split_ssd_torch.py``, 52 calls of each form (2n);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
    (``scan_impl="fused"``), with the same random weights; 3b: one
@@ -43,6 +50,9 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    ZigMa-, ViM-, VMamba-, EMamba- and DiT-B/2, on Mamba-1 and (not DiT) on
    Mamba-2, fused route against the plain one, 8 kernel C or E calls each
    (none for DiT), with the device kernels per forward and the idle share;
+   3g: one full-width training step at batch 2 of ViM-B/2 and EMamba-B/2
+   (8 C + 8 D calls) and EMamba-B/2 on Mamba-2 (8 E + 8 F), fused route
+   against the plain one, loss and every parameter's gradient;
 4. composable sampler: ``diffma_tpu_torch.train.sample.main`` on
    ``configs/brain.yaml`` with DiffMa-B/2, ``scan_impl="pallas"``, DDPM-250,
    1 batch of 1 image, synthetic conditioning;
@@ -77,8 +87,11 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     ``--use-mamba2`` (2000 kernel E calls each), DiT-SB/2 (no kernel call);
 15. family trainers: VMamba-B/2, batch 8, 5 steps on the fused path (40
     kernel C and 40 kernel D calls); ViM-B/2 with ``scan_impl: auto``, 5
-    steps (40 kernel A and 40 kernel B calls); and ViM-B/2 on the fused path,
-    which must raise and name kernel D's missing branch.
+    steps (40 kernel A and 40 kernel B calls); then the trainer's CLI on the
+    fused route, batch 8, 5 steps each: ViM-B/2 and EMamba-B/2 (40 C + 40 D
+    calls, no A or B) and EMamba-B/2 ``--use-mamba2`` (40 E + 40 F);
+16. learning: ViM-B/2 on the fused path trained 100 steps on one fixed
+    batch; the MSE term must fall at least 2x.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -264,6 +277,7 @@ def kernel_counters() -> dict:
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
     from diffma_tpu_torch.ops.fused_ssd import (
         spiral_epilogue_cuda,
+        ssd_core_cuda,
         ssd_mixer_fused_bwd_cuda,
         ssd_mixer_fused_cuda,
     )
@@ -272,7 +286,8 @@ def kernel_counters() -> dict:
     return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
             "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda,
             "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda,
-            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda, "mamba_inner_fwd": mamba_inner_fused_cuda}
+            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda, "mamba_inner_fwd": mamba_inner_fused_cuda,
+            "ssd_core_fwd": ssd_core_cuda}
 
 
 def reset_counts() -> None:
@@ -490,22 +505,25 @@ def phase_fused_mixer(card: str) -> dict:
     }
 
 
-def mixer_bwd_bound_ms(M, B, L, h, d, n, r, S, K) -> tuple[float, str]:
+def mixer_bwd_bound_ms(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[float, str]:
     """Least time for one fused-mixer backward of M branches on an H100: the
     weights, x and g read once, gx and the weight gradients written once,
     over the HBM rate; or the operations over the fp32 rate: the forward as
     far as the backward needs it, once (in_proj, conv, x_proj, dt_proj, the
     scan; not out_proj), and the backward, two products per projection (the
     input's and the weight's gradient), the conv's two adjoints, and the
-    scan's adjoint (17 per state and step, 12 per channel and step)."""
-    tokens, rows = B * L, B * S * L
+    scan's adjoint (17 per state and step, 12 per channel and step). ``Ls``
+    is the steps per stream (L unless the streams partition the tokens); the
+    vim quirk's out_proj is one product per stream."""
+    Ls = L if Ls is None else Ls
+    tokens, rows = B * L, B * S * Ls
     r2n = r + 2 * n
     fwd_ops = M * (
         2 * tokens * h * 2 * d + rows * d * 2 * K + 2 * rows * d * r2n + 2 * rows * r * d
         + rows * d * (6 * n + 8)
     )
     bwd_ops = M * (
-        2 * 2 * tokens * d * h  # g W_out, dW_out
+        2 * 2 * tokens * d * h * (S if quirk else 1)  # g W_out, dW_out
         + rows * d * (17 * n + 12)  # the scan's adjoint
         + 2 * 2 * rows * r * d  # d dt_r, dW_dt
         + 2 * 2 * rows * r2n * d  # dpre's product, dW_x
@@ -513,7 +531,7 @@ def mixer_bwd_bound_ms(M, B, L, h, d, n, r, S, K) -> tuple[float, str]:
         + 2 * 2 * tokens * 2 * d * h  # gx, dW_in
     )
     weights = 2 * d * h + d * K + d + r2n * d + d * r + d + d * n + d + h * d
-    nbytes = M * 4 * (2 * weights + 3 * tokens * h) + 2 * S * L * 8
+    nbytes = M * 4 * (2 * weights + 3 * tokens * h) + 2 * S * Ls * 8
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, (fwd_ops + bwd_ops) / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -859,7 +877,7 @@ def phase_spiral_epilogue(card: str) -> dict:
     }
 
 
-def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K) -> tuple[float, str]:
+def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K, Ls=None) -> tuple[float, str]:
     """Least time for one fused-SSD-mixer backward of M branches on an H100:
     x, g, the residual zx and the weights read once, gx and the weight
     gradients written once, over the HBM rate; or the operations over the
@@ -868,10 +886,12 @@ def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K) -> tuple[float, str]:
     causal pairs (once, it is the same for every head), g_C and g_B, and per
     head and causal pair the decay (exp, three products) and the 2 * headdim
     of each of y_pre, M^T g_y and g_y xdt^T; about 30 per channel and stream
-    row for the gate, the norm, the D skip and their adjoints."""
-    tokens, rows = B * L, B * S * L
+    row for the gate, the norm, the D skip and their adjoints. ``Ls`` is the
+    steps per stream (L unless the streams partition the tokens)."""
+    Ls = L if Ls is None else Ls
+    tokens, rows = B * L, B * S * Ls
     dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
-    pairs = B * S * L * (L + 1) // 2
+    pairs = B * S * Ls * (Ls + 1) // 2
     ops = M * (
         2 * 2 * tokens * d * h  # g W_out, gW_out
         + 2 * 2 * tokens * dproj * h  # gx, gW_in
@@ -881,7 +901,7 @@ def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K) -> tuple[float, str]:
         + rows * d * 30  # gate, norm, D skip, their adjoints
     )
     weights = dproj * h + conv_dim * K + conv_dim + 3 * H + d + h * d
-    nbytes = M * 4 * (2 * weights + 3 * tokens * h + tokens * dproj) + 2 * S * L * 8
+    nbytes = M * 4 * (2 * weights + 3 * tokens * h + tokens * dproj) + 2 * S * Ls * 8
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1217,6 +1237,234 @@ def phase_ssd_partition(card: str) -> dict:
     return {"efficientVMamba": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}}
 
 
+def phase_mixer_bwd_branches(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mixer import MixerWeights, mixer_bwd_ref, mixer_fused_bwd_cuda
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2k: kernel D's vim and partition branches against its plain version, every "
+          "gradient tensor", flush=True)
+    h, batch = 512, 8
+
+    def grads_of(gx, gw):
+        return {"gx": gx, **{f"w.{f}": t for f, t in zip(MixerWeights._fields, gw)}}
+
+    def case(spec, seed):
+        m = random_(Mamba(h, spec), seed).cuda()
+        gen = torch.Generator().manual_seed(seed)
+        L = spec.seq_len
+        x, g = (torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2))
+        return m, x, g
+
+    times = {}
+    # (family, grid): 196 tokens, then the vim quirk at 25 tokens and the partition's four
+    # streams of 25 steps (grid 10), neither a multiple of the 16-step checkpoint chunk
+    for branch, family, grids in (("vim", "vim", (14, 5)), ("partition", "efficientVMamba", (14, 10))):
+        path_err = None
+        for grid_n in grids:
+            spec = build_scan_spec(family, grid_n, 1)
+            S, Ls = spec.fwd.shape
+            m, x, g = case(spec, 700 + grid_n)
+            want = grads_of(*mixer_bwd_ref(spec, x, g, m.weights()))
+            (gx,), (gw,) = mixer_fused_bwd_cuda(spec, (x,), (g,), (m.weights(),))
+            torch.cuda.synchronize()
+            rows = grad_errors(grads_of(gx, gw), want, TOL_GRAD)
+            worst = max(rows, key=lambda row: row[1] / row[2])
+            err = max(e for _, e, _ in rows)
+            print(f"  {branch} ({family}): B={batch} L={spec.seq_len} S={S} Ls={Ls}  max|err| "
+                  f"{err:.3e} over {len(rows)} gradients; nearest its bar: {worst[0]} "
+                  f"{worst[1]:.2e} (bar {worst[2]:.1e})")
+            path_err = err if path_err is None else path_err
+        spec = build_scan_spec(family, 14, 1)
+        S, Ls = spec.fwd.shape
+        m, x, g = case(spec, 750)
+        w = m.weights()
+        ms = cuda_ms(lambda: mixer_fused_bwd_cuda(spec, (x,), (g,), (w,)), reps=10)
+        plain_ms = cuda_ms(lambda: mixer_bwd_ref(spec, x, g, w), reps=5)
+        bound_ms, bound_by = mixer_bwd_bound_ms(M=1, B=batch, L=196, h=h, d=1024, n=16, r=32, S=S,
+                                                K=4, Ls=Ls, quirk=spec.mamba1_vim_quirk)
+        times[branch] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": path_err}
+        print(f"  [{card}] mixer_fused_bwd fp32, one mixer, {branch} (S={S}, Ls={Ls}), B={batch} "
+              f"L=196: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by})")
+    return times
+
+
+def phase_ssd_bwd_partition(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import (
+        Mamba2Weights,
+        ssd_mixer_bwd_ref,
+        ssd_mixer_fused_bwd_cuda,
+        ssd_mixer_fused_cuda,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 2l: kernel F's partition branch against its plain version, every gradient "
+          "tensor", flush=True)
+    h, batch = 512, 8
+
+    def grads_of(gx, gw, m):
+        return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
+
+    def case(grid_n, seed):
+        spec = build_scan_spec("efficientVMamba", grid_n, 0)
+        ws = [m.weights() for m in mamba2_mixers(spec, seed)]
+        gen = torch.Generator().manual_seed(seed)
+        L = spec.seq_len
+        xs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
+        gs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
+        return spec, ws, xs, gs
+
+    path_err = None
+    for grid_n in (14, 10):  # 4 streams of 49 steps, and of 25
+        spec, ws, xs, gs = case(grid_n, 800 + grid_n)
+        with torch.no_grad():
+            _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+            _, zx1 = ssd_mixer_fused_cuda(spec, xs[:1], ws[:1], want_res=True)
+        want = {}
+        for m in range(2):
+            want.update(grads_of(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m]), m))
+        for entry, M, res in (("dual", 2, zx), ("single", 1, zx1)):
+            gxs, gws = ssd_mixer_fused_bwd_cuda(spec, xs[:M], gs[:M], ws[:M], res)
+            torch.cuda.synchronize()
+            got = {}
+            for m in range(M):
+                got.update(grads_of(gxs[m], gws[m], m))
+            rows = grad_errors(got, {k: want[k] for k in got}, TOL_GRAD)
+            worst = max(rows, key=lambda row: row[1] / row[2])
+            err = max(e for _, e, _ in rows)
+            print(f"  {entry}: B={batch} L={spec.seq_len} S=4 Ls={spec.stream_len}  max|err| "
+                  f"{err:.3e} over {len(rows)} gradients; nearest its bar: {worst[0]} "
+                  f"{worst[1]:.2e} (bar {worst[2]:.1e})")
+            path_err = err if path_err is None else path_err
+    spec, ws, xs, gs = case(14, 850)
+    with torch.no_grad():
+        _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+    ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), reps=10)
+    plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(xs, gs, ws)],
+                       reps=5)
+    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=4,
+                                                K=4, Ls=49)
+    print(f"  [{card}] ssd_mixer_bwd fp32, both branches, partition (S=4, Ls=49), B={batch} "
+          f"L=196: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by})")
+    return {"partition": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "max_abs_err": path_err}}
+
+
+def ssd_core_bound_ms(G, L, d, n, H, K) -> tuple[float, str]:
+    """Least time for one call of kernel P on an H100: zx read and the normed
+    streams written once over the HBM rate, or the operations over fp32: the
+    conv, C . B^T on the causal pairs (once per sequence), per head and
+    causal pair the decay (exp, a difference, two products) and the 2 *
+    headdim of the product with dt * x, and about 8 per channel and row for
+    the D skip, the gate and the norm."""
+    dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
+    pairs = G * L * (L + 1) // 2
+    ops = G * L * conv_dim * 2 * K + pairs * 2 * n + pairs * H * (4 + 2 * hd) + G * L * d * 8
+    nbytes = 4 * (G * L * dproj + G * L * d + 2 * (conv_dim * K + conv_dim + 3 * H + d))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def load_split_probe():
+    """``tools/probes/probe_split_ssd_torch.py``, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tools", "probes", "probe_split_ssd_torch.py")
+    spec = importlib.util.spec_from_file_location("probe_split_ssd_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_ssd_core(card: str) -> dict:
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import ssd_core_cuda, ssd_core_ref, ssd_mixer_fused_cuda
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    print("== phase 2m: kernel P (the split SSD probe's core) against its plain version, and the "
+          "probe's split form against whole kernel E", flush=True)
+    probe = load_split_probe()
+    path_err = None
+    for batch in (8, 1):  # zx (48, 196, 2096), then (6, 196, 2096)
+        x12, ws = probe.inputs(batch, seed=batch, device="cuda")
+        with torch.no_grad():
+            zxs = probe.gathered_streams(x12, ws)
+            got, want = ssd_core_cuda(zxs, ws), ssd_core_ref(zxs, ws)
+            torch.cuda.synchronize()
+            err = close_to_ref(f"kernel P, zx {tuple(zxs.shape)}", got, want)
+            whole, split = probe.whole_dual(x12, ws), probe.split_dual(x12, ws)
+            torch.cuda.synchronize()
+            split_err = close_to_ref(f"the split form against whole kernel E, B={batch}", split,
+                                     whole, TOL_MODEL)
+        print(f"  zx {tuple(zxs.shape)}: kernel P max|err| {err:.3e} (tol "
+              f"{TOL_FP32 * max(1.0, want.abs().max().item()):.1e}); split form (P) against whole "
+              f"E, B={batch}: max|diff| {split_err:.3e} (tol "
+              f"{TOL_MODEL * max(1.0, whole.abs().max().item()):.1e})")
+        if path_err is None:
+            path_err = err
+    x12, ws = probe.inputs(8, seed=8, device="cuda")
+    with torch.no_grad():
+        zxs = probe.gathered_streams(x12, ws)
+        ms = cuda_ms(lambda: ssd_core_cuda(zxs, ws), reps=50)
+        plain_ms = cuda_ms(lambda: ssd_core_ref(zxs, ws), reps=10)
+        e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws), reps=20)
+        e_prof = profile_calls(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws),
+                               calls=10)
+        p_prof = profile_calls(lambda: ssd_core_cuda(zxs, ws), calls=10)
+    bound_ms, bound_by = ssd_core_bound_ms(G=48, L=196, d=1024, n=16, H=16, K=4)
+    e_core = stage_ms(e_prof, "ssd_fwd_kernel") + stage_ms(e_prof, "gate_norm_merge")
+    print(f"  [{card}] ssd_core_fwd (kernel P) fp32, zx (48, 196, 2096): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): kernel P's SSD block "
+          f"{stage_ms(p_prof, 'ssd_fwd_kernel'):.4f}, gate + norm "
+          f"{stage_ms(p_prof, 'gate_norm_merge'):.4f}; the same two stages inside whole kernel E "
+          f"(both branches, B=8) {e_core:.4f} of whole E's {e_ms:.4f} ms (CUDA events)")
+    print("  library_ms: none; no single PyTorch call computes the SSD core")
+    return {
+        "name": "ssd_core_fwd",
+        "route": "cuda",
+        "source": "diffma_tpu_torch/csrc/fused_ssd_fwd.cu",
+        "replaces": "tools/probes/probe_split_ssd.py:44",
+        "max_abs_err": path_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "whole_e_ms": e_ms,
+        "e_core_stages_ms": e_core,
+    }
+
+
+def phase_split_probe(card: str) -> int:
+    """The probe's entry point on the card; returns kernel P's launches."""
+    print("== phase 2n: the split SSD probe's entry point (tools/probes/probe_split_ssd_torch.py), "
+          "batch 8, 50 chained calls of each form", flush=True)
+    probe = load_split_probe()
+    zero = {name: 0 for name in kernel_counters()}
+    chain = 50
+    reset_counts()
+    out = probe.main(["--batch", "8", "--chain", str(chain)])
+    calls = chain + 2  # the comparison call, the warm-up, the chain
+    counts = check_counts("the split probe", {**zero, "ssd_mixer_fwd": calls,
+                                              "ssd_core_fwd": calls})
+    bar = TOL_MODEL * max(1.0, out["max_abs_ref"])
+    if not out["max_abs_diff"] <= bar:
+        fail(f"the probe's split form differs from whole kernel E by {out['max_abs_diff']:.3e}")
+    print(f"  [{card}] whole (kernel E) {out['whole_ms']:.4f} ms, split (kernel P) "
+          f"{out['split_ms']:.4f} ms per dual-mixer call; max|diff| {out['max_abs_diff']:.3e} "
+          f"(bar {bar:.1e})")
+    return counts["ssd_core_fwd"]
+
+
 def phase_inner_path(card: str) -> int:
     import torch
 
@@ -1366,7 +1614,7 @@ def phase_family_samplers(card: str) -> None:
         check_images(card, f"the {name}{' --use-mamba2' if use_mamba2 else ''} sampler", images, 1)
 
 
-def phase_family_trainers(card: str) -> None:
+def phase_family_trainers(card: str) -> dict:
     import torch
 
     from diffma_tpu_torch.models.diffma import build_model
@@ -1405,22 +1653,43 @@ def phase_family_trainers(card: str) -> None:
         del state
         torch.cuda.empty_cache()
 
-    print("== phase 15.3: trainer on ViM-B/2 on the fused route must raise: kernel D has no vim "
-          "branch yet", flush=True)
-    results = os.path.join(ROOT, "results", "chip_smoke_train_family_raise")
-    shutil.rmtree(results, ignore_errors=True)
-    cfg = brain_config(model="ViM-B/2", max_steps=1, results_dir=results)
-    reset_counts()
-    try:
-        train.main(cfg, device="cuda")
-    except NotImplementedError as e:
-        if "kernel D" not in str(e) or "scan_impl: auto" not in str(e):
-            fail(f"the fused ViM trainer raised, but does not name the branch or the route: {e}")
-        print(f"  raised NotImplementedError: {e}")
-    else:
-        fail("the fused ViM trainer did not raise")
-    check_counts("the refused ViM trainer", zero)
-    shutil.rmtree(results, ignore_errors=True)
+    counts = {}
+    runs = (
+        ("ViM-B/2", [], "kernels C + D, the vim quirk", "mixer_fused_fwd", "mixer_fused_bwd"),
+        ("EMamba-B/2", [], "kernels C + D, the partition", "mixer_fused_fwd", "mixer_fused_bwd"),
+        ("EMamba-B/2", ["--use-mamba2"], "kernels E + F, the partition", "ssd_mixer_fwd",
+         "ssd_mixer_bwd"),
+    )
+    for i, (name, flag, what, fwd, bwd) in enumerate(runs):
+        print(f"== phase 15.{i + 3}: trainer CLI on configs/brain.yaml --model {name} "
+              f"{' '.join(flag)}, batch 8, 5 steps on the fused route ({what})", flush=True)
+        results = os.path.join(ROOT, "results", f"chip_smoke_train_fused_{i}")
+        shutil.rmtree(results, ignore_errors=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        state = train.cli([
+            "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--model", name, *flag,
+            "--max-steps", "5", "--ckpt-every", str(10**9), "--results-dir", results,
+        ])
+        seconds = time.perf_counter() - t0
+        key = f"{name}{' --use-mamba2' if flag else ''}"
+        counts[key] = check_counts(f"the fused {key} trainer", {**zero, fwd: calls, bwd: calls})
+        if state.step != 5:
+            fail(f"the fused {key} trainer counted {state.step} finite steps of 5")
+        if state.model.blocks[0].scan_impl != "fused":
+            fail(f"the {key} trainer's default route is not the fused one")
+        init = build_model(name, input_size=28, use_mamba2=bool(flag)).init_weights(
+            torch.Generator().manual_seed(int(brain_config().global_seed))).state_dict()
+        still = moved_from_init(state.model, init)
+        if still:
+            fail(f"{still} tensors of the fused {key} params did not move in 5 steps")
+        print(f"  [{card}] {key} fused training, batch 8: 5 steps, every parameter moved; "
+              f"{seconds:.1f} s for the whole CLI run (host clock, model init and first step "
+              f"included)")
+        shutil.rmtree(results, ignore_errors=True)
+        del state
+        torch.cuda.empty_cache()
+    return counts
 
 
 def phase_forward(card: str) -> None:
@@ -1641,6 +1910,55 @@ def phase_mamba2_train_step(card: str) -> None:
                 or loss_err > TOL_MODEL * max(1.0, abs(losses["composable"]))):
             fail(f"the Mamba-2 training loss on the {route} route disagrees with the "
                  f"composable route's")
+
+
+def phase_family_train_steps(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.train.train import make_loss_fn, synthetic_batch
+
+    print("== phase 3g: full-width B/2 training step, batch 2, fused route against the plain "
+          "one: ViM-B/2 and EMamba-B/2 (kernels C + D), EMamba-B/2 --use-mamba2 (E + F)",
+          flush=True)
+    zero = {name: 0 for name in kernel_counters()}
+    runs = (
+        ("ViM-B/2", False, "ref", {"mixer_fused_fwd": 8, "mixer_fused_bwd": 8}),
+        ("EMamba-B/2", False, "ref", {"mixer_fused_fwd": 8, "mixer_fused_bwd": 8}),
+        ("EMamba-B/2", True, "auto", {"ssd_mixer_fwd": 8, "ssd_mixer_bwd": 8}),
+    )
+    for i, (name, use_mamba2, plain, fused_calls) in enumerate(runs):
+        model = seeded_model(name, 60 + i, use_mamba2=use_mamba2).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        batch = synthetic_batch(gen, 2, 28, 196)
+        batch["t"] = torch.tensor([10, 900], device="cuda")
+        batch["noise"] = torch.randn(2, 4, 28, 28,
+                                     generator=torch.Generator().manual_seed(61 + i)).cuda()
+        loss_fn = make_loss_fn(model, create_diffusion("", device="cuda"))
+        losses, grads = {}, {}
+        for impl, expect in ((plain, zero), ("fused", {**zero, **fused_calls})):
+            model.set_scan_impl(impl)
+            model.zero_grad(set_to_none=True)
+            reset_counts()
+            loss, _ = loss_fn(batch, None)
+            loss.backward()
+            torch.cuda.synchronize()
+            check_counts(f"the {name} training step, {impl}", expect)
+            losses[impl] = loss.item()
+            grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+            if any(g is None for g in grads[impl].values()):
+                fail(f"the {name} {impl} route left a parameter without a gradient")
+        rows = grad_errors(grads["fused"], grads[plain], TOL_MODEL)
+        worst = max(rows, key=lambda row: row[1] / row[2])
+        loss_err = abs(losses["fused"] - losses[plain])
+        mixer = "Mamba-2, E + F" if use_mamba2 else "Mamba-1, C + D"
+        print(f"  {name} ({mixer}): loss {losses['fused']:.6f} (plain {losses[plain]:.6f}, |err| "
+              f"{loss_err:.2e}); {len(rows)} gradients, max |err| {max(e for _, e, _ in rows):.3e}; "
+              f"nearest its bar: {worst[0]} {worst[1]:.2e} (bar {worst[2]:.1e})")
+        if not math.isfinite(losses["fused"]) or loss_err > TOL_MODEL * max(1.0, abs(losses[plain])):
+            fail(f"the {name} training loss on the fused route disagrees with the plain route's")
+        del model
+    torch.cuda.empty_cache()
 
 
 def write_mamba2_checkpoint(path: str) -> dict:
@@ -1981,7 +2299,7 @@ def phase_composable_trainer(card: str) -> dict:
     return counts
 
 
-def phase_learning(card: str, phase: int, use_mamba2: bool) -> None:
+def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa-B/2") -> None:
     import torch
 
     from diffma_tpu_torch.diffusion import create_diffusion
@@ -1990,11 +2308,11 @@ def phase_learning(card: str, phase: int, use_mamba2: bool) -> None:
 
     steps = 100
     family = "Mamba-2 (use_mamba2) " if use_mamba2 else ""
-    print(f"== phase {phase}: does it learn: DiffMa-B/2 {family}fused, one fixed batch of 8, "
+    print(f"== phase {phase}: does it learn: {model} {family}fused, one fixed batch of 8, "
           f"lr 1e-3, {steps} steps", flush=True)
     results = os.path.join(ROOT, "results", f"chip_smoke_overfit_{phase}")
     shutil.rmtree(results, ignore_errors=True)
-    cfg = brain_config(model="DiffMa-B/2", overfit_fixed_batch=True, lr=1e-3, max_steps=steps,
+    cfg = brain_config(model=model, overfit_fixed_batch=True, lr=1e-3, max_steps=steps,
                        log_every=10, ckpt_every=10**9, results_dir=results,
                        use_mamba2=use_mamba2)
     seed = int(cfg.global_seed)
@@ -2012,7 +2330,7 @@ def phase_learning(card: str, phase: int, use_mamba2: bool) -> None:
                 model_kwargs={"y": batch["y"], "y2": batch["y2"], "w": batch["w"]})
         return terms["mse"].mean().item()
 
-    init = build_model("DiffMa-B/2", input_size=28, scan_impl="fused", use_mamba2=use_mamba2)
+    init = build_model(model, input_size=28, scan_impl="fused", use_mamba2=use_mamba2)
     before = mse(init.init_weights(torch.Generator().manual_seed(seed)).cuda().eval())
     state = train.main(cfg, device="cuda")
     after = mse(state.model.eval())
@@ -2020,7 +2338,7 @@ def phase_learning(card: str, phase: int, use_mamba2: bool) -> None:
     steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
     print(f"  MSE term at the fixed (t, noise): {before:.5f} before, {after:.5f} after "
           f"{steps} steps: fell {before / after:.2f}x (at least 2x required)")
-    print(f"  [{card}] DiffMa-B/2 {family}fused training, batch 8, steps {steps - 9}-{steps}: "
+    print(f"  [{card}] {model} {family}fused training, batch 8, steps {steps - 9}-{steps}: "
           f"{steps_s} steps/s, {images_s} images/s")
     if state.step != steps or not after * 2 <= before:
         fail(f"the MSE term fell {before / after:.2f}x in {steps} steps, not 2x")
@@ -2052,10 +2370,15 @@ def main() -> int:
     inner = phase_mamba_inner(card)
     mixer["branches"] = phase_mixer_families(card)
     ssd["branches"] = phase_ssd_partition(card)
+    mixer_bwd["branches"] = phase_mixer_bwd_branches(card)
+    ssd_bwd["branches"] = phase_ssd_bwd_partition(card)
+    core = phase_ssd_core(card)
+    core["launches"] = phase_split_probe(card)
     phase_forward(card)
     phase_train_step(card)
     phase_mamba2_forward(card)
     phase_mamba2_train_step(card)
+    phase_family_train_steps(card)
     inner["launches"] = phase_inner_path(card)
     phase_family_forwards(card)
     scan["launches"] = phase_sampler(card)
@@ -2069,11 +2392,15 @@ def main() -> int:
     ssd_bwd["launches"] = phase_mamba2_trainer(card)["ssd_mixer_bwd"]
     phase_learning(card, 13, use_mamba2=True)
     phase_family_samplers(card)
-    phase_family_trainers(card)
+    counts = phase_family_trainers(card)
+    mixer_bwd["branches"]["vim"]["launches"] = counts["ViM-B/2"]["mixer_fused_bwd"]
+    mixer_bwd["branches"]["partition"]["launches"] = counts["EMamba-B/2"]["mixer_fused_bwd"]
+    ssd_bwd["branches"]["partition"]["launches"] = counts["EMamba-B/2 --use-mamba2"]["ssd_mixer_bwd"]
+    phase_learning(card, 16, use_mamba2=False, model="ViM-B/2")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
-                                  inner]}))
+                                  inner, core]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -64,8 +64,26 @@
 // permutation matmuls and its padding of L to chunks exist for the MXU and
 // VMEM; here they are index gathers and exact bounds.
 //
-// The vim feature-flip quirk and partition specs are not built: the wrapper
-// raises for them, as it does for kernel C.
+// The three kinds of scan spec that kernel C runs, it differentiates:
+// * full-length streams (Ls = L, each a permutation of the tokens), one or
+//   two branches: the chain above.
+// * an exact partition (Ls = L / S, every token in exactly one stream:
+//   EfficientVMamba's atrous streams), one branch. Each stream is a sequence
+//   of its own: the conv's pad and the scan's state start at its first step,
+//   so the scan adjoint runs chains of Ls steps (its checkpoints every kChunk
+//   steps end in an exact tail, nothing padded). dz and y have one token row
+//   each (each token lies in one stream), the conv adjoint's gather-sum reads
+//   one merge entry per token, and the weight-gradient reductions run over
+//   the B * S * Ls = B * L stream rows.
+// * the Mamba-1 vim quirk (S = 2, the tokens forward and reversed), one
+//   branch. The forward is out[t] = scale (y_0[t] W_out^T + flip_h(y_1[t]
+//   W_out^T)) with y_s[t] the stream's step t, not merged. So the stream
+//   gradients come with no row permute, both from one product of g against
+//   [W_out | flip_rows(W_out)] (the second half's weight rows read in reverse,
+//   no copy): g_y_s[t] = scale gm[t, s d : (s + 1) d]; and dW_out = P[:, :d] +
+//   flip_rows(P[:, d:]) with P = scale g^T [y_0 | y_1] (h x 2d, stream steps
+//   along the depth), a product and a fold. Everything upstream of the merge
+//   is the full-length chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,46 +133,53 @@ struct Branch {
 };
 
 // Workspace arrays hold both branches, branch m at offset m * (its size).
-// T = B * L token rows; R = B * S * L stream rows, row (b * S + s) * L + t in
-// stream order or (b * S + s) * L + token in token order.
+// T = B * L token rows; R = B * S * Ls stream rows, row (b * S + s) * Ls + t in
+// stream order. A token lies in ys streams (S, or 1 for a partition): the
+// merge table's width, and the rows per token of the token-order arrays dz
+// and y, row (b * ys + s) * L + token.
 struct Params {
   Branch br[2];
-  const int64_t* fwd;    // (S, L): stream s visits tokens fwd[s, 0..L-1]
-  const int64_t* merge;  // (L, S): the stream rows s * L + position of token l
+  const int64_t* fwd;    // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
+  const int64_t* merge;  // (L, ys): the stream rows s * Ls + position of token l
   float* xz;             // (T, 2d)
   float* u;              // (R, d) stream order
   float* pre;            // (R, d) stream order: the conv's output before SiLU
   float* xdb;            // (R, r + 2n) stream order: dt_r, B, C
-  float* gm;             // (T, d): g W_out
+  float* gm;             // (T, gm_cols): g W_out, or [g W_out | g flip_rows(W_out)]
   float* ckpt;           // (B * S, nq, n, d): the scan's chunk-entry states
   float* du;             // (R, d) stream order: the scan's du, then dpre
   float* ddb;            // (R, d) stream order: d raw delta
-  float* dz;             // (R, d) token order
-  float* y;              // (R, d) token order: the gated scan output
+  float* dz;             // (T * ys, d) token order
+  float* y;              // (T * ys, d) token order: the gated scan output
   float* bc;             // (R, nblk, 32): dB/dC partials per channel block
   float* dxdb;           // (R, r + 2n): d dt_r, dB, dC
   float* dxz;            // (T, 2d)
   float* part_scan;      // (B * S, d, kScanParts)
   float* part_conv;      // (kConvSplits, d, K + 1): dconv_w (K), dconv_b
   float* part_w;         // (splits, max((r + 2n) d, d r)): split-K partials
-  int B, L, h, d, r, S, nq, nblk, splits;
+  float* pout;           // (h, 2d): the vim quirk's P, before the fold
+  int B, L, Ls, h, d, r, S, ys, nq, nblk, splits;
+  bool quirk;
   float scale;
 };
 
 __device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<size_t>(p.B) * p.L; }
-__device__ __forceinline__ size_t srows(const Params& p) { return tokens(p) * p.S; }
+__device__ __forceinline__ size_t srows(const Params& p) {
+  return static_cast<size_t>(p.B) * p.S * p.Ls;
+}
 __device__ __forceinline__ int r2n(const Params& p) { return p.r + 2 * kN; }
+__device__ __forceinline__ int gm_cols(const Params& p) { return p.quirk ? 2 * p.d : p.d; }
 
 // Per-branch views of the workspace arrays.
 __device__ __forceinline__ float* xz_of(const Params& p, int m) { return p.xz + m * tokens(p) * 2 * p.d; }
 __device__ __forceinline__ float* u_of(const Params& p, int m) { return p.u + m * srows(p) * p.d; }
 __device__ __forceinline__ float* pre_of(const Params& p, int m) { return p.pre + m * srows(p) * p.d; }
 __device__ __forceinline__ float* xdb_of(const Params& p, int m) { return p.xdb + m * srows(p) * r2n(p); }
-__device__ __forceinline__ float* gm_of(const Params& p, int m) { return p.gm + m * tokens(p) * p.d; }
+__device__ __forceinline__ float* gm_of(const Params& p, int m) { return p.gm + m * tokens(p) * gm_cols(p); }
 __device__ __forceinline__ float* du_of(const Params& p, int m) { return p.du + m * srows(p) * p.d; }
 __device__ __forceinline__ float* ddb_of(const Params& p, int m) { return p.ddb + m * srows(p) * p.d; }
-__device__ __forceinline__ float* dz_of(const Params& p, int m) { return p.dz + m * srows(p) * p.d; }
-__device__ __forceinline__ float* y_of(const Params& p, int m) { return p.y + m * srows(p) * p.d; }
+__device__ __forceinline__ float* dz_of(const Params& p, int m) { return p.dz + m * tokens(p) * p.ys * p.d; }
+__device__ __forceinline__ float* y_of(const Params& p, int m) { return p.y + m * tokens(p) * p.ys * p.d; }
 __device__ __forceinline__ float* dxdb_of(const Params& p, int m) { return p.dxdb + m * srows(p) * r2n(p); }
 __device__ __forceinline__ float* dxz_of(const Params& p, int m) { return p.dxz + m * tokens(p) * 2 * p.d; }
 __device__ __forceinline__ size_t part_w_size(const Params& p) {
@@ -185,16 +210,16 @@ struct ConvXProj {  // pre = conv(gathered xz_u) + conv_b; u = silu(pre); xdb = 
   const float *xz, *conv_w, *conv_b, *w;
   const int64_t* fwd;
   float *u, *pre, *c;
-  int rows, cols, depth, L, S;
+  int rows, cols, depth, L, Ls, S;
   bool store_u;
   __device__ ConvXProj(const Params& p, int m)
       : xz(xz_of(p, m)), conv_w(p.br[m].conv_w), conv_b(p.br[m].conv_b), w(p.br[m].xp_w),
         fwd(p.fwd), u(u_of(p, m)), pre(pre_of(p, m)), c(xdb_of(p, m)),
-        rows(static_cast<int>(srows(p))), cols(r2n(p)), depth(p.d), L(p.L), S(p.S),
+        rows(static_cast<int>(srows(p))), cols(r2n(p)), depth(p.d), L(p.L), Ls(p.Ls), S(p.S),
         store_u(blockIdx.y == 0) {}  // the first column tile writes u and pre once
-  __device__ float a(int row, int ch) const {  // row = (b * S + s) * L + t
-    const int t = row % L, bs = row / L;
-    const int64_t* order = fwd + static_cast<size_t>(bs % S) * L;
+  __device__ float a(int row, int ch) const {  // row = (b * S + s) * Ls + t
+    const int t = row % Ls, bs = row / Ls;
+    const int64_t* order = fwd + static_cast<size_t>(bs % S) * Ls;
     const float* xz_b = xz + static_cast<size_t>(bs / S) * L * 2 * depth;
     float acc = conv_b[ch];
 #pragma unroll
@@ -213,16 +238,21 @@ struct ConvXProj {  // pre = conv(gathered xz_u) + conv_b; u = silu(pre); xdb = 
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
 
-struct GradOutProj {  // gm = g W_out
+// gm = g W_out; with the vim quirk [g W_out | g flip_rows(W_out)], the second
+// half reading W_out's rows h - 1 - k.
+struct GradOutProj {
   static constexpr bool kAByRow = false, kBByRow = true;
   const float *g, *w;
   float* c;
-  int rows, cols, depth;
+  int rows, cols, depth, d;
   __device__ GradOutProj(const Params& p, int m)
       : g(p.br[m].g), w(p.br[m].out_w), c(gm_of(p, m)),
-        rows(static_cast<int>(tokens(p))), cols(p.d), depth(p.h) {}
+        rows(static_cast<int>(tokens(p))), cols(gm_cols(p)), depth(p.h), d(p.d) {}
   __device__ float a(int row, int k) const { return g[static_cast<size_t>(row) * depth + k]; }
-  __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
+  __device__ float b(int col, int k) const {
+    return col < d ? w[static_cast<size_t>(k) * d + col]
+                   : w[static_cast<size_t>(depth - 1 - k) * d + (col - d)];
+  }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
 
@@ -319,13 +349,34 @@ struct GradOutW {  // dW_out = g^T merged, merged = scale sum_s y_s in token ord
   int rows, cols, depth, L, S;
   __device__ GradOutW(const Params& p, int m)
       : g(p.br[m].g), y(y_of(p, m)), c(p.br[m].g_out_w), scale(p.scale),
-        rows(p.h), cols(p.d), depth(static_cast<int>(tokens(p))), L(p.L), S(p.S) {}
+        rows(p.h), cols(p.d), depth(static_cast<int>(tokens(p))), L(p.L), S(p.ys) {}
   __device__ float a(int row, int k) const { return g[static_cast<size_t>(k) * rows + row]; }
   __device__ float b(int col, int k) const {  // k = b * L + l
     const float* y0 = y + (static_cast<size_t>(k / L) * S * L + k % L) * cols + col;
     float acc = 0.0f;
     for (int s = 0; s < S; ++s) acc += y0[static_cast<size_t>(s) * L * cols];  // stream order
     return acc * scale;
+  }
+  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
+};
+
+// The vim quirk's P = scale g^T [y_0 | y_1] (h x 2d), y_s at the stream's step
+// t for depth index k = b * L + t; fold_out_w_kernel folds it into dW_out.
+struct GradOutWQuirk {
+  static constexpr bool kAByRow = true, kBByRow = true;
+  const float *g, *y;
+  const int64_t* fwd;
+  float* c;
+  float scale;
+  int rows, cols, depth, L, d;
+  __device__ GradOutWQuirk(const Params& p, int m)
+      : g(p.br[m].g), y(y_of(p, m)), fwd(p.fwd), c(p.pout), scale(p.scale),
+        rows(p.h), cols(2 * p.d), depth(static_cast<int>(tokens(p))), L(p.L), d(p.d) {}
+  __device__ float a(int row, int k) const { return g[static_cast<size_t>(k) * rows + row]; }
+  __device__ float b(int col, int k) const {  // y_s[token] at (b * 2 + s) * L + token
+    const int s = col < d ? 0 : 1, t = k % L;
+    const size_t tok = static_cast<size_t>(fwd[s * L + t]);
+    return y[((static_cast<size_t>(k / L) * 2 + s) * L + tok) * d + (col - s * d)] * scale;
   }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
@@ -352,8 +403,8 @@ struct MixerScanIO {
   int64_t* sTok;
   float wdt[kMaxRank];
   float dtb, scale, dtb_sum;
-  int c, d, r, ld, nblk, t0;
-  bool active;
+  int c, d, r, ld, nblk, t0, gm_ld;
+  bool active, by_step;  // by_step: gm's row is the stream's step (vim quirk), not its token
 
   __device__ bool gated() const { return true; }
   __device__ void stage(int t0_, int steps) {
@@ -378,7 +429,9 @@ struct MixerScanIO {
   }
   __device__ float u(int s) const { return active ? u_p[static_cast<size_t>(t0 + s) * d] : 0.0f; }
   __device__ float z(int s) const { return active ? xz_b[sTok[s] * 2 * d + d] : 0.0f; }
-  __device__ float g(int s) const { return active ? scale * gm_b[sTok[s] * d] : 0.0f; }
+  __device__ float g(int s) const {
+    return active ? scale * gm_b[(by_step ? t0 + s : sTok[s]) * gm_ld] : 0.0f;
+  }
   __device__ const float* B(int s) const { return sB[s]; }
   __device__ const float* C(int s) const { return sC[s]; }
   __device__ void save_ckpt(int q, const float (&h)[kN]) {
@@ -417,13 +470,15 @@ __global__ void __launch_bounds__(kWarp) scan_bwd_kernel(const Params p) {
   const int b = bs / p.S;
   const int s = bs % p.S;
   const int c = blockIdx.x * kWarp + threadIdx.x;
-  const int d = p.d, L = p.L;
+  const int d = p.d, L = p.L, Ls = p.Ls;
   const bool active = c < d;
   const int cc = active ? c : 0;
   const Branch& w = p.br[m];
-  // Row of (m, b, s, t = 0) in the stream-row arrays; token rows share it.
-  const size_t row0 = (static_cast<size_t>(m) * p.B * p.S + bs) * L;
   const size_t seq = static_cast<size_t>(m) * p.B * p.S + bs;
+  const size_t row0 = seq * Ls;  // row of (m, b, s, t = 0) in the stream-row arrays
+  // row of (m, b, s, token 0) in the token-order arrays dz and y
+  const size_t yrow0 = (p.ys == 1 ? static_cast<size_t>(m) * p.B + b : seq) * L;
+  const int gld = gm_cols(p);
 
   float a[kN];
 #pragma unroll
@@ -434,12 +489,12 @@ __global__ void __launch_bounds__(kWarp) scan_bwd_kernel(const Params p) {
   io.u_p = p.u + row0 * d + cc;
   io.xdb = p.xdb + row0 * (p.r + 2 * kN);
   io.xz_b = p.xz + (static_cast<size_t>(m) * p.B + b) * L * 2 * d + cc;
-  io.gm_b = p.gm + (static_cast<size_t>(m) * p.B + b) * L * d + cc;
-  io.order = p.fwd + static_cast<size_t>(s) * L;
+  io.gm_b = p.gm + (static_cast<size_t>(m) * p.B + b) * L * gld + (p.quirk ? s * d : 0) + cc;
+  io.order = p.fwd + static_cast<size_t>(s) * Ls;
   io.du = p.du + row0 * d + cc;
   io.ddb = p.ddb + row0 * d + cc;
-  io.dz = p.dz + row0 * d + cc;
-  io.y = p.y + row0 * d + cc;
+  io.dz = p.dz + yrow0 * d + cc;
+  io.y = p.y + yrow0 * d + cc;
   io.bc = p.bc + row0 * p.nblk * kWarp;
   io.ckpt = p.ckpt + seq * p.nq * kN * d + cc;
   io.sDt = sDt;
@@ -459,10 +514,12 @@ __global__ void __launch_bounds__(kWarp) scan_bwd_kernel(const Params p) {
   io.ld = p.r + 2 * kN;
   io.nblk = p.nblk;
   io.t0 = 0;
+  io.gm_ld = gld;
   io.active = active;
+  io.by_step = p.quirk;
 
   float dA[kN], dD;
-  scan_bwd::sweep<kN>(io, a, Dc, L, dA, dD);
+  scan_bwd::sweep<kN>(io, a, Dc, Ls, dA, dD);
   if (active) {
     float* part = p.part_scan + (seq * d + c) * kScanParts;
 #pragma unroll
@@ -488,33 +545,35 @@ __global__ void reduce_bc_kernel(const Params p) {
 
 // dxz (T, 2d): the conv adjoint of each stream, gathered back to token order
 // and summed over the streams. For channel j < d of token l, stream s holds
-// the token at position pos (merge table entry s * L + pos); tap k of the
-// conv read it for the output at pos + K - 1 - k, if that is inside the
-// stream. The z half sums dz, already in token order, over the streams.
+// the token at position pos (merge table entry s * Ls + pos; a partition has
+// one entry per token); tap k of the conv read it for the output at
+// pos + K - 1 - k, if that is inside the stream. The z half sums dz, already
+// in token order, over its ys rows per token.
 __global__ void grad_xz_kernel(const Params p) {
   const int m = blockIdx.y;
   const size_t T = tokens(p);
-  const int d = p.d, L = p.L, S = p.S;
+  const int d = p.d, L = p.L, Ls = p.Ls;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= T * 2 * d) return;
   const int j = static_cast<int>(i % (2 * d));
   const size_t tok = i / (2 * d);
   const int b = static_cast<int>(tok / L), l = static_cast<int>(tok % L);
-  const size_t seq0 = (static_cast<size_t>(m) * p.B + b) * S * L;  // row of (m, b, s = 0, 0)
+  const size_t seq0 = (static_cast<size_t>(m) * p.B + b) * p.S * Ls;  // row of (m, b, s = 0, 0)
   float acc = 0.0f;
   if (j < d) {
     const float* w = p.br[m].conv_w + static_cast<size_t>(j) * kConv;
-    for (int q = 0; q < S; ++q) {
-      const int64_t e = p.merge[static_cast<size_t>(l) * S + q];  // s * L + pos
-      const int pos = static_cast<int>(e % L);
+    for (int q = 0; q < p.ys; ++q) {
+      const int64_t e = p.merge[static_cast<size_t>(l) * p.ys + q];  // s * Ls + pos
+      const int pos = static_cast<int>(e % Ls);
 #pragma unroll
       for (int k = 0; k < kConv; ++k) {
         const int out = pos + kConv - 1 - k;
-        if (out < L) acc = fmaf(w[k], p.du[(seq0 + e + kConv - 1 - k) * d + j], acc);
+        if (out < Ls) acc = fmaf(w[k], p.du[(seq0 + e + kConv - 1 - k) * d + j], acc);
       }
     }
   } else {
-    for (int s = 0; s < S; ++s) acc += p.dz[(seq0 + static_cast<size_t>(s) * L + l) * d + j - d];
+    const size_t zrow0 = (static_cast<size_t>(m) * p.B + b) * p.ys * L;
+    for (int s = 0; s < p.ys; ++s) acc += p.dz[(zrow0 + static_cast<size_t>(s) * L + l) * d + j - d];
   }
   p.dxz[(static_cast<size_t>(m) * T + tok) * 2 * d + j] = acc;
 }
@@ -528,7 +587,7 @@ __global__ void __launch_bounds__(256) grad_conv_kernel(const Params p) {
   __shared__ float red[kLanes][kConv + 1][kWarp];
   const int m = blockIdx.z, split = blockIdx.y;
   const int c = blockIdx.x * kWarp + threadIdx.x;
-  const int d = p.d, L = p.L, S = p.S;
+  const int d = p.d, L = p.L, Ls = p.Ls, S = p.S;
   const int rows = static_cast<int>(srows(p));
   const int per = (rows + kConvSplits - 1) / kConvSplits;
   const int begin = split * per, end = min(rows, begin + per);
@@ -539,8 +598,8 @@ __global__ void __launch_bounds__(256) grad_conv_kernel(const Params p) {
     const float* dpre = du_of(p, m);
     const float* xz = xz_of(p, m);
     for (int row = begin + threadIdx.y; row < end; row += kLanes) {
-      const int t = row % L, bs = row / L;
-      const int64_t* order = p.fwd + static_cast<size_t>(bs % S) * L;
+      const int t = row % Ls, bs = row / Ls;
+      const int64_t* order = p.fwd + static_cast<size_t>(bs % S) * Ls;
       const float* xz_b = xz + static_cast<size_t>(bs / S) * L * 2 * d + c;
       const float dp = dpre[static_cast<size_t>(row) * d + c];
 #pragma unroll
@@ -573,6 +632,16 @@ __global__ void sum_splits_kernel(const Params p, int which, int n) {
   float acc = 0.0f;
   for (int s = 0; s < p.splits; ++s) acc += part[static_cast<size_t>(s) * n + i];
   (which == 0 ? p.br[m].g_xp_w : p.br[m].g_dt_w)[i] = acc;
+}
+
+// The vim quirk's dW_out[j, c] = P[j, c] + P[h - 1 - j, d + c].
+__global__ void fold_out_w_kernel(const Params p) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int d = p.d, h = p.h;
+  if (i >= static_cast<size_t>(h) * d) return;
+  const int j = static_cast<int>(i / d), c = static_cast<int>(i % d);
+  p.br[0].g_out_w[i] = p.pout[static_cast<size_t>(j) * 2 * d + c] +
+                       p.pout[static_cast<size_t>(h - 1 - j) * 2 * d + d + c];
 }
 
 // Per channel: dA_log, dD and d dt_b from the per-sequence scan partials,
@@ -614,39 +683,45 @@ __global__ void finalize_kernel(const Params p) {
 // Lay the workspace out for these shapes (pointers into `base` when given);
 // returns its size in floats.
 size_t layout(Params& p, float* base, int M) {
-  const size_t T = static_cast<size_t>(p.B) * p.L, R = T * p.S, d = p.d;
-  const size_t r2 = p.r + 2 * kN;
+  const size_t T = static_cast<size_t>(p.B) * p.L, R = static_cast<size_t>(p.B) * p.S * p.Ls;
+  const size_t d = p.d, r2 = p.r + 2 * kN, Ty = T * p.ys;
   const size_t sizes[] = {
       T * 2 * d,                                     // xz
-      R * d, R * d, R * r2, T * d,                   // u, pre, xdb, gm
+      R * d, R * d, R * r2, T * (p.quirk ? 2 : 1) * d,  // u, pre, xdb, gm
       static_cast<size_t>(p.B) * p.S * p.nq * kN * d,  // ckpt
-      R * d, R * d, R * d, R * d,                    // du, ddb, dz, y
+      R * d, R * d, Ty * d, Ty * d,                  // du, ddb, dz, y
       R * p.nblk * kWarp, R * r2, T * 2 * d,         // bc, dxdb, dxz
       static_cast<size_t>(p.B) * p.S * d * kScanParts,  // part_scan
       kConvSplits * d * (kConv + 1),                 // part_conv
       static_cast<size_t>(p.splits) * std::max(r2 * d, d * p.r),  // part_w
+      p.quirk ? static_cast<size_t>(p.h) * 2 * d : 0,  // pout (M = 1)
   };
   float** ptrs[] = {&p.xz, &p.u, &p.pre, &p.xdb, &p.gm, &p.ckpt, &p.du, &p.ddb, &p.dz,
-                    &p.y, &p.bc, &p.dxdb, &p.dxz, &p.part_scan, &p.part_conv, &p.part_w};
+                    &p.y, &p.bc, &p.dxdb, &p.dxz, &p.part_scan, &p.part_conv, &p.part_w,
+                    &p.pout};
   size_t total = 0;
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < 17; ++i) {
     if (base != nullptr) *ptrs[i] = base + total;
     total += sizes[i] * M;
   }
   return total;
 }
 
-void set_dims(Params& p, int B, int L, int h, int d, int r, int S, float scale) {
+void set_dims(Params& p, int B, int L, int Ls, int h, int d, int r, int S, int quirk,
+              float scale) {
   p.B = B;
   p.L = L;
+  p.Ls = Ls;
   p.h = h;
   p.d = d;
   p.r = r;
   p.S = S;
-  p.nq = (L + kChunk - 1) / kChunk;
+  p.ys = Ls == L ? S : 1;
+  p.quirk = quirk != 0;
+  p.nq = (Ls + kChunk - 1) / kChunk;
   p.nblk = (d + kWarp - 1) / kWarp;
-  // split the B * S * L-deep weight-gradient products about 512 rows a block
-  p.splits = std::max(1, std::min(16, (B * S * L + 511) / 512));
+  // split the B * S * Ls-deep weight-gradient products about 512 rows a block
+  p.splits = std::max(1, std::min(16, (B * S * Ls + 511) / 512));
   p.scale = scale;
 }
 
@@ -655,22 +730,27 @@ unsigned blocks_for(size_t n, int threads) { return static_cast<unsigned>((n + t
 }  // namespace
 
 // Floats of workspace that mixer_fused_bwd needs for these shapes.
-extern "C" long long mixer_fused_bwd_workspace_floats(int M, int B, int L, int d, int r, int S) {
+extern "C" long long mixer_fused_bwd_workspace_floats(int M, int B, int L, int Ls, int h, int d,
+                                                      int r, int S, int quirk) {
   Params p{};
-  set_dims(p, B, L, 0, d, r, S, 1.0f);
+  set_dims(p, B, L, Ls, h, d, r, S, quirk, 1.0f);
   return static_cast<long long>(layout(p, nullptr, M));
 }
 
 // `ptrs` holds 21 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, L) and `merge`
-// (L, S) are int64, each row of fwd a permutation of 0 .. L-1. Launches the
-// chain on `stream`; returns the first launch's cudaError_t that is not 0,
-// or -1 for shapes that are not built.
+// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) and `merge`
+// (L, S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is
+// a permutation of 0 .. L-1, with Ls = L / S its rows partition them (M = 1).
+// `quirk` (M = 1, S = 2, Ls = L) asks for the vim merge's adjoint. Launches
+// the chain on `stream`; returns the first launch's cudaError_t that is not
+// 0, or -1 for shapes that are not built.
 extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
-                               void* workspace, int B, int L, int h, int d, int n, int r,
-                               int K, int S, float scale, void* stream) {
+                               void* workspace, int B, int L, int Ls, int h, int d, int n,
+                               int r, int K, int S, int quirk, float scale, void* stream) {
+  const bool partition = Ls != L;
   if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank || S < 1 ||
-      S > kMaxStreams) {
+      S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
+      (quirk && (S != 2 || partition || M != 1))) {
     return -1;
   }
   Params p{};
@@ -685,14 +765,14 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
   }
   p.fwd = static_cast<const int64_t*>(fwd);
   p.merge = static_cast<const int64_t*>(merge);
-  set_dims(p, B, L, h, d, r, S, scale);
+  set_dims(p, B, L, Ls, h, d, r, S, quirk, scale);
   layout(p, static_cast<float*>(workspace), M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * L, R = B * S * L, r2 = r + 2 * kN;
+  const int T = B * L, R = B * S * Ls, r2 = r + 2 * kN;
 
   int err = launch_gemm_op<64, 64, 16, 4, 4, InProj>(p, T, 2 * d, M, st);
   if (err == 0) err = launch_gemm_op<16, 64, 16, 1, 4, ConvXProj>(p, R, r2, M, st);
-  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutProj>(p, T, d, M, st);
+  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutProj>(p, T, quirk ? 2 * d : d, M, st);
   if (err == 0) {
     scan_bwd_kernel<<<dim3(p.nblk, B * S, M), kWarp, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
@@ -723,7 +803,14 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
   }
   if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradX>(p, T, h, M, st);
   if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradInW>(p, 2 * d, h, M, st);
-  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutW>(p, h, d, M, st);
+  if (err == 0 && !quirk) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutW>(p, h, d, M, st);
+  if (err == 0 && quirk) {
+    err = launch_gemm_op<64, 64, 16, 4, 4, GradOutWQuirk>(p, h, 2 * d, M, st);
+    if (err == 0) {
+      fold_out_w_kernel<<<blocks_for(static_cast<size_t>(h) * d, 256), 256, 0, st>>>(p);
+      err = static_cast<int>(cudaGetLastError());
+    }
+  }
   if (err == 0) {
     finalize_kernel<<<dim3(blocks_for(d, 128), M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());

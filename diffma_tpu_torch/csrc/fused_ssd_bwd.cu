@@ -93,9 +93,19 @@
 // sequential grid exist for the MXU and VMEM; here they are index gathers,
 // sums over a head's 64 channels, warp scans, exact t < L and second passes.
 //
-// Partition specs, several B/C groups, bf16 and the factored decay form are
-// not built: the wrapper raises for the first three, and the last is a
-// design for a later change.
+// Two kinds of scan spec, as in kernel E: full-length streams (Ls = L, each a
+// permutation of the tokens), and an exact partition (Ls = L / S, every token
+// in exactly one stream: EfficientVMamba's atrous streams), each stream a
+// sequence of its own whose conv pad and cumsum start at its first step. For
+// a partition, y and g_y have one token row each, the SSD adjoint blocks run
+// over Ls steps, the conv adjoint's gather-sum reads one merge entry per
+// token (each token written once), and the column sums run over the
+// B * S * Ls = B * L stream rows. The shared-memory cap is on Ls, the steps
+// per stream.
+//
+// Several B/C groups, bf16 and the factored decay form are not built: the
+// wrapper raises for the first two, and the last is a design for a later
+// change.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,16 +159,18 @@ struct Branch {
 };
 
 // Workspace arrays hold both branches, branch m at offset m * (its size).
-// T = B * L token rows; R = B * S * L stream rows, row (b * S + s) * L + t in
-// stream order or (b * S + s) * L + token in token order.
+// T = B * L token rows; R = B * S * Ls stream rows, row (b * S + s) * Ls + t
+// in stream order. A token lies in ys streams (S, or 1 for a partition): the
+// merge table's width, and the rows per token of the token-order arrays y
+// and gy, row (b * ys + s) * L + token.
 struct Params {
   Branch br[2];
-  const int64_t* fwd;    // (S, L): stream s visits tokens fwd[s, 0..L-1]
-  const int64_t* merge;  // (L, S): the stream rows s * L + position of token l
+  const int64_t* fwd;    // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
+  const int64_t* merge;  // (L, ys): the stream rows s * Ls + position of token l
   const float* zx;       // (M, T, dproj): kernel E's residual
   float* gm;             // (T, d): g W_out
-  float* y;              // (R, d) token order: the SSD output before the gate
-  float* gy;             // (R, d) token order: its adjoint
+  float* y;              // (T * ys, d) token order: the SSD output before the gate
+  float* gy;             // (T * ys, d) token order: its adjoint
   float* merged;         // (T, d)
   float* gnw;            // (T, d): the row's g_norm_w terms
   float* gzx;            // (T, dproj)
@@ -168,12 +180,14 @@ struct Params {
   float* part_head;      // (B * S, H, kHeadParts)
   float* part_conv;      // (kSplits, d + 2n, K + 1): g_conv_w (K), g_conv_b
   float* part_nw;        // (kSplits, d)
-  int B, L, h, d, H, S, dproj, conv_dim;
+  int B, L, Ls, h, d, H, S, ys, dproj, conv_dim;
   float scale, eps, dt_lo, dt_hi;
 };
 
 __device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<size_t>(p.B) * p.L; }
-__device__ __forceinline__ size_t srows(const Params& p) { return tokens(p) * p.S; }
+__device__ __forceinline__ size_t srows(const Params& p) {
+  return static_cast<size_t>(p.B) * p.S * p.Ls;
+}
 
 struct GradOutProj {  // gm = g W_out
   static constexpr bool kAByRow = false, kBByRow = true;
@@ -250,8 +264,8 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_bwd_kernel(const Params
     nw[i] = c < d ? norm_w[c] : 0.0f;
     acc[i] = gz[i] = gnw[i] = 0.0f;
   }
-  for (int s = 0; s < p.S; ++s) {
-    const size_t srow = ((static_cast<size_t>(m) * p.B + b) * p.S + s) * p.L + l;
+  for (int s = 0; s < p.ys; ++s) {
+    const size_t srow = ((static_cast<size_t>(m) * p.B + b) * p.ys + s) * p.L + l;
     const float* y = p.y + srow * d;
     float* gy = p.gy + srow * d;
     float yv[kMaxPerThread], yg[kMaxPerThread];
@@ -305,7 +319,7 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p) {
   __shared__ float red[kThreads / 32];
   __shared__ double colp[kThreads / 32][kTile];  // each warp's column sums of P
   float* smem = ssd::dynamic_smem();
-  const int L = p.L, d = p.d;
+  const int L = p.Ls, d = p.d;  // this block's stream: L steps
   const int head = blockIdx.x;
   const int bs = blockIdx.y;  // b * S + s
   const int s = bs % p.S;
@@ -332,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p) {
   float* Mt = gda + 2 * L;           // (L, 33): M[t, u] for the tile's columns u
   float* Wt = Mt + L * kTStride;     // (L, 33): W[t, u]
   hd.x_stride = kXStride;
-  hd.zx_b = p.zx + (static_cast<size_t>(m) * p.B + b) * L * p.dproj;
+  hd.zx_b = p.zx + (static_cast<size_t>(m) * p.B + b) * p.L * p.dproj;
   hd.order = p.fwd + static_cast<size_t>(s) * L;
   const Branch& br = p.br[m];
   hd.mx = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
@@ -349,13 +363,15 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p) {
 
   const float A = -expf(br.A_log[head]);
   const float Dh = br.D[head];
-  // Row of (m, b, s, t = 0) in the stream-row arrays; token rows share it.
-  const size_t row0 = (static_cast<size_t>(m) * p.B * p.S + bs) * L;
+  const size_t seq = static_cast<size_t>(m) * p.B * p.S + bs;
+  const size_t row0 = seq * L;  // row of (m, b, s, t = 0) in the stream-row arrays
+  // row of (m, b, s, token 0) in the token-order array gy
+  const size_t yrow0 = (p.ys == 1 ? static_cast<size_t>(m) * p.B + b : seq) * p.L;
 
   // g_y into stream order, and the head's sum of g_y X.
   float dsum = 0.0f;
   {
-    const float* gy_bs = p.gy + row0 * d + head * kHd;
+    const float* gy_bs = p.gy + yrow0 * d + head * kHd;
     for (int i = tid; i < L * kHd; i += kThreads) {
       const int t = i / kHd, c = i % kHd;
       const float g = gy_bs[static_cast<size_t>(tok[t]) * d + c];
@@ -532,12 +548,12 @@ __global__ void grad_preact_kernel(const Params p) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= R * p.conv_dim) return;
   const int cc = static_cast<int>(i % p.conv_dim);
-  const size_t row = i / p.conv_dim;  // (b * S + s) * L + t
-  const int L = p.L, d = p.d;
-  const int t = static_cast<int>(row % L);
-  const size_t bs = row / L;
-  const int64_t* order = p.fwd + (bs % p.S) * L;
-  const float* zx_b = p.zx + (static_cast<size_t>(m) * p.B + bs / p.S) * L * p.dproj + d + cc;
+  const size_t row = i / p.conv_dim;  // (b * S + s) * Ls + t
+  const int Ls = p.Ls, d = p.d;
+  const int t = static_cast<int>(row % Ls);
+  const size_t bs = row / Ls;
+  const int64_t* order = p.fwd + (bs % p.S) * Ls;
+  const float* zx_b = p.zx + (static_cast<size_t>(m) * p.B + bs / p.S) * p.L * p.dproj + d + cc;
   const float* w = p.br[m].conv_w + static_cast<size_t>(cc) * kConv;
   float a = p.br[m].conv_b[cc];
 #pragma unroll
@@ -559,34 +575,35 @@ __global__ void grad_preact_kernel(const Params p) {
 // 5b. g_zx's conv and dt columns (T, dproj - d): the conv adjoint of each
 // stream, gathered back to token order and summed over the streams. For conv
 // channel j of token l, stream s holds the token at position pos (merge table
-// entry s * L + pos); tap k of the conv read it for the output at
-// pos + K - 1 - k, if that is inside the stream. The dt columns sum g_p.
+// entry s * Ls + pos; a partition has one entry per token); tap k of the conv
+// read it for the output at pos + K - 1 - k, if that is inside the stream.
+// The dt columns sum g_p.
 __global__ void grad_zx_kernel(const Params p) {
   const int m = blockIdx.y;
   const size_t T = tokens(p);
-  const int L = p.L, S = p.S;
+  const int L = p.L, Ls = p.Ls, ys = p.ys;
   const int width = p.dproj - p.d;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= T * width) return;
   const int j = static_cast<int>(i % width);
   const size_t tok = i / width;
   const int b = static_cast<int>(tok / L), l = static_cast<int>(tok % L);
-  const size_t seq0 = (static_cast<size_t>(m) * p.B + b) * S * L;  // row of (m, b, s = 0, 0)
+  const size_t seq0 = (static_cast<size_t>(m) * p.B + b) * p.S * Ls;  // row of (m, b, s = 0, 0)
   float acc = 0.0f;
   if (j < p.conv_dim) {
     const float* w = p.br[m].conv_w + static_cast<size_t>(j) * kConv;
-    for (int q = 0; q < S; ++q) {
-      const int64_t e = p.merge[static_cast<size_t>(l) * S + q];  // s * L + pos
-      const int pos = static_cast<int>(e % L);
+    for (int q = 0; q < ys; ++q) {
+      const int64_t e = p.merge[static_cast<size_t>(l) * ys + q];  // s * Ls + pos
+      const int pos = static_cast<int>(e % Ls);
 #pragma unroll
       for (int k = 0; k < kConv; ++k) {
         const int out = pos + kConv - 1 - k;
-        if (out < L) acc = fmaf(w[k], p.gxbc[(seq0 + e + kConv - 1 - k) * p.conv_dim + j], acc);
+        if (out < Ls) acc = fmaf(w[k], p.gxbc[(seq0 + e + kConv - 1 - k) * p.conv_dim + j], acc);
       }
     }
   } else {
-    for (int q = 0; q < S; ++q) {
-      const int64_t e = p.merge[static_cast<size_t>(l) * S + q];
+    for (int q = 0; q < ys; ++q) {
+      const int64_t e = p.merge[static_cast<size_t>(l) * ys + q];
       acc += p.graw[(seq0 + e) * p.H + (j - p.conv_dim)];
     }
   }
@@ -602,7 +619,7 @@ __global__ void __launch_bounds__(256) grad_conv_kernel(const Params p) {
   __shared__ float red[kLanes][kConv + 1][32];
   const int m = blockIdx.z, split = blockIdx.y;
   const int c = blockIdx.x * 32 + threadIdx.x;
-  const int L = p.L, S = p.S;
+  const int L = p.L, Ls = p.Ls, S = p.S;
   const int rows = static_cast<int>(srows(p));
   const int per = (rows + kSplits - 1) / kSplits;
   const int begin = split * per, end = min(rows, begin + per);
@@ -613,8 +630,8 @@ __global__ void __launch_bounds__(256) grad_conv_kernel(const Params p) {
     const float* ga = p.gxbc + static_cast<size_t>(m) * rows * p.conv_dim;
     const float* zx = p.zx + static_cast<size_t>(m) * tokens(p) * p.dproj;
     for (int row = begin + threadIdx.y; row < end; row += kLanes) {
-      const int t = row % L, bs = row / L;
-      const int64_t* order = p.fwd + static_cast<size_t>(bs % S) * L;
+      const int t = row % Ls, bs = row / Ls;
+      const int64_t* order = p.fwd + static_cast<size_t>(bs % S) * Ls;
       const float* zx_b = zx + static_cast<size_t>(bs / S) * L * p.dproj + p.d + c;
       const float g = ga[static_cast<size_t>(row) * p.conv_dim + c];
 #pragma unroll
@@ -696,9 +713,10 @@ __global__ void finalize_kernel(const Params p) {
 // Lay the workspace out for these shapes (pointers into `base` when given);
 // returns its size in floats.
 size_t layout(Params& p, float* base, int M) {
-  const size_t T = static_cast<size_t>(p.B) * p.L, R = T * p.S, d = p.d;
+  const size_t T = static_cast<size_t>(p.B) * p.L, R = static_cast<size_t>(p.B) * p.S * p.Ls;
+  const size_t d = p.d, Ty = T * p.ys;
   const size_t sizes[] = {
-      T * d, R * d, R * d, T * d, T * d,           // gm, y, gy, merged, gnw
+      T * d, Ty * d, Ty * d, T * d, T * d,         // gm, y, gy, merged, gnw
       T * p.dproj, R * p.conv_dim,                 // gzx, gxbc
       R * p.H, R * p.H * 2 * kN,                   // graw, gbc
       static_cast<size_t>(p.B) * p.S * p.H * kHeadParts,  // part_head
@@ -715,9 +733,11 @@ size_t layout(Params& p, float* base, int M) {
   return total;
 }
 
-void set_dims(Params& p, int B, int L, int h, int d, int H, int S) {
+void set_dims(Params& p, int B, int L, int Ls, int h, int d, int H, int S) {
   p.B = B;
   p.L = L;
+  p.Ls = Ls;
+  p.ys = Ls == L ? S : 1;
   p.h = h;
   p.d = d;
   p.H = H;
@@ -731,13 +751,14 @@ unsigned blocks_for(size_t n, int threads) { return static_cast<unsigned>((n + t
 }  // namespace
 
 // Floats of workspace that ssd_mixer_bwd needs for these shapes.
-extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int d, int H, int S) {
+extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int Ls, int d, int H,
+                                                    int S) {
   Params p{};
-  set_dims(p, B, L, 0, d, H, S);
+  set_dims(p, B, L, Ls, 0, d, H, S);
   return static_cast<long long>(layout(p, nullptr, M));
 }
 
-// The longest sequence whose SSD adjoint block fits in a block's shared memory.
+// The longest stream whose SSD adjoint block fits in a block's shared memory.
 extern "C" int ssd_mixer_bwd_max_tokens() {
   int L = 0;
   while (adj_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
@@ -745,18 +766,19 @@ extern "C" int ssd_mixer_bwd_max_tokens() {
 }
 
 // `ptrs` holds 19 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, L) and `merge`
-// (L, S) are int64, each row of fwd a permutation of 0 .. L-1. `zx` is the
-// residual (M, B * L, dproj) that ssd_mixer_fwd wrote for the same x and
-// weights. Launches the chain on `stream`; returns the first launch's
+// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) and `merge`
+// (L, S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is
+// a permutation of 0 .. L-1, with Ls = L / S its rows partition them. `zx`
+// is the residual (M, B * L, dproj) that ssd_mixer_fwd wrote for the same x
+// and weights. Launches the chain on `stream`; returns the first launch's
 // cudaError_t that is not 0, or -1 for shapes that are not built.
 extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
-                             const void* zx, void* workspace, int B, int L, int h, int d, int n,
-                             int H, int K, int S, float scale, float eps, float dt_lo,
-                             float dt_hi, void* stream) {
+                             const void* zx, void* workspace, int B, int L, int Ls, int h,
+                             int d, int n, int H, int K, int S, float scale, float eps,
+                             float dt_lo, float dt_hi, void* stream) {
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
-      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 ||
-      adj_smem_floats(L) * sizeof(float) > kMaxSharedBytes) {
+      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 || Ls < 1 ||
+      (Ls != L && Ls * S != L) || adj_smem_floats(Ls) * sizeof(float) > kMaxSharedBytes) {
     return -1;
   }
   Params p{};
@@ -772,14 +794,14 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
   p.fwd = static_cast<const int64_t*>(fwd);
   p.merge = static_cast<const int64_t*>(merge);
   p.zx = static_cast<const float*>(zx);
-  set_dims(p, B, L, h, d, H, S);
+  set_dims(p, B, L, Ls, h, d, H, S);
   p.scale = scale;
   p.eps = eps;
   p.dt_lo = dt_lo;
   p.dt_hi = dt_hi;
   layout(p, static_cast<float*>(workspace), M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * L, R = B * S * L;
+  const int T = B * L, R = B * S * Ls;
 
   int err = launch_gemm_op<64, 64, 16, 4, 4, GradOutProj>(p, T, d, M, st);
   if (err == 0) {
@@ -792,11 +814,11 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     core.zx = p.zx;
     core.y = p.y;
     core.B = B;
-    core.L = L;
+    core.L = Ls;
     core.Lt = L;
     core.d = d;
     core.S = S;
-    core.y_streams = S;
+    core.y_streams = p.ys;
     core.dproj = p.dproj;
     core.dt_lo = dt_lo;
     core.dt_hi = dt_hi;
@@ -807,7 +829,7 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
-    const size_t smem = adj_smem_floats(L) * sizeof(float);
+    const size_t smem = adj_smem_floats(Ls) * sizeof(float);
     err = static_cast<int>(cudaFuncSetAttribute(
         ssd_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
     if (err == 0) {

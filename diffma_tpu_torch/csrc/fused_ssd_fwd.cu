@@ -82,6 +82,26 @@
 //
 // Several B/C groups, bf16 and a partition spec in prologue mode are not
 // built: the wrapper raises for them.
+//
+// Kernel P, ssd_core_fwd below, replaces the TPU kernel
+// tools/probes/probe_split_ssd.py::_core_kernel, the core of the probe's
+// "split" form of the dual mixer, in which in_proj, the stream gathers, the
+// merge and out_proj run outside the kernel. Given zx (G, L, dproj), one
+// gathered stream per sequence g in stream order, and each branch's core
+// weights (branch m = g / (G / M)), it writes per sequence
+//
+//     out[g] = rmsnorm(SSD(silu(conv([x | B | C] columns)), dt, A, D) silu(z)) norm_w
+//
+// with no merge, (G, L, d). It is stages 2 and 3 above: the same SSD block
+// (ssd_core.cuh) with no gather table, one stream per sequence, then the
+// gate + norm row kernel with one stream and scale 1. Nothing is padded: the
+// TPU probe pads each stream after its last step, and the conv is causal, so
+// its first L rows are the answer. Bound on an H100 SXM at the probe's shapes
+// (G = 48, L = 196, d = 1024, H = 16): the causal pairs' decay and product
+// with dt * x (about 131 per pair and head) make about 2.1 GFLOP in all,
+// 0.031 ms at the fp32 rate (the TPU kernel's full L x L products would be
+// twice that), against 118 MB of zx read and out written, 0.035 ms at the
+// memory rate. So the bytes bound it, barely.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -260,6 +280,61 @@ size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int H, int S,
 extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int Ls, int h, int d,
                                                 int H, int S, int prologue) {
   return static_cast<long long>(workspace_floats(M, B, L, Ls, h, d, H, S, prologue));
+}
+
+// `ptrs` holds 6 pointers per branch: conv_w (d + 2n, K), conv_b (d + 2n,),
+// dt_bias, A_log, D (H,) and norm_w (d,), for M = 1 or 2 branches; all fp32
+// and contiguous. `zx` (G, L, dproj), `out` and `workspace` (y before the
+// gate) (G, L, d), G a multiple of M, sequence g taking branch g / (G / M).
+// Launches two kernels on `stream`; returns the first cudaError_t that is
+// not 0, or -1 for shapes that are not built.
+extern "C" int ssd_core_fwd(void* const* ptrs, int M, const void* zx, void* out,
+                            void* workspace, int G, int L, int d, int n, int H, int K,
+                            float eps, float dt_lo, float dt_hi, void* stream) {
+  if (M < 1 || M > 2 || G < M || G % M != 0 || n != kN || K != kConv || H < 1 ||
+      d != H * kHd || d > kRowThreads * kMaxPerThread || L < 1 ||
+      ssd::fwd_smem_floats(L) * sizeof(float) > kMaxSharedBytes) {
+    return -1;
+  }
+  const int per_branch = G / M;
+  ssd::FwdArgs core{};
+  Params p{};
+  for (int m = 0; m < M; ++m) {
+    void* const* q = ptrs + m * 6;
+    core.mx[m] = ssd::Mixer{static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
+                            static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
+                            static_cast<const float*>(q[4])};
+    p.br[m].norm_w = static_cast<const float*>(q[5]);
+  }
+  const int dproj = 2 * d + 2 * kN + H;
+  core.fwd = nullptr;
+  core.zx = static_cast<const float*>(zx);
+  core.y = static_cast<float*>(workspace);
+  core.B = per_branch;
+  core.L = L;
+  core.Lt = L;
+  core.d = d;
+  core.S = 1;
+  core.y_streams = 1;
+  core.dproj = dproj;
+  core.dt_lo = dt_lo;
+  core.dt_hi = dt_hi;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = ssd::launch_ssd_fwd(core, M, H, st);
+  if (err != 0) return err;
+  p.zx = static_cast<float*>(const_cast<void*>(zx));
+  p.y = core.y;
+  p.merged = static_cast<float*>(out);
+  p.B = per_branch;
+  p.L = L;
+  p.d = d;
+  p.S = 1;
+  p.y_streams = 1;
+  p.dproj = dproj;
+  p.scale = 1.0f;
+  p.eps = eps;
+  gate_norm_merge_kernel<<<dim3(per_branch * L, M), kRowThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The longest stream whose SSD block fits in a block's shared memory.

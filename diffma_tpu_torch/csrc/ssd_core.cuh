@@ -1,6 +1,7 @@
 // The state-space-duality (SSD) core of one Mamba-2 head, shared by kernel E
-// (fused_ssd_fwd.cu) and kernel F (fused_ssd_bwd.cu): staging a head's
-// stream in shared memory, and the forward product.
+// (fused_ssd_fwd.cu, which also holds kernel P, the split form's core) and
+// kernel F (fused_ssd_bwd.cu): staging a head's stream in shared memory, and
+// the forward product.
 //
 // Given zx = in_proj(x) in token order, with columns [z (d) | x (d) | B (n) |
 // C (n) | dt (H)], one (branch, batch element, stream, head) needs, in the
@@ -23,7 +24,8 @@
 // them (each stream then is a sequence of its own: the conv's pad and the
 // cumsum start at its first step). y goes out at the step's token index: per
 // stream ((b * S + s) * Lt + token) when `y_streams` is S, or (b * Lt + token)
-// when it is 1 (a partition, where each token lies in one stream).
+// when it is 1 (a partition, where each token lies in one stream). Without a
+// gather table (kernel P: the caller gathered) step t is row t itself.
 
 #pragma once
 
@@ -84,7 +86,7 @@ struct Mixer {
 // What one head's block reads, and where it stages it.
 struct Head {
   const float* zx_b;     // this (branch, batch element)'s zx rows (L, dproj)
-  const int64_t* order;  // fwd[s]: the stream's token order (L,)
+  const int64_t* order;  // fwd[s]: the stream's token order (L,), or null: step t is row t
   Mixer mx;
   int head, L, d, dproj;
   float dt_lo, dt_hi;
@@ -105,7 +107,7 @@ struct Head {
 __device__ inline void stage_head(const Head& hd) {
   const int L = hd.L, d = hd.d, tid = threadIdx.x;
   const int conv_dim = d + 2 * kN;
-  for (int t = tid; t < L; t += kThreads) hd.tok[t] = static_cast<int>(hd.order[t]);
+  for (int t = tid; t < L; t += kThreads) hd.tok[t] = hd.order ? static_cast<int>(hd.order[t]) : t;
   __syncthreads();
 
   // conv + SiLU over this head's 64 x channels and the 32 B and C channels,
@@ -168,7 +170,7 @@ __device__ inline void stage_head(const Head& hd) {
 // The forward product's arguments: both branches of a call.
 struct FwdArgs {
   Mixer mx[2];
-  const int64_t* fwd;  // (S, L): stream s visits tokens fwd[s, 0..L-1]
+  const int64_t* fwd;  // (S, L): stream s visits tokens fwd[s, 0..L-1], or null
   const float* zx;     // (M, B * Lt, dproj)
   float* y;            // (M, B * y_streams * Lt, d), token order (see above)
   int B, L, Lt, d, S, y_streams, dproj;
@@ -200,7 +202,7 @@ static __global__ void __launch_bounds__(kThreads) ssd_fwd_kernel(const FwdArgs 
 
   Head hd;
   hd.zx_b = a.zx + (static_cast<size_t>(m) * a.B + b) * a.Lt * a.dproj;
-  hd.order = a.fwd + static_cast<size_t>(s) * L;
+  hd.order = a.fwd ? a.fwd + static_cast<size_t>(s) * L : nullptr;
   hd.mx = a.mx[m];
   hd.head = head;
   hd.L = L;

@@ -19,9 +19,7 @@ JAX package's values:
   what lies between them through ``ops/fused_mamba.py::mamba_inner_fused``
   (kernel H on CUDA tensors), as the JAX mixer does.
 
-Every path carries gradients to the input and to every parameter, except
-that kernel D has no branch yet for the vim quirk and for partition specs:
-there the fused route raises on CUDA tensors when a gradient is needed.
+Every path carries gradients to the input and to every parameter.
 
 Parameter names follow mamba_ssm's ``Mamba`` state dict, whatever the path.
 d_inner is 2 * d_model, the conv has 4 taps, and ``dt_rank`` is

@@ -30,7 +30,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-#: Every kernel source of the port: kernels A, C, B, D, E, G, F and H.
+#: Every kernel source of the port: kernels A, C, B, D, E (with P, the split
+#: SSD probe's core), G, F and H.
 SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd",
            "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd", "fused_mamba_fwd")
 

@@ -31,14 +31,14 @@ dispatch on the tensors' device: ``FusedMixerFn`` for CUDA tensors,
 plain version on any device, to hold the kernels against it on the card.
 Weights are in torch layout (``MixerWeights``), fp32 only.
 
-Every registry scan spec runs forward through kernel C in its one-mixer
+Every registry scan spec runs through kernels C and D in their one-mixer
 form: full-length permutation streams (spiral, zig, vmamba), the Mamba-1
 'vim' spec with its feature-flip quirk (out_proj per stream, the reverse
 stream left in reversed token order and its output features flipped), and
 exact partitions (EfficientVMamba's four quarter-length atrous streams, each
-a sequence of its own). Kernel D has the full-length branch only: where a
-gradient is needed on CUDA tensors, a vim or partition spec raises
-``NotImplementedError`` and names the route that trains.
+a sequence of its own). Other specs (streams that neither cover every token
+nor partition them) go through ``mamba_inner_fused``; the dual (two-mixer)
+call never carries the quirk.
 """
 
 from __future__ import annotations
@@ -186,21 +186,6 @@ def _check_spec(spec: ScanSpec, M: int = 1) -> None:
         raise ValueError("a dual (two-branch) call never carries the vim quirk")
 
 
-def _has_bwd_kernel(spec: ScanSpec) -> bool:
-    """Whether kernel D runs this spec: full-length streams without the vim
-    quirk. Its vim and partition branches are not ported yet."""
-    return mixer_fused_eligible(spec) and not spec.mamba1_vim_quirk
-
-
-def _check_spec_bwd(spec: ScanSpec) -> None:
-    if not _has_bwd_kernel(spec):
-        raise NotImplementedError(
-            "kernel D (the fused mixer's backward) has no branch yet for the vim quirk or for "
-            "partition specs (ViM, EfficientVMamba); train them with scan_impl: auto, the "
-            "composable path with the scan kernels A and B"
-        )
-
-
 def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
     """Raise on what the kernel does not take; return its dimensions."""
     x0 = xs[0]
@@ -309,12 +294,12 @@ def _bwd_kernel_fns():
     bwd.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 8
+        + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
     size = lib.mixer_fused_bwd_workspace_floats
-    size.argtypes = [ctypes.c_int] * 6
+    size.argtypes = [ctypes.c_int] * 9
     size.restype = ctypes.c_longlong
     return bwd, size
 
@@ -324,13 +309,13 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
     ``ws[m]`` applied to ``xs[m]``, given ``gs[m]`` = dL/dout (one or two of
     them). Returns ``(gxs, grads)``, ``grads[m]`` a ``MixerWeights`` of
     gradients (dA_log for A_log). Nothing from the forward's call is needed:
-    the kernel recomputes the forward from x and the weights.
+    the kernel recomputes the forward from x and the weights. One mixer may
+    carry the vim quirk or a partition spec, as in kernel C.
 
     Raises on inputs the kernel does not take; ``mixer_fused_bwd_cuda.launches``
     counts the calls.
     """
     _check_spec(spec, len(xs))
-    _check_spec_bwd(spec)
     dims = _check_kernel_inputs(spec, xs, ws)
     if len(gs) != len(xs):
         raise ValueError(f"{len(xs)} inputs but {len(gs)} output gradients")
@@ -345,7 +330,8 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
     gxs = tuple(torch.empty_like(x) for x in xs)
     grads = tuple(MixerWeights(*(torch.empty_like(t) for t in w)) for w in ws)
     workspace = torch.empty(
-        size_fn(M, dims["B"], dims["L"], dims["d"], dims["r"], dims["S"]),
+        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["r"], dims["S"],
+                dims["quirk"]),
         dtype=torch.float32, device=x0.device,
     )
     fwd, merge = index_tables(spec, x0.device)
@@ -355,8 +341,8 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
                  gx.data_ptr(), *(t.data_ptr() for t in gw)]
     err = bwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), merge.data_ptr(),
-        workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"], dims["n"],
-        dims["r"], dims["K"], dims["S"], float(spec.scale),
+        workspace.data_ptr(), dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["n"],
+        dims["r"], dims["K"], dims["S"], dims["quirk"], float(spec.scale),
         torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
@@ -406,11 +392,7 @@ def _fused(spec: ScanSpec, xs, ws, impl: str) -> Tuple[torch.Tensor, ...]:
     if impl == "ref" or xs[0].device.type != "cuda":
         return tuple(mixer_ref(spec, x, w) for x, w in zip(xs, ws))
     flat = (*xs, *(t for w in ws for t in w))
-    if _has_bwd_kernel(spec):
-        return FusedMixerFn.apply(spec, len(xs), *flat)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
-        _check_spec_bwd(spec)  # raises: no quiet change of route
-    return mixer_fused_cuda(spec, xs, ws)
+    return FusedMixerFn.apply(spec, len(xs), *flat)
 
 
 def mamba_dual_mixer_fused(
@@ -431,6 +413,5 @@ def mamba_mixer_fused(
     spec: ScanSpec, x: torch.Tensor, w: MixerWeights, impl: str = "auto"
 ) -> torch.Tensor:
     """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel C on CUDA
-    tensors (and one of kernel D in the backward, which vim and partition
-    specs do not have yet: there a needed gradient raises)."""
+    tensors (and one of kernel D in the backward)."""
     return _fused(spec, (x,), (w,), impl)[0]

@@ -34,8 +34,12 @@ Two implementations of each:
   gradients of x and the 8 weights from x, dL/dout, the weights and that
   residual. ``spiral_epilogue_cuda`` is kernel G
   (``csrc/spiral_epilogue.cu``), which replaces ``_spiral_epilogue_kernel``.
-  Their ``launches`` attributes count calls (each launches a chain of device
-  kernels).
+  ``ssd_core_cuda`` is kernel P (an entry point of ``csrc/fused_ssd_fwd.cu``),
+  which replaces ``tools/probes/probe_split_ssd.py::_core_kernel``: the
+  mixer's middle alone (conv, dt, the SSD, the gate and the norm, no merge)
+  on gathered streams ``zx (G, L, 2d + 2n + H)``; ``ssd_core_ref`` is its
+  plain version, the middle of ``ssd_mixer_ref``. Their ``launches``
+  attributes count calls (each launches a chain of device kernels).
 
 ``FusedSsdFn`` joins E and F for autograd: forward through kernel E in
 residual mode, backward through one call of kernel F. ``SpiralBlockFn`` is
@@ -49,15 +53,13 @@ dispatch on the tensors' device: the kernels for CUDA tensors (through the
 autograd Functions when a gradient is needed, else plain kernel E with no
 residual written), the plain versions under autograd for CPU tensors;
 ``impl="ref"`` takes the plain version on any device. fp32, one B/C group.
-Kernel E runs full-length stream permutations (a vim spec merges the standard
-way here: Mamba-2 never takes Mamba-1's quirk) and, in its one- and
-two-mixer modes, exact partitions of the tokens (EfficientVMamba's four
+Kernels E and F run full-length stream permutations (a vim spec merges the
+standard way here: Mamba-2 never takes Mamba-1's quirk) and, in their one-
+and two-mixer modes, exact partitions of the tokens (EfficientVMamba's four
 quarter-length atrous streams, each a sequence of its own, whose merge is a
-scatter). Kernel F has the full-length branch only: where a gradient is
-needed on CUDA tensors a partition spec raises ``NotImplementedError`` and
-names the route that trains; so does prologue mode (the Spiral block's specs
-are full-length). The decay is always the quadratic form, exact at every
-span, forward and backward.
+scatter). Prologue mode takes full-length specs only (the Spiral block's
+specs are), and raises ``NotImplementedError`` on a partition. The decay is
+always the quadratic form, exact at every span, forward and backward.
 """
 
 from __future__ import annotations
@@ -87,6 +89,8 @@ __all__ = [
     "spiral_block_ref",
     "spiral_epilogue_cuda",
     "spiral_epilogue_ref",
+    "ssd_core_cuda",
+    "ssd_core_ref",
     "ssd_mixer_bwd_ref",
     "ssd_mixer_fused_bwd_cuda",
     "ssd_mixer_fused_cuda",
@@ -146,24 +150,47 @@ def ssd_mixer_ref(
     B_, L, _ = x.shape
     S, Ls = spec.fwd.shape
     d = w.out_w.shape[1]
-    H = w.A_log.shape[0]
-    gn = (w.conv_w.shape[0] - d) // 2  # ngroups * d_state
     fwd, merge = index_tables(spec, x.device)
 
     zxbcdt = F.linear(x, w.in_w)  # (B, L, 2d + 2gn + H)
     xs = zxbcdt.index_select(1, fwd).reshape(B_ * S, Ls, -1)
-    z, xBC, dt = xs.split([d, d + 2 * gn, H], dim=-1)
-    xBC = causal_conv1d(xBC, w.conv_w[:, 0, :], w.conv_b)
-    x_ssm, B_ssm, C_ssm = xBC.split([d, gn, gn], dim=-1)
-    y = ssd_chunked_grouped(
-        x_ssm.reshape(B_ * S, Ls, H, d // H), dt.float(), -torch.exp(w.A_log.float()),
-        B_ssm, C_ssm, w.D, ngroups=ngroups, dt_bias=w.dt_bias, dt_softplus=True,
-        dt_limit=dt_limit, chunk_size=chunk_size,
-    ).reshape(B_ * S, Ls, d)
-    y = rms_norm_gated(y, w.norm_w, z, eps=eps, group_size=d // ngroups, norm_before_gate=False)
+    y = _core(xs, w, dt_limit, eps, chunk_size, ngroups)
     merged = y.reshape(B_, S * Ls, d).index_select(1, merge)
     merged = merged.reshape(B_, L, spec.merge.shape[1], d).sum(dim=2) * spec.scale
     return F.linear(merged, w.out_w)
+
+
+def _core(zx: torch.Tensor, w, dt_limit, eps: float, chunk_size: int, ngroups: int) -> torch.Tensor:
+    """The mixer's middle on gathered streams ``zx (N, Ls, 2d + 2gn + H)``
+    with one weight set ``w`` (its core fields): conv, ``ssd_chunked``, the
+    gated norm; ``(N, Ls, d)``."""
+    N, Ls, _ = zx.shape
+    d = w.norm_w.shape[0]
+    H = w.A_log.shape[0]
+    gn = (w.conv_w.shape[0] - d) // 2  # ngroups * d_state
+    z, xBC, dt = zx.split([d, d + 2 * gn, H], dim=-1)
+    xBC = causal_conv1d(xBC, w.conv_w[:, 0, :], w.conv_b)
+    x_ssm, B_ssm, C_ssm = xBC.split([d, gn, gn], dim=-1)
+    y = ssd_chunked_grouped(
+        x_ssm.reshape(N, Ls, H, d // H), dt.float(), -torch.exp(w.A_log.float()),
+        B_ssm, C_ssm, w.D, ngroups=ngroups, dt_bias=w.dt_bias, dt_softplus=True,
+        dt_limit=dt_limit, chunk_size=chunk_size,
+    ).reshape(N, Ls, d)
+    return rms_norm_gated(y, w.norm_w, z, eps=eps, group_size=d // ngroups, norm_before_gate=False)
+
+
+def ssd_core_ref(
+    zx: torch.Tensor, ws, dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+    chunk_size: int = 256,
+) -> torch.Tensor:
+    """Kernel P's plain version: the mixer's middle on ``zx (G, L, 2d + 2n +
+    H)``, G gathered streams in stream order, sequence g taking the core
+    weights (``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``, ``D``,
+    ``norm_w``; ``Mamba2Weights`` serve) of ``ws[g // (G / len(ws))]``.
+    Returns the normed streams ``(G, L, d)``, not merged."""
+    per = zx.shape[0] // len(ws)
+    return torch.cat([_core(zx[m * per : (m + 1) * per], w, dt_limit, eps, chunk_size, 1)
+                      for m, w in enumerate(ws)])
 
 
 def ssd_mixer_bwd_ref(
@@ -222,13 +249,12 @@ def _check_spec(spec: ScanSpec) -> None:
         )
 
 
-def _check_spec_bwd(spec: ScanSpec) -> None:
-    """Raise on a spec that kernel F (and prologue mode) does not run."""
+def _check_spec_prologue(spec: ScanSpec) -> None:
+    """Raise on a spec that kernel E's prologue mode does not run."""
     if not mixer_fused_eligible(spec):
         raise NotImplementedError(
-            "kernel F (the fused SSD mixer's backward) and kernel E's prologue mode have no "
-            "branch yet for partition specs (EfficientVMamba); train them with scan_impl: auto, "
-            "the composable path"
+            "kernel E's prologue mode (the whole Spiral block) takes full-length stream "
+            "permutations only; a partition spec runs through the one- and two-mixer modes"
         )
 
 
@@ -352,7 +378,7 @@ def ssd_mixer_fused_cuda(
     if prologue is not None and want_res:
         raise ValueError("prologue mode writes no residual: kernel F takes the mixers' inputs")
     if prologue is not None:
-        _check_spec_bwd(spec)
+        _check_spec_prologue(spec)
     dims = _check_kernel_inputs(spec, xs, ws, prologue)
     fwd_fn, size_fn, max_tokens = _kernel_fns()
     if dims["Ls"] > max_tokens:
@@ -402,13 +428,13 @@ def _bwd_kernel_fns():
     bwd.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 8
+        + [ctypes.c_int] * 9
         + [ctypes.c_float] * 4
         + [ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
     size = lib.ssd_mixer_bwd_workspace_floats
-    size.argtypes = [ctypes.c_int] * 6
+    size.argtypes = [ctypes.c_int] * 7
     size.restype = ctypes.c_longlong
     lib.ssd_mixer_bwd_max_tokens.argtypes = []
     lib.ssd_mixer_bwd_max_tokens.restype = ctypes.c_int
@@ -423,13 +449,13 @@ def ssd_mixer_fused_bwd_cuda(
     ``ws[m]`` applied to ``xs[m]``, given ``gs[m]`` = dL/dout (one or two of
     them) and the ``residual`` that ``ssd_mixer_fused_cuda(..., want_res=True)``
     returned for the same inputs. Returns ``(gxs, grads)``, ``grads[m]`` a
-    ``Mamba2Weights`` of gradients.
+    ``Mamba2Weights`` of gradients. Full-length specs and exact partitions,
+    as in kernel E's one- and two-mixer modes.
 
     Raises on inputs the kernel does not take;
     ``ssd_mixer_fused_bwd_cuda.launches`` counts the calls.
     """
     _check_spec(spec)
-    _check_spec_bwd(spec)
     M = len(ws)
     if M not in (1, 2) or len(xs) != M:
         raise ValueError(f"{len(xs)} inputs for {M} mixers")
@@ -444,12 +470,15 @@ def ssd_mixer_fused_bwd_cuda(
         x0.device,
     )
     bwd_fn, size_fn, max_tokens = _bwd_kernel_fns()
-    if dims["L"] > max_tokens:
-        raise ValueError(f"the kernel takes up to {max_tokens} tokens, got {dims['L']}")
+    if dims["Ls"] > max_tokens:
+        raise ValueError(
+            f"the kernel holds one stream of one head in shared memory: it takes up to "
+            f"{max_tokens} steps per stream, got {dims['Ls']}"
+        )
     gxs = tuple(torch.empty_like(x) for x in xs)
     grads = tuple(Mamba2Weights(*(torch.empty_like(t) for t in w)) for w in ws)
     workspace = torch.empty(
-        size_fn(M, dims["B"], dims["L"], dims["d"], dims["H"], dims["S"]),
+        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["d"], dims["H"], dims["S"]),
         dtype=torch.float32, device=x0.device,
     )
     fwd, merge = index_tables(spec, x0.device)
@@ -459,8 +488,8 @@ def ssd_mixer_fused_bwd_cuda(
                  gx.data_ptr(), *(t.data_ptr() for t in gw)]
     err = bwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), merge.data_ptr(),
-        residual.data_ptr(), workspace.data_ptr(), dims["B"], dims["L"], dims["h"], dims["d"],
-        dims["n"], dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps),
+        residual.data_ptr(), workspace.data_ptr(), dims["B"], dims["L"], dims["Ls"], dims["h"],
+        dims["d"], dims["n"], dims["H"], dims["K"], dims["S"], float(spec.scale), float(eps),
         float(dt_limit[0]), float(dt_limit[1]), torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
@@ -565,6 +594,80 @@ def spiral_epilogue_cuda(
 spiral_epilogue_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _core_kernel_fn():
+    fwd = cuda_build.load(_KERNEL_SOURCE).ssd_core_fwd
+    fwd.argtypes = (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+        + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float] * 3
+        + [ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    return fwd
+
+
+def ssd_core_cuda(
+    zx: torch.Tensor, ws, dt_limit: Tuple[float, float] = _NO_LIMIT, eps: float = 1e-5,
+) -> torch.Tensor:
+    """Launch kernel P on the current stream: ``ssd_core_ref`` of the same
+    arguments, ``ws`` one or two weight sets (``Mamba2Weights``; in_w and
+    out_w are not read).
+
+    Raises on inputs the kernel does not take; ``ssd_core_cuda.launches``
+    counts the calls.
+    """
+    if zx.device.type != "cuda":
+        raise ValueError(f"the CUDA SSD core needs CUDA tensors, got {zx.device}")
+    M = len(ws)
+    if M not in (1, 2) or zx.dim() != 3 or zx.shape[0] % M:
+        raise ValueError(f"zx must be (G, L, dproj) with G a multiple of {M} weight sets, got "
+                         f"{tuple(zx.shape)}")
+    G, L, _ = zx.shape
+    d = ws[0].norm_w.shape[0]
+    H = ws[0].A_log.shape[0]
+    K = ws[0].conv_w.shape[-1]
+    n, rem = divmod(ws[0].conv_w.shape[0] - d, 2)
+    if rem or n != _KERNEL_D_STATE or K != _KERNEL_CONV:
+        raise ValueError(f"the kernel is built for one B/C group of d_state {_KERNEL_D_STATE} "
+                         f"and {_KERNEL_CONV} conv taps")
+    if d != H * _KERNEL_HEADDIM or d > _KERNEL_MAX_D_INNER:
+        raise ValueError(f"the kernel is built for headdim {_KERNEL_HEADDIM} and d_inner up to "
+                         f"{_KERNEL_MAX_D_INNER}, got d {d}, H {H}")
+    conv_dim = d + 2 * n
+    named = [("zx", zx, (G, L, 2 * d + 2 * n + H))]
+    for i, w in enumerate(ws):
+        named += [(f"w{i}.conv_w", w.conv_w, (conv_dim, 1, K)),
+                  (f"w{i}.conv_b", w.conv_b, (conv_dim,)), (f"w{i}.dt_bias", w.dt_bias, (H,)),
+                  (f"w{i}.A_log", w.A_log, (H,)), (f"w{i}.D", w.D, (H,)),
+                  (f"w{i}.norm_w", w.norm_w, (d,))]
+    _check_tensors(named, zx.device)
+    for i, w in enumerate(ws):
+        if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
+            raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
+    max_tokens = _kernel_fns()[2]
+    if L > max_tokens:
+        raise ValueError(f"the kernel takes up to {max_tokens} steps per stream, got {L}")
+    fwd_fn = _core_kernel_fn()
+    out = torch.empty((G, L, d), dtype=torch.float32, device=zx.device)
+    workspace = torch.empty_like(out)
+    ptrs = [t.data_ptr() for w in ws
+            for t in (w.conv_w, w.conv_b, w.dt_bias, w.A_log, w.D, w.norm_w)]
+    err = fwd_fn(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), M, zx.data_ptr(), out.data_ptr(),
+        workspace.data_ptr(), G, L, d, n, H, K, float(eps), float(dt_limit[0]),
+        float(dt_limit[1]), torch.cuda.current_stream(zx.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_core_fwd launch failed: error {err}")
+    ssd_core_cuda.launches += 1
+    return out
+
+
+ssd_core_cuda.launches = 0
+
+
 def _use_kernels(impl: str, tensors) -> bool:
     """Whether the call goes to the CUDA kernels."""
     if impl not in ("auto", "ref"):
@@ -581,7 +684,6 @@ def _mixers_cuda(spec: ScanSpec, xs, ws, dt_limit, eps) -> Tuple[torch.Tensor, .
     needed, else plainly, with no residual written."""
     flat = (*xs, *(t for w in ws for t in w))
     if _needs_grad(flat):
-        _check_spec_bwd(spec)  # a partition spec raises here: no quiet change of route
         return FusedSsdFn.apply(spec, len(ws), tuple(dt_limit), eps, *flat)
     return ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, eps)
 
@@ -680,7 +782,7 @@ def spiral_block_fused(
     _check_spec(spec)
     block = (x, wmask, shift, scale, gate, ln_w, ln_b, an_w, an_b, fc1_w, fc1_b, fc2_w, fc2_b)
     if _use_kernels(impl, (*block, *w0, *w1)):
-        _check_spec_bwd(spec)  # prologue mode runs full-length specs only
+        _check_spec_prologue(spec)
         if _needs_grad((*block, *w0, *w1)):
             return SpiralBlockFn.apply(spec, tuple(dt_limit), eps, *block, *w0, *w1)
         return _spiral_block_kernels(spec, block, w0, w1, dt_limit, eps)

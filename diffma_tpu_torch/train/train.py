@@ -17,10 +17,9 @@ The mixers take ``scan_impl`` from the config: by default ``"fused"`` on the
 card (kernels C and D; with ``use_mamba2`` the Mamba-2 mixers and kernels E
 and F; as the JAX trainer defaults to its fused kernels on the TPU) and
 ``"auto"`` on the CPU (the plain versions). ``--model`` takes any of the
-registry's 80 names; the fused route trains the Spiral, Zig and VMamba
-families and DiT (which has no mixer), while ViM and EfficientVMamba train
-with ``scan_impl: auto`` until kernels D and F have their vim and partition
-branches (the fused route raises for them). The trainer runs on synthetic
+registry's 80 names; the fused route trains every family (the Spiral, Zig,
+ViM, VMamba and EfficientVMamba mixers on both Mamba versions, and DiT,
+which has no mixer). The trainer runs on synthetic
 batches, as the JAX trainer falls back to them when the dataset folders are
 missing. Real data (it needs the conditioning stack), bf16 (``autocast``),
 ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported,

@@ -1,13 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Kernels A and B (the selective scan, forward and backward), kernels C and
-D (the fused Mamba-1 mixer, forward and backward; C also on the vim quirk
+D (the fused Mamba-1 mixer, forward and backward, both also on the vim quirk
 and on EfficientVMamba's partition), kernels E and F (the fused Mamba-2
 mixer: single, dual, prologue and residual modes, partition specs, and its
-backward), kernel G (the Spiral block's tail) and kernel H (the Mamba-1
-mixer's inner part, and the ``Mamba`` route that reaches it) are held
-against their plain versions at the model's widths;
-the tolerance of C, E, G and H is max |err| <= 1e-4 * max(1, max |ref|), since
+backward), kernel G (the Spiral block's tail), kernel H (the Mamba-1
+mixer's inner part, and the ``Mamba`` route that reaches it) and kernel P
+(the split SSD probe's core) are held against their plain versions at the
+model's widths;
+the tolerance of C, E, G, H and P is max |err| <= 1e-4 * max(1, max |ref|), since
 their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's.
 Gradients, from B, D, F and the autograd Functions, are
 held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
@@ -49,6 +50,8 @@ from diffma_tpu_torch.ops.fused_ssd import (
     spiral_block_ref,
     spiral_epilogue_cuda,
     spiral_epilogue_ref,
+    ssd_core_cuda,
+    ssd_core_ref,
     ssd_mixer_bwd_ref,
     ssd_mixer_fused_bwd_cuda,
     ssd_mixer_fused_cuda,
@@ -335,12 +338,28 @@ def test_fused_autograd_gives_mixer_weights_their_gradients(cuda):
         _assert_grad_close(got, want, name)
 
 
-def test_fused_backward_rejects_what_is_not_ported(cuda):
-    w = _mixers(cuda, build_scan_spec("spiral", 4, 0), seed=0, count=1)[0].weights()
-    x = _x(cuda, 16, 0)
-    for family, match in (("vim", "vim"), ("eff", "partition")):
-        with pytest.raises(NotImplementedError, match=match):
-            mixer_fused_bwd_cuda(build_scan_spec(family, 4, 0), (x,), (x,), (w,))
+@pytest.mark.parametrize("family,grid_n,batch",
+                         [("vim", 14, 8), ("vim", 5, 2), ("eff", 14, 8), ("eff", 10, 2)])
+def test_fused_mixer_bwd_branches_match_plain(cuda, family, grid_n, batch):
+    """Kernel D's vim branch (196 and 25 tokens) and partition branch (4
+    streams of 49 and of 25 steps, neither a multiple of the checkpoint
+    chunk) against ``mixer_bwd_ref``, every gradient tensor; a dual call
+    with the quirk still raises."""
+    spec = build_scan_spec(family, grid_n, 1)
+    (m,) = _mixers(cuda, spec, seed=grid_n, count=1)
+    L = grid_n * grid_n
+    x, g, w = _x(cuda, L, 40, batch), _x(cuda, L, 41, batch), m.weights()
+    before = mixer_fused_bwd_cuda.launches
+    (gx,), (gw,) = mixer_fused_bwd_cuda(spec, (x,), (g,), (w,))
+    torch.cuda.synchronize()
+    assert mixer_fused_bwd_cuda.launches == before + 1
+    gx_ref, gw_ref = mixer_bwd_ref(spec, x, g, w)
+    _assert_grad_close(gx, gx_ref, "gx")
+    for name, a, b in zip(gw_ref._fields, gw, gw_ref):
+        _assert_grad_close(a, b, name)
+    if family == "vim":
+        with pytest.raises(ValueError, match="vim quirk"):
+            mixer_fused_bwd_cuda(spec, (x, x), (g, g), (w, w))
 
 
 # ---- kernel E (the fused Mamba-2 mixer) and kernel G (the Spiral block's tail)
@@ -610,8 +629,6 @@ def test_fused_ssd_bwd_rejects_what_it_does_not_take(cuda):
         ssd_mixer_fused_bwd_cuda(spec, (x.cpu(),), (x,), (w,), zx)
     with pytest.raises(ValueError, match="headdim"):
         ssd_mixer_fused_bwd_cuda(spec, (x,), (x,), (w._replace(A_log=w.A_log[:8].contiguous()),), zx)
-    with pytest.raises(NotImplementedError, match="partition"):
-        ssd_mixer_fused_bwd_cuda(build_scan_spec("eff", 4, 0), (x,), (x,), (w,), zx)
     big = build_scan_spec("spiral", 16, 0)  # 256 tokens: the adjoint block's staging outgrows an SM
     xb = _x(cuda, 256, 0)
     with torch.no_grad():
@@ -715,29 +732,89 @@ def test_vim_quirk_flips_features_not_tokens(cuda):
     assert (got - standard).abs().max().item() > 1e-2  # the quirk is not the standard merge
 
 
-def test_fused_routes_raise_where_the_backward_has_no_branch(cuda):
-    """Kernel D has no vim or partition branch and kernel F no partition
-    branch: where a gradient is needed the fused route raises and names the
-    route that trains; without one it runs."""
-    for family in ("vim", "eff"):
-        spec = build_scan_spec(family, 4, 0)
-        (m,) = _mixers(cuda, spec, seed=0, count=1)
-        m.scan_impl = "fused"
-        x = _x(cuda, 16, 0)
-        with pytest.raises(NotImplementedError, match="kernel D.*scan_impl: auto"):
-            m.train()(x)
-        with torch.no_grad():
-            assert m(x).shape == x.shape
-        m.scan_impl = "auto"
-        m(x).sum().backward()  # kernels A and B
-        assert m.A_log.grad is not None
-    eff = build_scan_spec("eff", 4, 0)
-    (m2,) = _mixers2(cuda, eff, seed=0, count=1)
-    m2.scan_impl = "fused"
-    with pytest.raises(NotImplementedError, match="kernel F.*scan_impl: auto"):
-        m2.train()(_x(cuda, 16, 0))
+@pytest.mark.parametrize("family,mamba2", [("vim", False), ("eff", False), ("eff", True)])
+def test_fused_routes_train_vim_and_partition(cuda, family, mamba2):
+    """The fused route carries the gradients of the vim and partition specs:
+    one kernel C and one kernel D call (kernels E and F for Mamba-2) per
+    forward and backward, none of kernels A and B, and every gradient is the
+    plain route's."""
+    spec = build_scan_spec(family, 14, 0)
+    (m,) = (_mixers2 if mamba2 else _mixers)(cuda, spec, seed=0, count=1)
+    g = _x(cuda, 196, 1, 2)
+    fwd, bwd = ((ssd_mixer_fused_cuda, ssd_mixer_fused_bwd_cuda) if mamba2
+                else (mixer_fused_cuda, mixer_fused_bwd_cuda))
+    grads = {}
+    for impl in ("fused", "ref"):
+        m.train().zero_grad()
+        m.scan_impl = impl
+        x = _x(cuda, 196, 0, 2).requires_grad_()
+        counts = (fwd.launches, bwd.launches, selective_scan_cuda.launches,
+                  selective_scan_bwd_cuda.launches)
+        m(x).backward(g)
+        step = (fwd.launches, bwd.launches, selective_scan_cuda.launches,
+                selective_scan_bwd_cuda.launches)
+        assert [b - a for a, b in zip(counts, step)] == ([1, 1, 0, 0] if impl == "fused"
+                                                         else [0, 0, 0, 0])
+        grads[impl] = {"x": x.grad, **{k: p.grad for k, p in m.named_parameters()}}
+    for name, want in grads["ref"].items():
+        _assert_grad_close(grads["fused"][name], want, name)
+
+
+@pytest.mark.parametrize("grid_n,batch,dt_limit",
+                         [(14, 8, NO_LIMIT), (10, 2, NO_LIMIT), (4, 2, (0.5, 0.9))])
+def test_fused_ssd_bwd_partition_matches_plain(cuda, grid_n, batch, dt_limit):
+    """Kernel F's partition branch, dual and single, against
+    ``ssd_mixer_bwd_ref``: 4 streams of 49, 25 and 4 steps, every gradient
+    tensor, twice in a row with the same bits."""
+    spec = build_scan_spec("eff", grid_n, 0)
+    mixers = _mixers2(cuda, spec, seed=grid_n + 50)
+    ws = [m.weights() for m in mixers]
+    L = grid_n * grid_n
+    xs = [_x(cuda, L, 90 + i, batch) for i in range(2)]
+    gs = [_x(cuda, L, 95 + i, batch) for i in range(2)]
     with torch.no_grad():
-        assert m2(_x(cuda, 16, 0)).shape == (1, 16, HIDDEN)
+        _, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
+        _, zx1 = ssd_mixer_fused_cuda(spec, xs[1:], ws[1:], dt_limit, want_res=True)
+    want = {}
+    for m in range(2):
+        want.update(_ssd_grads(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
+    for M, res in ((2, zx), (1, zx1)):
+        first = None
+        for _ in range(2):
+            gxs, gws = ssd_mixer_fused_bwd_cuda(spec, xs[2 - M:], gs[2 - M:], ws[2 - M:], res,
+                                                dt_limit)
+            torch.cuda.synchronize()
+            got = {}
+            for m in range(M):
+                got.update(_ssd_grads(gxs[m], gws[m], m + 2 - M))
+            for name, a in got.items():
+                _assert_grad_close(a, want[name], f"M={M} {name}")
+                assert first is None or torch.equal(a, first[name]), name
+            first = got
+
+
+@pytest.mark.parametrize("G,L,M", [(48, 196, 2), (6, 196, 2), (4, 25, 1)])
+def test_ssd_core_matches_plain(cuda, G, L, M):
+    """Kernel P against ``ssd_core_ref`` on G gathered streams of L steps,
+    M weight sets (sequence g takes set g // (G / M))."""
+    spec = build_scan_spec("spiral", 14, 3)
+    ws = [m.weights() for m in _mixers2(cuda, spec, seed=G + L, count=M)]
+    gen = torch.Generator().manual_seed(G)
+    x = torch.randn(G, L, HIDDEN, generator=gen).to(cuda)
+    per = G // M
+    with torch.no_grad():
+        zx = torch.cat([torch.nn.functional.linear(x[m * per:(m + 1) * per], w.in_w)
+                        for m, w in enumerate(ws)])
+        before = ssd_core_cuda.launches
+        got = ssd_core_cuda(zx, ws)
+        want = ssd_core_ref(zx, ws)
+    torch.cuda.synchronize()
+    assert ssd_core_cuda.launches == before + 1
+    _assert_close_to_ref(got, want)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_core_cuda(zx[:G - 1], ws[:1] * 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_core_cuda(zx.cpu(), ws)
 
 
 @pytest.mark.parametrize("grid_n,batch,dt_limit",

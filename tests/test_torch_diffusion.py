@@ -4,7 +4,14 @@ A 10-step respaced DDPM chain is fed JAX's own per-step noise
 (``normal(fold_in(rng, i))``) through ``step_noise``; the DDIM chain (eta 0)
 is deterministic. Latents and, after a small-channel VAE decode, pixels must
 agree to MAE < 1e-3, the JAX package's DDIM pixel bar. The denoiser is the
-small random DiffMa of ``test_torch_model``, with JAX's plain scan.
+small random DiffMa of ``test_torch_model``, with JAX's plain scan, and its
+output head drawn at a tenth of the other weights' scale, so that its epsilon
+and variance outputs stay near unit size, as a trained model's do. A random
+denoiser does not predict the noise, so the chain's latents still end near
+x_T / sqrt(alphabar_T), about 156 times the start (mean |latent| about 130):
+the chain multiplies the model's fp32 rounding by up to that gain. With the
+head at full scale (outputs about 3) the DDPM latents' MAE sat at about 1e-3,
+so the bar asked for rounding luck; with the smaller head it is about 1e-4.
 """
 
 import jax
@@ -26,6 +33,7 @@ from test_torch_model import HIDDEN, INPUT, _inputs, randomize
 
 VAE_KW = dict(ch=32, ch_mult=(1, 1))
 STEPS = 10
+HEAD_SCALE = 0.1  # keeps the random denoiser's outputs near unit size
 
 
 @pytest.mark.parametrize("spacing", ["10", "250", "ddim25", "5,3", ""])
@@ -51,6 +59,8 @@ def pair():
     jmodel = jax_build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, scan_impl="ref")
     x, t, y, y2, w = map(jnp.asarray, _inputs(1))
     mparams = randomize(jax.jit(jmodel.init)(jax.random.PRNGKey(0), x, t, y, y2, w)["params"], 1)
+    head = mparams["final_layer"]["linear"]
+    mparams["final_layer"]["linear"] = {k: HEAD_SCALE * v for k, v in head.items()}
     model = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN)
     model.load_state_dict(diffma_params_from_jax(mparams, depth=model.depth), strict=True)
 

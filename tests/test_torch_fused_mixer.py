@@ -147,32 +147,35 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_what_is_not_ported_raises():
-    """The forward takes every registry spec now. What still raises is the
-    backward kernel D on a vim or partition spec (its branches are not ported:
-    the error names kernel D and the route that trains), a dual call with the
-    vim quirk, and a spec that is neither full-length nor an exact partition
-    (it goes through ``mamba_inner_fused``, not through kernel C)."""
+    """Every registry spec runs through kernels C and D now: the backward
+    takes the vim quirk and the partition (on CPU tensors it gets past the
+    spec checks and refuses only the device), and the fused route carries
+    their gradients. What still raises is a dual call with the vim quirk,
+    and a spec that is neither full-length nor an exact partition (it goes
+    through ``mamba_inner_fused``, not through kernels C and D)."""
     w = _torch_weights(_weights(0))
     x = torch.from_numpy(_x(16, 0))
     vim, eff = build_scan_spec("vim", 4, 0), build_scan_spec("eff", 4, 0)
     for spec in (vim, eff):
         assert fused_mixer.mamba_mixer_fused(spec, x, w).shape == x.shape
-        assert not fused_mixer._has_bwd_kernel(spec)
-        with pytest.raises(NotImplementedError, match="kernel D.*scan_impl: auto"):
-            fused_mixer._check_spec_bwd(spec)
-        with pytest.raises(NotImplementedError, match="kernel D"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
             fused_mixer.mixer_fused_bwd_cuda(spec, (x,), (x,), (w,))
+        xg = x.clone().requires_grad_()
+        fused_mixer.mamba_mixer_fused(spec, xg, w).sum().backward()
+        assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
     assert Mamba(32, vim, scan_impl="fused").spec is vim
     assert Mamba(32, eff, d_state=8, scan_impl="fused")(x).shape == x.shape
     with pytest.raises(ValueError, match="vim quirk"):
         fused_mixer.mamba_dual_mixer_fused(vim, x, x, w, w)
-    for family in ("spiral", "zig", "vmamba"):
-        assert fused_mixer._has_bwd_kernel(build_scan_spec(family, 4, 0))
+    with pytest.raises(ValueError, match="vim quirk"):
+        fused_mixer.mixer_fused_bwd_cuda(vim, (x, x), (x, x), (w, w))
     doubled = ScanSpec(fwd=np.concatenate([eff.fwd, eff.fwd[:, ::-1]]),
                        merge=_build_merge_table(np.concatenate([eff.fwd, eff.fwd[:, ::-1]]), 16),
                        scale=0.5)
     with pytest.raises(NotImplementedError, match="mamba_inner_fused"):
         fused_mixer.mamba_mixer_fused(doubled, x, w)
+    with pytest.raises(NotImplementedError, match="mamba_inner_fused"):
+        fused_mixer.mixer_fused_bwd_cuda(doubled, (x,), (x,), (w,))
 
 
 def test_unknown_scan_impl_raises():

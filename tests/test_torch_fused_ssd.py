@@ -441,10 +441,12 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_what_is_not_ported_raises():
-    """Kernel E takes partition specs (EfficientVMamba's atrous streams) now,
-    so the fused entry points run them; what still raises is the backward
-    kernel F and prologue mode on a partition spec (the error names kernel F
-    and the route that trains)."""
+    """Kernels E and F take partition specs (EfficientVMamba's atrous
+    streams): the fused entry points run them forward and carry their
+    gradients, and the backward kernel gets past the spec checks on CPU
+    tensors (it refuses only the device). What still raises is prologue
+    mode on a partition spec (the whole Spiral block's specs are
+    full-length), and shapes the kernels are not built for."""
     eff = build_scan_spec("eff", 4, 0)
     x, w = torch.from_numpy(_x(16, 0)), _torch_weights(_weights(0))
     want = _jax_single(jax_spec("eff", 4, 0), x.numpy(), _weights(0))
@@ -453,12 +455,29 @@ def test_what_is_not_ported_raises():
                 fused_ssd.ssd_mixer_ref(eff, x, w)):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     assert Mamba2(32, eff, d_state=8, headdim=16, scan_impl="fused")(x).shape == x.shape
-    with pytest.raises(NotImplementedError, match="kernel F.*scan_impl: auto"):
-        fused_ssd._check_spec_bwd(eff)
-    with pytest.raises(NotImplementedError, match="kernel F"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         fused_ssd.ssd_mixer_fused_bwd_cuda(eff, (x,), (x,), (w,), torch.zeros(1, 32, 148))
-    fused_ssd._check_spec_bwd(build_scan_spec("vim", 4, 0))  # Mamba-2's vim spec trains
+    xg = x.clone().requires_grad_()
+    fused_ssd.mamba2_mixer_fused(eff, xg, w).sum().backward()
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+    with pytest.raises(NotImplementedError, match="prologue mode"):
+        fused_ssd._check_spec_prologue(eff)
+    fused_ssd._check_spec_prologue(build_scan_spec("vim", 4, 0))  # full-length
     with pytest.raises(ValueError, match="headdim"):
         Mamba2(40, eff)
     with pytest.raises(ValueError, match="ngroups"):
         Mamba2(32, eff, ngroups=3, headdim=16)
+
+
+@pytest.mark.parametrize("grid_n", [4, 6])
+def test_bwd_ref_matches_jax_backward_kernel_on_the_partition(grid_n):
+    """Kernel F's partition branch, plain: ``ssd_mixer_bwd_ref`` on
+    EfficientVMamba's four atrous streams (4 and 9 steps each) against JAX's
+    ``_ssd_bwd_kernel`` (its partition rows) in interpret mode, through
+    ``mamba2_mixer_fused``'s custom VJP."""
+    spec_j, spec_t = jax_spec("eff", grid_n, 0), build_scan_spec("eff", grid_n, 0)
+    L = grid_n * grid_n
+    x, g, w = _x(L, grid_n + 140), _x(L, grid_n + 141), _weights(grid_n + 142)
+    fused = lambda spec, x, *ws: jax_fused.mamba2_mixer_fused(  # noqa: E731
+        spec, x, *ws, NO_LIMIT, 1e-5, 256)
+    _assert_bwd_ref(spec_t, x, g, w, NO_LIMIT, _jax_mixer_grads(spec_j, x, g, w, fused))
