@@ -1413,6 +1413,20 @@ def phase_ssd_core(card: str) -> dict:
     x12, ws = probe.inputs(8, seed=8, device="cuda")
     with torch.no_grad():
         zxs = probe.gathered_streams(x12, ws)
+        # The probe holds D and norm_w at one on both branches: draw them off
+        # one, and different per branch, so that the D skip and each
+        # branch's choice of weights show in the comparison.
+        gen = torch.Generator(device="cuda").manual_seed(80)
+        ws_off = tuple(w._replace(D=1.0 + 0.5 * torch.randn(w.D.shape, generator=gen, device="cuda"),
+                                  norm_w=1.0 + 0.5 * torch.randn(w.norm_w.shape, generator=gen,
+                                                                 device="cuda"))
+                       for w in ws)
+        want = ssd_core_ref(zxs, ws_off)
+        off_err = close_to_ref(f"kernel P, zx {tuple(zxs.shape)}, D and norm_w random per branch",
+                               ssd_core_cuda(zxs, ws_off), want)
+        print(f"  zx {tuple(zxs.shape)}, D and norm_w drawn off one per branch: kernel P max|err| "
+              f"{off_err:.3e} (tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
+        path_err = max(path_err, off_err)
         ms = cuda_ms(lambda: ssd_core_cuda(zxs, ws), reps=50)
         plain_ms = cuda_ms(lambda: ssd_core_ref(zxs, ws), reps=10)
         e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws), reps=20)
@@ -1450,10 +1464,9 @@ def phase_split_probe(card: str) -> int:
           "batch 8, 50 chained calls of each form", flush=True)
     probe = load_split_probe()
     zero = {name: 0 for name in kernel_counters()}
-    chain = 50
     reset_counts()
-    out = probe.main(["--batch", "8", "--chain", str(chain)])
-    calls = chain + 2  # the comparison call, the warm-up, the chain
+    out = probe.main(["--batch", "8"])
+    calls = probe.CHAIN + 2  # the comparison call, the warm-up, the chain
     counts = check_counts("the split probe", {**zero, "ssd_mixer_fwd": calls,
                                               "ssd_core_fwd": calls})
     bar = TOL_MODEL * max(1.0, out["max_abs_ref"])

@@ -2,7 +2,7 @@
 """A/B on the card: the whole Mamba-2 dual mixer (kernel E) against its
 'split' form, whose core alone is a kernel (kernel P).
 
-    python tools/probes/probe_split_ssd_torch.py [--batch 8] [--seed 0] [--chain 50]
+    python tools/probes/probe_split_ssd_torch.py [--batch 8] [--seed 0]
     python tools/probes/probe_split_ssd_torch.py --device cpu --batch 1
 
 The port's counterpart of ``tools/probes/probe_split_ssd.py``. The split form
@@ -15,7 +15,7 @@ grid 14, layer 3 (non-identity orders), DiffMa's width (hidden 512, d_inner
 1024, 16 heads of 64, d_state 16), both branches, with weights drawn as the
 JAX probe's ``make_weights`` draws them, from a ``torch.Generator`` seeded
 with ``--seed``. It prints the two forms' largest difference and, on the
-card, ms per dual-mixer call over ``--chain`` chained calls of each.
+card, ms per dual-mixer call over ``CHAIN`` chained calls of each.
 
 On the CPU (``--device cpu``) both forms take their plain versions, and no
 time is printed.
@@ -50,6 +50,7 @@ CONV_DIM = D_INNER + 2 * D_STATE
 DPROJ = 2 * D_INNER + 2 * D_STATE + HEADS
 EPS = 1e-5
 SPEC = build_scan_spec("spiral", GRID, LAYER)
+CHAIN = 50  # chained calls per timing, as the JAX probe's N_CHAIN
 
 
 def make_weights(seed: int, device) -> Tuple[torch.Tensor, ...]:
@@ -135,7 +136,6 @@ def main(argv=None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--chain", type=int, default=50, help="chained calls per timing")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -153,7 +153,7 @@ def main(argv=None) -> Dict[str, float]:
             for name, fn in (("whole_ms", lambda x: whole_dual(x, ws)),
                              ("split_ms", lambda x: split_dual(x, ws))):
                 fn(x12)  # warm-up
-                out[name] = chained_ms(fn, x12, args.chain)
+                out[name] = chained_ms(fn, x12, CHAIN)
             print(f"  [{torch.cuda.get_device_name(0)}] chained dual-mixer: whole (kernel E) "
                   f"{out['whole_ms']:.4f} ms  split (in_proj, gathers, kernel P, merge, "
                   f"out_proj) {out['split_ms']:.4f} ms  ({out['whole_ms'] / out['split_ms']:.2f}x)")
