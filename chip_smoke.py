@@ -116,9 +116,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, and fp32 outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, fp32 outside the tensor cores,
+# and TF32 on them (dense). Kernels C and D do their products in 3xTF32, three
+# TF32 products for each, so at a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 # The kernel's stated tolerances against its plain version.
 TOL_FP32 = 1e-4  # rtol = atol; fp32 sums in another order than the plain loop
@@ -212,7 +215,7 @@ def phase_build():
     for name, res in cuda_build.build_all().items():
         print(f"built {os.path.relpath(res.path, ROOT)} in {res.seconds:.2f} s")
         for line in res.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  {line.strip()}")
         cuda_build.load(name)
 
@@ -411,26 +414,82 @@ def random_(module, seed: int, scale: float = 0.1):
     return module
 
 
-def mixer_bound_ms(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[float, str]:
-    """Least time for one fused-mixer call of M branches on an H100: the
-    weights, x, out and index tables moved once over the HBM rate, or the
-    operations (in_proj, conv, x_proj, dt_proj, scan, out_proj) over fp32.
-    ``Ls`` is the steps per stream (L unless the streams partition the
-    tokens); the vim quirk runs out_proj once per stream."""
+def mixer_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int, int, int]:
+    """One fused-mixer call of M branches: the operations of its products
+    (in_proj, x_proj, dt_proj, out_proj), its other operations (conv, scan,
+    D skip, gate) and the bytes that must move (the weights, x, out and the
+    index tables, once). ``Ls`` is the steps per stream (L unless the
+    streams partition the tokens); the vim quirk runs out_proj once per
+    stream."""
     Ls = L if Ls is None else Ls
     tokens, rows = B * L, B * S * Ls
-    ops = M * (
+    products = M * (
         2 * tokens * h * 2 * d  # in_proj
-        + rows * d * 2 * K  # conv
         + 2 * rows * d * (r + 2 * n)  # x_proj
         + 2 * rows * r * d  # dt_proj
-        + rows * d * (6 * n + 8)  # scan, D skip, gate
         + 2 * tokens * d * h * (S if quirk else 1)  # out_proj
     )
+    other = M * (rows * d * 2 * K + rows * d * (6 * n + 8))  # conv; scan, D skip, gate
     weights = 2 * d * h + d * K + d + (r + 2 * n) * d + d * r + d + d * n + d + h * d
     nbytes = M * 4 * (weights + 2 * tokens * h) + 2 * S * Ls * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return products, other, nbytes
+
+
+def bound_from(products, other, nbytes, product_flops=FP32_FLOPS) -> tuple[float, str]:
+    """The larger of the bytes over the HBM rate and the operations over
+    their rates (products at ``product_flops``, the rest at fp32), in ms."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products / product_flops + other / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mixer_bound_ms(*args, **kw) -> tuple[float, str]:
+    """Least time for one fused-mixer call of M branches on an H100 in the
+    arithmetic kernel C does it in: the products at the 3xTF32 rate,
+    TF32_FLOPS / 3, the rest at fp32 (``mixer_work``'s arguments)."""
+    return bound_from(*mixer_work(*args, **kw), product_flops=TF32_FLOPS / 3)
+
+
+def mixer_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate, as the products ran
+    before they moved to the tensor cores."""
+    return bound_from(*mixer_work(*args, **kw))
+
+
+# Kernels C's and D's device kernels by stage: (label, regular expression on
+# the profiler's kernel name). The products are gemm_tc.cuh's instances, named
+# by their stage class.
+MIXER_STAGES = (
+    ("in_proj", r"\bInProj\b"), ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
+    ("scan", r"\bscan_kernel\b"), ("merge + out_proj", r"merge_kernel|\bOutProj\b|flip_cat"),
+    ("split sums", r"sum_splits"),
+)
+MIXER_BWD_STAGES = (
+    ("in_proj", r"\bInProj\b"), ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
+    ("g W_out", r"\bGradOutProj\b"), ("scan adjoint", r"scan_bwd_kernel"),
+    ("reduce_bc", r"reduce_bc"), ("d dt_r", r"\bGradDtRank\b"), ("dW_x", r"\bGradXProjW\b"),
+    ("dW_dt", r"\bGradDtW\b"), ("dpre", r"\bGradPre\b"), ("conv adjoints", r"grad_xz|grad_conv"),
+    ("gx", r"\bGradX\b"), ("dW_in", r"\bGradInW\b"), ("dW_out", r"GradOutW|fold_out_w|merge_y"),
+    ("split sums", r"sum_splits"), ("finalize", r"finalize"),
+)
+
+
+def stage_table(fn, stages, calls: int = 10) -> dict:
+    """Device ms per call of ``fn`` by stage, from torch.profiler's kernel
+    table over ``calls`` calls (after one warm-up): each stage's kernels,
+    ``other`` for kernels no stage names, and ``total``."""
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    kernels = profile_calls(fn, calls=calls, top=1000)["top_kernels_ms_per_call"]
+    table = {label: sum(ms for name, ms in kernels.items() if re.search(pattern, name))
+             for label, pattern in stages}
+    table["other"] = sum(kernels.values()) - sum(table.values())
+    table["total"] = sum(kernels.values())
+    return table
+
+
+def stage_line(table: dict) -> str:
+    return ", ".join(f"{label} {ms:.4f}" for label, ms in table.items() if ms > 0 or label == "total")
 
 
 def phase_fused_mixer(card: str) -> dict:
@@ -484,10 +543,23 @@ def phase_fused_mixer(card: str) -> dict:
         plain_ms = cuda_ms(lambda: (mixer_ref(spec, x0, w0), mixer_ref(spec, x1, w1)), reps=5)
         m0.scan_impl = m1.scan_impl = "pallas"
         pair_ms = cuda_ms(lambda: (m0(x0), m1(x1)), reps=50)
-    bound_ms, bound_by = mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, r=32, S=3, K=4)
-    print(f"  [{card}] mixer_fused_fwd fp32, both branches, B=1 L=196 h=512 d=1024: "
+        stages = stage_table(lambda: mamba_dual_mixer_fused(spec, x0, x1, w0, w1), MIXER_STAGES)
+        x8 = [torch.randn(8, 196, h, generator=gen).cuda() for _ in range(2)]
+        ms8 = cuda_ms(lambda: mamba_dual_mixer_fused(spec, *x8, w0, w1), reps=20)
+        stages8 = stage_table(lambda: mamba_dual_mixer_fused(spec, *x8, w0, w1), MIXER_STAGES)
+    dims = dict(h=h, d=1024, n=16, r=32, S=3, K=4)
+    bound_ms, bound_by = mixer_bound_ms(M=2, B=1, L=196, **dims)
+    fp32_ms, fp32_by = mixer_bound_fp32_ms(M=2, B=1, L=196, **dims)
+    print(f"  [{card}] mixer_fused_fwd, both branches, B=1 L=196 h=512 d=1024: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by})")
+          f"({bound_by}, products at the 3xTF32 rate); all at fp32 {fp32_ms * 1e3:.2f} us "
+          f"({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler), B=1: {stage_line(stages)}")
+    bound8, by8 = mixer_bound_ms(M=2, B=8, L=196, **dims)
+    fp32_8, fp32_by8 = mixer_bound_fp32_ms(M=2, B=8, L=196, **dims)
+    print(f"  [{card}] mixer_fused_fwd, both branches, B=8 L=196: kernel {ms8:.4f} ms, bound "
+          f"{bound8 * 1e3:.2f} us ({by8}, 3xTF32); all at fp32 {fp32_8 * 1e3:.2f} us ({fp32_by8})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler), B=8: {stage_line(stages8)}")
     print("  library_ms: none; no single PyTorch call computes the whole mixer")
     print(f"  [{card}] yardstick: the composable pair (two Mamba.forward through kernel A, "
           f"same weights) {pair_ms:.4f} ms")
@@ -501,39 +573,53 @@ def phase_fused_mixer(card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fp32_ms": fp32_ms,
         "library_ms": None,
+        "stages_ms": stages,
+        "b8": {"ms": ms8, "bound_ms": bound8, "bound_fp32_ms": fp32_8, "stages_ms": stages8},
     }
 
 
-def mixer_bwd_bound_ms(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[float, str]:
-    """Least time for one fused-mixer backward of M branches on an H100: the
-    weights, x and g read once, gx and the weight gradients written once,
-    over the HBM rate; or the operations over the fp32 rate: the forward as
-    far as the backward needs it, once (in_proj, conv, x_proj, dt_proj, the
-    scan; not out_proj), and the backward, two products per projection (the
-    input's and the weight's gradient), the conv's two adjoints, and the
-    scan's adjoint (17 per state and step, 12 per channel and step). ``Ls``
-    is the steps per stream (L unless the streams partition the tokens); the
-    vim quirk's out_proj is one product per stream."""
+def mixer_bwd_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int, int, int]:
+    """One fused-mixer backward of M branches: the operations of its products,
+    its other operations and the bytes that must move. The forward as far as
+    the backward needs it, once (in_proj, x_proj, dt_proj; conv, scan; not
+    out_proj); the backward: two products per projection (the input's and the
+    weight's gradient), the conv's two adjoints and the scan's adjoint (17 per
+    state and step, 12 per channel and step). Bytes: the weights, x and g
+    read once, gx and the weight gradients written once. ``Ls`` is the steps
+    per stream (L unless the streams partition the tokens); the vim quirk's
+    out_proj is one product per stream."""
     Ls = L if Ls is None else Ls
     tokens, rows = B * L, B * S * Ls
     r2n = r + 2 * n
-    fwd_ops = M * (
-        2 * tokens * h * 2 * d + rows * d * 2 * K + 2 * rows * d * r2n + 2 * rows * r * d
-        + rows * d * (6 * n + 8)
-    )
-    bwd_ops = M * (
-        2 * 2 * tokens * d * h * (S if quirk else 1)  # g W_out, dW_out
-        + rows * d * (17 * n + 12)  # the scan's adjoint
+    products = M * (
+        2 * tokens * h * 2 * d + 2 * rows * d * r2n + 2 * rows * r * d  # the forward's
+        + 2 * 2 * tokens * d * h * (S if quirk else 1)  # g W_out, dW_out
         + 2 * 2 * rows * r * d  # d dt_r, dW_dt
         + 2 * 2 * rows * r2n * d  # dpre's product, dW_x
-        + 2 * 2 * rows * d * K  # the conv's input and weight adjoints
         + 2 * 2 * tokens * 2 * d * h  # gx, dW_in
+    )
+    other = M * (
+        rows * d * 2 * K + rows * d * (6 * n + 8)  # the forward's conv and scan
+        + rows * d * (17 * n + 12)  # the scan's adjoint
+        + 2 * 2 * rows * d * K  # the conv's input and weight adjoints
     )
     weights = 2 * d * h + d * K + d + r2n * d + d * r + d + d * n + d + h * d
     nbytes = M * 4 * (2 * weights + 3 * tokens * h) + 2 * S * Ls * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, (fwd_ops + bwd_ops) / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, nbytes
+
+
+def mixer_bwd_bound_ms(*args, **kw) -> tuple[float, str]:
+    """Least time for one fused-mixer backward on an H100 as kernel D does it:
+    the products at the 3xTF32 rate, the rest at fp32 (``mixer_bwd_work``'s
+    arguments)."""
+    return bound_from(*mixer_bwd_work(*args, **kw), product_flops=TF32_FLOPS / 3)
+
+
+def mixer_bwd_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate."""
+    return bound_from(*mixer_bwd_work(*args, **kw))
 
 
 def phase_mixer_bwd(card: str) -> dict:
@@ -592,11 +678,15 @@ def phase_mixer_bwd(card: str) -> dict:
     outs = [m(x) for m, x in zip(mixers, leaves)]
     inputs = leaves + [p for m in mixers for p in m.parameters()]
     pair_ms = cuda_ms(lambda: torch.autograd.grad(outs, inputs, gs, retain_graph=True), reps=10)
-    bound_ms, bound_by = mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, r=32, S=3,
-                                            K=4)
-    print(f"  [{card}] mixer_fused_bwd fp32, both branches, B={batch} L=196 h=512 d=1024: "
+    stages = stage_table(lambda: mixer_fused_bwd_cuda(spec, xs, gs, ws), MIXER_BWD_STAGES)
+    dims = dict(M=2, B=batch, L=196, h=h, d=1024, n=16, r=32, S=3, K=4)
+    bound_ms, bound_by = mixer_bwd_bound_ms(**dims)
+    fp32_ms, fp32_by = mixer_bwd_bound_fp32_ms(**dims)
+    print(f"  [{card}] mixer_fused_bwd, both branches, B={batch} L=196 h=512 d=1024: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by})")
+          f"({bound_by}, products at the 3xTF32 rate); all at fp32 {fp32_ms * 1e3:.2f} us "
+          f"({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): {stage_line(stages)}")
     print("  library_ms: none; no single PyTorch call computes the whole mixer's backward")
     print(f"  [{card}] yardstick: the composable pair's backward (autograd through kernels "
           f"A and B, same weights) {pair_ms:.4f} ms")
@@ -610,7 +700,9 @@ def phase_mixer_bwd(card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fp32_ms": fp32_ms,
         "library_ms": None,
+        "stages_ms": stages,
     }
 
 
@@ -1130,12 +1222,13 @@ def phase_mamba_inner(card: str) -> dict:
         spec = build_scan_spec("spiral", 14, 0)
         m = random_(Mamba(512, spec), 404).cuda()
         x = torch.randn(1, 196, 512, generator=torch.Generator().manual_seed(405)).cuda()
-        c_prof = profile_calls(lambda: mamba_mixer_fused(spec, x, m.weights()), calls=20)
+        c_prof = profile_calls(lambda: mamba_mixer_fused(spec, x, m.weights()), calls=20, top=30)
     print(f"  [{card}] device ms per call by stage (torch.profiler, G=3 L=196): kernel H conv + "
           f"x_proj {stage_ms(h_prof, 'ConvXProj'):.4f}, scan {stage_ms(h_prof, 'scan_kernel'):.4f}; "
-          f"kernel C (one mixer, 3 streams) conv + x_proj {stage_ms(c_prof, 'ConvXProj'):.4f}, scan "
+          f"kernel C (one mixer, 3 streams) conv + x_proj "
+          f"{stage_ms(c_prof, 'conv_kernel') + stage_ms(c_prof, 'XProj'):.4f}, scan "
           f"{stage_ms(c_prof, 'scan_kernel'):.4f}, in_proj {stage_ms(c_prof, 'InProj'):.4f}, "
-          f"merge + out_proj {stage_ms(c_prof, 'MergeOutProj'):.4f}")
+          f"merge + out_proj {stage_ms(c_prof, 'merge_kernel') + stage_ms(c_prof, 'OutProj'):.4f}")
     print("  library_ms: none; no single PyTorch call computes the mixer's inner part")
     ms, plain_ms, bound_ms, bound_by = times[8, 49]
     return {
@@ -1167,7 +1260,9 @@ def phase_mixer_families(card: str) -> dict:
     times = {}
     for family, batches in (("vim", (1, 8)), ("efficientVMamba", (1, 8)), ("zig", (1,)),
                             ("vmamba", (1,))):
-        for grid_n in (14, 4):  # 196 tokens, and 16 (streams of 4 steps in the partition)
+        # 196 tokens, 25 (the partition: 100 tokens, streams of 25 steps) and 16 (the
+        # partition's streams of 4 steps)
+        for grid_n in (14, 10 if family == "efficientVMamba" else 5, 4):
             spec = build_scan_spec(family, grid_n, 1)
             L = grid_n * grid_n
             S, Ls = spec.fwd.shape
@@ -1187,11 +1282,17 @@ def phase_mixer_families(card: str) -> dict:
         with torch.no_grad():
             ms = cuda_ms(lambda: mamba_mixer_fused(spec, x, m.weights()), reps=50)
             plain_ms = cuda_ms(lambda: mixer_ref(spec, x, m.weights()), reps=5)
-        bound_ms, bound_by = mixer_bound_ms(M=1, B=1, L=196, h=h, d=1024, n=16, r=32, S=S, K=4,
-                                            Ls=Ls, quirk=spec.mamba1_vim_quirk)
-        times[family] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
-        print(f"  [{card}] mixer_fused_fwd fp32, one mixer, {family} (S={S}, Ls={Ls}), B=1 L=196: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            stages = stage_table(lambda: mamba_mixer_fused(spec, x, m.weights()), MIXER_STAGES)
+        dims = dict(M=1, B=1, L=196, h=h, d=1024, n=16, r=32, S=S, K=4, Ls=Ls,
+                    quirk=spec.mamba1_vim_quirk)
+        bound_ms, bound_by = mixer_bound_ms(**dims)
+        fp32_ms, fp32_by = mixer_bound_fp32_ms(**dims)
+        times[family] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_fp32_ms": fp32_ms, "stages_ms": stages}
+        print(f"  [{card}] mixer_fused_fwd, one mixer, {family} (S={S}, Ls={Ls}), B=1 L=196: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}, 3xTF32); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+        print(f"  [{card}] device ms per call by stage: {stage_line(stages)}")
     return times
 
 
@@ -1283,13 +1384,18 @@ def phase_mixer_bwd_branches(card: str) -> dict:
         w = m.weights()
         ms = cuda_ms(lambda: mixer_fused_bwd_cuda(spec, (x,), (g,), (w,)), reps=10)
         plain_ms = cuda_ms(lambda: mixer_bwd_ref(spec, x, g, w), reps=5)
-        bound_ms, bound_by = mixer_bwd_bound_ms(M=1, B=batch, L=196, h=h, d=1024, n=16, r=32, S=S,
-                                                K=4, Ls=Ls, quirk=spec.mamba1_vim_quirk)
+        stages = stage_table(lambda: mixer_fused_bwd_cuda(spec, (x,), (g,), (w,)), MIXER_BWD_STAGES)
+        dims = dict(M=1, B=batch, L=196, h=h, d=1024, n=16, r=32, S=S, K=4, Ls=Ls,
+                    quirk=spec.mamba1_vim_quirk)
+        bound_ms, bound_by = mixer_bwd_bound_ms(**dims)
+        fp32_ms, fp32_by = mixer_bwd_bound_fp32_ms(**dims)
         times[branch] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "max_abs_err": path_err}
-        print(f"  [{card}] mixer_fused_bwd fp32, one mixer, {branch} (S={S}, Ls={Ls}), B={batch} "
+                         "bound_by": bound_by, "bound_fp32_ms": fp32_ms, "max_abs_err": path_err,
+                         "stages_ms": stages}
+        print(f"  [{card}] mixer_fused_bwd, one mixer, {branch} (S={S}, Ls={Ls}), B={batch} "
               f"L=196: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-              f"({bound_by})")
+              f"({bound_by}, 3xTF32); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+        print(f"  [{card}] device ms per call by stage: {stage_line(stages)}")
     return times
 
 

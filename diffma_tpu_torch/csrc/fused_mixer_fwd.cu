@@ -3,9 +3,9 @@
 // merge and out_proj, for one or two mixers (the Spiral block's two branches)
 // in one call.
 //
-// Replaces the TPU kernel diffma_tpu/ops/fused_mixer.py::_mixer_kernel, as
-// its launchers _fwd_impl (one mixer) and _dual_fwd_impl (both branches of a
-// dual block) drive it. Per branch m and batch element b, with x (L, h),
+// Replaces the TPU kernel diffma_tpu/ops/fused_mixer.py:104 (_mixer_kernel),
+// as its launchers _fwd_impl (one mixer) and _dual_fwd_impl (both branches of
+// a dual block) drive it. Per branch m and batch element b, with x (L, h),
 // d = d_inner, n = d_state = 16, r = dt_rank <= 32, K = 4 taps, S streams of
 // Ls steps each:
 //
@@ -32,63 +32,100 @@
 //     out[t, j] = scale * (sum_c y_0[t, c] W[j, c] + sum_c y_1[t, c] W[h-1-j, c])
 //   with y_s[t] the stream's step t (for the reverse stream, token L-1-t).
 //
-// Everything is fp32, on the CUDA cores (no TF32), so that the kernel agrees
-// with its plain PyTorch version to fp32 rounding.
+// Arithmetic. The four products (in_proj, x_proj, dt_proj, out_proj) run on
+// the tensor cores in 3xTF32 (gemm_tc.cuh): each operand split once into a
+// TF32 high part and a TF32 remainder, three products summed in fp32, which
+// keeps about 22 bits of each operand and meets the 1e-4 bar against the
+// plain fp32 version at depths 32 to 2048. The conv, the scan and the gate
+// are fp32 on the CUDA cores.
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s).
-// At the DiffMa-B/2 sampler's shapes (batch 1, L = 196, h = 512, d = 1024,
-// r = 32, S = 3), one branch does 0.80 GFLOP: in_proj 411 M, x_proj 77 M,
-// dt_proj 39 M, the scan 63 M, out_proj 206 M, the conv 5 M. Both branches
-// take 1.60 GFLOP, 24 us at the fp32 rate. The bytes that must move are the
-// weights (6.8 MB per branch) and x and out (0.8 MB per branch), 15.2 MB or
-// 4.5 us. So operations bound it, at about 24 us per call. At batch 1 the
-// scan's 196-step chain, whose steps depend on each other, will take longer
-// than that (kernel A, the same recurrence, takes 0.145 ms).
+// Bound on an H100 SXM (495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s fp32
+// outside them, 3.35 TB/s). At the DiffMa-B/2 sampler's shapes (batch 1,
+// L = 196, h = 512, d = 1024, r = 32, S = 3), both branches do 1.5 GFLOP of
+// products (in_proj 0.82, out_proj 0.41, x_proj 0.15, dt_proj 0.08): 9.4 us
+// at the 3xTF32 rate (495 / 3); the scan's 0.13 GFLOP, 1.9 us at the fp32
+// rate; 15.2 MB of weights, x and out, 4.5 us. The scan's chain of 196
+// dependent steps is what the design has to break up at this size: 192 warps
+// of chains, one per 32 channels of a stream, leave most of the 132 SMs idle.
 //
-// Design, simple and right first. One call launches four kernels on the
-// stream (five with the vim quirk), with the intermediates in a workspace
-// the caller allocates (mixer_fused_workspace_floats); at batch 1 it is 13 MB
-// and stays in L2. blockIdx.z selects the branch in every kernel, so both
-// branches share each launch.
-// 1. in_proj: the tiled GEMM of gemm_nt.cuh (64 x 64 tiles, 16-deep k-slabs
-//    in shared memory, a 4 x 4 register tile per thread, the next slab loaded
-//    into registers during the products) over the B * L token rows; the
-//    ragged edge of L is masked. 4 x 32 tiles per branch at batch 1.
-//    Each thread resolves its tile rows into pointers once, before the
-//    k-loop, so the loop's loads need no index arithmetic, and no load in a
-//    loader waits on another: a chain of dependent loads outlasts the
-//    products that the next slab's loads should hide behind.
-// 2. conv + x_proj and 3. the scan: mixer_core.cuh, which kernel H
-//    (fused_mamba_fwd.cu) shares. The scan writes y at the step's token
-//    index: per stream for full-length specs (each stream is a permutation,
-//    so no two writes meet), into one row per token for a partition.
-// 4. merge + out_proj: the GEMM, whose A-tile loader sums the S streams'
-//    rows of each token, in stream order, times scale (a partition has one
-//    row per token). 32-row tiles. With the vim quirk the loader reads the
-//    2d-wide row [y_0 at step t | y_1 at step t] instead, against the weight
-//    [W | flip_h(W)] (h, 2d), which a small kernel writes into the workspace
-//    first.
+// Design. One call launches seven kernels on the stream (up to two more that
+// sum split depths, one more with the vim quirk), with the intermediates in
+// a workspace the caller allocates (mixer_fused_workspace_floats);
+// blockIdx.z selects the branch in every kernel, so both branches share each
+// launch.
+// 1. in_proj: gemm_tc.cuh over the B * L token rows, 64 x 128 tiles, or
+//    64 x 64 when those would leave SMs idle (batch 1: 256 blocks for two
+//    branches instead of 128). A split of its depth h, as x_proj's and
+//    out_proj's, ran slower at batch 1 (512 blocks: more than the SMs hold
+//    at once, and the partials' pass).
+// 2. conv + SiLU (conv_kernel: the 4 taps of each stream step gathered from
+//    xz through the stream table), then x_proj: gemm_tc.cuh on u. The depth
+//    d is split over blocks when the rows are few (at batch 1: 20 tiles, 8
+//    splits), and a fixed-order pass sums the splits.
+// 3. dt_proj: gemm_tc.cuh, softplus in its store, so the scan reads dt and
+//    runs no dot product in its chain (inside the chain, as before, the scan
+//    took 0.086 ms at batch 1 against 0.049 plus the product's 0.016).
+// 4. the scan, chunked: a block is 32 channels of one stream, its warps
+//    chunks of the stream's steps (as many as keep about eight warps per SM
+//    in all; one at the training batch). Each warp but the last runs its
+//    chunk from a zero state and keeps the chunk's end state and its sum of
+//    dt; after one barrier each warp folds the chunks before it, pairwise and
+//    in order, h = exp(A sum dt) h + h_chunk (a product of decays, never a
+//    quotient, so a wide span underflows to 0 and stays finite), and runs its
+//    chunk again from that entry state, writing y at the step's token row.
+//    Each warp stages 16 steps of B, C and the token index in shared memory
+//    (sized by the chunk count, so that one-warp blocks at the training
+//    batch fit many to an SM) and loads its lanes' 16 values of dt, u and z
+//    at once, so no step of the chain waits on device memory. This is the
+//    associative form of diffma_tpu/ops/selective_scan.py::
+//    selective_scan_assoc, with one level of chunks.
+// 5. merge (merge_kernel: each token's S stream rows summed in stream order,
+//    times scale; a partition has one row per token), then out_proj:
+//    gemm_tc.cuh, the depth split at batch 1 and summed in order. With the
+//    vim quirk the merge writes the 2d-wide row [y_0 at step t | y_1 at step
+//    t] instead, and out_proj runs against [W | flip_h(W)] (h, 2d), which a
+//    small kernel writes into the workspace first.
+// Both gemm_tc.cuh loaders so read plain rows as float4s: a loader that
+// gathered conv taps or summed streams ran the product at 8-18 TFLOP/s.
 // The TPU kernel's one-hot permutation matmuls and its 8-row padding of L
 // exist for the MXU and VMEM; here they are index gathers and masks.
 //
-// The backward, diffma_tpu/ops/fused_mixer.py::_mixer_bwd_kernel, is kernel
-// D, fused_mixer_bwd.cu.
+// The backward, diffma_tpu/ops/fused_mixer.py:565 (_mixer_bwd_kernel), is
+// kernel D, fused_mixer_bwd.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_nt.cuh"
-#include "mixer_core.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
-using mixer::kConv;
-using mixer::kMaxRank;
-using mixer::kN;
-
+constexpr int kN = 16;        // d_state
+constexpr int kConv = 4;      // conv taps
+constexpr int kMaxRank = 32;  // dt_rank
 constexpr int kMaxStreams = 4;
 constexpr int kBranchPtrs = 11;
 constexpr int kFlipThreads = 256;
+constexpr int kEltThreads = 256;  // threads of the elementwise kernels
+constexpr int kLanes = 32;     // channels of a scan block
+constexpr int kMaxChunks = 8;  // warps of a scan block, each a chunk of steps
+constexpr int kSub = 16;       // steps a scan warp stages at a time
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
+// stride of whole float4s (true at every DiffMa width). A stage whose rows
+// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
+__device__ __forceinline__ bool al(const float* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+}
+
+// softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
 
 struct Branch {
   const float* x;       // (B, L, h)
@@ -104,130 +141,357 @@ struct Branch {
   float* out;           // (B, L, h)
 };
 
+// Workspace arrays hold both branches, branch m at offset m * (its size).
+// T = B * L token rows; R = B * S * Ls stream rows, row (b * S + s) * Ls + t.
 struct Params {
   Branch br[2];
   const int64_t* fwd;  // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
-  float* xz;           // (M, B * L, 2d)
-  float* y;            // (M, B * y_streams * L, d), token order: y_s[l] at
+  float* xz;           // (T, 2d)
+  float* u;            // (R, d), stream order
+  float* xdb;          // (R, r + 2n), stream order
+  float* xdb_part;     // (xp_splits, R, r + 2n): x_proj's split partials, if split
+  float* dt;           // (R, d), stream order: softplus(dt_r W_dt^T + dt_b)
+  float* y;            // (T * y_streams, d), token order: y_s[l] at
                        // (b * S + s) * L + l, or y[l] at b * L + l for a partition
-  float* wcat;         // (M, h, 2d): [W_out | flip_h(W_out)], vim quirk only
-  int B, L, h, d, S, y_streams;
+  float* ym;           // (T, ym_cols): out_proj's input (merge_kernel)
+  float* wcat;         // (h, 2d): [W_out | flip_h(W_out)], vim quirk only (M = 1)
+  float* out_part;     // (out_splits, T, h): out_proj's split partials, if split
+  int B, L, Ls, h, d, r, S, y_streams, ym_cols, in_bn, xp_splits, out_splits;
   float scale;
 };
 
-// The stages of gemm_nt.cuh's GEMM: c[row, col] = sum_k a(row, k) * w[col, k]
-// for one branch, w a torch Linear weight (cols, depth), row-major. A thread
-// resolves each of its rows into a Row (the pointers its loads need) once,
-// before the k-loop.
+__device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<size_t>(p.B) * p.L; }
+__device__ __forceinline__ size_t srows(const Params& p) {
+  return static_cast<size_t>(p.B) * p.S * p.Ls;
+}
+__device__ __forceinline__ int r2n(const Params& p) { return p.r + 2 * kN; }
+
+// The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
+// branch. Rows resolve into an ARow once per thread, before the k-loop.
 
 struct InProj {  // xz = x . W_in^T
-  struct Row {
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
     const float* x;
   };
-  const float* x;
-  const float* w;
+  const float *x, *w;
   float* c;
   int rows, cols, depth;
   __device__ InProj(const Params& p, int m)
-      : x(p.br[m].x),
-        w(p.br[m].in_w),
-        c(p.xz + static_cast<size_t>(m) * p.B * p.L * 2 * p.d),
-        rows(p.B * p.L),
-        cols(2 * p.d),
-        depth(p.h) {}
-  __device__ Row row(int i) const { return {x + static_cast<size_t>(i) * depth}; }
-  __device__ float a(const Row& r, int k) const { return r.x[k]; }
+      : x(p.br[m].x), w(p.br[m].in_w), c(p.xz + m * tokens(p) * 2 * p.d),
+        rows(static_cast<int>(tokens(p))), cols(2 * p.d), depth(p.h) {
+    vec = al(x, depth) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {x + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.x[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.x + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int, float v) const {
+    c[static_cast<size_t>(row) * cols + col] = v;
+  }
 };
 
-struct MergeOutProj {  // out = (scale * sum_s y_s) . W_out^T
-  struct Row {
-    const float* y;  // stream 0's row of the token; stream s is s * L rows on
+struct XProj {  // xdb = u . W_x^T
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
+    const float* u;
   };
-  const float* y;
-  const float* w;
+  const float *u, *w;
   float* c;
-  float scale;
-  int rows, cols, depth, L, S;
-  __device__ MergeOutProj(const Params& p, int m)
-      : y(p.y + static_cast<size_t>(m) * p.B * p.y_streams * p.L * p.d),
-        w(p.br[m].out_w),
-        c(p.br[m].out),
-        scale(p.scale),
-        rows(p.B * p.L),
-        cols(p.h),
-        depth(p.d),
-        L(p.L),
-        S(p.y_streams) {}
-  __device__ Row row(int i) const {  // i = b * L + l
-    return {y + (static_cast<size_t>(i / L) * S * L + i % L) * depth};
+  int rows, cols, depth;
+  __device__ XProj(const Params& p, int m)
+      : u(p.u + m * srows(p) * p.d), w(p.br[m].xp_w),
+        c(p.xp_splits == 1 ? p.xdb + m * srows(p) * r2n(p)
+                           : p.xdb_part + static_cast<size_t>(m) * p.xp_splits * srows(p) * r2n(p)),
+        rows(static_cast<int>(srows(p))), cols(r2n(p)), depth(p.d) {
+    vec = al(u, depth) && al(w, depth);
   }
-  __device__ float a(const Row& r, int ch) const {
-    float ys[kMaxStreams];
+  __device__ ARow arow(int i) const { return {u + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.u[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.u + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
+};
+
+struct DtProj {  // dt = softplus(dt_r . W_dt^T + dt_b); one slab deep
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
+    const float* xdb;
+  };
+  const float *xdb, *w, *bias;
+  float* c;
+  int rows, cols, depth, ld;
+  __device__ DtProj(const Params& p, int m)
+      : xdb(p.xdb + m * srows(p) * r2n(p)), w(p.br[m].dt_w), bias(p.br[m].dt_b),
+        c(p.dt + m * srows(p) * p.d), rows(static_cast<int>(srows(p))), cols(p.d), depth(p.r),
+        ld(r2n(p)) {
+    vec = al(xdb, ld) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {xdb + static_cast<size_t>(i) * ld}; }
+  __device__ float a(const ARow& r, int k) const { return r.xdb[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.xdb + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int, float v) const {
+    c[static_cast<size_t>(row) * cols + col] = softplus(v + bias[col]);
+  }
+};
+
+// out = ym . W^T: ym is merged (scale * sum_s y_s in token order) against
+// W_out, or with the vim quirk scale [y_0 | y_1] at each stream step against
+// wcat = [W_out | flip_h(W_out)] (depth 2d).
+struct OutProj {
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
+    const float* ym;
+  };
+  const float *ym, *w;
+  float* c;
+  int rows, cols, depth;
+  __device__ OutProj(const Params& p, int m)
+      : ym(p.ym + m * tokens(p) * p.ym_cols), w(p.ym_cols == p.d ? p.br[m].out_w : p.wcat),
+        c(p.out_splits == 1 ? p.br[m].out
+                            : p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
+        rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.ym_cols) {
+    vec = al(ym, depth) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {ym + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.ym[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.ym + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
+};
+
+// u = silu(causal_conv_K(gathered xz[:, :d]) + conv_b), stream order. grid
+// (R, M): a block is one stream row (b * S + s) * Ls + t, its threads the
+// channels, so the row's tap lookups run once.
+__global__ void __launch_bounds__(kEltThreads) conv_kernel(const Params p) {
+  const int m = blockIdx.y, row = blockIdx.x;
+  const int d = p.d, Ls = p.Ls;
+  const int t = row % Ls, bs = row / Ls;
+  const int64_t* order = p.fwd + static_cast<size_t>(bs % p.S) * Ls;
+  const float* xz_b = p.xz + (static_cast<size_t>(m) * p.B + bs / p.S) * p.L * 2 * d;
+  const float* tap[kConv];
 #pragma unroll
-    for (int s = 0; s < kMaxStreams; ++s) {
-      ys[s] = s < S ? r.y[static_cast<size_t>(s) * L * depth + ch] : 0.0f;
+  for (int k = 0; k < kConv; ++k) {
+    const int tt = t - (kConv - 1) + k;
+    tap[k] = tt >= 0 ? xz_b + order[tt] * 2 * d : nullptr;
+  }
+  float* u = p.u + (static_cast<size_t>(m) * srows(p) + row) * d;
+  for (int ch = threadIdx.x; ch < d; ch += kEltThreads) {
+    const float* w = p.br[m].conv_w + static_cast<size_t>(ch) * kConv;
+    float acc = p.br[m].conv_b[ch];
+#pragma unroll
+    for (int k = 0; k < kConv; ++k) {
+      if (tap[k] != nullptr) acc = fmaf(w[k], tap[k][ch], acc);
     }
-    float acc = ys[0];
-#pragma unroll
-    for (int s = 1; s < kMaxStreams; ++s) acc += ys[s];  // stream order; the 0s add nothing
-    return acc * scale;
+    u[ch] = silu(acc);
   }
-};
+}
 
-// The vim quirk's out_proj: out = scale * (y_0 . W^T + flip_h(y_1 . W^T)), each
-// stream's rows in its own order, as one product of depth 2d against wcat.
-struct QuirkOutProj {
-  struct Row {
-    const float* y0;  // stream 0's row at this step
-    const float* y1;  // stream 1's row at this step, less d floats
-  };
-  const float* y;
-  const int64_t* fwd;
-  const float* w;
-  float* c;
-  float scale;
-  int rows, cols, depth, L, d;
-  __device__ QuirkOutProj(const Params& p, int m)
-      : y(p.y + static_cast<size_t>(m) * p.B * 2 * p.L * p.d),
-        fwd(p.fwd),
-        w(p.wcat + static_cast<size_t>(m) * p.h * 2 * p.d),
-        c(p.br[m].out),
-        scale(p.scale),
-        rows(p.B * p.L),
-        cols(p.h),
-        depth(2 * p.d),
-        L(p.L),
-        d(p.d) {}
-  __device__ Row row(int i) const {  // i = b * L + t; y_s[token] at (b * 2 + s) * L + token
-    const int t = i % L;
-    const float* y_b = y + static_cast<size_t>(i / L) * 2 * L * d;
-    return {y_b + fwd[t] * d, y_b + (L + fwd[L + t]) * d - d};
+// ym, out_proj's input: per token, scale times the sum of its y_streams rows
+// in stream order; with the vim quirk, scale [y_0 | y_1] at each stream step
+// t (stream s's token fwd[s, t]). grid (T, M): a block is one token row.
+__global__ void __launch_bounds__(kEltThreads) merge_kernel(const Params p) {
+  const int m = blockIdx.y, row = blockIdx.x;
+  const int d = p.d, L = p.L, cols = p.ym_cols;
+  const int t = row % L;
+  const float* y = p.y + (static_cast<size_t>(m) * p.B + row / L) * p.y_streams * L * d;
+  float* ym = p.ym + (static_cast<size_t>(m) * tokens(p) + row) * cols;
+  if (cols != d) {  // the vim quirk
+    const float* y0 = y + p.fwd[t] * d;
+    const float* y1 = y + (L + p.fwd[L + t]) * d;
+    for (int j = threadIdx.x; j < d; j += kEltThreads) {
+      ym[j] = y0[j] * p.scale;
+      ym[d + j] = y1[j] * p.scale;
+    }
+    return;
   }
-  __device__ float a(const Row& r, int k) const { return (k < d ? r.y0[k] : r.y1[k]) * scale; }
-};
+  for (int j = threadIdx.x; j < d; j += kEltThreads) {
+    float acc = 0.0f;
+    for (int s = 0; s < p.y_streams; ++s) acc += y[(static_cast<size_t>(s) * L + t) * d + j];
+    ym[j] = acc * p.scale;
+  }
+}
 
-// wcat[j, :] = [W_out[j, :] | W_out[h - 1 - j, :]]. grid (ceil(h * 2d / 256), M).
+// wcat[j, :] = [W_out[j, :] | W_out[h - 1 - j, :]]. grid ceil(h * 2d / 256).
 __global__ void __launch_bounds__(kFlipThreads) flip_cat_kernel(const Params p) {
-  const int m = blockIdx.y;
   const size_t i = static_cast<size_t>(blockIdx.x) * kFlipThreads + threadIdx.x;
   const size_t width = 2 * static_cast<size_t>(p.d);
   if (i >= p.h * width) return;
   const int j = static_cast<int>(i / width), k = static_cast<int>(i % width);
-  const float* w = p.br[m].out_w;
-  p.wcat[static_cast<size_t>(m) * p.h * width + i] =
-      k < p.d ? w[static_cast<size_t>(j) * p.d + k]
-              : w[static_cast<size_t>(p.h - 1 - j) * p.d + (k - p.d)];
+  const float* w = p.br[0].out_w;
+  p.wcat[i] = k < p.d ? w[static_cast<size_t>(j) * p.d + k]
+                      : w[static_cast<size_t>(p.h - 1 - j) * p.d + (k - p.d)];
 }
 
-size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int r, int S, int quirk) {
-  const size_t tokens = static_cast<size_t>(M) * B * L;
-  const size_t stream_rows = static_cast<size_t>(M) * B * S * Ls;
-  const size_t y_streams = Ls == L ? S : 1;
-  return tokens * 2 * d                   // xz
-         + stream_rows * d                // u
-         + stream_rows * (r + 2 * kN)     // xdb
-         + tokens * y_streams * d         // y
-         + (quirk ? static_cast<size_t>(M) * h * 2 * d : 0);  // wcat
+// One scan warp's shared memory: 16 steps of B, C and the token index, and
+// its chunk's end state and sum of dt for the warps after it.
+struct ScanWarpSmem {
+  float B[kSub][kN];
+  float C[kSub][kN];
+  int tok[kSub];
+  float end[kN + 1][kLanes];
+};
+
+// The selective scan with the D skip and the gate, chunked over the warps of
+// a block. grid (ceil(d / 32), B * S, M), block (32, chunks): lane = channel,
+// warp = chunk of the stream's steps.
+__global__ void __launch_bounds__(kLanes * kMaxChunks) scan_kernel(const Params p) {
+  // Dynamic shared memory, ScanWarpSmem per warp (chunk), so that a block of
+  // one chunk (the training batch) takes no more than it uses.
+  extern __shared__ float4 scan_smem[];
+  ScanWarpSmem& sw = reinterpret_cast<ScanWarpSmem*>(scan_smem)[threadIdx.y];
+  ScanWarpSmem* const all = reinterpret_cast<ScanWarpSmem*>(scan_smem);
+
+  const int lane = threadIdx.x, w = threadIdx.y, chunks = blockDim.y;
+  const int m = blockIdx.z;
+  const int bs = blockIdx.y;  // b * S + s
+  const int s = bs % p.S, b = bs / p.S;
+  const int c = blockIdx.x * kLanes + lane;
+  const int d = p.d, L = p.L, Ls = p.Ls, r = p.r, ld = r2n(p);
+  const bool active = c < d;
+  const int cc = active ? c : 0;
+  const int len = (Ls + chunks - 1) / chunks;
+  const int t_begin = min(Ls, w * len), t_end = min(Ls, t_begin + len);
+
+  // a2 = A log2(e): each decay exp(dt A) is one exp2f(dt a2)
+  float a2[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    a2[k] = active ? -expf(p.br[m].A_log[static_cast<size_t>(c) * kN + k]) * kLog2e : 0.0f;
+  }
+  const float Dc = active ? p.br[m].D[c] : 0.0f;
+  const size_t row0 = (static_cast<size_t>(m) * p.B * p.S + bs) * Ls;  // stream row of step 0
+  const size_t yrow0 =
+      (p.y_streams == 1 ? static_cast<size_t>(m) * p.B + b
+                        : static_cast<size_t>(m) * p.B * p.S + bs) * L;
+  const float* xz_b = p.xz + (static_cast<size_t>(m) * p.B + b) * L * 2 * d + d + cc;
+  const int64_t* order = p.fwd + static_cast<size_t>(s) * Ls;
+  const float* xdb = p.xdb + row0 * ld;
+  const float* dt_p = p.dt + row0 * d + cc;
+  const float* u_p = p.u + row0 * d + cc;
+  float* y_p = p.y + yrow0 * d + cc;
+
+  // Run steps t_begin .. t_end - 1 from state h; with `out`, write y too.
+  auto run = [&](bool out, float (&h)[kN], float& dt_sum) {
+    for (int t0 = t_begin; t0 < t_end; t0 += kSub) {
+      const int steps = min(kSub, t_end - t0);
+      __syncwarp();  // the previous staging is no longer read
+      for (int i = lane; i < steps * kN; i += kLanes) {
+        const float* row = xdb + static_cast<size_t>(t0 + i / kN) * ld + r + i % kN;
+        sw.B[i / kN][i % kN] = row[0];
+        if (out) sw.C[i / kN][i % kN] = row[kN];
+      }
+      if (lane < steps) sw.tok[lane] = static_cast<int>(order[t0 + lane]);
+      __syncwarp();
+      float dtv[kSub], uv[kSub], zv[kSub];
+#pragma unroll
+      for (int q = 0; q < kSub; ++q) {  // all loads of the 16 steps fly together
+        const bool ok = q < steps && active;
+        dtv[q] = ok ? dt_p[static_cast<size_t>(t0 + q) * d] : 0.0f;
+        uv[q] = ok ? u_p[static_cast<size_t>(t0 + q) * d] : 0.0f;
+        zv[q] = (ok && out) ? xz_b[static_cast<size_t>(sw.tok[q]) * 2 * d] : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kSub; ++q) {
+        if (q >= steps) break;
+        const float dt = dtv[q], du = dt * uv[q];
+        dt_sum += dt;
+        float yp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          h[k] = exp2f(dt * a2[k]) * h[k] + du * sw.B[q][k];
+          yp[k % 4] = fmaf(h[k], sw.C[q][k], yp[k % 4]);
+        }
+        if (out && active) {
+          const float yv = (yp[0] + yp[1]) + (yp[2] + yp[3]) + Dc * uv[q];
+          y_p[static_cast<size_t>(sw.tok[q]) * d] = yv * silu(zv[q]);
+        }
+      }
+    }
+  };
+
+  float h[kN], dt_sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) h[k] = 0.0f;
+  if (w + 1 < chunks) {  // the chunk's own end state, from a zero state
+    run(false, h, dt_sum);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) sw.end[k][lane] = h[k];
+    sw.end[kN][lane] = dt_sum;
+  }
+  __syncthreads();
+  // The entry state: the chunks before this one folded in order.
+#pragma unroll
+  for (int k = 0; k < kN; ++k) h[k] = 0.0f;
+  for (int j = 0; j < w; ++j) {
+    const float span = all[j].end[kN][lane];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) h[k] = exp2f(a2[k] * span) * h[k] + all[j].end[k][lane];
+  }
+  run(true, h, dt_sum);
+}
+
+// Chunks per scan block: doubled while the launch keeps under eight warps
+// per SM and each chunk at least 8 steps.
+int scan_chunks(int blocks, int Ls) {
+  int chunks = 1;
+  while (2 * chunks <= kMaxChunks && blocks * 2 * chunks <= 8 * tc::kSMs && Ls >= 2 * chunks * 8) {
+    chunks *= 2;
+  }
+  return chunks;
+}
+
+void set_dims(Params& p, int M, int B, int L, int Ls, int h, int d, int r, int S) {
+  p.B = B;
+  p.L = L;
+  p.Ls = Ls;
+  p.h = h;
+  p.d = d;
+  p.r = r;
+  p.S = S;
+  p.y_streams = Ls == L ? S : 1;
+  const int R = B * S * Ls, T = B * L, row_tiles = (T + tc::kBM - 1) / tc::kBM;
+  // in_proj in 64-wide column tiles when 128-wide ones leave SMs idle (batch 1:
+  // 4 row tiles x 16 per branch). Splitting its depth h as well ran slower.
+  p.in_bn = M * row_tiles * ((2 * d + 127) / 128) < tc::kSMs ? 64 : 128;
+  p.xp_splits = tc::splits_for(M * ((R + tc::kBM - 1) / tc::kBM), d);
+  p.out_splits = tc::splits_for(M * ((T + tc::kBM - 1) / tc::kBM) * ((h + 127) / 128), d);
+}
+
+// Lay the workspace out (pointers into `base` when given); returns its size in floats.
+size_t layout(Params& p, float* base, int M, bool quirk) {
+  const size_t T = static_cast<size_t>(p.B) * p.L, R = static_cast<size_t>(p.B) * p.S * p.Ls;
+  const size_t d = p.d, r2 = p.r + 2 * kN;
+  p.ym_cols = quirk ? 2 * p.d : p.d;
+  const size_t sizes[] = {
+      T * 2 * d,                                         // xz
+      R * d, R * r2,                                     // u, xdb
+      p.xp_splits > 1 ? p.xp_splits * R * r2 : 0,        // xdb_part
+      R * d, T * p.y_streams * d,                        // dt, y
+      T * p.ym_cols,                                     // ym
+      quirk ? static_cast<size_t>(p.h) * 2 * d : 0,      // wcat
+      p.out_splits > 1 ? p.out_splits * T * p.h : 0,     // out_part
+  };
+  float** ptrs[] = {&p.xz, &p.u, &p.xdb, &p.xdb_part, &p.dt, &p.y, &p.ym, &p.wcat, &p.out_part};
+  size_t total = 0;
+  for (int i = 0; i < 9; ++i) {
+    if (base != nullptr) *ptrs[i] = base + total;
+    total += sizes[i] * M;
+  }
+  return total;
 }
 
 }  // namespace
@@ -235,7 +499,9 @@ size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int r, int S,
 // Floats of workspace that mixer_fused_fwd needs for these shapes.
 extern "C" long long mixer_fused_workspace_floats(int M, int B, int L, int Ls, int h, int d,
                                                   int r, int S, int quirk) {
-  return static_cast<long long>(workspace_floats(M, B, L, Ls, h, d, r, S, quirk));
+  Params p{};
+  set_dims(p, M, B, L, Ls, h, d, r, S);
+  return static_cast<long long>(layout(p, nullptr, M, quirk != 0));
 }
 
 // `ptrs` holds 11 pointers per branch, in the order of struct Branch, for
@@ -266,48 +532,54 @@ extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
         static_cast<float*>(q[10])};
   }
   p.fwd = static_cast<const int64_t*>(fwd);
-  float* ws = static_cast<float*>(workspace);
-  const size_t tokens = static_cast<size_t>(M) * B * L;
-  const size_t stream_rows = static_cast<size_t>(M) * B * S * Ls;
-  p.y_streams = partition ? 1 : S;
-  p.xz = ws;
-  mixer::Inner in{};
-  in.u = p.xz + tokens * 2 * d;
-  in.xdb = in.u + stream_rows * d;
-  p.y = in.xdb + stream_rows * (r + 2 * kN);
-  p.wcat = p.y + tokens * p.y_streams * d;
-  p.B = B;
-  p.L = L;
-  p.h = h;
-  p.d = d;
-  p.S = S;
   p.scale = scale;
-  for (int m = 0; m < M; ++m) {
-    const Branch& br = p.br[m];
-    in.w[m] = mixer::Weights{br.conv_w, br.conv_b, br.xp_w, br.dt_w, br.dt_b, br.A_log, br.D};
-  }
-  in.fwd = p.fwd;
-  in.xz = p.xz;
-  in.y = p.y;
-  in.B = B;
-  in.L = L;
-  in.Ls = Ls;
-  in.d = d;
-  in.r = r;
-  in.S = S;
-  in.y_streams = p.y_streams;
-  in.a_is_log = true;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  set_dims(p, M, B, L, Ls, h, d, r, S);
+  layout(p, static_cast<float*>(workspace), M, quirk != 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int T = B * L, R = B * S * Ls, r2 = r + 2 * kN;
 
-  int err = launch_gemm<64, 64, 16, 4, 4, InProj>(p, B * L, 2 * d, M, s);
-  if (err != 0) return err;
-  err = mixer::launch_inner(in, M, s);
-  if (err != 0) return err;
-  if (!quirk) return launch_gemm<32, 64, 16, 2, 4, MergeOutProj>(p, B * L, h, M, s);
-  const size_t flips = static_cast<size_t>(h) * 2 * d;
-  flip_cat_kernel<<<dim3(static_cast<unsigned>((flips + kFlipThreads - 1) / kFlipThreads), M),
-                    kFlipThreads, 0, s>>>(p);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_gemm<32, 64, 16, 2, 4, QuirkOutProj>(p, B * L, h, M, s);
+  int err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj>(p, T, 2 * d, M, st)
+                         : tc::launch_gemm_tc<128, InProj>(p, T, 2 * d, M, st);
+  if (err == 0) {
+    conv_kernel<<<dim3(R, M), kEltThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) err = tc::launch_gemm_tc<64, XProj>(p, R, r2, M, st, p.xp_splits);
+  if (err == 0 && p.xp_splits > 1) {
+    tc::SplitSum q{};
+    for (int m = 0; m < M; ++m) {
+      q.part[m] = p.xdb_part + static_cast<size_t>(m) * p.xp_splits * R * r2;
+      q.out[m] = p.xdb + static_cast<size_t>(m) * R * r2;
+    }
+    q.n = R * r2;
+    q.splits = p.xp_splits;
+    err = tc::launch_sum_splits(q, M, st);
+  }
+  if (err == 0) err = tc::launch_gemm_tc<128, DtProj>(p, R, d, M, st);
+  if (err == 0) {
+    const dim3 grid((d + kLanes - 1) / kLanes, B * S, M);
+    const int chunks = scan_chunks(grid.x * grid.y * grid.z, Ls);
+    scan_kernel<<<grid, dim3(kLanes, chunks), chunks * sizeof(ScanWarpSmem), st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0 && quirk) {
+    const size_t flips = static_cast<size_t>(h) * 2 * d;
+    flip_cat_kernel<<<static_cast<unsigned>((flips + kFlipThreads - 1) / kFlipThreads),
+                      kFlipThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) {
+    merge_kernel<<<dim3(T, M), kEltThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) err = tc::launch_gemm_tc<128, OutProj>(p, T, h, M, st, p.out_splits);
+  if (err != 0 || p.out_splits == 1) return err;
+  tc::SplitSum q{};
+  for (int m = 0; m < M; ++m) {
+    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T * h;
+    q.out[m] = p.br[m].out;
+  }
+  q.n = T * h;
+  q.splits = p.out_splits;
+  return tc::launch_sum_splits(q, M, st);
 }

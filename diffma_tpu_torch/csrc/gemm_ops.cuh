@@ -1,8 +1,9 @@
 // Tiled fp32 GEMM on the CUDA cores whose operands are read along whichever
-// of their axes is contiguous, shared by the fused mixers' backward kernels
-// (kernel D, fused_mixer_bwd.cu, and kernel F, fused_ssd_bwd.cu): products
-// with a transposed weight (g W), weight gradients (a^T b, the depth being
-// the token rows) and stages whose loader or store does more than copy.
+// of their axes is contiguous, for the fused Mamba-2 mixer's backward
+// (kernel F, fused_ssd_bwd.cu): products with a transposed weight (g W),
+// weight gradients (a^T b, the depth being the token rows) and stages whose
+// loader or store does more than copy. (Kernel D's products moved to
+// gemm_tc.cuh's tensor-core GEMM.)
 //
 // An operand class Op is built on the device from the kernel's parameters
 // and the branch, `Op(const P& params, int branch)`, and gives

@@ -1,8 +1,8 @@
 // The Mamba-1 selective scan's backward for one (sequence, channel) thread,
-// shared by kernel B (selective_scan_bwd.cu) and kernel D
-// (fused_mixer_bwd.cu). It is the recurrence of the TPU kernels
-// diffma_tpu/ops/selective_scan.py::_bwd_kernel and the scan part of
-// diffma_tpu/ops/fused_mixer.py::_mixer_bwd_kernel. Per channel, with
+// kernel B's (selective_scan_bwd.cu). It is the recurrence of the TPU kernel
+// diffma_tpu/ops/selective_scan.py::_bwd_kernel. (Kernel D, the fused
+// mixer's backward, has a scan adjoint of its own in fused_mixer_bwd.cu,
+// four lanes per channel.) Per channel, with
 // n = N states, a = A (negative), dt_t = softplus(raw_t), the forward is
 //
 //     h_t = exp(dt_t a) h_{t-1} + dt_t u_t B_t;  y_t = <C_t, h_t> + D u_t

@@ -12,7 +12,7 @@
 //     dA (G, d, n), dD (G, d)     per sequence g; the wrapper sums over g,
 //                                 as the JAX launcher does outside its kernel
 //
-// The recurrence is scan_bwd.cuh's, shared with kernel D.
+// The recurrence is scan_bwd.cuh's.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores). At the composable training path's shapes for DiffMa-B/2 at batch 8
