@@ -474,6 +474,21 @@ MIXER_BWD_STAGES = (
 )
 
 
+# Kernels E's and F's device kernels by stage, as above.
+SSD_STAGES = (
+    ("prologue", r"prologue_kernel"), ("in_proj", r"\bInProj\b"),
+    ("ssd", r"ssd_state_kernel|ssd_out_kernel"), ("gate + norm + merge", r"gate_norm_merge"),
+    ("out_proj", r"\bOutProj\b"), ("split sums", r"sum_splits"),
+)
+SSD_BWD_STAGES = (
+    ("g W_out", r"\bGradOutProj\b"), ("recompute y", r"ssd_state_kernel|ssd_out_kernel"),
+    ("gate + norm adjoint", r"gate_norm_bwd"), ("SSD adjoint", r"ssd_chunk_adj|ssd_adjoint"),
+    ("conv adjoints", r"grad_preact|grad_zx|grad_conv"), ("gx", r"\bGradX\b"),
+    ("gW_in", r"\bGradInW\b"), ("gW_out", r"\bGradOutW\b"), ("split sums", r"sum_splits"),
+    ("finalize", r"finalize|norm_w_partial"),
+)
+
+
 def stage_table(fn, stages, calls: int = 10) -> dict:
     """Device ms per call of ``fn`` by stage, from torch.profiler's kernel
     table over ``calls`` calls (after one warm-up): each stage's kernels,
@@ -720,33 +735,70 @@ def close_to_ref(what: str, got, want, tol: float = TOL_FP32) -> float:
     return err
 
 
-def ssd_mixer_bound_ms(M, B, L, h, d, n, H, S, K, prologue=False, Ls=None) -> tuple[float, str]:
-    """Least time for one fused-SSD-mixer call of M branches on an H100: the
-    weights, x, out and the index table moved once over the HBM rate, or the
-    operations over fp32: in_proj, the conv, per stream C . B^T on the causal
-    pairs (once, it is the same for every head) and per head and causal pair
-    the decay (exp, two products) and the 2 * headdim of the product with
-    dt * x, then gate, norm and merge (about 8 per channel and stream row),
-    out_proj, and in prologue mode LayerNorm and modulation (about 10 per
-    input element). ``Ls`` is the steps per stream (L unless the streams
-    partition the tokens)."""
+def ssd_chunk_work(seqs, Ls, n, H, hd, backward=False, Q=64) -> tuple[int, int]:
+    """The SSD's operations in the chunked form that kernels E, F and P
+    compute it in (``csrc/ssd_core.cuh``), for ``seqs`` sequences of ``Ls``
+    steps in chunks of ``Q`` (the last one ragged): (products, other).
+    Products: per chunk C . B^T on the causal pairs (once: the heads share
+    it), and per head the 2 * headdim of M times dt * x on those pairs, the
+    chunk's end state (2 * n * headdim a step) where a later chunk reads it,
+    and the state's term of y where an earlier chunk feeds it. Other: per
+    head and causal pair the decay (a difference, an exp, a product), and
+    per head and chunk boundary the fold of the state. The backward adds the
+    products of g_C and g_B on the causal pairs (once, W summed over the
+    heads) and per head M^T g_y and g_y xdt^T on them; per head and step the
+    state adjoint's share (a_c) and g_C's cross term where an earlier chunk
+    feeds the step, and g_xdt's and g_B's where a later chunk reads it; and
+    as other per head and pair W's decay, the sum over heads, P and its row
+    and column sums, per head and step the two inner products that carry
+    g_cs across chunks, and the fold of the state adjoint."""
+    sizes = [Q] * (Ls // Q) + ([Ls % Q] if Ls % Q else [])
+    pairs = sum(q * (q + 1) // 2 for q in sizes)
+    fed, read = Ls - sizes[0], Ls - sizes[-1]  # steps an earlier chunk feeds; a later reads
+    state = 2 * n * hd
+    products = pairs * 2 * n + H * (pairs * 2 * hd + (read + fed) * state)
+    other = H * (3 * pairs + (len(sizes) - 1) * state)
+    if backward:
+        products += 2 * pairs * 2 * n + H * (2 * pairs * 2 * hd + 2 * (read + fed) * state)
+        other += H * (5 * pairs + 2 * hd * (read + fed) + (len(sizes) - 1) * state)
+    return seqs * products, seqs * other
+
+
+def ssd_mixer_work(M, B, L, h, d, n, H, S, K, prologue=False, Ls=None) -> tuple[int, int, int]:
+    """One fused-SSD-mixer call of M branches: the operations of its products
+    (in_proj, out_proj, and the SSD's, ``ssd_chunk_work``), its other
+    operations (the conv, the SSD's decays and folds, then gate, norm and
+    merge (about 8 per channel and stream row), and in prologue mode
+    LayerNorm and modulation (about 10 per input element)), and the bytes
+    that must move (the weights, x, out and the index table, once). ``Ls``
+    is the steps per stream (L unless the streams partition the tokens)."""
     Ls = L if Ls is None else Ls
     tokens, rows = B * L, B * S * Ls
     dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
-    pairs = B * S * Ls * (Ls + 1) // 2
-    ops = M * (
-        2 * tokens * h * dproj  # in_proj
-        + rows * conv_dim * 2 * K  # conv
-        + pairs * 2 * n  # C . B^T
-        + pairs * H * (3 + 2 * hd)  # decay and the product with dt * x
+    ssd_products, ssd_other = ssd_chunk_work(M * B * S, Ls, n, H, hd)
+    products = M * (2 * tokens * h * dproj + 2 * tokens * d * h) + ssd_products
+    other = M * (
+        rows * conv_dim * 2 * K  # conv
         + rows * d * 8  # D skip, gate, norm, merge
-        + 2 * tokens * d * h  # out_proj
-    ) + (10 * tokens * h if prologue else 0)
+    ) + ssd_other + (10 * tokens * h if prologue else 0)
     weights = dproj * h + conv_dim * K + conv_dim + 3 * H + d + h * d
     x_bytes = (tokens * h + tokens + 2 * h + 2 * B * h) if prologue else M * tokens * h
     nbytes = 4 * (M * weights + x_bytes + M * tokens * h) + S * L * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, nbytes
+
+
+def ssd_mixer_bound_ms(*args, **kw) -> tuple[float, str]:
+    """Least time for one fused-SSD-mixer call on an H100: the products
+    (in_proj, out_proj and the SSD's) at the 3xTF32 rate, TF32_FLOPS / 3, the
+    tensor cores' rate for fp32-accurate products, the rest at fp32
+    (``ssd_mixer_work``'s arguments)."""
+    return bound_from(*ssd_mixer_work(*args, **kw), product_flops=TF32_FLOPS / 3)
+
+
+def ssd_mixer_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate, as the products ran
+    before they moved to the tensor cores."""
+    return bound_from(*ssd_mixer_work(*args, **kw))
 
 
 def epilogue_bound_ms(B, L, h) -> tuple[float, str]:
@@ -810,9 +862,11 @@ def phase_fused_ssd(card: str) -> dict:
     no_limit = (0.0, float("inf"))
     path_err = None
     cases = [
-        # grid, layer, batch, dt_limit, wide span
+        # grid, layer, batch, dt_limit, wide span; 256 and 1024 tokens are past the caps
+        # that a whole stream per block in shared memory set (about 440 steps)
         (14, 0, 1, no_limit, False), (14, 3, 8, no_limit, False), (5, 0, 2, no_limit, False),
         (14, 1, 1, (0.01, 0.05), False), (14, 2, 1, no_limit, True),
+        (16, 0, 2, no_limit, False), (32, 1, 1, no_limit, False),
     ]
     for grid_n, layer, batch, dt_limit, wide in cases:
         spec = build_scan_spec("spiral", grid_n, layer)
@@ -867,12 +921,24 @@ def phase_fused_ssd(card: str) -> dict:
         plain_ms = cuda_ms(lambda: (ssd_mixer_ref(spec, x0, w0), ssd_mixer_ref(spec, x1, w1)),
                            reps=10)
         pair_ms = cuda_ms(lambda: (m0(x0), m1(x1)), reps=10)  # scan_impl "auto"
-    bound_ms, bound_by = ssd_mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
-    pro_bound_ms, _ = ssd_mixer_bound_ms(M=2, B=1, L=196, h=h, d=1024, n=16, H=16, S=3, K=4,
-                                         prologue=True)
+        stages = stage_table(lambda: mamba2_dual_mixer_fused(spec, x0, x1, w0, w1), SSD_STAGES)
+        x8 = [block_inputs(196, 101 + i, 8)[0] for i in range(2)]
+        ms8 = cuda_ms(lambda: mamba2_dual_mixer_fused(spec, *x8, w0, w1), reps=20)
+        stages8 = stage_table(lambda: mamba2_dual_mixer_fused(spec, *x8, w0, w1), SSD_STAGES)
+    dims = dict(h=h, d=1024, n=16, H=16, S=3, K=4)
+    bound_ms, bound_by = ssd_mixer_bound_ms(M=2, B=1, L=196, **dims)
+    fp32_ms, fp32_by = ssd_mixer_bound_fp32_ms(M=2, B=1, L=196, **dims)
+    pro_bound_ms, _ = ssd_mixer_bound_ms(M=2, B=1, L=196, prologue=True, **dims)
+    bound8, by8 = ssd_mixer_bound_ms(M=2, B=8, L=196, **dims)
+    fp32_8, fp32_by8 = ssd_mixer_bound_fp32_ms(M=2, B=8, L=196, **dims)
     print(f"  [{card}] ssd_mixer_fwd fp32, both branches, B=1 L=196 h=512 d=1024: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by}); prologue mode {pro_ms:.4f} ms, bound {pro_bound_ms * 1e3:.2f} us")
+          f"({bound_by}, products at the 3xTF32 rate); all at fp32 {fp32_ms * 1e3:.2f} us "
+          f"({fp32_by}); prologue mode {pro_ms:.4f} ms, bound {pro_bound_ms * 1e3:.2f} us")
+    print(f"  [{card}] device ms per call by stage (torch.profiler), B=1: {stage_line(stages)}")
+    print(f"  [{card}] ssd_mixer_fwd, both branches, B=8 L=196: kernel {ms8:.4f} ms, bound "
+          f"{bound8 * 1e3:.2f} us ({by8}, 3xTF32); all at fp32 {fp32_8 * 1e3:.2f} us ({fp32_by8})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler), B=8: {stage_line(stages8)}")
     print("  library_ms: none; no single PyTorch call computes the whole mixer")
     print(f"  [{card}] yardstick: the composable pair (two Mamba2.forward with "
           f"scan_impl='auto': torch operators and cuBLAS, the plain version's own path, "
@@ -887,7 +953,10 @@ def phase_fused_ssd(card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fp32_ms": fp32_ms,
         "library_ms": None,
+        "stages_ms": stages,
+        "b8": {"ms": ms8, "bound_ms": bound8, "bound_fp32_ms": fp32_8, "stages_ms": stages8},
     }
 
 
@@ -969,33 +1038,40 @@ def phase_spiral_epilogue(card: str) -> dict:
     }
 
 
-def ssd_mixer_bwd_bound_ms(M, B, L, h, d, n, H, S, K, Ls=None) -> tuple[float, str]:
-    """Least time for one fused-SSD-mixer backward of M branches on an H100:
-    x, g, the residual zx and the weights read once, gx and the weight
-    gradients written once, over the HBM rate; or the operations over the
-    fp32 rate: four GEMMs over the token rows (g W_out, gW_out, gx, gW_in),
-    the conv recomputed and its two adjoints, per stream C . B^T on the
-    causal pairs (once, it is the same for every head), g_C and g_B, and per
-    head and causal pair the decay (exp, three products) and the 2 * headdim
-    of each of y_pre, M^T g_y and g_y xdt^T; about 30 per channel and stream
-    row for the gate, the norm, the D skip and their adjoints. ``Ls`` is the
-    steps per stream (L unless the streams partition the tokens)."""
+def ssd_mixer_bwd_work(M, B, L, h, d, n, H, S, K, Ls=None) -> tuple[int, int, int]:
+    """One fused-SSD-mixer backward of M branches: the operations of its four
+    GEMMs over the token rows (g W_out, gW_out, gx, gW_in) and of the SSD's
+    products, forward and adjoint (``ssd_chunk_work``); its other operations:
+    the conv recomputed and its two adjoints, the SSD's decays, folds and sums
+    of P, and about 30 per channel and stream row for the gate, the norm, the
+    D skip and their adjoints; and the bytes that must move: x, g, the
+    residual zx and the weights read once, gx and the weight gradients
+    written once. ``Ls`` is the steps per stream (L unless the streams
+    partition the tokens)."""
     Ls = L if Ls is None else Ls
     tokens, rows = B * L, B * S * Ls
     dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
-    pairs = B * S * Ls * (Ls + 1) // 2
-    ops = M * (
-        2 * 2 * tokens * d * h  # g W_out, gW_out
-        + 2 * 2 * tokens * dproj * h  # gx, gW_in
-        + 3 * rows * conv_dim * 2 * K  # the conv again and its two adjoints
-        + 3 * pairs * 2 * n  # C . B^T, g_C, g_B
-        + pairs * H * (4 + 3 * 2 * hd)  # decay; y_pre, M^T g_y, g_y xdt^T
+    ssd_products, ssd_other = ssd_chunk_work(M * B * S, Ls, n, H, hd, backward=True)
+    products = M * (2 * 2 * tokens * d * h + 2 * 2 * tokens * dproj * h) + ssd_products
+    other = M * (
+        3 * rows * conv_dim * 2 * K  # the conv again and its two adjoints
         + rows * d * 30  # gate, norm, D skip, their adjoints
-    )
+    ) + ssd_other
     weights = dproj * h + conv_dim * K + conv_dim + 3 * H + d + h * d
     nbytes = M * 4 * (2 * weights + 3 * tokens * h + tokens * dproj) + 2 * S * Ls * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, nbytes
+
+
+def ssd_mixer_bwd_bound_ms(*args, **kw) -> tuple[float, str]:
+    """Least time for one fused-SSD-mixer backward on an H100: the products
+    (the four GEMMs and the SSD's) at the 3xTF32 rate, the rest at fp32
+    (``ssd_mixer_bwd_work``'s arguments)."""
+    return bound_from(*ssd_mixer_bwd_work(*args, **kw), product_flops=TF32_FLOPS / 3)
+
+
+def ssd_mixer_bwd_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate."""
+    return bound_from(*ssd_mixer_bwd_work(*args, **kw))
 
 
 def phase_ssd_bwd(card: str) -> dict:
@@ -1017,22 +1093,24 @@ def phase_ssd_bwd(card: str) -> dict:
     def grads_of(gx, gw, m):
         return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
 
-    def inputs(L, seed):
+    def inputs(L, seed, b=batch):
         gen = torch.Generator().manual_seed(seed)
-        return ([torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)],
-                [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)])
+        return ([torch.randn(b, L, h, generator=gen).cuda() for _ in range(2)],
+                [torch.randn(b, L, h, generator=gen).cuda() for _ in range(2)])
 
     path_err = None
     cases = [
-        # grid, layer, dt_limit, wide span
-        (14, 0, no_limit, False), (14, 3, no_limit, False), (5, 0, no_limit, False),
-        (14, 1, (0.5, 0.9), False), (14, 2, no_limit, True),
+        # grid, layer, dt_limit, wide span, batch; 256 and 1024 tokens are past the cap
+        # that a whole stream per block in shared memory set (227 steps)
+        (14, 0, no_limit, False, batch), (14, 3, no_limit, False, batch),
+        (5, 0, no_limit, False, batch), (14, 1, (0.5, 0.9), False, batch),
+        (14, 2, no_limit, True, batch), (16, 0, no_limit, False, 4), (32, 1, no_limit, False, 1),
     ]
-    for grid_n, layer, dt_limit, wide in cases:
+    for grid_n, layer, dt_limit, wide, b in cases:
         spec = build_scan_spec("spiral", grid_n, layer)
         L = grid_n * grid_n
         ws = [m.weights() for m in mamba2_mixers(spec, 20 * layer, wide)]
-        xs, gs = inputs(L, 60 + layer)
+        xs, gs = inputs(L, 60 + layer, b)
         sp = torch.nn.functional.softplus(
             torch.nn.functional.linear(xs[0], ws[0].in_w)[..., -16:] + ws[0].dt_bias)
         inside = ((sp >= dt_limit[0]) & (sp <= dt_limit[1])).float().mean().item()
@@ -1051,7 +1129,7 @@ def phase_ssd_bwd(card: str) -> dict:
         want = {}
         for m in range(2):
             want.update(grads_of(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
-        tag = (f"spiral layer {layer}: B={batch} L={L} h={h} d=1024 H=16 n=16 dt_limit={dt_limit} "
+        tag = (f"spiral layer {layer}: B={b} L={L} h={h} d=1024 H=16 n=16 dt_limit={dt_limit} "
                f"(unclipped {inside:.2f}) max span of dt*|A| {span:.0f}")
         for entry, M, res in (("dual", 2, zx), ("single", 1, zx1)):
             first = None
@@ -1082,6 +1160,7 @@ def phase_ssd_bwd(card: str) -> dict:
         e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws), reps=20)
         e_res_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws, want_res=True), reps=20)
     ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), reps=10)
+    stages = stage_table(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), SSD_BWD_STAGES)
     plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(xs, gs, ws)],
                        reps=5)
     for m in mixers:
@@ -1090,12 +1169,15 @@ def phase_ssd_bwd(card: str) -> dict:
     outs = [m(x) for m, x in zip(mixers, leaves)]  # scan_impl "auto": the composable path
     params = leaves + [p for m in mixers for p in m.parameters()]
     pair_ms = cuda_ms(lambda: torch.autograd.grad(outs, params, gs, retain_graph=True), reps=10)
-    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=3,
-                                                K=4)
-    e_bound_ms, _ = ssd_mixer_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
+    dims = dict(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
+    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(**dims)
+    fp32_ms, fp32_by = ssd_mixer_bwd_bound_fp32_ms(**dims)
+    e_bound_ms, _ = ssd_mixer_bound_ms(**dims)
     print(f"  [{card}] ssd_mixer_bwd fp32, both branches, B={batch} L=196 h=512 d=1024: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms (forward and autograd backward), bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by})")
+          f"{bound_ms * 1e3:.2f} us ({bound_by}, products at the 3xTF32 rate); all at fp32 "
+          f"{fp32_ms * 1e3:.2f} us ({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): {stage_line(stages)}")
     print("  library_ms: none; no single PyTorch call computes the whole mixer's backward")
     print(f"  [{card}] yardstick: the composable pair's backward (autograd through "
           f"ssd_mixer_ref: torch operators and cuBLAS, same weights) {pair_ms:.4f} ms")
@@ -1112,7 +1194,9 @@ def phase_ssd_bwd(card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fp32_ms": fp32_ms,
         "library_ms": None,
+        "stages_ms": stages,
     }
 
 
@@ -1309,7 +1393,7 @@ def phase_ssd_partition(card: str) -> dict:
     print("== phase 2j: kernel E on the EfficientVMamba partition against its plain version",
           flush=True)
     h = 512
-    for grid_n, batch in ((14, 1), (14, 8), (4, 1), (4, 8)):
+    for grid_n, batch in ((14, 1), (14, 8), (4, 1), (4, 8), (32, 1)):  # Ls = 49, 4 and 256
         spec = build_scan_spec("efficientVMamba", grid_n, 0)
         L = grid_n * grid_n
         m0, m1 = mamba2_mixers(spec, 700 + grid_n)
@@ -1331,11 +1415,16 @@ def phase_ssd_partition(card: str) -> dict:
     with torch.no_grad():
         ms = cuda_ms(lambda: mamba2_mixer_fused(spec, x0, m0.weights()), reps=50)
         plain_ms = cuda_ms(lambda: ssd_mixer_ref(spec, x0, m0.weights()), reps=10)
-    bound_ms, bound_by = ssd_mixer_bound_ms(M=1, B=1, L=196, h=h, d=1024, n=16, H=16, S=4, K=4,
-                                            Ls=49)
+        stages = stage_table(lambda: mamba2_mixer_fused(spec, x0, m0.weights()), SSD_STAGES)
+    dims = dict(M=1, B=1, L=196, h=h, d=1024, n=16, H=16, S=4, K=4, Ls=49)
+    bound_ms, bound_by = ssd_mixer_bound_ms(**dims)
+    fp32_ms, fp32_by = ssd_mixer_bound_fp32_ms(**dims)
     print(f"  [{card}] ssd_mixer_fwd fp32, one mixer, partition (S=4, Ls=49), B=1 L=196: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
-    return {"efficientVMamba": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}}
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+          f"3xTF32); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): {stage_line(stages)}")
+    return {"efficientVMamba": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_fp32_ms": fp32_ms, "stages_ms": stages}}
 
 
 def phase_mixer_bwd_branches(card: str) -> dict:
@@ -1417,18 +1506,18 @@ def phase_ssd_bwd_partition(card: str) -> dict:
     def grads_of(gx, gw, m):
         return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
 
-    def case(grid_n, seed):
+    def case(grid_n, seed, b=batch):
         spec = build_scan_spec("efficientVMamba", grid_n, 0)
         ws = [m.weights() for m in mamba2_mixers(spec, seed)]
         gen = torch.Generator().manual_seed(seed)
         L = spec.seq_len
-        xs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
-        gs = [torch.randn(batch, L, h, generator=gen).cuda() for _ in range(2)]
+        xs = [torch.randn(b, L, h, generator=gen).cuda() for _ in range(2)]
+        gs = [torch.randn(b, L, h, generator=gen).cuda() for _ in range(2)]
         return spec, ws, xs, gs
 
     path_err = None
-    for grid_n in (14, 10):  # 4 streams of 49 steps, and of 25
-        spec, ws, xs, gs = case(grid_n, 800 + grid_n)
+    for grid_n in (14, 10, 32):  # 4 streams of 49 steps, of 25, and of 256
+        spec, ws, xs, gs = case(grid_n, 800 + grid_n, batch if grid_n < 32 else 2)
         with torch.no_grad():
             _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
             _, zx1 = ssd_mixer_fused_cuda(spec, xs[:1], ws[:1], want_res=True)
@@ -1444,7 +1533,7 @@ def phase_ssd_bwd_partition(card: str) -> dict:
             rows = grad_errors(got, {k: want[k] for k in got}, TOL_GRAD)
             worst = max(rows, key=lambda row: row[1] / row[2])
             err = max(e for _, e, _ in rows)
-            print(f"  {entry}: B={batch} L={spec.seq_len} S=4 Ls={spec.stream_len}  max|err| "
+            print(f"  {entry}: B={xs[0].shape[0]} L={spec.seq_len} S=4 Ls={spec.stream_len}  max|err| "
                   f"{err:.3e} over {len(rows)} gradients; nearest its bar: {worst[0]} "
                   f"{worst[1]:.2e} (bar {worst[2]:.1e})")
             path_err = err if path_err is None else path_err
@@ -1452,30 +1541,38 @@ def phase_ssd_bwd_partition(card: str) -> dict:
     with torch.no_grad():
         _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
     ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), reps=10)
+    stages = stage_table(lambda: ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx), SSD_BWD_STAGES)
     plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(xs, gs, ws)],
                        reps=5)
-    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=4,
-                                                K=4, Ls=49)
+    dims = dict(M=2, B=batch, L=196, h=h, d=1024, n=16, H=16, S=4, K=4, Ls=49)
+    bound_ms, bound_by = ssd_mixer_bwd_bound_ms(**dims)
+    fp32_ms, fp32_by = ssd_mixer_bwd_bound_fp32_ms(**dims)
     print(f"  [{card}] ssd_mixer_bwd fp32, both branches, partition (S=4, Ls=49), B={batch} "
           f"L=196: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({bound_by})")
+          f"({bound_by}, 3xTF32); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): {stage_line(stages)}")
     return {"partition": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "max_abs_err": path_err}}
+                          "bound_by": bound_by, "bound_fp32_ms": fp32_ms, "max_abs_err": path_err,
+                          "stages_ms": stages}}
 
 
-def ssd_core_bound_ms(G, L, d, n, H, K) -> tuple[float, str]:
-    """Least time for one call of kernel P on an H100: zx read and the normed
-    streams written once over the HBM rate, or the operations over fp32: the
-    conv, C . B^T on the causal pairs (once per sequence), per head and
-    causal pair the decay (exp, a difference, two products) and the 2 *
-    headdim of the product with dt * x, and about 8 per channel and row for
-    the D skip, the gate and the norm."""
+def ssd_core_work(G, L, d, n, H, K) -> tuple[int, int, int]:
+    """One call of kernel P on G sequences of L steps: the SSD's products
+    (``ssd_chunk_work``), the other operations (the conv, the SSD's decays
+    and folds, and about 8 per channel and row for the D skip, the gate and
+    the norm), and the bytes of zx read and the normed streams written once."""
     dproj, conv_dim, hd = 2 * d + 2 * n + H, d + 2 * n, d // H
-    pairs = G * L * (L + 1) // 2
-    ops = G * L * conv_dim * 2 * K + pairs * 2 * n + pairs * H * (4 + 2 * hd) + G * L * d * 8
+    products, other = ssd_chunk_work(G, L, n, H, hd)
+    other += G * L * conv_dim * 2 * K + G * L * d * 8
     nbytes = 4 * (G * L * dproj + G * L * d + 2 * (conv_dim * K + conv_dim + 3 * H + d))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, nbytes
+
+
+def ssd_core_bound_ms(*args, **kw) -> tuple[float, str]:
+    """Least time for one call of kernel P on an H100: its bytes over the HBM
+    rate, or its products at the 3xTF32 rate and the rest at fp32
+    (``ssd_core_work``'s arguments)."""
+    return bound_from(*ssd_core_work(*args, **kw), product_flops=TF32_FLOPS / 3)
 
 
 def load_split_probe():
@@ -1538,15 +1635,18 @@ def phase_ssd_core(card: str) -> dict:
         e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws), reps=20)
         e_prof = profile_calls(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws),
                                calls=10)
-        p_prof = profile_calls(lambda: ssd_core_cuda(zxs, ws), calls=10)
-    bound_ms, bound_by = ssd_core_bound_ms(G=48, L=196, d=1024, n=16, H=16, K=4)
-    e_core = stage_ms(e_prof, "ssd_fwd_kernel") + stage_ms(e_prof, "gate_norm_merge")
+        p_stages = stage_table(lambda: ssd_core_cuda(zxs, ws), SSD_STAGES)
+    core = dict(G=48, L=196, d=1024, n=16, H=16, K=4)
+    bound_ms, bound_by = ssd_core_bound_ms(**core)
+    fp32_ms, fp32_by = bound_from(*ssd_core_work(**core))
+    e_core = sum(stage_ms(e_prof, k) for k in ("ssd_state_kernel", "ssd_out_kernel",
+                                                "gate_norm_merge"))
     print(f"  [{card}] ssd_core_fwd (kernel P) fp32, zx (48, 196, 2096): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
-    print(f"  [{card}] device ms per call by stage (torch.profiler): kernel P's SSD block "
-          f"{stage_ms(p_prof, 'ssd_fwd_kernel'):.4f}, gate + norm "
-          f"{stage_ms(p_prof, 'gate_norm_merge'):.4f}; the same two stages inside whole kernel E "
-          f"(both branches, B=8) {e_core:.4f} of whole E's {e_ms:.4f} ms (CUDA events)")
+          f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, products at the 3xTF32 "
+          f"rate); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+    print(f"  [{card}] device ms per call by stage (torch.profiler): kernel P's "
+          f"{stage_line(p_stages)}; the same stages inside whole kernel E (both branches, B=8) "
+          f"{e_core:.4f} of whole E's {e_ms:.4f} ms (CUDA events)")
     print("  library_ms: none; no single PyTorch call computes the SSD core")
     return {
         "name": "ssd_core_fwd",
@@ -1559,6 +1659,8 @@ def phase_ssd_core(card: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "bound_fp32_ms": fp32_ms,
+        "stages_ms": p_stages,
         "whole_e_ms": e_ms,
         "e_core_stages_ms": e_core,
     }
@@ -1908,32 +2010,45 @@ def phase_train_step(card: str) -> None:
             fail(f"the training loss through {what} disagrees with the plain path's")
 
 
-def phase_mamba2_forward(card: str) -> None:
+def sampler_forward_inputs() -> tuple:
+    """One batch-1 forward's inputs of the DiffMa-B/2 sampler at 224² (a 28²
+    latent), on the card, from seed 0: x, t, y, y2, w."""
     import torch
 
-    from diffma_tpu_torch.models.diffma import build_model
-    from diffma_tpu_torch.utils.profiling import profile_denoiser
-
-    print("== phase 3c: full-width Mamba-2 DiffMa-B/2 forward: composable, dual kernel E, "
-          "fuse_block (kernel E prologue + kernel G)", flush=True)
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(1, 4, 28, 28, generator=gen).cuda()
     t = torch.tensor([500], device="cuda")
     y = torch.randn(1, 512, generator=gen).cuda()
     y2 = torch.randn(1, 196, 512, generator=gen).cuda()
     w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).cuda()
-    inputs = (x, t, y, y2, w)
+    return x, t, y, y2, w
 
-    def build(use_mamba2):
-        model = build_model("DiffMa-B/2", input_size=28, use_mamba2=use_mamba2)
-        g = torch.Generator().manual_seed(1)
-        model.init_weights(g)
-        with torch.no_grad():
-            for p in model.parameters():  # every parameter random, adaLN included
-                p.add_(0.02 * torch.randn(p.shape, generator=g))
-        return model.cuda().eval()
 
-    model = build(True)
+def sampler_model(use_mamba2: bool):
+    """DiffMa-B/2 at full width on the card, every parameter random (adaLN
+    included) from seed 1, in eval mode."""
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+
+    model = build_model("DiffMa-B/2", input_size=28, use_mamba2=use_mamba2)
+    g = torch.Generator().manual_seed(1)
+    model.init_weights(g)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    return model.cuda().eval()
+
+
+def phase_mamba2_forward(card: str) -> None:
+    import torch
+
+    from diffma_tpu_torch.utils.profiling import profile_denoiser
+
+    print("== phase 3c: full-width Mamba-2 DiffMa-B/2 forward: composable, dual kernel E, "
+          "fuse_block (kernel E prologue + kernel G)", flush=True)
+    inputs = sampler_forward_inputs()
+    model = sampler_model(True)
     routes = (("composable", "auto", False, {}),
               ("dual kernel E", "fused", False, {"ssd_mixer_fwd": 8}),
               ("fuse_block", "fused", True, {"ssd_mixer_fwd": 8, "spiral_epilogue": 8}))
@@ -1950,7 +2065,7 @@ def phase_mamba2_forward(card: str) -> None:
         reports[route] = profile_denoiser(model, inputs, calls=5)
         with torch.no_grad():
             reports[route]["event_ms"] = cuda_ms(lambda: model(*inputs), reps=10)
-    mamba1 = build(False).set_scan_impl("fused")
+    mamba1 = sampler_model(False).set_scan_impl("fused")
     reports["Mamba-1 fused (kernel C)"] = profile_denoiser(mamba1, inputs, calls=5)
     with torch.no_grad():
         reports["Mamba-1 fused (kernel C)"]["event_ms"] = cuda_ms(lambda: mamba1(*inputs), reps=10)
@@ -2218,6 +2333,58 @@ def phase_mamba2_trainer(card: str) -> dict:
     return counts
 
 
+def phase_mamba2_sizes(card: str) -> None:
+    """configs/brain.yaml's larger image sizes on the fused Mamba-2 route,
+    whose streams are longer than a stream held whole in shared memory
+    allowed (227 steps in kernel F, about 440 in kernel E): the trainer at
+    256² (256 tokens) and the sampler at 512² (1024 tokens)."""
+    import torch
+
+    from diffma_tpu_torch.train import sample, train
+
+    zero = {name: 0 for name in kernel_counters()}
+    steps = 4
+    print(f"== phase 12b: Mamba-2 trainer (train.main) on configs/brain.yaml at image_size 256 "
+          f"(DiffMa-L/2, 256 tokens, batch 8, synthetic), {steps} steps, kernels E + F",
+          flush=True)
+    results = os.path.join(ROOT, "results", "chip_smoke_train_mamba2_256")
+    shutil.rmtree(results, ignore_errors=True)
+    cfg = brain_config(image_size=256, use_mamba2=True, max_steps=steps, log_every=steps,
+                       ckpt_every=10**9, results_dir=results)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = train.main(cfg, device="cuda")
+    seconds = time.perf_counter() - t0
+    calls = 16 * steps  # blocks x steps: one E and one F call per block and step
+    check_counts("the Mamba-2 trainer at 256²", {**zero, "ssd_mixer_fwd": calls,
+                                                 "ssd_mixer_bwd": calls})
+    if state.step != steps:
+        fail(f"the Mamba-2 trainer at 256² counted {state.step} finite steps of {steps}")
+    tokens = state.model.pos_embed.shape[-2]
+    if tokens != 256 or state.model.blocks[0].scan_impl != "fused":
+        fail(f"the Mamba-2 trainer at 256² ran {tokens} tokens on the "
+             f"{state.model.blocks[0].scan_impl} route")
+    print(f"  [{card}] DiffMa-L/2 Mamba-2 fused training at 256² ({tokens} tokens), batch 8: "
+          f"{steps} steps, every loss finite; {seconds:.1f} s for the whole run (host clock, "
+          f"model init and first step included)")
+    shutil.rmtree(results, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+
+    sample_steps = 10
+    print(f"== phase 12c: Mamba-2 sampler (sample.main) on configs/brain.yaml at image_size 512 "
+          f"(DiffMa-B/2, 1024 tokens), {sample_steps} DDPM steps, 1 batch of 1, kernel E",
+          flush=True)
+    cfg = brain_config(model="DiffMa-B/2", image_size=512, use_mamba2=True, synthetic_data=True,
+                       sample_num_steps=sample_steps, sample_num_batches=1,
+                       sample_global_batch_size=1,
+                       save_dir=os.path.join(ROOT, "result_sample", "chip_smoke_512"))
+    reset_counts()
+    images = sample.main(cfg, device="cuda")
+    check_counts("the Mamba-2 sampler at 512²", {**zero, "ssd_mixer_fwd": 8 * sample_steps})
+    check_images(card, "the Mamba-2 sampler at 512²", images, 1, size=512)
+
+
 def brain_config(**override):
     from diffma_tpu_torch.utils.config import load_config, merge
 
@@ -2236,8 +2403,8 @@ def run_sampler(card: str, cfg, batches: int, expect: dict) -> list:
     return results
 
 
-def check_images(card: str, what: str, results: list, batches: int) -> None:
-    """``batches`` batches of one finite (1, 3, 224, 224) image each, whose
+def check_images(card: str, what: str, results: list, batches: int, size: int = 224) -> None:
+    """``batches`` batches of one finite (1, 3, size, size) image each, whose
     values vary and stay in the thousands (the VAE's weights are random, so
     its range is its own); prints the seconds per batch."""
     import numpy as np
@@ -2248,8 +2415,9 @@ def check_images(card: str, what: str, results: list, batches: int) -> None:
         img = r["images"]
         print(f"  batch {i}: images {img.shape}, {r['seconds']:.3f} s, "
               f"PSNR {r['quality']['psnr_db']:.2f} dB (random weights)")
-        if img.shape != (1, 3, 224, 224) or not np.isfinite(img).all():
-            fail(f"{what}, batch {i}: expected finite (1, 3, 224, 224) images, got {img.shape}")
+        if img.shape != (1, 3, size, size) or not np.isfinite(img).all():
+            fail(f"{what}, batch {i}: expected finite (1, 3, {size}, {size}) images, got "
+                 f"{img.shape}")
         if float(np.abs(img).max()) > 1e3 or float(img.std()) == 0.0:
             fail(f"{what}, batch {i}: image values out of range or constant")
     seconds = [r["seconds"] for r in results]
@@ -2509,6 +2677,7 @@ def main() -> int:
     counts = phase_mamba2_samplers(card)
     ssd["launches"], epilogue["launches"] = counts["ssd_mixer_fwd"], counts["spiral_epilogue"]
     ssd_bwd["launches"] = phase_mamba2_trainer(card)["ssd_mixer_bwd"]
+    phase_mamba2_sizes(card)
     phase_learning(card, 13, use_mamba2=True)
     phase_family_samplers(card)
     counts = phase_family_trainers(card)

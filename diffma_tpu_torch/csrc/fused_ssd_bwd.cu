@@ -35,56 +35,73 @@
 //     and summed over the streams: g_zx
 //     gx = g_zx W_in;   gW_in = g_zx^T x
 //
-// Every product is this file's own fp32 code on the CUDA cores (no cuBLAS, no
-// TF32). The decay is the quadratic form at every span, with the causal mask
-// a selection, never a product: above the diagonal cs_t - cs_u is positive,
-// exp would overflow at wide spans, and inf * 0 is NaN. g_cs is a row sum
-// less a column sum of P; with the diagonal included they are the TPU
-// kernel's two inner products, <g_y, y_pre> and <xdt, g_xdt>, whose diagonal
-// terms are equal and cancel. At a wide span the diagonal is all there is
-// (the decay kills the rest), so the difference of the inner products is
-// rounding noise as large as the gradient. Here both sums leave the diagonal
-// out, exactly. And since gA = sum_t dt_t g_dA[t] weighs g_cs[t] with the
-// whole cumulative dt up to t, while each P[t, u] truly counts only with the
-// dt between u and t, the rounding of the two sums is magnified by the
-// sequence's length: so they, their difference and its reverse cumsum run
-// in fp64, as the forward's cs does; and the adjoint takes cs_t - cs_u from
-// the fp64 cs, before the rounding that the forward's product can afford.
+// Arithmetic. The four GEMMs (g W_out, gx, gW_in, gW_out) run on the tensor
+// cores in 3xTF32 (gemm_tc.cuh), as kernel D's do; the rest is fp32 on the
+// CUDA cores, with the sums named below in fp64. The decay is the quadratic
+// form within a chunk and a carried state across chunks, every exponent a sum
+// of dt * A (never positive) taken in fp64 and rounded once, with the causal
+// mask a selection, never a product: above the diagonal the exponent is
+// positive, exp would overflow at wide spans, and inf * 0 is NaN.
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores,
-// 3.35 TB/s). At DiffMa's training shapes, batch 8, both branches (B = 8,
-// L = 196, h = 512, d = 1024, H = 16, n = 16, S = 3), one call does about
-// 27 GFLOP: four GEMMs over the 1568 token rows, 20 GFLOP; per stream and
-// head the causal halves of y_pre, M^T g_y and g_y xdt^T, 5.7 GFLOP; the
-// rest elementwise. That is 0.40 ms at the fp32 rate, against about 70 MB of
-// x, g, the residual, weights and gradients, 0.02 ms. So operations bound it.
+// g_cs is a row sum less a column sum of P; with the diagonal included they
+// are the TPU kernel's two inner products, <g_y, y_pre> and <xdt, g_xdt>,
+// whose diagonal terms are equal and cancel. At a wide span the diagonal is
+// all there is (the decay kills the rest), so the difference of the inner
+// products is rounding noise as large as the gradient. Here both sums leave
+// the diagonal out, exactly: within a chunk as sums of P's entries, and
+// across chunks as inner products that hold no diagonal term,
 //
-// Design, simple and right first: a chain of launches over a workspace the
-// caller allocates (ssd_mixer_bwd_workspace_floats; about 200 MB at the
-// shapes above), with the branch on blockIdx.z (or a grid axis) in every
-// launch, so both branches share each launch and their gradients never mix.
-// 1. gm = g W_out, a GEMM (gemm_ops.cuh).
-// 2. y per stream in token order: kernel E's own SSD kernel (ssd_core.cuh).
+//     sum_{u in earlier chunks} P[t, u]  = <g_y[t], y_off[t]>,   y_off[t] = exp(lcs[t]) Cs_t . h_in(c)
+//     sum_{t' in later chunks} P[t', u] = <xdt[u], g_xdt_off[u]>,  g_xdt_off[u] = exp(sum(c) - lcs[u]) Bs_u . g_h(c)
+//
+// where h_in(c) is the state entering chunk c and g_h(c) the state adjoint
+// leaving it (ssd_core.cuh's notation). Since gA = sum_t dt_t g_dA[t] weighs
+// g_cs[t] with the whole cumulative dt up to t, while each P[t, u] truly
+// counts only with the dt between u and t, the rounding of the two sums is
+// magnified by the sequence's length: so they, their difference and the
+// reverse cumsum over the whole stream run in fp64.
+//
+// Bound on an H100 SXM (165 TFLOP/s for 3xTF32 products, 67 TFLOP/s fp32
+// outside the tensor cores, 3.35 TB/s). At DiffMa's training shapes, batch 8,
+// both branches (B = 8, L = 196, h = 512, d = 1024, H = 16, n = 16, S = 3),
+// one call does about 23 GFLOP of products at the 3xTF32 rate: four GEMMs
+// over the 1568 token rows, 20 GFLOP, and the chunked SSD's, forward and
+// adjoint, 3.4 GFLOP (chip_smoke.py's ssd_chunk_work), 0.14 ms; and 0.6
+// GFLOP of the rest at fp32, 0.01 ms. About 0.15 ms, against about 71 MB of
+// x, g, the residual, weights and gradients, 0.02 ms. So operations bound
+// it.
+//
+// Design: a chain of launches over a workspace the caller allocates
+// (ssd_mixer_bwd_workspace_floats), with the branch on blockIdx.z (or a grid
+// axis) in every launch, so both branches share each launch and their
+// gradients never mix.
+// 1. gm = g W_out: gemm_tc.cuh's GEMM.
+// 2. y per stream in token order: kernel E's chunked SSD (ssd_core.cuh),
+//    which also leaves each chunk's end state and sum(c) in the workspace.
 // 3. the gate + RMSNorm adjoint: one block per (branch, token row), which
 //    holds the whole d-wide row; writes g_yg silu(z) per stream, g_z summed
 //    in stream order into g_zx, merged, and the row's g_norm_w terms.
-// 4. the SSD adjoint: one block of 256 threads per (branch, b, stream,
-//    head). It stages the head as the forward does, gathers g_y into stream
-//    order, and walks tiles of 32 columns u: lane u of each warp keeps
-//    xdt[u, :] and Bs[u, :] in registers and builds, for its rows t >= u0,
-//    M[t, u] and W[t, u] in shared memory; then g_xdt's 32 x 64 tile is
-//    M^T g_y with a 2 x 4 register tile per thread, g_C accumulates W Bs in
-//    shared memory and g_B = W^T Cs goes out; the warps' row and column sums
-//    of P build g_cs on the way. What crosses heads is each head's own
-//    (L, 16) g_B and g_C, never an L x L matrix. The reverse cumsum of g_cs,
-//    g_dt, the clip and softplus adjoints and the head's sums for g_A_log,
-//    g_D and g_dt_bias end the block.
+// 4. the SSD adjoint, chunked as the forward, in chunks of 64 steps: one
+//    block of 256 threads per (branch, b, stream, head, chunk) each time.
+//    a. each chunk's share of the state adjoint, a_c = sum_{t in c}
+//       exp(lcs[t]) Cs_t (x) g_y[t] (16 x 64);
+//    b. per chunk, h_in(c) and g_h(c) folded from the other chunks' states
+//       and a's, then the chunk's M and W (64 x 64) in shared memory, and
+//       from them and the two states g_xdt (its intra-chunk product M^T g_y
+//       and the cross term), g_X = D g_y + dt g_xdt, g_C and g_B (each
+//       head's own, never an L x L matrix), <X, g_xdt>, and g_cs per step in
+//       fp64, the intra-chunk row and column sums of P taken by a fixed tree;
+//    c. per (branch, b, stream, head), one warp: the reverse cumsum of g_cs
+//       over the whole stream in fp64, 32 steps at a time with a carry, g_dt,
+//       the clip and softplus adjoints, and the head's sums for g_A_log, g_D
+//       and g_dt_bias.
 // 5. g_a: the heads' g_B and g_C summed in head order, times silu'(a) with a
 //    recomputed from zx; then g_zx's conv and dt columns by a gather-sum
 //    through the merge table (each stream is a permutation: no atomics),
 //    and g_conv_w, g_conv_b by column sums over row splits.
-// 6. gx = g_zx W_in, gW_in = g_zx^T x, gW_out = g^T merged: GEMMs whose
-//    reduction runs over all B * L rows.
+// 6. gx = g_zx W_in, gW_in = g_zx^T x, gW_out = g^T merged: GEMMs; the
+//    weight gradients' depth is the B * L token rows, split over blocks
+//    (tc::splits_for) and the partials summed in split order.
 // 7. a pass that sums every partial in a fixed order. Nothing uses atomics
 //    and every output element is written, never accumulated into, so two
 //    calls give the same bits and nothing is left over from the last call.
@@ -96,45 +113,52 @@
 // Two kinds of scan spec, as in kernel E: full-length streams (Ls = L, each a
 // permutation of the tokens), and an exact partition (Ls = L / S, every token
 // in exactly one stream: EfficientVMamba's atrous streams), each stream a
-// sequence of its own whose conv pad and cumsum start at its first step. For
-// a partition, y and g_y have one token row each, the SSD adjoint blocks run
-// over Ls steps, the conv adjoint's gather-sum reads one merge entry per
-// token (each token written once), and the column sums run over the
-// B * S * Ls = B * L stream rows. The shared-memory cap is on Ls, the steps
-// per stream.
+// sequence of its own whose conv pad and cumsum start at its first step, and
+// whose chunks never cross into another stream. For a partition, y and g_y
+// have one token row each, the conv adjoint's gather-sum reads one merge
+// entry per token (each token written once), and the column sums run over
+// the B * S * Ls = B * L stream rows. Shared memory holds one chunk, so it
+// does not grow with the stream and nothing caps its length; the folds of
+// the states read a number that grows as the square of the chunks
+// (ssd_core.cuh).
 //
-// Several B/C groups, bf16 and the factored decay form are not built: the
-// wrapper raises for the first two, and the last is a design for a later
-// change.
+// Several B/C groups and bf16 are not built: the wrapper raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_ops.cuh"
+#include <algorithm>
+
+#include "gemm_tc.cuh"
 #include "ssd_core.cuh"
 
 namespace {
 
+using ssd::block_mm;
 using ssd::block_sum;
+using ssd::Chunk;
 using ssd::dsilu;
-using ssd::kBStride;
 using ssd::kConv;
 using ssd::kHd;
-using ssd::kMaxSharedBytes;
 using ssd::kMaxStreams;
 using ssd::kN;
+using ssd::kNS;
+using ssd::kQ;
+using ssd::kQS;
+using ssd::kRawFloats;
+using ssd::kState;
 using ssd::kThreads;
-using ssd::kTile;
+using ssd::kXS;
 using ssd::sigmoid;
 using ssd::softplus;
+using ssd::Where;
+using ssd::zero;
 
 constexpr int kBranchPtrs = 19;   // x, g, 8 weights, gx, 8 gradients
 constexpr int kRowThreads = 256;  // the gate + norm adjoint
 constexpr int kMaxPerThread = 8;  // so d <= 2048
 constexpr int kSplits = 16;       // row splits of the column sums
 constexpr int kHeadParts = 3;     // per (sequence, head): gA, g_D, g_dt_bias
-constexpr int kXStride = kHd + 1;  // X rows padded: lanes read different rows
-constexpr int kTStride = kTile + 1;  // M and W tiles, (rows, 32 columns)
 
 struct Branch {
   const float* x;        // (B, L, h)
@@ -162,7 +186,7 @@ struct Branch {
 // T = B * L token rows; R = B * S * Ls stream rows, row (b * S + s) * Ls + t
 // in stream order. A token lies in ys streams (S, or 1 for a partition): the
 // merge table's width, and the rows per token of the token-order arrays y
-// and gy, row (b * ys + s) * L + token.
+// and gy, row (b * ys + s) * L + token. A head's stream has nc chunks.
 struct Params {
   Branch br[2];
   const int64_t* fwd;    // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
@@ -177,10 +201,20 @@ struct Params {
   float* gxbc;           // (R, d + 2n) stream order: g_X, then g_a
   float* graw;           // (R, H) stream order: g_p
   float* gbc;            // (R, H, 2n) stream order: each head's g_B, g_C
+  float* states;         // the forward's chunk states and sums (ssd::state_floats)
+  float* achunk;         // (B * S, H, nc, 16, 64): each chunk's a_c
+  double* gcs;           // (R, H) stream order: g_cs
+  float* qs;             // (R, H) stream order: <X, g_xdt> over the head's channels
+  float* part_d;         // (B * S, H, nc): each chunk's sum of g_y X
   float* part_head;      // (B * S, H, kHeadParts)
   float* part_conv;      // (kSplits, d + 2n, K + 1): g_conv_w (K), g_conv_b
   float* part_nw;        // (kSplits, d)
-  int B, L, Ls, h, d, H, S, ys, dproj, conv_dim;
+  float* part;           // (part_size): a split product's partials
+  float* dst[2];         // where the current split product's result goes, per branch
+  size_t part_size;      // floats of `part` per branch
+  int splits;            // of the current product's depth
+  int sp_inw, sp_outw;   // depth splits of gW_in and gW_out
+  int B, L, Ls, h, d, H, S, ys, dproj, conv_dim, nc;
   float scale, eps, dt_lo, dt_hi;
 };
 
@@ -188,57 +222,108 @@ __device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<s
 __device__ __forceinline__ size_t srows(const Params& p) {
   return static_cast<size_t>(p.B) * p.S * p.Ls;
 }
+__device__ __forceinline__ float* split_dst(const Params& p, int m) {
+  return p.splits == 1 ? p.dst[m] : p.part + m * p.part_size;
+}
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
+// stride of whole float4s (true at every DiffMa width). A stage whose rows
+// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
+__device__ __forceinline__ bool al(const float* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+}
+
+// The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
+// branch.
+struct RowPtr {  // a row-major a, contiguous along k
+  const float* p;
+};
+struct RowIdx {  // an a contiguous along row: a(row, k) = X[k * rows + row]
+  int row;
+};
 
 struct GradOutProj {  // gm = g W_out
   static constexpr bool kAByRow = false, kBByRow = true;
+  bool vec;  // float4 loads: every row aligned
+  using ARow = RowPtr;
   const float *g, *w;
   float* c;
   int rows, cols, depth;
   __device__ GradOutProj(const Params& p, int m)
       : g(p.br[m].g), w(p.br[m].out_w), c(p.gm + m * tokens(p) * p.d),
-        rows(static_cast<int>(tokens(p))), cols(p.d), depth(p.h) {}
-  __device__ float a(int row, int k) const { return g[static_cast<size_t>(row) * depth + k]; }
+        rows(static_cast<int>(tokens(p))), cols(p.d), depth(p.h) {
+    vec = al(g, depth) && al(w, cols);
+  }
+  __device__ ARow arow(int row) const { return {g + static_cast<size_t>(row) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.p[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
 
 struct GradX {  // gx = g_zx W_in
   static constexpr bool kAByRow = false, kBByRow = true;
+  bool vec;  // float4 loads: every row aligned
+  using ARow = RowPtr;
   const float *gzx, *w;
   float* c;
   int rows, cols, depth;
   __device__ GradX(const Params& p, int m)
       : gzx(p.gzx + m * tokens(p) * p.dproj), w(p.br[m].in_w), c(p.br[m].gx),
-        rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.dproj) {}
-  __device__ float a(int row, int k) const { return gzx[static_cast<size_t>(row) * depth + k]; }
+        rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.dproj) {
+    vec = al(gzx, depth) && al(w, cols);
+  }
+  __device__ ARow arow(int row) const { return {gzx + static_cast<size_t>(row) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.p[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
 
 struct GradInW {  // gW_in = g_zx^T x
   static constexpr bool kAByRow = true, kBByRow = true;
+  bool vec;  // float4 loads: every row aligned
+  using ARow = RowIdx;
   const float *gzx, *x;
   float* c;
   int rows, cols, depth;
   __device__ GradInW(const Params& p, int m)
-      : gzx(p.gzx + m * tokens(p) * p.dproj), x(p.br[m].x), c(p.br[m].g_in_w),
-        rows(p.dproj), cols(p.h), depth(static_cast<int>(tokens(p))) {}
-  __device__ float a(int row, int k) const { return gzx[static_cast<size_t>(k) * rows + row]; }
+      : gzx(p.gzx + m * tokens(p) * p.dproj), x(p.br[m].x), c(split_dst(p, m)),
+        rows(p.dproj), cols(p.h), depth(static_cast<int>(tokens(p))) {
+    vec = al(gzx, rows) && al(x, cols);
+  }
+  __device__ ARow arow(int row) const { return {row}; }
+  __device__ float a(const ARow& r, int k) const { return gzx[static_cast<size_t>(k) * rows + r.row]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(gzx + static_cast<size_t>(k) * rows + r.row); }
   __device__ float b(int col, int k) const { return x[static_cast<size_t>(k) * cols + col]; }
-  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
+  __device__ float4 b4(int col, int k) const { return ld4(x + static_cast<size_t>(k) * cols + col); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
 };
 
 struct GradOutW {  // gW_out = g^T merged
   static constexpr bool kAByRow = true, kBByRow = true;
+  bool vec;  // float4 loads: every row aligned
+  using ARow = RowIdx;
   const float *g, *merged;
   float* c;
   int rows, cols, depth;
   __device__ GradOutW(const Params& p, int m)
-      : g(p.br[m].g), merged(p.merged + m * tokens(p) * p.d), c(p.br[m].g_out_w),
-        rows(p.h), cols(p.d), depth(static_cast<int>(tokens(p))) {}
-  __device__ float a(int row, int k) const { return g[static_cast<size_t>(k) * rows + row]; }
+      : g(p.br[m].g), merged(p.merged + m * tokens(p) * p.d), c(split_dst(p, m)),
+        rows(p.h), cols(p.d), depth(static_cast<int>(tokens(p))) {
+    vec = al(g, rows) && al(merged, cols);
+  }
+  __device__ ARow arow(int row) const { return {row}; }
+  __device__ float a(const ARow& r, int k) const { return g[static_cast<size_t>(k) * rows + r.row]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(g + static_cast<size_t>(k) * rows + r.row); }
   __device__ float b(int col, int k) const { return merged[static_cast<size_t>(k) * cols + col]; }
-  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
+  __device__ float4 b4(int col, int k) const { return ld4(merged + static_cast<size_t>(k) * cols + col); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
 };
 
 // 3. The gate + RMSNorm adjoint of one token row. grid (B * L, M).
@@ -308,235 +393,263 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_bwd_kernel(const Params
   }
 }
 
-// Shared memory of one SSD adjoint block, in floats (the token order is ints
-// of the same size).
-__host__ __device__ constexpr size_t adj_smem_floats(int L) {
-  return static_cast<size_t>(L) * (kHd + kXStride + kBStride + 2 * kN + 12 + 2 * kTStride);
+// 4. The SSD adjoint, one block per (branch, b, stream, head, chunk), as in
+// the forward (ssd::where).
+
+// The chunk's g_y in stream order, zero past its end, into GY (kQ, kHd);
+// returns this thread's share of sum g_y X. After stage_chunk.
+__device__ inline float gather_gy(const Params& p, const Where& w, const Chunk& ch, float* GY) {
+  const size_t yrow0 = (p.ys == 1 ? static_cast<size_t>(w.m) * p.B + w.b : w.seq) * p.L;
+  const float* gy_bs = p.gy + yrow0 * p.d + w.head * kHd;
+  constexpr int kIters = kQ * kHd / kThreads;
+  float g[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {  // the loads first, all in flight at once
+    const int i = threadIdx.x + it * kThreads, t = i / kHd;
+    g[it] = t < ch.q ? gy_bs[static_cast<size_t>(ch.tok[t]) * p.d + i % kHd] : 0.0f;
+  }
+  float dsum = 0.0f;
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    GY[i] = g[it];
+    dsum = fmaf(g[it], ch.X[(i / kHd) * kXS + i % kHd], dsum);
+  }
+  return dsum;
 }
 
-// 4. The SSD adjoint of one (branch, b, stream, head). grid (H, B * S, M).
-__global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p) {
-  __shared__ float red[kThreads / 32];
-  __shared__ double colp[kThreads / 32][kTile];  // each warp's column sums of P
-  float* smem = ssd::dynamic_smem();
-  const int L = p.Ls, d = p.d;  // this block's stream: L steps
-  const int head = blockIdx.x;
-  const int bs = blockIdx.y;  // b * S + s
-  const int s = bs % p.S;
-  const int b = bs / p.S;
-  const int m = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+constexpr int kChunkAdjSmem = (ssd::kChunkFloats + kRawFloats) * 4;  // GY in the scratch
 
-  float* GY = smem;                  // (L, 64): g_y in stream order, 16-byte aligned rows
-  double* rs = reinterpret_cast<double*>(GY + L * kHd);  // (L,): sum_{u < t} P[t, u]
-  double* cl = rs + L;                                    // (L,): sum_{t > u} P[t, u]
-  ssd::Head hd;
-  hd.css64 = cl + L;                                      // (L,)
-  hd.X = reinterpret_cast<float*>(hd.css64 + L);          // (L, 65)
-  hd.Bs = hd.X + L * kXStride;       // (L, 17)
-  hd.Cs = hd.Bs + L * kBStride;      // (L, 16)
-  float* gC = hd.Cs + L * kN;        // (L, 16)
-  hd.dts = gC + L * kN;              // (L,)
-  hd.css = hd.dts + L;               // (L,)
-  hd.pre = hd.css + L;               // (L,)
-  float* qs = hd.pre + L;            // (L,): <X, g_xdt> over the head's channels
-  float* gda = qs + L;               // (L,): g_dA
-  hd.tok = reinterpret_cast<int*>(gda + L);  // (L,)
-  float* Mt = gda + 2 * L;           // (L, 33): M[t, u] for the tile's columns u
-  float* Wt = Mt + L * kTStride;     // (L, 33): W[t, u]
-  hd.x_stride = kXStride;
-  hd.zx_b = p.zx + (static_cast<size_t>(m) * p.B + b) * p.L * p.dproj;
-  hd.order = p.fwd + static_cast<size_t>(s) * L;
-  const Branch& br = p.br[m];
-  hd.mx = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
-  hd.head = head;
-  hd.L = L;
-  hd.d = d;
-  hd.dproj = p.dproj;
-  hd.dt_lo = p.dt_lo;
-  hd.dt_hi = p.dt_hi;
-  ssd::stage_head(hd);
-  const float *X = hd.X, *Bs = hd.Bs, *Cs = hd.Cs, *dts = hd.dts;
-  const double* css = hd.css64;
-  const int* tok = hd.tok;
-
-  const float A = -expf(br.A_log[head]);
-  const float Dh = br.D[head];
-  const size_t seq = static_cast<size_t>(m) * p.B * p.S + bs;
-  const size_t row0 = seq * L;  // row of (m, b, s, t = 0) in the stream-row arrays
-  // row of (m, b, s, token 0) in the token-order array gy
-  const size_t yrow0 = (p.ys == 1 ? static_cast<size_t>(m) * p.B + b : seq) * p.L;
-
-  // g_y into stream order, and the head's sum of g_y X.
-  float dsum = 0.0f;
-  {
-    const float* gy_bs = p.gy + yrow0 * d + head * kHd;
-    for (int i = tid; i < L * kHd; i += kThreads) {
-      const int t = i / kHd, c = i % kHd;
-      const float g = gy_bs[static_cast<size_t>(tok[t]) * d + c];
-      GY[i] = g;
-      dsum = fmaf(g, X[t * kXStride + c], dsum);
-    }
-    for (int i = tid; i < L * kN; i += kThreads) gC[i] = 0.0f;
-    for (int t = tid; t < L; t += kThreads) rs[t] = 0.0;
+// 4a. a_c = sum_{t in c} exp(lcs[t]) Cs_t (x) g_y[t]: the chunk's share of
+// the state adjoint of every earlier chunk. Chunks 1 .. nc - 1: no chunk
+// reads the first one's.
+__global__ void __launch_bounds__(kThreads) ssd_chunk_adj_kernel(const Params p, const ssd::FwdArgs a) {
+  const Where w = ssd::where(a, 1, a.nc - 1);
+  Chunk ch = ssd::chunk_of(a, w, a.mx[w.m]);
+  float* GY = ssd::chunk_layout(ch, ssd::dynamic_smem());
+  ssd::stage_chunk(ch, GY);
+  gather_gy(p, w, ch, GY);
+  for (int i = threadIdx.x; i < kQ * kN; i += kThreads) {
+    const int t = i / kN, k = i % kN;
+    ch.Cs[t * kNS + k] *= expf(static_cast<float>(ch.lcs[t]));
   }
   __syncthreads();
+  float acc[1][4];
+  zero(acc);
+  block_mm<1, 4, true, false>(acc, ch.Cs, kNS, GY, kHd, 0, kQ);
+  float* out = p.achunk + (w.unit * a.nc + w.c) * kState;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[ty * kHd + tx + 16 * j] = acc[0][j];
+}
 
-  const int tx = tid % 16;  // columns tx + 16 j
-  const int ty = tid / 16;  // rows ty and ty + 16 of the tile
+constexpr int kAdjSmem =
+    (ssd::kChunkFloats + kQ * kHd + 2 * kQ * kQS + 2 * kN * kXS) * 4 + (2 + kThreads / 32) * kQ * 8;
 
-  for (int u0 = 0; u0 < L; u0 += kTile) {
-    const int nrows = L - u0;             // rows t = u0 .. L - 1 see these columns
-    const int ncols = min(kTile, nrows);  // columns u = u0 .. u0 + ncols - 1
-    // M[t, u] = (Cs_t . Bs_u) decay and W[t, u] = <g_y[t], xdt[u]> decay for
-    // u <= t, 0 above the diagonal; P = W (Cs_t . Bs_u) below it, summed along its rows
-    // (over the warp) and its columns (over the lane's rows, then the warps).
-    // Lane u keeps its column's xdt and Bs.
-    {
-      const int u = u0 + lane;
-      const bool u_ok = u < L;
-      float xu[kHd], bu[kN];
-      const float dt_u = u_ok ? dts[u] : 0.0f;
-      const double cs_u = u_ok ? css[u] : 0.0;
+// Sum v over the 16 lanes of a half-warp (the block_mm threads of one ty).
+template <class T>
+__device__ __forceinline__ T half_warp_sum(T v) {
 #pragma unroll
-      for (int c = 0; c < kHd; ++c) xu[c] = u_ok ? X[u * kXStride + c] * dt_u : 0.0f;
-#pragma unroll
-      for (int k = 0; k < kN; ++k) bu[k] = u_ok ? Bs[u * kBStride + k] : 0.0f;
-      double col = 0.0;
-      for (int t = u0 + warp; t < L; t += kThreads / 32) {
-        const float4* g4 = reinterpret_cast<const float4*>(GY + t * kHd);
-        float gx0 = 0.0f, gx1 = 0.0f;
-#pragma unroll
-        for (int c4 = 0; c4 < kHd / 4; ++c4) {
-          const float4 v = g4[c4];
-          gx0 = fmaf(v.x, xu[4 * c4], gx0);
-          gx1 = fmaf(v.y, xu[4 * c4 + 1], gx1);
-          gx0 = fmaf(v.z, xu[4 * c4 + 2], gx0);
-          gx1 = fmaf(v.w, xu[4 * c4 + 3], gx1);
-        }
-        float cb = 0.0f;
-#pragma unroll
-        for (int k = 0; k < kN; ++k) cb = fmaf(Cs[t * kN + k], bu[k], cb);
-        float mv = 0.0f, wv = 0.0f, pv = 0.0f;
-        if (u_ok && u <= t) {
-          const float decay = expf(static_cast<float>(css[t] - cs_u));
-          mv = cb * decay;
-          wv = (gx0 + gx1) * decay;
-          if (u < t) pv = wv * cb;
-        }
-        Mt[(t - u0) * kTStride + lane] = mv;
-        Wt[(t - u0) * kTStride + lane] = wv;
-        double row = static_cast<double>(pv);
-        col += row;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) row += __shfl_xor_sync(0xffffffffu, row, o);
-        if (lane == 0) rs[t] += row;  // one warp per row and tile, tiles in turn
-      }
-      colp[warp][lane] = col;
-    }
-    __syncthreads();
-    if (tid < ncols) {
-      double c = 0.0;
-      for (int w = 0; w < kThreads / 32; ++w) c += colp[w][tid];
-      cl[u0 + tid] = c;
-    }
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-    // g_xdt tile (32 x 64) = M^T (32 x nrows) . g_y (nrows x 64); then
-    // g_X = D g_y + dt g_xdt, and <X, g_xdt> over the head's channels.
-    {
-      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-      for (int r = 0; r < nrows; ++r) {
-        const float a0 = Mt[r * kTStride + ty], a1 = Mt[r * kTStride + ty + 16];
-        const float* gr = GY + (u0 + r) * kHd + tx;
+// 4b. The chunk's adjoint: g_X, g_B, g_C, <X, g_xdt> and g_cs per step, and
+// its share of g_D.
+__global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p, const ssd::FwdArgs a) {
+  __shared__ float red[kThreads / 32];
+  const Where w = ssd::where(a, 0, a.nc);
+  Chunk ch = ssd::chunk_of(a, w, a.mx[w.m]);
+  float* GY = ssd::chunk_layout(ch, ssd::dynamic_smem());  // (kQ, kHd)
+  float* Mt = GY + kQ * kHd;      // (kQ, kQS): M[t, u] = (Cs_t . Bs_u) decay
+  float* Wt = Mt + kQ * kQS;      // (kQ, kQS): W[t, u] = <g_y[t], xdt[u]> decay
+  float* Hin = Wt + kQ * kQS;     // (16, kXS): h_in(c)
+  float* Gh = Hin + kN * kXS;     // (16, kXS): g_h(c)
+  double* rs = reinterpret_cast<double*>(Gh + kN * kXS);  // (kQ,): sum_{u < t in c} P[t, u]
+  double* cl = rs + kQ;                                    // (kQ,): sum_{t > u in c} P[t, u]
+  double* colp = cl + kQ;                                  // (8, kQ): each warp's column sums
+  const size_t units = w.unit * a.nc;
+  ssd::stage_chunk(ch, GY);  // its scratch is GY's and Mt's memory
+  ssd::fold_states(a.states + units * kState, a.sums + units, w.c, a.nc, false, Hin);
+  ssd::fold_states(p.achunk + units * kState, a.sums + units, w.c, a.nc, true, Gh);
+  float dsum = gather_gy(p, w, ch, GY);
+  __syncthreads();
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, warp = tid / 32, lane = tid % 32;
+  const int q = ch.q;
+  // Rows r = 4 ty + i; the causal products stop at (or start from) the warp's rows.
+  const int r_begin = ssd::rows_begin(), r_end = ssd::rows_end();
+  const double* lcs = ch.lcs;
+  const float* dts = ch.dts;
+  // M, W and the chunk's own row and column sums of P = W (Cs_t . Bs_u), u < t.
+  {
+    float cb[4][4], gx[4][4];
+    zero(cb);
+    zero(gx);
+    block_mm<4, 4, false, true, true>(cb, ch.Cs, kNS, ch.Bs, kNS, 0, kN);
+    block_mm<4, 4, false, true, true>(gx, GY, kHd, ch.X, kXS, 0, kHd);
+    double row[4] = {0.0, 0.0, 0.0, 0.0}, col[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float gv = gr[16 * j];
-          acc[0][j] = fmaf(a0, gv, acc[0][j]);
-          acc[1][j] = fmaf(a1, gv, acc[1][j]);
-        }
-      }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int u = u0 + ty + 16 * i;
-        const bool ok = u < L;
-        float q = 0.0f;
-        if (ok) {
-          float* gx_row = p.gxbc + (row0 + u) * p.conv_dim + head * kHd;
-          const float dt_u = dts[u];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = tx + 16 * j;
-            q = fmaf(X[u * kXStride + c], acc[i][j], q);
-            gx_row[c] = fmaf(dt_u, acc[i][j], Dh * GY[u * kHd + c]);
+      for (int j = 0; j < 4; ++j) {
+        const int t = 4 * ty + i, u = tx + 16 * j;
+        float mv = 0.0f, wv = 0.0f;
+        if (u <= t && t < q) {
+          const float decay = expf(static_cast<float>(lcs[t] - lcs[u]));
+          mv = cb[i][j] * decay;
+          wv = gx[i][j] * decay * dts[u];
+          if (u < t) {
+            const double pv = static_cast<double>(wv * cb[i][j]);
+            row[i] += pv;
+            col[j] += pv;
           }
         }
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-        if (ok && tx == 0) qs[u] = q;
+        Mt[t * kQS + u] = mv;
+        Wt[t * kQS + u] = wv;
       }
-    }
-    // g_C[t, :] += W[t, tile] . Bs[tile, :] for the rows t >= u0
-    for (int i = tid; i < nrows * kN; i += kThreads) {
-      const int r = i / kN, k = i % kN;
-      float a = 0.0f;
-      for (int j = 0; j < ncols; ++j) a = fmaf(Wt[r * kTStride + j], Bs[(u0 + j) * kBStride + k], a);
-      gC[(u0 + r) * kN + k] += a;
-    }
-    // g_B[tile, :] = W[:, tile]^T . Cs, complete: no later tile has these columns
-    for (int i = tid; i < ncols * kN; i += kThreads) {
-      const int j = i / kN, k = i % kN;
-      float a = 0.0f;
-      for (int r = 0; r < nrows; ++r) a = fmaf(Wt[r * kTStride + j], Cs[(u0 + r) * kN + k], a);
-      p.gbc[((row0 + u0 + j) * p.H + head) * 2 * kN + k] = a;
-    }
-    __syncthreads();  // Mt and Wt are rebuilt by the next tile
-  }
-
-  // g_dA: the reverse cumsum of g_cs = rs - cl, by warp 0 in fp64, 32 steps
-  // at a time from the end.
-  if (tid < 32) {
-    double carry = 0.0;
-    for (int r0 = 0; r0 < L; r0 += 32) {
-      const int t = L - 1 - (r0 + tid);
-      double v = t >= 0 ? rs[t] - cl[t] : 0.0;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double up = __shfl_up_sync(0xffffffffu, v, o);
-        if (tid >= o) v += up;
-      }
-      v += carry;
-      if (t >= 0) gda[t] = static_cast<float>(v);
-      carry = __shfl_sync(0xffffffffu, v, 31);
+    for (int i = 0; i < 4; ++i) {
+      const double r = half_warp_sum(row[i]);
+      if (tx == 0) rs[4 * ty + i] = r;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double c = col[j] + __shfl_xor_sync(0xffffffffu, col[j], 16);  // the warp's two ty
+      if (lane < 16) colp[warp * kQ + tx + 16 * j] = c;
     }
   }
   __syncthreads();
-
-  // g_dt, the clip's and the softplus's adjoints, and the head's sums.
-  float sum_a = 0.0f, sum_b = 0.0f;
-  for (int t = tid; t < L; t += kThreads) {
-    const float g_da = gda[t];
-    float g_dt = fmaf(g_da, A, qs[t]);
-    sum_a = fmaf(g_da, dts[t], sum_a);
-    const float pre = hd.pre[t];
-    const float sp = softplus(pre);
-    if (!(sp >= p.dt_lo && sp <= p.dt_hi)) g_dt = 0.0f;
-    const float g_p = g_dt * sigmoid(pre);
-    p.graw[(row0 + t) * p.H + head] = g_p;
-    sum_b += g_p;
+  if (tid < kQ) {
+    double c = 0.0;
+    for (int v = 0; v < kThreads / 32; ++v) c += colp[v * kQ + tid];
+    cl[tid] = c;
   }
-  sum_a = block_sum(sum_a, red);
-  sum_b = block_sum(sum_b, red);
+  __syncthreads();
+
+  const ssd::Mixer& mx = a.mx[w.m];
+  const float Dh = mx.D[w.head];
+  const double total = lcs[kQ - 1];
+  const size_t row0 = w.seq * a.Ls + ch.t0;  // stream row of the chunk's first step
+  const bool has_in = w.c > 0, has_out = w.c + 1 < a.nc;
+  // g_xdt = M^T g_y + exp(sum(c) - lcs[u]) Bs_u . g_h; g_X; <X, g_xdt>; and
+  // g_cs, the cross-chunk terms from y_off and g_xdt_off. Rows r are steps.
+  {
+    float gxd[4][4], gcr[4][4], yo[4][4];
+    zero(gxd);
+    zero(gcr);
+    zero(yo);
+    block_mm<4, 4, true, false>(gxd, Mt, kQS, GY, kHd, r_begin, kQ);  // t >= u
+    if (has_out) block_mm<4, 4, false, false>(gcr, ch.Bs, kNS, Gh, kXS, 0, kN);
+    if (has_in) block_mm<4, 4, false, false>(yo, ch.Cs, kNS, Hin, kXS, 0, kN);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      const float fu = expf(static_cast<float>(total - lcs[r]));
+      const float er = expf(static_cast<float>(lcs[r]));
+      float* gx_row = p.gxbc + (row0 + r) * p.conv_dim + w.head * kHd;
+      float qv = 0.0f;
+      double rowx = 0.0, colx = 0.0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float goff = fu * gcr[i][j];
+        const float g = gxd[i][j] + goff;
+        const float xv = ch.X[r * kXS + c];
+        const float gy = GY[r * kHd + c];
+        qv = fmaf(xv, g, qv);
+        colx += static_cast<double>(xv * goff);
+        rowx += static_cast<double>(gy * (er * yo[i][j]));
+        if (r < q) gx_row[c] = fmaf(dts[r], g, Dh * gy);
+      }
+      qv = half_warp_sum(qv);
+      rowx = half_warp_sum(rowx);
+      colx = half_warp_sum(colx);
+      if (tx == 0 && r < q) {
+        p.qs[(row0 + r) * p.H + w.head] = qv;
+        p.gcs[(row0 + r) * p.H + w.head] =
+            (rs[r] + rowx) - (cl[r] + static_cast<double>(dts[r]) * colx);
+      }
+    }
+  }
+  // g_C = W Bs + exp(lcs[t]) g_y . h_in and g_B = W^T Cs + exp(sum(c) - lcs[u])
+  // dt_u X_u . g_h, per step and state channel k = tx.
+  {
+    float gc[4][1], gcx[4][1], gb[4][1], gbx[4][1];
+    zero(gc);
+    zero(gcx);
+    zero(gb);
+    zero(gbx);
+    block_mm<4, 1, false, false>(gc, Wt, kQS, ch.Bs, kNS, 0, r_end);     // u <= t
+    block_mm<4, 1, true, false>(gb, Wt, kQS, ch.Cs, kNS, r_begin, kQ);   // t >= u
+    if (has_in) block_mm<4, 1, false, true>(gcx, GY, kHd, Hin, kXS, 0, kHd);
+    if (has_out) block_mm<4, 1, false, true>(gbx, ch.X, kXS, Gh, kXS, 0, kHd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      if (r >= q) continue;
+      const float fu = expf(static_cast<float>(total - lcs[r]));
+      const float er = expf(static_cast<float>(lcs[r]));
+      float* out = p.gbc + ((row0 + r) * p.H + w.head) * 2 * kN;
+      out[tx] = fmaf(fu * dts[r], gbx[i][0], gb[i][0]);
+      out[kN + tx] = fmaf(er, gcx[i][0], gc[i][0]);
+    }
+  }
   dsum = block_sum(dsum, red);
-  if (tid == 0) {
-    float* part =
-        p.part_head + ((static_cast<size_t>(m) * p.B * p.S + bs) * p.H + head) * kHeadParts;
+  if (tid == 0) p.part_d[units + w.c] = dsum;
+}
+
+// 4c. g_dA, the reverse cumsum of g_cs over the whole stream, by one warp in
+// fp64, 32 steps at a time from the end with a carry; then g_dt, the clip's
+// and the softplus's adjoints, and the head's sums. grid (H, B * S, M).
+__global__ void __launch_bounds__(32) ssd_adjoint_finish_kernel(const Params p) {
+  const int head = blockIdx.x, bs = blockIdx.y, m = blockIdx.z, lane = threadIdx.x;
+  const int Ls = p.Ls, H = p.H;
+  const size_t seq = static_cast<size_t>(m) * p.B * p.S + bs;
+  const size_t unit = seq * H + head, row0 = seq * Ls;
+  const int64_t* order = p.fwd + static_cast<size_t>(bs % p.S) * Ls;
+  const float* zx_b =
+      p.zx + (static_cast<size_t>(m) * p.B + bs / p.S) * p.L * p.dproj + p.d + p.conv_dim + head;
+  const Branch& br = p.br[m];
+  const float A = -expf(br.A_log[head]);
+  const float dtb = br.dt_bias[head];
+  double carry = 0.0;
+  float sum_a = 0.0f, sum_b = 0.0f;
+  for (int r0 = 0; r0 < Ls; r0 += 32) {
+    const int t = Ls - 1 - (r0 + lane);
+    double v = t >= 0 ? p.gcs[(row0 + t) * H + head] : 0.0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double up = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += up;
+    }
+    v += carry;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+    if (t >= 0) {
+      const float g_da = static_cast<float>(v);
+      const float pre = zx_b[order[t] * p.dproj] + dtb;
+      const float sp = softplus(pre);
+      const float dt = fminf(fmaxf(sp, p.dt_lo), p.dt_hi);
+      float g_dt = fmaf(g_da, A, p.qs[(row0 + t) * H + head]);
+      sum_a = fmaf(g_da, dt, sum_a);
+      if (!(sp >= p.dt_lo && sp <= p.dt_hi)) g_dt = 0.0f;
+      const float g_p = g_dt * sigmoid(pre);
+      p.graw[(row0 + t) * H + head] = g_p;
+      sum_b += g_p;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
+    sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
+  }
+  if (lane == 0) {
+    float dsum = 0.0f;
+    for (int c = 0; c < p.nc; ++c) dsum += p.part_d[unit * p.nc + c];
+    float* part = p.part_head + unit * kHeadParts;
     part[0] = sum_a;
     part[1] = dsum;
     part[2] = sum_b;
-  }
-  for (int i = tid; i < L * kN; i += kThreads) {
-    p.gbc[((row0 + i / kN) * p.H + head) * 2 * kN + kN + i % kN] = gC[i];
   }
 }
 
@@ -710,30 +823,11 @@ __global__ void finalize_kernel(const Params p) {
   }
 }
 
-// Lay the workspace out for these shapes (pointers into `base` when given);
-// returns its size in floats.
-size_t layout(Params& p, float* base, int M) {
-  const size_t T = static_cast<size_t>(p.B) * p.L, R = static_cast<size_t>(p.B) * p.S * p.Ls;
-  const size_t d = p.d, Ty = T * p.ys;
-  const size_t sizes[] = {
-      T * d, Ty * d, Ty * d, T * d, T * d,         // gm, y, gy, merged, gnw
-      T * p.dproj, R * p.conv_dim,                 // gzx, gxbc
-      R * p.H, R * p.H * 2 * kN,                   // graw, gbc
-      static_cast<size_t>(p.B) * p.S * p.H * kHeadParts,  // part_head
-      static_cast<size_t>(kSplits) * p.conv_dim * (kConv + 1),  // part_conv
-      static_cast<size_t>(kSplits) * d,            // part_nw
-  };
-  float** ptrs[] = {&p.gm, &p.y, &p.gy, &p.merged, &p.gnw, &p.gzx, &p.gxbc, &p.graw, &p.gbc,
-                    &p.part_head, &p.part_conv, &p.part_nw};
-  size_t total = 0;
-  for (int i = 0; i < 12; ++i) {
-    if (base != nullptr) *ptrs[i] = base + total;
-    total += (sizes[i] * M + 3) / 4 * 4;  // every array 16-byte aligned
-  }
-  return total;
+int tiles(int rows, int cols, int bn, int M) {
+  return M * ((rows + tc::kBM - 1) / tc::kBM) * ((cols + bn - 1) / bn);
 }
 
-void set_dims(Params& p, int B, int L, int Ls, int h, int d, int H, int S) {
+void set_dims(Params& p, int M, int B, int L, int Ls, int h, int d, int H, int S) {
   p.B = B;
   p.L = L;
   p.Ls = Ls;
@@ -744,25 +838,75 @@ void set_dims(Params& p, int B, int L, int Ls, int h, int d, int H, int S) {
   p.S = S;
   p.conv_dim = d + 2 * kN;
   p.dproj = 2 * d + 2 * kN + H;
+  p.nc = ssd::num_chunks(Ls);
+  const int T = B * L;
+  p.sp_inw = tc::splits_for(tiles(p.dproj, h, 128, M), T);
+  p.sp_outw = tc::splits_for(tiles(h, d, 64, M), T);
+  p.part_size = std::max(p.sp_inw > 1 ? static_cast<size_t>(p.sp_inw) * p.dproj * h : 0,
+                         p.sp_outw > 1 ? static_cast<size_t>(p.sp_outw) * h * d : 0);
+}
+
+// Lay the workspace out for these shapes (pointers into `base` when given);
+// returns its size in floats.
+size_t layout(Params& p, float* base, int M) {
+  const size_t T = static_cast<size_t>(p.B) * p.L, R = static_cast<size_t>(p.B) * p.S * p.Ls;
+  const size_t d = p.d, Ty = T * p.ys, units = static_cast<size_t>(p.B) * p.S * p.H;
+  const size_t sizes[] = {
+      T * d, Ty * d, Ty * d, T * d, T * d,         // gm, y, gy, merged, gnw
+      T * p.dproj, R * p.conv_dim,                 // gzx, gxbc
+      R * p.H, R * p.H * 2 * kN,                   // graw, gbc
+      ssd::state_floats(1, p.B, p.S, p.Ls, p.H),   // states
+      units * p.nc * kState,                       // achunk
+      R * p.H * 2, R * p.H,                        // gcs (doubles), qs
+      units * p.nc,                                // part_d
+      units * kHeadParts,                          // part_head
+      static_cast<size_t>(kSplits) * p.conv_dim * (kConv + 1),  // part_conv
+      static_cast<size_t>(kSplits) * d,            // part_nw
+      p.part_size,                                 // part
+  };
+  float* gcs = nullptr;
+  float** ptrs[] = {&p.gm,    &p.y,      &p.gy,        &p.merged,   &p.gnw,       &p.gzx,
+                    &p.gxbc,  &p.graw,   &p.gbc,       &p.states,   &p.achunk,    &gcs,
+                    &p.qs,    &p.part_d, &p.part_head, &p.part_conv, &p.part_nw, &p.part};
+  size_t total = 0;
+  for (int i = 0; i < 18; ++i) {
+    if (base != nullptr) *ptrs[i] = base + total;
+    total += (sizes[i] * M + 3) / 4 * 4;  // every array 16-byte aligned
+  }
+  p.gcs = reinterpret_cast<double*>(gcs);
+  return total;
 }
 
 unsigned blocks_for(size_t n, int threads) { return static_cast<unsigned>((n + threads - 1) / threads); }
 
+// Launch a product whose depth is split `splits` ways into `dst[m]` (rows x
+// cols per branch): straight with one split, else into p.part and summed.
+template <int BN, class Op>
+int launch_split(Params p, float* dst0, float* dst1, int rows, int cols, int M, int splits,
+                 cudaStream_t st) {
+  p.dst[0] = dst0;
+  p.dst[1] = dst1;
+  p.splits = splits;
+  int err = tc::launch_gemm_tc<BN, Op>(p, rows, cols, M, st, splits);
+  if (err != 0 || splits == 1) return err;
+  tc::SplitSum q{};
+  for (int m = 0; m < M; ++m) {
+    q.part[m] = p.part + m * p.part_size;
+    q.out[m] = m == 0 ? dst0 : dst1;
+  }
+  q.n = rows * cols;
+  q.splits = splits;
+  return tc::launch_sum_splits(q, M, st);
+}
+
 }  // namespace
 
 // Floats of workspace that ssd_mixer_bwd needs for these shapes.
-extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int Ls, int d, int H,
-                                                    int S) {
+extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int Ls, int h, int d,
+                                                    int H, int S) {
   Params p{};
-  set_dims(p, B, L, Ls, 0, d, H, S);
+  set_dims(p, M, B, L, Ls, h, d, H, S);
   return static_cast<long long>(layout(p, nullptr, M));
-}
-
-// The longest stream whose SSD adjoint block fits in a block's shared memory.
-extern "C" int ssd_mixer_bwd_max_tokens() {
-  int L = 0;
-  while (adj_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
-  return L;
 }
 
 // `ptrs` holds 19 pointers per branch, in the order of struct Branch, for
@@ -778,7 +922,7 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
                              float dt_lo, float dt_hi, void* stream) {
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
       d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 || Ls < 1 ||
-      (Ls != L && Ls * S != L) || adj_smem_floats(Ls) * sizeof(float) > kMaxSharedBytes) {
+      (Ls != L && Ls * S != L)) {
     return -1;
   }
   Params p{};
@@ -794,48 +938,62 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
   p.fwd = static_cast<const int64_t*>(fwd);
   p.merge = static_cast<const int64_t*>(merge);
   p.zx = static_cast<const float*>(zx);
-  set_dims(p, B, L, Ls, h, d, H, S);
+  set_dims(p, M, B, L, Ls, h, d, H, S);
   p.scale = scale;
   p.eps = eps;
   p.dt_lo = dt_lo;
   p.dt_hi = dt_hi;
   layout(p, static_cast<float*>(workspace), M);
+  p.splits = 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * L, R = B * S * Ls;
-
-  int err = launch_gemm_op<64, 64, 16, 4, 4, GradOutProj>(p, T, d, M, st);
-  if (err == 0) {
-    ssd::FwdArgs core{};
-    for (int m = 0; m < M; ++m) {
-      const Branch& br = p.br[m];
-      core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
-    }
-    core.fwd = p.fwd;
-    core.zx = p.zx;
-    core.y = p.y;
-    core.B = B;
-    core.L = Ls;
-    core.Lt = L;
-    core.d = d;
-    core.S = S;
-    core.y_streams = p.ys;
-    core.dproj = p.dproj;
-    core.dt_lo = dt_lo;
-    core.dt_hi = dt_hi;
-    err = ssd::launch_ssd_fwd(core, M, H, st);
+  static const cudaError_t attr[] = {
+      cudaFuncSetAttribute(ssd_chunk_adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kChunkAdjSmem),
+      cudaFuncSetAttribute(ssd_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kAdjSmem),
+  };
+  for (const cudaError_t e : attr) {
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+
+  ssd::FwdArgs core{};
+  for (int m = 0; m < M; ++m) {
+    const Branch& br = p.br[m];
+    core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
+  }
+  core.fwd = p.fwd;
+  core.zx = p.zx;
+  core.y = p.y;
+  core.B = B;
+  core.Ls = Ls;
+  core.Lt = L;
+  core.d = d;
+  core.H = H;
+  core.S = S;
+  core.y_streams = p.ys;
+  core.dproj = p.dproj;
+  core.dt_lo = dt_lo;
+  core.dt_hi = dt_hi;
+  ssd::set_state_workspace(core, p.states, M);
+
+  int err = tc::launch_gemm_tc<128, GradOutProj>(p, T, d, M, st);
+  if (err == 0) err = ssd::launch_ssd_fwd(core, M, st);
   if (err == 0) {
     gate_norm_bwd_kernel<<<dim3(T, M), kRowThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
+  if (err == 0 && p.nc > 1) {
+    ssd_chunk_adj_kernel<<<dim3((p.nc - 1) * H, B * S, M), kThreads, kChunkAdjSmem, st>>>(p, core);
+    err = static_cast<int>(cudaGetLastError());
+  }
   if (err == 0) {
-    const size_t smem = adj_smem_floats(Ls) * sizeof(float);
-    err = static_cast<int>(cudaFuncSetAttribute(
-        ssd_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-    if (err == 0) {
-      ssd_adjoint_kernel<<<dim3(H, B * S, M), kThreads, smem, st>>>(p);
-      err = static_cast<int>(cudaGetLastError());
-    }
+    ssd_adjoint_kernel<<<dim3(p.nc * H, B * S, M), kThreads, kAdjSmem, st>>>(p, core);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) {
+    ssd_adjoint_finish_kernel<<<dim3(H, B * S, M), 32, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
     grad_preact_kernel<<<dim3(blocks_for(static_cast<size_t>(R) * p.conv_dim, 256), M), 256, 0, st>>>(p);
@@ -853,9 +1011,13 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     norm_w_partial_kernel<<<dim3(blocks_for(d, 128), kSplits, M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradX>(p, T, h, M, st);
-  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradInW>(p, p.dproj, h, M, st);
-  if (err == 0) err = launch_gemm_op<64, 64, 16, 4, 4, GradOutW>(p, h, d, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, GradX>(p, T, h, M, st);
+  if (err == 0) {
+    err = launch_split<128, GradInW>(p, p.br[0].g_in_w, p.br[1].g_in_w, p.dproj, h, M, p.sp_inw, st);
+  }
+  if (err == 0) {
+    err = launch_split<64, GradOutW>(p, p.br[0].g_out_w, p.br[1].g_out_w, h, d, M, p.sp_outw, st);
+  }
   if (err == 0) {
     finalize_kernel<<<dim3(blocks_for(p.conv_dim, 128), M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());

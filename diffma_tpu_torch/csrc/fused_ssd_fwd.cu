@@ -29,49 +29,52 @@
 // LN(x) * ln_w + ln_b, then * (1 + scale_b) + shift_b, and for the second
 // branch * wmask[b, l].
 //
-// Everything is fp32 on the CUDA cores (no TF32); the cumsum runs in fp64 and
-// is rounded once, because everything after it goes through exp(cs_t - cs_u).
-// The causal mask is a selection (u <= t), never a product: above the
-// diagonal cs_t - cs_u is positive and exp would overflow at wide spans.
+// Arithmetic. in_proj and out_proj run on the tensor cores in 3xTF32
+// (gemm_tc.cuh: each operand split into a TF32 high part and remainder, three
+// products summed in fp32), as kernel C's do; the SSD and the row kernels are
+// fp32 on the CUDA cores. Each decay's exponent is a sum of dt * A taken in
+// fp64 and rounded once, and it is never positive: the causal mask is a
+// selection (u <= t), never a product (ssd_core.cuh).
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s).
-// At the DiffMa-B/2 sampler's shapes (batch 1, L = 196, h = 512, d = 1024,
-// H = 16, S = 3) one branch does 0.42 GFLOP in in_proj, 0.21 in out_proj and
-// 0.12 in the three streams' causal products: 1.5 GFLOP for both branches,
-// 22 us at the fp32 rate, against 14.4 MB of weights, x and out, 4 us. So
-// operations bound it.
+// Bound on an H100 SXM (495 TFLOP/s TF32, so 165 TFLOP/s for the 3xTF32
+// products; 67 TFLOP/s fp32 outside the tensor cores; 3.35 TB/s). At the
+// DiffMa-B/2 sampler's shapes (batch 1, L = 196, h = 512, d = 1024, H = 16,
+// S = 3) one branch does 0.42 GFLOP in in_proj, 0.21 in out_proj and 0.07 in
+// the three streams' chunked SSD products, all at the 3xTF32 rate: about 9 us
+// in all for both branches, against 14.4 MB of weights, x and out, 4 us. So
+// operations bound it, in_proj's share most.
 //
-// Design, simple and right first. One call launches four kernels on the
-// stream (five in prologue mode), with the intermediates in zx and a
-// workspace that the caller allocates (ssd_mixer_workspace_floats); at batch
-// 1 they are 10 MB and stay in L2. blockIdx.z (or a grid axis) selects the branch in every
-// kernel, so both branches share each launch.
+// Design. One call launches six kernels on the stream (seven in prologue
+// mode, one more where out_proj's depth is split), with the intermediates in
+// zx and a workspace that the caller allocates (ssd_mixer_workspace_floats).
+// blockIdx.z (or a grid axis) selects the branch in every kernel, so both
+// branches share each launch.
 // 0. prologue (only in that mode): one block per token row; LayerNorm,
-//    modulate, and both branches' inputs written to the workspace.
-// 1. in_proj: gemm_nt.cuh's GEMM, 64 x 64 tiles.
-// 2. the SSD: one block of 256 threads per (branch, b, stream, head). It
-//    stages in shared memory the stream's token order, the head's 64 conv'd
-//    channels xs (L x 64), Bs and Cs (L x 16 each; every head's block
-//    recomputes them, 32 channels), dt and cs. One warp scans dt * A in fp64.
-//    Then, for each tile of 32 steps t, the block builds
-//    M[t, u] = (Cs_t . Bs_u) exp(cs_t - cs_u) dt_u for u <= t (0 above the
-//    diagonal) in shared memory and multiplies M (32 x t_end) by xs
-//    (t_end x 64) with a 2 x 4 register tile per thread, stopping at the
-//    tile's last step. y goes to the workspace in token order: per stream
-//    for full-length specs (each stream is a permutation, so no two writes
-//    meet), one row per token for a partition. The block holds Ls steps, so
-//    the shared-memory cap is on Ls.
+//    modulate, and both branches' inputs written to the workspace. A row
+//    kernel: loaders that compute ran kernel C's products at 8-18 TFLOP/s.
+// 1. in_proj: gemm_tc.cuh's GEMM (InProj below), 64 x 64 or 64 x 128 tiles;
+//    the edge of its 2d + 2n + H = 2096 columns is masked by the GEMM.
+// 2. the SSD, chunked over each stream in chunks of 64 steps with a carried
+//    state (ssd_core.cuh): one block of 256 threads per (branch, b, stream,
+//    head, chunk) writes the chunk's end state, then one per the same folds
+//    the earlier chunks' states into the state entering its chunk and writes
+//    y to the workspace in token order: per stream for full-length specs
+//    (each stream is a permutation, so no two writes meet), one row per token
+//    for a partition. A block holds one chunk, so shared memory does not
+//    grow with the stream and nothing caps its length; the fold's reads
+//    grow as the square of the chunks (ssd_core.cuh).
 // 3. gate + norm + merge: one block per token row and branch; each thread
 //    holds d / 256 channels; per stream the gated row's sum of squares is
 //    reduced over the block, and the normed rows add up in stream order (a
 //    partition has one row per token).
-// 4. out_proj: the GEMM again, 32 x 64 tiles.
+// 4. out_proj: the GEMM again (OutProj), its depth d split over blocks when
+//    the tiles alone leave SMs idle, the partials summed in a fixed order.
 // The TPU kernel's one-hot permutation and head-expansion matmuls, its
 // tril-matmul cumsum and its 8-row padding of L exist for the MXU and VMEM;
 // here they are index gathers, c / 64, a warp scan and exact t < L.
 //
-// Stage 2 and the staging of a head live in ssd_core.cuh, which the backward
-// (kernel F, fused_ssd_bwd.cu) shares.
+// Stage 2 lives in ssd_core.cuh, which the backward (kernel F,
+// fused_ssd_bwd.cu) shares.
 //
 // The residual: the TPU kernel's want_res outputs, the permuted conv + dt
 // columns xs and the gate z, exist so that its backward need not repeat
@@ -92,21 +95,21 @@
 //
 //     out[g] = rmsnorm(SSD(silu(conv([x | B | C] columns)), dt, A, D) silu(z)) norm_w
 //
-// with no merge, (G, L, d). It is stages 2 and 3 above: the same SSD block
+// with no merge, (G, L, d). It is stages 2 and 3 above: the same chunked SSD
 // (ssd_core.cuh) with no gather table, one stream per sequence, then the
 // gate + norm row kernel with one stream and scale 1. Nothing is padded: the
 // TPU probe pads each stream after its last step, and the conv is causal, so
 // its first L rows are the answer. Bound on an H100 SXM at the probe's shapes
-// (G = 48, L = 196, d = 1024, H = 16): the causal pairs' decay and product
-// with dt * x (about 131 per pair and head) make about 2.1 GFLOP in all,
-// 0.031 ms at the fp32 rate (the TPU kernel's full L x L products would be
-// twice that), against 118 MB of zx read and out written, 0.035 ms at the
-// memory rate. So the bytes bound it, barely.
+// (G = 48, L = 196, d = 1024, H = 16): the chunked SSD's products make about
+// 1.1 GFLOP, 0.007 ms at the 3xTF32 rate, and the rest (the conv, the
+// decays, the D skip, the gate and the norm) 0.18 GFLOP, 0.003 ms at fp32,
+// against 118 MB of zx read and out written, 0.035 ms at the memory rate. So
+// the bytes bound it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_nt.cuh"
+#include "gemm_tc.cuh"
 #include "ssd_core.cuh"
 
 namespace {
@@ -114,7 +117,6 @@ namespace {
 using ssd::block_sum;
 using ssd::kConv;
 using ssd::kHd;
-using ssd::kMaxSharedBytes;
 using ssd::kMaxStreams;
 using ssd::kN;
 using ssd::silu;
@@ -123,6 +125,14 @@ constexpr int kBranchPtrs = 10;
 constexpr int kRowThreads = 256;  // gate + norm + merge
 constexpr int kMaxPerThread = 8;  // so d <= 2048
 constexpr int kProThreads = 128;
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
+// stride of whole float4s (true at every DiffMa width). A stage whose rows
+// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
+__device__ __forceinline__ bool al(const float* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+}
 
 struct Branch {
   const float* x;        // (B, L, h)
@@ -145,6 +155,8 @@ struct Params {
   float* y;            // (M, B * y_streams * L, d), token order: y_s[l] at
                        // (b * S + s) * L + l, or y[l] at b * L + l for a partition
   float* merged;       // (M, B * L, d)
+  float* states;       // the SSD's chunk states and sums (ssd::state_floats)
+  float* out_part;     // (M, out_splits, B * L, h): out_proj's split partials, if split
   // prologue mode
   const float* wmask;  // (B, L)
   const float* ln_w;   // (h,)
@@ -153,9 +165,11 @@ struct Params {
   const float* scale_;  // (B, h), rows mod_stride apart
   int mod_stride;
   float ln_eps;
-  int B, L, h, d, H, S, y_streams, dproj;
+  int B, L, Ls, h, d, H, S, y_streams, dproj, in_bn, out_splits;
   float scale, eps, dt_lo, dt_hi;
 };
+
+__device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<size_t>(p.B) * p.L; }
 
 // 0. LayerNorm + modulate (+ soft mask for branch 1). grid B * L.
 __global__ void __launch_bounds__(kProThreads) prologue_kernel(const Params p) {
@@ -186,42 +200,58 @@ __global__ void __launch_bounds__(kProThreads) prologue_kernel(const Params p) {
   }
 }
 
+// The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
+// branch. Rows resolve into an ARow once per thread, before the k-loop.
+
 struct InProj {  // zx = x . W_in^T
-  struct Row {
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
     const float* x;
   };
-  const float* x;
-  const float* w;
+  const float *x, *w;
   float* c;
   int rows, cols, depth;
   __device__ InProj(const Params& p, int m)
-      : x(p.xmod ? p.xmod + static_cast<size_t>(m) * p.B * p.L * p.h : p.br[m].x),
-        w(p.br[m].in_w),
-        c(p.zx + static_cast<size_t>(m) * p.B * p.L * p.dproj),
-        rows(p.B * p.L),
-        cols(p.dproj),
-        depth(p.h) {}
-  __device__ Row row(int i) const { return {x + static_cast<size_t>(i) * depth}; }
-  __device__ float a(const Row& r, int k) const { return r.x[k]; }
+      : x(p.xmod ? p.xmod + m * tokens(p) * p.h : p.br[m].x), w(p.br[m].in_w),
+        c(p.zx + m * tokens(p) * p.dproj), rows(static_cast<int>(tokens(p))), cols(p.dproj),
+        depth(p.h) {
+    vec = al(x, depth) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {x + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.x[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.x + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int, float v) const {
+    c[static_cast<size_t>(row) * cols + col] = v;
+  }
 };
 
 struct OutProj {  // out = merged . W_out^T
-  struct Row {
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
     const float* a;
   };
-  const float* merged;
-  const float* w;
+  const float *merged, *w;
   float* c;
   int rows, cols, depth;
   __device__ OutProj(const Params& p, int m)
-      : merged(p.merged + static_cast<size_t>(m) * p.B * p.L * p.d),
-        w(p.br[m].out_w),
-        c(p.br[m].out),
-        rows(p.B * p.L),
-        cols(p.h),
-        depth(p.d) {}
-  __device__ Row row(int i) const { return {merged + static_cast<size_t>(i) * depth}; }
-  __device__ float a(const Row& r, int k) const { return r.a[k]; }
+      : merged(p.merged + m * tokens(p) * p.d), w(p.br[m].out_w),
+        c(p.out_splits == 1 ? p.br[m].out
+                            : p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
+        rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.d) {
+    vec = al(merged, depth) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {merged + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.a[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.a + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
 };
 
 // 3. Gate with silu(z), RMSNorm over d per stream, sum over streams, * scale.
@@ -266,12 +296,66 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Para
   }
 }
 
-size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int H, int S,
-                        int prologue) {
-  const size_t tokens = static_cast<size_t>(M) * B * L;
-  return (prologue ? tokens * h : 0)                // xmod
-         + tokens * (Ls == L ? S : 1) * d           // y
-         + tokens * d;                              // merged
+void set_dims(Params& p, int B, int L, int Ls, int h, int d, int H, int S) {
+  p.B = B;
+  p.L = L;
+  p.Ls = Ls;
+  p.h = h;
+  p.d = d;
+  p.H = H;
+  p.S = S;
+  p.y_streams = Ls == L ? S : 1;
+  p.dproj = 2 * d + 2 * kN + H;
+  // Tiles counted for two branches whatever M is, so that a one-mixer call
+  // tiles and splits as the dual call does and gives its branch's bits.
+  const int tiles = 2 * ((B * L + tc::kBM - 1) / tc::kBM);
+  // in_proj in 64-wide column tiles while 128-wide ones give under two
+  // blocks per SM (batch 1); out_proj's depth split while its tiles are few.
+  p.in_bn = tiles * ((p.dproj + 127) / 128) < 2 * tc::kSMs ? 64 : 128;
+  p.out_splits = tc::splits_for(tiles * ((h + 127) / 128), d);
+}
+
+// Lay the workspace out for these shapes (pointers into `base` when given);
+// returns its size in floats.
+size_t layout(Params& p, float* base, int M, bool prologue) {
+  const size_t tokens = static_cast<size_t>(M) * p.B * p.L;
+  const size_t sizes[] = {
+      prologue ? tokens * p.h : 0,                                   // xmod
+      tokens * p.y_streams * p.d,                                    // y
+      tokens * p.d,                                                  // merged
+      ssd::state_floats(M, p.B, p.S, p.Ls, p.H),                     // states
+      p.out_splits > 1 ? static_cast<size_t>(p.out_splits) * tokens * p.h : 0,  // out_part
+  };
+  float** ptrs[] = {&p.xmod, &p.y, &p.merged, &p.states, &p.out_part};
+  size_t total = 0;
+  for (int i = 0; i < 5; ++i) {
+    if (base != nullptr) *ptrs[i] = sizes[i] ? base + total : nullptr;
+    total += (sizes[i] + 3) / 4 * 4;  // every array 16-byte aligned
+  }
+  return total;
+}
+
+ssd::FwdArgs core_args(const Params& p, int M, const int64_t* fwd) {
+  ssd::FwdArgs core{};
+  for (int m = 0; m < M; ++m) {
+    const Branch& br = p.br[m];
+    core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
+  }
+  core.fwd = fwd;
+  core.zx = p.zx;
+  core.y = p.y;
+  core.B = p.B;
+  core.Ls = p.Ls;
+  core.Lt = p.L;
+  core.d = p.d;
+  core.H = p.H;
+  core.S = p.S;
+  core.y_streams = p.y_streams;
+  core.dproj = p.dproj;
+  core.dt_lo = p.dt_lo;
+  core.dt_hi = p.dt_hi;
+  ssd::set_state_workspace(core, p.states, M);
+  return core;
 }
 
 }  // namespace
@@ -279,69 +363,54 @@ size_t workspace_floats(int M, int B, int L, int Ls, int h, int d, int H, int S,
 // Floats of workspace that ssd_mixer_fwd needs for these shapes.
 extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int Ls, int h, int d,
                                                 int H, int S, int prologue) {
-  return static_cast<long long>(workspace_floats(M, B, L, Ls, h, d, H, S, prologue));
+  Params p{};
+  set_dims(p, B, L, Ls, h, d, H, S);
+  return static_cast<long long>(layout(p, nullptr, M, prologue != 0));
+}
+
+// Floats of workspace that ssd_core_fwd needs for these shapes.
+extern "C" long long ssd_core_workspace_floats(int M, int G, int L, int d, int H) {
+  Params p{};
+  set_dims(p, G / M, L, L, 0, d, H, 1);  // no out_proj: h = 0
+  return static_cast<long long>(layout(p, nullptr, M, false));
 }
 
 // `ptrs` holds 6 pointers per branch: conv_w (d + 2n, K), conv_b (d + 2n,),
 // dt_bias, A_log, D (H,) and norm_w (d,), for M = 1 or 2 branches; all fp32
-// and contiguous. `zx` (G, L, dproj), `out` and `workspace` (y before the
-// gate) (G, L, d), G a multiple of M, sequence g taking branch g / (G / M).
-// Launches two kernels on `stream`; returns the first cudaError_t that is
-// not 0, or -1 for shapes that are not built.
+// and contiguous. `zx` (G, L, dproj) and `out` (G, L, d), G a multiple of M,
+// sequence g taking branch g / (G / M); `workspace` ssd_core_workspace_floats
+// floats. Launches three kernels on `stream`; returns the first cudaError_t
+// that is not 0, or -1 for shapes that are not built.
 extern "C" int ssd_core_fwd(void* const* ptrs, int M, const void* zx, void* out,
                             void* workspace, int G, int L, int d, int n, int H, int K,
                             float eps, float dt_lo, float dt_hi, void* stream) {
   if (M < 1 || M > 2 || G < M || G % M != 0 || n != kN || K != kConv || H < 1 ||
-      d != H * kHd || d > kRowThreads * kMaxPerThread || L < 1 ||
-      ssd::fwd_smem_floats(L) * sizeof(float) > kMaxSharedBytes) {
+      d != H * kHd || d > kRowThreads * kMaxPerThread || L < 1) {
     return -1;
   }
-  const int per_branch = G / M;
-  ssd::FwdArgs core{};
   Params p{};
   for (int m = 0; m < M; ++m) {
     void* const* q = ptrs + m * 6;
-    core.mx[m] = ssd::Mixer{static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
-                            static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
-                            static_cast<const float*>(q[4])};
+    p.br[m].conv_w = static_cast<const float*>(q[0]);
+    p.br[m].conv_b = static_cast<const float*>(q[1]);
+    p.br[m].dt_bias = static_cast<const float*>(q[2]);
+    p.br[m].A_log = static_cast<const float*>(q[3]);
+    p.br[m].D = static_cast<const float*>(q[4]);
     p.br[m].norm_w = static_cast<const float*>(q[5]);
   }
-  const int dproj = 2 * d + 2 * kN + H;
-  core.fwd = nullptr;
-  core.zx = static_cast<const float*>(zx);
-  core.y = static_cast<float*>(workspace);
-  core.B = per_branch;
-  core.L = L;
-  core.Lt = L;
-  core.d = d;
-  core.S = 1;
-  core.y_streams = 1;
-  core.dproj = dproj;
-  core.dt_lo = dt_lo;
-  core.dt_hi = dt_hi;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = ssd::launch_ssd_fwd(core, M, H, st);
-  if (err != 0) return err;
+  set_dims(p, G / M, L, L, 0, d, H, 1);  // no out_proj: h = 0
+  layout(p, static_cast<float*>(workspace), M, false);
   p.zx = static_cast<float*>(const_cast<void*>(zx));
-  p.y = core.y;
   p.merged = static_cast<float*>(out);
-  p.B = per_branch;
-  p.L = L;
-  p.d = d;
-  p.S = 1;
-  p.y_streams = 1;
-  p.dproj = dproj;
   p.scale = 1.0f;
   p.eps = eps;
-  gate_norm_merge_kernel<<<dim3(per_branch * L, M), kRowThreads, 0, st>>>(p);
+  p.dt_lo = dt_lo;
+  p.dt_hi = dt_hi;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = ssd::launch_ssd_fwd(core_args(p, M, nullptr), M, st);
+  if (err != 0) return err;
+  gate_norm_merge_kernel<<<dim3(p.B * L, M), kRowThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The longest stream whose SSD block fits in a block's shared memory.
-extern "C" int ssd_mixer_max_tokens() {
-  int L = 0;
-  while (ssd::fwd_smem_floats(L + 1) * sizeof(float) <= kMaxSharedBytes) ++L;
-  return L;
 }
 
 // `ptrs` holds 10 pointers per branch, in the order of struct Branch, for
@@ -362,8 +431,7 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
   const bool partition = Ls != L;
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
       d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || Ls < 1 ||
-      (partition && (Ls * S != L || pro)) ||
-      ssd::fwd_smem_floats(Ls) * sizeof(float) > kMaxSharedBytes || (pro && M != 2)) {
+      (partition && (Ls * S != L || pro)) || (pro && M != 2)) {
     return -1;
   }
   Params p{};
@@ -377,13 +445,9 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
         static_cast<const float*>(q[8]), static_cast<float*>(q[9])};
   }
   p.fwd = static_cast<const int64_t*>(fwd);
-  const int dproj = 2 * d + 2 * kN + H;
-  const size_t tokens = static_cast<size_t>(M) * B * L;
-  float* ws = static_cast<float*>(workspace);
-  p.xmod = nullptr;
+  set_dims(p, B, L, Ls, h, d, H, S);
+  layout(p, static_cast<float*>(workspace), M, pro != nullptr);
   if (pro) {
-    p.xmod = ws;
-    ws += tokens * h;
     p.wmask = static_cast<const float*>(pro[0]);
     p.ln_w = static_cast<const float*>(pro[1]);
     p.ln_b = static_cast<const float*>(pro[2]);
@@ -393,51 +457,35 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
     p.ln_eps = ln_eps;
   }
   p.zx = static_cast<float*>(zx);
-  p.y_streams = partition ? 1 : S;
-  p.y = ws;
-  p.merged = p.y + tokens * p.y_streams * d;
-  p.B = B;
-  p.L = L;
-  p.h = h;
-  p.d = d;
-  p.H = H;
-  p.S = S;
-  p.dproj = dproj;
   p.scale = scale;
   p.eps = eps;
   p.dt_lo = dt_lo;
   p.dt_hi = dt_hi;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int T = B * L;
 
-  int err;
+  int err = 0;
   if (pro) {
-    prologue_kernel<<<B * L, kProThreads, 0, st>>>(p);
+    prologue_kernel<<<T, kProThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
   }
-  err = launch_gemm<64, 64, 16, 4, 4, InProj>(p, B * L, dproj, M, st);
-  if (err != 0) return err;
-  ssd::FwdArgs core{};
+  if (err == 0) {
+    err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj>(p, T, p.dproj, M, st)
+                        : tc::launch_gemm_tc<128, InProj>(p, T, p.dproj, M, st);
+  }
+  if (err == 0) err = ssd::launch_ssd_fwd(core_args(p, M, p.fwd), M, st);
+  if (err == 0) {
+    gate_norm_merge_kernel<<<dim3(T, M), kRowThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) err = tc::launch_gemm_tc<128, OutProj>(p, T, h, M, st, p.out_splits);
+  if (err != 0 || p.out_splits == 1) return err;
+  tc::SplitSum q{};
   for (int m = 0; m < M; ++m) {
-    const Branch& br = p.br[m];
-    core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
+    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T * h;
+    q.out[m] = p.br[m].out;
   }
-  core.fwd = p.fwd;
-  core.zx = p.zx;
-  core.y = p.y;
-  core.B = B;
-  core.L = Ls;
-  core.Lt = L;
-  core.d = d;
-  core.S = S;
-  core.y_streams = p.y_streams;
-  core.dproj = dproj;
-  core.dt_lo = dt_lo;
-  core.dt_hi = dt_hi;
-  err = ssd::launch_ssd_fwd(core, M, H, st);
-  if (err != 0) return err;
-  gate_norm_merge_kernel<<<dim3(B * L, M), kRowThreads, 0, st>>>(p);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return launch_gemm<32, 64, 16, 2, 4, OutProj>(p, B * L, h, M, st);
+  q.n = T * h;
+  q.splits = p.out_splits;
+  return tc::launch_sum_splits(q, M, st);
 }

@@ -1,5 +1,8 @@
 // Tiled GEMM on Hopper's tensor cores in fp32-accurate 3xTF32, for the
-// product stages of kernels C (fused_mixer_fwd.cu) and D (fused_mixer_bwd.cu).
+// product stages of kernels C (fused_mixer_fwd.cu) and D (fused_mixer_bwd.cu),
+// and E's and F's projections (fused_ssd_fwd.cu, fused_ssd_bwd.cu). Rows,
+// columns and depth of any size: the tiles' ragged edges are masked (E's
+// in_proj has 2d + 2n + H = 2096 columns).
 //
 // A stage computes c[row, col] = sum_k a(row, k) b(col, k) for one branch.
 // An operand class Op is built on the device from the kernel's parameters and

@@ -58,8 +58,11 @@ standard way here: Mamba-2 never takes Mamba-1's quirk) and, in their one-
 and two-mixer modes, exact partitions of the tokens (EfficientVMamba's four
 quarter-length atrous streams, each a sequence of its own, whose merge is a
 scatter). Prologue mode takes full-length specs only (the Spiral block's
-specs are), and raises ``NotImplementedError`` on a partition. The decay is
-always the quadratic form, exact at every span, forward and backward.
+specs are), and raises ``NotImplementedError`` on a partition. The kernels
+cut each stream into chunks of 64 steps with a carried state, so a stream may
+be of any length; within a chunk the decay is the quadratic form, and every
+exponent is a sum of dt * A (never positive), exact at every span, forward
+and backward.
 """
 
 from __future__ import annotations
@@ -343,9 +346,10 @@ def _kernel_fns():
     size = lib.ssd_mixer_workspace_floats
     size.argtypes = [ctypes.c_int] * 9
     size.restype = ctypes.c_longlong
-    lib.ssd_mixer_max_tokens.argtypes = []
-    lib.ssd_mixer_max_tokens.restype = ctypes.c_int
-    return fwd, size, lib.ssd_mixer_max_tokens()
+    core_size = lib.ssd_core_workspace_floats
+    core_size.argtypes = [ctypes.c_int] * 5
+    core_size.restype = ctypes.c_longlong
+    return fwd, size, core_size
 
 
 def ssd_mixer_fused_cuda(
@@ -380,12 +384,7 @@ def ssd_mixer_fused_cuda(
     if prologue is not None:
         _check_spec_prologue(spec)
     dims = _check_kernel_inputs(spec, xs, ws, prologue)
-    fwd_fn, size_fn, max_tokens = _kernel_fns()
-    if dims["Ls"] > max_tokens:
-        raise ValueError(
-            f"the kernel holds one stream of one head in shared memory: it takes up to "
-            f"{max_tokens} steps per stream, got {dims['Ls']}"
-        )
+    fwd_fn, size_fn, _ = _kernel_fns()
     x0 = xs[0]
     out = torch.empty((M, *x0.shape), dtype=x0.dtype, device=x0.device)
     workspace = torch.empty(
@@ -434,11 +433,9 @@ def _bwd_kernel_fns():
     )
     bwd.restype = ctypes.c_int
     size = lib.ssd_mixer_bwd_workspace_floats
-    size.argtypes = [ctypes.c_int] * 7
+    size.argtypes = [ctypes.c_int] * 8
     size.restype = ctypes.c_longlong
-    lib.ssd_mixer_bwd_max_tokens.argtypes = []
-    lib.ssd_mixer_bwd_max_tokens.restype = ctypes.c_int
-    return bwd, size, lib.ssd_mixer_bwd_max_tokens()
+    return bwd, size
 
 
 def ssd_mixer_fused_bwd_cuda(
@@ -469,16 +466,11 @@ def ssd_mixer_fused_bwd_cuda(
         + [("residual", residual, (M, dims["B"] * dims["L"], dproj))],
         x0.device,
     )
-    bwd_fn, size_fn, max_tokens = _bwd_kernel_fns()
-    if dims["Ls"] > max_tokens:
-        raise ValueError(
-            f"the kernel holds one stream of one head in shared memory: it takes up to "
-            f"{max_tokens} steps per stream, got {dims['Ls']}"
-        )
+    bwd_fn, size_fn = _bwd_kernel_fns()
     gxs = tuple(torch.empty_like(x) for x in xs)
     grads = tuple(Mamba2Weights(*(torch.empty_like(t) for t in w)) for w in ws)
     workspace = torch.empty(
-        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["d"], dims["H"], dims["S"]),
+        size_fn(M, dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["H"], dims["S"]),
         dtype=torch.float32, device=x0.device,
     )
     fwd, merge = index_tables(spec, x0.device)
@@ -646,12 +638,10 @@ def ssd_core_cuda(
     for i, w in enumerate(ws):
         if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
             raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
-    max_tokens = _kernel_fns()[2]
-    if L > max_tokens:
-        raise ValueError(f"the kernel takes up to {max_tokens} steps per stream, got {L}")
     fwd_fn = _core_kernel_fn()
     out = torch.empty((G, L, d), dtype=torch.float32, device=zx.device)
-    workspace = torch.empty_like(out)
+    workspace = torch.empty(_kernel_fns()[2](M, G, L, d, H), dtype=torch.float32,
+                            device=zx.device)
     ptrs = [t.data_ptr() for w in ws
             for t in (w.conv_w, w.conv_b, w.dt_bias, w.A_log, w.D, w.norm_w)]
     err = fwd_fn(
@@ -748,7 +738,7 @@ def mamba2_mixer_fused(
 ) -> torch.Tensor:
     """One mixer, ``(B, L, h) -> (B, L, h)``, in one call of kernel E on CUDA
     tensors (and one of kernel F in the backward). ``chunk_size`` matters to
-    the plain version only: the kernel treats the sequence as one chunk."""
+    the plain version only: the kernels cut each stream into chunks of 64."""
     _check_spec(spec)
     if _use_kernels(impl, (x, *w)):
         return _mixers_cuda(spec, (x,), (w,), dt_limit, eps)[0]

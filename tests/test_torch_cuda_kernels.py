@@ -22,6 +22,7 @@ neither JAX nor ``diffma_tpu``, so it also runs on a machine without them:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -629,12 +630,6 @@ def test_fused_ssd_bwd_rejects_what_it_does_not_take(cuda):
         ssd_mixer_fused_bwd_cuda(spec, (x.cpu(),), (x,), (w,), zx)
     with pytest.raises(ValueError, match="headdim"):
         ssd_mixer_fused_bwd_cuda(spec, (x,), (x,), (w._replace(A_log=w.A_log[:8].contiguous()),), zx)
-    big = build_scan_spec("spiral", 16, 0)  # 256 tokens: the adjoint block's staging outgrows an SM
-    xb = _x(cuda, 256, 0)
-    with torch.no_grad():
-        _, zxb = ssd_mixer_fused_cuda(big, (xb,), (w,), want_res=True)  # kernel E takes them
-    with pytest.raises(ValueError, match="up to"):
-        ssd_mixer_fused_bwd_cuda(big, (xb,), (xb,), (w,), zxb)
     with pytest.raises(ValueError, match="no residual"):
         ssd_mixer_fused_cuda(spec, (x,), (w, w), prologue=Prologue(x, x, x, x, x), want_res=True)
     assert ssd_mixer_fused_bwd_cuda.launches == before
@@ -668,9 +663,6 @@ def test_fused_ssd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="partition"):  # not in prologue mode
         ssd_mixer_fused_cuda(build_scan_spec("eff", 4, 0), (x16,), (w, w),
                              prologue=Prologue(x16, x16, x16, x16, x16))
-    big = build_scan_spec("spiral", 24, 0)  # 576 tokens: the SSD block's staging outgrows an SM
-    with pytest.raises(ValueError, match="up to"):
-        ssd_mixer_fused_cuda(big, (_x(cuda, 576, 0),), (w,))
     o = _x(cuda, 25, 1)
     gate = torch.zeros(1, HIDDEN, device=cuda)
     an = torch.ones(2 * HIDDEN, device=cuda)
@@ -684,6 +676,55 @@ def test_fused_ssd_rejects_what_it_does_not_take(cuda):
         spiral_epilogue_cuda(o, o, x, gate[:, :-1], an, an, fc1_w, fc1_b, fc2_w, fc2_b)
     with pytest.raises(ValueError, match="CUDA tensors"):
         spiral_epilogue_cuda(o, o, x.cpu(), gate, an, an, fc1_w, fc1_b, fc2_w, fc2_b)
+
+
+def _random_spec(L, streams, seed):
+    """``streams`` random permutations of L tokens, merged the standard way."""
+    rng = np.random.default_rng(seed)
+    fwd = np.stack([rng.permutation(L) for _ in range(streams)]).astype(np.int32)
+    return ScanSpec(fwd=fwd, merge=_build_merge_table(fwd, L), scale=1.0)
+
+
+@pytest.mark.parametrize(
+    "family,L,batch,backward",
+    [("spiral", 256, 2, True), ("random", 300, 1, True), ("spiral", 1024, 1, False),
+     ("eff", 1024, 1, True)],
+)
+def test_fused_ssd_long_streams_match_plain(cuda, family, L, batch, backward):
+    """Streams past the caps that a whole stream per block in shared memory
+    set (227 steps for F, about 440 for E): kernels E (dual and single) and F
+    on the spiral spec at 256 tokens, three random permutations of 300, E at
+    1024, and the EfficientVMamba partition of 1024 tokens into 4 streams of
+    256 steps; each within its bar, F twice with the same bits."""
+    if family == "random":
+        spec = _random_spec(L, 3, seed=L)
+    else:
+        spec = build_scan_spec(family, math.isqrt(L), 0)
+    mixers = _mixers2(cuda, spec, seed=L)
+    ws = [m.weights() for m in mixers]
+    xs = [_x(cuda, L, 60 + i, batch) for i in range(2)]
+    with torch.no_grad():
+        outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+        single = mamba2_mixer_fused(spec, xs[1], ws[1])
+        want = [ssd_mixer_ref(spec, x, w) for x, w in zip(xs, ws)]
+    torch.cuda.synchronize()
+    for g, w in zip((*outs, single), (*want, want[1])):
+        _assert_close_to_ref(g, w)
+    if not backward:
+        return
+    gs = [_x(cuda, L, 70 + i, batch) for i in range(2)]
+    ref = {}
+    for m in range(2):
+        ref.update(_ssd_grads(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m]), m))
+    first = None
+    for _ in range(2):
+        gxs, gws = ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx)
+        torch.cuda.synchronize()
+        got = {**_ssd_grads(gxs[0], gws[0], 0), **_ssd_grads(gxs[1], gws[1], 1)}
+        for name, a in got.items():
+            _assert_grad_close(a, ref[name], name)
+            assert first is None or torch.equal(a, first[name]), f"{name} differs between two calls"
+        first = got
 
 
 # ---- kernel C's vim and partition branches, kernel E's partition, kernel H

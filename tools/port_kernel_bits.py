@@ -16,12 +16,12 @@ compare:
 tensor is equal bit for bit. A change that redesigns some kernels names the
 ones that must keep their bits, and holds the others to a bar instead:
 
-    python tools/port_kernel_bits.py compare old.pt new.pt --exact E,EG,F,G,H \
-        --bar C=1e-4 --bar D=2e-4
+    python tools/port_kernel_bits.py compare old.pt new.pt --exact C,D,G,H \
+        --bar E=1e-4 --bar EG=1e-4 --bar F=2e-4
 
-(each tensor of C within 1e-4 * max(1, max |old|), of D within 2e-4). It
-needs an NVIDIA GPU with nvcc and uses only entry points that both checkouts
-have.
+(each tensor of E and EG within 1e-4 * max(1, max |old|), of F within
+2e-4). It needs an NVIDIA GPU with nvcc and uses only entry points that both
+checkouts have.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels C and D (the fused Mamba-1 mixer's forward and backward) of a
-checkout of the PyTorch port, per call and per stage, and the Mamba-1
-training steps that run them.
+"""Time kernels C, D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward
+and backward) of a checkout of the PyTorch port, per call and per stage, the
+batch-1 Mamba-2 sampler forward and the training steps that run them.
 
 Run it once per checkout, each in a process of its own (both packages have
 the same name), in turns on one card so that two versions meet the same
@@ -15,10 +15,15 @@ clocks, and print the runs side by side:
 
 ``run`` times each case with CUDA events (the median over 5 windows of the
 mean over back-to-back calls), takes the device ms per call by stage from
-torch.profiler's kernel table (the stage names of ``chip_smoke.py``), and
-profiles the trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8
-(``diffma_tpu_torch.utils.profiling.profile_train_step``). Every case uses
-entry points that both checkouts have. It needs an NVIDIA GPU with nvcc.
+torch.profiler's kernel table (the stage names of ``chip_smoke.py``; for E
+and F also each SSD kernel's), profiles the Mamba-2 DiffMa-B/2 forward at
+batch 1 on the dual and the ``fuse_block`` route (``chip_smoke.py`` phase
+3c's model and inputs: CUDA-event ms, wall and device busy ms, launches), and
+profiles the trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8, Mamba-1
+and Mamba-2 (``diffma_tpu_torch.utils.profiling.profile_train_step``). Every
+case uses entry points that both checkouts have; a case that a checkout
+refuses (a stream past its kernel's length cap) is recorded as refused. It
+needs an NVIDIA GPU with nvcc.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The stage classes of kernel C's and D's versions before gemm_tc.cuh, under
-# chip_smoke.py's labels, so that an older checkout's calls split the same way.
-OLD_STAGE_NAMES = {"conv + x_proj": "ConvXProj", "merge + out_proj": "MergeOutProj|QuirkOutProj"}
+# The stage kernels of earlier versions of C, D, E and F (before gemm_tc.cuh
+# and the chunked SSD), under chip_smoke.py's labels, so that an older
+# checkout's calls split the same way.
+OLD_STAGE_NAMES = {"conv + x_proj": "ConvXProj", "merge + out_proj": "MergeOutProj|QuirkOutProj",
+                   "ssd": "ssd_fwd_kernel", "recompute y": "ssd_fwd_kernel"}
 
 
 def with_old_names(stages):
@@ -40,7 +47,13 @@ def with_old_names(stages):
                   else pattern) for label, pattern in stages)
 
 
-# (name, kernel, family, batch, branches): the main path's cases first
+# Each SSD kernel of E and F on its own, the whole-stream versions' too.
+SSD_KERNELS = (("state", r"ssd_state_kernel"), ("out", r"ssd_out_kernel"),
+               ("whole stream (old)", r"ssd_fwd_kernel"), ("a_c", r"ssd_chunk_adj"),
+               ("adjoint", r"ssd_adjoint_kernel"), ("adjoint finish", r"ssd_adjoint_finish"))
+
+# (name, kernel, family, batch, branches[, grid]): the main path's cases first;
+# the grid is 14 (196 tokens) unless given
 CASES = (
     ("C spiral B=1 dual", "C", "spiral", 1, 2),
     ("C spiral B=8 dual", "C", "spiral", 8, 2),
@@ -51,10 +64,21 @@ CASES = (
     ("D spiral B=8 dual", "D", "spiral", 8, 2),
     ("D vim B=8", "D", "vim", 8, 1),
     ("D partition B=8", "D", "efficientVMamba", 8, 1),
+    ("E spiral B=1 dual", "E", "spiral", 1, 2),
+    ("E spiral B=8 dual", "E", "spiral", 8, 2),
+    ("E partition B=1", "E", "efficientVMamba", 1, 1),
+    ("F spiral B=8 dual", "F", "spiral", 8, 2),
+    ("F partition B=8 dual", "F", "efficientVMamba", 8, 2),
+    ("F spiral L=256 B=8 dual", "F", "spiral", 8, 2, 16),
+    ("E spiral L=1024 B=1 dual", "E", "spiral", 1, 2, 32),
+    ("F spiral L=1024 B=1 dual", "F", "spiral", 1, 2, 32),
 )
+FORWARDS = (("B/2 Mamba-2 forward B=1, dual", False), ("B/2 Mamba-2 forward B=1, fuse_block", True))
+STAGES = {"C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES", "E": "SSD_STAGES", "F": "SSD_BWD_STAGES"}
+STEPS = (("DiffMa-L/2", False), ("DiffMa-B/2", False), ("DiffMa-L/2", True), ("DiffMa-B/2", True))
 
 
-def run(root: str, out: str, steps: bool) -> None:
+def run(root: str, out: str, steps: bool, kernels: bool) -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as cs  # helpers only; its functions import the package lazily
 
@@ -62,41 +86,81 @@ def run(root: str, out: str, steps: bool) -> None:
     import torch
 
     from diffma_tpu_torch.models.mamba import Mamba
-    from diffma_tpu_torch.ops import fused_mixer
+    from diffma_tpu_torch.models.mamba2 import Mamba2
     from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+    from diffma_tpu_torch.utils.profiling import profile_denoiser
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     h = 512
     report = {"root": os.path.abspath(root), "card": cs.card_line(), "cases": {}}
-    for name, kernel, family, batch, M in CASES:
-        spec = build_scan_spec(family, 14, 1)
-        mixers = [cs.random_(Mamba(h, spec), 900 + i).cuda() for i in range(M)]
+    for name, kernel, family, batch, M, *grid in CASES if kernels else ():
+        grid_n = grid[0] if grid else 14
+        spec = build_scan_spec(family, grid_n, 1)
+        module = Mamba if kernel in "CD" else Mamba2
+        mixers = [cs.random_(module(h, spec), 900 + i).cuda() for i in range(M)]
         ws = tuple(m.weights() for m in mixers)
         gen = torch.Generator().manual_seed(900)
-        xs = tuple(torch.randn(batch, 196, h, generator=gen).cuda() for _ in range(M))
-        gs = tuple(torch.randn(batch, 196, h, generator=gen).cuda() for _ in range(M))
+        L = grid_n * grid_n
+        xs = tuple(torch.randn(batch, L, h, generator=gen).cuda() for _ in range(M))
+        gs = tuple(torch.randn(batch, L, h, generator=gen).cuda() for _ in range(M))
+        try:
+            report["cases"][name] = time_case(cs, kernel, spec, xs, gs, ws, batch)
+        except ValueError as e:  # the kernel's wrapper refuses the shape
+            report["cases"][name] = {"refused": str(e)}
+            print(f"{name}: refused: {e}", flush=True)
+            continue
+        print(f"{name}: {report['cases'][name]['ms']:.4f} ms; "
+              f"{cs.stage_line(report['cases'][name]['stages_ms'])}", flush=True)
+    report["forwards"] = {}
+    inputs = cs.sampler_forward_inputs()
+    model = cs.sampler_model(True).set_scan_impl("fused")
+    for name, fuse in FORWARDS:
+        for blk in model.blocks:
+            blk.fuse_block = fuse
         with torch.no_grad():
-            if kernel == "C":
-                fn = lambda: fused_mixer.mixer_fused_cuda(spec, xs, ws)  # noqa: E731
-                stages = with_old_names(cs.MIXER_STAGES)
-            else:
-                fn = lambda: fused_mixer.mixer_fused_bwd_cuda(spec, xs, gs, ws)  # noqa: E731
-                stages = with_old_names(cs.MIXER_BWD_STAGES)
-            ms = cs.cuda_ms(fn, reps=50 if batch == 1 else 20)
-            table = cs.stage_table(fn, stages)
-        report["cases"][name] = {"ms": ms, "stages_ms": table}
-        print(f"{name}: {ms:.4f} ms; {cs.stage_line(table)}", flush=True)
+            fwd = profile_denoiser(model, inputs, calls=20)
+            fwd["event_ms"] = cs.cuda_ms(lambda: model(*inputs), reps=20)
+        fwd.pop("top_kernels_ms_per_call")
+        report["forwards"][name] = fwd
+        print(f"{name}: {json.dumps(fwd)}", flush=True)
+    del model
     if steps:
         from diffma_tpu_torch.utils.profiling import profile_train_step
 
         report["steps"] = {}
-        for model in ("DiffMa-L/2", "DiffMa-B/2"):
-            step = profile_train_step(model, 8, "fused")
-            report["steps"][model] = step
-            print(f"{model} train step, batch 8: {json.dumps(step)}", flush=True)
+        for model_name, mamba2 in STEPS:
+            step = profile_train_step(model_name, 8, "fused", use_mamba2=mamba2)
+            key = f"{model_name} Mamba-2" if mamba2 else model_name
+            report["steps"][key] = step
+            print(f"{key} train step, batch 8: {json.dumps(step)}", flush=True)
     with open(out, "w") as f:
         json.dump(report, f, indent=1)
+
+
+def time_case(cs, kernel, spec, xs, gs, ws, batch) -> dict:
+    """One kernel case's ms per call (CUDA events) and device ms per stage
+    (and, for E and F, per SSD kernel)."""
+    import torch
+
+    from diffma_tpu_torch.ops import fused_mixer, fused_ssd
+
+    with torch.no_grad():
+        if kernel == "C":
+            fn = lambda: fused_mixer.mixer_fused_cuda(spec, xs, ws)  # noqa: E731
+        elif kernel == "D":
+            fn = lambda: fused_mixer.mixer_fused_bwd_cuda(spec, xs, gs, ws)  # noqa: E731
+        elif kernel == "E":
+            fn = lambda: fused_ssd.ssd_mixer_fused_cuda(spec, xs, ws)  # noqa: E731
+        else:
+            _, zx = fused_ssd.ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+            fn = lambda: fused_ssd.ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx)  # noqa: E731
+        stages = with_old_names(getattr(cs, STAGES[kernel]))
+        case = {"ms": cs.cuda_ms(fn, reps=50 if batch == 1 else 20),
+                "stages_ms": cs.stage_table(fn, stages)}
+        if kernel in "EF":
+            case["ssd_kernels_ms"] = cs.stage_table(fn, SSD_KERNELS)
+    return case
 
 
 def table(paths) -> None:
@@ -109,12 +173,23 @@ def table(paths) -> None:
     print("| case | " + " | ".join(heads) + " |")
     print("| --- |" + " --- |" * len(runs))
     for name in runs[0]["cases"]:
-        print(f"| {name} | " + " | ".join(f"{r['cases'][name]['ms']:.4f}" for r in runs) + " |")
-        labels = [k for k in runs[-1]["cases"][name]["stages_ms"] if k not in ("other", "total")]
-        for label in labels + ["other", "total"]:
-            vals = [r["cases"][name]["stages_ms"].get(label, 0.0) for r in runs]
-            if any(v > 0 for v in vals):
-                print(f"| &nbsp; {label} | " + " | ".join(f"{v:.4f}" for v in vals) + " |")
+        cases = [r["cases"][name] for r in runs]
+        print(f"| {name} | " + " | ".join(f"{c['ms']:.4f}" if "ms" in c else "refused"
+                                          for c in cases) + " |")
+        for key, prefix in (("stages_ms", ""), ("ssd_kernels_ms", "SSD kernel ")):
+            tables = [c.get(key, {}) for c in cases]
+            labels = [k for t in tables for k in t if k not in ("other", "total")]
+            labels = list(dict.fromkeys(labels)) + ([] if prefix else ["other", "total"])
+            for label in labels:
+                vals = [t.get(label, 0.0) for t in tables]
+                if any(v > 0 for v in vals):
+                    print(f"| &nbsp; {prefix}{label} | " + " | ".join(f"{v:.4f}" for v in vals)
+                          + " |")
+    for name in runs[0].get("forwards", {}):
+        for key in ("event_ms", "ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+                    "kernels_per_call"):
+            vals = [r["forwards"][name][key] for r in runs]
+            print(f"| {name} {key} | " + " | ".join(json.dumps(v) for v in vals) + " |")
     for model in runs[0].get("steps", {}):
         for key in ("ms_per_call", "device_busy_ms_per_call", "device_idle_share",
                     "kernels_per_call", "ms_per_step_with_loss_check"):
@@ -129,12 +204,14 @@ def main() -> int:
     r.add_argument("--root", default=".")
     r.add_argument("--out", required=True)
     r.add_argument("--no-steps", dest="steps", action="store_false",
-                   help="time the kernels only, not the training steps")
+                   help="leave out the training steps")
+    r.add_argument("--no-kernels", dest="kernels", action="store_false",
+                   help="leave out the kernel cases")
     t = sub.add_parser("table")
     t.add_argument("paths", nargs="+")
     args = parser.parse_args()
     if args.command == "run":
-        run(args.root, args.out, args.steps)
+        run(args.root, args.out, args.steps, args.kernels)
     else:
         table(args.paths)
     return 0
