@@ -10,7 +10,9 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    ``csrc/``, one nvcc process per source, all at once;
 2. kernels: kernel A (the selective scan) and kernel C (the fused Mamba-1
    mixer) each against its plain PyTorch version on the card, at the shapes
-   the DiffMa-B/2 sampler gives them (2a, 2b), and their backward kernels B
+   the DiffMa-B/2 sampler gives them (2a, 2b; A also at the training batch
+   G = 24, at one step, at 9 steps, fewer than its chunks allow, at a wide
+   decay span and in bf16 with the most chunks), and their backward kernels B
    and D against theirs at the training shapes, batch 8 (2c, 2d), with times
    and bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
    modes, 196 and 25 tokens, a finite dt_limit, a wide decay span) and
@@ -22,7 +24,7 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    plain mode, bit for bit (2g); kernel H (the Mamba-1 mixer's inner part)
    against its plain version, values and gradients, at the shapes of the
    DiffMa-B/2 streams at batch 1 and 8, ragged lengths and dt_bias near -2
-   and +2 (2h); kernel C's one-mixer form on the vim quirk, on
+   and +2, with its device ms by stage and two bounds (2h); kernel C's one-mixer form on the vim quirk, on
    EfficientVMamba's partition, on one stream (zig) and four (vmamba) (2i);
    kernel E on the partition (2j); kernel D's vim and partition branches
    (2k) and kernel F's partition branch (2l) against their plain versions,
@@ -176,7 +178,10 @@ def cuda_ms(fn, reps: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def scan_inputs(G, L, d, n, dtype, delta_dtype, seed):
+def scan_inputs(G, L, d, n, dtype, delta_dtype, seed, wide=False):
+    """Kernel A's inputs on the card: delta around -1, or, with ``wide``, dt
+    of 30 to 60 against A of -50 to -100, a span dt |A| in the thousands over
+    a chunk, where every cross-chunk decay underflows to 0."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -184,10 +189,13 @@ def scan_inputs(G, L, d, n, dtype, delta_dtype, seed):
     def r(*s):
         return torch.randn(s, generator=gen, device="cuda")
 
+    def uniform(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=gen, device="cuda")
+
     return dict(
         u=r(G, L, d).to(dtype),
-        delta=(0.5 * r(G, L, d) - 1.0).to(delta_dtype),
-        A=-torch.exp(0.5 * r(d, n)),
+        delta=(uniform(30, 60, G, L, d) if wide else 0.5 * r(G, L, d) - 1.0).to(delta_dtype),
+        A=-uniform(50, 100, d, n) if wide else -torch.exp(0.5 * r(d, n)),
         B=r(G, L, n).to(dtype),
         C=r(G, L, n).to(dtype),
         D=r(d),
@@ -228,38 +236,52 @@ def phase_kernels(card: str) -> dict:
     print("== phase 2a: kernel A against its plain version on the card", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        # name, G, L, dtype, delta dtype, gated, tolerance
-        ("fp32 gated (path)", 3, 196, f32, f32, True, TOL_FP32),
-        ("fp32 ungated", 3, 196, f32, f32, False, TOL_FP32),
-        ("fp32 gated, prime L=197", 3, 197, f32, f32, True, TOL_FP32),
-        ("bf16 gated, fp32 delta", 3, 196, bf16, f32, True, TOL_BF16),
-        ("bf16 gated, bf16 delta", 3, 196, bf16, bf16, True, TOL_BF16),
-        ("bf16 ungated, prime L=13", 3, 13, bf16, bf16, False, TOL_BF16),
+        # name, G, L, dtype, delta dtype, gated, wide span, tolerance
+        ("fp32 gated (path)", 3, 196, f32, f32, True, False, TOL_FP32),
+        ("fp32 ungated", 3, 196, f32, f32, False, False, TOL_FP32),
+        ("fp32 gated, prime L=197", 3, 197, f32, f32, True, False, TOL_FP32),
+        ("bf16 gated, fp32 delta", 3, 196, bf16, f32, True, False, TOL_BF16),
+        ("bf16 gated, bf16 delta", 3, 196, bf16, bf16, True, False, TOL_BF16),
+        ("bf16 ungated, prime L=13", 3, 13, bf16, bf16, False, False, TOL_BF16),
+        ("fp32 gated, training batch G=24", 24, 196, f32, f32, True, False, TOL_FP32),
+        ("fp32 gated, one step", 1, 1, f32, f32, True, False, TOL_FP32),
+        ("fp32 gated, L=9: one chunk", 3, 9, f32, f32, True, False, TOL_FP32),
+        ("fp32 gated, wide span", 3, 196, f32, f32, True, True, TOL_FP32),
+        ("fp32 ungated, wide span", 3, 196, f32, f32, False, True, TOL_FP32),
+        ("bf16 ungated, L=196: eight chunks", 3, 196, bf16, f32, False, False, TOL_BF16),
     ]
     path_err = None
-    for i, (name, G, L, dtype, ddtype, gated, tol) in enumerate(cases):
-        x = scan_inputs(G, L, 1024, 16, dtype, ddtype, seed=i)
+    for i, (name, G, L, dtype, ddtype, gated, wide, tol) in enumerate(cases):
+        x = scan_inputs(G, L, 1024, 16, dtype, ddtype, seed=i, wide=wide)
         if not gated:
             x["z"] = None
         got = selective_scan_cuda(**x)
         want = selective_scan_ref(**x)
         torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"selective_scan_fwd gave a wrong shape or a non-finite value: {name}")
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        print(f"  {name}: G={G} L={L} d=1024 n=16  max|err| {err:.3e}  "
-              f"(rtol=atol={tol:g}) {'ok' if ok else 'MISMATCH'}")
+        print(f"  {name}: G={G} L={L} d=1024 n=16  max|err| {err:.3e}  (rtol=atol={tol:g}) "
+              f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"selective_scan_fwd disagrees with its plain version: {name}")
         if path_err is None:
             path_err = err
 
-    x = scan_inputs(3, 196, 1024, 16, f32, f32, seed=0)
-    ms = cuda_ms(lambda: selective_scan_cuda(**x), reps=50)
-    plain_ms = cuda_ms(lambda: selective_scan_ref(**x), reps=5)
-    bound_ms, bound_by = scan_bound_ms(x)
-    print(f"  [{card}] selective_scan_fwd fp32 G=3 L=196 d=1024 n=16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    times = {}
+    for G in (3, 24):  # the sampler's streams at batch 1; the composable training step's
+        x = scan_inputs(G, 196, 1024, 16, f32, f32, seed=0)
+        bound_ms, bound_by = scan_bound_ms(x)
+        times[G] = (cuda_ms(lambda: selective_scan_cuda(**x), reps=50),
+                    cuda_ms(lambda: selective_scan_ref(**x), reps=5), bound_ms, bound_by,
+                    stage_table(lambda: selective_scan_cuda(**x), SCAN_STAGES)["total"])
+        print(f"  [{card}] selective_scan_fwd fp32 G={G} L=196 d=1024 n=16: "
+              f"kernel {times[G][0]:.4f} ms (device busy "
+              f"{times[G][4]:.4f}), plain {times[G][1]:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by})")
     print("  library_ms: none; no single PyTorch call computes the selective scan")
+    ms, plain_ms, bound_ms, bound_by, busy = times[3]
     return {
         "name": "selective_scan_fwd",
         "route": "cuda",
@@ -271,6 +293,9 @@ def phase_kernels(card: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "busy_ms": busy,
+        "G24": {"ms": times[24][0], "plain_ms": times[24][1], "bound_ms": times[24][2],
+                "busy_ms": times[24][4]},
     }
 
 
@@ -456,9 +481,14 @@ def mixer_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
     return bound_from(*mixer_work(*args, **kw))
 
 
-# Kernels C's and D's device kernels by stage: (label, regular expression on
-# the profiler's kernel name). The products are gemm_tc.cuh's instances, named
-# by their stage class.
+# Kernels A's, H's, C's and D's device kernels by stage: (label, regular
+# expression on the profiler's kernel name). The products are gemm_tc.cuh's
+# instances, named by their stage class.
+SCAN_STAGES = (("scan", r"\bscan_kernel\b"),)
+INNER_STAGES = (
+    ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
+    ("scan", r"\bscan_kernel\b"), ("split sums", r"sum_splits"),
+)
 MIXER_STAGES = (
     ("in_proj", r"\bInProj\b"), ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
     ("scan", r"\bscan_kernel\b"), ("merge + out_proj", r"merge_kernel|\bOutProj\b|flip_cat"),
@@ -1200,17 +1230,28 @@ def phase_ssd_bwd(card: str) -> dict:
     }
 
 
-def inner_bound_ms(G, L, d, n, r, K) -> tuple[float, str]:
-    """Least time for one call of the mixer's inner part on an H100: xz and
-    the weights read and the output written once over the HBM rate, or the
-    operations (conv, x_proj, dt_proj, scan with the D skip and the gate)
-    over fp32."""
+def inner_work(G, L, d, n, r, K) -> tuple[int, int, int]:
+    """One call of the mixer's inner part: the operations of its products
+    (x_proj, dt_proj), its other operations (conv, scan with the D skip and
+    the gate) and the bytes that must move (xz and the weights read, the
+    output written, once)."""
     rows = G * L
-    ops = rows * d * 2 * K + 2 * rows * d * (r + 2 * n) + 2 * rows * r * d + rows * d * (6 * n + 8)
+    products = 2 * rows * d * (r + 2 * n) + 2 * rows * r * d
+    other = rows * d * 2 * K + rows * d * (6 * n + 8)
     weights = d * K + d + (r + 2 * n) * d + d * r + d + d * n + d
-    nbytes = 4 * (rows * 2 * d + rows * d + weights)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, 4 * (rows * 2 * d + rows * d + weights)
+
+
+def inner_bound_ms(*args) -> tuple[float, str]:
+    """Least time for one call of kernel H on an H100 in the arithmetic it
+    does it in: the products at the 3xTF32 rate, TF32_FLOPS / 3, the rest at
+    fp32 (``inner_work``'s arguments), as kernel C is counted."""
+    return bound_from(*inner_work(*args), product_flops=TF32_FLOPS / 3)
+
+
+def inner_bound_fp32_ms(*args) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate."""
+    return bound_from(*inner_work(*args))
 
 
 def inner_inputs(G, L, seed, dt_bias=0.0):
@@ -1260,7 +1301,6 @@ def phase_mamba_inner(card: str) -> dict:
     )
     from diffma_tpu_torch.ops.fused_mixer import mamba_mixer_fused
     from diffma_tpu_torch.ops.scan_orders import build_scan_spec
-    from diffma_tpu_torch.utils.profiling import profile_calls
 
     print("== phase 2h: kernel H (the Mamba-1 mixer's inner part) against its plain version "
           "on the card, values and gradients", flush=True)
@@ -1296,25 +1336,23 @@ def phase_mamba_inner(card: str) -> dict:
         for G, L in ((8, 49), (3, 196), (24, 196)):
             args = inner_inputs(G, L, seed=400 + G)
             bound_ms, bound_by = inner_bound_ms(G, L, 1024, 16, 32, 4)
+            fp32_ms, fp32_by = inner_bound_fp32_ms(G, L, 1024, 16, 32, 4)
             times[G, L] = (cuda_ms(lambda: mamba_inner_fused_cuda(*args), reps=50),
-                           cuda_ms(lambda: mamba_inner_ref(*args), reps=5), bound_ms, bound_by)
+                           cuda_ms(lambda: mamba_inner_ref(*args), reps=5), bound_ms, bound_by,
+                           fp32_ms, stage_table(lambda: mamba_inner_fused_cuda(*args), INNER_STAGES))
             print(f"  [{card}] mamba_inner_fwd fp32 G={G} L={L} d=1024: kernel {times[G, L][0]:.4f} ms, "
-                  f"plain {times[G, L][1]:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
-        # The same two stages inside kernel C (one mixer, 3 spiral streams, batch 1).
-        args = inner_inputs(3, 196, seed=403)
-        h_prof = profile_calls(lambda: mamba_inner_fused_cuda(*args), calls=20)
+                  f"plain {times[G, L][1]:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+                  f"products at the 3xTF32 rate); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
+            print(f"  [{card}] device ms per call by stage (torch.profiler): "
+                  f"{stage_line(times[G, L][5])}")
+        # The same stages inside kernel C (one mixer, 3 spiral streams, batch 1).
         spec = build_scan_spec("spiral", 14, 0)
         m = random_(Mamba(512, spec), 404).cuda()
         x = torch.randn(1, 196, 512, generator=torch.Generator().manual_seed(405)).cuda()
-        c_prof = profile_calls(lambda: mamba_mixer_fused(spec, x, m.weights()), calls=20, top=30)
-    print(f"  [{card}] device ms per call by stage (torch.profiler, G=3 L=196): kernel H conv + "
-          f"x_proj {stage_ms(h_prof, 'ConvXProj'):.4f}, scan {stage_ms(h_prof, 'scan_kernel'):.4f}; "
-          f"kernel C (one mixer, 3 streams) conv + x_proj "
-          f"{stage_ms(c_prof, 'conv_kernel') + stage_ms(c_prof, 'XProj'):.4f}, scan "
-          f"{stage_ms(c_prof, 'scan_kernel'):.4f}, in_proj {stage_ms(c_prof, 'InProj'):.4f}, "
-          f"merge + out_proj {stage_ms(c_prof, 'merge_kernel') + stage_ms(c_prof, 'OutProj'):.4f}")
+        c_stages = stage_table(lambda: mamba_mixer_fused(spec, x, m.weights()), MIXER_STAGES)
+    print(f"  [{card}] kernel C, one mixer, 3 streams of 196, by stage: {stage_line(c_stages)}")
     print("  library_ms: none; no single PyTorch call computes the mixer's inner part")
-    ms, plain_ms, bound_ms, bound_by = times[8, 49]
+    ms, plain_ms, bound_ms, bound_by, fp32_ms, stages = times[8, 49]
     return {
         "name": "mamba_inner_fwd",
         "route": "cuda",
@@ -1325,8 +1363,11 @@ def phase_mamba_inner(card: str) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fp32_ms": fp32_ms,
         "library_ms": None,
-        "other_shapes": {f"G{G}_L{L}": {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]}
+        "stages_ms": stages,
+        "other_shapes": {f"G{G}_L{L}": {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                                        "bound_fp32_ms": t[4], "stages_ms": t[5]}
                          for (G, L), t in times.items()},
     }
 

@@ -12,30 +12,37 @@
 //     h_t = exp(dt A) h_{t-1} + dt u B_t;  y = <C_t, h_t> + D u
 //     out = y * silu(z)                                      (L, d)
 //
-// A is given itself (negative), not as its logarithm. Everything is fp32 on
-// the CUDA cores (no TF32). The two products are the kernel's own: x_proj is
-// gemm_nt.cuh's GEMM, dt_proj runs inside the recurrence.
+// A is given itself (negative), not as its logarithm.
 //
-// Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores, 3.35 TB/s).
-// At the shapes of three DiffMa-B/2 streams (G = 3, L = 196, d = 1024,
-// r = 32) the call does 0.18 GFLOP (x_proj 77 M, dt_proj 39 M, the scan 63 M,
-// the conv 5 M), 2.7 us at the fp32 rate, against 7.7 MB that must move (xz
-// 4.8 MB, out 2.4 MB, the weights 0.5 MB), 2.3 us: the two bounds lie close,
-// operations first. The scan's chain of L dependent steps takes far longer
-// than either at this size (kernel A, the same recurrence, takes 0.12 ms).
+// Arithmetic. The two products (x_proj, dt_proj) run on the tensor cores in
+// 3xTF32 (gemm_tc.cuh: each operand split into a TF32 high part and
+// remainder, three products summed in fp32, about fp32's accuracy); the
+// conv, the scan and the gate are fp32 on the CUDA cores.
 //
-// Design, simple and right first: two device kernels, with u and xdb in a
-// workspace the caller allocates (mamba_inner_workspace_floats), 2.5 MB at
-// G = 3, which stays in L2. Step t of sequence g is row g * L + t of xz.
-// 1. conv + x_proj: gemm_nt.cuh's GEMM, whose A-tile loader reads the 4 conv
-//    taps of each step from xz, adds the bias, applies SiLU, and stores u for
-//    the scan. 16-row tiles, to spread few rows over many blocks.
-// 2. the scan: one thread per (sequence, channel) with its 16 states and its
-//    row of A in registers, in blocks of 32 channels. Each block stages 64
-//    steps of dt_r, B and C in shared memory. The channel's 32 dt_proj
-//    weights live in registers, so dt_proj and softplus run inside the
-//    recurrence; its dot product and C . h run as 4 partial sums each, to
-//    shorten the step's dependent chain. u and z are read one step ahead.
+// Bound on an H100 SXM (495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s
+// fp32 outside them, 3.35 TB/s). At the shapes of three DiffMa-B/2 streams
+// (G = 3, L = 196, d = 1024, r = 32) the call does 0.12 GFLOP of products
+// (x_proj 77 M, dt_proj 39 M), 2.1 us at the 3xTF32 rate (495 / 3), and 68 M
+// other operations (the scan 63 M, the conv 5 M), 1.0 us at the fp32 rate,
+// against 7.7 MB that must move (xz 4.8 MB, out 2.4 MB, the weights 0.5 MB),
+// 2.3 us. The scan's chain of L dependent steps is what the design has to
+// break up at this size.
+//
+// Design: kernel C's stages (fused_mixer_fwd.cu) without its gather, five
+// device kernels with u, xdb and dt in a workspace the caller allocates
+// (mamba_inner_workspace_floats). Step t of sequence g is row g * L + t.
+// 1. conv + SiLU (conv_kernel: a block per row, its threads the channels)
+//    into u;
+// 2. x_proj: gemm_tc.cuh on u, its depth d split over blocks when the rows
+//    are few (8 atrous streams of 49 steps: 7 row tiles, 8 splits) and the
+//    splits summed in a fixed order; the partials lie in dt's space, which
+//    is free until step 3;
+// 3. dt_proj: gemm_tc.cuh, softplus in its store, so the scan reads dt and
+//    runs no dot product in its chain;
+// 4. the scan: scan_fwd.cuh's, chunked over up to eight warps of a block,
+//    each warp issuing the next 8 steps' loads of B, C, dt, u and z before
+//    it runs the current 8; InnerSeq below is its loader policy (B and C
+//    from xdb, z from xz).
 // The TPU kernel's 16-step chunks, its VMEM scratch and its zero padding of L
 // to a multiple of 16 exist for VMEM; here L is masked and nothing is padded.
 //
@@ -45,26 +52,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_nt.cuh"
+#include "gemm_tc.cuh"
+#include "scan_fwd.cuh"
 
 namespace {
 
-constexpr int kN = 16;        // d_state
-constexpr int kConv = 4;      // conv taps
-constexpr int kMaxRank = 32;  // dt_rank
-constexpr int kScanThreads = 32;
-constexpr int kScanChunk = 64;
-constexpr int kSums = 4;  // partial sums per dot product in the scan
-static_assert(kSums == 4, "the scan adds its partial sums as two pairs");
+constexpr int kN = scan_fwd::kN;  // d_state
+constexpr int kConv = 4;          // conv taps
+constexpr int kMaxRank = 32;      // dt_rank
+constexpr int kEltThreads = 256;  // threads of the conv kernel
 
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
+// stride of whole float4s. A stage whose rows are not takes gemm_tc.cuh's
+// scalar loads (`vec`).
+__device__ __forceinline__ bool al(const float* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+}
 
 // softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-struct Params {
+// R = G * L rows.
+struct InnerParams {
   const float* conv_w;  // (d, K)
   const float* conv_b;  // (d,)
   const float* xp_w;    // (r + 2n, d)
@@ -72,159 +84,140 @@ struct Params {
   const float* dt_b;    // (d,)
   const float* A;       // (d, n)
   const float* D;       // (d,)
-  const float* xz;      // (G * L, 2d)
-  float* u;             // (G * L, d)
-  float* xdb;           // (G * L, r + 2n)
-  float* y;             // (G * L, d)
-  int G, L, d, r;
+  const float* xz;      // (R, 2d)
+  float* u;             // (R, d)
+  float* xdb;           // (R, r + 2n)
+  float* dt;            // (R, d): softplus(dt_r W_dt^T + dt_b)
+  float* xdb_part;      // (xp_splits, R, r + 2n) inside dt's space, if split
+  float* y;             // (R, d)
+  int G, L, d, r, xp_splits;
 };
 
-struct ConvXProj {  // u = silu(conv(xz[:, :d])); xdb = u . W_x^T
-  struct Row {
-    const float* tap[kConv];  // xz row of each tap; in the left pad, the step's first row
-    float live[kConv];        // 1 for a tap inside the sequence, 0 in the pad
-    float* u;
+// The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k).
+
+struct XProj {  // xdb = u . W_x^T
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
+    const float* u;
   };
-  const float* xz;
-  const float* conv_w;
-  const float* conv_b;
-  float* u;
-  const float* w;
+  const float *u, *w;
   float* c;
-  int rows, cols, depth, L;
-  bool store_u;
-  __device__ ConvXProj(const Params& p, int)
-      : xz(p.xz),
-        conv_w(p.conv_w),
-        conv_b(p.conv_b),
-        u(p.u),
-        w(p.xp_w),
-        c(p.xdb),
-        rows(p.G * p.L),
-        cols(p.r + 2 * kN),
-        depth(p.d),
-        L(p.L),
-        store_u(blockIdx.y == 0) {}  // the first column tile writes u once
-  __device__ Row row(int i) const {  // i = g * L + t
-    const int t = i % L;
-    const float* xz_g = xz + static_cast<size_t>(i / L) * L * 2 * depth;
-    Row r;
+  int rows, cols, depth;
+  __device__ XProj(const InnerParams& p, int)
+      : u(p.u), w(p.xp_w), c(p.xp_splits == 1 ? p.xdb : p.xdb_part), rows(p.G * p.L),
+        cols(p.r + 2 * kN), depth(p.d) {
+    vec = al(u, depth) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {u + static_cast<size_t>(i) * depth}; }
+  __device__ float a(const ARow& r, int k) const { return r.u[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.u + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int split, float v) const {
+    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+  }
+};
+
+struct DtProj {  // dt = softplus(dt_r . W_dt^T + dt_b); one slab deep
+  static constexpr bool kAByRow = false, kBByRow = false;
+  bool vec;  // float4 loads: every row aligned
+  struct ARow {
+    const float* xdb;
+  };
+  const float *xdb, *w, *bias;
+  float* c;
+  int rows, cols, depth, ld;
+  __device__ DtProj(const InnerParams& p, int)
+      : xdb(p.xdb), w(p.dt_w), bias(p.dt_b), c(p.dt), rows(p.G * p.L), cols(p.d), depth(p.r),
+        ld(p.r + 2 * kN) {
+    vec = al(xdb, ld) && al(w, depth);
+  }
+  __device__ ARow arow(int i) const { return {xdb + static_cast<size_t>(i) * ld}; }
+  __device__ float a(const ARow& r, int k) const { return r.xdb[k]; }
+  __device__ float4 a4(const ARow& r, int k) const { return ld4(r.xdb + k); }
+  __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
+  __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
+  __device__ void store(int row, int col, int, float v) const {
+    c[static_cast<size_t>(row) * cols + col] = softplus(v + bias[col]);
+  }
+};
+
+// u = silu(causal_conv_K(xz[:, :d]) + conv_b). grid R: a block is one row
+// g * L + t, its threads the channels.
+__global__ void __launch_bounds__(kEltThreads) conv_kernel(const InnerParams p) {
+  const int row = blockIdx.x;
+  const int d = p.d, t = row % p.L;
+  const float* tap[kConv];
+#pragma unroll
+  for (int k = 0; k < kConv; ++k) {
+    const int back = kConv - 1 - k;  // tap k reads step t - back of the same sequence
+    tap[k] = t >= back ? p.xz + static_cast<size_t>(row - back) * 2 * d : nullptr;
+  }
+  float* u = p.u + static_cast<size_t>(row) * d;
+  for (int ch = threadIdx.x; ch < d; ch += kEltThreads) {
+    const float* w = p.conv_w + static_cast<size_t>(ch) * kConv;
+    float acc = p.conv_b[ch];
 #pragma unroll
     for (int k = 0; k < kConv; ++k) {
-      const int tt = t - (kConv - 1) + k;
-      r.tap[k] = xz_g + static_cast<size_t>(max(tt, 0)) * 2 * depth;
-      r.live[k] = tt >= 0 ? 1.0f : 0.0f;
+      if (tap[k] != nullptr) acc = fmaf(w[k], tap[k][ch], acc);
     }
-    r.u = u + static_cast<size_t>(i) * depth;
-    return r;
+    u[ch] = scan_fwd::silu(acc);
   }
-  __device__ float a(const Row& r, int ch) const {
-    const float4 wk = reinterpret_cast<const float4*>(conv_w)[ch];  // taps 0..3
-    const float wt[kConv] = {wk.x, wk.y, wk.z, wk.w};
-    float xv[kConv];
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) xv[k] = r.tap[k][ch];
-    float acc = conv_b[ch];
-#pragma unroll
-    for (int k = 0; k < kConv; ++k) acc = fmaf(wt[k] * r.live[k], xv[k], acc);
-    const float v = silu(acc);
-    if (store_u) r.u[ch] = v;
-    return v;
+}
+
+// The loader policy of scan_fwd.cuh: stream g is sequence g; dt, u and B, C
+// come from the workspace, z from xz.
+struct InnerSeq {
+  using Params = InnerParams;
+  const float *ap, *dp, *bc, *dtp, *up, *zp;
+  float* yp;
+  int d, ld;
+  __device__ InnerSeq(const InnerParams& p, int g, int c)
+      : ap(p.A + static_cast<size_t>(c) * kN), dp(p.D + c), d(p.d), ld(p.r + 2 * kN) {
+    const size_t row0 = static_cast<size_t>(g) * p.L;
+    bc = p.xdb + row0 * ld + p.r;
+    dtp = p.dt + row0 * d + c;
+    up = p.u + row0 * d + c;
+    zp = p.xz + row0 * 2 * d + d + c;
+    yp = p.y + row0 * d + c;
   }
+  __device__ float a2(int k) const { return ap[k] * scan_fwd::kLog2e; }
+  __device__ float D() const { return *dp; }
+  __device__ float B(int t, int k) const { return bc[static_cast<size_t>(t) * ld + k]; }
+  __device__ float C(int t, int k) const { return bc[static_cast<size_t>(t) * ld + kN + k]; }
+  __device__ float dt(int t) const { return dtp[static_cast<size_t>(t) * d]; }
+  __device__ float u(int t) const { return up[static_cast<size_t>(t) * d]; }
+  __device__ float z(int t) const { return zp[static_cast<size_t>(t) * 2 * d]; }
+  __device__ static float f(float x) { return x; }
+  __device__ float dt_of(float dt) const { return dt; }  // softplus is in dt_proj's store
+  __device__ void store(int t, float y) const { yp[static_cast<size_t>(t) * d] = y; }
 };
 
-// The selective scan with dt_proj, softplus, the D skip and the gate fused.
-// grid (ceil(d / 32), G); one thread per channel.
-__global__ void __launch_bounds__(kScanThreads) scan_kernel(const Params p) {
-  __shared__ float sDt[kScanChunk][kMaxRank];
-  __shared__ float sB[kScanChunk][kN];
-  __shared__ float sC[kScanChunk][kN];
-
-  const int g = blockIdx.y;
-  const int c = blockIdx.x * kScanThreads + threadIdx.x;
-  const int d = p.d, L = p.L, r = p.r, r2n = p.r + 2 * kN;
-  const bool active = c < d;
-
-  float a[kN], h[kN], wdt[kMaxRank];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) {
-    a[k] = active ? p.A[static_cast<size_t>(c) * kN + k] : 0.0f;
-    h[k] = 0.0f;
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxRank; ++j) {
-    wdt[j] = (active && j < r) ? p.dt_w[static_cast<size_t>(c) * r + j] : 0.0f;
-  }
-  const float dtb = active ? p.dt_b[c] : 0.0f;
-  const float Dc = active ? p.D[c] : 0.0f;
-
-  const size_t row0 = static_cast<size_t>(g) * L;  // row of (g, t = 0) in xz, u, xdb and y
-  for (int t0 = 0; t0 < L; t0 += kScanChunk) {
-    const int steps = min(kScanChunk, L - t0);
-    __syncthreads();  // the previous chunk's staging is no longer read
-    const float* xrow = p.xdb + (row0 + t0) * r2n;
-    for (int i = threadIdx.x; i < steps * kMaxRank; i += kScanThreads) {
-      const int t = i / kMaxRank, j = i % kMaxRank;
-      sDt[t][j] = j < r ? xrow[static_cast<size_t>(t) * r2n + j] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < steps * kN; i += kScanThreads) {
-      const int t = i / kN, k = i % kN;
-      sB[t][k] = xrow[static_cast<size_t>(t) * r2n + r + k];
-      sC[t][k] = xrow[static_cast<size_t>(t) * r2n + r + kN + k];
-    }
-    __syncthreads();
-    if (!active) continue;
-    const float* u_t = p.u + (row0 + t0) * d + c;
-    const float* z_t = p.xz + (row0 + t0) * 2 * d + d + c;
-    float u_next = u_t[0];
-    float z_next = z_t[0];
-    for (int t = 0; t < steps; ++t) {
-      const float uv = u_next, zv = z_next;
-      if (t + 1 < steps) {  // the next step's loads fly during this step
-        u_next = u_t[static_cast<size_t>(t + 1) * d];
-        z_next = z_t[static_cast<size_t>(t + 1) * 2 * d];
-      }
-      // The dot products run as kSums independent partial sums: a chain of
-      // 32 or 16 dependent adds would set each step's latency.
-      float part[kSums];
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) part[q] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kMaxRank; ++j) {
-        part[j % kSums] = fmaf(wdt[j], sDt[t][j], part[j % kSums]);
-      }
-      const float dt = softplus((part[0] + part[1]) + (part[2] + part[3]) + dtb);
-      const float du = dt * uv;
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) part[q] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kN; ++k) {
-        h[k] = expf(dt * a[k]) * h[k] + du * sB[t][k];
-        part[k % kSums] = fmaf(h[k], sC[t][k], part[k % kSums]);
-      }
-      const float yv = (part[0] + part[1]) + (part[2] + part[3]) + Dc * uv;
-      p.y[(row0 + t0 + t) * d + c] = yv * silu(zv);
-    }
-  }
+// x_proj's depth splits. Each split keeps at least 4 slabs of 32 (splits_for),
+// so splits * (r + 2n) <= d / 128 * 64 < d: the partials fit in dt's space.
+int xp_splits(int G, int L, int d) {
+  return tc::splits_for((G * L + tc::kBM - 1) / tc::kBM, d);
 }
 
 }  // namespace
 
-// Floats of workspace that mamba_inner_fwd needs for these shapes.
+// Floats of workspace that mamba_inner_fwd needs for these shapes: u, xdb, dt.
 extern "C" long long mamba_inner_workspace_floats(int G, int L, int d, int r) {
-  return static_cast<long long>(G) * L * (d + r + 2 * kN);
+  return static_cast<long long>(G) * L * (2 * d + r + 2 * kN);
 }
 
 // All pointers fp32 and contiguous: xz (G, L, 2d), conv_w (d, K), conv_b (d,),
 // xp_w (r + 2n, d), dt_w (d, r), dt_b (d,), A (d, n), D (d,), out (G, L, d).
-// Launches two kernels on `stream`; returns the first launch's cudaError_t
+// Launches its kernels on `stream`; returns the first launch's cudaError_t
 // that is not 0, or -1 for shapes that are not built.
 extern "C" int mamba_inner_fwd(const void* xz, const void* conv_w, const void* conv_b,
                                const void* xp_w, const void* dt_w, const void* dt_b,
                                const void* A, const void* D, void* out, void* workspace,
                                int G, int L, int d, int n, int r, int K, void* stream) {
   if (n != kN || K != kConv || r < 1 || r > kMaxRank || G < 1 || L < 1 || d < 1) return -1;
-  Params p{};
+  const int R = G * L, r2 = r + 2 * kN;
+  InnerParams p{};
   p.conv_w = static_cast<const float*>(conv_w);
   p.conv_b = static_cast<const float*>(conv_b);
   p.xp_w = static_cast<const float*>(xp_w);
@@ -234,15 +227,30 @@ extern "C" int mamba_inner_fwd(const void* xz, const void* conv_w, const void* c
   p.D = static_cast<const float*>(D);
   p.xz = static_cast<const float*>(xz);
   p.u = static_cast<float*>(workspace);
-  p.xdb = p.u + static_cast<size_t>(G) * L * d;
+  p.xdb = p.u + static_cast<size_t>(R) * d;
+  p.dt = p.xdb + static_cast<size_t>(R) * r2;
+  p.xdb_part = p.dt;
   p.y = static_cast<float*>(out);
   p.G = G;
   p.L = L;
   p.d = d;
   p.r = r;
+  p.xp_splits = xp_splits(G, L, d);
+  if (p.xp_splits > 1 && p.xp_splits * r2 > d) return -1;  // cannot happen: see xp_splits
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_gemm<16, 64, 16, 1, 4, ConvXProj>(p, G * L, r + 2 * kN, 1, st);
-  if (err != 0) return err;
-  scan_kernel<<<dim3((d + kScanThreads - 1) / kScanThreads, G), kScanThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+
+  conv_kernel<<<R, kEltThreads, 0, st>>>(p);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) err = tc::launch_gemm_tc<64, XProj>(p, R, r2, 1, st, p.xp_splits);
+  if (err == 0 && p.xp_splits > 1) {
+    tc::SplitSum q{};
+    q.part[0] = p.xdb_part;
+    q.out[0] = p.xdb;
+    q.n = R * r2;
+    q.splits = p.xp_splits;
+    err = tc::launch_sum_splits(q, 1, st);
+  }
+  if (err == 0) err = tc::launch_gemm_tc<128, DtProj>(p, R, d, 1, st);
+  if (err == 0) err = scan_fwd::launch<InnerSeq>(p, G, L, d, true, st);
+  return err;
 }

@@ -1,7 +1,6 @@
-// Tiled fp32 GEMM on the CUDA cores, shared by the fused mixers' stages
-// (kernel H's conv + x_proj; kernel E's in_proj and out_proj; kernel G's
-// 2h -> h product). Kernels C and D have a 3xTF32 tensor-core GEMM of their
-// own, gemm_tc.cuh.
+// Tiled fp32 GEMM on the CUDA cores, for kernel G's 2h -> h product.
+// Kernels C, D, E, F and H run theirs on the 3xTF32 tensor-core GEMM,
+// gemm_tc.cuh.
 //
 // A stage computes c[row, col] = sum_k a(row, k) * w[col, k] for one branch:
 // w is a torch Linear weight (cols, depth), row-major, and a(row, k) is

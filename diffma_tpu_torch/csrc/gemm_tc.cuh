@@ -1,6 +1,7 @@
 // Tiled GEMM on Hopper's tensor cores in fp32-accurate 3xTF32, for the
 // product stages of kernels C (fused_mixer_fwd.cu) and D (fused_mixer_bwd.cu),
-// and E's and F's projections (fused_ssd_fwd.cu, fused_ssd_bwd.cu). Rows,
+// E's and F's projections (fused_ssd_fwd.cu, fused_ssd_bwd.cu) and H's x_proj
+// and dt_proj (fused_mamba_fwd.cu). Rows,
 // columns and depth of any size: the tiles' ragged edges are masked (E's
 // in_proj has 2d + 2n + H = 2096 columns).
 //

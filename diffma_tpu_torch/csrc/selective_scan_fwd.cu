@@ -18,22 +18,17 @@
 // L = 196, d = 1024, n = 16), the kernel reads u, delta, z and writes out,
 // about 4 * 3 * 196 * 1024 * 4 B = 9.6 MB, or 2.9 us at the memory rate; it
 // also evaluates 3 * 196 * 1024 * 16 = 9.6 M exp and about 4 flops per state
-// per step. Neither is what limits it at this batch: each channel runs a
-// 196-step recurrence whose steps depend on each other, so the time is the
-// chain's latency, not bytes or operations.
+// per step. Each channel's 196 steps depend on each other, so a scan that
+// runs them in order is held by the chain's latency instead, and the design
+// has to break the chain up.
 //
-// Design, simple and right first:
-// - one thread per (g, channel) keeps its n states and its row of A in
-//   registers, so the recurrence never leaves the SM;
-// - a block of kThreads = 32 threads covers 32 consecutive channels of one
-//   g. At batch 1 there are only G * d = 3072 channels, so narrow blocks give
-//   96 blocks and spread the chains over most of the 132 SMs; a 128-wide
-//   block would leave 108 SMs idle;
-// - the block stages B_t and C_t for kTimeChunk steps at a time in shared
-//   memory (every thread of the block reads the same B_t, C_t), converted to
-//   fp32 once;
-// - loads of u, delta, z and the store of out are coalesced along d;
-// - the time loop runs t < L exactly: no chunk padding, any L works.
+// Design: scan_fwd.cuh's scan, chunked over up to eight warps of a block
+// (96 blocks of 8 warps at batch 1, 768 one-warp blocks at the training
+// batch G = 24), each warp issuing the next 8 steps' loads of B, C, delta,
+// u and z before it runs the current 8 and computing softplus(delta) when
+// it takes them up, off the chain; B and C staged in shared memory as fp32;
+// each decay one ex2. ScanSeq below is its loader policy for this layout.
+// Any L, nothing padded.
 //
 // The backward, diffma_tpu/ops/selective_scan.py::_bwd_kernel, is kernel B,
 // selective_scan_bwd.cu.
@@ -41,15 +36,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scan_fwd.cuh"
+
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kTimeChunk = 64;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kN = scan_fwd::kN;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -68,75 +59,59 @@ __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-template <int N, typename T, typename TD>
-__global__ void __launch_bounds__(kThreads)
-    selective_scan_fwd_kernel(const T* __restrict__ u,
-                              const TD* __restrict__ delta,
-                              const float* __restrict__ A,
-                              const T* __restrict__ B,
-                              const T* __restrict__ C,
-                              const float* __restrict__ D,
-                              const T* __restrict__ z, T* __restrict__ out,
-                              int L, int d) {
-  __shared__ float sB[kTimeChunk][N];
-  __shared__ float sC[kTimeChunk][N];
-
-  const int g = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = c < d;
-
-  float a[N];
-  float h[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    a[k] = active ? A[static_cast<size_t>(c) * N + k] : 0.0f;
-    h[k] = 0.0f;
+// The loader policy of scan_fwd.cuh for the layout above: stream g is
+// sequence g, step t its row g * L + t.
+template <typename T, typename TD>
+struct ScanSeq {
+  struct Params {
+    const T* u;
+    const TD* delta;
+    const float* A;
+    const T* B;
+    const T* C;
+    const float* D;
+    const T* z;  // null: ungated
+    T* out;
+    int L, d;
+  };
+  const float *ap, *dp;
+  const T *bp, *cp, *up, *zp;
+  const TD* deltap;
+  T* outp;
+  int d;
+  __device__ ScanSeq(const Params& p, int g, int c)
+      : ap(p.A + static_cast<size_t>(c) * kN), dp(p.D + c), d(p.d) {
+    const size_t row0 = static_cast<size_t>(g) * p.L;
+    bp = p.B + row0 * kN;
+    cp = p.C + row0 * kN;
+    up = p.u + row0 * d + c;
+    deltap = p.delta + row0 * d + c;
+    zp = p.z != nullptr ? p.z + row0 * d + c : nullptr;
+    outp = p.out + row0 * d + c;
   }
-  const float Dc = active ? D[c] : 0.0f;
-  const size_t row0 = static_cast<size_t>(g) * L;
+  __device__ float a2(int k) const { return ap[k] * scan_fwd::kLog2e; }
+  __device__ float D() const { return *dp; }
+  __device__ T B(int t, int k) const { return bp[static_cast<size_t>(t) * kN + k]; }
+  __device__ T C(int t, int k) const { return cp[static_cast<size_t>(t) * kN + k]; }
+  __device__ TD dt(int t) const { return deltap[static_cast<size_t>(t) * d]; }
+  __device__ T u(int t) const { return up[static_cast<size_t>(t) * d]; }
+  __device__ T z(int t) const { return zp[static_cast<size_t>(t) * d]; }
+  __device__ static float f(float x) { return x; }
+  __device__ static float f(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ float dt_of(float delta) const { return softplus(delta); }
+  __device__ void store(int t, float y) const { outp[static_cast<size_t>(t) * d] = from_float<T>(y); }
+};
 
-  for (int t0 = 0; t0 < L; t0 += kTimeChunk) {
-    const int steps = min(kTimeChunk, L - t0);
-    __syncthreads();  // the previous chunk's B, C are no longer read
-    const size_t bc0 = (row0 + t0) * N;
-    for (int i = threadIdx.x; i < steps * N; i += kThreads) {
-      sB[i / N][i % N] = to_float(B[bc0 + i]);
-      sC[i / N][i % N] = to_float(C[bc0 + i]);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int s = 0; s < steps; ++s) {
-      const size_t idx = (row0 + t0 + s) * d + c;
-      const float dt = softplus(to_float(delta[idx]));
-      const float uv = to_float(u[idx]);
-      const float du = dt * uv;
-      float y = 0.0f;
-#pragma unroll
-      for (int k = 0; k < N; ++k) {
-        h[k] = expf(dt * a[k]) * h[k] + du * sB[s][k];
-        y += h[k] * sC[s][k];
-      }
-      y += Dc * uv;
-      if (z != nullptr) {
-        const float zv = to_float(z[idx]);
-        y *= zv / (1.0f + expf(-zv));
-      }
-      out[idx] = from_float<T>(y);
-    }
-  }
-}
-
-template <int N, typename T, typename TD>
+template <typename T, typename TD>
 int launch(const void* u, const void* delta, const void* A, const void* B,
            const void* C, const void* D, const void* z, void* out, int G,
            int L, int d, cudaStream_t stream) {
-  const dim3 grid((d + kThreads - 1) / kThreads, G);
-  selective_scan_fwd_kernel<N, T, TD><<<grid, kThreads, 0, stream>>>(
+  typename ScanSeq<T, TD>::Params p{
       static_cast<const T*>(u), static_cast<const TD*>(delta),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<const float*>(D),
-      static_cast<const T*>(z), static_cast<T*>(out), L, d);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const T*>(z), static_cast<T*>(out), L, d};
+  return scan_fwd::launch<ScanSeq<T, TD>>(p, G, L, d, z != nullptr, stream);
 }
 
 }  // namespace
@@ -149,14 +124,12 @@ extern "C" int selective_scan_fwd(const void* u, const void* delta,
                                   int G, int L, int d, int n, int dtype,
                                   int delta_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n != 16) return -1;
+  if (n != kN) return -1;
   if (dtype == 0 && delta_dtype == 0)
-    return launch<16, float, float>(u, delta, A, B, C, D, z, out, G, L, d, s);
+    return launch<float, float>(u, delta, A, B, C, D, z, out, G, L, d, s);
   if (dtype == 1 && delta_dtype == 1)
-    return launch<16, __nv_bfloat16, __nv_bfloat16>(u, delta, A, B, C, D, z,
-                                                    out, G, L, d, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(u, delta, A, B, C, D, z, out, G, L, d, s);
   if (dtype == 1 && delta_dtype == 0)
-    return launch<16, __nv_bfloat16, float>(u, delta, A, B, C, D, z, out, G,
-                                            L, d, s);
+    return launch<__nv_bfloat16, float>(u, delta, A, B, C, D, z, out, G, L, d, s);
   return -1;
 }

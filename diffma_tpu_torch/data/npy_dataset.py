@@ -58,7 +58,8 @@ def make_loader(
     The index order is shuffled with (seed, epoch), as the JAX package's
     loader shuffles it for training, and a short last batch is dropped. A
     background thread builds up to ``prefetch`` batches ahead; it stops when
-    the iterator is closed or exhausted.
+    the iterator is closed or exhausted. An exception that the dataset raises
+    in that thread is raised by the iterator, after the batches before it.
     """
     order = np.random.default_rng((seed, epoch)).permutation(len(dataset))
     n_batches = len(order) // batch_size
@@ -76,10 +77,14 @@ def make_loader(
         return False
 
     def produce():
-        for b in range(n_batches):
-            items = [dataset[int(i)] for i in order[b * batch_size : (b + 1) * batch_size]]
-            if not put(tuple(np.stack([it[k] for it in items]) for k in range(3))):
-                return
+        try:
+            for b in range(n_batches):
+                items = [dataset[int(i)] for i in order[b * batch_size : (b + 1) * batch_size]]
+                if not put(tuple(np.stack([it[k] for it in items]) for k in range(3))):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            put(e)
+            return
         put(done)
 
     thread = threading.Thread(target=produce, daemon=True)
@@ -89,6 +94,8 @@ def make_loader(
             item = q.get()
             if item is done:
                 return
+            if isinstance(item, Exception):
+                raise item
             yield item
     finally:
         stop.set()

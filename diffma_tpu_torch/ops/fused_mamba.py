@@ -26,7 +26,9 @@ Two implementations:
 * ``mamba_inner_fused_cuda``: the hand-written CUDA kernel H
   (``csrc/fused_mamba_fwd.cu``), which replaces the TPU kernel
   ``diffma_tpu/ops/fused_mamba.py::_fused_kernel``; its ``launches``
-  attribute counts the calls (each launches two device kernels).
+  attribute counts the calls (each launches four or five device kernels:
+  conv, x_proj and dt_proj on the tensor cores in 3xTF32, the chunked scan,
+  and the sum of x_proj's depth splits when there are any).
 
 ``MambaInnerFn`` carries gradients: forward through kernel H, backward by
 recomputing the function through the composable operators
@@ -103,8 +105,6 @@ def _check_kernel_inputs(tensors) -> dict:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if conv_w.data_ptr() % 16:  # read as one float4 per channel
-        raise ValueError("conv_w must be 16-byte aligned")
     return dict(G=G, L=L, d=d, n=n, r=r, K=K)
 
 

@@ -79,12 +79,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, G, L, d, n, dtype, delta_dtype=None, seed=0):
+def _inputs(device, G, L, d, n, dtype, delta_dtype=None, seed=0, wide=False):
+    """Kernel A's inputs; with ``wide``, dt of 30 to 60 against A of -50 to
+    -100, a span dt |A| in the thousands over any chunk."""
     gen = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    uniform = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(*s, generator=gen)  # noqa: E731
     u = r(G, L, d).to(device, dtype)
-    delta = (0.5 * r(G, L, d) - 1.0).to(device, delta_dtype or dtype)
-    A = -torch.exp(0.5 * r(d, n)).to(device)
+    delta = uniform(30, 60, G, L, d) if wide else 0.5 * r(G, L, d) - 1.0
+    delta = delta.to(device, delta_dtype or dtype)
+    A = (-uniform(50, 100, d, n) if wide else -torch.exp(0.5 * r(d, n))).to(device)
     B = r(G, L, n).to(device, dtype)
     C = r(G, L, n).to(device, dtype)
     D = r(d).to(device)
@@ -110,6 +114,27 @@ def test_kernel_matches_plain_bf16(cuda, delta_dtype):
     want = selective_scan_ref(u, delta, A, B, C, D, z)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "G,L,dtype,gated,wide",
+    [(24, 196, torch.float32, True, False),  # the composable training step: one chunk
+     (1, 1, torch.float32, True, False),  # one step
+     (3, 9, torch.float32, True, False),  # fewer steps than the chunks allow
+     (3, 196, torch.float32, True, True),  # every cross-chunk decay underflows
+     (3, 196, torch.float32, False, True),
+     (3, 196, torch.bfloat16, False, False)])  # bf16 with the most chunks (8)
+def test_kernel_chunked_scan_cases(cuda, G, L, dtype, gated, wide):
+    """Kernel A's scan, chunked over up to eight warps of a block, at the
+    model's width (d = 1024) where the chunk count changes with G and L."""
+    u, delta, A, B, C, D, z = _inputs(cuda, G, L, 1024, 16, dtype, seed=G + L, wide=wide)
+    z = z if gated else None
+    got = selective_scan_cuda(u, delta, A, B, C, D, z)
+    want = selective_scan_ref(u, delta, A, B, C, D, z)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 def test_auto_launches_kernel_and_counts(cuda):

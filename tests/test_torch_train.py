@@ -430,6 +430,43 @@ def test_loader_stops_its_thread_when_closed():
     assert threading.active_count() == before
 
 
+class _RaisesOnThirdItem(SyntheticTriplets):
+    """A dataset whose third read raises, as a missing or short file would."""
+
+    def __init__(self):
+        super().__init__(n=8, size=8)
+        self.reads = 0
+
+    def __getitem__(self, index):
+        self.reads += 1
+        if self.reads == 3:
+            raise OSError("item 3 is unreadable")
+        return super().__getitem__(index)
+
+
+def test_loader_raises_what_the_dataset_raises():
+    """The producer thread's exception reaches the consumer after the batch
+    before it, instead of leaving it waiting on the queue for ever. The loader
+    runs in a thread of its own, so that a regression fails the join's
+    timeout rather than hanging the test."""
+    before = threading.active_count()
+    batches, raised = [], []
+
+    def consume():
+        try:
+            for batch in make_loader(_RaisesOnThirdItem(), 2, prefetch=1):
+                batches.append(batch)
+        except OSError as e:
+            raised.append(e)
+
+    thread = threading.Thread(target=consume, daemon=True)
+    thread.start()
+    thread.join(timeout=30)
+    assert not thread.is_alive(), "the loader hung on the dataset's exception"
+    assert len(batches) == 1 and [str(e) for e in raised] == ["item 3 is unreadable"]
+    assert threading.active_count() == before
+
+
 def test_experiment_dirs_match_jax(tmp_path):
     for _ in range(2):
         ours = create_experiment_dir(str(tmp_path / "a"), "DiffMa-L/2")

@@ -2,9 +2,10 @@
 """Do two checkouts of the PyTorch port give the same bits from their CUDA kernels?
 
 A change to a shared header (``csrc/*.cuh``) or to a kernel's launcher must
-leave the kernel's earlier cases as they were. This tool runs the fused
-kernels C, D, E, F, G and H of one checkout on fixed seeded inputs at
-DiffMa's width and writes the outputs to a file; run it once per checkout
+leave the kernel's earlier cases as they were. This tool runs kernels A to H
+and P of one checkout on fixed seeded inputs at DiffMa's width (A in fp32
+and, under the name Abf16, in bf16) and writes the outputs to a file; run it
+once per checkout
 (each in a process of its own, since both packages have the same name) and
 compare:
 
@@ -16,11 +17,11 @@ compare:
 tensor is equal bit for bit. A change that redesigns some kernels names the
 ones that must keep their bits, and holds the others to a bar instead:
 
-    python tools/port_kernel_bits.py compare old.pt new.pt --exact C,D,G,H \
-        --bar E=1e-4 --bar EG=1e-4 --bar F=2e-4
+    python tools/port_kernel_bits.py compare old.pt new.pt --exact B,C,D,E,EG,F,G,P \
+        --bar A=1e-4 --bar Abf16=2e-2 --bar H=1e-4
 
-(each tensor of E and EG within 1e-4 * max(1, max |old|), of F within
-2e-4). It needs an NVIDIA GPU with nvcc and uses only entry points that both
+(each tensor of A and H within 1e-4 * max(1, max |old|), of Abf16 within
+2e-2). It needs an NVIDIA GPU with nvcc and uses only entry points that both
 checkouts have.
 """
 
@@ -50,7 +51,7 @@ def dump(root: str, out: str) -> None:
     from diffma_tpu_torch.models.blocks import SpiralMambaBlock
     from diffma_tpu_torch.models.mamba import Mamba
     from diffma_tpu_torch.models.mamba2 import Mamba2
-    from diffma_tpu_torch.ops import fused_mamba, fused_mixer, fused_ssd
+    from diffma_tpu_torch.ops import fused_mamba, fused_mixer, fused_ssd, selective_scan
     from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 
     h = 512
@@ -97,6 +98,30 @@ def dump(root: str, out: str) -> None:
             results[f"H.G{G}.L{L}"] = fused_mamba.mamba_inner_fused_cuda(
                 xz, inner.conv_w[:, 0, :], inner.conv_b, inner.xp_w, inner.dt_w, inner.dt_b,
                 -torch.exp(inner.A_log), inner.D)
+    # Kernel P on the last case's two weight sets, zx (6, 196, 2d + 2n + H).
+    zx = torch.randn(6, 196, 2096, generator=torch.Generator().manual_seed(50)).cuda()
+    with torch.no_grad():
+        results["P.G6.L196"] = fused_ssd.ssd_core_cuda(zx, w2)
+    # Kernels A and B: the sampler's three streams and the training step's 24,
+    # gated and not, fp32 and bf16.
+    f32, bf16 = torch.float32, torch.bfloat16
+    for G, L, dtype, delta_dtype, gated in ((3, 196, f32, f32, True), (3, 197, f32, f32, False),
+                                            (24, 196, f32, f32, True), (3, 196, bf16, f32, True),
+                                            (3, 13, bf16, bf16, False)):
+        gen = torch.Generator().manual_seed(G + L)
+        r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+        d = 2 * h
+        u, z, g = (r(G, L, d).cuda().to(dtype) for _ in range(3))
+        delta = (0.5 * r(G, L, d) - 1.0).cuda().to(delta_dtype)
+        A, D = -torch.exp(0.5 * r(d, 16)).cuda(), r(d).cuda()
+        B, C = (r(G, L, 16).cuda().to(dtype) for _ in range(2))
+        z = z if gated else None
+        tag = f"G{G}.L{L}.{str(dtype)[6:]}.{str(delta_dtype)[6:]}.{'gated' if gated else 'ungated'}"
+        name = "A" if dtype == f32 else "Abf16"
+        results[f"{name}.{tag}"] = selective_scan.selective_scan_cuda(u, delta, A, B, C, D, z)
+        grads = selective_scan.selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g)
+        results.update({f"B.{tag}.{k}": t for k, t in zip(("du", "ddelta", "dA", "dB", "dC", "dD",
+                                                            "dz"), grads) if t is not None})
     torch.cuda.synchronize()
     torch.save({k: v.detach().cpu() for k, v in results.items()}, out)
     print(f"wrote {len(results)} tensors from {os.path.abspath(root)} to {out}")

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time kernels C, D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward
-and backward) of a checkout of the PyTorch port, per call and per stage, the
-batch-1 Mamba-2 sampler forward and the training steps that run them.
+"""Time kernels A and H (the Mamba-1 scan and the mixer's inner part) and C,
+D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward and backward) of a
+checkout of the PyTorch port, per call and per stage, the batch-1 DiffMa-B/2
+sampler forwards (Mamba-2 and the composable Mamba-1 route) and the training
+steps that run them.
 
 Run it once per checkout, each in a process of its own (both packages have
 the same name), in turns on one card so that two versions meet the same
@@ -16,14 +18,16 @@ clocks, and print the runs side by side:
 ``run`` times each case with CUDA events (the median over 5 windows of the
 mean over back-to-back calls), takes the device ms per call by stage from
 torch.profiler's kernel table (the stage names of ``chip_smoke.py``; for E
-and F also each SSD kernel's), profiles the Mamba-2 DiffMa-B/2 forward at
-batch 1 on the dual and the ``fuse_block`` route (``chip_smoke.py`` phase
-3c's model and inputs: CUDA-event ms, wall and device busy ms, launches), and
-profiles the trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8, Mamba-1
-and Mamba-2 (``diffma_tpu_torch.utils.profiling.profile_train_step``). Every
-case uses entry points that both checkouts have; a case that a checkout
-refuses (a stream past its kernel's length cap) is recorded as refused. It
-needs an NVIDIA GPU with nvcc.
+and F also each SSD kernel's), profiles the DiffMa-B/2 forward at batch 1
+(``chip_smoke.py`` phase 3c's model and inputs: CUDA-event ms, wall and device
+busy ms, launches) on Mamba-2's dual and ``fuse_block`` routes and on
+Mamba-1's composable route (kernel A, ``scan_impl="auto"``), and profiles the
+trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8, fused Mamba-1 and
+Mamba-2, and B/2 on the composable route (kernels A and B)
+(``diffma_tpu_torch.utils.profiling.profile_train_step``). ``--kernels A,H``
+times only those kernels' cases. Every case uses entry points that both
+checkouts have; a case that a checkout refuses (a stream past its kernel's
+length cap) is recorded as refused. It needs an NVIDIA GPU with nvcc.
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The stage kernels of earlier versions of C, D, E and F (before gemm_tc.cuh
-# and the chunked SSD), under chip_smoke.py's labels, so that an older
-# checkout's calls split the same way.
+# The stage kernels of earlier versions of A, C, D, E, F and H (before
+# gemm_tc.cuh and the chunked scans), under chip_smoke.py's labels, so that an
+# older checkout's calls split the same way.
 OLD_STAGE_NAMES = {"conv + x_proj": "ConvXProj", "merge + out_proj": "MergeOutProj|QuirkOutProj",
-                   "ssd": "ssd_fwd_kernel", "recompute y": "ssd_fwd_kernel"}
+                   "ssd": "ssd_fwd_kernel", "recompute y": "ssd_fwd_kernel",
+                   "scan": "selective_scan_fwd_kernel"}
 
 
 def with_old_names(stages):
@@ -52,6 +57,16 @@ SSD_KERNELS = (("state", r"ssd_state_kernel"), ("out", r"ssd_out_kernel"),
                ("whole stream (old)", r"ssd_fwd_kernel"), ("a_c", r"ssd_chunk_adj"),
                ("adjoint", r"ssd_adjoint_kernel"), ("adjoint finish", r"ssd_adjoint_finish"))
 
+# (name, kernel, streams G, steps L) of kernels A (G = 3: the sampler at batch
+# 1; 24: the composable training step at batch 8) and H (8 atrous streams of
+# 49 steps: chip_smoke.py phase 3e's path; the B/2 streams at batch 1 and 8)
+SCAN_CASES = (
+    ("A G=3 L=196", "A", 3, 196),
+    ("A G=24 L=196", "A", 24, 196),
+    ("H G=8 L=49", "H", 8, 49),
+    ("H G=3 L=196", "H", 3, 196),
+    ("H G=24 L=196", "H", 24, 196),
+)
 # (name, kernel, family, batch, branches[, grid]): the main path's cases first;
 # the grid is 14 (196 tokens) unless given
 CASES = (
@@ -73,12 +88,19 @@ CASES = (
     ("E spiral L=1024 B=1 dual", "E", "spiral", 1, 2, 32),
     ("F spiral L=1024 B=1 dual", "F", "spiral", 1, 2, 32),
 )
-FORWARDS = (("B/2 Mamba-2 forward B=1, dual", False), ("B/2 Mamba-2 forward B=1, fuse_block", True))
-STAGES = {"C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES", "E": "SSD_STAGES", "F": "SSD_BWD_STAGES"}
-STEPS = (("DiffMa-L/2", False), ("DiffMa-B/2", False), ("DiffMa-L/2", True), ("DiffMa-B/2", True))
+# (name, use_mamba2, scan_impl, fuse_block)
+FORWARDS = (("B/2 Mamba-2 forward B=1, dual", True, "fused", False),
+            ("B/2 Mamba-2 forward B=1, fuse_block", True, "fused", True),
+            ("B/2 Mamba-1 forward B=1, composable", False, "auto", False))
+STAGES = {"A": "SCAN_STAGES", "H": "INNER_STAGES", "C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES",
+          "E": "SSD_STAGES", "F": "SSD_BWD_STAGES"}
+# (model, use_mamba2, scan_impl)
+STEPS = (("DiffMa-L/2", False, "fused"), ("DiffMa-B/2", False, "fused"),
+         ("DiffMa-L/2", True, "fused"), ("DiffMa-B/2", True, "fused"),
+         ("DiffMa-B/2", False, "auto"))
 
 
-def run(root: str, out: str, steps: bool, kernels: bool) -> None:
+def run(root: str, out: str, steps: bool, kernels: str) -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as cs  # helpers only; its functions import the package lazily
 
@@ -94,7 +116,14 @@ def run(root: str, out: str, steps: bool, kernels: bool) -> None:
     torch.backends.cudnn.allow_tf32 = False
     h = 512
     report = {"root": os.path.abspath(root), "card": cs.card_line(), "cases": {}}
-    for name, kernel, family, batch, M, *grid in CASES if kernels else ():
+    for name, kernel, G, L in SCAN_CASES:
+        if kernel in kernels:
+            report["cases"][name] = time_scan_case(cs, kernel, G, L)
+            print(f"{name}: {report['cases'][name]['ms']:.4f} ms; "
+                  f"{cs.stage_line(report['cases'][name]['stages_ms'])}", flush=True)
+    for name, kernel, family, batch, M, *grid in CASES:
+        if kernel not in kernels:
+            continue
         grid_n = grid[0] if grid else 14
         spec = build_scan_spec(family, grid_n, 1)
         module = Mamba if kernel in "CD" else Mamba2
@@ -114,8 +143,8 @@ def run(root: str, out: str, steps: bool, kernels: bool) -> None:
               f"{cs.stage_line(report['cases'][name]['stages_ms'])}", flush=True)
     report["forwards"] = {}
     inputs = cs.sampler_forward_inputs()
-    model = cs.sampler_model(True).set_scan_impl("fused")
-    for name, fuse in FORWARDS:
+    for name, mamba2, scan_impl, fuse in FORWARDS:
+        model = cs.sampler_model(mamba2).set_scan_impl(scan_impl)
         for blk in model.blocks:
             blk.fuse_block = fuse
         with torch.no_grad():
@@ -124,18 +153,38 @@ def run(root: str, out: str, steps: bool, kernels: bool) -> None:
         fwd.pop("top_kernels_ms_per_call")
         report["forwards"][name] = fwd
         print(f"{name}: {json.dumps(fwd)}", flush=True)
-    del model
+        del model
     if steps:
         from diffma_tpu_torch.utils.profiling import profile_train_step
 
         report["steps"] = {}
-        for model_name, mamba2 in STEPS:
-            step = profile_train_step(model_name, 8, "fused", use_mamba2=mamba2)
-            key = f"{model_name} Mamba-2" if mamba2 else model_name
+        for model_name, mamba2, scan_impl in STEPS:
+            step = profile_train_step(model_name, 8, scan_impl, use_mamba2=mamba2)
+            key = model_name + (" Mamba-2" if mamba2 else "") + (
+                f" {scan_impl}" if scan_impl != "fused" else "")
             report["steps"][key] = step
             print(f"{key} train step, batch 8: {json.dumps(step)}", flush=True)
     with open(out, "w") as f:
         json.dump(report, f, indent=1)
+
+
+def time_scan_case(cs, kernel, G, L) -> dict:
+    """Kernel A's or H's ms per call (CUDA events) and device ms per stage at
+    DiffMa's width, on chip_smoke.py's inputs."""
+    import torch
+
+    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
+
+    if kernel == "A":
+        x = cs.scan_inputs(G, L, 1024, 16, torch.float32, torch.float32, seed=0)
+        fn = lambda: selective_scan_cuda(**x)  # noqa: E731
+    else:
+        args = cs.inner_inputs(G, L, seed=400 + G)
+        fn = lambda: mamba_inner_fused_cuda(*args)  # noqa: E731
+    with torch.no_grad():
+        return {"ms": cs.cuda_ms(fn, reps=50),
+                "stages_ms": cs.stage_table(fn, with_old_names(getattr(cs, STAGES[kernel])))}
 
 
 def time_case(cs, kernel, spec, xs, gs, ws, batch) -> dict:
@@ -205,8 +254,8 @@ def main() -> int:
     r.add_argument("--out", required=True)
     r.add_argument("--no-steps", dest="steps", action="store_false",
                    help="leave out the training steps")
-    r.add_argument("--no-kernels", dest="kernels", action="store_false",
-                   help="leave out the kernel cases")
+    r.add_argument("--kernels", default="ACDEFH",
+                   help="the kernels whose cases to time, e.g. A,H (default: all; '' for none)")
     t = sub.add_parser("table")
     t.add_argument("paths", nargs="+")
     args = parser.parse_args()
