@@ -13,10 +13,13 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    the DiffMa-B/2 sampler gives them (2a, 2b; A also at the training batch
    G = 24, at one step, at 9 steps, fewer than its chunks allow, at a wide
    decay span and in bf16 with the most chunks), and their backward kernels B
-   and D against theirs at the training shapes, batch 8 (2c, 2d), with times
-   and bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
+   and D against theirs at the training shapes, batch 8 (2c, 2d; B also at
+   1, 16 and 17 steps, a wide span and both bf16 delta types, each case
+   twice with equal bits, and its device ms by stage), with times and
+   bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
    modes, 196 and 25 tokens, a finite dt_limit, a wide decay span) and
-   kernel G (the Spiral block's tail) against theirs, and the Mamba-2 block
+   kernel G (the Spiral block's tail, with its device busy ms beside its
+   event ms) against theirs, and the Mamba-2 block
    on its three routes (2e, 2f); kernel F (the fused Mamba-2 mixer's
    backward) against its plain version at the training shapes, batch 8:
    single and dual, 196 and 25 tokens, a dt_limit that clips some steps, a
@@ -376,29 +379,38 @@ def phase_scan_bwd(card: str) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz")
     cases = [
-        # name, G, L, dtype, delta dtype, gated: G = 24 is batch 8 x 3 streams
-        ("fp32 gated (path)", 24, 196, f32, f32, True),
-        ("fp32 ungated", 24, 196, f32, f32, False),
-        ("fp32 gated, prime L=197", 24, 197, f32, f32, True),
-        ("bf16 gated, fp32 delta", 24, 196, bf16, f32, True),
+        # name, G, L, dtype, delta dtype, gated, wide: G = 24 is batch 8 x 3 streams
+        ("fp32 gated (path)", 24, 196, f32, f32, True, False),
+        ("fp32 ungated", 24, 196, f32, f32, False, False),
+        ("fp32 gated, prime L=197", 24, 197, f32, f32, True, False),
+        ("bf16 gated, fp32 delta", 24, 196, bf16, f32, True, False),
+        ("bf16 ungated, bf16 delta", 24, 196, bf16, bf16, False, False),
+        ("fp32 gated, one step", 2, 1, f32, f32, True, False),
+        ("fp32 gated, one chunk", 2, 16, f32, f32, True, False),
+        ("fp32 ungated, a chunk and a step", 2, 17, f32, f32, False, False),
+        ("fp32 gated, wide span", 3, 196, f32, f32, True, True),
     ]
     path_err = None
-    for i, (name, G, L, dtype, ddtype, gated) in enumerate(cases):
-        x = scan_inputs(G, L, 1024, 16, dtype, ddtype, seed=10 + i)
+    for i, (name, G, L, dtype, ddtype, gated, wide) in enumerate(cases):
+        x = scan_inputs(G, L, 1024, 16, dtype, ddtype, seed=10 + i, wide=wide)
         if not gated:
             x["z"] = None
         g = torch.randn(G, L, 1024, generator=torch.Generator(device="cuda").manual_seed(i),
                         device="cuda").to(dtype)
+        first = selective_scan_bwd_cuda(**x, g=g)
         got = dict(zip(names, selective_scan_bwd_cuda(**x, g=g)))
         want = dict(zip(names, selective_scan_bwd_ref(**x, g=g)))
         torch.cuda.synchronize()
+        for (n, a), b in zip(got.items(), first):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                fail(f"kernel B's {n} differs between two calls ({name})")
         if not gated:
             if got.pop("dz") is not None or want.pop("dz") is not None:
                 fail("an ungated scan's backward gave a dz")
         rows = grad_errors(got, want, TOL_GRAD)
         err = max(e for _, e, _ in rows)
         print(f"  {name}: G={G} L={L} d=1024 n=16  max|err| per gradient "
-              + ", ".join(f"{n} {e:.2e}/{b:.1e}" for n, e, b in rows))
+              + ", ".join(f"{n} {e:.2e}/{b:.1e}" for n, e, b in rows) + "; two calls equal")
         if path_err is None:
             path_err = err
 
@@ -406,10 +418,12 @@ def phase_scan_bwd(card: str) -> dict:
     g = torch.randn(24, 196, 1024, generator=torch.Generator(device="cuda").manual_seed(0),
                     device="cuda")
     ms = cuda_ms(lambda: selective_scan_bwd_cuda(**x, g=g), reps=20)
+    stages = stage_table(lambda: selective_scan_bwd_cuda(**x, g=g), SCAN_BWD_STAGES)
     plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(**x, g=g), reps=5)
     bound_ms, bound_by = scan_bwd_bound_ms(x, g)
     print(f"  [{card}] selective_scan_bwd fp32 G=24 L=196 d=1024 n=16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+          f"device busy {stages['total']:.4f} ms ({stage_line(stages)}), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
     print("  library_ms: none; no single PyTorch call computes the scan's backward")
     return {
         "name": "selective_scan_bwd",
@@ -418,6 +432,7 @@ def phase_scan_bwd(card: str) -> dict:
         "replaces": "diffma_tpu/ops/selective_scan.py:323",
         "max_abs_err": path_err,
         "ms": ms,
+        "busy_ms": stages["total"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -485,6 +500,13 @@ def mixer_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
 # expression on the profiler's kernel name). The products are gemm_tc.cuh's
 # instances, named by their stage class.
 SCAN_STAGES = (("scan", r"\bscan_kernel\b"),)
+SCAN_BWD_STAGES = (
+    ("forward to the checkpoints", r"scan_ckpt_kernel"), ("reverse", r"scan_bwd_kernel"),
+    ("reduce_bc", r"reduce_bc"),
+)
+EPILOGUE_STAGES = (
+    ("LayerNorm stats", r"stats_kernel"), ("fc1", r"gemm_nt"), ("tail", r"tail_kernel"),
+)
 INNER_STAGES = (
     ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
     ("scan", r"\bscan_kernel\b"), ("split sums", r"sum_splits"),
@@ -853,6 +875,7 @@ def mamba2_mixers(spec, seed: int, wide: bool = False):
 
     from diffma_tpu_torch.models.mamba2 import Mamba2
 
+    torch.manual_seed(seed)  # the modules' default init: the same draw in every run
     mixers = [random_(Mamba2(512, spec), seed + i) for i in range(2)]
     if wide:
         with torch.no_grad():
@@ -1048,9 +1071,11 @@ def phase_spiral_epilogue(card: str) -> dict:
         tail = (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight,
                 fc2.bias)
         ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
+        stages = stage_table(lambda: spiral_epilogue_cuda(*tail), EPILOGUE_STAGES, calls=50)
         plain_ms = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
     bound_ms, bound_by = epilogue_bound_ms(B=1, L=196, h=h)
-    print(f"  [{card}] spiral_epilogue fp32, B=1 L=196 h=512: kernel {ms:.4f} ms, plain "
+    print(f"  [{card}] spiral_epilogue fp32, B=1 L=196 h=512: kernel {ms:.4f} ms (events), "
+          f"device busy {stages['total']:.4f} ms ({stage_line(stages)}), plain "
           f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
     print("  library_ms: none; no single PyTorch call computes the block's tail; the plain "
           "version is the unfused tail in torch operators (cuBLAS), the yardstick")
@@ -1061,6 +1086,7 @@ def phase_spiral_epilogue(card: str) -> dict:
         "replaces": "diffma_tpu/ops/fused_ssd.py:1131",
         "max_abs_err": path_err,
         "ms": ms,
+        "busy_ms": stages["total"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1154,6 +1180,20 @@ def phase_ssd_bwd(card: str) -> dict:
             plain = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit)
             outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
             outs1, zx1 = ssd_mixer_fused_cuda(spec, xs[:1], ws[:1], dt_limit, want_res=True)
+        if dt_limit != no_limit:
+            # The clip's gradient jumps at a limit; E's 3xTF32 in_proj and the plain
+            # version's fp32 one differ by about 1e-6, so a step that near a limit
+            # would be clipped for F and not for the plain version (or the other way
+            # round), and the comparison would not hold (tests/test_torch_cuda_kernels.py).
+            for m in range(2):
+                pre = torch.nn.functional.linear(xs[m], ws[m].in_w)[..., -16:].reshape(-1, 16)
+                sides = []
+                for p_ in (pre, zx[m][:, -16:]):
+                    dt_ = torch.nn.functional.softplus(p_ + ws[m].dt_bias)
+                    sides.append((dt_ >= dt_limit[0]) & (dt_ <= dt_limit[1]))
+                if not torch.equal(*sides):
+                    fail(f"a step of mixer {m} lies on the two sides of a clip limit of "
+                         f"{dt_limit} for kernel E's in_proj and the plain one")
         if not all(torch.equal(a, b) for a, b in zip((*outs, *outs1), (*plain, plain[0]))):
             fail(f"kernel E's residual mode changed its outputs: layer {layer}, L={L}")
         want = {}

@@ -76,6 +76,10 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The modules' default init draws from the global generator, which torch
+    # seeds anew in every process: seeded here, each test draws the same
+    # weights in every run, whatever ran before it.
+    torch.manual_seed(0)
     return torch.device("cuda")
 
 
@@ -281,23 +285,44 @@ def _assert_grad_close(got, want, name):
     assert err <= tol, f"{name}: max |err| {err:.3e} > {tol:.3e}"
 
 
+def _check_scan_bwd(device, G, L, d, dtype, delta_dtype, gated, wide=False):
+    """Kernel B against ``selective_scan_bwd_ref``, called twice: the second
+    call must give the first one's bits."""
+    u, delta, A, B, C, D, z = _inputs(device, G, L, d, 16, dtype, delta_dtype, wide=wide)
+    z = z if gated else None
+    g = torch.randn(G, L, d, generator=torch.Generator().manual_seed(9)).to(device, dtype)
+    got = selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g)
+    again = selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g)
+    want = selective_scan_bwd_ref(u, delta, A, B, C, D, z, g)
+    torch.cuda.synchronize()
+    for name, a, a2, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz"), got, again, want):
+        if b is None:
+            assert a is None and a2 is None
+        else:
+            _assert_grad_close(a, b, name)
+            assert torch.equal(a, a2), f"{name} differs between two calls"
+
+
 @pytest.mark.parametrize(
     "G,L,dtype,delta_dtype,gated",
     [(3, 196, torch.float32, None, True), (2, 13, torch.float32, None, False),
-     (2, 197, torch.float32, None, True), (2, 67, torch.bfloat16, torch.float32, True)],
+     (2, 197, torch.float32, None, True), (2, 67, torch.bfloat16, torch.float32, True),
+     (24, 196, torch.float32, None, True), (24, 196, torch.float32, None, False),
+     (2, 1, torch.float32, None, True), (2, 16, torch.float32, None, True),
+     (2, 17, torch.float32, None, False), (3, 196, torch.bfloat16, torch.bfloat16, True),
+     (3, 196, torch.bfloat16, torch.float32, False)],
 )
 def test_scan_bwd_kernel_matches_plain(cuda, G, L, dtype, delta_dtype, gated):
-    u, delta, A, B, C, D, z = _inputs(cuda, G, L, 256, 16, dtype, delta_dtype)
-    z = z if gated else None
-    g = torch.randn(G, L, 256, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
-    got = selective_scan_bwd_cuda(u, delta, A, B, C, D, z, g)
-    want = selective_scan_bwd_ref(u, delta, A, B, C, D, z, g)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz"), got, want):
-        if b is None:
-            assert a is None
-        else:
-            _assert_grad_close(a, b, name)
+    """Kernel B: the composable path's G = 24 (DiffMa-B/2's three streams at
+    batch 8) at its width d = 1024, gated and not; one step, one chunk, a
+    chunk and a step, ragged lengths; both bf16 delta types."""
+    _check_scan_bwd(cuda, G, L, 1024 if G == 24 else 256, dtype, delta_dtype, gated)
+
+
+@pytest.mark.parametrize("L,gated", [(196, True), (17, False)])
+def test_scan_bwd_kernel_at_a_wide_span(cuda, L, gated):
+    """Kernel B where every decay underflows to 0 (dt |A| in the thousands)."""
+    _check_scan_bwd(cuda, 3, L, 256, torch.float32, None, gated, wide=True)
 
 
 def test_scan_autograd_matches_plain_autograd(cuda):
@@ -552,6 +577,36 @@ def test_fused_ssd_carries_gradients(cuda):
             _assert_grad_close(got[name], ref, f"{route} {name}")
 
 
+def _assert_clip_sides_agree(xs, ws, zx, dt_limit):
+    """Every step's dt = softplus(p + dt_bias), p its dt column of in_proj, on
+    the same side of each limit whether p is kernel E's (``zx``, the residual
+    kernel F reads) or the plain version's. The clip's gradient jumps from 1
+    to 0 at a limit, and the two in_proj's (3xTF32 and cuBLAS's fp32) differ
+    by about 1e-6, so a step that near a limit is clipped for one and not for
+    the other, and its head's dt_bias gradient differs by the step's whole
+    term: the comparison does not hold there. (At this case's shapes 4 of 300
+    draws of the weights had such a step, each within 1.4e-6 of a limit; none
+    of the other 296 came within 0.14 of the bar.)"""
+    inside = lambda v: (v >= dt_limit[0]) & (v <= dt_limit[1])  # noqa: E731
+    for m, (x, w) in enumerate(zip(xs, ws)):
+        H = w.dt_bias.shape[0]
+        plain = torch.nn.functional.linear(x, w.in_w)[..., -H:].reshape(-1, H)
+        sp_plain = torch.nn.functional.softplus(plain + w.dt_bias)
+        sp_kernel = torch.nn.functional.softplus(zx[m][:, -H:] + w.dt_bias)
+        differ = int((inside(sp_plain) != inside(sp_kernel)).sum().item())
+        assert differ == 0, f"{differ} steps of mixer {m} lie on the two sides of a clip limit"
+
+
+def _ssd_bwd_ref64(spec, x, g, w, dt_limit):
+    """``ssd_mixer_bwd_ref`` on fp64 copies of its inputs. Its autograd sums
+    the gathers' adjoints with atomics, in no fixed order, so in fp32 its
+    gradients change from call to call in their last bits; in fp64 those
+    changes lie far below fp32's rounding, and the reference is nearer the
+    exact gradients than either fp32 version."""
+    return ssd_mixer_bwd_ref(spec, x.double(), g.double(),
+                             Mamba2Weights(*(t.double() for t in w)), dt_limit)
+
+
 def _ssd_grads(gx, gw, m):
     return {f"gx{m}": gx, **{f"w{m}.{f}": t for f, t in zip(Mamba2Weights._fields, gw)}}
 
@@ -564,8 +619,8 @@ def _ssd_grads(gx, gw, m):
      ("vmamba", 14, 0, 1, NO_LIMIT, False), ("vim", 14, 0, 2, NO_LIMIT, False)],
 )
 def test_fused_ssd_bwd_matches_plain(cuda, family, grid_n, layer, batch, dt_limit, wide):
-    """Kernel F, dual and single, against ``ssd_mixer_bwd_ref``: 196 and 25
-    tokens, 1 to 4 streams (Mamba-2's vim spec among them: two streams merged
+    """Kernel F, dual and single, against ``ssd_mixer_bwd_ref`` in fp64: 196
+    and 25 tokens, 1 to 4 streams (Mamba-2's vim spec among them: two streams merged
     the standard way), a dt_limit that clips some steps and not others,
     and a wide decay span; twice in a row with the same bits; and kernel E's
     residual mode gives plain kernel E's outputs."""
@@ -584,11 +639,13 @@ def test_fused_ssd_bwd_matches_plain(cuda, family, grid_n, layer, batch, dt_limi
         plain = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit)
         outs, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
         _, zx1 = ssd_mixer_fused_cuda(spec, xs[1:], ws[1:], dt_limit, want_res=True)
+    if dt_limit != NO_LIMIT:
+        _assert_clip_sides_agree(xs, ws, zx, dt_limit)
     for a, b in zip(outs, plain):
         assert torch.equal(a, b)
     want = {}
     for m in range(2):
-        want.update(_ssd_grads(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
+        want.update(_ssd_grads(*_ssd_bwd_ref64(spec, xs[m], gs[m], ws[m], dt_limit), m))
     for M, res in ((2, zx), (1, zx1)):
         first = None
         for _ in range(2):
@@ -830,7 +887,7 @@ def test_fused_routes_train_vim_and_partition(cuda, family, mamba2):
                          [(14, 8, NO_LIMIT), (10, 2, NO_LIMIT), (4, 2, (0.5, 0.9))])
 def test_fused_ssd_bwd_partition_matches_plain(cuda, grid_n, batch, dt_limit):
     """Kernel F's partition branch, dual and single, against
-    ``ssd_mixer_bwd_ref``: 4 streams of 49, 25 and 4 steps, every gradient
+    ``ssd_mixer_bwd_ref`` in fp64: 4 streams of 49, 25 and 4 steps, every gradient
     tensor, twice in a row with the same bits."""
     spec = build_scan_spec("eff", grid_n, 0)
     mixers = _mixers2(cuda, spec, seed=grid_n + 50)
@@ -841,9 +898,11 @@ def test_fused_ssd_bwd_partition_matches_plain(cuda, grid_n, batch, dt_limit):
     with torch.no_grad():
         _, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
         _, zx1 = ssd_mixer_fused_cuda(spec, xs[1:], ws[1:], dt_limit, want_res=True)
+    if dt_limit != NO_LIMIT:
+        _assert_clip_sides_agree(xs, ws, zx, dt_limit)
     want = {}
     for m in range(2):
-        want.update(_ssd_grads(*ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit), m))
+        want.update(_ssd_grads(*_ssd_bwd_ref64(spec, xs[m], gs[m], ws[m], dt_limit), m))
     for M, res in ((2, zx), (1, zx1)):
         first = None
         for _ in range(2):
@@ -933,12 +992,14 @@ def test_mamba_inner_matches_plain(cuda, G, L, dt_bias):
     _assert_close_to_ref(got, want)
 
 
-def test_mamba_inner_gradients_match_plain_autograd(cuda):
+@pytest.mark.parametrize("G,L", [(3, 50), (24, 196)])
+def test_mamba_inner_gradients_match_plain_autograd(cuda, G, L):
     """``MambaInnerFn``: forward through kernel H, backward by recomputing
     through the composable operators (kernels A and B); against autograd over
-    the plain version."""
-    args = _inner_inputs(cuda, 3, 50, seed=9)
-    g = torch.randn(3, 50, 2 * HIDDEN, generator=torch.Generator().manual_seed(1)).to(cuda)
+    the plain version, also at the composable training path's shapes (G = 24
+    streams of 196 steps, d = 1024)."""
+    args = _inner_inputs(cuda, G, L, seed=9)
+    g = torch.randn(G, L, 2 * HIDDEN, generator=torch.Generator().manual_seed(1)).to(cuda)
     leaves = [t.clone().requires_grad_() for t in args]
     refs = [t.clone().requires_grad_() for t in args]
     calls = (mamba_inner_fused_cuda.launches, selective_scan_cuda.launches,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels A and H (the Mamba-1 scan and the mixer's inner part) and C,
+"""Time kernels A, B and H (the Mamba-1 scan, its backward and the mixer's inner part) and C,
 D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward and backward) of a
 checkout of the PyTorch port, per call and per stage, the batch-1 DiffMa-B/2
 sampler forwards (Mamba-2 and the composable Mamba-1 route) and the training
@@ -25,7 +25,8 @@ Mamba-1's composable route (kernel A, ``scan_impl="auto"``), and profiles the
 trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8, fused Mamba-1 and
 Mamba-2, and B/2 on the composable route (kernels A and B)
 (``diffma_tpu_torch.utils.profiling.profile_train_step``). ``--kernels A,H``
-times only those kernels' cases. Every case uses entry points that both
+times only those kernels' cases, ``--steps-of "B/2 auto"`` only the steps
+whose names hold those words. Every case uses entry points that both
 checkouts have; a case that a checkout refuses (a stream past its kernel's
 length cap) is recorded as refused. It needs an NVIDIA GPU with nvcc.
 """
@@ -58,11 +59,13 @@ SSD_KERNELS = (("state", r"ssd_state_kernel"), ("out", r"ssd_out_kernel"),
                ("adjoint", r"ssd_adjoint_kernel"), ("adjoint finish", r"ssd_adjoint_finish"))
 
 # (name, kernel, streams G, steps L) of kernels A (G = 3: the sampler at batch
-# 1; 24: the composable training step at batch 8) and H (8 atrous streams of
-# 49 steps: chip_smoke.py phase 3e's path; the B/2 streams at batch 1 and 8)
+# 1; 24: the composable training step at batch 8), B (that step's backward)
+# and H (8 atrous streams of 49 steps: chip_smoke.py phase 3e's path; the B/2
+# streams at batch 1 and 8)
 SCAN_CASES = (
     ("A G=3 L=196", "A", 3, 196),
     ("A G=24 L=196", "A", 24, 196),
+    ("B G=24 L=196", "B", 24, 196),
     ("H G=8 L=49", "H", 8, 49),
     ("H G=3 L=196", "H", 3, 196),
     ("H G=24 L=196", "H", 24, 196),
@@ -92,7 +95,7 @@ CASES = (
 FORWARDS = (("B/2 Mamba-2 forward B=1, dual", True, "fused", False),
             ("B/2 Mamba-2 forward B=1, fuse_block", True, "fused", True),
             ("B/2 Mamba-1 forward B=1, composable", False, "auto", False))
-STAGES = {"A": "SCAN_STAGES", "H": "INNER_STAGES", "C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES",
+STAGES = {"A": "SCAN_STAGES", "B": "SCAN_BWD_STAGES", "H": "INNER_STAGES", "C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES",
           "E": "SSD_STAGES", "F": "SSD_BWD_STAGES"}
 # (model, use_mamba2, scan_impl)
 STEPS = (("DiffMa-L/2", False, "fused"), ("DiffMa-B/2", False, "fused"),
@@ -100,7 +103,7 @@ STEPS = (("DiffMa-L/2", False, "fused"), ("DiffMa-B/2", False, "fused"),
          ("DiffMa-B/2", False, "auto"))
 
 
-def run(root: str, out: str, steps: bool, kernels: str) -> None:
+def run(root: str, out: str, steps: bool, kernels: str, steps_of: str = "") -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as cs  # helpers only; its functions import the package lazily
 
@@ -159,9 +162,11 @@ def run(root: str, out: str, steps: bool, kernels: str) -> None:
 
         report["steps"] = {}
         for model_name, mamba2, scan_impl in STEPS:
-            step = profile_train_step(model_name, 8, scan_impl, use_mamba2=mamba2)
             key = model_name + (" Mamba-2" if mamba2 else "") + (
                 f" {scan_impl}" if scan_impl != "fused" else "")
+            if steps_of and not any(w in key for w in steps_of.split(",")):
+                continue
+            step = profile_train_step(model_name, 8, scan_impl, use_mamba2=mamba2)
             report["steps"][key] = step
             print(f"{key} train step, batch 8: {json.dumps(step)}", flush=True)
     with open(out, "w") as f:
@@ -169,16 +174,21 @@ def run(root: str, out: str, steps: bool, kernels: str) -> None:
 
 
 def time_scan_case(cs, kernel, G, L) -> dict:
-    """Kernel A's or H's ms per call (CUDA events) and device ms per stage at
-    DiffMa's width, on chip_smoke.py's inputs."""
+    """Kernel A's, B's or H's ms per call (CUDA events) and device ms per
+    stage at DiffMa's width, on chip_smoke.py's inputs."""
     import torch
 
     from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
-    from diffma_tpu_torch.ops.selective_scan import selective_scan_cuda
+    from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
 
-    if kernel == "A":
+    if kernel in "AB":
         x = cs.scan_inputs(G, L, 1024, 16, torch.float32, torch.float32, seed=0)
-        fn = lambda: selective_scan_cuda(**x)  # noqa: E731
+        g = torch.randn(G, L, 1024, generator=torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+        if kernel == "A":
+            fn = lambda: selective_scan_cuda(**x)  # noqa: E731
+        else:
+            fn = lambda: selective_scan_bwd_cuda(**x, g=g)  # noqa: E731
     else:
         args = cs.inner_inputs(G, L, seed=400 + G)
         fn = lambda: mamba_inner_fused_cuda(*args)  # noqa: E731
@@ -254,13 +264,16 @@ def main() -> int:
     r.add_argument("--out", required=True)
     r.add_argument("--no-steps", dest="steps", action="store_false",
                    help="leave out the training steps")
-    r.add_argument("--kernels", default="ACDEFH",
+    r.add_argument("--steps-of", default="",
+                   help="only the steps whose names hold one of these comma-separated words, "
+                        "e.g. 'B/2 auto'")
+    r.add_argument("--kernels", default="ABCDEFH",
                    help="the kernels whose cases to time, e.g. A,H (default: all; '' for none)")
     t = sub.add_parser("table")
     t.add_argument("paths", nargs="+")
     args = parser.parse_args()
     if args.command == "run":
-        run(args.root, args.out, args.steps, args.kernels)
+        run(args.root, args.out, args.steps, args.kernels, args.steps_of)
     else:
         table(args.paths)
     return 0
