@@ -18,9 +18,10 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    twice with equal bits, and its device ms by stage), with times and
    bounds; kernel E (the fused Mamba-2 mixer: single, dual and prologue
    modes, 196 and 25 tokens, a finite dt_limit, a wide decay span) and
-   kernel G (the Spiral block's tail, with its device busy ms beside its
-   event ms) against theirs, and the Mamba-2 block
-   on its three routes (2e, 2f); kernel F (the fused Mamba-2 mixer's
+   kernel G (the Spiral block's tail: batch 1, 2 and 8, 196 and 25 tokens,
+   each twice with equal bits; its device busy ms by stage beside its event
+   ms at batch 1 and 8) against theirs, and the Mamba-2 block on its three
+   routes (2e, 2f); kernel F (the fused Mamba-2 mixer's
    backward) against its plain version at the training shapes, batch 8:
    single and dual, 196 and 25 tokens, a dt_limit that clips some steps, a
    wide decay span, twice in a row; and kernel E's residual mode against its
@@ -33,9 +34,10 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    (2k) and kernel F's partition branch (2l) against their plain versions,
    every gradient tensor, at 196 tokens and at 25 (the vim quirk) or streams
    of 25 steps (the partition); kernel P (the split SSD probe's core) against
-   its plain version at zx (48, 196, 2096) and (6, 196, 2096), the probe's
-   split form against whole kernel E, and the times of P, of E's two SSD
-   stages inside E and of whole E (2m); the probe's entry point,
+   its plain version at zx (48, 196, 2096) and (6, 196, 2096), each twice with
+   equal bits, with D and norm_w off one, at a wide decay span and at 25
+   steps, the probe's split form against whole kernel E, and the times of P
+   (by kernel), of E's SSD and gate stages inside E and of whole E (2m); the probe's entry point,
    ``tools/probes/probe_split_ssd_torch.py``, 52 calls of each form (2n);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
@@ -505,7 +507,8 @@ SCAN_BWD_STAGES = (
     ("reduce_bc", r"reduce_bc"),
 )
 EPILOGUE_STAGES = (
-    ("LayerNorm stats", r"stats_kernel"), ("fc1", r"gemm_nt"), ("tail", r"tail_kernel"),
+    ("LayerNorm", r"ln_kernel"), ("fc1 + SiLU + fc2 partials", r"\bFc1\b"),
+    ("tail", r"tail_kernel"),
 )
 INNER_STAGES = (
     ("conv + x_proj", r"\bconv_kernel\b|\bXProj\b"), ("dt_proj", r"\bDtProj\b"),
@@ -532,6 +535,8 @@ SSD_STAGES = (
     ("ssd", r"ssd_state_kernel|ssd_out_kernel"), ("gate + norm + merge", r"gate_norm_merge"),
     ("out_proj", r"\bOutProj\b"), ("split sums", r"sum_splits"),
 )
+# Kernel P's: the chunk states, then y with the gate and the norm in a cluster.
+CORE_STAGES = (("chunk states", r"core_states_kernel"), ("y + gate + norm", r"core_out_norm_kernel"))
 SSD_BWD_STAGES = (
     ("g W_out", r"\bGradOutProj\b"), ("recompute y", r"ssd_state_kernel|ssd_out_kernel"),
     ("gate + norm adjoint", r"gate_norm_bwd"), ("SSD adjoint", r"ssd_chunk_adj|ssd_adjoint"),
@@ -853,17 +858,30 @@ def ssd_mixer_bound_fp32_ms(*args, **kw) -> tuple[float, str]:
     return bound_from(*ssd_mixer_work(*args, **kw))
 
 
-def epilogue_bound_ms(B, L, h) -> tuple[float, str]:
-    """Least time for one call of the Spiral block's tail on an H100: o0, o1,
-    x and the weights read and out written once over the HBM rate, or the
-    operations over fp32: the 2h -> h product, about 8 per concat element for
-    the LayerNorm, and about 12 per output element for the SiLU, the h -> 1
-    product, the mix and the residual."""
+def epilogue_work(B, L, h) -> tuple[int, int, int]:
+    """One call of the Spiral block's tail: the operations of its 2h -> h
+    product, its other operations (about 8 per concat element for the
+    LayerNorm, about 12 per output element for the SiLU, the h -> 1 product,
+    the mix and the residual), and the bytes of o0, o1, x, the gate and the
+    weights read and out written once."""
     rows = B * L
-    ops = 2 * rows * 2 * h * h + rows * 2 * h * 8 + rows * h * 12
+    products = 2 * rows * 2 * h * h
+    other = rows * 2 * h * 8 + rows * h * 12
     nbytes = 4 * (4 * rows * h + B * h + 2 * h * h + 4 * h + h + h + 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return products, other, nbytes
+
+
+def epilogue_bound_ms(B, L, h) -> tuple[float, str]:
+    """Least time for one call of the tail on an H100 in the arithmetic
+    kernel G does it in: the product at the 3xTF32 rate, TF32_FLOPS / 3, the
+    rest at fp32."""
+    return bound_from(*epilogue_work(B, L, h), product_flops=TF32_FLOPS / 3)
+
+
+def epilogue_bound_fp32_ms(B, L, h) -> tuple[float, str]:
+    """The same with every operation at the fp32 rate, as the product ran
+    before it moved to the tensor cores."""
+    return bound_from(*epilogue_work(B, L, h))
 
 
 def mamba2_mixers(spec, seed: int, wide: bool = False):
@@ -1035,8 +1053,11 @@ def phase_spiral_epilogue(card: str) -> dict:
             gate = block.adaLN_modulation(c).chunk(3, dim=-1)[2]
             tail = (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight,
                     fc2.bias)
-            err = close_to_ref(f"spiral epilogue, B={batch} L={L}", spiral_epilogue_cuda(*tail),
+            got = spiral_epilogue_cuda(*tail)
+            err = close_to_ref(f"spiral epilogue, B={batch} L={L}", got,
                                spiral_epilogue_ref(*tail))
+            if not torch.equal(got, spiral_epilogue_cuda(*tail)):
+                fail(f"two calls of spiral_epilogue_fwd gave different bits, B={batch} L={L}")
             routes = {}
             for route, impl, fuse in (("two composable mixers", "auto", False),
                                       ("dual kernel E", "fused", False),
@@ -1054,29 +1075,28 @@ def phase_spiral_epilogue(card: str) -> dict:
         want = routes.pop("two composable mixers")
         errs = {r: close_to_ref(f"Mamba-2 block, {r}, B={batch} L={L}", got, want)
                 for r, got in routes.items()}
-        print(f"  spiral layer {layer}: B={batch} L={L} h={h}  kernel G max|err| {err:.3e}; "
-              f"block against its composable route: "
+        print(f"  spiral layer {layer}: B={batch} L={L} h={h}  kernel G max|err| {err:.3e}, two "
+              f"calls equal bits; block against its composable route: "
               + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
               + f"  (tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
         if path_err is None:
             path_err = err
 
-    spec = build_scan_spec("spiral", 14, 0)
-    block = random_(SpiralMambaBlock(h, spec, use_mamba2=True), 300).cuda().eval()
-    x, c, _ = block_inputs(196, 300, 1)
-    o0, o1 = (block_inputs(196, seed, 1)[0] for seed in (301, 302))
-    an, fc1, _, fc2 = block.attention_network
-    with torch.no_grad():
-        gate = block.adaLN_modulation(c).chunk(3, dim=-1)[2]
-        tail = (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight,
-                fc2.bias)
-        ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
-        stages = stage_table(lambda: spiral_epilogue_cuda(*tail), EPILOGUE_STAGES, calls=50)
-        plain_ms = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
-    bound_ms, bound_by = epilogue_bound_ms(B=1, L=196, h=h)
-    print(f"  [{card}] spiral_epilogue fp32, B=1 L=196 h=512: kernel {ms:.4f} ms (events), "
-          f"device busy {stages['total']:.4f} ms ({stage_line(stages)}), plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    times = {}
+    for batch in (1, 8):  # the sampler's; the fuse_block training forward's
+        tail = epilogue_inputs(batch)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
+            stages = stage_table(lambda: spiral_epilogue_cuda(*tail), EPILOGUE_STAGES, calls=50)
+            plain_ms = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
+        bound_ms, bound_by = epilogue_bound_ms(B=batch, L=196, h=h)
+        fp32_ms, fp32_by = epilogue_bound_fp32_ms(B=batch, L=196, h=h)
+        times[batch] = dict(ms=ms, busy_ms=stages["total"], plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, bound_fp32_ms=fp32_ms, stages_ms=stages)
+        print(f"  [{card}] spiral_epilogue fp32, B={batch} L=196 h=512: kernel {ms:.4f} ms "
+              f"(events), device busy {stages['total']:.4f} ms ({stage_line(stages)}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, the product at "
+              f"the 3xTF32 rate); all at fp32 {fp32_ms * 1e3:.2f} us ({fp32_by})")
     print("  library_ms: none; no single PyTorch call computes the block's tail; the plain "
           "version is the unfused tail in torch operators (cuBLAS), the yardstick")
     return {
@@ -1085,13 +1105,29 @@ def phase_spiral_epilogue(card: str) -> dict:
         "source": "diffma_tpu_torch/csrc/spiral_epilogue.cu",
         "replaces": "diffma_tpu/ops/fused_ssd.py:1131",
         "max_abs_err": path_err,
-        "ms": ms,
-        "busy_ms": stages["total"],
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **{k: v for k, v in times[1].items() if k != "stages_ms"},
         "library_ms": None,
+        "stages_ms": times[1]["stages_ms"],
+        "b8": times[8],
     }
+
+
+def epilogue_inputs(batch: int, seed: int = 300):
+    """Kernel G's arguments at the sampler's shapes (196 tokens, h = 512): a
+    seeded block's tail weights and gate, random o0, o1 and x, on the card."""
+    import torch
+
+    from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    block = random_(SpiralMambaBlock(512, build_scan_spec("spiral", 14, 0), use_mamba2=True),
+                    seed).cuda().eval()
+    x, c, _ = block_inputs(196, seed, batch)
+    o0, o1 = (block_inputs(196, seed + i, batch)[0] for i in (1, 2))
+    an, fc1, _, fc2 = block.attention_network
+    with torch.no_grad():
+        gate = block.adaLN_modulation(c).chunk(3, dim=-1)[2]
+    return (o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
 
 
 def ssd_mixer_bwd_work(M, B, L, h, d, n, H, S, K, Ls=None) -> tuple[int, int, int]:
@@ -1684,11 +1720,13 @@ def phase_ssd_core(card: str) -> dict:
             got, want = ssd_core_cuda(zxs, ws), ssd_core_ref(zxs, ws)
             torch.cuda.synchronize()
             err = close_to_ref(f"kernel P, zx {tuple(zxs.shape)}", got, want)
+            if not torch.equal(got, ssd_core_cuda(zxs, ws)):
+                fail(f"two calls of ssd_core_fwd gave different bits, zx {tuple(zxs.shape)}")
             whole, split = probe.whole_dual(x12, ws), probe.split_dual(x12, ws)
             torch.cuda.synchronize()
             split_err = close_to_ref(f"the split form against whole kernel E, B={batch}", split,
                                      whole, TOL_MODEL)
-        print(f"  zx {tuple(zxs.shape)}: kernel P max|err| {err:.3e} (tol "
+        print(f"  zx {tuple(zxs.shape)}: kernel P max|err| {err:.3e}, two calls equal bits (tol "
               f"{TOL_FP32 * max(1.0, want.abs().max().item()):.1e}); split form (P) against whole "
               f"E, B={batch}: max|diff| {split_err:.3e} (tol "
               f"{TOL_MODEL * max(1.0, whole.abs().max().item()):.1e})")
@@ -1711,12 +1749,30 @@ def phase_ssd_core(card: str) -> dict:
         print(f"  zx {tuple(zxs.shape)}, D and norm_w drawn off one per branch: kernel P max|err| "
               f"{off_err:.3e} (tol {TOL_FP32 * max(1.0, want.abs().max().item()):.1e})")
         path_err = max(path_err, off_err)
+        # Decay rates from 1 to 16 and dt near 1.3: each head's span of dt * |A|
+        # over the 196 steps in the thousands, every cross-chunk decay 0.
+        ws_wide = tuple(w._replace(A_log=torch.log(torch.linspace(1.0, 16.0, w.A_log.numel(),
+                                                                  device="cuda")),
+                                   dt_bias=torch.ones_like(w.dt_bias)) for w in ws)
+        want = ssd_core_ref(zxs, ws_wide)
+        wide_err = close_to_ref(f"kernel P, zx {tuple(zxs.shape)}, a wide span",
+                                ssd_core_cuda(zxs, ws_wide), want)
+        dt = torch.nn.functional.softplus(zxs[:24, :, -16:] + 1.0)
+        span = (dt.sum(1) * torch.linspace(1.0, 16.0, 16, device="cuda")).max().item()
+        if span < 1000:
+            fail(f"the wide-span case of kernel P has a span of only {span:.0f}")
+        zx25 = zxs[:4, :25].contiguous()  # one ragged chunk
+        want25 = ssd_core_ref(zx25, ws)
+        err25 = close_to_ref("kernel P, zx (4, 25, 2096)", ssd_core_cuda(zx25, ws), want25)
+        print(f"  a span of dt*|A| of {span:.0f}: kernel P max|err| {wide_err:.3e}; zx (4, 25, "
+              f"2096): {err25:.3e}")
+        path_err = max(path_err, wide_err, err25)
         ms = cuda_ms(lambda: ssd_core_cuda(zxs, ws), reps=50)
         plain_ms = cuda_ms(lambda: ssd_core_ref(zxs, ws), reps=10)
         e_ms = cuda_ms(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws), reps=20)
         e_prof = profile_calls(lambda: ssd_mixer_fused_cuda(probe.SPEC, tuple(x12), ws),
                                calls=10)
-        p_stages = stage_table(lambda: ssd_core_cuda(zxs, ws), SSD_STAGES)
+        p_stages = stage_table(lambda: ssd_core_cuda(zxs, ws), CORE_STAGES)
     core = dict(G=48, L=196, d=1024, n=16, H=16, K=4)
     bound_ms, bound_by = ssd_core_bound_ms(**core)
     fp32_ms, fp32_by = bound_from(*ssd_core_work(**core))
@@ -1732,7 +1788,7 @@ def phase_ssd_core(card: str) -> dict:
     return {
         "name": "ssd_core_fwd",
         "route": "cuda",
-        "source": "diffma_tpu_torch/csrc/fused_ssd_fwd.cu",
+        "source": "diffma_tpu_torch/csrc/ssd_core_fwd.cu",
         "replaces": "tools/probes/probe_split_ssd.py:44",
         "max_abs_err": path_err,
         "ms": ms,
@@ -1741,6 +1797,7 @@ def phase_ssd_core(card: str) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
         "bound_fp32_ms": fp32_ms,
+        "busy_ms": p_stages["total"],
         "stages_ms": p_stages,
         "whole_e_ms": e_ms,
         "e_core_stages_ms": e_core,

@@ -85,26 +85,6 @@
 //
 // Several B/C groups, bf16 and a partition spec in prologue mode are not
 // built: the wrapper raises for them.
-//
-// Kernel P, ssd_core_fwd below, replaces the TPU kernel
-// tools/probes/probe_split_ssd.py::_core_kernel, the core of the probe's
-// "split" form of the dual mixer, in which in_proj, the stream gathers, the
-// merge and out_proj run outside the kernel. Given zx (G, L, dproj), one
-// gathered stream per sequence g in stream order, and each branch's core
-// weights (branch m = g / (G / M)), it writes per sequence
-//
-//     out[g] = rmsnorm(SSD(silu(conv([x | B | C] columns)), dt, A, D) silu(z)) norm_w
-//
-// with no merge, (G, L, d). It is stages 2 and 3 above: the same chunked SSD
-// (ssd_core.cuh) with no gather table, one stream per sequence, then the
-// gate + norm row kernel with one stream and scale 1. Nothing is padded: the
-// TPU probe pads each stream after its last step, and the conv is causal, so
-// its first L rows are the answer. Bound on an H100 SXM at the probe's shapes
-// (G = 48, L = 196, d = 1024, H = 16): the chunked SSD's products make about
-// 1.1 GFLOP, 0.007 ms at the 3xTF32 rate, and the rest (the conv, the
-// decays, the D skip, the gate and the norm) 0.18 GFLOP, 0.003 ms at fp32,
-// against 118 MB of zx read and out written, 0.035 ms at the memory rate. So
-// the bytes bound it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -335,13 +315,13 @@ size_t layout(Params& p, float* base, int M, bool prologue) {
   return total;
 }
 
-ssd::FwdArgs core_args(const Params& p, int M, const int64_t* fwd) {
+ssd::FwdArgs core_args(const Params& p, int M) {
   ssd::FwdArgs core{};
   for (int m = 0; m < M; ++m) {
     const Branch& br = p.br[m];
     core.mx[m] = ssd::Mixer{br.conv_w, br.conv_b, br.dt_bias, br.A_log, br.D};
   }
-  core.fwd = fwd;
+  core.fwd = p.fwd;
   core.zx = p.zx;
   core.y = p.y;
   core.B = p.B;
@@ -366,51 +346,6 @@ extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int Ls, int
   Params p{};
   set_dims(p, B, L, Ls, h, d, H, S);
   return static_cast<long long>(layout(p, nullptr, M, prologue != 0));
-}
-
-// Floats of workspace that ssd_core_fwd needs for these shapes.
-extern "C" long long ssd_core_workspace_floats(int M, int G, int L, int d, int H) {
-  Params p{};
-  set_dims(p, G / M, L, L, 0, d, H, 1);  // no out_proj: h = 0
-  return static_cast<long long>(layout(p, nullptr, M, false));
-}
-
-// `ptrs` holds 6 pointers per branch: conv_w (d + 2n, K), conv_b (d + 2n,),
-// dt_bias, A_log, D (H,) and norm_w (d,), for M = 1 or 2 branches; all fp32
-// and contiguous. `zx` (G, L, dproj) and `out` (G, L, d), G a multiple of M,
-// sequence g taking branch g / (G / M); `workspace` ssd_core_workspace_floats
-// floats. Launches three kernels on `stream`; returns the first cudaError_t
-// that is not 0, or -1 for shapes that are not built.
-extern "C" int ssd_core_fwd(void* const* ptrs, int M, const void* zx, void* out,
-                            void* workspace, int G, int L, int d, int n, int H, int K,
-                            float eps, float dt_lo, float dt_hi, void* stream) {
-  if (M < 1 || M > 2 || G < M || G % M != 0 || n != kN || K != kConv || H < 1 ||
-      d != H * kHd || d > kRowThreads * kMaxPerThread || L < 1) {
-    return -1;
-  }
-  Params p{};
-  for (int m = 0; m < M; ++m) {
-    void* const* q = ptrs + m * 6;
-    p.br[m].conv_w = static_cast<const float*>(q[0]);
-    p.br[m].conv_b = static_cast<const float*>(q[1]);
-    p.br[m].dt_bias = static_cast<const float*>(q[2]);
-    p.br[m].A_log = static_cast<const float*>(q[3]);
-    p.br[m].D = static_cast<const float*>(q[4]);
-    p.br[m].norm_w = static_cast<const float*>(q[5]);
-  }
-  set_dims(p, G / M, L, L, 0, d, H, 1);  // no out_proj: h = 0
-  layout(p, static_cast<float*>(workspace), M, false);
-  p.zx = static_cast<float*>(const_cast<void*>(zx));
-  p.merged = static_cast<float*>(out);
-  p.scale = 1.0f;
-  p.eps = eps;
-  p.dt_lo = dt_lo;
-  p.dt_hi = dt_hi;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = ssd::launch_ssd_fwd(core_args(p, M, nullptr), M, st);
-  if (err != 0) return err;
-  gate_norm_merge_kernel<<<dim3(p.B * L, M), kRowThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // `ptrs` holds 10 pointers per branch, in the order of struct Branch, for
@@ -473,7 +408,7 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
     err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj>(p, T, p.dproj, M, st)
                         : tc::launch_gemm_tc<128, InProj>(p, T, p.dproj, M, st);
   }
-  if (err == 0) err = ssd::launch_ssd_fwd(core_args(p, M, p.fwd), M, st);
+  if (err == 0) err = ssd::launch_ssd_fwd(core_args(p, M), M, st);
   if (err == 0) {
     gate_norm_merge_kernel<<<dim3(T, M), kRowThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());

@@ -1,7 +1,7 @@
 // Tiled GEMM on Hopper's tensor cores in fp32-accurate 3xTF32, for the
 // product stages of kernels C (fused_mixer_fwd.cu) and D (fused_mixer_bwd.cu),
-// E's and F's projections (fused_ssd_fwd.cu, fused_ssd_bwd.cu) and H's x_proj
-// and dt_proj (fused_mamba_fwd.cu). Rows,
+// E's and F's projections (fused_ssd_fwd.cu, fused_ssd_bwd.cu), G's fc1
+// (spiral_epilogue.cu) and H's x_proj and dt_proj (fused_mamba_fwd.cu). Rows,
 // columns and depth of any size: the tiles' ragged edges are masked (E's
 // in_proj has 2d + 2n + H = 2096 columns).
 //
@@ -22,6 +22,16 @@
 //     bool vec                  whether a4 and b4 may be used (aligned rows); if
 //                               not, every element loads through a and b
 //     void store(int row, int col, int split, float value)
+//
+// or, in place of store, an epilogue that takes the whole tile: an operand
+// class with `static constexpr bool kFinish = true` gives
+//
+//     template <int BN> void finish(const float (&acc)[BN / 2], int row0, int col0,
+//                                   int split, int splits)
+//
+// called by all the block's threads with the accumulator in wgmma's layout
+// (see the end of gemm_tc_kernel); for every other class the hook compiles to
+// nothing.
 //
 // so a loader may gather, sum streams or apply a conv and SiLU (the stage
 // classes of kernels C and D) as well as read a matrix.
@@ -282,6 +292,12 @@ struct Loader<R, true> {
   }
 };
 
+// Whether an operand class finishes its tiles itself (kFinish, see above).
+template <class Op, class = void>
+struct Finishes : std::false_type {};
+template <class Op>
+struct Finishes<Op, std::void_t<decltype(Op::kFinish)>> : std::bool_constant<Op::kFinish> {};
+
 // An operand's a4 and b4 are looked up only where the loaders use them.
 template <class Op, class Row>
 __device__ __forceinline__ float4 read_a4(const Op& op, const Row& r, int k) {
@@ -394,18 +410,23 @@ __global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const P p, int splits
 
   // wgmma's accumulator layout: warp w holds rows 16w .. 16w + 15; in each
   // 8-column group j, lane l holds rows l / 4 and l / 4 + 8 at columns
-  // 2 (l % 4) and 2 (l % 4) + 1.
-  const int warp = t / 32, lane = t % 32;
+  // 2 (l % 4) and 2 (l % 4) + 1: acc[j * 4 + i * 2 + c] is row l / 4 + 8 i,
+  // column 8 j + 2 (l % 4) + c.
+  if constexpr (Finishes<Op>::value) {
+    op.template finish<BN>(acc, row0, col0, split, splits);
+  } else {
+    const int warp = t / 32, lane = t % 32;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int row = row0 + warp * 16 + lane / 4 + 8 * i;
-        const int col = col0 + j * 8 + (lane % 4) * 2 + c;
-        if (row < op.rows && col < op.cols) op.store(row, col, split, acc[j * 4 + i * 2 + c]);
-      }
+        for (int c = 0; c < 2; ++c) {
+          const int row = row0 + warp * 16 + lane / 4 + 8 * i;
+          const int col = col0 + j * 8 + (lane % 4) * 2 + c;
+          if (row < op.rows && col < op.cols) op.store(row, col, split, acc[j * 4 + i * 2 + c]);
+        }
+  }
 }
 
 // Launch `Op` over a rows x cols output for `branches` branches, the depth

@@ -1,7 +1,9 @@
 // The state-space-duality (SSD) core of one Mamba-2 head, chunked over the
-// sequence, shared by kernel E (fused_ssd_fwd.cu, which also holds kernel P,
-// the split form's core) and kernel F (fused_ssd_bwd.cu): staging a chunk of
-// a head's stream in shared memory, the block products, and the forward.
+// sequence, shared by kernel E (fused_ssd_fwd.cu) and kernel F
+// (fused_ssd_bwd.cu): staging a chunk of a head's stream in shared memory,
+// the block products, and the forward. Kernel P (ssd_core_fwd.cu) stages
+// and multiplies its chunks its own way; it takes the constants and the
+// activations from here and keeps the arithmetic rules below.
 //
 // Given zx = in_proj(x) in token order, with columns [z (d) | x (d) | B (n) |
 // C (n) | dt (H)], one (branch, batch element, stream, head) needs, in the
@@ -51,8 +53,7 @@
 // cumsum start at its first step, and chunks never cross streams). y goes out
 // at the step's token index: per stream ((b * S + s) * Lt + token) when
 // `y_streams` is S, or (b * Lt + token) when it is 1 (a partition, where each
-// token lies in one stream). Without a gather table (kernel P: the caller
-// gathered) step t is row t itself.
+// token lies in one stream).
 
 #pragma once
 
@@ -165,7 +166,7 @@ struct Mixer {
 // One chunk of one head's stream: what its block reads, and where it stages it.
 struct Chunk {
   const float* zx_b;     // this (branch, batch element)'s zx rows (Lt, dproj)
-  const int64_t* order;  // fwd[s]: the stream's token order (Ls,), or null: step t is row t
+  const int64_t* order;  // fwd[s]: the stream's token order (Ls,)
   Mixer mx;
   int head, d, dproj, t0, q;  // the chunk's steps are t0 .. t0 + q - 1, q <= kQ
   float dt_lo, dt_hi;
@@ -205,7 +206,7 @@ __device__ __forceinline__ float* chunk_layout(Chunk& ch, float* smem) {
 }
 
 __device__ __forceinline__ int token_of(const Chunk& ch, int t) {
-  return ch.order ? static_cast<int>(ch.order[t]) : t;
+  return static_cast<int>(ch.order[t]);
 }
 
 // Fill the chunk's shared memory, using `raw` (kRawFloats) as scratch; all
@@ -333,7 +334,7 @@ __device__ inline void fold_states(const float* st, const double* sums, int c, i
 // The forward's arguments: both branches of a call.
 struct FwdArgs {
   Mixer mx[2];
-  const int64_t* fwd;  // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1], or null
+  const int64_t* fwd;  // (S, Ls): stream s visits tokens fwd[s, 0..Ls-1]
   const float* zx;     // (M, B * Lt, dproj)
   float* y;            // (M, B * y_streams * Lt, d), token order (see above)
   float* states;       // (M, B * S, H, nc, 16, 64): each chunk's h_c
@@ -377,7 +378,7 @@ template <class Args>
 __device__ __forceinline__ Chunk chunk_of(const Args& a, const Where& w, const Mixer& mx) {
   Chunk ch;
   ch.zx_b = a.zx + (static_cast<size_t>(w.m) * a.B + w.b) * a.Lt * a.dproj;
-  ch.order = a.fwd ? a.fwd + static_cast<size_t>(w.s) * a.Ls : nullptr;
+  ch.order = a.fwd + static_cast<size_t>(w.s) * a.Ls;
   ch.mx = mx;
   ch.head = w.head;
   ch.d = a.d;

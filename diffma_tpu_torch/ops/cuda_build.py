@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. Building takes
 seconds, so it happens at first use in each process; the library's file name
-carries a hash of its source and of every header in ``csrc/`` (C, D, E, F
-and H include ``gemm_tc.cuh``, the 3xTF32 tensor-core GEMM; A and H
-``scan_fwd.cuh``, the chunked forward scan; G ``gemm_nt.cuh``; E, F and
-P ``ssd_core.cuh``, the chunked SSD), so an
+carries a hash of its source and of every header in ``csrc/`` (C, D, E, F,
+G and H include ``gemm_tc.cuh``, the 3xTF32 tensor-core GEMM; A and H
+``scan_fwd.cuh``, the chunked forward scan; E, F and P ``ssd_core.cuh``, the
+chunked SSD), so an
 edited source or header is rebuilt and an unchanged one is
 reused. Libraries go into
 ``diffma_tpu_torch/_build/``, which git ignores.
@@ -31,10 +31,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-#: Every kernel source of the port: kernels A, C, B, D, E (with P, the split
-#: SSD probe's core), G, F and H.
+#: Every kernel source of the port: kernels A, C, B, D, E, G, F, H and P (the
+#: split SSD probe's core).
 SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd",
-           "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd", "fused_mamba_fwd")
+           "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd", "fused_mamba_fwd",
+           "ssd_core_fwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

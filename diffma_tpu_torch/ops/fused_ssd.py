@@ -34,7 +34,7 @@ Two implementations of each:
   gradients of x and the 8 weights from x, dL/dout, the weights and that
   residual. ``spiral_epilogue_cuda`` is kernel G
   (``csrc/spiral_epilogue.cu``), which replaces ``_spiral_epilogue_kernel``.
-  ``ssd_core_cuda`` is kernel P (an entry point of ``csrc/fused_ssd_fwd.cu``),
+  ``ssd_core_cuda`` is kernel P (``csrc/ssd_core_fwd.cu``),
   which replaces ``tools/probes/probe_split_ssd.py::_core_kernel``: the
   mixer's middle alone (conv, dt, the SSD, the gate and the norm, no merge)
   on gathered streams ``zx (G, L, 2d + 2n + H)``; ``ssd_core_ref`` is its
@@ -103,6 +103,8 @@ __all__ = [
 _KERNEL_SOURCE = "fused_ssd_fwd"
 _BWD_SOURCE = "fused_ssd_bwd"
 _EPILOGUE_SOURCE = "spiral_epilogue"
+_CORE_SOURCE = "ssd_core_fwd"
+_KERNEL_MAX_CORE_HEADS = 16  # kernel P: one cluster of up to 8 blocks, two heads each
 _KERNEL_D_STATE = 16
 _KERNEL_HEADDIM = 64
 _KERNEL_CONV = 4
@@ -346,10 +348,7 @@ def _kernel_fns():
     size = lib.ssd_mixer_workspace_floats
     size.argtypes = [ctypes.c_int] * 9
     size.restype = ctypes.c_longlong
-    core_size = lib.ssd_core_workspace_floats
-    core_size.argtypes = [ctypes.c_int] * 5
-    core_size.restype = ctypes.c_longlong
-    return fwd, size, core_size
+    return fwd, size
 
 
 def ssd_mixer_fused_cuda(
@@ -384,7 +383,7 @@ def ssd_mixer_fused_cuda(
     if prologue is not None:
         _check_spec_prologue(spec)
     dims = _check_kernel_inputs(spec, xs, ws, prologue)
-    fwd_fn, size_fn, _ = _kernel_fns()
+    fwd_fn, size_fn = _kernel_fns()
     x0 = xs[0]
     out = torch.empty((M, *x0.shape), dtype=x0.dtype, device=x0.device)
     workspace = torch.empty(
@@ -568,6 +567,10 @@ def spiral_epilogue_cuda(
         x.device,
     )
     _check_rows("gate", gate, B_, h, x.device)
+    if h % 4 or gate.stride(0) % 4 or any(t.data_ptr() % 16 for t in (
+            o0, o1, x, gate, an_w, an_b, fc1_w)):
+        raise ValueError("kernel G reads rows in float4s: h and gate's row stride must be "
+                         "multiples of 4 and o0, o1, x, gate, an_w, an_b, fc1_w 16-byte aligned")
     fwd_fn, size_fn = _epilogue_fns()
     out = torch.empty_like(x)
     workspace = torch.empty(size_fn(B_, L, h), dtype=torch.float32, device=x.device)
@@ -587,8 +590,9 @@ spiral_epilogue_cuda.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _core_kernel_fn():
-    fwd = cuda_build.load(_KERNEL_SOURCE).ssd_core_fwd
+def _core_kernel_fns():
+    lib = cuda_build.load(_CORE_SOURCE)
+    fwd = lib.ssd_core_fwd
     fwd.argtypes = (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 3
@@ -597,7 +601,10 @@ def _core_kernel_fn():
         + [ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
-    return fwd
+    size = lib.ssd_core_workspace_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return fwd, size
 
 
 def ssd_core_cuda(
@@ -624,9 +631,9 @@ def ssd_core_cuda(
     if rem or n != _KERNEL_D_STATE or K != _KERNEL_CONV:
         raise ValueError(f"the kernel is built for one B/C group of d_state {_KERNEL_D_STATE} "
                          f"and {_KERNEL_CONV} conv taps")
-    if d != H * _KERNEL_HEADDIM or d > _KERNEL_MAX_D_INNER:
-        raise ValueError(f"the kernel is built for headdim {_KERNEL_HEADDIM} and d_inner up to "
-                         f"{_KERNEL_MAX_D_INNER}, got d {d}, H {H}")
+    if d != H * _KERNEL_HEADDIM or H > _KERNEL_MAX_CORE_HEADS or H % 4:
+        raise ValueError(f"the kernel is built for headdim {_KERNEL_HEADDIM} and a multiple of 4 "
+                         f"heads up to {_KERNEL_MAX_CORE_HEADS}, got d {d}, H {H}")
     conv_dim = d + 2 * n
     named = [("zx", zx, (G, L, 2 * d + 2 * n + H))]
     for i, w in enumerate(ws):
@@ -635,13 +642,13 @@ def ssd_core_cuda(
                   (f"w{i}.A_log", w.A_log, (H,)), (f"w{i}.D", w.D, (H,)),
                   (f"w{i}.norm_w", w.norm_w, (d,))]
     _check_tensors(named, zx.device)
-    for i, w in enumerate(ws):
-        if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
-            raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
-    fwd_fn = _core_kernel_fn()
+    for name, t in [("zx", zx)] + [(f"w{i}.{k}", getattr(w, k)) for i, w in enumerate(ws)
+                                   for k in ("conv_w", "conv_b", "norm_w")]:
+        if t.data_ptr() % 16:  # read in float4s
+            raise ValueError(f"{name} must be 16-byte aligned")
+    fwd_fn, size_fn = _core_kernel_fns()
     out = torch.empty((G, L, d), dtype=torch.float32, device=zx.device)
-    workspace = torch.empty(_kernel_fns()[2](M, G, L, d, H), dtype=torch.float32,
-                            device=zx.device)
+    workspace = torch.empty(size_fn(M, G, L, d, H), dtype=torch.float32, device=zx.device)
     ptrs = [t.data_ptr() for w in ws
             for t in (w.conv_w, w.conv_b, w.dt_bias, w.A_log, w.D, w.norm_w)]
     err = fwd_fn(

@@ -462,10 +462,11 @@ def test_fused_ssd_matches_plain(cuda, family, grid_n, layer, batch, dt_limit, w
         _assert_close_to_ref(g, w)
 
 
-@pytest.mark.parametrize("grid_n,layer,batch", [(14, 3, 1), (14, 0, 2), (5, 1, 2)])
+@pytest.mark.parametrize("grid_n,layer,batch", [(14, 3, 1), (14, 0, 2), (5, 1, 2), (14, 1, 8)])
 def test_fused_ssd_prologue_and_epilogue_match_plain(cuda, grid_n, layer, batch):
     """Kernel E's prologue mode and kernel G, each against its plain version,
-    fed by a block's own adaLN chunks (rows a stride apart)."""
+    fed by a block's own adaLN chunks (rows a stride apart); G twice, with
+    equal bits."""
     spec = build_scan_spec("spiral", grid_n, layer)
     block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True), 8 + layer).to(cuda).eval()
     x, c, w = _block_inputs(cuda, grid_n * grid_n, 9 + layer, batch)
@@ -480,11 +481,13 @@ def test_fused_ssd_prologue_and_epilogue_match_plain(cuda, grid_n, layer, batch)
         want0, want1 = ssd_mixer_ref(spec, xm, ws[0]), ssd_mixer_ref(spec, xm * w, ws[1])
         tail = (gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
         got_tail = spiral_epilogue_cuda(want0, want1, x, *tail)
+        again = spiral_epilogue_cuda(want0, want1, x, *tail)
         want_tail = spiral_epilogue_ref(want0, want1, x, *tail)
     torch.cuda.synchronize()
     _assert_close_to_ref(o0, want0)
     _assert_close_to_ref(o1, want1)
     _assert_close_to_ref(got_tail, want_tail)
+    assert torch.equal(got_tail, again)
 
 
 def test_mamba2_block_routes_agree(cuda):
@@ -918,12 +921,22 @@ def test_fused_ssd_bwd_partition_matches_plain(cuda, grid_n, batch, dt_limit):
             first = got
 
 
-@pytest.mark.parametrize("G,L,M", [(48, 196, 2), (6, 196, 2), (4, 25, 1)])
-def test_ssd_core_matches_plain(cuda, G, L, M):
+@pytest.mark.parametrize("G,L,M,wide,off_one", [
+    (48, 196, 2, False, False), (6, 196, 2, False, False), (4, 25, 1, False, False),
+    (6, 196, 2, True, False), (6, 196, 2, False, True), (4, 197, 2, False, False),
+    (2, 1, 1, False, False)])
+def test_ssd_core_matches_plain(cuda, G, L, M, wide, off_one):
     """Kernel P against ``ssd_core_ref`` on G gathered streams of L steps,
-    M weight sets (sequence g takes set g // (G / M))."""
+    M weight sets (sequence g takes set g // (G / M)): 1 to 197 steps (one
+    chunk, ragged chunks), a wide decay span, and D and norm_w drawn off one
+    per set as ``chip_smoke.py`` phase 2m draws them; two calls, equal bits."""
     spec = build_scan_spec("spiral", 14, 3)
-    ws = [m.weights() for m in _mixers2(cuda, spec, seed=G + L, count=M)]
+    ws = [m.weights() for m in _mixers2(cuda, spec, seed=G + L, count=M, wide=wide)]
+    if off_one:
+        gen = torch.Generator().manual_seed(80)
+        ws = [w._replace(D=(1.0 + 0.5 * torch.randn(w.D.shape, generator=gen)).to(cuda),
+                         norm_w=(1.0 + 0.5 * torch.randn(w.norm_w.shape, generator=gen)).to(cuda))
+              for w in ws]
     gen = torch.Generator().manual_seed(G)
     x = torch.randn(G, L, HIDDEN, generator=gen).to(cuda)
     per = G // M
@@ -932,10 +945,16 @@ def test_ssd_core_matches_plain(cuda, G, L, M):
                         for m, w in enumerate(ws)])
         before = ssd_core_cuda.launches
         got = ssd_core_cuda(zx, ws)
+        again = ssd_core_cuda(zx, ws)
         want = ssd_core_ref(zx, ws)
     torch.cuda.synchronize()
-    assert ssd_core_cuda.launches == before + 1
+    assert ssd_core_cuda.launches == before + 2
     _assert_close_to_ref(got, want)
+    assert torch.equal(got, again)
+    if wide:
+        H = ws[0].A_log.numel()
+        dt = torch.nn.functional.softplus(zx[:per, :, -H:] + ws[0].dt_bias)
+        assert (dt.sum(1) * torch.exp(ws[0].A_log)).max().item() > 1000
     with pytest.raises(ValueError, match="multiple"):
         ssd_core_cuda(zx[:G - 1], ws[:1] * 2)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -4,7 +4,8 @@
 A change to a shared header (``csrc/*.cuh``) or to a kernel's launcher must
 leave the kernel's earlier cases as they were. This tool runs kernels A to H
 and P of one checkout on fixed seeded inputs at DiffMa's width (A in fp32
-and, under the name Abf16, in bf16) and writes the outputs to a file; run it
+and, under the name Abf16, in bf16; G alone at batch 1 and 8, and inside the
+block-fused Spiral block as EG) and writes the outputs to a file; run it
 once per checkout
 (each in a process of its own, since both packages have the same name) and
 compare:
@@ -17,12 +18,11 @@ compare:
 tensor is equal bit for bit. A change that redesigns some kernels names the
 ones that must keep their bits, and holds the others to a bar instead:
 
-    python tools/port_kernel_bits.py compare old.pt new.pt --exact B,C,D,E,EG,F,G,P \
-        --bar A=1e-4 --bar Abf16=2e-2 --bar H=1e-4
+    python tools/port_kernel_bits.py compare old.pt new.pt --exact A,Abf16,B,C,D,E,F,H \
+        --bar G=1e-4 --bar EG=1e-4 --bar P=1e-4
 
-(each tensor of A and H within 1e-4 * max(1, max |old|), of Abf16 within
-2e-2). It needs an NVIDIA GPU with nvcc and uses only entry points that both
-checkouts have.
+(each tensor of G, EG and P within 1e-4 * max(1, max |old|)). It needs an
+NVIDIA GPU with nvcc and uses only entry points that both checkouts have.
 """
 
 from __future__ import annotations
@@ -98,6 +98,18 @@ def dump(root: str, out: str) -> None:
             results[f"H.G{G}.L{L}"] = fused_mamba.mamba_inner_fused_cuda(
                 xz, inner.conv_w[:, 0, :], inner.conv_b, inner.xp_w, inner.dt_w, inner.dt_b,
                 -torch.exp(inner.A_log), inner.D)
+    # Kernel G alone: a seeded block's tail on random rows, 196 tokens.
+    for batch in (1, 8):
+        block = _random_(SpiralMambaBlock(h, build_scan_spec("spiral", 14, 0), use_mamba2=True),
+                         60 + batch).cuda().eval()
+        gen = torch.Generator().manual_seed(70 + batch)
+        o0, o1, x = (torch.randn(batch, 196, h, generator=gen).cuda() for _ in range(3))
+        cond = torch.randn(batch, 2 * h, generator=gen).cuda()
+        an, fc1, _, fc2 = block.attention_network
+        with torch.no_grad():
+            gate = block.adaLN_modulation(cond).chunk(3, dim=-1)[2]
+            results[f"G.B{batch}.L196"] = fused_ssd.spiral_epilogue_cuda(
+                o0, o1, x, gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
     # Kernel P on the last case's two weight sets, zx (6, 196, 2d + 2n + H).
     zx = torch.randn(6, 196, 2096, generator=torch.Generator().manual_seed(50)).cuda()
     with torch.no_grad():

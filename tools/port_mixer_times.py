@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels A, B and H (the Mamba-1 scan, its backward and the mixer's inner part) and C,
-D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward and backward) of a
+"""Time kernels A, B and H (the Mamba-1 scan, its backward and the mixer's inner part), C,
+D, E and F (the fused Mamba-1 and Mamba-2 mixers' forward and backward), G (the
+Spiral block's tail) and P (the split SSD probe's core) of a
 checkout of the PyTorch port, per call and per stage, the batch-1 DiffMa-B/2
 sampler forwards (Mamba-2 and the composable Mamba-1 route) and the training
 steps that run them.
@@ -24,7 +25,9 @@ busy ms, launches) on Mamba-2's dual and ``fuse_block`` routes and on
 Mamba-1's composable route (kernel A, ``scan_impl="auto"``), and profiles the
 trainer's step on DiffMa-L/2 and DiffMa-B/2 at batch 8, fused Mamba-1 and
 Mamba-2, and B/2 on the composable route (kernels A and B)
-(``diffma_tpu_torch.utils.profiling.profile_train_step``). ``--kernels A,H``
+(``diffma_tpu_torch.utils.profiling.profile_train_step``). G runs at batch 1
+and 8 on ``chip_smoke.epilogue_inputs``, P on the split probe's zx (48, 196,
+2096), each with its device kernels per call. ``--kernels A,H``
 times only those kernels' cases, ``--steps-of "B/2 auto"`` only the steps
 whose names hold those words. Every case uses entry points that both
 checkouts have; a case that a checkout refuses (a stream past its kernel's
@@ -40,12 +43,14 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The stage kernels of earlier versions of A, C, D, E, F and H (before
-# gemm_tc.cuh and the chunked scans), under chip_smoke.py's labels, so that an
-# older checkout's calls split the same way.
+# The stage kernels of earlier versions of A, C, D, E, F, G, H and P (before
+# gemm_tc.cuh, the chunked scans and P's own kernels), under chip_smoke.py's
+# labels, so that an older checkout's calls split the same way.
 OLD_STAGE_NAMES = {"conv + x_proj": "ConvXProj", "merge + out_proj": "MergeOutProj|QuirkOutProj",
                    "ssd": "ssd_fwd_kernel", "recompute y": "ssd_fwd_kernel",
-                   "scan": "selective_scan_fwd_kernel"}
+                   "scan": "selective_scan_fwd_kernel", "LayerNorm": "stats_kernel",
+                   "fc1 + SiLU + fc2 partials": "gemm_nt", "chunk states": "ssd_state_kernel",
+                   "y + gate + norm": "ssd_out_kernel|gate_norm_merge"}
 
 
 def with_old_names(stages):
@@ -70,6 +75,9 @@ SCAN_CASES = (
     ("H G=3 L=196", "H", 3, 196),
     ("H G=24 L=196", "H", 24, 196),
 )
+# (name, kernel, batch) of kernels G (the sampler's batch 1, the fuse_block
+# training forward's 8) and P (the split probe at batch 8)
+TAIL_CORE_CASES = (("G B=1", "G", 1), ("G B=8", "G", 8), ("P zx (48, 196, 2096)", "P", 8))
 # (name, kernel, family, batch, branches[, grid]): the main path's cases first;
 # the grid is 14 (196 tokens) unless given
 CASES = (
@@ -96,7 +104,7 @@ FORWARDS = (("B/2 Mamba-2 forward B=1, dual", True, "fused", False),
             ("B/2 Mamba-2 forward B=1, fuse_block", True, "fused", True),
             ("B/2 Mamba-1 forward B=1, composable", False, "auto", False))
 STAGES = {"A": "SCAN_STAGES", "B": "SCAN_BWD_STAGES", "H": "INNER_STAGES", "C": "MIXER_STAGES", "D": "MIXER_BWD_STAGES",
-          "E": "SSD_STAGES", "F": "SSD_BWD_STAGES"}
+          "E": "SSD_STAGES", "F": "SSD_BWD_STAGES", "G": "EPILOGUE_STAGES", "P": "CORE_STAGES"}
 # (model, use_mamba2, scan_impl)
 STEPS = (("DiffMa-L/2", False, "fused"), ("DiffMa-B/2", False, "fused"),
          ("DiffMa-L/2", True, "fused"), ("DiffMa-B/2", True, "fused"),
@@ -124,6 +132,12 @@ def run(root: str, out: str, steps: bool, kernels: str, steps_of: str = "") -> N
             report["cases"][name] = time_scan_case(cs, kernel, G, L)
             print(f"{name}: {report['cases'][name]['ms']:.4f} ms; "
                   f"{cs.stage_line(report['cases'][name]['stages_ms'])}", flush=True)
+    for name, kernel, batch in TAIL_CORE_CASES:
+        if kernel not in kernels:
+            continue
+        report["cases"][name] = time_tail_core_case(cs, kernel, batch)
+        print(f"{name}: {report['cases'][name]['ms']:.4f} ms; "
+              f"{cs.stage_line(report['cases'][name]['stages_ms'])}", flush=True)
     for name, kernel, family, batch, M, *grid in CASES:
         if kernel not in kernels:
             continue
@@ -197,6 +211,28 @@ def time_scan_case(cs, kernel, G, L) -> dict:
                 "stages_ms": cs.stage_table(fn, with_old_names(getattr(cs, STAGES[kernel])))}
 
 
+def time_tail_core_case(cs, kernel, batch) -> dict:
+    """Kernel G's or P's ms per call (CUDA events) and device ms per stage."""
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import spiral_epilogue_cuda, ssd_core_cuda
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    with torch.no_grad():
+        if kernel == "G":
+            tail = cs.epilogue_inputs(batch)
+            fn = lambda: spiral_epilogue_cuda(*tail)  # noqa: E731
+        else:
+            probe = cs.load_split_probe()
+            x12, ws = probe.inputs(batch, seed=batch, device="cuda")
+            zxs = probe.gathered_streams(x12, ws)
+            fn = lambda: ssd_core_cuda(zxs, ws)  # noqa: E731
+        fn()
+        stages = with_old_names(getattr(cs, STAGES[kernel]))
+        return {"ms": cs.cuda_ms(fn, reps=50), "stages_ms": cs.stage_table(fn, stages, calls=50),
+                "kernels_per_call": profile_calls(fn, calls=20)["kernels_per_call"]}
+
+
 def time_case(cs, kernel, spec, xs, gs, ws, batch) -> dict:
     """One kernel case's ms per call (CUDA events) and device ms per stage
     (and, for E and F, per SSD kernel)."""
@@ -235,6 +271,9 @@ def table(paths) -> None:
         cases = [r["cases"][name] for r in runs]
         print(f"| {name} | " + " | ".join(f"{c['ms']:.4f}" if "ms" in c else "refused"
                                           for c in cases) + " |")
+        if any("kernels_per_call" in c for c in cases):
+            print("| &nbsp; kernels per call | " + " | ".join(
+                json.dumps(c.get("kernels_per_call")) for c in cases) + " |")
         for key, prefix in (("stages_ms", ""), ("ssd_kernels_ms", "SSD kernel ")):
             tables = [c.get(key, {}) for c in cases]
             labels = [k for t in tables for k in t if k not in ("other", "total")]
@@ -267,7 +306,7 @@ def main() -> int:
     r.add_argument("--steps-of", default="",
                    help="only the steps whose names hold one of these comma-separated words, "
                         "e.g. 'B/2 auto'")
-    r.add_argument("--kernels", default="ABCDEFH",
+    r.add_argument("--kernels", default="ABCDEFGHP",
                    help="the kernels whose cases to time, e.g. A,H (default: all; '' for none)")
     t = sub.add_parser("table")
     t.add_argument("paths", nargs="+")
