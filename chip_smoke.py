@@ -98,7 +98,24 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     fused route, batch 8, 5 steps each: ViM-B/2 and EMamba-B/2 (40 C + 40 D
     calls, no A or B) and EMamba-B/2 ``--use-mamba2`` (40 E + 40 F);
 16. learning: ViM-B/2 on the fused path trained 100 steps on one fixed
-    batch; the MSE term must fall at least 2x.
+    batch; the MSE term must fall at least 2x;
+17. the conditioning stack and real data: (17a) ``Conditioning`` at full
+    width (SD-VAE, BiomedCLIP ViT-B/16 at 224², the CT encoder 28 x 28 x 4,
+    patch 2, 512 wide) on seeded weights, the card's ``z``, ``y``, ``y2`` and
+    ``w`` against the same module's on the CPU with the same noise, and the
+    ms per call at batch 8 of the VAE encode, CLIP, the CT encoder and the
+    whole encode beside an fp32 bound; (17b) SynthRAD-like ``.npy`` folders
+    (64 train and 4 val triplets of 256 x 256 float32 slices) laid out as
+    ``configs/brain.yaml`` names them, in a temporary directory that the
+    CLIs run in; (17c) the embedder's CLI on them, 10 steps at batch 32,
+    whose checkpoint loads into a ``CTEncoder`` and becomes ``ct_ckpt``;
+    (17d) the trainer's CLI on ``configs/brain.yaml`` (DiffMa-L/2, batch 8),
+    20 steps on the folders, every batch encoded: 320 kernel C and 320
+    kernel D calls, the encode span's ms per step; then 4 steps with
+    ``--use-mamba2``: 64 E and 64 F calls; (17e) the sampler's CLI from 17d's
+    checkpoint on the val folders, DDPM-250, 2 images decoded by the stack's
+    VAE: 8000 kernel C calls, the grids written, PSNR and SSIM against the
+    MRI.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -2770,6 +2787,225 @@ def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa
     shutil.rmtree(results, ignore_errors=True)
 
 
+def stack_work(cond, x) -> dict:
+    """[fp32 operations, bytes] of one encode of ``x`` (B, 3, H, W) by each
+    part of ``cond``: the products of every conv, linear, patch embedding and
+    attention, counted with forward hooks at this run's shapes; each input
+    read and each output written once, with the weights."""
+    import torch
+
+    from diffma_tpu_torch.models.clip_vit import _Attention
+    from diffma_tpu_torch.models.layers import PatchEmbed
+    from diffma_tpu_torch.models.vae import AttnBlock
+
+    def count(flops):
+        def hook(module, inputs, out):
+            x = inputs[0]
+            if isinstance(module, torch.nn.Conv2d):  # PatchEmbed runs its proj's weight itself
+                flops[0] += 2 * out.numel() * module.weight[0].numel()
+            elif isinstance(module, torch.nn.Linear):
+                flops[0] += 2 * out.numel() * module.in_features
+            elif isinstance(module, PatchEmbed):
+                flops[0] += 2 * out.numel() * module.proj.weight[0].numel()
+            elif isinstance(module, AttnBlock):  # QK^T and AV over the pixels
+                flops[0] += 4 * x.shape[0] * (x.shape[2] * x.shape[3]) ** 2 * x.shape[1]
+            else:  # _Attention: over the tokens, all heads
+                flops[0] += 4 * x.shape[0] * x.shape[1] ** 2 * x.shape[2]
+        return hook
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    work, handles = {}, []
+    for part, module in (("vae", cond.vae), ("clip", cond.clip), ("ct", cond.ct)):
+        work[part] = [0, nbytes(*module.parameters())]
+        handles += [m.register_forward_hook(count(work[part])) for m in module.modules()
+                    if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, PatchEmbed, AttnBlock,
+                                      _Attention))]
+    with torch.no_grad():
+        lat = cond.vae.encode_sample(x)
+        w, y2 = cond.ct(lat)
+        y = cond.clip(x)
+    for h in handles:
+        h.remove()
+    work["vae"][1] += nbytes(x, lat) - nbytes(*cond.vae.decoder.parameters(),
+                                              *cond.vae.post_quant_conv.parameters())
+    work["clip"][1] += nbytes(x, y)
+    work["ct"][1] += nbytes(lat, w, y2)
+    return work
+
+
+def phase_conditioning(card: str) -> None:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.train.train import Conditioning
+    from diffma_tpu_torch.utils.logging import create_logger
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    print("== phase 17a: the conditioning stack at full width (SD-VAE, BiomedCLIP ViT-B/16 at "
+          "224², CT encoder 28 x 28 x 4, patch 2, 512 wide), seeded weights: the card against "
+          "the CPU, then ms per call at batch 8", flush=True)
+    cfg = brain_config(ct_ckpt=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        logger = create_logger(tmp)
+        ref = Conditioning(cfg, logger, "cpu", seed=17)
+        cond = Conditioning(cfg, logger, "cuda", seed=17)
+        logger.close()
+    rng = np.random.default_rng(17)
+
+    def images(b, scale):
+        return torch.from_numpy(np.repeat(
+            scale * np.tanh(rng.standard_normal((b, 1, 224, 224))), 3, axis=1).astype(np.float32))
+
+    x, z = images(2, 1.0), images(2, 1.6)  # the MRI outside [-1, 1]: the renorm runs
+    noise = tuple(torch.from_numpy(rng.standard_normal((2, 4, 28, 28)).astype(np.float32))
+                  for _ in range(2))
+    want = ref(x, z, noise=noise)
+    got = cond(x.cuda(), z.cuda(), noise=tuple(n.cuda() for n in noise))
+    for key in ("z", "y", "y2", "w"):
+        bound = max(1.0, float(want[key].abs().max()))
+        err = float((got[key].cpu() - want[key]).abs().max())
+        print(f"  {key} {tuple(got[key].shape)}: max |card - CPU| {err:.3e} "
+              f"(bar {TOL_FP32 * bound:.3e})")
+        if not torch.isfinite(got[key]).all() or err > TOL_FP32 * bound:
+            fail(f"the conditioning's {key} on the card disagrees with the CPU's: {err:.3e}")
+
+    x8, z8 = images(8, 1.0).cuda(), images(8, 1.0).cuda()
+    with torch.no_grad():
+        lat8 = cond.vae.encode_sample(x8)
+    work = stack_work(cond, x8)
+    parts = {
+        "vae_encode": (lambda: cond.vae.encode_sample(x8), work["vae"]),
+        "clip": (lambda: cond.clip(x8), work["clip"]),
+        "ct_encoder": (lambda: cond.ct(lat8), work["ct"]),
+        "encode": (lambda: cond(x8, z8), [work["vae"][0] * 2 + work["clip"][0] + work["ct"][0],
+                                          work["vae"][1] * 2 + work["clip"][1] + work["ct"][1]]),
+    }
+    with torch.no_grad():
+        for name, (fn, (flops, nbytes)) in parts.items():
+            ms = cuda_ms(fn, reps=10)
+            prof = profile_calls(fn, calls=3)
+            t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"  [{card}] {name}, batch 8: {ms:.3f} ms per call (busy "
+                  f"{prof['device_busy_ms_per_call']:.3f} ms, {prof['kernels_per_call']:.0f} "
+                  f"kernels); {flops / 1e9:.1f} GFLOP, bound {max(t_ops, t_bytes):.3f} ms at the "
+                  f"fp32 rate ({'operations' if t_ops >= t_bytes else 'bytes'}); "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+
+def trainer_log_encode(exp_dir: str) -> list:
+    with open(os.path.join(exp_dir, "log_0.txt")) as f:
+        return [float(v) for v in re.findall(r"Encode ms/step: ([0-9.]+)", f.read())]
+
+
+def phase_real_data(card: str) -> None:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.data.npy_dataset import write_triplet_folders
+    from diffma_tpu_torch.models.ct_encoder import CTEncoder
+    from diffma_tpu_torch.train import sample, train, train_embedder
+    from diffma_tpu_torch.utils.torch_io import load_weights
+
+    brain = os.path.join(ROOT, "configs", "brain.yaml")
+    cfg = brain_config()
+    os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "results")) as tmp:
+        os.chdir(tmp)  # configs/brain.yaml's paths are relative: ./datasets/brain/...
+        try:
+            print("== phase 17b: SynthRAD-like .npy folders, 64 train and 4 val triplets of 256 x "
+                  "256, where configs/brain.yaml looks for them", flush=True)
+            t0 = time.perf_counter()
+            root = os.path.dirname(cfg.ct_image_folder_train)
+            folders = write_triplet_folders(root, 64, "train", mri_outside=8)
+            folders.update(write_triplet_folders(root, 4, "test", seed=1))
+            for key, folder in folders.items():
+                if os.path.abspath(folder) != os.path.abspath(cfg[key]):
+                    fail(f"{key}: wrote {folder}, configs/brain.yaml reads {cfg[key]}")
+            print(f"  wrote {len(os.listdir(cfg.ct_image_folder_train))} + "
+                  f"{len(os.listdir(cfg.ct_image_folder_val))} triplets in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+            print("== phase 17c: embedder CLI on configs/brain.yaml, 10 steps at batch 32",
+                  flush=True)
+            t0 = time.perf_counter()
+            state = train_embedder.cli(["--config", brain, "--max-steps", "10",
+                                        "--ckpt-every", "10"])
+            seconds = time.perf_counter() - t0
+            ckpt = os.path.join(cfg.embedder_results_dir, "000-vision_encoder", "checkpoints",
+                                "0000010.pt")
+            encoder = CTEncoder(img_size=28, patch_size=2, in_channels=4, embed_dim=512)
+            encoder.load_state_dict(load_weights("ct", ckpt))
+            for key, value in state.ema.state_dict().items():
+                if not torch.equal(encoder.state_dict()[key], value.cpu()):
+                    fail(f"the embedder's checkpoint does not hold its EMA {key}")
+            with open(os.path.join(cfg.embedder_results_dir, "000-vision_encoder",
+                                   "log_0.txt")) as f:
+                losses = re.findall(r"Train Loss: ([0-9.naninf]+), Train Steps/Sec: ([0-9.]+)",
+                                    f.read())
+            if not losses or not all(math.isfinite(float(v)) for v, _ in losses):
+                fail(f"the embedder logged no finite loss: {losses}")
+            os.makedirs(os.path.dirname(cfg.ct_ckpt), exist_ok=True)
+            shutil.copy(ckpt, cfg.ct_ckpt)
+            print(f"  10 steps, loss {losses[-1][0]}; checkpoint loads into a CTEncoder and is "
+                  f"ct_ckpt now; [{card}] {losses[-1][1]} steps/s over steps 1-10 "
+                  f"({seconds:.1f} s for the CLI run)")
+
+            print("== phase 17d: trainer CLI on configs/brain.yaml (DiffMa-L/2, batch 8) on the "
+                  "folders, ct_ckpt from 17c, 20 steps, every batch encoded", flush=True)
+            zero = {name: 0 for name in kernel_counters()}
+            runs = (("", 20, {"mixer_fused_fwd": 320, "mixer_fused_bwd": 320}),
+                    ("--use-mamba2", 4, {"ssd_mixer_fwd": 64, "ssd_mixer_bwd": 64}))
+            for flag, steps, expect in runs:
+                results = os.path.join(tmp, "results", f"train{flag}")
+                reset_counts()
+                state = train.cli(["--config", brain, "--max-steps", str(steps), "--ckpt-every",
+                                   str(steps), "--results-dir", results] + ([flag] if flag else []))
+                check_counts(f"the real-data trainer {flag}", {**zero, **expect})
+                if state.step != steps:
+                    fail(f"the real-data trainer counted {state.step} finite steps of {steps}")
+                (exp,) = os.listdir(results)
+                with open(os.path.join(results, exp, "log_0.txt")) as f:
+                    log = f.read()
+                if "Dataset contains 64." not in log or "ct-encoder: importing weights" not in log:
+                    fail("the real-data trainer did not read the folders and ct_ckpt")
+                encode = trainer_log_encode(os.path.join(results, exp))
+                if flag:
+                    print(f"  {steps} steps {flag}: every loss finite")
+                    continue
+                steps_s, _ = trainer_log_rate(os.path.join(results, exp))
+                print(f"  [{card}] DiffMa-L/2 real-data training, batch 8, steps 11-20: "
+                      f"{1e3 / steps_s:.1f} ms per step ({steps_s} steps/s), of which the encode "
+                      f"span {encode[-1]:.2f} ms per step on the device (steps 1-10: "
+                      f"{encode[0]:.2f})")
+                train_ckpt = os.path.join(results, exp, "checkpoints", f"{steps:07d}.pt")
+
+            print("== phase 17e: sampler CLI from 17d's checkpoint on the val folders, DDPM-250, "
+                  "2 images, decoded by the stack's VAE", flush=True)
+            reset_counts()
+            results = sample.cli(["--config", brain, "--ckpt", train_ckpt, "--num-batches", "2"])
+            check_counts("the real-data sampler", {**zero, "mixer_fused_fwd": 16 * 250 * 2})
+            check_images(card, "the real-data sampler", results, 2)
+            grids = sorted(os.listdir(cfg.save_dir))
+            want = sorted(f"{i}_sample_{k}.png" for i in (1, 2) for k in ("ct", "gen", "ori"))
+            if grids != want:
+                fail(f"the sampler wrote {grids}, not {want}")
+            for i, r in enumerate(results, start=1):
+                q = r["quality"]
+                if not np.isfinite([q["psnr_db"], q["ssim"]]).all():
+                    fail(f"image {i}: PSNR/SSIM not finite: {q}")
+                print(f"  image {i}: PSNR {q['psnr_db']:.2f} dB, SSIM {q['ssim']:.4f} against "
+                      f"the val MRI (random conditioning weights, 20 training steps)")
+        finally:
+            os.chdir(here)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
@@ -2823,6 +3059,8 @@ def main() -> int:
     mixer_bwd["branches"]["partition"]["launches"] = counts["EMamba-B/2"]["mixer_fused_bwd"]
     ssd_bwd["branches"]["partition"]["launches"] = counts["EMamba-B/2 --use-mamba2"]["ssd_mixer_bwd"]
     phase_learning(card, 16, use_mamba2=False, model="ViM-B/2")
+    phase_conditioning(card)
+    phase_real_data(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,

@@ -14,12 +14,13 @@ written nor read: their conversion is queued.
 
 from __future__ import annotations
 
-import argparse
 import os
 from typing import Any, Dict
 
 import torch
 from torch import nn
+
+from diffma_tpu_torch.utils.torch_io import load_torch_checkpoint
 
 __all__ = ["find_model", "load_diffma_checkpoint", "save_checkpoint"]
 
@@ -41,10 +42,9 @@ def find_model(path: str, load_ckpt_type: str = "ema") -> Dict[str, Any]:
             f"{path} is a directory: Orbax checkpoints of the JAX package are not "
             "read by the port yet; give a torch checkpoint file"
         )
-    # Upstream stores its argparse namespace under "args"; nothing else but
-    # tensors and containers is unpickled.
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    # Upstream stores its config under "args", an OmegaConf object whose
+    # class may not be importable: the tolerant unpickler stubs it.
+    ckpt = load_torch_checkpoint(path)
     for key in (load_ckpt_type, "ema", "params", "model"):
         if isinstance(ckpt, dict) and key in ckpt:
             return ckpt[key]

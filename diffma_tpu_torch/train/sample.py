@@ -20,9 +20,15 @@ model; a model built otherwise (``build_model(..., fuse_block=True)``, a
 model option in the JAX package too) goes to ``sample_batches`` directly.
 ``--ckpt`` loads a reference torch checkpoint's ``load_ckpt_type`` weights
 (``train/checkpoints.py``); without one the weights are random, drawn from
-``seed``. Conditioning is synthetic. The conditioning stack (CT encoder,
-BiomedCLIP, VAE encoder), Orbax checkpoints and bf16 come in later slices,
-and asking for them raises.
+``seed``.
+
+When the three val folders exist and ``synthetic_data`` is false, the
+sampler reads their ``.npy`` triplets in order (``NpyDataset``, resized to
+``image_size``; the last batch may be short), takes y, y2 and w from the
+frozen ``Conditioning`` stack (``train/train.py``) and decodes with that
+stack's VAE; otherwise the conditioning is synthetic and the VAE random,
+drawn from ``seed``. Orbax checkpoints and bf16 come in later slices, and
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -37,12 +43,12 @@ import zlib
 import numpy as np
 import torch
 
-from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets
+from diffma_tpu_torch.data.npy_dataset import NpyDataset, make_loader
 from diffma_tpu_torch.diffusion import create_diffusion
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
-from diffma_tpu_torch.train.train import synthetic_batch
+from diffma_tpu_torch.train.train import Conditioning, check_width, make_dataset, synthetic_batch
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.metrics import quality_report
@@ -129,18 +135,16 @@ def sample_batches(model, cfg, device="cuda"):
     latent = cfg.image_size // 8
     diffusion = create_diffusion(str(cfg.get("sample_num_steps", 250)), device=device)
 
-    folders = (
-        cfg.get("ct_image_folder_val"),
-        cfg.get("mask_image_folder_val"),
-        cfg.get("mir_image_folder_val"),
-    )
-    if not cfg.get("synthetic_data") and all(f and os.path.isdir(str(f)) for f in folders):
-        raise NotImplementedError(
-            "the conditioning stack is not ported yet; set synthetic_data: true"
-        )
-    logger.info("using synthetic conditioning")
-    dataset = SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", 8)), size=cfg.image_size)
-    vae = AutoencoderKL().init_weights(torch.Generator().manual_seed(seed + 2)).to(device).eval()
+    dataset = make_dataset(cfg, "val", synthetic_size=8)
+    cond = None
+    if isinstance(dataset, NpyDataset):
+        check_width(model)
+        cond = Conditioning(cfg, logger, device, seed + 2)
+        vae = cond.vae
+    else:
+        logger.info("using synthetic conditioning")
+        vae = AutoencoderKL().init_weights(torch.Generator().manual_seed(seed + 2)).to(device)
+        vae = vae.eval()
 
     loop = diffusion.ddim_sample_loop if cfg.get("use_ddim") else diffusion.p_sample_loop
     tokens = (latent // model.patch_size) ** 2
@@ -150,11 +154,15 @@ def sample_batches(model, cfg, device="cuda"):
     n_batches = int(cfg.get("sample_num_batches", 0)) or None
 
     results = []
-    for item, (x_ct, _mask, z_mri) in enumerate(dataset.batches(batch_size), start=1):
+    loader = make_loader(dataset, batch_size, shuffle=False, drop_last=False)
+    for item, (x_ct, _mask, z_mri) in enumerate(loader, start=1):
         n = x_ct.shape[0]
         t0 = time.perf_counter()
         z = torch.randn((n, 4, latent, latent), generator=gen, device=device)
-        b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
+        if cond is not None:
+            b = cond.encode_triplets(x_ct, z_mri, gen)
+        else:
+            b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
         with torch.no_grad():
             samples = loop(
                 model, z.shape, gen, noise=z, clip_denoised=False,

@@ -19,33 +19,139 @@ and F; as the JAX trainer defaults to its fused kernels on the TPU) and
 ``"auto"`` on the CPU (the plain versions). ``--model`` takes any of the
 registry's 80 names; the fused route trains every family (the Spiral, Zig,
 ViM, VMamba and EfficientVMamba mixers on both Mamba versions, and DiT,
-which has no mixer). The trainer runs on synthetic
-batches, as the JAX trainer falls back to them when the dataset folders are
-missing. Real data (it needs the conditioning stack), bf16 (``autocast``),
-``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported,
-and asking for them raises.
+which has no mixer).
+
+When the three train folders exist and ``synthetic_data`` is false, the
+trainer reads the ``.npy`` triplets (``NpyDataset``, resized to
+``image_size``), shuffled per epoch, and encodes every batch with the frozen
+``Conditioning`` stack: the MRI to the latent ``z``, the CT to the CLIP
+embedding ``y`` and, through its VAE latent, to the CT encoder's tokens
+``y2`` and soft mask ``w``. The encode is timed as a span of its own
+(``Encode ms/step`` in the log: device time on the card). Otherwise it runs
+on synthetic batches, as the JAX trainer falls back to them. bf16
+(``autocast``), ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1
+are not ported, and asking for them raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets, make_loader
+from diffma_tpu_torch.data.npy_dataset import (
+    NpyDataset,
+    SyntheticTriplets,
+    make_loader,
+    transform_test,
+    transform_train,
+)
 from diffma_tpu_torch.diffusion import create_diffusion
+from diffma_tpu_torch.models.clip_vit import biomedclip_vit_b16
+from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.diffma import build_model
+from diffma_tpu_torch.models.vae import AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint, save_checkpoint
 from diffma_tpu_torch.train.state import TrainState, make_train_step
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.logging import WandbShim, create_experiment_dir, create_logger
-from diffma_tpu_torch.utils.profiling import StepProfiler, Throughput
+from diffma_tpu_torch.utils.profiling import SpanTimer, StepProfiler, Throughput
+from diffma_tpu_torch.utils.torch_io import load_weights
 
-__all__ = ["cli", "main", "make_loss_fn", "synthetic_batch"]
+__all__ = ["Conditioning", "check_width", "cli", "main", "make_dataset", "make_loss_fn",
+           "synthetic_batch"]
+
+
+def _renorm_to_unit(z: torch.Tensor) -> torch.Tensor:
+    """The reference's guard: min-max rescale the whole batch to [-1, 1]
+    when any value lies outside it, else leave it as it is."""
+    inside = ((z >= -1) & (z <= 1)).all()
+    lo, hi = z.min(), z.max()
+    renormed = (z - lo) / (hi - lo).clamp_min(1e-8) * 2.0 - 1.0
+    return torch.where(inside, z, renormed)
+
+
+class Conditioning:
+    """The frozen conditioning stack: SD-VAE, BiomedCLIP and the CT encoder,
+    in eval mode. Weights come from ``vae_ckpt``, ``clip_ckpt`` and
+    ``ct_ckpt`` (``utils/torch_io.load_weights``); a module without a file
+    gets random weights drawn from ``seed``, and the log says so. The CT
+    encoder works on the (image_size / 8)-wide latent with the patch of the
+    model's name and 512 channels, the width of ``y`` and ``y2``."""
+
+    WIDTH = 512
+
+    def __init__(self, cfg, logger, device, seed: int = 0):
+        size = int(cfg.image_size)
+        patch = int(str(cfg.model)[-1])
+        self.vae = AutoencoderKL(with_encoder=True)
+        self.clip = biomedclip_vit_b16(img_size=size)
+        self.ct = CTEncoder(img_size=size // 8, patch_size=patch, in_channels=4,
+                            embed_dim=self.WIDTH, contain_mask_token=True)
+        self.device = torch.device(device)
+        generator = torch.Generator().manual_seed(int(seed))
+        for name, key, kind, module in (("sd-vae", "vae_ckpt", "vae", self.vae),
+                                        ("biomedclip", "clip_ckpt", "clip", self.clip),
+                                        ("ct-encoder", "ct_ckpt", "ct", self.ct)):
+            path = cfg.get(key)
+            if path and os.path.exists(str(path)):
+                logger.info(f"{name}: importing weights from {path}")
+                module.load_state_dict(
+                    load_weights(kind, str(path), str(cfg.get("load_ckpt_type", "ema"))))
+            else:
+                logger.info(f"{name}: no local weights found ({path!r}); using random frozen "
+                            f"init -- supply a checkpoint for real data runs")
+                module.init_weights(generator)
+            module.to(device).eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def __call__(self, x_ct: torch.Tensor, z_mri: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, noise=(None, None)):
+        """(B, 3, H, W) CT and MRI images -> ``z`` (B, 4, H/8, W/8), ``y`` (B,
+        512), ``y2`` (B, T, 512) and ``w`` (B, T, 1). The MRI is encoded
+        first, then the CT, each with its own draw from ``generator``, or
+        with ``noise`` = (the MRI's, the CT's) in their place."""
+        z = self.vae.encode_sample(_renorm_to_unit(z_mri), generator, noise[0])
+        x_lat = self.vae.encode_sample(x_ct, generator, noise[1])
+        w, y2 = self.ct(x_lat)
+        return {"z": z, "y": self.clip(x_ct), "y2": y2, "w": w}
+
+    def encode_triplets(self, x_ct: np.ndarray, z_mri: np.ndarray,
+                        generator: Optional[torch.Generator] = None):
+        """A loader's (B, 1, H, W) CT and MRI arrays, repeated to 3 channels
+        on the stack's device, encoded."""
+        def rgb(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).repeat(1, 3, 1, 1)
+
+        return self(rgb(x_ct), rgb(z_mri), generator)
+
+
+def make_dataset(cfg, split: str, synthetic_size: int):
+    """The config's ``.npy`` triplets for ``split`` ("train" or "val"),
+    resized to ``image_size``, when its three folders exist and
+    ``synthetic_data`` is false; else ``SyntheticTriplets``."""
+    folders = [cfg.get(f"{k}_image_folder_{split}") for k in ("ct", "mask", "mir")]
+    size = int(cfg.image_size)
+    if cfg.get("synthetic_data") or not all(f and os.path.isdir(str(f)) for f in folders):
+        return SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", synthetic_size)),
+                                 size=size)
+    transform = transform_train if split == "train" else transform_test
+    return NpyDataset(*map(str, folders), transform=functools.partial(transform,
+                                                                      size=(size, size)))
+
+
+def check_width(model) -> None:
+    """``y`` is added to the timestep embedding: the model's width must be
+    the conditioning stack's."""
+    if model.hidden_size != Conditioning.WIDTH:
+        raise ValueError(f"the conditioning stack is {Conditioning.WIDTH} wide and the model "
+                         f"{model.hidden_size}: real-data runs need hidden_size "
+                         f"{Conditioning.WIDTH}")
 
 
 def synthetic_batch(generator: torch.Generator, batch_size: int, latent: int,
@@ -95,13 +201,6 @@ def _refuse_unported(cfg) -> None:
     for key in ("tp", "sp"):
         if int(cfg.get(key) or 1) > 1:
             raise NotImplementedError(f"{key} > 1: the parallel layer is not ported yet")
-    folders = [cfg.get(k) for k in ("ct_image_folder_train", "mask_image_folder_train",
-                                    "mir_image_folder_train")]
-    if not cfg.get("synthetic_data") and all(f and os.path.isdir(str(f)) for f in folders):
-        raise NotImplementedError(
-            "training on the dataset folders needs the conditioning stack, which is not "
-            "ported yet; set synthetic_data: true"
-        )
 
 
 def main(cfg, device="cuda"):
@@ -150,13 +249,20 @@ def main(cfg, device="cuda"):
     train_step = make_train_step(make_loss_fn(model, diffusion), optimizer,
                                  accumulation_steps=int(cfg.get("accumulation_steps", 1)))
 
-    logger.info("dataset folders unavailable or not used; training on synthetic data")
-    dataset = SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", 64)), size=cfg.image_size)
+    dataset = make_dataset(cfg, "train", synthetic_size=64)
+    cond = None
+    if isinstance(dataset, NpyDataset):
+        check_width(model)
+        cond = Conditioning(cfg, logger, device, seed)
+        logger.info(f"Dataset contains {len(dataset)}.")
+    else:
+        logger.info("dataset folders unavailable or not used; training on synthetic data")
+    encode_timer = SpanTimer(device)
     batch_size = int(cfg.global_batch_size)
     tokens = (latent // model.patch_size) ** 2
     generator = torch.Generator(device=device).manual_seed(seed)
     fixed_batch = None
-    if cfg.get("overfit_fixed_batch"):
+    if cond is None and cfg.get("overfit_fixed_batch"):
         fixed_gen = torch.Generator(device=device).manual_seed(seed + 1)
         fixed_batch = synthetic_batch(fixed_gen, batch_size, latent, tokens,
                                       dim=model.hidden_size)
@@ -174,8 +280,11 @@ def main(cfg, device="cuda"):
     try:
         for epoch in range(int(cfg.epochs)):
             logger.info(f"Beginning epoch {epoch}...")
-            for _triplets in make_loader(dataset, batch_size, seed=seed, epoch=epoch):
-                if fixed_batch is not None:
+            for x_ct, _mask, z_mri in make_loader(dataset, batch_size, seed=seed, epoch=epoch):
+                if cond is not None:
+                    with encode_timer.span():
+                        batch = cond.encode_triplets(x_ct, z_mri, generator)
+                elif fixed_batch is not None:
                     batch = fixed_batch
                 else:
                     batch = synthetic_batch(generator, batch_size, latent, tokens,
@@ -192,10 +301,12 @@ def main(cfg, device="cuda"):
                     for j, v in enumerate(losses):
                         wandb.log({"loss": float(v)}, step=train_steps - len(losses) + 1 + j)
                     tp = throughput.report()
+                    encode = (f", Encode ms/step: {encode_timer.read():.2f}"
+                              if cond is not None else "")
                     logger.info(
                         f"(step={train_steps:07d}) Train Loss: {np.nanmean(losses):.4f}, "
                         f"Train Steps/Sec: {tp['steps_per_sec']:.2f}, "
-                        f"Images/Sec: {tp['images_per_sec']:.2f}"
+                        f"Images/Sec: {tp['images_per_sec']:.2f}{encode}"
                     )
                     running = []
                 if train_steps % ckpt_every == 0 and train_steps > 0:

@@ -2,10 +2,11 @@
 
 Counterpart of ``diffma_tpu/utils/profiling.py`` (which drives
 ``jax.profiler``). ``Throughput`` reports training steps/s and images/s
-between log points; ``StepProfiler`` records a ``torch.profiler`` trace over
-a window of training steps (the trainer's ``profile_dir``,
-``profile_start_step`` and ``profile_steps`` keys) and writes it as a Chrome
-trace. ``profile_denoiser`` runs a few DiffMa forwards, and
+between log points, ``SpanTimer`` the time of one span of the step (the
+trainer's conditioning encode); ``StepProfiler`` records a
+``torch.profiler`` trace over a window of training steps (the trainer's
+``profile_dir``, ``profile_start_step`` and ``profile_steps`` keys) and
+writes it as a Chrome trace. ``profile_denoiser`` runs a few DiffMa forwards, and
 ``profile_train_step`` a few of the trainer's steps, under ``torch.profiler``;
 each reports the host-clock time per call, the device's busy time (the union
 of kernel intervals), its idle share, the kernels launched per call, and the
@@ -27,6 +28,7 @@ the denoiser profile takes ``--fuse-block`` (kernels E and G).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -39,7 +41,7 @@ from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.mamba import SCAN_IMPLS
 from diffma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["StepProfiler", "Throughput", "profile_calls", "profile_denoiser",
+__all__ = ["SpanTimer", "StepProfiler", "Throughput", "profile_calls", "profile_denoiser",
            "profile_train_step"]
 
 
@@ -100,6 +102,38 @@ class Throughput:
         self._t0 = time.perf_counter()
         self._steps = 0
         return {"steps_per_sec": steps_s, "images_per_sec": steps_s * self.global_batch}
+
+
+class SpanTimer:
+    """The time of one span of each step, in ms per step over the spans since
+    the last ``read``: device time between CUDA events on the card (read
+    after the device has passed them), host time on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self._spans = []
+
+    @contextlib.contextmanager
+    def span(self):
+        if self.cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            self._spans.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._spans.append(time.perf_counter() - t0)
+
+    def read(self) -> float:
+        spans, self._spans = self._spans, []
+        if not spans:
+            return 0.0
+        if self.cuda:
+            spans[-1][1].synchronize()
+            return sum(start.elapsed_time(end) for start, end in spans) / len(spans)
+        return sum(spans) * 1e3 / len(spans)
 
 
 def _union_us(intervals) -> float:

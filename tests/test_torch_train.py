@@ -381,11 +381,14 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):
 
 
 def test_trainer_refuses_real_data_folders(tmp_path):
+    """The real-data path runs (``tests/test_torch_embedder.py``); it refuses a
+    model narrower than the conditioning stack, whose ``y`` joins the
+    timestep embedding."""
     folders = {}
     for key in ("ct_image_folder_train", "mask_image_folder_train", "mir_image_folder_train"):
         (tmp_path / key).mkdir()
         folders[key] = str(tmp_path / key)
-    with pytest.raises(NotImplementedError, match="conditioning stack"):
+    with pytest.raises(ValueError, match="need hidden_size 512"):
         train.main(_train_cfg(tmp_path, synthetic_data=False, **folders), device="cpu")
 
 

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's trainer CLI spends its step, on the host's clock.
 
-    python tools/port_trainer_step.py [--config configs/brain.yaml] [--steps 40]
+    python tools/port_trainer_step.py [--config configs/brain.yaml] [--steps 40] [--real-data]
 
 Runs ``diffma_tpu_torch.train.train.main`` on the config (synthetic batches,
 ``--steps`` steps, a log every 10) twice in this process: as the CLI runs
-it, and with the data loader replaced by an iterator that builds nothing
-(the trainer draws its batches on the card and never reads the loader's
-arrays). In each run it times, per step and in this process only, the spans
-that the loop is made of:
+it, and with the data loader replaced by an iterator that hands the loop
+its first batch again and again (on synthetic batches the trainer draws its
+batches on the card and never reads the loader's arrays). ``--real-data``
+first writes 64 SynthRAD-like ``.npy`` triplets of 256 x 256 to a temporary
+directory and trains on them, every batch encoded by the conditioning stack
+(random frozen weights). In each run it times, per step and in this process
+only, the spans that the loop is made of:
 
 * ``loader``: the loop's wait for the loader's next batch (the batches are
   built by a background thread, whose own time shows only as this wait and
   as the time it takes from the loop's thread);
 * ``batch``: ``synthetic_batch``, the batch drawn on the card;
+* ``encode``: ``Conditioning.__call__``, the real batch encoded, queued
+  (``encode_device_ms`` is the same span's device time, from the trainer's
+  ``SpanTimer``, over the same steps);
 * ``forward``: the loss, queued;
 * ``backward``: ``loss.backward()``, queued;
 * ``sync``: ``bool()`` of a tensor (the NaN skip's loss check): the host's
@@ -43,7 +49,7 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SPANS = ("loader", "batch", "forward", "backward", "sync", "optimizer", "ema")
+SPANS = ("loader", "batch", "encode", "forward", "backward", "sync", "optimizer", "ema")
 
 
 def timed_run(cfg, device: str, with_loader: bool) -> dict:
@@ -54,6 +60,7 @@ def timed_run(cfg, device: str, with_loader: bool) -> dict:
 
     events = []  # (span, start, seconds outside the spans inside it)
     reports = []  # (time, steps, seconds) of each Throughput window
+    encode_reads = []  # (time, device ms per step) of each SpanTimer read
     inner = []  # seconds of the spans inside each open span
 
     def timed_call(span, fn, *args, **kw):
@@ -71,8 +78,9 @@ def timed_run(cfg, device: str, with_loader: bool) -> dict:
         return lambda *args, **kw: timed_call(span, fn, *args, **kw)
 
     def timed_loader(*args, **kw):
-        it = (orig["make_loader"](*args, **kw) if with_loader
-              else iter([None] * (len(args[0]) // args[1])))
+        it = orig["make_loader"](*args, **kw)
+        if not with_loader:
+            it = iter([next(it)] * (len(args[0]) // args[1]))
         done = object()
         while (item := timed_call("loader", next, it, done)) is not done:
             yield item
@@ -86,11 +94,19 @@ def timed_run(cfg, device: str, with_loader: bool) -> dict:
     def make_loss_fn(*args, **kw):
         return wrap("forward", orig["make_loss_fn"](*args, **kw))
 
-    orig = {"make_loader": train_mod.make_loader, "make_loss_fn": train_mod.make_loss_fn}
+    def read_encode(timer):
+        ms = orig["read"](timer)
+        encode_reads.append((time.perf_counter(), ms))
+        return ms
+
+    orig = {"make_loader": train_mod.make_loader, "make_loss_fn": train_mod.make_loss_fn,
+            "read": train_mod.SpanTimer.read}
     patches = [
         (train_mod, "make_loader", timed_loader),
         (train_mod, "make_loss_fn", make_loss_fn),
         (train_mod, "synthetic_batch", wrap("batch", train_mod.synthetic_batch)),
+        (train_mod.Conditioning, "__call__", wrap("encode", train_mod.Conditioning.__call__)),
+        (train_mod.SpanTimer, "read", read_encode),
         (train_mod, "Throughput", Throughput),
         (state_mod, "update_ema", wrap("ema", state_mod.update_ema)),
         (torch.Tensor, "backward", wrap("backward", torch.Tensor.backward)),
@@ -118,6 +134,8 @@ def timed_run(cfg, device: str, with_loader: bool) -> dict:
            "steps_per_sec_by_window": [n / dt for _, n, dt in reports]}
     out.update({span: spans[span] * 1e3 / steps for span in SPANS})
     out["rest"] = out["ms_per_step"] - sum(out[span] for span in SPANS)
+    reads = [ms for t, ms in encode_reads if start < t]
+    out["encode_device_ms"] = sum(reads) / len(reads) if reads else None
     return out
 
 
@@ -134,10 +152,11 @@ def profile_sessions(n: int, device: str) -> None:
 
 
 def loader_alone(cfg, batches: int = 16) -> float:
-    """Host ms per batch of the trainer's loader over SyntheticTriplets."""
-    from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets, make_loader
+    """Host ms per batch of the trainer's loader over its dataset."""
+    from diffma_tpu_torch.data.npy_dataset import make_loader
+    from diffma_tpu_torch.train.train import make_dataset
 
-    dataset = SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", 64)), size=cfg.image_size)
+    dataset = make_dataset(cfg, "train", synthetic_size=64)
     batch_size, n, t0 = int(cfg.global_batch_size), 0, time.perf_counter()
     for epoch in range(batches):
         for _ in make_loader(dataset, batch_size, seed=0, epoch=epoch):
@@ -155,19 +174,25 @@ def main(argv=None) -> dict:
     parser.add_argument("--model", default=None, help="override the config's model")
     parser.add_argument("--hidden-size", dest="hidden_size", type=int, default=None)
     parser.add_argument("--batch", type=int, default=None)
+    parser.add_argument("--real-data", dest="real_data", action="store_true",
+                        help="train on .npy folders that it writes, every batch encoded")
     parser.add_argument("--profiler-sessions", dest="profiler_sessions", type=int, default=0,
                         help="torch.profiler sessions to run before the trainer")
     parser.add_argument("--out", default=None, help="also write the report here (JSON)")
     args = parser.parse_args(argv)
 
+    from diffma_tpu_torch.data.npy_dataset import write_triplet_folders
     from diffma_tpu_torch.utils.config import load_config, merge
 
     report = {}
     with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(sys.stderr):
+        folders = (write_triplet_folders(os.path.join(tmp, "data"), 64, mri_outside=8)
+                   if args.real_data else {})
         cfg = merge(load_config(args.config), {
-            "synthetic_data": True, "max_steps": args.steps, "log_every": 10,
-            "results_dir": tmp, "model": args.model, "hidden_size": args.hidden_size,
-            "global_batch_size": args.batch})
+            "synthetic_data": not args.real_data, "max_steps": args.steps, "log_every": 10,
+            "results_dir": os.path.join(tmp, "results"), "model": args.model,
+            "hidden_size": args.hidden_size, "global_batch_size": args.batch, "ct_ckpt": "",
+            **folders})
         if args.device == "cuda":
             import subprocess
 
@@ -180,6 +205,7 @@ def main(argv=None) -> dict:
                 capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
         report.update({"config": args.config, "model": str(cfg.model),
                        "batch": int(cfg.global_batch_size), "device": args.device,
+                       "real_data": args.real_data,
                        "profiler_sessions": args.profiler_sessions})
         profile_sessions(args.profiler_sessions, args.device)
         report["cli"] = timed_run(cfg, args.device, with_loader=True)
