@@ -115,11 +115,28 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     ``--use-mamba2``: 64 E and 64 F calls; (17e) the sampler's CLI from 17d's
     checkpoint on the val folders, DDPM-250, 2 images decoded by the stack's
     VAE: 8000 kernel C calls, the grids written, PSNR and SSIM against the
-    MRI.
+    MRI;
+18. the graphs: (18a) DiffMa-B/2's sampler on four routes (Mamba-1 fused:
+    C; Mamba-2 dual: E; ``fuse_block``: E + G; composable: A), DDPM-250 and
+    DDIM-50 at batch 1 and 2, 2 batches each, with its chain as a CUDA graph
+    against the eager loop on the same seed and weights: the images equal in
+    bits (or within ``TOL_IMAGE``), the launches counted through the
+    replays, the seconds a batch both ways with the capture's time and
+    pool; then a DDIM-50 chain replayed under
+    ``torch.cuda.set_sync_debug_mode("error")`` and both chains profiled
+    (busy ms, idle share, kernels); (18b) DiffMa-L/2's training step at
+    batch 8, Mamba-1 fused (C + D) and Mamba-2 fused (E + F), 20 steps with
+    a NaN batch at step 10, graphed against eager under the sync check: the
+    NaN step leaves every parameter, EMA and optimizer tensor and the step
+    count as they were, the graphed params and EMA within ``TOL_STEP`` of
+    the eager ones; then both steps profiled and timed in turns, and the
+    real-data step (batches encoded by the conditioning stack) likewise.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
-path says.
+path says. The sampler's and the trainer's CLIs run their chains and steps
+as CUDA graphs (``diffma_tpu_torch/utils/graphs.py``), whose replays add to
+each kernel's count what their capture recorded.
 
 The third line from the end is a JSON object with one entry per kernel, the
 second the card's name and power limit, the last ``{"ok": true, "device":
@@ -160,6 +177,10 @@ TOL_MODEL = 1e-3
 # forward agrees to fp32 rounding (TOL_MODEL holds it); 250 steps feed the
 # differences back in.
 TOL_IMAGE = 1e-3
+# A training step's parameters and EMA against another run of the same
+# steps: max |diff| <= TOL_STEP * max(1, max |ref|), the JAX step bar
+# (tests/test_torch_train.py::test_train_step_matches_jax).
+TOL_STEP = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -322,22 +343,11 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_counters() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
-    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
-    from diffma_tpu_torch.ops.fused_ssd import (
-        spiral_epilogue_cuda,
-        ssd_core_cuda,
-        ssd_mixer_fused_bwd_cuda,
-        ssd_mixer_fused_cuda,
-    )
-    from diffma_tpu_torch.ops.selective_scan import selective_scan_bwd_cuda, selective_scan_cuda
+    """Each kernel's wrapper, whose ``launches`` counts its launches (a graph's
+    replay adds what its capture recorded)."""
+    from diffma_tpu_torch.utils.graphs import kernel_counters as counters
 
-    return {"selective_scan_fwd": selective_scan_cuda, "mixer_fused_fwd": mixer_fused_cuda,
-            "selective_scan_bwd": selective_scan_bwd_cuda, "mixer_fused_bwd": mixer_fused_bwd_cuda,
-            "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda,
-            "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda, "mamba_inner_fwd": mamba_inner_fused_cuda,
-            "ssd_core_fwd": ssd_core_cuda}
+    return counters()
 
 
 def reset_counts() -> None:
@@ -2014,8 +2024,8 @@ def phase_family_trainers(card: str) -> dict:
         reset_counts()
         state = train.main(cfg, device="cuda")
         check_counts(f"the {name} trainer", {**zero, **expect})
-        if state.step != 5:
-            fail(f"the {name} trainer counted {state.step} finite steps of 5")
+        if int(state.step) != 5:
+            fail(f"the {name} trainer counted {int(state.step)} finite steps of 5")
         init = build_model(name, input_size=28).init_weights(
             torch.Generator().manual_seed(int(cfg.global_seed))).state_dict()
         still = moved_from_init(state.model, init)
@@ -2050,8 +2060,8 @@ def phase_family_trainers(card: str) -> dict:
         seconds = time.perf_counter() - t0
         key = f"{name}{' --use-mamba2' if flag else ''}"
         counts[key] = check_counts(f"the fused {key} trainer", {**zero, fwd: calls, bwd: calls})
-        if state.step != 5:
-            fail(f"the fused {key} trainer counted {state.step} finite steps of 5")
+        if int(state.step) != 5:
+            fail(f"the fused {key} trainer counted {int(state.step)} finite steps of 5")
         if state.model.blocks[0].scan_impl != "fused":
             fail(f"the {key} trainer's default route is not the fused one")
         init = build_model(name, input_size=28, use_mamba2=bool(flag)).init_weights(
@@ -2450,8 +2460,8 @@ def phase_mamba2_trainer(card: str) -> dict:
     calls = 16 * 20  # blocks x steps: one E and one F call per block and step
     counts = check_counts("the Mamba-2 trainer", {**zero, "ssd_mixer_fwd": calls,
                                                   "ssd_mixer_bwd": calls})
-    if state.step != 20:
-        fail(f"the Mamba-2 trainer counted {state.step} finite steps of 20")
+    if int(state.step) != 20:
+        fail(f"the Mamba-2 trainer counted {int(state.step)} finite steps of 20")
     if not state.model.blocks[0].use_mamba2 or state.model.blocks[0].scan_impl != "fused":
         fail("the Mamba-2 trainer's default path is not the fused Mamba-2 one")
     init = build_model(cfg.model, input_size=28, use_mamba2=True).init_weights(
@@ -2513,8 +2523,8 @@ def phase_mamba2_sizes(card: str) -> None:
     calls = 16 * steps  # blocks x steps: one E and one F call per block and step
     check_counts("the Mamba-2 trainer at 256²", {**zero, "ssd_mixer_fwd": calls,
                                                  "ssd_mixer_bwd": calls})
-    if state.step != steps:
-        fail(f"the Mamba-2 trainer at 256² counted {state.step} finite steps of {steps}")
+    if int(state.step) != steps:
+        fail(f"the Mamba-2 trainer at 256² counted {int(state.step)} finite steps of {steps}")
     tokens = state.model.pos_embed.shape[-2]
     if tokens != 256 or state.model.blocks[0].scan_impl != "fused":
         fail(f"the Mamba-2 trainer at 256² ran {tokens} tokens on the "
@@ -2690,8 +2700,8 @@ def phase_trainer(card: str) -> dict:
     calls = 16 * 20  # blocks x steps: one C and one D call per block and step
     counts = check_counts("the trainer", {**zero, "mixer_fused_fwd": calls,
                                           "mixer_fused_bwd": calls})
-    if state.step != 20:
-        fail(f"the trainer counted {state.step} finite steps of 20")
+    if int(state.step) != 20:
+        fail(f"the trainer counted {int(state.step)} finite steps of 20")
     init = build_model(cfg.model, input_size=28).init_weights(
         torch.Generator().manual_seed(int(cfg.global_seed))).state_dict()
     for what, module in (("params", state.model), ("EMA", state.ema)):
@@ -2731,8 +2741,8 @@ def phase_composable_trainer(card: str) -> dict:
     calls = 2 * 8 * 5  # mixers x blocks x steps
     counts = check_counts("the composable trainer", {**zero, "selective_scan_fwd": calls,
                                                      "selective_scan_bwd": calls})
-    if state.step != 5:
-        fail(f"the composable trainer counted {state.step} finite steps of 5")
+    if int(state.step) != 5:
+        fail(f"the composable trainer counted {int(state.step)} finite steps of 5")
     (exp,) = os.listdir(results)
     steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
     print(f"  [{card}] DiffMa-B/2 composable training, batch 8, steps 1-5 (first step "
@@ -2782,7 +2792,7 @@ def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa
           f"{steps} steps: fell {before / after:.2f}x (at least 2x required)")
     print(f"  [{card}] {model} {family}fused training, batch 8, steps {steps - 9}-{steps}: "
           f"{steps_s} steps/s, {images_s} images/s")
-    if state.step != steps or not after * 2 <= before:
+    if int(state.step) != steps or not after * 2 <= before:
         fail(f"the MSE term fell {before / after:.2f}x in {steps} steps, not 2x")
     shutil.rmtree(results, ignore_errors=True)
 
@@ -2968,8 +2978,8 @@ def phase_real_data(card: str) -> None:
                 state = train.cli(["--config", brain, "--max-steps", str(steps), "--ckpt-every",
                                    str(steps), "--results-dir", results] + ([flag] if flag else []))
                 check_counts(f"the real-data trainer {flag}", {**zero, **expect})
-                if state.step != steps:
-                    fail(f"the real-data trainer counted {state.step} finite steps of {steps}")
+                if int(state.step) != steps:
+                    fail(f"the real-data trainer counted {int(state.step)} finite steps of {steps}")
                 (exp,) = os.listdir(results)
                 with open(os.path.join(results, exp, "log_0.txt")) as f:
                     log = f.read()
@@ -3004,6 +3014,219 @@ def phase_real_data(card: str) -> None:
                       f"the val MRI (random conditioning weights, 20 training steps)")
         finally:
             os.chdir(here)
+
+
+GRAPH_ROUTES = (  # route, use_mamba2, scan_impl, fuse_block, kernel calls per forward
+    ("Mamba-1 fused (C)", False, "fused", False, {"mixer_fused_fwd": 8}),
+    ("Mamba-2 dual (E)", True, "fused", False, {"ssd_mixer_fwd": 8}),
+    ("fuse_block (E + G)", True, "fused", True, {"ssd_mixer_fwd": 8, "spiral_epilogue": 8}),
+    ("composable (A)", False, "pallas", False, {"selective_scan_fwd": 16}),
+)
+
+
+def route_model(use_mamba2: bool, impl: str, fuse: bool):
+    model = sampler_model(use_mamba2).set_scan_impl(impl)
+    for blk in model.blocks:
+        blk.fuse_block = fuse
+    return model
+
+
+def phase_graphed_chains(card: str) -> None:
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.diffusion.gaussian import ChainGraph
+    from diffma_tpu_torch.train import sample
+    from diffma_tpu_torch.train.train import synthetic_batch
+    from diffma_tpu_torch.utils.profiling import profile_calls
+
+    print("== phase 18a: the B/2 sampler's chain as a CUDA graph against the eager loop, same "
+          "seed and weights: DDPM-250 and DDIM-50, batch 1 and 2, 2 batches each, on four "
+          "routes", flush=True)
+    zero = {name: 0 for name in kernel_counters()}
+    for route, use_mamba2, impl, fuse, per_forward in GRAPH_ROUTES:
+        model = route_model(use_mamba2, impl, fuse)
+        for steps, ddim in ((250, False), (50, True)):
+            loop = f"DDIM-{steps}" if ddim else f"DDPM-{steps}"
+            for batch in (1, 2):
+                cfg = brain_config(
+                    model="DiffMa-B/2", synthetic_data=True, sample_global_batch_size=batch,
+                    sample_num_steps=steps, use_ddim=ddim, sample_num_batches=2,
+                    save_dir=os.path.join(ROOT, "result_sample", "chip_smoke_graphs"))
+                expect = {**zero, **{k: v * steps * 2 for k, v in per_forward.items()}}
+                runs = {}
+                for graphed in (False, True):
+                    reset_counts()
+                    runs[graphed] = sample.sample_batches(model, cfg, "cuda", graphed=graphed)
+                    check_counts(f"{route} {loop} batch {batch} graphed={graphed}", expect)
+                errs = []
+                for got, want in zip(runs[True], runs[False]):
+                    a, b = got["images"], want["images"]
+                    if a.shape != (batch, 3, 224, 224) or not np.isfinite(a).all():
+                        fail(f"{route} {loop}: the graphed chain gave {a.shape} or a non-finite "
+                             f"value")
+                    err = float(np.abs(a - b).max())
+                    bar = TOL_IMAGE * max(1.0, float(np.abs(b).max()))
+                    if err > bar:
+                        fail(f"{route} {loop} batch {batch}: graphed images differ from the eager "
+                             f"ones by {err:.3e}, over the bar {bar:.1e}")
+                    errs.append("equal in bits" if np.array_equal(a, b)
+                                else f"max |diff| {err:.3e}")
+                first = runs[True][0]
+                print(f"  [{card}] {route} {loop} batch {batch}: images {', '.join(errs)}; "
+                      f"s a batch "
+                      f"eager {runs[False][0]['seconds']:.3f}, {runs[False][1]['seconds']:.3f}; "
+                      f"graphed {first['seconds']:.3f} (capture {first['capture_seconds']:.3f} s, "
+                      f"pool {first['pool_bytes'] / 2**20:.1f} MiB), "
+                      f"{runs[True][1]['seconds']:.3f}")
+
+        # The chain alone, DDIM-50 at batch 1: replays with no synchronizing
+        # call, and the device's busy time and idle share both ways.
+        diffusion = create_diffusion("50", device="cuda")
+        b = synthetic_batch(torch.Generator(device="cuda").manual_seed(5), 1, 28, 196)
+        z = torch.randn(1, 4, 28, 28, generator=torch.Generator(device="cuda").manual_seed(6),
+                        device="cuda")
+        kw = {"y": b["y"], "y2": b["y2"], "w": b["w"]}
+        chain = ChainGraph("cuda")
+
+        def run(graph, seed=7):
+            return diffusion.ddim_sample_loop(
+                model, z.shape, torch.Generator(device="cuda").manual_seed(seed), noise=z,
+                clip_denoised=False, model_kwargs=kw, graph=graph)
+
+        want = run(None)
+        first = run(chain)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = diffusion.ddim_sample_loop(model, z.shape, gen, noise=z, clip_denoised=False,
+                                               model_kwargs=kw, graph=chain)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not (torch.equal(first, want) and torch.equal(again, want)):
+            close_to_ref(f"{route}: the graphed DDIM-50 chain", first, want, TOL_IMAGE)
+            close_to_ref(f"{route}: its replays under the sync check", again, want, TOL_IMAGE)
+        reports = {"eager": profile_calls(lambda: run(None), calls=1),
+                   "graphed": profile_calls(lambda: run(chain), calls=1)}
+        print(f"  [{card}] {route} DDIM-50 chain, batch 1: replays under "
+              f"set_sync_debug_mode('error') ran, equal to the eager chain "
+              f"{'in bits' if torch.equal(again, want) else 'within TOL_IMAGE'}; "
+              + "; ".join(f"{mode} {r['ms_per_call']:.1f} ms, device busy "
+                          f"{r['device_busy_ms_per_call']:.1f} ms, idle share "
+                          f"{r['device_idle_share']:.3f}, {r['kernels_per_call']:.0f} kernels"
+                          for mode, r in reports.items()))
+        del model, chain
+        torch.cuda.empty_cache()
+
+
+def phase_graphed_steps(card: str) -> None:
+    import copy
+
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
+    from diffma_tpu_torch.train.train import loss_draws, make_loss_fn, synthetic_batch
+    from diffma_tpu_torch.utils.profiling import profile_train_step
+
+    steps, nan_at = 20, 9  # the NaN batch is step 10
+    print(f"== phase 18b: the L/2 training step as a CUDA graph against the eager step, batch 8, "
+          f"{steps} steps, a NaN batch at step {nan_at + 1}", flush=True)
+    zero = {name: 0 for name in kernel_counters()}
+    diffusion = create_diffusion("", device="cuda")
+    for label, use_mamba2, per_step in (
+            ("Mamba-1 fused (C + D)", False, {"mixer_fused_fwd": 16, "mixer_fused_bwd": 16}),
+            ("Mamba-2 fused (E + F)", True, {"ssd_mixer_fwd": 16, "ssd_mixer_bwd": 16})):
+        model = build_model("DiffMa-L/2", input_size=28, scan_impl="fused", use_mamba2=use_mamba2)
+        model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        batches = []
+        for i in range(steps):
+            b = synthetic_batch(gen, 8, 28, 196)
+            b["t"], b["noise"] = loss_draws(diffusion, b["z"], gen)
+            if i == nan_at:
+                b["z"][0, 0, 0, 0] = float("nan")
+            batches.append(b)
+
+        def tensors(st):
+            return ([p.detach() for p in st.model.parameters()] + list(st.ema.parameters())
+                    + [v for p in st.model.parameters() for v in st.optimizer.state[p].values()]
+                    + [st.step])
+
+        states = {}
+        for graphed in (False, True):
+            m = copy.deepcopy(model)
+            optimizer = adamw(m.parameters(), 1e-4)
+            st = TrainState(m, optimizer)
+            step = make_train_step(make_loss_fn(m, diffusion), optimizer)
+            if graphed:
+                step = GraphedTrainStep(step, "cuda")
+            reset_counts()
+            finite = []
+            for i, b in enumerate(batches):
+                if i == nan_at:
+                    before = [t.clone() for t in tensors(st)]
+                # The eager step's first call and the graph's warm-up and
+                # capture run outside the check (a capture synchronizes).
+                if i >= (2 if graphed else 1):
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    finite.append(step(st, b, None)["finite"])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if i == nan_at:
+                    after = [t.clone() for t in tensors(st)]
+            mode = "graphed" if graphed else "eager"
+            check_counts(f"the {label} {mode} steps", {**zero, **{k: v * steps for k, v in
+                                                                   per_step.items()}})
+            flags = torch.stack(finite).tolist()
+            if flags != [i != nan_at for i in range(steps)] or int(st.step) != steps - 1:
+                fail(f"{label} {mode}: finite flags {flags}, step count {int(st.step)}")
+            moved = [i for i, (x, y) in enumerate(zip(before, after))
+                     if not torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                        y.view(torch.int32) if y.dtype == torch.float32 else y)]
+            if moved:
+                fail(f"{label} {mode}: the NaN step changed {len(moved)} of {len(before)} tensors")
+            print(f"  {label} {mode}: {steps} steps under set_sync_debug_mode('error') from step "
+                  f"{3 if graphed else 2}; the NaN step left all {len(before)} tensors (params, "
+                  f"EMA, AdamW's state, the step count) equal in bits; step count {int(st.step)}")
+            states[mode] = st
+        worst, equal = 0.0, 0
+        for what in ("model", "ema"):
+            want = getattr(states["eager"], what).state_dict()
+            for key, value in getattr(states["graphed"], what).state_dict().items():
+                err = close_to_ref(f"{label} graphed {what} {key}", value, want[key], TOL_STEP)
+                worst, equal = max(worst, err), equal + int(torch.equal(value, want[key]))
+        print(f"  {label}: graphed params and EMA against eager after {steps} steps: {equal} of "
+              f"{2 * len(want)} tensors equal in bits, max |diff| {worst:.3e} (bar {TOL_STEP:g} "
+              f"of max(1, max |ref|))")
+        del model, states, st, batches
+        torch.cuda.empty_cache()
+
+        report = profile_train_step("DiffMa-L/2", 8, "fused", use_mamba2=use_mamba2)
+        print_step_report(card, f"DiffMa-L/2 {label}, synthetic", report)
+        torch.cuda.empty_cache()
+    report = profile_train_step("DiffMa-L/2", 8, "fused", real_data=True)
+    print_step_report(card, "DiffMa-L/2 Mamba-1 fused (C + D), real-data batches encoded", report)
+
+
+def print_step_report(card: str, what: str, report: dict) -> None:
+    print(f"  [{card}] {what}, batch 8: ms a step on the host clock, eager "
+          + ", ".join(f"{x:.2f}" for x in report["ms_per_step_eager"]) + "; graphed "
+          + ", ".join(f"{x:.2f}" for x in report["ms_per_step_graphed"])
+          + f" (capture {report['capture_seconds']:.3f} s, pool "
+          f"{report['pool_bytes'] / 2**20:.0f} MiB)")
+    for mode in ("eager", "graphed"):
+        r = report[mode]
+        print(f"    under the profiler, {mode}: {r['ms_per_call']:.2f} ms a step, device busy "
+              f"{r['device_busy_ms_per_call']:.2f} ms, idle share {r['device_idle_share']:.3f}, "
+              f"{r['kernels_per_call']:.0f} kernels a step")
+    top = report["graphed"]["top_kernels_ms_per_call"]
+    print("    graphed, top device ms a step: "
+          + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top.items()))
 
 
 def main() -> int:
@@ -3061,6 +3284,8 @@ def main() -> int:
     phase_learning(card, 16, use_mamba2=False, model="ViM-B/2")
     phase_conditioning(card)
     phase_real_data(card)
+    phase_graphed_chains(card)
+    phase_graphed_steps(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,

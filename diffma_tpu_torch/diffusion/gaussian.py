@@ -12,12 +12,19 @@ the model is called with the original timesteps.
 Noise is drawn from a caller-given ``torch.Generator``. The loops also take
 ``step_noise``, a sequence of per-step noise tensors, and
 ``training_losses`` takes ``noise``, so a test can feed the exact noise
-another implementation drew. The loops are Python loops.
+another implementation drew. The loops are Python loops; given a
+``ChainGraph`` they run on the card as a CUDA graph of one step, replayed
+once per step, as the JAX package runs its chain as one ``lax.scan``. The
+graphed chain draws its T step noises before the first replay, from the
+same generator and in the eager loop's order (JAX draws each with
+``fold_in(rng, i)``, in no order), so that it gives the eager loop's
+images for a seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Set
 
@@ -25,9 +32,11 @@ import numpy as np
 import torch
 
 from diffma_tpu_torch.utils.device import resolve_device
+from diffma_tpu_torch.utils.graphs import Graph
 
 __all__ = [
     "LOSS_TYPES",
+    "ChainGraph",
     "GaussianDiffusion",
     "approx_standard_normal_cdf",
     "discretized_gaussian_log_likelihood",
@@ -401,22 +410,32 @@ class GaussianDiffusion:
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
+    def _chain(self, step, model, shape, generator, noise, model_kwargs, step_noise, graph):
+        """``step(model, x, t, noise, model_kwargs)`` from t = T-1 down to 0."""
+        img = self._init_noise(shape, generator, noise)
+        T = self.num_timesteps
+        if graph is None:
+            for i in range(T):
+                t = torch.full((shape[0],), T - 1 - i, dtype=torch.long, device=img.device)
+                img = step(model, img, t, self._draw(img, generator, step_noise, i), model_kwargs)
+            return img
+        noises = [self._draw(img, generator, step_noise, i) for i in range(T)]
+        return graph.run(functools.partial(step, model), img, noises, model_kwargs)
+
     @torch.no_grad()
     def p_sample_loop(
         self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
         clip_denoised=True, model_kwargs=None,
         step_noise: Optional[Sequence[torch.Tensor]] = None,
+        graph: Optional["ChainGraph"] = None,
     ) -> torch.Tensor:
-        """Ancestral sampler: T steps from t = T-1 down to 0."""
-        img = self._init_noise(shape, generator, noise)
-        T = self.num_timesteps
-        for i in range(T):
-            t = torch.full((shape[0],), T - 1 - i, dtype=torch.long, device=img.device)
-            img = self.p_sample(
-                model, img, t, self._draw(img, generator, step_noise, i),
-                clip_denoised=clip_denoised, model_kwargs=model_kwargs,
-            )["sample"]
-        return img
+        """Ancestral sampler: T steps from t = T-1 down to 0; with ``graph``,
+        its replays."""
+        def step(model, x, t, noise, kw):
+            return self.p_sample(model, x, t, noise, clip_denoised=clip_denoised,
+                                 model_kwargs=kw)["sample"]
+
+        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise, graph)
 
     def ddim_sample(self, model, x, t, noise, clip_denoised=True, model_kwargs=None,
                     eta=0.0):
@@ -445,13 +464,59 @@ class GaussianDiffusion:
         self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
         clip_denoised=True, model_kwargs=None, eta=0.0,
         step_noise: Optional[Sequence[torch.Tensor]] = None,
+        graph: Optional["ChainGraph"] = None,
     ) -> torch.Tensor:
-        img = self._init_noise(shape, generator, noise)
-        T = self.num_timesteps
-        for i in range(T):
-            t = torch.full((shape[0],), T - 1 - i, dtype=torch.long, device=img.device)
-            img = self.ddim_sample(
-                model, img, t, self._draw(img, generator, step_noise, i),
-                clip_denoised=clip_denoised, model_kwargs=model_kwargs, eta=eta,
-            )["sample"]
-        return img
+        def step(model, x, t, noise, kw):
+            return self.ddim_sample(model, x, t, noise, clip_denoised=clip_denoised,
+                                    model_kwargs=kw, eta=eta)["sample"]
+
+        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise, graph)
+
+
+class ChainGraph:
+    """A sampling chain on the card as a CUDA graph of one step, replayed
+    once per step with ``t`` and the step's noise in static buffers.
+
+    One ``ChainGraph`` serves one model, one loop and one batch shape: the
+    first chain runs its first step eagerly (the warm-up: kernel libraries,
+    index tables), captures the step and replays it for the other steps;
+    later chains replay it for every step, their start noise and
+    conditioning copied into the graph's buffers. ``pool`` is the memory
+    pool of the entry point's graphs. After a chain, ``graph.capture_seconds``
+    and ``graph.pool_bytes`` say what the capture took."""
+
+    def __init__(self, device, pool=None):
+        self.graph = Graph(device, pool)
+        self.x = self.t = self.noise = self.kwargs = None
+
+    def run(self, step, img, noises, model_kwargs=None) -> torch.Tensor:
+        """The chain from ``img`` with ``noises[i]`` at step i, ``step(x, t,
+        noise, model_kwargs) -> x`` one step of it; returns the last x."""
+        model_kwargs = model_kwargs or {}
+        if self.x is None:
+            self.x, self.noise = img.clone(), torch.empty_like(img)
+            self.t = torch.empty((img.shape[0],), dtype=torch.long, device=img.device)
+            self.kwargs = {k: v.clone() for k, v in model_kwargs.items()}
+        else:
+            if img.shape != self.x.shape or model_kwargs.keys() != self.kwargs.keys():
+                raise ValueError(f"this graph samples {tuple(self.x.shape)} with "
+                                 f"{sorted(self.kwargs)}, not {tuple(img.shape)} with "
+                                 f"{sorted(model_kwargs)}")
+            self.x.copy_(img)
+            for k, v in model_kwargs.items():
+                self.kwargs[k].copy_(v)
+
+        def body():
+            self.x.copy_(step(self.x, self.t, self.noise, self.kwargs))
+
+        T = len(noises)
+        for i, n in enumerate(noises):
+            self.t.fill_(T - 1 - i)
+            self.noise.copy_(n)
+            if self.graph.graph is None:
+                if i == 0:
+                    self.graph.warm_up(body)
+                    continue
+                self.graph.capture(body)
+            self.graph.replay()
+        return self.x.clone()

@@ -22,6 +22,14 @@ model option in the JAX package too) goes to ``sample_batches`` directly.
 (``train/checkpoints.py``); without one the weights are random, drawn from
 ``seed``.
 
+On the card the chain runs as a CUDA graph of one step
+(``diffusion.ChainGraph``), captured once per batch shape (a short last
+batch has its own) in one memory pool, as the JAX sampler always runs its
+chain jitted; it gives the eager loop's images for a seed. The
+conditioning encode and the VAE decode stay outside the graph.
+``sample_batches(..., graphed=False)`` runs the eager loop on the card, for
+a comparison; the CPU always runs it.
+
 When the three val folders exist and ``synthetic_data`` is false, the
 sampler reads their ``.npy`` triplets in order (``NpyDataset``, resized to
 ``image_size``; the last batch may be short), takes y, y2 and w from the
@@ -45,6 +53,7 @@ import torch
 
 from diffma_tpu_torch.data.npy_dataset import NpyDataset, make_loader
 from diffma_tpu_torch.diffusion import create_diffusion
+from diffma_tpu_torch.diffusion.gaussian import ChainGraph
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
@@ -127,10 +136,14 @@ def main(cfg, device="cuda"):
     return sample_batches(load_model(cfg, device), cfg, device)
 
 
-def sample_batches(model, cfg, device="cuda"):
+def sample_batches(model, cfg, device="cuda", graphed=None):
     """``main``'s loop over ``cfg``'s batches with ``model``, a denoiser on
-    ``device`` in eval mode; returns what ``main`` returns."""
+    ``device`` in eval mode; returns what ``main`` returns. The chain is
+    graphed unless ``graphed`` is false, by default on the card; a batch
+    whose chain captured its graph also carries the graph's
+    ``capture_seconds`` and ``pool_bytes``."""
     device = resolve_device(device)
+    graphed = device.type == "cuda" if graphed is None else bool(graphed)
     seed = int(cfg.get("seed", 0))
     latent = cfg.image_size // 8
     diffusion = create_diffusion(str(cfg.get("sample_num_steps", 250)), device=device)
@@ -154,6 +167,7 @@ def sample_batches(model, cfg, device="cuda"):
     n_batches = int(cfg.get("sample_num_batches", 0)) or None
 
     results = []
+    chains = {}  # batch size -> ChainGraph, all in the first one's memory pool
     loader = make_loader(dataset, batch_size, shuffle=False, drop_last=False)
     for item, (x_ct, _mask, z_mri) in enumerate(loader, start=1):
         n = x_ct.shape[0]
@@ -163,10 +177,17 @@ def sample_batches(model, cfg, device="cuda"):
             b = cond.encode_triplets(x_ct, z_mri, gen)
         else:
             b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
+        chain = None
+        if graphed:
+            if n not in chains:
+                pool = next(iter(chains.values())).graph.pool if chains else None
+                chains[n] = ChainGraph(device, pool)
+            chain = chains[n]
+        captured = chain is not None and chain.graph.graph is None
         with torch.no_grad():
             samples = loop(
                 model, z.shape, gen, noise=z, clip_denoised=False,
-                model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]},
+                model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]}, graph=chain,
             )
             images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
         seconds = time.perf_counter() - t0
@@ -180,6 +201,9 @@ def sample_batches(model, cfg, device="cuda"):
             f"PSNR {q['psnr_db']:.2f} dB  SSIM {q['ssim']:.4f}"
         )
         results.append({"images": images, "seconds": seconds, "quality": q})
+        if captured and chain.graph.graph is not None:
+            results[-1].update(capture_seconds=chain.graph.capture_seconds,
+                               pool_bytes=chain.graph.pool_bytes)
         if n_batches and item >= n_batches:
             break
     if results:

@@ -13,6 +13,14 @@ skip (``train/state.py``), log the loss and the throughput every
 reference's torch layout, ``<results_dir>/NNN-<model>/checkpoints/<step>.pt``,
 which ``train/sample.py --ckpt`` reads. Everything is fp32 on one device.
 
+On the card, at ``accumulation_steps`` 1 (the JAX trainer's fast path), the
+step runs as a CUDA graph (``state.GraphedTrainStep``): the loop draws each
+step's ``t`` and noise as the loss would, after the batch, and the replay
+reads them with the batch from static buffers; the step never waits for the
+device, so the loop does so only where it logs (the losses read to the
+host, which the throughput's clock then includes) and checkpoints. With
+``accumulation_steps`` above 1 the step is the same predicated one, eager.
+
 The mixers take ``scan_impl`` from the config: by default ``"fused"`` on the
 card (kernels C and D; with ``use_mamba2`` the Mamba-2 mixers and kernels E
 and F; as the JAX trainer defaults to its fused kernels on the TPU) and
@@ -56,15 +64,15 @@ from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint, save_checkpoint
-from diffma_tpu_torch.train.state import TrainState, make_train_step
+from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.logging import WandbShim, create_experiment_dir, create_logger
 from diffma_tpu_torch.utils.profiling import SpanTimer, StepProfiler, Throughput
 from diffma_tpu_torch.utils.torch_io import load_weights
 
-__all__ = ["Conditioning", "check_width", "cli", "main", "make_dataset", "make_loss_fn",
-           "synthetic_batch"]
+__all__ = ["Conditioning", "check_width", "cli", "loss_draws", "main", "make_dataset",
+           "make_loss_fn", "synthetic_batch"]
 
 
 def _renorm_to_unit(z: torch.Tensor) -> torch.Tensor:
@@ -192,6 +200,16 @@ def make_loss_fn(model, diffusion):
     return loss_fn
 
 
+def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator):
+    """The timesteps and the noise that ``make_loss_fn``'s loss draws for the
+    latents ``z`` from ``generator``, drawn as it draws them and in its
+    order: a graphed step takes them in its batch."""
+    z = z.float()
+    t = torch.randint(0, diffusion.num_timesteps, (z.shape[0],), generator=generator,
+                      device=z.device)
+    return t, torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+
+
 def _refuse_unported(cfg) -> None:
     for key, what in (("autocast", "bf16 training (the fused mixers' kernels are fp32 only)"),
                       ("remat", "rematerialisation"),
@@ -243,11 +261,14 @@ def main(cfg, device="cuda"):
                 f"use_mamba2={getattr(model.blocks[0], 'use_mamba2', None)}, device {device}")
 
     diffusion = create_diffusion("", device=device)
-    optimizer = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=0.0)
+    optimizer = adamw(model.parameters(), lr)
     state = TrainState(model, optimizer, step=start_step)
+    accumulation_steps = int(cfg.get("accumulation_steps", 1))
     train_step = make_train_step(make_loss_fn(model, diffusion), optimizer,
-                                 accumulation_steps=int(cfg.get("accumulation_steps", 1)))
+                                 accumulation_steps=accumulation_steps)
+    graphed = device.type == "cuda" and accumulation_steps == 1
+    if graphed:
+        train_step = GraphedTrainStep(train_step, device)
 
     dataset = make_dataset(cfg, "train", synthetic_size=64)
     cond = None
@@ -289,6 +310,9 @@ def main(cfg, device="cuda"):
                 else:
                     batch = synthetic_batch(generator, batch_size, latent, tokens,
                                             dim=model.hidden_size)
+                if graphed:
+                    batch = dict(batch)
+                    batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"], generator)
                 metrics = train_step(state, batch, generator)
                 running.append(metrics["loss"])
                 if history is not None:

@@ -30,7 +30,7 @@ from diffma_tpu_torch.data.npy_dataset import NpyDataset, make_loader
 from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.vae import AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import save_checkpoint
-from diffma_tpu_torch.train.state import TrainState, make_train_step
+from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
 from diffma_tpu_torch.train.train import make_dataset
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
@@ -74,8 +74,7 @@ def main(cfg, device="cuda"):
         vae.init_weights(torch.Generator().manual_seed(seed + 1))
     vae = vae.to(device).eval().requires_grad_(False)
 
-    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=0.0)
+    optimizer = adamw(model.parameters(), 1e-4)
     state = TrainState(model, optimizer)
 
     def loss_fn(batch, generator):

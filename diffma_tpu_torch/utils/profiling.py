@@ -7,18 +7,19 @@ trainer's conditioning encode); ``StepProfiler`` records a
 ``torch.profiler`` trace over a window of training steps (the trainer's
 ``profile_dir``, ``profile_start_step`` and ``profile_steps`` keys) and
 writes it as a Chrome trace. ``profile_denoiser`` runs a few DiffMa forwards, and
-``profile_train_step`` a few of the trainer's steps, under ``torch.profiler``;
-each reports the host-clock time per call, the device's busy time (the union
-of kernel intervals), its idle share, the kernels launched per call, and the
-kernels that take the most device time.
+``profile_train_step`` a few of the trainer's steps, eager and as the CUDA
+graph the trainer replays, under ``torch.profiler``; each reports the
+host-clock time per call, the device's busy time (the union of kernel
+intervals), its idle share, the kernels launched per call, and the kernels
+that take the most device time.
 
     python -m diffma_tpu_torch.utils.profiling --batch 1 --scan-impl fused
-    python -m diffma_tpu_torch.utils.profiling --train --model DiffMa-L/2 --batch 8
+    python -m diffma_tpu_torch.utils.profiling --train --model DiffMa-L/2 --batch 8 [--real-data]
 
 profile, on the card with random weights and conditioning, 5 denoiser
 forwards of DiffMa-B/2 at 224² (the sampler's model) after one warm-up, or 5
-training steps (hybrid loss, backward, AdamW, EMA, the per-step loss check)
-after 3 warm-up steps. ``--scan-impl`` picks the mixers' path: ``fused``
+training steps (hybrid loss, backward, the predicated AdamW and EMA) after 3
+warm-up steps, eager and graphed. ``--scan-impl`` picks the mixers' path: ``fused``
 (kernels C and D, the default on the card) or ``pallas`` (the composable
 path with kernels A and B). ``--use-mamba2`` takes the Mamba-2 mixers
 (``fused`` is then kernel E, and kernel F in a training step), and with it
@@ -29,12 +30,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
+import logging
 import os
 import time
 from collections import defaultdict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from diffma_tpu_torch.models.diffma import build_model
@@ -189,52 +193,75 @@ def profile_denoiser(model, inputs, calls: int = 5, top: int = 8) -> dict:
 
 
 def profile_train_step(name: str, batch: int, scan_impl: str, calls: int = 5,
-                       warmup: int = 3, top: int = 10, use_mamba2: bool = False) -> dict:
+                       warmup: int = 3, top: int = 10, use_mamba2: bool = False,
+                       real_data: bool = False) -> dict:
     """Profile ``calls`` of the trainer's steps on ``name`` at 224² and batch
-    ``batch`` (lr 1e-4, synthetic batches drawn on the card), after
-    ``warmup`` steps; then time the step with and without its host-side loss
-    check (the NaN skip's wait for the device)."""
+    ``batch`` (lr 1e-4, synthetic batches drawn on the card, the loss's t and
+    noise drawn after them), after ``warmup`` steps, eager (``eager``) and as
+    the trainer's CUDA graph (``graphed``), each on its own copy of the
+    model from one seed; then time both on the host clock in alternating
+    blocks of 2 * ``calls`` steps (eager, graphed, graphed, eager). With
+    ``real_data`` each step's batch is one fixed pair of random (batch, 1,
+    224, 224) CT and MRI arrays encoded by the trainer's ``Conditioning``
+    (random frozen weights), as a real-data step encodes its loader's
+    arrays."""
     from diffma_tpu_torch.diffusion import create_diffusion
-    from diffma_tpu_torch.train.state import TrainState, make_train_step, update_ema
-    from diffma_tpu_torch.train.train import make_loss_fn, synthetic_batch
+    from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
+    from diffma_tpu_torch.train.train import Conditioning, loss_draws, make_loss_fn, synthetic_batch
+    from diffma_tpu_torch.utils.config import Config
 
     latent = 28
     model = build_model(name, input_size=latent, scan_impl=scan_impl, use_mamba2=use_mamba2)
     model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
-    optimizer = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=0.0)
-    state = TrainState(model, optimizer)
-    loss_fn = make_loss_fn(model, create_diffusion("", device="cuda"))
-    step = make_train_step(loss_fn, optimizer)
+    diffusion = create_diffusion("", device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     tokens = (latent // model.patch_size) ** 2
+    if real_data:
+        cond = Conditioning(Config(image_size=8 * latent, model=name), logging.getLogger(__name__),
+                            "cuda")
+        rng = np.random.default_rng(0)
+        ct, mri = (rng.uniform(-1, 1, (batch, 1, 8 * latent, 8 * latent)).astype(np.float32)
+                   for _ in range(2))
 
-    def one_step():
-        step(state, synthetic_batch(gen, batch, latent, tokens), gen)
+    def draw_batch():
+        if real_data:
+            return cond.encode_triplets(ct, mri, gen)
+        return synthetic_batch(gen, batch, latent, tokens)
 
-    def unchecked_step():  # the same work without the host's loss check
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(synthetic_batch(gen, batch, latent, tokens), gen)
-        loss.backward()
-        optimizer.step()
-        update_ema(state.ema, state.model)
+    def trainer(model, graphed: bool):
+        optimizer = adamw(model.parameters(), 1e-4)
+        state = TrainState(model, optimizer)
+        step = make_train_step(make_loss_fn(model, diffusion), optimizer)
+        if graphed:
+            step = GraphedTrainStep(step, "cuda")
 
-    for _ in range(warmup):
-        one_step()
-    report = _profile(one_step, calls, top)
-    # The check's cost: host-clock ms per step with and without it, in
-    # alternating blocks of 2 * calls steps (with, without, without, with).
-    ms = {True: [], False: []}
-    for checked in (True, False, False, True):
-        fn = one_step if checked else unchecked_step
+        def one_step():
+            b = draw_batch()
+            b["t"], b["noise"] = loss_draws(diffusion, b["z"], gen)
+            step(state, b, gen)
+
+        return one_step, step
+
+    fns = {}
+    fns["eager"], _ = trainer(model, False)
+    fns["graphed"], graphed = trainer(copy.deepcopy(model), True)
+    report = {}
+    for mode, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        report[mode] = _profile(fn, calls, top)
+    report["capture_seconds"] = graphed.graph.capture_seconds
+    report["pool_bytes"] = graphed.graph.pool_bytes
+    ms = {mode: [] for mode in fns}
+    for mode in ("eager", "graphed", "graphed", "eager"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(2 * calls):
-            fn()
+            fns[mode]()
         torch.cuda.synchronize()
-        ms[checked].append((time.perf_counter() - t0) * 1e3 / (2 * calls))
-    report["ms_per_step_with_loss_check"] = ms[True]
-    report["ms_per_step_without_loss_check"] = ms[False]
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / (2 * calls))
+    report["ms_per_step_eager"] = ms["eager"]
+    report["ms_per_step_graphed"] = ms["graphed"]
     return report
 
 
@@ -248,15 +275,18 @@ def main(argv=None) -> dict:
                         help="Mamba-2 mixers")
     parser.add_argument("--fuse-block", dest="fuse_block", action="store_true",
                         help="whole-block kernels, with --use-mamba2 and --scan-impl fused")
+    parser.add_argument("--real-data", dest="real_data", action="store_true",
+                        help="with --train: each batch encoded by the conditioning stack")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         report = {"train_step": args.model, "batch": args.batch, "scan_impl": args.scan_impl,
-                  "use_mamba2": args.use_mamba2, "device": torch.cuda.get_device_name(0),
+                  "use_mamba2": args.use_mamba2, "real_data": args.real_data,
+                  "device": torch.cuda.get_device_name(0),
                   **profile_train_step(args.model, args.batch, args.scan_impl,
-                                       use_mamba2=args.use_mamba2)}
+                                       use_mamba2=args.use_mamba2, real_data=args.real_data)}
         print(json.dumps(report, indent=1))
         return report
 

@@ -282,6 +282,58 @@ def test_train_step_matches_jax(request, family, accumulation_steps, n_steps):
     assert moved > 0
 
 
+def _adam_moments(opt_state):
+    """optax's ScaleByAdamState inside an adamw chain's state."""
+    (adam,) = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    return adam
+
+
+@pytest.mark.parametrize("accumulation_steps,n_steps", [(1, 3), (2, 4)])
+def test_predicated_step_matches_jax_through_a_nan_batch(pair, accumulation_steps, n_steps):
+    """The predicated step against JAX's ``make_train_step``
+    (``train_step_predicated`` at 1, the ``lax.cond`` path at 2) over
+    batches with a NaN at the second: after every step the finite flag,
+    both step counts, the parameters, the EMA and AdamW's ``exp_avg`` and
+    ``exp_avg_sq`` agree, at the bars of ``test_train_step_matches_jax``."""
+    jmodel, params = pair
+    batches = [_batch(10 + i) for i in range(n_steps)]
+    batches[1]["z"][0, 0, 0, 0] = np.nan
+    rngs = [jax.random.PRNGKey(20 + i) for i in range(n_steps)]
+    opt = optax.adamw(1e-3, b1=0.9, b2=0.999, weight_decay=0.0)
+    jstate = JaxTrainState.create(params, opt)
+    jstep = jax.jit(jax_make_train_step(jax_make_loss_fn(jmodel, jax_create_diffusion("")), opt,
+                                        accumulation_steps=accumulation_steps))
+    model = _port_model(params)
+    topt = torch.optim.AdamW(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.0)
+    state = TrainState(model, topt)
+    step = make_train_step(train.make_loss_fn(model, create_diffusion("", device="cpu")), topt,
+                           accumulation_steps=accumulation_steps)
+    named = dict(model.named_parameters())
+    for i, (b, rng) in enumerate(zip(batches, rngs)):
+        jstate, jmetrics = jstep(jstate, b, rng)
+        metrics = step(state, _torch_batch(b, *_jax_draws(rng, b["z"].shape)), None)
+        assert bool(metrics["finite"]) == bool(jmetrics["finite"]) == (i != 1)
+        assert int(state.step) == int(jstate.step)
+        adam = _adam_moments(jstate.opt_state)
+        pairs = [(jstate.params, lambda n: named[n]),
+                 (jstate.ema_params, state.ema.state_dict().get)]
+        if topt.state[named["final_layer.linear.weight"]]:  # made at the first update
+            pairs += [(adam.mu, lambda n: topt.state[named[n]]["exp_avg"]),
+                      (adam.nu, lambda n: topt.state[named[n]]["exp_avg_sq"])]
+            steps = {float(topt.state[p]["step"]) for p in named.values()}
+            assert steps == {float(adam.count)}, (i, steps, adam.count)
+        else:
+            assert int(adam.count) == 0
+        for tree, get in pairs:
+            ref = diffma_params_from_jax(jax.tree.map(np.asarray, tree), depth=DEPTH)
+            for name, v in ref.items():
+                np.testing.assert_allclose(get(name).detach().numpy(), v.numpy(), rtol=1e-5,
+                                           atol=1e-5, err_msg=f"step {i}: {name}")
+
+
 def test_accumulation_updates_on_odd_iterations(pair):
     _, params = pair
     model = _port_model(params)

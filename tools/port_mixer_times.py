@@ -289,10 +289,13 @@ def table(paths) -> None:
             vals = [r["forwards"][name][key] for r in runs]
             print(f"| {name} {key} | " + " | ".join(json.dumps(v) for v in vals) + " |")
     for model in runs[0].get("steps", {}):
-        for key in ("ms_per_call", "device_busy_ms_per_call", "device_idle_share",
-                    "kernels_per_call", "ms_per_step_with_loss_check"):
-            vals = [r["steps"][model][key] for r in runs]
-            print(f"| {model} step {key} | " + " | ".join(json.dumps(v) for v in vals) + " |")
+        for mode in ("eager", "graphed"):  # a checkout before the graphed step has eager only
+            for key in ("ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+                        "kernels_per_call"):
+                vals = [r["steps"][model].get(mode, r["steps"][model] if mode == "eager" else {})
+                        .get(key) for r in runs]
+                print(f"| {model} {mode} step {key} | " + " | ".join(json.dumps(v) for v in vals)
+                      + " |")
 
 
 def main() -> int:

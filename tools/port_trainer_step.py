@@ -4,10 +4,12 @@
     python tools/port_trainer_step.py [--config configs/brain.yaml] [--steps 40] [--real-data]
 
 Runs ``diffma_tpu_torch.train.train.main`` on the config (synthetic batches,
-``--steps`` steps, a log every 10) twice in this process: as the CLI runs
-it, and with the data loader replaced by an iterator that hands the loop
-its first batch again and again (on synthetic batches the trainer draws its
-batches on the card and never reads the loader's arrays). ``--real-data``
+``--steps`` steps, a log every 10) three times in this process: as the CLI
+runs it (the step a CUDA graph on the card), with the data loader replaced
+by an iterator that hands the loop its first batch again and again (on
+synthetic batches the trainer draws its batches on the card and never reads
+the loader's arrays), and as the CLI runs it with the step eager
+(``GraphedTrainStep`` replaced by the step it wraps). ``--real-data``
 first writes 64 SynthRAD-like ``.npy`` triplets of 256 x 256 to a temporary
 directory and trains on them, every batch encoded by the conditioning stack
 (random frozen weights). In each run it times, per step and in this process
@@ -20,11 +22,15 @@ only, the spans that the loop is made of:
 * ``encode``: ``Conditioning.__call__``, the real batch encoded, queued
   (``encode_device_ms`` is the same span's device time, from the trainer's
   ``SpanTimer``, over the same steps);
+* ``draws``: ``loss_draws``, the loss's t and noise drawn on the card;
+* ``graph``: ``GraphedTrainStep.__call__``, the batch copied into the
+  graph's buffers and the step replayed, queued (the spans below run inside
+  it only at its warm-up and capture, in the first window);
 * ``forward``: the loss, queued;
 * ``backward``: ``loss.backward()``, queued;
-* ``sync``: ``bool()`` of a tensor (the NaN skip's loss check): the host's
-  wait for the device;
 * ``optimizer``: ``AdamW.step``, queued; ``ema``: ``update_ema``, queued;
+* ``sync``: ``Tensor.cpu``, the log's read of the losses: the host's wait
+  for the device (the step itself never waits);
 * ``rest``: the remainder of the wall time (logging, the loop itself).
 
 Each is reported in ms per step over the steps after the first log window
@@ -49,10 +55,11 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SPANS = ("loader", "batch", "encode", "forward", "backward", "sync", "optimizer", "ema")
+SPANS = ("loader", "batch", "encode", "draws", "graph", "forward", "backward", "optimizer", "ema",
+         "sync")
 
 
-def timed_run(cfg, device: str, with_loader: bool) -> dict:
+def timed_run(cfg, device: str, with_loader: bool, graphed: bool = True) -> dict:
     import torch
 
     from diffma_tpu_torch.train import state as state_mod
@@ -108,11 +115,16 @@ def timed_run(cfg, device: str, with_loader: bool) -> dict:
         (train_mod.Conditioning, "__call__", wrap("encode", train_mod.Conditioning.__call__)),
         (train_mod.SpanTimer, "read", read_encode),
         (train_mod, "Throughput", Throughput),
+        (train_mod, "loss_draws", wrap("draws", train_mod.loss_draws)),
+        (train_mod.GraphedTrainStep, "__call__",
+         wrap("graph", train_mod.GraphedTrainStep.__call__)),
         (state_mod, "update_ema", wrap("ema", state_mod.update_ema)),
         (torch.Tensor, "backward", wrap("backward", torch.Tensor.backward)),
-        (torch.Tensor, "__bool__", wrap("sync", torch.Tensor.__bool__)),
+        (torch.Tensor, "cpu", wrap("sync", torch.Tensor.cpu)),
         (torch.optim.AdamW, "step", wrap("optimizer", torch.optim.AdamW.step)),
     ]
+    if not graphed:
+        patches.append((train_mod, "GraphedTrainStep", lambda step, device: step))
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     try:
         for obj, name, new in patches:
@@ -210,6 +222,7 @@ def main(argv=None) -> dict:
         profile_sessions(args.profiler_sessions, args.device)
         report["cli"] = timed_run(cfg, args.device, with_loader=True)
         report["no_loader"] = timed_run(cfg, args.device, with_loader=False)
+        report["eager"] = timed_run(cfg, args.device, with_loader=True, graphed=False)
         report["loader_alone_ms_per_batch"] = loader_alone(cfg)
     print(json.dumps(report, indent=1))
     if args.out:
