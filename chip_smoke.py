@@ -130,7 +130,25 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     NaN step leaves every parameter, EMA and optimizer tensor and the step
     count as they were, the graphed params and EMA within ``TOL_STEP`` of
     the eager ones; then both steps profiled and timed in turns, and the
-    real-data step (batches encoded by the conditioning stack) likewise.
+    real-data step (batches encoded by the conditioning stack) likewise;
+19. bf16, the JAX package's ``--autocast`` model: (19a) the bf16 variants
+    of kernels C and D against their bf16 plain versions, each case twice
+    with equal bits: C dual at the B/2 sampler's shape (batch 1) and the
+    training batch 8, and its one-mixer forms on the vim quirk, the
+    EfficientVMamba partition and zig; D on the same forms at batch 8 (zig
+    2), every gradient tensor; event ms, device ms by stage and a bound at
+    the bf16 rate beside the fp32 variants' ms from phases 2b and 2d;
+    (19b) the trainer's CLI on ``configs/brain.yaml --autocast`` as phase 7
+    runs it (DiffMa-L/2, batch 8, 20 steps: 320 bf16 C and 320 bf16 D
+    calls, none of the fp32 ones), its checkpoint fp32, its ms a step
+    beside phase 7's; (19c) the sampler's CLI with ``--model DiffMa-B/2
+    --autocast`` from a checkpoint of seeded weights, DDPM-250, 2 images
+    (4000 bf16 C calls), each equal in bits to the eager loop's, and its
+    PSNR against the fp32 model's image from the same seed (reported,
+    not held to a bar); (19d) DiffMa-B/2 in bf16 on the fused route trained
+    100 steps on one batch, the MSE term falling at least 2x; (19e) the
+    graphed L/2 bf16 step profiled (busy ms, idle share, top kernels)
+    beside phase 18b's fp32 step.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -163,6 +181,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12  # dense, on the tensor cores: kernels C's and D's bf16 products
 
 # The kernel's stated tolerances against its plain version.
 TOL_FP32 = 1e-4  # rtol = atol; fp32 sums in another order than the plain loop
@@ -181,6 +200,15 @@ TOL_IMAGE = 1e-3
 # steps: max |diff| <= TOL_STEP * max(1, max |ref|), the JAX step bar
 # (tests/test_torch_train.py::test_train_step_matches_jax).
 TOL_STEP = 1e-5
+# Kernels C and D in bf16 against their bf16 plain versions, which round at
+# the same places: C max |err| <= TOL_C_BF16 * max(1, max |ref|) and
+# mean-rel (mean |err| / mean |ref|) <= TOL_C_BF16_MEAN; D mean-rel <=
+# TOL_D_BF16 per gradient tensor. A value near a bf16 rounding boundary
+# rounds one way in one order of fp32 sums and the other way in another,
+# an ulp (2^-8 relative) that the rest of the mixer carries on.
+TOL_C_BF16 = 2e-2
+TOL_C_BF16_MEAN = 5e-3
+TOL_D_BF16 = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -483,13 +511,14 @@ def random_(module, seed: int, scale: float = 0.1):
     return module
 
 
-def mixer_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int, int, int]:
+def mixer_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False,
+               act_bytes=4) -> tuple[int, int, int]:
     """One fused-mixer call of M branches: the operations of its products
     (in_proj, x_proj, dt_proj, out_proj), its other operations (conv, scan,
-    D skip, gate) and the bytes that must move (the weights, x, out and the
-    index tables, once). ``Ls`` is the steps per stream (L unless the
-    streams partition the tokens); the vim quirk runs out_proj once per
-    stream."""
+    D skip, gate) and the bytes that must move (the fp32 weights, x and out
+    of ``act_bytes`` each, and the index tables, once). ``Ls`` is the steps
+    per stream (L unless the streams partition the tokens); the vim quirk
+    runs out_proj once per stream."""
     Ls = L if Ls is None else Ls
     tokens, rows = B * L, B * S * Ls
     products = M * (
@@ -500,7 +529,7 @@ def mixer_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int, in
     )
     other = M * (rows * d * 2 * K + rows * d * (6 * n + 8))  # conv; scan, D skip, gate
     weights = 2 * d * h + d * K + d + (r + 2 * n) * d + d * r + d + d * n + d + h * d
-    nbytes = M * 4 * (weights + 2 * tokens * h) + 2 * S * Ls * 8
+    nbytes = M * (4 * weights + act_bytes * 2 * tokens * h) + 2 * S * Ls * 8
     return products, other, nbytes
 
 
@@ -679,14 +708,16 @@ def phase_fused_mixer(card: str) -> dict:
     }
 
 
-def mixer_bwd_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int, int, int]:
+def mixer_bwd_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False,
+                   act_bytes=4) -> tuple[int, int, int]:
     """One fused-mixer backward of M branches: the operations of its products,
     its other operations and the bytes that must move. The forward as far as
     the backward needs it, once (in_proj, x_proj, dt_proj; conv, scan; not
     out_proj); the backward: two products per projection (the input's and the
     weight's gradient), the conv's two adjoints and the scan's adjoint (17 per
     state and step, 12 per channel and step). Bytes: the weights, x and g
-    read once, gx and the weight gradients written once. ``Ls`` is the steps
+    read once, gx and the weight gradients written once (x, g and gx of
+    ``act_bytes`` each, the rest fp32). ``Ls`` is the steps
     per stream (L unless the streams partition the tokens); the vim quirk's
     out_proj is one product per stream."""
     Ls = L if Ls is None else Ls
@@ -705,7 +736,7 @@ def mixer_bwd_work(M, B, L, h, d, n, r, S, K, Ls=None, quirk=False) -> tuple[int
         + 2 * 2 * rows * d * K  # the conv's input and weight adjoints
     )
     weights = 2 * d * h + d * K + d + r2n * d + d * r + d + d * n + d + h * d
-    nbytes = M * 4 * (2 * weights + 3 * tokens * h) + 2 * S * Ls * 8
+    nbytes = M * (4 * 2 * weights + act_bytes * 3 * tokens * h) + 2 * S * Ls * 8
     return products, other, nbytes
 
 
@@ -2676,14 +2707,18 @@ def moved_from_init(module, init_state: dict) -> int:
     return sum(torch.equal(state[k].cpu(), v) for k, v in init_state.items())
 
 
-def phase_trainer(card: str) -> dict:
+def phase_trainer(card: str, autocast: bool = False) -> tuple[dict, float]:
+    """Phase 7, or with ``autocast`` phase 19b (the bf16 model through kernels
+    C's and D's bf16 variants); returns the counts and the logged steps/s."""
     import torch
 
     from diffma_tpu_torch.models.diffma import build_model
     from diffma_tpu_torch.train import sample, train
 
-    print("== phase 7: trainer CLI on configs/brain.yaml (DiffMa-L/2, batch 8, synthetic), "
-          "20 steps, checkpoint at step 20", flush=True)
+    flag = ["--autocast"] if autocast else []
+    print(f"== phase {'19b' if autocast else '7'}: trainer CLI on configs/brain.yaml "
+          f"{' '.join(flag)} (DiffMa-L/2, batch 8, synthetic), 20 steps, checkpoint at step 20",
+          flush=True)
     cfg = brain_config()
     if "scan_impl" in cfg:
         fail("configs/brain.yaml sets scan_impl; this phase trains with the default")
@@ -2693,13 +2728,14 @@ def phase_trainer(card: str) -> dict:
     t0 = time.perf_counter()
     state = train.cli([
         "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--max-steps", "20",
-        "--ckpt-every", "20", "--results-dir", results,
+        "--ckpt-every", "20", "--results-dir", results, *flag,
     ])
     seconds = time.perf_counter() - t0
     zero = {name: 0 for name in kernel_counters()}
     calls = 16 * 20  # blocks x steps: one C and one D call per block and step
-    counts = check_counts("the trainer", {**zero, "mixer_fused_fwd": calls,
-                                          "mixer_fused_bwd": calls})
+    suffix = "_bf16" if autocast else ""
+    counts = check_counts("the trainer", {**zero, f"mixer_fused_fwd{suffix}": calls,
+                                          f"mixer_fused_bwd{suffix}": calls})
     if int(state.step) != 20:
         fail(f"the trainer counted {int(state.step)} finite steps of 20")
     init = build_model(cfg.model, input_size=28).init_weights(
@@ -2712,18 +2748,25 @@ def phase_trainer(card: str) -> dict:
     ckpt = os.path.join(results, exp, "checkpoints", "0000020.pt")
     if not os.path.exists(ckpt):
         fail(f"the trainer wrote no checkpoint at {ckpt}")
-    loaded = sample.load_model(brain_config(ckpt=ckpt), "cuda")
+    loaded = sample.load_model(brain_config(ckpt=ckpt, autocast=autocast or None), "cuda")
     ema = state.ema.state_dict()
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    if any(v.dtype != torch.float32 for k in ("model", "ema") for v in saved[k].values()):
+        fail("the trainer's checkpoint holds a tensor that is not fp32")
+    if loaded.dtype != state.model.dtype:
+        fail(f"the sampler built a {loaded.dtype} model from a {state.model.dtype} trainer's")
     for key, value in loaded.state_dict().items():
         if not torch.equal(value, ema[key]):
             fail(f"the sampler's model does not hold the checkpoint's EMA {key}")
     steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
     print(f"  20 steps, every loss finite; params and EMA moved; checkpoint "
-          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB read back by the sampler, EMA equal")
-    print(f"  [{card}] DiffMa-L/2 fused training, batch 8, steps 11-20: {steps_s} steps/s, "
-          f"{images_s} images/s ({seconds:.1f} s for the whole CLI run, build and init included)")
+          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB, every tensor fp32, read back by the "
+          f"sampler ({loaded.dtype} model), EMA equal")
+    print(f"  [{card}] DiffMa-L/2 fused training{' in bf16' if autocast else ''}, batch 8, steps "
+          f"11-20: {steps_s} steps/s ({1e3 / steps_s:.1f} ms a step), {images_s} images/s "
+          f"({seconds:.1f} s for the whole CLI run, build and init included)")
     shutil.rmtree(results, ignore_errors=True)
-    return counts
+    return counts, steps_s
 
 
 def phase_composable_trainer(card: str) -> dict:
@@ -2751,7 +2794,8 @@ def phase_composable_trainer(card: str) -> dict:
     return counts
 
 
-def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa-B/2") -> None:
+def phase_learning(card: str, phase, use_mamba2: bool, model: str = "DiffMa-B/2",
+                   autocast: bool = False) -> None:
     import torch
 
     from diffma_tpu_torch.diffusion import create_diffusion
@@ -2759,14 +2803,14 @@ def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa
     from diffma_tpu_torch.train import train
 
     steps = 100
-    family = "Mamba-2 (use_mamba2) " if use_mamba2 else ""
+    family = ("Mamba-2 (use_mamba2) " if use_mamba2 else "") + ("bf16 " if autocast else "")
     print(f"== phase {phase}: does it learn: {model} {family}fused, one fixed batch of 8, "
           f"lr 1e-3, {steps} steps", flush=True)
     results = os.path.join(ROOT, "results", f"chip_smoke_overfit_{phase}")
     shutil.rmtree(results, ignore_errors=True)
     cfg = brain_config(model=model, overfit_fixed_batch=True, lr=1e-3, max_steps=steps,
                        log_every=10, ckpt_every=10**9, results_dir=results,
-                       use_mamba2=use_mamba2)
+                       use_mamba2=use_mamba2, autocast=autocast or None)
     seed = int(cfg.global_seed)
     # The trainer's fixed batch, and one fixed (t, noise) to evaluate at.
     batch = train.synthetic_batch(torch.Generator(device="cuda").manual_seed(seed + 1), 8, 28,
@@ -2778,11 +2822,12 @@ def phase_learning(card: str, phase: int, use_mamba2: bool, model: str = "DiffMa
     def mse(model) -> float:
         with torch.no_grad():
             terms = diffusion.training_losses(
-                model, batch["z"], t, noise=noise,
+                train.fp32_output(model), batch["z"], t, noise=noise,
                 model_kwargs={"y": batch["y"], "y2": batch["y2"], "w": batch["w"]})
         return terms["mse"].mean().item()
 
-    init = build_model(model, input_size=28, scan_impl="fused", use_mamba2=use_mamba2)
+    init = build_model(model, input_size=28, scan_impl="fused", use_mamba2=use_mamba2,
+                       dtype=train.compute_dtype(cfg))
     before = mse(init.init_weights(torch.Generator().manual_seed(seed)).cuda().eval())
     state = train.main(cfg, device="cuda")
     after = mse(state.model.eval())
@@ -3121,7 +3166,8 @@ def phase_graphed_chains(card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_graphed_steps(card: str) -> None:
+def phase_graphed_steps(card: str) -> dict:
+    """Phase 18b; returns the Mamba-1 fp32 step's profile."""
     import copy
 
     import torch
@@ -3208,9 +3254,12 @@ def phase_graphed_steps(card: str) -> None:
 
         report = profile_train_step("DiffMa-L/2", 8, "fused", use_mamba2=use_mamba2)
         print_step_report(card, f"DiffMa-L/2 {label}, synthetic", report)
+        if not use_mamba2:
+            fp32_report = report
         torch.cuda.empty_cache()
     report = profile_train_step("DiffMa-L/2", 8, "fused", real_data=True)
     print_step_report(card, "DiffMa-L/2 Mamba-1 fused (C + D), real-data batches encoded", report)
+    return fp32_report
 
 
 def print_step_report(card: str, what: str, report: dict) -> None:
@@ -3227,6 +3276,210 @@ def print_step_report(card: str, what: str, report: dict) -> None:
     top = report["graphed"]["top_kernels_ms_per_call"]
     print("    graphed, top device ms a step: "
           + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top.items()))
+
+# ---- phase 19: bf16
+
+
+def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, dict]:
+    """19a: kernels C's and D's bf16 variants against their bf16 plain
+    versions, each case twice with equal bits; their times, stages and
+    bounds at the bf16 rate beside the fp32 variants' (``mixer``,
+    ``mixer_bwd``: phases 2b and 2d of this run)."""
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.fused_mixer import (
+        MixerWeights,
+        mixer_bwd_ref,
+        mixer_fused_bwd_cuda,
+        mixer_fused_cuda,
+        mixer_ref,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 19a: kernels C and D in bf16 against their bf16 plain versions on the card",
+          flush=True)
+    h, bf16 = 512, torch.bfloat16
+
+    def case(family, layer, batch, seed):
+        spec = build_scan_spec(family, 14, layer)
+        M = 2 if family == "spiral" else 1
+        ws = [random_(Mamba(h, spec), seed + m).cuda().weights() for m in range(M)]
+        gen = torch.Generator().manual_seed(seed)
+        xs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+        gs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+        return spec, ws, xs, gs
+
+    def mean_rel(a, b) -> float:
+        return ((a.float() - b.float()).abs().mean() / b.float().abs().mean()).item()
+
+    fwd_err = bwd_err = None
+    for label, family, layer, batch in (("dual, B/2 sampler", "spiral", 0, 1),
+                                        ("dual, training", "spiral", 0, 8),
+                                        ("vim quirk", "vim", 0, 1),
+                                        ("EfficientVMamba partition", "eff", 0, 1),
+                                        ("zig", "zig", 2, 1)):
+        spec, ws, xs, _ = case(family, layer, batch, 300 + layer)
+        with torch.no_grad():
+            got, again = (mixer_fused_cuda(spec, xs, ws) for _ in range(2))
+            want = [mixer_ref(spec, x, w) for x, w in zip(xs, ws)]
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for g, a, w in zip(got, again, want):
+            if g.dtype != bf16 or g.shape != w.shape or not bool(torch.isfinite(g.float()).all()):
+                fail(f"C bf16, {label}: wrong dtype {g.dtype}, shape or a non-finite value")
+            if not torch.equal(g, a):
+                fail(f"C bf16, {label}: a second call gave other bits")
+            err, bar = (g.float() - w.float()).abs().max().item(), TOL_C_BF16 * max(
+                1.0, w.float().abs().max().item())
+            if err > bar or mean_rel(g, w) > TOL_C_BF16_MEAN:
+                fail(f"C bf16, {label}: max |err| {err:.3e} (bar {bar:.2e}), mean-rel "
+                     f"{mean_rel(g, w):.2e} (bar {TOL_C_BF16_MEAN:g})")
+            errs.append(err)
+            rels.append(mean_rel(g, w))
+        print(f"  C bf16, {label}: B={batch} L=196, {len(xs)} mixer(s): max|err| "
+              f"{max(errs):.3e}, mean-rel {max(rels):.2e}; equal bits on a second call")
+        if fwd_err is None:
+            fwd_err = max(errs)
+    for label, family, layer, batch in (("dual, training", "spiral", 0, 8),
+                                        ("vim quirk", "vim", 0, 8),
+                                        ("EfficientVMamba partition", "eff", 0, 8),
+                                        ("zig", "zig", 2, 2)):
+        spec, ws, xs, gs = case(family, layer, batch, 400 + layer)
+        got, again = (mixer_fused_bwd_cuda(spec, xs, gs, ws) for _ in range(2))
+        torch.cuda.synchronize()
+        worst = ("", 0.0)
+        for m in range(len(xs)):
+            gx_ref, gw_ref = mixer_bwd_ref(spec, xs[m], gs[m], ws[m])
+            names = ["gx", *(f"w{m}.{f}" for f in MixerWeights._fields)]
+            for name, a, b, ref in zip(names, (got[0][m], *got[1][m]), (again[0][m], *again[1][m]),
+                                       (gx_ref, *gw_ref)):
+                want_dtype = bf16 if name == "gx" else torch.float32
+                if a.dtype != want_dtype or not bool(torch.isfinite(a).all()):
+                    fail(f"D bf16, {label}: {name} is {a.dtype} (not {want_dtype}) or not finite")
+                if not torch.equal(a, b):
+                    fail(f"D bf16, {label}: a second call gave other bits in {name}")
+                rel = mean_rel(a, ref)
+                if rel > TOL_D_BF16:
+                    fail(f"D bf16, {label}: {name} mean-rel {rel:.2e} over {TOL_D_BF16:g}")
+                if rel > worst[1]:
+                    worst = (name, rel)
+                if label == "dual, training":  # the training path's case
+                    err = (a.float() - ref.float()).abs().max().item()
+                    bwd_err = max(bwd_err or 0.0, err)
+        print(f"  D bf16, {label}: B={batch} L=196, {10 * len(xs)} gradient tensors within "
+              f"mean-rel {TOL_D_BF16:g}; the largest {worst[0]} {worst[1]:.2e}; equal bits on a "
+              f"second call")
+
+    spec, ws, xs, gs = case("spiral", 0, 1, 500)
+    _, _, x8, g8 = case("spiral", 0, 8, 501)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mixer_fused_cuda(spec, xs, ws), reps=50)
+        plain_ms = cuda_ms(lambda: [mixer_ref(spec, x, w) for x, w in zip(xs, ws)], reps=5)
+        stages = stage_table(lambda: mixer_fused_cuda(spec, xs, ws), MIXER_STAGES)
+        ms8 = cuda_ms(lambda: mixer_fused_cuda(spec, x8, ws), reps=20)
+        stages8 = stage_table(lambda: mixer_fused_cuda(spec, x8, ws), MIXER_STAGES)
+    bwd_ms = cuda_ms(lambda: mixer_fused_bwd_cuda(spec, x8, g8, ws), reps=10)
+    bwd_plain_ms = cuda_ms(lambda: [mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(x8, g8, ws)],
+                           reps=5)
+    bwd_stages = stage_table(lambda: mixer_fused_bwd_cuda(spec, x8, g8, ws), MIXER_BWD_STAGES)
+    dims = dict(M=2, L=196, h=h, d=1024, n=16, r=32, S=3, K=4, act_bytes=2)
+    bound = bound_from(*mixer_work(B=1, **dims), product_flops=BF16_FLOPS)
+    bound8 = bound_from(*mixer_work(B=8, **dims), product_flops=BF16_FLOPS)
+    bwd_bound = bound_from(*mixer_bwd_work(B=8, **dims), product_flops=BF16_FLOPS)
+    print(f"  [{card}] mixer_fused_fwd bf16, both branches, B=1 L=196 h=512 d=1024: kernel "
+          f"{ms:.4f} ms (fp32 variant {mixer['ms']:.4f} ms, phase 2b), plain {plain_ms:.3f} ms, "
+          f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, products at the bf16 rate)")
+    print(f"  [{card}] device ms per call by stage, B=1: {stage_line(stages)}")
+    print(f"  [{card}] mixer_fused_fwd bf16, both branches, B=8: kernel {ms8:.4f} ms (fp32 "
+          f"variant {mixer['b8']['ms']:.4f} ms), bound {bound8[0] * 1e3:.2f} us ({bound8[1]})")
+    print(f"  [{card}] device ms per call by stage, B=8: {stage_line(stages8)}")
+    print(f"  [{card}] mixer_fused_bwd bf16, both branches, B=8 L=196: kernel {bwd_ms:.4f} ms "
+          f"(fp32 variant {mixer_bwd['ms']:.4f} ms, phase 2d), plain {bwd_plain_ms:.3f} ms, bound "
+          f"{bwd_bound[0] * 1e3:.2f} us ({bwd_bound[1]}, products at the bf16 rate)")
+    print(f"  [{card}] device ms per call by stage: {stage_line(bwd_stages)}")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer or its backward")
+    common = dict(route="cuda", library_ms=None)
+    fwd = {"name": "mixer_fused_fwd_bf16", "source": "diffma_tpu_torch/csrc/fused_mixer_fwd.cu",
+           "replaces": "diffma_tpu/ops/fused_mixer.py:104", "max_abs_err": fwd_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], **common,
+           "fp32_ms": mixer["ms"], "stages_ms": stages,
+           "b8": {"ms": ms8, "bound_ms": bound8[0], "fp32_ms": mixer["b8"]["ms"],
+                  "stages_ms": stages8}}
+    bwd = {"name": "mixer_fused_bwd_bf16", "source": "diffma_tpu_torch/csrc/fused_mixer_bwd.cu",
+           "replaces": "diffma_tpu/ops/fused_mixer.py:565", "max_abs_err": bwd_err, "ms": bwd_ms,
+           "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+           **common, "fp32_ms": mixer_bwd["ms"], "stages_ms": bwd_stages}
+    return fwd, bwd
+
+
+def phase_bf16_sampler(card: str) -> int:
+    """19c: the sampler's CLI with ``--autocast`` on DiffMa-B/2 from a seeded
+    checkpoint; the graphed image against the eager loop's in bits, and
+    against the fp32 model's by PSNR. Returns the CLI's bf16 C calls."""
+    import tempfile
+
+    import numpy as np
+
+    from diffma_tpu_torch.train import sample
+
+    batches = 2
+    print(f"== phase 19c: sampler CLI on configs/brain.yaml --model DiffMa-B/2 --autocast from a "
+          f"checkpoint, DDPM-250, {batches} batches of 1; then the eager loop and the fp32 model "
+          f"on its seed", flush=True)
+    out_dir = os.path.join(ROOT, "result_sample")
+    os.makedirs(out_dir, exist_ok=True)
+    zero = {name: 0 for name in kernel_counters()}
+    calls = 8 * 250 * batches  # blocks x steps x batches: one C call per block
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "0050000.pt")
+        write_checkpoint(path, "DiffMa-B/2", 19)
+        reset_counts()
+        graphed = sample.cli(["--config", os.path.join(ROOT, "configs", "brain.yaml"), "--model",
+                              "DiffMa-B/2", "--ckpt", path, "--num-batches", str(batches),
+                              "--autocast"])
+        check_counts("the bf16 sampler", {**zero, "mixer_fused_fwd_bf16": calls})
+        check_images(card, "the bf16 sampler (graphed)", graphed, batches)
+        cfg = dict(model="DiffMa-B/2", ckpt=path, sample_num_batches=batches,
+                   save_dir=os.path.join(tmp, "images"))
+        model = sample.load_model(brain_config(**cfg, autocast=True), "cuda")
+        eager = sample.sample_batches(model, brain_config(**cfg, autocast=True), "cuda",
+                                      graphed=False)
+        fp32 = sample.main(brain_config(**cfg), device="cuda")
+    for i, (a, b, ref) in enumerate(zip(*([r["images"] for r in run]
+                                          for run in (graphed, eager, fp32))), start=1):
+        if not np.array_equal(a, b):
+            fail(f"batch {i}: the bf16 graphed chain's image differs from the eager loop's: "
+                 f"max |diff| {np.abs(a - b).max():.3e}")
+        span = float(ref.max() - ref.min())
+        psnr = 10 * math.log10(span**2 / max(float(np.mean((a - ref) ** 2)), 1e-30))
+        print(f"  batch {i}: the graphed image equals the eager loop's in bits; PSNR of the bf16 "
+              f"image against the fp32 model's from the same seed and weights: {psnr:.2f} dB "
+              f"over the fp32 image's range {span:.3f} (information, no bar)")
+    print(f"  [{card}] DDPM-250, seconds per batch: bf16 graphed "
+          + ", ".join(f"{r['seconds']:.3f}" for r in graphed) + "; bf16 eager "
+          + ", ".join(f"{r['seconds']:.3f}" for r in eager) + "; fp32 graphed "
+          + ", ".join(f"{r['seconds']:.3f}" for r in fp32))
+    return calls
+
+
+def phase_bf16_step_profile(card: str, fp32_report: dict) -> None:
+    """19e: the graphed L/2 bf16 step profiled beside phase 18b's fp32 step."""
+    import torch
+
+    from diffma_tpu_torch.utils.profiling import profile_train_step
+
+    print("== phase 19e: the DiffMa-L/2 bf16 training step (fused: C and D in bf16), batch 8, "
+          "eager and graphed, profiled and timed", flush=True)
+    report = profile_train_step("DiffMa-L/2", 8, "fused", dtype=torch.bfloat16)
+    print_step_report(card, "DiffMa-L/2 Mamba-1 fused bf16 (C + D bf16), synthetic", report)
+    print(f"  [{card}] graphed step, bf16 against fp32 (phase 18b): host ms a step "
+          f"{min(report['ms_per_step_graphed']):.2f} against "
+          f"{min(fp32_report['ms_per_step_graphed']):.2f}; device busy "
+          f"{report['graphed']['device_busy_ms_per_call']:.2f} against "
+          f"{fp32_report['graphed']['device_busy_ms_per_call']:.2f} ms; idle share "
+          f"{report['graphed']['device_idle_share']:.3f} against "
+          f"{fp32_report['graphed']['device_idle_share']:.3f}")
 
 
 def main() -> int:
@@ -3268,7 +3521,8 @@ def main() -> int:
     scan["launches"] = phase_sampler(card)
     mixer["launches"] = phase_fused_sampler(card)
     phase_checkpoint(card)
-    mixer_bwd["launches"] = phase_trainer(card)["mixer_fused_bwd"]
+    counts, fp32_steps_s = phase_trainer(card)
+    mixer_bwd["launches"] = counts["mixer_fused_bwd"]
     scan_bwd["launches"] = phase_composable_trainer(card)["selective_scan_bwd"]
     phase_learning(card, 9, use_mamba2=False)
     counts = phase_mamba2_samplers(card)
@@ -3285,11 +3539,21 @@ def main() -> int:
     phase_conditioning(card)
     phase_real_data(card)
     phase_graphed_chains(card)
-    phase_graphed_steps(card)
+    fp32_step = phase_graphed_steps(card)
+    t19 = time.perf_counter()
+    mixer_bf16, mixer_bwd_bf16 = phase_bf16_kernels(card, mixer, mixer_bwd)
+    counts, bf16_steps_s = phase_trainer(card, autocast=True)
+    mixer_bwd_bf16["launches"] = counts["mixer_fused_bwd_bf16"]
+    print(f"  [{card}] DiffMa-L/2 training step in the trainer's CLI, batch 8: bf16 "
+          f"{1e3 / bf16_steps_s:.1f} ms, fp32 {1e3 / fp32_steps_s:.1f} ms (phase 7)")
+    mixer_bf16["launches"] = phase_bf16_sampler(card)
+    phase_learning(card, "19d", use_mamba2=False, autocast=True)
+    phase_bf16_step_profile(card, fp32_step)
+    print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
-                                  inner, core]}))
+                                  inner, core, mixer_bf16, mixer_bwd_bf16]}))
     print(card)
     print(json.dumps({
         "ok": True,

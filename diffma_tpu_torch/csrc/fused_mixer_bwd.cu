@@ -102,11 +102,25 @@
 //   flip_rows(P[:, d:]) with P = scale g^T [y_0 | y_1] (h x 2d, stream steps
 //   along the depth), a product and a fold. Everything upstream of the merge
 //   is the full-length chain.
+//
+// bf16 (dtype 1: x, g and gx in bf16, the weights and their gradients fp32),
+// the TPU kernel at a compute dtype cd = bfloat16: the forward recomputed as
+// kernel C's bf16 variant computes it (xz rounded to bf16, u and x_proj's
+// output fp32, its merge rounding), and every product on bf16 operands with
+// fp32 sums (gemm_tc.cuh's kBf16 stages), each operand rounded where the
+// JAX kernel casts it: x, g and the weights as they stand, u, d raw, dt_r,
+// [d dt_r, dB, dC], dxz and out_proj's merged input. The scan's adjoint, the
+// conv's and the sums stay fp32, as the gradients of the weights. As the
+// TPU kernel sums each stream's dxs into dxz through a one-hot product, a
+// stream's share is rounded to bf16 before the sum, but for a stream in
+// token order (`ident`). gx is rounded to bf16 once, after its product.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "gemm_tc.cuh"
 
@@ -141,8 +155,8 @@ __device__ __forceinline__ float softplus(float x) {
 }
 
 struct Branch {
-  const float* x;       // (B, L, h)
-  const float* g;       // (B, L, h)
+  const void* x;        // (B, L, h), fp32 or bf16
+  const void* g;        // (B, L, h), x's dtype
   const float* in_w;    // (2d, h)
   const float* conv_w;  // (d, K)
   const float* conv_b;  // (d,)
@@ -152,7 +166,7 @@ struct Branch {
   const float* A_log;   // (d, n)
   const float* D;       // (d,)
   const float* out_w;   // (h, d)
-  float* gx;            // (B, L, h)
+  void* gx;             // (B, L, h), x's dtype
   float* g_in_w;        // the gradients, each shaped as its weight
   float* g_conv_w;
   float* g_conv_b;
@@ -202,6 +216,7 @@ struct Params {
   size_t part_size;      // floats of `part` per branch
   Splits sp;
   bool quirk;
+  int ident;  // bf16: bit s set when stream s runs in token order
   float scale;
 };
 
@@ -233,50 +248,76 @@ __device__ __forceinline__ float* split_dst(const Params& p, int m) {
 
 __device__ __forceinline__ float silu(float x) { return x * sigmoid(x); }
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
-// stride of whole float4s (true at every DiffMa width). A stage whose rows
-// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
-__device__ __forceinline__ bool al(const float* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
 }
+// Rows of `stride` elements from p that 4-element loads can read: aligned to
+// 4 elements and a stride of whole groups of 4 (true at every DiffMa width).
+// A stage whose rows are not takes its scalar loads (gemm_tc.cuh's Loader,
+// `vec`).
+template <class T>
+__device__ __forceinline__ bool al(const T* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0 && stride % 4 == 0;
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v rounded to bf16 (to nearest even) and back
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+template <class T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 __device__ __forceinline__ float dsilu(float x) {
   const float s = sigmoid(x);
   return s * (1.0f + x * (1.0f - s));
 }
 
 // The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
-// branch. An ARow is what a's loads of one row need, resolved once.
+// branch. An ARow is what a's loads of one row need, resolved once. T is x's
+// dtype: with bf16 every stage multiplies in bf16 (kBf16).
 
-struct RowPtr {  // a row-major a, contiguous along k
-  const float* p;
+template <class E>
+struct RowPtrOf {  // a row-major a, contiguous along k
+  const E* p;
 };
+using RowPtr = RowPtrOf<float>;
 struct RowIdx {  // an a contiguous along row: a(row, k) = X[k * rows + row]
   int row;
 };
 
-struct InProj {  // xz = x W_in^T
-  static constexpr bool kAByRow = false, kBByRow = false;
+template <class T>
+struct InProj {  // xz = x W_in^T, rounded to bf16 in the bf16 model, as kernel C
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
-  using ARow = RowPtr;
-  const float *x, *w;
+  using ARow = RowPtrOf<T>;
+  const T* x;
+  const float* w;
   float* c;
   int rows, cols, depth;
   __device__ InProj(const Params& p, int m)
-      : x(p.br[m].x), w(p.br[m].in_w), c(xz_of(p, m)),
+      : x(static_cast<const T*>(p.br[m].x)), w(p.br[m].in_w), c(xz_of(p, m)),
         rows(static_cast<int>(tokens(p))), cols(2 * p.d), depth(p.h) {
     vec = al(x, depth) && al(w, depth);
   }
   __device__ ARow arow(int row) const { return {x + static_cast<size_t>(row) * depth}; }
-  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
-  __device__ float a(const ARow& r, int k) const { return r.p[k]; }
+  __device__ void store(int row, int col, int, float v) const {
+    c[static_cast<size_t>(row) * cols + col] = kBf16 ? round_bf16(v) : v;
+  }
+  __device__ float a(const ARow& r, int k) const { return ld(r.p + k); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
 };
 
+template <class T>
 struct XProj {  // xdb = u W_x^T (split partials)
-  static constexpr bool kAByRow = false, kBByRow = false;
+  static constexpr bool kBf16 = kIsBf16<T>, kAByRow = false, kBByRow = false;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowPtr;
   const float *u, *w;
@@ -297,8 +338,9 @@ struct XProj {  // xdb = u W_x^T (split partials)
   }
 };
 
+template <class T>
 struct DtProj {  // dt = softplus(dt_r W_dt^T + dt_b)
-  static constexpr bool kAByRow = false, kBByRow = false;
+  static constexpr bool kBf16 = kIsBf16<T>, kAByRow = false, kBByRow = false;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowPtr;
   const float *xdb, *w, *bias;
@@ -321,21 +363,23 @@ struct DtProj {  // dt = softplus(dt_r W_dt^T + dt_b)
 
 // gm = g W_out; with the vim quirk [g W_out | g flip_rows(W_out)], the second
 // half reading W_out's rows h - 1 - k.
+template <class T>
 struct GradOutProj {
-  static constexpr bool kAByRow = false, kBByRow = true;
+  static constexpr bool kAByRow = false, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
-  using ARow = RowPtr;
-  const float *g, *w;
+  using ARow = RowPtrOf<T>;
+  const T* g;
+  const float* w;
   float* c;
   int rows, cols, depth, d;
   __device__ GradOutProj(const Params& p, int m)
-      : g(p.br[m].g), w(p.br[m].out_w), c(gm_of(p, m)),
+      : g(static_cast<const T*>(p.br[m].g)), w(p.br[m].out_w), c(gm_of(p, m)),
         rows(static_cast<int>(tokens(p))), cols(gm_cols(p)), depth(p.h), d(p.d) {
     vec = al(g, depth) && al(w, d);
   }
   __device__ ARow arow(int row) const { return {g + static_cast<size_t>(row) * depth}; }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
-  __device__ float a(const ARow& r, int k) const { return r.p[k]; }
+  __device__ float a(const ARow& r, int k) const { return ld(r.p + k); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ const float* w_at(int col, int k) const {  // d % 4 == 0: no float4 straddles d
     return col < d ? w + static_cast<size_t>(k) * d + col
@@ -345,8 +389,9 @@ struct GradOutProj {
   __device__ float4 b4(int col, int k) const { return ld4(w_at(col, k)); }
 };
 
+template <class T>
 struct GradDtRank {  // d dt_r = draw W_dt, into dxdb[:, :r]
-  static constexpr bool kAByRow = false, kBByRow = true;
+  static constexpr bool kBf16 = kIsBf16<T>, kAByRow = false, kBByRow = true;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowPtr;
   const float *ddb, *w;
@@ -365,8 +410,9 @@ struct GradDtRank {  // d dt_r = draw W_dt, into dxdb[:, :r]
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
 };
 
+template <class T>
 struct GradXProjW {  // dW_x = dxdb^T u
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
   const float *dxdb, *u;
@@ -387,8 +433,9 @@ struct GradXProjW {  // dW_x = dxdb^T u
   __device__ float4 b4(int col, int k) const { return ld4(u + static_cast<size_t>(k) * cols + col); }
 };
 
+template <class T>
 struct GradDtW {  // dW_dt = draw^T dt_r
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
   const float *ddb, *xdb;
@@ -409,8 +456,9 @@ struct GradDtW {  // dW_dt = draw^T dt_r
   __device__ float4 b4(int col, int k) const { return ld4(xdb + static_cast<size_t>(k) * ld + col); }
 };
 
+template <class T>
 struct GradPre {  // dpre = (du + dxdb W_x) silu'(pre), in place of du
-  static constexpr bool kAByRow = false, kBByRow = true;
+  static constexpr bool kBf16 = kIsBf16<T>, kAByRow = false, kBByRow = true;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowPtr;
   const float *dxdb, *w, *pre;
@@ -432,35 +480,38 @@ struct GradPre {  // dpre = (du + dxdb W_x) silu'(pre), in place of du
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
 };
 
+template <class T>
 struct GradX {  // gx = dxz W_in
-  static constexpr bool kAByRow = false, kBByRow = true;
+  static constexpr bool kAByRow = false, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowPtr;
   const float *dxz, *w;
-  float* c;
+  T* c;
   int rows, cols, depth;
   __device__ GradX(const Params& p, int m)
-      : dxz(dxz_of(p, m)), w(p.br[m].in_w), c(p.br[m].gx),
+      : dxz(dxz_of(p, m)), w(p.br[m].in_w), c(static_cast<T*>(p.br[m].gx)),
         rows(static_cast<int>(tokens(p))), cols(p.h), depth(2 * p.d) {
     vec = al(dxz, depth) && al(w, cols);
   }
   __device__ ARow arow(int row) const { return {dxz + static_cast<size_t>(row) * depth}; }
-  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
+  __device__ void store(int row, int col, int, float v) const { put(c + static_cast<size_t>(row) * cols + col, v); }
   __device__ float a(const ARow& r, int k) const { return r.p[k]; }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
 };
 
+template <class T>
 struct GradInW {  // dW_in = dxz^T x
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
-  const float *dxz, *x;
+  const float* dxz;
+  const T* x;
   float* c;
   int rows, cols, depth;
   __device__ GradInW(const Params& p, int m)
-      : dxz(dxz_of(p, m)), x(p.br[m].x), c(split_dst(p, m)),
+      : dxz(dxz_of(p, m)), x(static_cast<const T*>(p.br[m].x)), c(split_dst(p, m)),
         rows(2 * p.d), cols(p.h), depth(static_cast<int>(tokens(p))) {
     vec = al(dxz, rows) && al(x, cols);
   }
@@ -470,22 +521,24 @@ struct GradInW {  // dW_in = dxz^T x
   }
   __device__ float a(const ARow& r, int k) const { return dxz[static_cast<size_t>(k) * rows + r.row]; }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(dxz + static_cast<size_t>(k) * rows + r.row); }
-  __device__ float b(int col, int k) const { return x[static_cast<size_t>(k) * cols + col]; }
+  __device__ float b(int col, int k) const { return ld(x + static_cast<size_t>(k) * cols + col); }
   __device__ float4 b4(int col, int k) const { return ld4(x + static_cast<size_t>(k) * cols + col); }
 };
 
 // dW_out = g^T ym: ym = merged = scale sum_s y_s in token order; with the vim
 // quirk ym = scale [y_0 | y_1] at each stream step and the product is P
 // (h x 2d), which fold_out_w_kernel folds into dW_out.
+template <class T>
 struct GradOutW {
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
-  const float *g, *ym;
+  const T* g;
+  const float* ym;
   float* c;
   int rows, cols, depth;
   __device__ GradOutW(const Params& p, int m)
-      : g(p.br[m].g), ym(ym_of(p, m)), c(split_dst(p, m)),
+      : g(static_cast<const T*>(p.br[m].g)), ym(ym_of(p, m)), c(split_dst(p, m)),
         rows(p.h), cols(ym_cols(p)), depth(static_cast<int>(tokens(p))) {
     vec = al(g, rows) && al(ym, cols);
   }
@@ -493,7 +546,7 @@ struct GradOutW {
   __device__ void store(int row, int col, int split, float v) const {
     c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
   }
-  __device__ float a(const ARow& r, int k) const { return g[static_cast<size_t>(k) * rows + r.row]; }
+  __device__ float a(const ARow& r, int k) const { return ld(g + static_cast<size_t>(k) * rows + r.row); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(g + static_cast<size_t>(k) * rows + r.row); }
   __device__ float b(int col, int k) const { return ym[static_cast<size_t>(k) * cols + col]; }
   __device__ float4 b4(int col, int k) const { return ld4(ym + static_cast<size_t>(k) * cols + col); }
@@ -771,9 +824,12 @@ __global__ void reduce_bc_kernel(const Params p) {
 // the token at position pos (merge table entry s * Ls + pos; a partition has
 // one entry per token); tap k of the conv read it for the output at
 // pos + K - 1 - k, if that is inside the stream. The z half sums dz, already
-// in token order, over its ys rows per token. grid (T, M): a block is one
-// token row, so its merge entries are read once.
+// in token order, over its ys rows per token. bf16 rounds each stream's share
+// as the header says. grid (T, M): a block is one token row, so its merge
+// entries are read once.
+template <class T>
 __global__ void grad_xz_kernel(const Params p) {
+  constexpr bool kBf16 = kIsBf16<T>;
   const int m = blockIdx.y, tok = blockIdx.x;
   const int d = p.d, L = p.L, Ls = p.Ls;
   const int b = tok / L, l = tok % L;
@@ -787,14 +843,19 @@ __global__ void grad_xz_kernel(const Params p) {
       for (int q = 0; q < p.ys; ++q) {
         const int64_t e = p.merge[static_cast<size_t>(l) * p.ys + q];  // s * Ls + pos
         const int pos = static_cast<int>(e % Ls);
+        float share = kBf16 ? 0.0f : acc;  // fp32: one running sum over the streams
 #pragma unroll
         for (int k = 0; k < kConv; ++k) {
           const int out = pos + kConv - 1 - k;
-          if (out < Ls) acc = fmaf(w[k], p.du[(seq0 + e + kConv - 1 - k) * d + j], acc);
+          if (out < Ls) share = fmaf(w[k], p.du[(seq0 + e + kConv - 1 - k) * d + j], share);
         }
+        acc = !kBf16 ? share : acc + (((p.ident >> q) & 1) ? share : round_bf16(share));
       }
     } else {
-      for (int s = 0; s < p.ys; ++s) acc += p.dz[(zrow0 + static_cast<size_t>(s) * L + l) * d + j - d];
+      for (int s = 0; s < p.ys; ++s) {
+        const float v = p.dz[(zrow0 + static_cast<size_t>(s) * L + l) * d + j - d];
+        acc += kBf16 && !((p.ident >> s) & 1) ? round_bf16(v) : v;
+      }
     }
     dxz[j] = acc;
   }
@@ -877,8 +938,10 @@ __global__ void conv_kernel(const Params p) {
 // ym, out_proj's input as the forward built it from the scan's y: per token,
 // scale times the sum of its ys stream rows, in stream order; with the vim
 // quirk, scale [y_0 | y_1] at each stream step t (stream s's token fwd[s, t]).
-// grid (T, M): a block is one token row.
+// bf16 rounds as kernel C's merge does. grid (T, M): a block is one token row.
+template <class T>
 __global__ void merge_y_kernel(const Params p) {
+  constexpr bool kBf16 = kIsBf16<T>;
   const int m = blockIdx.y, row = blockIdx.x;
   const int d = p.d, L = p.L, cols = ym_cols(p);
   const int t = row % L;
@@ -888,15 +951,18 @@ __global__ void merge_y_kernel(const Params p) {
     const float* y0 = y + p.fwd[t] * d;
     const float* y1 = y + (L + p.fwd[L + t]) * d;
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      ym[j] = y0[j] * p.scale;
-      ym[d + j] = y1[j] * p.scale;
+      ym[j] = (kBf16 ? round_bf16(y0[j]) : y0[j]) * p.scale;
+      ym[d + j] = (kBf16 ? round_bf16(y1[j]) : y1[j]) * p.scale;
     }
     return;
   }
   for (int j = threadIdx.x; j < d; j += blockDim.x) {
     float acc = 0.0f;
-    for (int s = 0; s < p.ys; ++s) acc += y[(static_cast<size_t>(s) * L + t) * d + j];
-    ym[j] = acc * p.scale;
+    for (int s = 0; s < p.ys; ++s) {
+      const float v = y[(static_cast<size_t>(s) * L + t) * d + j];
+      acc += kBf16 && !((p.ident >> s) & 1) ? round_bf16(v) : v;
+    }
+    ym[j] = kBf16 ? round_bf16(acc * p.scale) : acc * p.scale;
   }
 }
 
@@ -1041,52 +1107,27 @@ extern "C" long long mixer_fused_bwd_workspace_floats(int M, int B, int L, int L
   return static_cast<long long>(layout(p, nullptr, M));
 }
 
-// `ptrs` holds 21 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) and `merge`
-// (L, S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is
-// a permutation of 0 .. L-1, with Ls = L / S its rows partition them (M = 1).
-// `quirk` (M = 1, S = 2, Ls = L) asks for the vim merge's adjoint. Launches
-// the chain on `stream`; returns the first launch's cudaError_t that is not
-// 0, or -1 for shapes that are not built.
-extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
-                               void* workspace, int B, int L, int Ls, int h, int d, int n,
-                               int r, int K, int S, int quirk, float scale, void* stream) {
-  const bool partition = Ls != L;
-  if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank || S < 1 ||
-      S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
-      (quirk && (S != 2 || partition || M != 1))) {
-    return -1;
-  }
-  Params p{};
-  for (int m = 0; m < M; ++m) {
-    void* const* q = ptrs + m * kBranchPtrs;
-    const float* in[11];
-    float* out[10];
-    for (int i = 0; i < 11; ++i) in[i] = static_cast<const float*>(q[i]);
-    for (int i = 0; i < 10; ++i) out[i] = static_cast<float*>(q[11 + i]);
-    p.br[m] = Branch{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-                     out[0], out[1], out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]};
-  }
-  p.fwd = static_cast<const int64_t*>(fwd);
-  p.merge = static_cast<const int64_t*>(merge);
-  set_dims(p, M, B, L, Ls, h, d, r, S, quirk, scale);
-  layout(p, static_cast<float*>(workspace), M);
-  p.splits = 1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The chain of launches for x of type E (see mixer_fused_bwd).
+template <class E>
+int run(Params& p, int M, cudaStream_t st) {
+  const int B = p.B, L = p.L, Ls = p.Ls, h = p.h, d = p.d, r = p.r, S = p.S;
+  const bool quirk = p.quirk;
   const int T = B * L, R = B * S * Ls, r2 = r + 2 * kN;
   const size_t xdb_size = static_cast<size_t>(R) * r2;
   static const cudaError_t attr = cudaFuncSetAttribute(
       scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
 
-  int err = tc::launch_gemm_tc<128, InProj>(p, T, 2 * d, M, st);
+  int err = tc::launch_gemm_tc<128, InProj<E>>(p, T, 2 * d, M, st);
   if (err == 0) {
     conv_kernel<<<dim3(R, M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = launch_split<64, XProj>(p, p.xdb, p.xdb + xdb_size, R, r2, M, p.sp.xp, st);
-  if (err == 0) err = tc::launch_gemm_tc<128, DtProj>(p, R, d, M, st);
-  if (err == 0) err = tc::launch_gemm_tc<128, GradOutProj>(p, T, quirk ? 2 * d : d, M, st);
+  if (err == 0) err = launch_split<64, XProj<E>>(p, p.xdb, p.xdb + xdb_size, R, r2, M, p.sp.xp, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, DtProj<E>>(p, R, d, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, GradOutProj<E>>(p, T, quirk ? 2 * d : d, M, st);
   if (err == 0) {
     scan_bwd_kernel<<<dim3(p.nblk, B * S, M), kScanThreads, kScanSmem, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
@@ -1095,34 +1136,34 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
     reduce_bc_kernel<<<dim3(blocks_for(static_cast<size_t>(R) * kWarp, 256), M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = tc::launch_gemm_tc<32, GradDtRank>(p, R, r, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<32, GradDtRank<E>>(p, R, r, M, st);
   if (err == 0) {
-    err = launch_split<128, GradXProjW>(p, p.br[0].g_xp_w, p.br[1].g_xp_w, r2, d, M, p.sp.xw, st);
+    err = launch_split<128, GradXProjW<E>>(p, p.br[0].g_xp_w, p.br[1].g_xp_w, r2, d, M, p.sp.xw, st);
   }
   if (err == 0) {
-    err = launch_split<32, GradDtW>(p, p.br[0].g_dt_w, p.br[1].g_dt_w, d, r, M, p.sp.dtw, st);
+    err = launch_split<32, GradDtW<E>>(p, p.br[0].g_dt_w, p.br[1].g_dt_w, d, r, M, p.sp.dtw, st);
   }
-  if (err == 0) err = tc::launch_gemm_tc<128, GradPre>(p, R, d, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, GradPre<E>>(p, R, d, M, st);
   if (err == 0) {
-    grad_xz_kernel<<<dim3(T, M), 256, 0, st>>>(p);
+    grad_xz_kernel<E><<<dim3(T, M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
     grad_conv_kernel<<<dim3(blocks_for(d, kWarp), kConvSplits, M), dim3(kWarp, 8), 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = tc::launch_gemm_tc<128, GradX>(p, T, h, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, GradX<E>>(p, T, h, M, st);
   if (err == 0) {
-    err = launch_split<128, GradInW>(p, p.br[0].g_in_w, p.br[1].g_in_w, 2 * d, h, M, p.sp.inw, st);
+    err = launch_split<128, GradInW<E>>(p, p.br[0].g_in_w, p.br[1].g_in_w, 2 * d, h, M, p.sp.inw, st);
   }
   if (err == 0) {
-    merge_y_kernel<<<dim3(T, M), 256, 0, st>>>(p);
+    merge_y_kernel<E><<<dim3(T, M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
-    err = quirk ? launch_split<64, GradOutW>(p, p.pout, nullptr, h, 2 * d, M, p.sp.outw, st)
-                : launch_split<64, GradOutW>(p, p.br[0].g_out_w, p.br[1].g_out_w, h, d, M,
-                                             p.sp.outw, st);
+    err = quirk ? launch_split<64, GradOutW<E>>(p, p.pout, nullptr, h, 2 * d, M, p.sp.outw, st)
+                : launch_split<64, GradOutW<E>>(p, p.br[0].g_out_w, p.br[1].g_out_w, h, d, M,
+                                                p.sp.outw, st);
   }
   if (err == 0 && quirk) {
     fold_out_w_kernel<<<blocks_for(static_cast<size_t>(h) * d, 256), 256, 0, st>>>(p);
@@ -1133,4 +1174,45 @@ extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const 
     err = static_cast<int>(cudaGetLastError());
   }
   return err;
+}
+
+}  // namespace
+
+// `ptrs` holds 21 pointers per branch, in the order of struct Branch, for
+// M = 1 or 2 branches, all contiguous: x, g and gx of `dtype` (0 fp32, 1
+// bf16), the weights and their gradients fp32. `fwd` (S, Ls) and `merge` (L,
+// S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is a
+// permutation of 0 .. L-1, with Ls = L / S its rows partition them (M = 1).
+// `quirk` (M = 1, S = 2, Ls = L) asks for the vim merge's adjoint. `ident`
+// (bf16 only) has bit s set when stream s is in token order. Launches the
+// chain on `stream`; returns the first launch's cudaError_t that is not 0, or
+// -1 for shapes or a dtype that are not built.
+extern "C" int mixer_fused_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
+                               void* workspace, int B, int L, int Ls, int h, int d, int n,
+                               int r, int K, int S, int quirk, float scale, int dtype, int ident,
+                               void* stream) {
+  const bool partition = Ls != L;
+  if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank || S < 1 ||
+      S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
+      (quirk && (S != 2 || partition || M != 1)) || dtype < 0 || dtype > 1) {
+    return -1;
+  }
+  Params p{};
+  for (int m = 0; m < M; ++m) {
+    void* const* q = ptrs + m * kBranchPtrs;
+    const float* in[11];
+    float* out[10];
+    for (int i = 0; i < 11; ++i) in[i] = static_cast<const float*>(q[i]);
+    for (int i = 0; i < 10; ++i) out[i] = static_cast<float*>(q[11 + i]);
+    p.br[m] = Branch{q[0], q[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+                     q[11], out[1], out[2], out[3], out[4], out[5], out[6], out[7], out[8], out[9]};
+  }
+  p.fwd = static_cast<const int64_t*>(fwd);
+  p.merge = static_cast<const int64_t*>(merge);
+  set_dims(p, M, B, L, Ls, h, d, r, S, quirk, scale);
+  layout(p, static_cast<float*>(workspace), M);
+  p.splits = 1;
+  p.ident = ident;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? run<bf16>(p, M, st) : run<float>(p, M, st);
 }

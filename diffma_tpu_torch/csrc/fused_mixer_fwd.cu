@@ -90,11 +90,28 @@
 // The TPU kernel's one-hot permutation matmuls and its 8-row padding of L
 // exist for the MXU and VMEM; here they are index gathers and masks.
 //
+// bf16 (dtype 1: x and out in bf16, the weights fp32), the TPU kernel at a
+// compute dtype cd = bfloat16, as the JAX package's bf16 model runs it: the
+// four products multiply bf16 operands with fp32 sums (gemm_tc.cuh's kBf16
+// stages), each operand rounded to bf16 (to nearest even) where the JAX
+// kernel casts it: x and the four weights as they stand, u for x_proj,
+// dt_r for dt_proj and out_proj's input. xz is rounded to bf16 as in_proj
+// stores it; u, x_proj's output (dt_r, B, C), dt, the conv, the scan and the
+// gate stay fp32. The merge follows the kernel's one-hot products: each
+// stream's y is rounded to bf16 before the sum, but for a stream in token
+// order (`ident`, the TPU kernel's identity streams, added in fp32), and the
+// scaled sum is rounded to bf16; with the vim quirk y_0 and y_1 are rounded
+// (times the quirk's scale, 1/2, which keeps them bf16). out is rounded to
+// bf16 once, after out_proj's fp32 sum (and its splits' sum).
+//
 // The backward, diffma_tpu/ops/fused_mixer.py:565 (_mixer_bwd_kernel), is
 // kernel D, fused_mixer_bwd.cu.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gemm_tc.cuh"
 
@@ -114,13 +131,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
-// stride of whole float4s (true at every DiffMa width). A stage whose rows
-// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
-__device__ __forceinline__ bool al(const float* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
 }
+// Rows of `stride` elements from p that 4-element loads can read: aligned to
+// 4 elements and a stride of whole groups of 4 (true at every DiffMa width).
+// A stage whose rows are not takes its scalar loads (gemm_tc.cuh's Loader,
+// `vec`).
+template <class T>
+__device__ __forceinline__ bool al(const T* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0 && stride % 4 == 0;
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v rounded to bf16 (to nearest even) and back
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+template <class T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 
 // softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
 __device__ __forceinline__ float softplus(float x) {
@@ -128,7 +163,7 @@ __device__ __forceinline__ float softplus(float x) {
 }
 
 struct Branch {
-  const float* x;       // (B, L, h)
+  const void* x;        // (B, L, h), fp32 or bf16
   const float* in_w;    // (2d, h)
   const float* conv_w;  // (d, K)
   const float* conv_b;  // (d,)
@@ -138,7 +173,7 @@ struct Branch {
   const float* A_log;   // (d, n)
   const float* D;       // (d,)
   const float* out_w;   // (h, d)
-  float* out;           // (B, L, h)
+  void* out;            // (B, L, h), x's dtype
 };
 
 // Workspace arrays hold both branches, branch m at offset m * (its size).
@@ -157,6 +192,7 @@ struct Params {
   float* wcat;         // (h, 2d): [W_out | flip_h(W_out)], vim quirk only (M = 1)
   float* out_part;     // (out_splits, T, h): out_proj's split partials, if split
   int B, L, Ls, h, d, r, S, y_streams, ym_cols, in_bn, xp_splits, out_splits;
+  int ident;  // bf16: bit s set when stream s runs in token order (its y merges unrounded)
   float scale;
 };
 
@@ -167,34 +203,38 @@ __device__ __forceinline__ size_t srows(const Params& p) {
 __device__ __forceinline__ int r2n(const Params& p) { return p.r + 2 * kN; }
 
 // The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
-// branch. Rows resolve into an ARow once per thread, before the k-loop.
+// branch. Rows resolve into an ARow once per thread, before the k-loop. T is
+// x's dtype: with bf16 every stage multiplies in bf16 (kBf16).
 
-struct InProj {  // xz = x . W_in^T
-  static constexpr bool kAByRow = false, kBByRow = false;
+template <class T>
+struct InProj {  // xz = x . W_in^T, rounded to bf16 in the bf16 model
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
-    const float* x;
+    const T* x;
   };
-  const float *x, *w;
+  const T* x;
+  const float* w;
   float* c;
   int rows, cols, depth;
   __device__ InProj(const Params& p, int m)
-      : x(p.br[m].x), w(p.br[m].in_w), c(p.xz + m * tokens(p) * 2 * p.d),
+      : x(static_cast<const T*>(p.br[m].x)), w(p.br[m].in_w), c(p.xz + m * tokens(p) * 2 * p.d),
         rows(static_cast<int>(tokens(p))), cols(2 * p.d), depth(p.h) {
     vec = al(x, depth) && al(w, depth);
   }
   __device__ ARow arow(int i) const { return {x + static_cast<size_t>(i) * depth}; }
-  __device__ float a(const ARow& r, int k) const { return r.x[k]; }
+  __device__ float a(const ARow& r, int k) const { return ld(r.x + k); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.x + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
   __device__ void store(int row, int col, int, float v) const {
-    c[static_cast<size_t>(row) * cols + col] = v;
+    c[static_cast<size_t>(row) * cols + col] = kBf16 ? round_bf16(v) : v;
   }
 };
 
+template <class T>
 struct XProj {  // xdb = u . W_x^T
-  static constexpr bool kAByRow = false, kBByRow = false;
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
     const float* u;
@@ -219,8 +259,9 @@ struct XProj {  // xdb = u . W_x^T
   }
 };
 
+template <class T>
 struct DtProj {  // dt = softplus(dt_r . W_dt^T + dt_b); one slab deep
-  static constexpr bool kAByRow = false, kBByRow = false;
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
     const float* xdb;
@@ -246,22 +287,26 @@ struct DtProj {  // dt = softplus(dt_r . W_dt^T + dt_b); one slab deep
 
 // out = ym . W^T: ym is merged (scale * sum_s y_s in token order) against
 // W_out, or with the vim quirk scale [y_0 | y_1] at each stream step against
-// wcat = [W_out | flip_h(W_out)] (depth 2d).
+// wcat = [W_out | flip_h(W_out)] (depth 2d). Stores out (x's dtype), or its
+// fp32 split partials.
+template <class T>
 struct OutProj {
-  static constexpr bool kAByRow = false, kBByRow = false;
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
     const float* ym;
   };
   const float *ym, *w;
-  float* c;
+  T* out;
+  float* part;
   int rows, cols, depth;
   __device__ OutProj(const Params& p, int m)
       : ym(p.ym + m * tokens(p) * p.ym_cols), w(p.ym_cols == p.d ? p.br[m].out_w : p.wcat),
-        c(p.out_splits == 1 ? p.br[m].out
-                            : p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
+        out(static_cast<T*>(p.br[m].out)),
+        part(p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
         rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.ym_cols) {
     vec = al(ym, depth) && al(w, depth);
+    if (p.out_splits == 1) part = nullptr;
   }
   __device__ ARow arow(int i) const { return {ym + static_cast<size_t>(i) * depth}; }
   __device__ float a(const ARow& r, int k) const { return r.ym[k]; }
@@ -269,7 +314,11 @@ struct OutProj {
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
   __device__ void store(int row, int col, int split, float v) const {
-    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+    if (part != nullptr) {
+      part[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+    } else {
+      put(out + static_cast<size_t>(row) * cols + col, v);
+    }
   }
 };
 
@@ -302,8 +351,11 @@ __global__ void __launch_bounds__(kEltThreads) conv_kernel(const Params p) {
 
 // ym, out_proj's input: per token, scale times the sum of its y_streams rows
 // in stream order; with the vim quirk, scale [y_0 | y_1] at each stream step
-// t (stream s's token fwd[s, t]). grid (T, M): a block is one token row.
+// t (stream s's token fwd[s, t]). bf16 rounds as the header says. grid (T,
+// M): a block is one token row.
+template <class T>
 __global__ void __launch_bounds__(kEltThreads) merge_kernel(const Params p) {
+  constexpr bool kBf16 = kIsBf16<T>;
   const int m = blockIdx.y, row = blockIdx.x;
   const int d = p.d, L = p.L, cols = p.ym_cols;
   const int t = row % L;
@@ -313,16 +365,32 @@ __global__ void __launch_bounds__(kEltThreads) merge_kernel(const Params p) {
     const float* y0 = y + p.fwd[t] * d;
     const float* y1 = y + (L + p.fwd[L + t]) * d;
     for (int j = threadIdx.x; j < d; j += kEltThreads) {
-      ym[j] = y0[j] * p.scale;
-      ym[d + j] = y1[j] * p.scale;
+      ym[j] = (kBf16 ? round_bf16(y0[j]) : y0[j]) * p.scale;
+      ym[d + j] = (kBf16 ? round_bf16(y1[j]) : y1[j]) * p.scale;
     }
     return;
   }
   for (int j = threadIdx.x; j < d; j += kEltThreads) {
     float acc = 0.0f;
-    for (int s = 0; s < p.y_streams; ++s) acc += y[(static_cast<size_t>(s) * L + t) * d + j];
-    ym[j] = acc * p.scale;
+    for (int s = 0; s < p.y_streams; ++s) {
+      const float v = y[(static_cast<size_t>(s) * L + t) * d + j];
+      acc += kBf16 && !((p.ident >> s) & 1) ? round_bf16(v) : v;
+    }
+    ym[j] = kBf16 ? round_bf16(acc * p.scale) : acc * p.scale;
   }
+}
+
+// bf16 out[m][i] = sum over s < splits of part[m][s * n + i], in split order
+// (tc::sum_splits_kernel with a bf16 output). grid (ceil(n / 256), M).
+__global__ void sum_out_bf16_kernel(const Params p) {
+  const int m = blockIdx.y;
+  const size_t n = tokens(p) * p.h;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kEltThreads + threadIdx.x;
+  if (i >= n) return;
+  const float* part = p.out_part + static_cast<size_t>(m) * p.out_splits * n + i;
+  float acc = 0.0f;
+  for (int s = 0; s < p.out_splits; ++s) acc += part[static_cast<size_t>(s) * n];
+  put(static_cast<bf16*>(p.br[m].out) + i, acc);
 }
 
 // wcat[j, :] = [W_out[j, :] | W_out[h - 1 - j, :]]. grid ceil(h * 2d / 256).
@@ -504,47 +572,21 @@ extern "C" long long mixer_fused_workspace_floats(int M, int B, int L, int Ls, i
   return static_cast<long long>(layout(p, nullptr, M, quirk != 0));
 }
 
-// `ptrs` holds 11 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) is int64: with
-// Ls = L each of its rows is a permutation of 0 .. L-1, with Ls = L / S its
-// rows partition them (M = 1). `quirk` (M = 1, S = 2, Ls = L) asks for the vim
-// merge. Launches its kernels on `stream`; returns the first launch's
-// cudaError_t that is not 0, or -1 for shapes that are not built.
-extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
-                               void* workspace, int B, int L, int Ls, int h, int d,
-                               int n, int r, int K, int S, int quirk, float scale,
-                               void* stream) {
-  const bool partition = Ls != L;
-  if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank ||
-      S < 1 || S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
-      (quirk && (S != 2 || partition || M != 1))) {
-    return -1;
-  }
-  Params p{};
-  for (int m = 0; m < M; ++m) {
-    void* const* q = ptrs + m * kBranchPtrs;
-    p.br[m] = Branch{
-        static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
-        static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
-        static_cast<const float*>(q[4]), static_cast<const float*>(q[5]),
-        static_cast<const float*>(q[6]), static_cast<const float*>(q[7]),
-        static_cast<const float*>(q[8]), static_cast<const float*>(q[9]),
-        static_cast<float*>(q[10])};
-  }
-  p.fwd = static_cast<const int64_t*>(fwd);
-  p.scale = scale;
-  set_dims(p, M, B, L, Ls, h, d, r, S);
-  layout(p, static_cast<float*>(workspace), M, quirk != 0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * L, R = B * S * Ls, r2 = r + 2 * kN;
+namespace {
 
-  int err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj>(p, T, 2 * d, M, st)
-                         : tc::launch_gemm_tc<128, InProj>(p, T, 2 * d, M, st);
+// The chain of launches for x of type T (see mixer_fused_fwd).
+template <class T>
+int run(Params& p, int M, int quirk, cudaStream_t st) {
+  const int B = p.B, L = p.L, Ls = p.Ls, h = p.h, d = p.d, S = p.S;
+  const int T_ = B * L, R = B * S * Ls, r2 = p.r + 2 * kN;
+
+  int err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj<T>>(p, T_, 2 * d, M, st)
+                         : tc::launch_gemm_tc<128, InProj<T>>(p, T_, 2 * d, M, st);
   if (err == 0) {
     conv_kernel<<<dim3(R, M), kEltThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = tc::launch_gemm_tc<64, XProj>(p, R, r2, M, st, p.xp_splits);
+  if (err == 0) err = tc::launch_gemm_tc<64, XProj<T>>(p, R, r2, M, st, p.xp_splits);
   if (err == 0 && p.xp_splits > 1) {
     tc::SplitSum q{};
     for (int m = 0; m < M; ++m) {
@@ -555,7 +597,7 @@ extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
     q.splits = p.xp_splits;
     err = tc::launch_sum_splits(q, M, st);
   }
-  if (err == 0) err = tc::launch_gemm_tc<128, DtProj>(p, R, d, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, DtProj<T>>(p, R, d, M, st);
   if (err == 0) {
     const dim3 grid((d + kLanes - 1) / kLanes, B * S, M);
     const int chunks = scan_chunks(grid.x * grid.y * grid.z, Ls);
@@ -569,17 +611,63 @@ extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
-    merge_kernel<<<dim3(T, M), kEltThreads, 0, st>>>(p);
+    merge_kernel<T><<<dim3(T_, M), kEltThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = tc::launch_gemm_tc<128, OutProj>(p, T, h, M, st, p.out_splits);
+  if (err == 0) err = tc::launch_gemm_tc<128, OutProj<T>>(p, T_, h, M, st, p.out_splits);
   if (err != 0 || p.out_splits == 1) return err;
-  tc::SplitSum q{};
-  for (int m = 0; m < M; ++m) {
-    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T * h;
-    q.out[m] = p.br[m].out;
+  if constexpr (kIsBf16<T>) {
+    const size_t n = static_cast<size_t>(T_) * h;
+    sum_out_bf16_kernel<<<dim3(static_cast<unsigned>((n + kEltThreads - 1) / kEltThreads), M),
+                          kEltThreads, 0, st>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    tc::SplitSum q{};
+    for (int m = 0; m < M; ++m) {
+      q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T_ * h;
+      q.out[m] = static_cast<float*>(p.br[m].out);
+    }
+    q.n = T_ * h;
+    q.splits = p.out_splits;
+    return tc::launch_sum_splits(q, M, st);
   }
-  q.n = T * h;
-  q.splits = p.out_splits;
-  return tc::launch_sum_splits(q, M, st);
+}
+
+}  // namespace
+
+// `ptrs` holds 11 pointers per branch, in the order of struct Branch, for
+// M = 1 or 2 branches, all contiguous: x and out of `dtype` (0 fp32, 1 bf16),
+// the weights fp32. `fwd` (S, Ls) is int64: with Ls = L each of its rows is
+// a permutation of 0 .. L-1, with Ls = L / S its rows partition them (M = 1).
+// `quirk` (M = 1, S = 2, Ls = L) asks for the vim merge. `ident` (bf16 only)
+// has bit s set when stream s is in token order. Launches its kernels on
+// `stream`; returns the first launch's cudaError_t that is not 0, or -1 for
+// shapes or a dtype that are not built.
+extern "C" int mixer_fused_fwd(void* const* ptrs, int M, const void* fwd,
+                               void* workspace, int B, int L, int Ls, int h, int d,
+                               int n, int r, int K, int S, int quirk, float scale,
+                               int dtype, int ident, void* stream) {
+  const bool partition = Ls != L;
+  if (M < 1 || M > 2 || n != kN || K != kConv || r < 1 || r > kMaxRank ||
+      S < 1 || S > kMaxStreams || Ls < 1 || (partition && (Ls * S != L || M != 1)) ||
+      (quirk && (S != 2 || partition || M != 1)) || dtype < 0 || dtype > 1) {
+    return -1;
+  }
+  Params p{};
+  for (int m = 0; m < M; ++m) {
+    void* const* q = ptrs + m * kBranchPtrs;
+    p.br[m] = Branch{
+        q[0], static_cast<const float*>(q[1]),
+        static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
+        static_cast<const float*>(q[4]), static_cast<const float*>(q[5]),
+        static_cast<const float*>(q[6]), static_cast<const float*>(q[7]),
+        static_cast<const float*>(q[8]), static_cast<const float*>(q[9]), q[10]};
+  }
+  p.fwd = static_cast<const int64_t*>(fwd);
+  p.scale = scale;
+  p.ident = ident;
+  set_dims(p, M, B, L, Ls, h, d, r, S);
+  layout(p, static_cast<float*>(workspace), M, quirk != 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? run<bf16>(p, M, quirk, st) : run<float>(p, M, quirk, st);
 }

@@ -70,9 +70,20 @@
 // With `splits` > 1 the depth is split over that many blocks and each stores
 // its own partial (store's `split`), which sum_splits_kernel adds in a fixed
 // order. Nothing uses atomics, so a run repeats its bits.
+//
+// bf16 products. An operand class with `static constexpr bool kBf16 = true`
+// multiplies in bf16 instead, for the JAX package's bf16 model (the products
+// of kernels C and D at a compute dtype of bfloat16): the loaders hand the
+// same fp32 values, and the stash rounds each to bf16 (round to nearest
+// even, as XLA's convert) where 3xTF32 splits it. A value the class already
+// holds in bf16 passes unchanged. One wgmma.m64nBNk16.f32.bf16.bf16 per
+// 16-deep step accumulates in fp32, with no split: two a slab. The stage
+// layout is the same in bytes, core matrices of 8 rows x 16 bytes (here 8
+// bf16), K-major, so the descriptors are the same too.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,7 +105,7 @@ __device__ __forceinline__ float tf32_rna(float x) {
 // A wgmma shared-memory descriptor, no swizzle: start address, leading byte
 // offset (between core matrices adjacent along k) and stride byte offset
 // (between core matrices adjacent along rows), each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32);
@@ -103,7 +114,7 @@ __device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint
 // The descriptor of one k8 step of an R-row operand tile: its two core
 // matrices along k lie R / 8 core matrices apart, its row groups one apart.
 template <int R>
-__device__ __forceinline__ uint64_t operand_desc(const float* p) {
+__device__ __forceinline__ uint64_t operand_desc(const void* p) {
   return smem_desc(p, R * 16, 128);
 }
 
@@ -146,6 +157,47 @@ struct Wgmma<128> {
   }
 };
 
+// The same products in bf16, 16 deep: both operands K-major (the transpose
+// immediates 0), the accumulator in the layout of Wgmma<N>.
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -161,6 +213,20 @@ __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r):
 template <int R>
 __device__ __forceinline__ int tile_offset(int row, int k) {
   return ((k / 4) * (R / 8) + row / 8) * 32 + (row % 8) * 4 + k % 4;
+}
+
+// bf16 offset of (row, k) in a stage's R x kBK bf16 operand: core matrix
+// (k / 8, row / 8), k-chunk major, row % 8 within it (16 bytes a row)
+template <int R>
+__device__ __forceinline__ int tile_offset_bf16(int row, int k) {
+  return ((k / 8) * (R / 8) + row / 8) * 64 + (row % 8) * 8 + k % 8;
+}
+
+// Four values rounded to bf16 (to nearest even) and stored as 8 bytes at `off`.
+__device__ __forceinline__ void bf16_store(__nv_bfloat16* tile, int off, const float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+  *reinterpret_cast<uint2*>(tile + off) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 __device__ __forceinline__ float comp4(const float4& v, int i) {
@@ -221,9 +287,17 @@ struct Loader<R, false> {
       }
     }
   }
-  __device__ __forceinline__ void stash(int t, float* hi, float* lo) const {
+  // put(row, k, four values along k from k)
+  template <class Put>
+  __device__ __forceinline__ void stash_each(int t, Put put) const {
 #pragma unroll
-    for (int q = 0; q < kLoads; ++q) split_store(hi, lo, tile_offset<R>(row(t, q / 2), k(t, q)), v[q]);
+    for (int q = 0; q < kLoads; ++q) put(row(t, q / 2), k(t, q), v[q]);
+  }
+  __device__ __forceinline__ void stash(int t, float* hi, float* lo) const {
+    stash_each(t, [&](int r, int kk, float4 x) { split_store(hi, lo, tile_offset<R>(r, kk), x); });
+  }
+  __device__ __forceinline__ void stash_bf16(int t, __nv_bfloat16* tile) const {
+    stash_each(t, [&](int r, int kk, float4 x) { bf16_store(tile, tile_offset_bf16<R>(r, kk), x); });
   }
 };
 
@@ -258,7 +332,9 @@ struct Loader<R, true> {
       }
     }
   }
-  __device__ __forceinline__ void stash(int t, float* hi, float* lo) const {
+  // put(row, k, four values along k from k), each row of the thread's blocks
+  template <class Put>
+  __device__ __forceinline__ void stash_each(int t, Put put) const {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       if (!live(t, j)) continue;
@@ -285,10 +361,14 @@ struct Loader<R, true> {
         w[3] = y;
       }
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {  // w[s] is row 4 rb + (s + sh) % 4
-        split_store(hi, lo, tile_offset<R>(row(t, j) + (s + sh) % 4, 4 * kc(t, j)), w[s]);
-      }
+      for (int s = 0; s < 4; ++s) put(row(t, j) + (s + sh) % 4, 4 * kc(t, j), w[s]);  // w[s]: row 4 rb + (s + sh) % 4
     }
+  }
+  __device__ __forceinline__ void stash(int t, float* hi, float* lo) const {
+    stash_each(t, [&](int r, int kk, float4 x) { split_store(hi, lo, tile_offset<R>(r, kk), x); });
+  }
+  __device__ __forceinline__ void stash_bf16(int t, __nv_bfloat16* tile) const {
+    stash_each(t, [&](int r, int kk, float4 x) { bf16_store(tile, tile_offset_bf16<R>(r, kk), x); });
   }
 };
 
@@ -297,6 +377,19 @@ template <class Op, class = void>
 struct Finishes : std::false_type {};
 template <class Op>
 struct Finishes<Op, std::void_t<decltype(Op::kFinish)>> : std::bool_constant<Op::kFinish> {};
+
+// Whether an operand class multiplies in bf16 (kBf16, see above).
+template <class Op, class = void>
+struct Bf16Products : std::false_type {};
+template <class Op>
+struct Bf16Products<Op, std::void_t<decltype(Op::kBf16)>> : std::bool_constant<Op::kBf16> {};
+
+// Dynamic shared memory of a BN-wide launch: two stages of a and b, as
+// hi and lo (3xTF32) or as bf16.
+template <int BN, bool kBf16>
+constexpr int stage_bytes() {
+  return kBf16 ? 2 * (kBM + BN) * kBK * 2 : 2 * 2 * (kBM + BN) * kBK * static_cast<int>(sizeof(float));
+}
 
 // An operand's a4 and b4 are looked up only where the loaders use them.
 template <class Op, class Row>
@@ -315,7 +408,8 @@ __global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const P p, int splits
   constexpr int kAF = kBM * kBK;  // floats of one operand's tile in a stage
   constexpr int kBF = BN * kBK;
   constexpr int kStageF = 2 * (kAF + kBF);  // a stage: a hi, a lo, b hi, b lo
-  extern __shared__ __align__(128) float smem[];
+  constexpr bool kBf16 = Bf16Products<Op>::value;
+  extern __shared__ __align__(128) float smem[];  // bf16 products: stages of kAF + kBF bf16
 
   const int m = blockIdx.z / splits;
   const int split = blockIdx.z % splits;
@@ -365,9 +459,16 @@ __global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const P p, int splits
               [&](auto i, int k) { return read_b4(op, b_col[i], k); });
     }
   };
-  auto stash = [&](float* st) {
-    la.stash(t, st, st + kAF);
-    lb.stash(t, st + 2 * kAF, st + 2 * kAF + kBF);
+  auto stash = [&](int stage) {
+    if constexpr (kBf16) {
+      __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem) + stage * (kAF + kBF);
+      la.stash_bf16(t, st);
+      lb.stash_bf16(t, st + kAF);
+    } else {
+      float* st = smem + stage * kStageF;
+      la.stash(t, st, st + kAF);
+      lb.stash(t, st + 2 * kAF, st + 2 * kAF + kBF);
+    }
     // make the generic-proxy stores visible to wgmma's async-proxy reads
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
@@ -379,29 +480,38 @@ __global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const P p, int splits
   // split in iteration s, so each slab's loads fly across a whole product.
   if (nslab > 0) {
     load(k_begin);
-    stash(smem);
+    stash(0);
   }
   if (nslab > 1) load(k_begin + kBK);
   for (int s = 0; s < nslab; ++s) {
     __syncthreads();  // stage s % 2 is written; stage (s + 1) % 2 is no longer read
-    const float* a_hi = smem + (s & 1) * kStageF;
-    const float* a_lo = a_hi + kAF;
-    const float* b_hi = a_hi + 2 * kAF;
-    const float* b_lo = b_hi + kBF;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
     wgmma_fence();
+    if constexpr (kBf16) {
+      const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(smem) + (s & 1) * (kAF + kBF);
+      const __nv_bfloat16* b = a + kAF;
 #pragma unroll
-    for (int ks = 0; ks < kBK / 8; ++ks) {
-      const int oa = ks * kBM * 8, ob = ks * BN * 8;
-      Wgmma<BN>::mma(acc, operand_desc<kBM>(a_lo + oa), operand_desc<BN>(b_hi + ob));
-      Wgmma<BN>::mma(acc, operand_desc<kBM>(a_hi + oa), operand_desc<BN>(b_lo + ob));
-      Wgmma<BN>::mma(acc, operand_desc<kBM>(a_hi + oa), operand_desc<BN>(b_hi + ob));
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        WgmmaBf16<BN>::mma(acc, operand_desc<kBM>(a + ks * kBM * 16), operand_desc<BN>(b + ks * BN * 16));
+      }
+    } else {
+      const float* a_hi = smem + (s & 1) * kStageF;
+      const float* a_lo = a_hi + kAF;
+      const float* b_hi = a_hi + 2 * kAF;
+      const float* b_lo = b_hi + kBF;
+#pragma unroll
+      for (int ks = 0; ks < kBK / 8; ++ks) {
+        const int oa = ks * kBM * 8, ob = ks * BN * 8;
+        Wgmma<BN>::mma(acc, operand_desc<kBM>(a_lo + oa), operand_desc<BN>(b_hi + ob));
+        Wgmma<BN>::mma(acc, operand_desc<kBM>(a_hi + oa), operand_desc<BN>(b_lo + ob));
+        Wgmma<BN>::mma(acc, operand_desc<kBM>(a_hi + oa), operand_desc<BN>(b_hi + ob));
+      }
     }
     wgmma_commit();
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
-    if (s + 1 < nslab) stash(smem + ((s + 1) & 1) * kStageF);
+    if (s + 1 < nslab) stash((s + 1) & 1);
     if (s + 2 < nslab) load(k_begin + (s + 2) * kBK);
     wgmma_wait_all();
 #pragma unroll
@@ -434,7 +544,7 @@ __global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const P p, int splits
 template <int BN, class Op, class P>
 int launch_gemm_tc(const P& p, int rows, int cols, int branches, cudaStream_t stream,
                    int splits = 1) {
-  constexpr int kBytes = 2 * 2 * (kBM + BN) * kBK * static_cast<int>(sizeof(float));
+  constexpr int kBytes = stage_bytes<BN, Bf16Products<Op>::value>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       gemm_tc_kernel<BN, Op, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);

@@ -34,6 +34,13 @@ without affine at eps 1e-6, 8-head attention with a qkv bias and an MLP of
 ratio 4 with the tanh GELU. It drops ``w`` and has no scan spec. Attention
 is torch operators, as it is plain ``einsum`` in the JAX package. Parameter
 names are upstream's (``attn.{qkv,proj}``, ``mlp.{fc1,fc2}``).
+
+Every block takes the compute dtype ``dtype``, as its Flax module: the
+parameters stay fp32, each ``Dense`` runs in ``dtype`` (``layers.dense``),
+the LayerNorms keep fp32 statistics and return their input's dtype, the
+attention's softmax runs in fp32, and the residual stream keeps x's dtype.
+A Mamba-2 block refuses bfloat16: kernels E, F and G have no bf16 variant
+yet.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffma_tpu_torch.models.layers import modulate
+from diffma_tpu_torch.models.layers import dense, modulate
 from diffma_tpu_torch.models.mamba import Mamba, check_scan_impl
 from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.ops.fused_mixer import mamba_dual_mixer_fused
@@ -63,6 +70,23 @@ __all__ = [
 ]
 
 
+def _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, fuse_block=False):
+    if use_mamba2 and dtype != torch.float32:
+        kernels = "E and G" if fuse_block else "E and F"
+        raise NotImplementedError(
+            f"{dtype} Mamba-2 mixers (use_mamba2{' with fuse_block' if fuse_block else ''}): "
+            f"kernels {kernels} have no bf16 variant yet")
+    if use_mamba2:
+        return Mamba2(hidden, spec, d_state=d_state, scan_impl=scan_impl)
+    return Mamba(hidden, spec, d_state=d_state, scan_impl=scan_impl, dtype=dtype)
+
+
+def _adaln(block: nn.Module, c: torch.Tensor, k: int):
+    """The block's adaLN modulation in its dtype, split into k parts."""
+    mod = dense(block.adaLN_modulation[1], F.silu(c.to(block.dtype)), block.dtype)
+    return mod.chunk(k, dim=-1)
+
+
 class SpiralMambaBlock(nn.Module):
     def __init__(
         self,
@@ -72,17 +96,19 @@ class SpiralMambaBlock(nn.Module):
         scan_impl: str = "auto",
         use_mamba2: bool = False,
         fuse_block: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
         self.scan_impl = check_scan_impl(scan_impl)
         self.use_mamba2 = bool(use_mamba2)
         self.fuse_block = bool(fuse_block)
-        mixer = Mamba2 if use_mamba2 else Mamba
+        self.dtype = dtype
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
         self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
-        self.mamba1 = mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl)
-        self.mamba2 = mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl)
+        self.mamba1, self.mamba2 = (
+            _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, fuse_block)
+            for _ in range(2))
         self.attention_network = nn.Sequential(
             nn.LayerNorm(2 * hidden, eps=1e-5),
             nn.Linear(2 * hidden, hidden),
@@ -94,7 +120,7 @@ class SpiralMambaBlock(nn.Module):
         return (self.mamba1, self.mamba2)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        shift, scale, gate = self.adaLN_modulation(c).chunk(3, dim=-1)
+        shift, scale, gate = _adaln(self, c, 3)
         fused = check_scan_impl(self.scan_impl) == "fused"
         an, fc1, _, fc2 = self.attention_network
         m1, m2 = self.mamba1, self.mamba2
@@ -116,14 +142,14 @@ class SpiralMambaBlock(nn.Module):
             )
         elif fused:
             x_ssm, w_ssm = mamba_dual_mixer_fused(
-                self.spec, x_mod, w_in, m1.weights(), m2.weights()
+                self.spec, x_mod.to(self.dtype), w_in.to(self.dtype), m1.weights(), m2.weights()
             )
         else:
             x_ssm = m1(x_mod)
             w_ssm = m2(w_in)
 
         h = layer_norm(torch.cat([x_ssm, w_ssm], dim=-1), an.weight, an.bias, eps=an.eps)
-        alpha = torch.sigmoid(fc2(F.silu(fc1(h))))
+        alpha = torch.sigmoid(dense(fc2, F.silu(dense(fc1, h, self.dtype)), self.dtype))
         mixed = alpha * x_ssm + (1.0 - alpha) * w_ssm
         return x + gate[:, None, :] * mixed
 
@@ -138,22 +164,23 @@ class _SingleMixerBlock(nn.Module):
         d_state: int = 16,
         scan_impl: str = "auto",
         use_mamba2: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
         self.scan_impl = check_scan_impl(scan_impl)
         self.use_mamba2 = bool(use_mamba2)
-        mixer = Mamba2 if use_mamba2 else Mamba
+        self.dtype = dtype
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
         self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
-        self.mamba = mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl)
+        self.mamba = _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype)
 
     def mixers(self):
         return (self.mamba,)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         del w  # only the Spiral block reads the soft mask
-        shift, scale, gate = self.adaLN_modulation(c).chunk(3, dim=-1)
+        shift, scale, gate = _adaln(self, c, 3)
         x_mod = modulate(
             layer_norm(x, self.norm1.weight, self.norm1.bias, eps=self.norm1.eps),
             shift, scale,
@@ -180,47 +207,52 @@ class EfficientVMambaBlock(_SingleMixerBlock):
 class _Attention(nn.Module):
     """Multi-head self-attention with a qkv bias; the softmax runs in fp32."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of num_heads {num_heads}")
         self.num_heads = num_heads
+        self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
         H = self.num_heads
-        q, k, v = self.qkv(x).reshape(B, L, 3, H, D // H).permute(2, 0, 3, 1, 4)
+        q, k, v = dense(self.qkv, x, self.dtype).reshape(B, L, 3, H, D // H).permute(2, 0, 3, 1, 4)
         att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(D // H)
         att = torch.softmax(att.float(), dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", att, v)
-        return self.proj(out.transpose(1, 2).reshape(B, L, D))
+        return dense(self.proj, out.transpose(1, 2).reshape(B, L, D), self.dtype)
 
 
 class _Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(dense(self.fc1, x, self.dtype), approximate="tanh")
+        return dense(self.fc2, h, self.dtype)
 
 
 class DiTBlock(nn.Module):
-    def __init__(self, hidden: int, num_heads: int = 8, mlp_ratio: float = 4.0):
+    def __init__(self, hidden: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 6 * hidden))
-        self.attn = _Attention(hidden, num_heads)
-        self.mlp = _Mlp(hidden, int(hidden * mlp_ratio))
+        self.attn = _Attention(hidden, num_heads, dtype)
+        self.mlp = _Mlp(hidden, int(hidden * mlp_ratio), dtype)
 
     def mixers(self):
         return ()
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         del w
-        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = self.adaLN_modulation(c).chunk(6, dim=-1)
+        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = _adaln(self, c, 6)
         x = x + g_msa[:, None, :] * self.attn(modulate(layer_norm(x, eps=1e-6), s_msa, sc_msa))
         return x + g_mlp[:, None, :] * self.mlp(modulate(layer_norm(x, eps=1e-6), s_mlp, sc_mlp))
 

@@ -20,6 +20,13 @@ and ``fuse_block`` with it sends each whole Spiral block through
 ``spiral_block_fused`` (its backward recomputes the block, so training takes
 the mixer-level route); the other families ignore ``fuse_block``, and DiT
 ignores all three.
+
+``dtype`` is the compute dtype, as the JAX model's (``--autocast`` builds
+it in bfloat16): the parameters stay fp32, every module computes in
+``dtype`` with the JAX package's fp32 islands, the conditioning is cast to
+it, and the output is in it (the loss and the sampler cast it to fp32).
+bfloat16 runs the Mamba-1 mixers (kernels C and D, or A and B) and DiT;
+the Mamba-2 mixers refuse it.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ class DiffMa(nn.Module):
         scan_impl: str = "auto",
         use_mamba2: bool = False,
         fuse_block: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         del dt_rank
@@ -70,23 +78,24 @@ class DiffMa(nn.Module):
         self.grid_n = input_size // patch_size
         self.depth = depth
         self.hidden_size = hidden_size
+        self.dtype = dtype
 
-        self.x_embedder = PatchEmbed(patch_size, self.in_channels, hidden_size)
+        self.x_embedder = PatchEmbed(patch_size, self.in_channels, hidden_size, dtype)
         self.register_buffer(
             "pos_embed",
             torch.from_numpy(get_2d_sincos_pos_embed(hidden_size, self.grid_n)),
             persistent=False,
         )
-        self.t_embedder = TimestepEmbed(hidden_size)
-        mixer_kw = dict(d_state=d_state, scan_impl=scan_impl, use_mamba2=use_mamba2)
+        self.t_embedder = TimestepEmbed(hidden_size, dtype=dtype)
+        mixer_kw = dict(d_state=d_state, scan_impl=scan_impl, use_mamba2=use_mamba2, dtype=dtype)
         if block_type == "spiral":
             mixer_kw["fuse_block"] = fuse_block
         self.blocks = nn.ModuleList(
-            BLOCKS[block_type](hidden_size) if block_type == "DiT" else
+            BLOCKS[block_type](hidden_size, dtype=dtype) if block_type == "DiT" else
             BLOCKS[block_type](hidden_size, build_scan_spec(block_type, self.grid_n, i), **mixer_kw)
             for i in range(depth)
         )
-        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
+        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels, dtype)
 
     def set_scan_impl(self, scan_impl: str) -> "DiffMa":
         """Switch every block and mixer to ``scan_impl``; the weights stay."""
@@ -154,8 +163,9 @@ class DiffMa(nn.Module):
         y2: torch.Tensor,  # (N, T, D) CT-encoder tokens
         w: torch.Tensor,  # (N, T, 1) CT-encoder soft mask
     ) -> torch.Tensor:
-        x = self.x_embedder(x) + self.pos_embed
+        x = self.x_embedder(x) + self.pos_embed.to(self.dtype)
         t_emb = self.t_embedder(t)
+        y, y2, w = (v.to(self.dtype) for v in (y, y2, w))
         c = torch.cat([t_emb + y, t_emb + y2.mean(dim=1)], dim=1)  # (N, 2D)
 
         outputs = []

@@ -10,6 +10,10 @@ upstream DiffMa state dict (``x_embedder.proj``, ``t_embedder.mlp.{0,2}``,
 * ``TimestepEmbed``: 256 sinusoidal features (cos, then sin) and a 2-layer MLP.
 * ``FinalLayer``: LayerNorm (eps 1e-6, no affine), adaLN modulation, linear.
 * ``get_2d_sincos_pos_embed``: the fixed position table, in numpy.
+
+Each takes the compute dtype ``dtype``, as its Flax module does: the
+parameters stay fp32 and every product runs in ``dtype`` (``dense``), with
+the timestep frequencies in fp32.
 """
 
 from __future__ import annotations
@@ -24,12 +28,20 @@ from torch import nn
 from diffma_tpu_torch.ops.norm import layer_norm
 
 __all__ = [
+    "dense",
     "PatchEmbed",
     "TimestepEmbed",
     "FinalLayer",
     "get_2d_sincos_pos_embed",
     "modulate",
 ]
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied in ``dtype``, as Flax's ``nn.Dense(dtype=...)``: the
+    input and the fp32 weight and bias cast to ``dtype`` at the call."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -60,9 +72,11 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
 class PatchEmbed(nn.Module):
     """(N, C, H, W) -> (N, T, D) patch tokens."""
 
-    def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch_size = patch_size
+        self.dtype = dtype
         self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,16 +89,17 @@ class PatchEmbed(nn.Module):
         # vector, the layout of the Conv2d weight (out, in, kh, kw).
         x = x.reshape(N, C, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
         x = x.reshape(N, gh * gw, C * p * p)
-        w = self.proj.weight.reshape(self.proj.out_channels, -1)
-        return F.linear(x, w, self.proj.bias)
+        w = self.proj.weight.reshape(self.proj.out_channels, -1).to(self.dtype)
+        return F.linear(x.to(self.dtype), w, self.proj.bias.to(self.dtype))
 
 
 class TimestepEmbed(nn.Module):
     """Sinusoidal timestep features and an MLP: (N,) -> (N, D)."""
 
-    def __init__(self, hidden_size: int, freq_size: int = 256):
+    def __init__(self, hidden_size: int, freq_size: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.freq_size = freq_size
+        self.dtype = dtype
         self.mlp = nn.Sequential(
             nn.Linear(freq_size, hidden_size),
             nn.SiLU(),
@@ -106,19 +121,23 @@ class TimestepEmbed(nn.Module):
         return emb
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.mlp(self.timestep_embedding(t, self.freq_size))
+        h = dense(self.mlp[0], self.timestep_embedding(t, self.freq_size), self.dtype)
+        return dense(self.mlp[2], F.silu(h), self.dtype)
 
 
 class FinalLayer(nn.Module):
     """adaLN-modulated linear head; c is (N, 2D)."""
 
-    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear = nn.Linear(hidden_size, patch_size * patch_size * out_channels)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), nn.Linear(2 * hidden_size, 2 * hidden_size)
         )
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
-        return self.linear(modulate(layer_norm(x, eps=1e-6), shift, scale))
+        mod = dense(self.adaLN_modulation[1], F.silu(c.to(self.dtype)), self.dtype)
+        shift, scale = mod.chunk(2, dim=-1)
+        return dense(self.linear, modulate(layer_norm(x, eps=1e-6), shift, scale), self.dtype)

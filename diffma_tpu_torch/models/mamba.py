@@ -21,6 +21,12 @@ JAX package's values:
 
 Every path carries gradients to the input and to every parameter.
 
+``dtype`` is the compute dtype, as the JAX mixer's: the parameters stay
+fp32, x is cast to it, and the output is in it. At bfloat16 the composable
+path runs kernels A and B in bf16 and the fused path the bf16 variants of
+kernels C and D (``ops/fused_mixer.py`` says where each rounds); kernel H
+has no bf16 variant and refuses bf16 on the card.
+
 Parameter names follow mamba_ssm's ``Mamba`` state dict, whatever the path.
 d_inner is 2 * d_model, the conv has 4 taps, and ``dt_rank`` is
 ceil(d_model / 16) whatever the config says, as in the JAX package.
@@ -56,10 +62,12 @@ def check_scan_impl(scan_impl: str) -> str:
 class Mamba(nn.Module):
     """Selective-scan mixer over one layer's ``ScanSpec``: (B, L, D) -> (B, L, D)."""
 
-    def __init__(self, d_model: int, spec: ScanSpec, d_state: int = 16, scan_impl: str = "auto"):
+    def __init__(self, d_model: int, spec: ScanSpec, d_state: int = 16, scan_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
         self.scan_impl = check_scan_impl(scan_impl)
+        self.dtype = dtype
         d_in, n, r = 2 * d_model, d_state, math.ceil(d_model / 16)
         self.in_proj = nn.Linear(d_model, 2 * d_in, bias=False)
         self.conv1d = nn.Conv1d(d_in, d_in, 4, groups=d_in, padding=3)
@@ -79,6 +87,7 @@ class Mamba(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         impl = SCAN_IMPLS[check_scan_impl(self.scan_impl)]
         if impl is not None:
             return mixer_composable(self.spec, x, self.weights(), scan_impl=impl)

@@ -35,7 +35,8 @@ recomputing the function through the composable operators
 (``mamba_inner_ref`` with the scan kernels A and B) and differentiating that,
 as the JAX custom VJP does. ``mamba_inner_fused`` dispatches on the tensors'
 device: the kernel for CUDA tensors, the plain version under autograd for CPU
-tensors; ``impl="ref"`` takes the plain version on any device. fp32 only.
+tensors; ``impl="ref"`` takes the plain version on any device. The kernel is
+fp32 only: a bf16 tensor on the card raises.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ Counterpart of ``diffma_tpu/ops/fused_mixer.py``. The mixer takes the tokens
 Two implementations of each direction:
 
 * ``mixer_ref``: the plain PyTorch version, the CPU path and the yardstick
-  the kernels are held against. It is ``mixer_composable`` with the plain
-  scan; ``models/mamba.py`` runs the same function with the scan kernels A
-  and B. ``mixer_bwd_ref`` is autograd over it.
+  the kernels are held against. In fp32 it is ``mixer_composable`` with the
+  plain scan; ``models/mamba.py`` runs the same function with the scan
+  kernels A and B. ``mixer_bwd_ref`` is autograd over it.
 * ``mixer_fused_cuda``: the hand-written CUDA kernel C
   (``csrc/fused_mixer_fwd.cu``), which replaces the TPU kernel
   ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel``; ``mixer_fused_bwd_cuda``
@@ -30,6 +30,19 @@ dispatch on the tensors' device: ``FusedMixerFn`` for CUDA tensors,
 ``mixer_ref`` (plain autograd) for CPU tensors. ``impl="ref"`` takes the
 plain version on any device, to hold the kernels against it on the card.
 Weights are in torch layout (``MixerWeights``), fp32 only.
+
+bf16. x may be bf16 (the JAX package's bf16 model, ``dtype=bfloat16``): the
+weights stay fp32, the output (and the gradient of x) is bf16, the weights'
+gradients fp32. The two routes then round at different places, as the JAX
+package's do. ``mixer_composable`` (the composable route) keeps x, xz, u,
+x_proj's output, the scan's output and the merge in bf16, casting each
+weight to bf16 at its product, with dt_proj in fp32. The fused route
+(``mixer_ref`` at bf16, and kernels C and D) rounds where the TPU kernel
+casts: xz to bf16, u fp32 and rounded at x_proj's operand, x_proj's output
+fp32 and dt_r rounded at dt_proj's operand, the scan and gate fp32, each
+stream's output rounded before the merge but for a stream in token order,
+the scaled merge rounded, and every product on bf16 operands with an fp32
+sum (``_dot``).
 
 Every registry scan spec runs through kernels C and D in their one-mixer
 form: full-length permutation streams (spiral, zig, vmamba), the Mamba-1
@@ -47,6 +60,7 @@ import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,7 +68,7 @@ from diffma_tpu_torch.ops import cuda_build
 from diffma_tpu_torch.ops.conv import causal_conv1d
 from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused
 from diffma_tpu_torch.ops.scan_orders import ScanSpec
-from diffma_tpu_torch.ops.selective_scan import selective_scan
+from diffma_tpu_torch.ops.selective_scan import _DTYPE_CODE, selective_scan
 
 __all__ = [
     "FusedMixerFn",
@@ -107,6 +121,16 @@ def mixer_fused_eligible(spec: ScanSpec, partition: bool = False) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+def _identity_streams(spec: ScanSpec) -> Tuple[bool, ...]:
+    """Per stream, whether it visits every token in token order: the TPU
+    kernel's identity streams, which its merge adds without rounding."""
+    S, Ls = spec.fwd.shape
+    if Ls != spec.seq_len:
+        return (False,) * S
+    return tuple(bool((spec.fwd[s] == np.arange(Ls)).all()) for s in range(S))
+
+
+@functools.lru_cache(maxsize=None)
 def index_tables(spec: ScanSpec, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The spec's gather table ``fwd`` (S * Ls,) and merge table (L * k,) as
     int64 tensors on ``device``, made once per spec and device so that a
@@ -134,33 +158,76 @@ def mixer_composable(
     S, Ls = spec.fwd.shape
     d_in, n = w.A_log.shape
     r = w.dt_w.shape[1]
+    cd = x.dtype
     fwd, merge = index_tables(spec, x.device)
 
-    xz = F.linear(x.index_select(1, fwd), w.in_w).reshape(B_ * S, Ls, 2 * d_in)
+    xz = F.linear(x.index_select(1, fwd), w.in_w.to(cd)).reshape(B_ * S, Ls, 2 * d_in)
     A = -torch.exp(w.A_log.float())
     if fused_inner:
         y = mamba_inner_fused(xz, w.conv_w[:, 0, :], w.conv_b, w.xp_w, w.dt_w, w.dt_b, A, w.D)
     else:
         u, z = xz.split(d_in, dim=-1)
         u = causal_conv1d(u, w.conv_w[:, 0, :], w.conv_b)
-        dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w).split([r, n, n], dim=-1)
+        dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w.to(cd)).split([r, n, n], dim=-1)
         delta = F.linear(dt_r.float(), w.dt_w.float(), w.dt_b.float())
         y = selective_scan(
             u, delta, A, B_ssm.contiguous(), C_ssm.contiguous(), w.D.float(),
             z=z.contiguous(), impl=scan_impl,
         )
+    out_w = w.out_w.to(cd)
     if spec.mamba1_vim_quirk:
         ys = y.reshape(B_, S, Ls, d_in)
-        out = F.linear(ys[:, 0], w.out_w) + F.linear(ys[:, 1], w.out_w).flip(-1)
+        out = F.linear(ys[:, 0], out_w) + F.linear(ys[:, 1], out_w).flip(-1)
         return out * spec.scale
     merged = y.reshape(B_, S * Ls, d_in).index_select(1, merge)
     merged = merged.reshape(B_, L, spec.merge.shape[1], d_in).sum(dim=2) * spec.scale
-    return F.linear(merged, w.out_w)
+    return F.linear(merged, out_w)
+
+
+def _dot(a: torch.Tensor, weight: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """``a . weight^T`` on operands rounded to ``cd``, summed in fp32."""
+    return F.linear(a.to(cd).float(), weight.to(cd).float())
+
+
+def _mixer_fused_lowp(spec: ScanSpec, x: torch.Tensor, w: MixerWeights) -> torch.Tensor:
+    """Kernel C's arithmetic at x's low-precision dtype cd, with the plain
+    scan: where ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel`` casts, it
+    rounds to cd (see the module's note on bf16); the output is cd."""
+    cd = x.dtype
+    B_, L, _ = x.shape
+    S, Ls = spec.fwd.shape
+    d_in, n = w.A_log.shape
+    r = w.dt_w.shape[1]
+    fwd, merge = index_tables(spec, x.device)
+
+    xz = _dot(x, w.in_w, cd).to(cd)
+    xs = xz.index_select(1, fwd).reshape(B_ * S, Ls, 2 * d_in).float()
+    u0, z = xs.split(d_in, dim=-1)
+    u = causal_conv1d(u0, w.conv_w[:, 0, :], w.conv_b)
+    dt_r, B_ssm, C_ssm = _dot(u, w.xp_w, cd).split([r, n, n], dim=-1)
+    delta = _dot(dt_r, w.dt_w, cd) + w.dt_b.float()
+    y = selective_scan(
+        u, delta, -torch.exp(w.A_log.float()), B_ssm.contiguous(), C_ssm.contiguous(),
+        w.D.float(), z=z.contiguous(), impl="ref",
+    ).reshape(B_, S, Ls, d_in)
+    if spec.mamba1_vim_quirk:
+        out = _dot(y[:, 0], w.out_w, cd) + _dot(y[:, 1], w.out_w, cd).flip(-1)
+        return (out * spec.scale).to(cd)
+    ident = _identity_streams(spec)
+    y = torch.stack([y[:, s] if ident[s] else y[:, s].to(cd).float() for s in range(S)], dim=1)
+    parts = y.reshape(B_, S * Ls, d_in).index_select(1, merge).reshape(B_, L, -1, d_in)
+    acc = parts[:, :, 0]
+    for q in range(1, parts.shape[2]):  # in stream order, as the kernels sum
+        acc = acc + parts[:, :, q]
+    return _dot((acc * spec.scale).to(cd), w.out_w, cd).to(cd)
 
 
 def mixer_ref(spec: ScanSpec, x: torch.Tensor, w: MixerWeights) -> torch.Tensor:
-    """The plain version: ``mixer_composable`` with the plain scan."""
-    return mixer_composable(spec, x, w, scan_impl="ref")
+    """The plain version of kernel C: in fp32 ``mixer_composable`` with the
+    plain scan, at a lower x dtype kernel C's own rounding."""
+    if x.dtype == torch.float32:
+        return mixer_composable(spec, x, w, scan_impl="ref")
+    return _mixer_fused_lowp(spec, x, w)
 
 
 def mixer_bwd_ref(
@@ -191,6 +258,8 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
     x0 = xs[0]
     if x0.device.type != "cuda":
         raise ValueError(f"the CUDA fused mixer needs CUDA tensors, got {x0.device}")
+    if x0.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x0 must be float32 or bfloat16, got {x0.dtype}")
     if x0.dim() != 3:
         raise ValueError(f"x must be (B, L, h), got {tuple(x0.shape)}")
     B_, L, h = x0.shape
@@ -213,14 +282,15 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
         in_w=(2 * d, h), conv_w=(d, 1, K), conv_b=(d,), xp_w=(r + 2 * n, d),
         dt_w=(d, r), dt_b=(d,), A_log=(d, n), D=(d,), out_w=(h, d),
     )
-    named = [(f"x{i}", x, (B_, L, h)) for i, x in enumerate(xs)]
+    named = [(f"x{i}", x, (B_, L, h), x0.dtype) for i, x in enumerate(xs)]
     for i, w in enumerate(ws):
-        named += [(f"w{i}.{f}", t, s) for f, t, s in zip(MixerWeights._fields, w, shapes)]
-    for name, t, shape in named:
+        named += [(f"w{i}.{f}", t, s, torch.float32)
+                  for f, t, s in zip(MixerWeights._fields, w, shapes)]
+    for name, t, shape, dtype in named:
         if t.device != x0.device:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -229,7 +299,20 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
         if w.conv_w.data_ptr() % 16:  # read as one float4 per channel
             raise ValueError(f"w{i}.conv_w must be 16-byte aligned")
     return dict(B=B_, L=L, Ls=spec.stream_len, h=h, d=d, n=n, r=r, K=K, S=spec.n_streams,
-                quirk=int(spec.mamba1_vim_quirk))
+                quirk=int(spec.mamba1_vim_quirk), dtype=_DTYPE_CODE[x0.dtype],
+                ident=sum(1 << s for s, i in enumerate(_identity_streams(spec)) if i))
+
+
+class LaunchCount:
+    """The launch count of a kernel's variant that shares its wrapper with
+    another (kernels C's and D's bf16 variants)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _count(wrapper, dtype: int) -> None:
+    (wrapper.bf16 if dtype else wrapper).launches += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,7 +323,7 @@ def _kernel_fns():
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     size = lib.mixer_fused_workspace_floats
@@ -251,11 +334,11 @@ def _kernel_fns():
 
 def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel on the current stream for the mixers ``ws[m]``
-    applied to ``xs[m]`` (one or two of them); returns their outputs. One
-    mixer may carry the vim quirk or a partition spec.
+    applied to ``xs[m]`` (one or two of them, fp32 or bf16); returns their
+    outputs. One mixer may carry the vim quirk or a partition spec.
 
     Raises on inputs the kernel does not take; ``mixer_fused_cuda.launches``
-    counts the calls.
+    counts the fp32 calls, ``mixer_fused_cuda.bf16.launches`` the bf16 ones.
     """
     M = len(xs)
     _check_spec(spec, M)
@@ -275,16 +358,17 @@ def mixer_fused_cuda(spec: ScanSpec, xs, ws) -> Tuple[torch.Tensor, ...]:
     err = fwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), workspace.data_ptr(),
         dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["n"], dims["r"], dims["K"],
-        dims["S"], dims["quirk"], float(spec.scale),
+        dims["S"], dims["quirk"], float(spec.scale), dims["dtype"], dims["ident"],
         torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mixer_fused_fwd launch failed: error {err}")
-    mixer_fused_cuda.launches += 1
+    _count(mixer_fused_cuda, dims["dtype"])
     return outs
 
 
 mixer_fused_cuda.launches = 0
+mixer_fused_cuda.bf16 = LaunchCount()
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,7 +379,7 @@ def _bwd_kernel_fns():
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
     size = lib.mixer_fused_bwd_workspace_floats
@@ -312,8 +396,10 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
     the kernel recomputes the forward from x and the weights. One mixer may
     carry the vim quirk or a partition spec, as in kernel C.
 
-    Raises on inputs the kernel does not take; ``mixer_fused_bwd_cuda.launches``
-    counts the calls.
+    x and g are fp32 or bf16 (gx their dtype), the weights and their
+    gradients fp32. Raises on inputs the kernel does not take;
+    ``mixer_fused_bwd_cuda.launches`` counts the fp32 calls,
+    ``mixer_fused_bwd_cuda.bf16.launches`` the bf16 ones.
     """
     _check_spec(spec, len(xs))
     dims = _check_kernel_inputs(spec, xs, ws)
@@ -342,16 +428,17 @@ def mixer_fused_bwd_cuda(spec: ScanSpec, xs, gs, ws):
     err = bwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, fwd.data_ptr(), merge.data_ptr(),
         workspace.data_ptr(), dims["B"], dims["L"], dims["Ls"], dims["h"], dims["d"], dims["n"],
-        dims["r"], dims["K"], dims["S"], dims["quirk"], float(spec.scale),
-        torch.cuda.current_stream(x0.device).cuda_stream,
+        dims["r"], dims["K"], dims["S"], dims["quirk"], float(spec.scale), dims["dtype"],
+        dims["ident"], torch.cuda.current_stream(x0.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mixer_fused_bwd launch failed: error {err}")
-    mixer_fused_bwd_cuda.launches += 1
+    _count(mixer_fused_bwd_cuda, dims["dtype"])
     return gxs, grads
 
 
 mixer_fused_bwd_cuda.launches = 0
+mixer_fused_bwd_cuda.bf16 = LaunchCount()
 
 
 class FusedMixerFn(torch.autograd.Function):

@@ -35,8 +35,14 @@ sampler reads their ``.npy`` triplets in order (``NpyDataset``, resized to
 ``image_size``; the last batch may be short), takes y, y2 and w from the
 frozen ``Conditioning`` stack (``train/train.py``) and decodes with that
 stack's VAE; otherwise the conditioning is synthetic and the VAE random,
-drawn from ``seed``. Orbax checkpoints and bf16 come in later slices, and
-asking for them raises.
+drawn from ``seed``. Orbax checkpoints come in a later slice.
+
+``autocast`` (``--autocast``) builds the model in bfloat16, as the JAX
+sampler does (the fused route through kernel C's bf16 variant); its weights
+load in fp32, its output is cast to fp32 for the chain, and the graphed
+chain runs as it does in fp32. The Mamba-2 mixers have no bf16 kernels yet:
+``autocast`` with ``use_mamba2`` raises (kernel E), and so does building a
+bf16 model with ``fuse_block`` (kernels E and G).
 """
 
 from __future__ import annotations
@@ -57,7 +63,14 @@ from diffma_tpu_torch.diffusion.gaussian import ChainGraph
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
-from diffma_tpu_torch.train.train import Conditioning, check_width, make_dataset, synthetic_batch
+from diffma_tpu_torch.train.train import (
+    Conditioning,
+    check_width,
+    compute_dtype,
+    fp32_output,
+    make_dataset,
+    synthetic_batch,
+)
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.metrics import quality_report
@@ -107,8 +120,9 @@ def load_model(cfg, device="cuda"):
     """``cfg``'s denoiser on ``device``, in eval mode: the checkpoint's weights
     when ``cfg.ckpt`` names a file that exists, else random ones from ``seed``."""
     device = resolve_device(device)
-    if cfg.get("autocast"):
-        raise NotImplementedError("bf16 sampling is not ported yet")
+    if cfg.get("autocast") and cfg.get("use_mamba2"):
+        raise NotImplementedError("autocast with use_mamba2: bf16 Mamba-2 sampling needs kernel "
+                                  "E in bf16, which is not ported yet")
     model = build_model(
         str(cfg.model),
         input_size=cfg.image_size // 8,
@@ -116,6 +130,7 @@ def load_model(cfg, device="cuda"):
         d_state=int(cfg.get("d_state", 16)),
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
         use_mamba2=bool(cfg.get("use_mamba2")),
+        dtype=compute_dtype(cfg),
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     ckpt_path = cfg.get("ckpt")
@@ -186,7 +201,7 @@ def sample_batches(model, cfg, device="cuda", graphed=None):
         captured = chain is not None and chain.graph.graph is None
         with torch.no_grad():
             samples = loop(
-                model, z.shape, gen, noise=z, clip_denoised=False,
+                fp32_output(model), z.shape, gen, noise=z, clip_denoised=False,
                 model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]}, graph=chain,
             )
             images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
@@ -222,6 +237,8 @@ def cli(argv=None):
     parser.add_argument("--model", type=str, default=None, help="registry name, e.g. DiffMa-B/2")
     parser.add_argument("--ckpt", type=str, default=None, help="checkpoint path")
     parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true", default=None)
+    parser.add_argument("--autocast", action="store_true", default=None,
+                        help="the model in bfloat16, its weights fp32")
     parser.add_argument("--scan-impl", dest="scan_impl", type=str, default=None,
                         help="mixer path: fused (default on the card), auto/pallas, ref")
     parser.add_argument("--num-batches", dest="sample_num_batches", type=int, default=None,

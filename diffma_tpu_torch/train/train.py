@@ -11,7 +11,16 @@ weight decay, as ``optax.adamw`` there), an EMA of decay 0.999 and the NaN
 skip (``train/state.py``), log the loss and the throughput every
 ``log_every`` steps, and write a checkpoint every ``ckpt_every`` steps in the
 reference's torch layout, ``<results_dir>/NNN-<model>/checkpoints/<step>.pt``,
-which ``train/sample.py --ckpt`` reads. Everything is fp32 on one device.
+which ``train/sample.py --ckpt`` reads. One device.
+
+``autocast`` (``--autocast``) builds the model in bfloat16, as the JAX
+trainer does: its activations run in bf16 (the Mamba-1 mixers through the
+bf16 variants of kernels C and D on the fused route, kernels A and B in
+bf16 on the composable one) and its output is cast to fp32 for the loss;
+the parameters, their gradients, AdamW's moments, the EMA and the
+checkpoints stay fp32, and the conditioning stack stays fp32. The Mamba-2
+mixers have no bf16 kernels yet (E and F), and ``autocast`` with
+``use_mamba2`` raises.
 
 On the card, at ``accumulation_steps`` 1 (the JAX trainer's fast path), the
 step runs as a CUDA graph (``state.GraphedTrainStep``): the loop draws each
@@ -36,9 +45,9 @@ trainer reads the ``.npy`` triplets (``NpyDataset``, resized to
 embedding ``y`` and, through its VAE latent, to the CT encoder's tokens
 ``y2`` and soft mask ``w``. The encode is timed as a span of its own
 (``Encode ms/step`` in the log: device time on the card). Otherwise it runs
-on synthetic batches, as the JAX trainer falls back to them. bf16
-(``autocast``), ``remat``, ``resume_from`` (Orbax) and ``tp``/``sp`` above 1
-are not ported, and asking for them raises.
+on synthetic batches, as the JAX trainer falls back to them. ``remat``,
+``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported, and asking
+for them raises.
 """
 
 from __future__ import annotations
@@ -71,8 +80,8 @@ from diffma_tpu_torch.utils.logging import WandbShim, create_experiment_dir, cre
 from diffma_tpu_torch.utils.profiling import SpanTimer, StepProfiler, Throughput
 from diffma_tpu_torch.utils.torch_io import load_weights
 
-__all__ = ["Conditioning", "check_width", "cli", "loss_draws", "main", "make_dataset",
-           "make_loss_fn", "synthetic_batch"]
+__all__ = ["Conditioning", "check_width", "cli", "compute_dtype", "fp32_output", "loss_draws",
+           "main", "make_dataset", "make_loss_fn", "synthetic_batch"]
 
 
 def _renorm_to_unit(z: torch.Tensor) -> torch.Tensor:
@@ -177,11 +186,28 @@ def synthetic_batch(generator: torch.Generator, batch_size: int, latent: int,
     }
 
 
+def compute_dtype(cfg) -> torch.dtype:
+    """The model's dtype: bfloat16 under ``autocast``, else fp32."""
+    return torch.bfloat16 if cfg.get("autocast") else torch.float32
+
+
+def fp32_output(model):
+    """``model`` with its output cast to fp32, as the JAX trainer's and
+    sampler's ``model_fn``: the diffusion's arithmetic stays fp32 whatever
+    the model's dtype."""
+
+    def model_fn(x, t, **kwargs):
+        return model(x, t, **kwargs).float()
+
+    return model_fn
+
+
 def make_loss_fn(model, diffusion):
-    """``loss_fn(batch, generator) -> (loss, aux)``: ``model``'s hybrid loss,
-    a mean over the batch, at timesteps drawn uniformly from [0, T) and with
-    noise drawn from ``generator``. A batch may carry its own ``t`` and
-    ``noise``, which then replace the draws."""
+    """``loss_fn(batch, generator) -> (loss, aux)``: ``model``'s hybrid loss
+    on its output cast to fp32, a mean over the batch, at timesteps drawn
+    uniformly from [0, T) and with noise drawn from ``generator``. A batch
+    may carry its own ``t`` and ``noise``, which then replace the draws."""
+    model_fn = fp32_output(model)
 
     def loss_fn(batch, generator):
         z = batch["z"].float()
@@ -190,7 +216,7 @@ def make_loss_fn(model, diffusion):
             t = torch.randint(0, diffusion.num_timesteps, (z.shape[0],),
                               generator=generator, device=z.device)
         terms = diffusion.training_losses(
-            model, z, t, generator,
+            model_fn, z, t, generator,
             model_kwargs={"y": batch["y"], "y2": batch["y2"], "w": batch["w"]},
             noise=batch.get("noise"),
         )
@@ -211,8 +237,10 @@ def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator):
 
 
 def _refuse_unported(cfg) -> None:
-    for key, what in (("autocast", "bf16 training (the fused mixers' kernels are fp32 only)"),
-                      ("remat", "rematerialisation"),
+    if cfg.get("autocast") and cfg.get("use_mamba2"):
+        raise NotImplementedError("autocast with use_mamba2: bf16 Mamba-2 training needs kernels "
+                                  "E and F in bf16, which are not ported yet")
+    for key, what in (("remat", "rematerialisation"),
                       ("resume_from", "resuming from Orbax checkpoints")):
         if cfg.get(key):
             raise NotImplementedError(f"{key}: {what} is not ported yet")
@@ -243,6 +271,7 @@ def main(cfg, device="cuda"):
         d_state=int(cfg.get("d_state", 16)),
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
         use_mamba2=bool(cfg.get("use_mamba2")),
+        dtype=compute_dtype(cfg),
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -256,6 +285,7 @@ def main(cfg, device="cuda"):
         start_step = 0
     model = model.to(device).train()
     logger.info(f"DiffMa Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    logger.info(f"Use bf16 training? {bool(cfg.get('autocast'))}")
     logger.info(f"blocks: {model.block_type}; mixer path: "
                 f"scan_impl={getattr(model.blocks[0], 'scan_impl', None)}, "
                 f"use_mamba2={getattr(model.blocks[0], 'use_mamba2', None)}, device {device}")

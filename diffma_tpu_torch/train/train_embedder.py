@@ -14,7 +14,8 @@ VAE is frozen: ``vae_ckpt`` when it names a file, else random weights drawn
 from the seed. The JAX package writes Orbax; the port writes upstream's torch
 layout ``{"model", "ema", "opt", "args"}``, with the CT encoder's key names,
 to ``<embedder_results_dir>/NNN-vision_encoder/checkpoints/<step:07d>.pt``,
-which ``ct_ckpt`` reads in both packages.
+which ``ct_ckpt`` reads in both packages. The CLI takes ``--autocast`` and
+nothing reads it, as in the JAX package: the CT encoder trains in fp32.
 """
 
 from __future__ import annotations
@@ -135,6 +136,8 @@ def cli(argv=None):
                         help="stop after this many steps")
     parser.add_argument("--ckpt-every", dest="embedder_ckpt_every", type=int, default=None)
     parser.add_argument("--results-dir", dest="embedder_results_dir", type=str, default=None)
+    parser.add_argument("--autocast", action="store_true", default=None,
+                        help="accepted and unused: the CT encoder trains in fp32")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs on the CPU")
     cfg = parse_cli(parser, argv)

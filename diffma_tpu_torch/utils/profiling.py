@@ -23,7 +23,9 @@ warm-up steps, eager and graphed. ``--scan-impl`` picks the mixers' path: ``fuse
 (kernels C and D, the default on the card) or ``pallas`` (the composable
 path with kernels A and B). ``--use-mamba2`` takes the Mamba-2 mixers
 (``fused`` is then kernel E, and kernel F in a training step), and with it
-the denoiser profile takes ``--fuse-block`` (kernels E and G).
+the denoiser profile takes ``--fuse-block`` (kernels E and G). ``--autocast``
+builds the model in bfloat16, as the trainer's and the sampler's
+``--autocast`` do (Mamba-1 only: kernels C's and D's bf16 variants).
 """
 
 from __future__ import annotations
@@ -194,7 +196,7 @@ def profile_denoiser(model, inputs, calls: int = 5, top: int = 8) -> dict:
 
 def profile_train_step(name: str, batch: int, scan_impl: str, calls: int = 5,
                        warmup: int = 3, top: int = 10, use_mamba2: bool = False,
-                       real_data: bool = False) -> dict:
+                       real_data: bool = False, dtype: torch.dtype = torch.float32) -> dict:
     """Profile ``calls`` of the trainer's steps on ``name`` at 224² and batch
     ``batch`` (lr 1e-4, synthetic batches drawn on the card, the loss's t and
     noise drawn after them), after ``warmup`` steps, eager (``eager``) and as
@@ -204,14 +206,15 @@ def profile_train_step(name: str, batch: int, scan_impl: str, calls: int = 5,
     ``real_data`` each step's batch is one fixed pair of random (batch, 1,
     224, 224) CT and MRI arrays encoded by the trainer's ``Conditioning``
     (random frozen weights), as a real-data step encodes its loader's
-    arrays."""
+    arrays. ``dtype`` is the model's compute dtype."""
     from diffma_tpu_torch.diffusion import create_diffusion
     from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
     from diffma_tpu_torch.train.train import Conditioning, loss_draws, make_loss_fn, synthetic_batch
     from diffma_tpu_torch.utils.config import Config
 
     latent = 28
-    model = build_model(name, input_size=latent, scan_impl=scan_impl, use_mamba2=use_mamba2)
+    model = build_model(name, input_size=latent, scan_impl=scan_impl, use_mamba2=use_mamba2,
+                        dtype=dtype)
     model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
     diffusion = create_diffusion("", device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -277,23 +280,26 @@ def main(argv=None) -> dict:
                         help="whole-block kernels, with --use-mamba2 and --scan-impl fused")
     parser.add_argument("--real-data", dest="real_data", action="store_true",
                         help="with --train: each batch encoded by the conditioning stack")
+    parser.add_argument("--autocast", action="store_true", help="the model in bfloat16")
     args = parser.parse_args(argv)
+    dtype = torch.bfloat16 if args.autocast else torch.float32
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.train:
         report = {"train_step": args.model, "batch": args.batch, "scan_impl": args.scan_impl,
                   "use_mamba2": args.use_mamba2, "real_data": args.real_data,
-                  "device": torch.cuda.get_device_name(0),
+                  "autocast": args.autocast, "device": torch.cuda.get_device_name(0),
                   **profile_train_step(args.model, args.batch, args.scan_impl,
-                                       use_mamba2=args.use_mamba2, real_data=args.real_data)}
+                                       use_mamba2=args.use_mamba2, real_data=args.real_data,
+                                       dtype=dtype)}
         print(json.dumps(report, indent=1))
         return report
 
     name, latent = args.model, 28
     gen = torch.Generator().manual_seed(0)
     model = build_model(name, input_size=latent, scan_impl=args.scan_impl,
-                        use_mamba2=args.use_mamba2, fuse_block=args.fuse_block)
+                        use_mamba2=args.use_mamba2, fuse_block=args.fuse_block, dtype=dtype)
     model = model.init_weights(gen).to(device).eval()
     tokens = (latent // model.patch_size) ** 2
     n = args.batch
@@ -306,6 +312,7 @@ def main(argv=None) -> dict:
     )
     report = {"model": name, "batch": n, "scan_impl": args.scan_impl,
               "use_mamba2": args.use_mamba2, "fuse_block": args.fuse_block,
+              "autocast": args.autocast,
               "device": torch.cuda.get_device_name(0),
               **profile_denoiser(model, inputs)}
     print(json.dumps(report, indent=1))

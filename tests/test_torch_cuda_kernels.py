@@ -413,6 +413,95 @@ def test_fused_mixer_bwd_branches_match_plain(cuda, family, grid_n, batch):
             mixer_fused_bwd_cuda(spec, (x, x), (g, g), (w, w))
 
 
+# ---- kernels C and D in bf16 (the bf16 model's mixers)
+
+BF16_CASES = [("spiral", 14, 0, 1), ("spiral", 14, 0, 8), ("spiral", 5, 1, 2), ("vim", 14, 0, 1),
+              ("vim", 5, 0, 2), ("eff", 14, 1, 1), ("eff", 10, 1, 2), ("zig", 14, 2, 1)]
+
+
+def _bf16_case(device, family, grid_n, layer, batch):
+    """Both branches for the Spiral block, one mixer otherwise; x and g bf16."""
+    spec = build_scan_spec(family, grid_n, layer)
+    mixers = _mixers(device, spec, seed=layer, count=2 if family == "spiral" else 1)
+    L = grid_n * grid_n
+    xs = [_x(device, L, 50 + i, batch).to(torch.bfloat16) for i in range(len(mixers))]
+    gs = [_x(device, L, 60 + i, batch).to(torch.bfloat16) for i in range(len(mixers))]
+    return spec, [m.weights() for m in mixers], xs, gs
+
+
+def _mean_rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+
+
+@pytest.mark.parametrize("family,grid_n,layer,batch", BF16_CASES)
+def test_fused_mixer_bf16_matches_plain(cuda, family, grid_n, layer, batch):
+    """Kernel C's bf16 variant against its bf16 plain version (``mixer_ref``
+    at bf16): max |err| <= 2e-2 max(1, max |ref|), mean-rel <= 5e-3, the
+    same bits on a second call; counted as a bf16 launch."""
+    spec, ws, xs, _ = _bf16_case(cuda, family, grid_n, layer, batch)
+    launches = (mixer_fused_cuda.launches, mixer_fused_cuda.bf16.launches)
+    with torch.no_grad():
+        got, again = (mixer_fused_cuda(spec, xs, ws) for _ in range(2))
+        want = [mixer_ref(spec, x, w) for x, w in zip(xs, ws)]
+    torch.cuda.synchronize()
+    assert (mixer_fused_cuda.launches, mixer_fused_cuda.bf16.launches) == (launches[0],
+                                                                          launches[1] + 2)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        assert torch.equal(g, a)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, w.float().abs().max().item()), err
+        assert _mean_rel(g, w) <= 5e-3
+
+
+@pytest.mark.parametrize("family,grid_n,layer,batch", BF16_CASES)
+def test_fused_mixer_bwd_bf16_matches_plain(cuda, family, grid_n, layer, batch):
+    """Kernel D's bf16 variant against autograd over the bf16 plain version,
+    every gradient within mean-rel 1e-2, gx bf16 and the weights' gradients
+    fp32, the same bits on a second call."""
+    spec, ws, xs, gs = _bf16_case(cuda, family, grid_n, layer, batch)
+    before = mixer_fused_bwd_cuda.bf16.launches
+    got, again = (mixer_fused_bwd_cuda(spec, xs, gs, ws) for _ in range(2))
+    torch.cuda.synchronize()
+    assert mixer_fused_bwd_cuda.bf16.launches == before + 2
+    for m in range(len(xs)):
+        gx_ref, gw_ref = mixer_bwd_ref(spec, xs[m], gs[m], ws[m])
+        pairs = [("gx", got[0][m], again[0][m], gx_ref)]
+        pairs += [(n, a, b, r) for n, a, b, r in zip(gw_ref._fields, got[1][m], again[1][m], gw_ref)]
+        for name, a, b, ref in pairs:
+            assert a.dtype == (torch.bfloat16 if name == "gx" else torch.float32), name
+            assert torch.equal(a, b), name
+            assert _mean_rel(a, ref) <= 1e-2, (name, _mean_rel(a, ref))
+
+
+def test_fused_mixer_bf16_takes_fp32_weights_only(cuda):
+    """bf16 x with a bf16 weight raises, as does a bf16 g against fp32 x."""
+    spec, ws, xs, gs = _bf16_case(cuda, "spiral", 5, 0, 1)
+    w = ws[0]._replace(in_w=ws[0].in_w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32"):
+        mixer_fused_cuda(spec, xs[:1], (w,))
+    with pytest.raises(ValueError, match="float32"):
+        mixer_fused_bwd_cuda(spec, xs[:1], gs[:1], (w,))
+    with pytest.raises(ValueError, match="must match"):
+        mixer_fused_bwd_cuda(spec, (xs[0].float(),), gs[:1], ws[:1])
+
+
+def test_bf16_mamba2_is_refused_on_the_card(cuda, tmp_path):
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import sample, train
+    from diffma_tpu_torch.utils.config import Config
+
+    cfg = Config(model="DiffMa-S/2", image_size=32, hidden_size=32, autocast=True,
+                 use_mamba2=True, results_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="kernels E and F"):
+        train.main(cfg, device="cuda")
+    with pytest.raises(NotImplementedError, match="kernel E"):
+        sample.load_model(cfg, device="cuda")
+    with pytest.raises(NotImplementedError, match="kernels E and G"):
+        build_model("DiffMa-S/2", input_size=4, hidden_size=32, use_mamba2=True,
+                    fuse_block=True, scan_impl="fused", dtype=torch.bfloat16).to(cuda)
+
+
 # ---- kernel E (the fused Mamba-2 mixer) and kernel G (the Spiral block's tail)
 
 NO_LIMIT = (0.0, float("inf"))

@@ -16,6 +16,7 @@ from diffma_tpu.diffusion import create_diffusion as jax_create_diffusion
 from diffma_tpu.utils import metrics as jax_metrics
 from diffma_tpu_torch.data.npy_dataset import SyntheticTriplets
 from diffma_tpu_torch.diffusion import create_diffusion
+from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.train import sample
 from diffma_tpu_torch.utils import metrics
 from diffma_tpu_torch.utils.config import Config, load_config, parse_flat_yaml
@@ -60,8 +61,12 @@ def test_sample_cli_parses_flags(tmp_path):
     mamba2 = sample.cli(["--config", str(cfg_path), "--model", "DiffMa-S/2", "--use-mamba2",
                          "--device", "cpu"])
     assert mamba2[0]["images"].shape == (1, 3, 32, 32) and np.isfinite(mamba2[0]["images"]).all()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        sample.main(_tiny_cfg(tmp_path, autocast=True), device="cpu")
+    # bf16 samples (tests/test_torch_bf16.py); the Mamba-2 mixers refuse it, naming the kernels
+    with pytest.raises(NotImplementedError, match="kernel E"):
+        sample.main(_tiny_cfg(tmp_path, autocast=True, use_mamba2=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="kernels E and G"):  # sample_batches' model
+        build_model("DiffMa-S/2", input_size=4, hidden_size=32, use_mamba2=True, fuse_block=True,
+                    scan_impl="fused", dtype=torch.bfloat16)
 
 
 def test_load_model_builds_mamba2(tmp_path):

@@ -424,7 +424,7 @@ def test_trainer_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "override,match",
-    [({"autocast": True}, "bf16"), ({"remat": True}, "remat"),
+    [({"autocast": True, "use_mamba2": True}, "kernels E and F"), ({"remat": True}, "remat"),
      ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"), ({"sp": 2}, "parallel")],
 )
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):

@@ -2,6 +2,7 @@
 """Where the PyTorch port's trainer CLI spends its step, on the host's clock.
 
     python tools/port_trainer_step.py [--config configs/brain.yaml] [--steps 40] [--real-data]
+        [--autocast]
 
 Runs ``diffma_tpu_torch.train.train.main`` on the config (synthetic batches,
 ``--steps`` steps, a log every 10) three times in this process: as the CLI
@@ -39,7 +40,8 @@ times the loader alone (ms per batch, host clock). ``--profiler-sessions N``
 first opens and closes N ``torch.profiler`` sessions around a small product,
 as a process that has profiled before (``chip_smoke.py``'s trainer phases
 run after its profiled phases) would. It needs an NVIDIA GPU with nvcc;
-``--device cpu`` runs it on the CPU at the config's size.
+``--device cpu`` runs it on the CPU at the config's size. ``--autocast``
+trains the bf16 model, as the trainer's ``--autocast``.
 """
 
 from __future__ import annotations
@@ -190,6 +192,7 @@ def main(argv=None) -> dict:
                         help="train on .npy folders that it writes, every batch encoded")
     parser.add_argument("--profiler-sessions", dest="profiler_sessions", type=int, default=0,
                         help="torch.profiler sessions to run before the trainer")
+    parser.add_argument("--autocast", action="store_true", help="the model in bfloat16")
     parser.add_argument("--out", default=None, help="also write the report here (JSON)")
     args = parser.parse_args(argv)
 
@@ -204,7 +207,7 @@ def main(argv=None) -> dict:
             "synthetic_data": not args.real_data, "max_steps": args.steps, "log_every": 10,
             "results_dir": os.path.join(tmp, "results"), "model": args.model,
             "hidden_size": args.hidden_size, "global_batch_size": args.batch, "ct_ckpt": "",
-            **folders})
+            "autocast": args.autocast or None, **folders})
         if args.device == "cuda":
             import subprocess
 
@@ -217,7 +220,7 @@ def main(argv=None) -> dict:
                 capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
         report.update({"config": args.config, "model": str(cfg.model),
                        "batch": int(cfg.global_batch_size), "device": args.device,
-                       "real_data": args.real_data,
+                       "real_data": args.real_data, "autocast": args.autocast,
                        "profiler_sessions": args.profiler_sessions})
         profile_sessions(args.profiler_sessions, args.device)
         report["cli"] = timed_run(cfg, args.device, with_loader=True)
