@@ -149,6 +149,24 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     100 steps on one batch, the MSE term falling at least 2x; (19e) the
     graphed L/2 bf16 step profiled (busy ms, idle share, top kernels)
     beside phase 18b's fp32 step.
+20. bf16 on the Mamba-2 mixers (``--use-mamba2 --autocast``): (20a) the
+    bf16 variants of kernels E, F and G against their bf16 plain versions,
+    each case twice with equal bits: E dual at batch 1 and 8, on the
+    EfficientVMamba partition, zig and 256 tokens, E in prologue mode and G
+    at batch 1 and 8 from a bf16 block's adaLN chunks, F on the dual,
+    partition, zig and 256-token forms, every gradient tensor (streams of
+    196 and 256 steps: longer than the kernels' 64-step chunk); event ms,
+    device ms by stage and a bound with every product at the bf16 rate
+    beside the fp32 variants' ms from phases 2e, 2f and 2g; (20b) the trainer's
+    CLI on ``configs/brain.yaml --use-mamba2 --autocast`` as phase 12 runs
+    it (320 bf16 E and 320 bf16 F calls, none of the fp32 ones; its
+    checkpoint fp32, sampled back with 4000 bf16 E calls); (20c) the
+    sampler's CLI ``--model DiffMa-B/2 --use-mamba2 --autocast``, DDPM-250,
+    2 images (4000 bf16 E calls), graphed equal to eager in bits, PSNR
+    against fp32; (20d) a bf16 ``fuse_block`` B/2 sampler built as phase 11
+    builds it (2000 bf16 E and 2000 bf16 G calls), its image's PSNR against
+    20c's; (20e) a bf16 Mamba-2 DiffMa-B/2 trained 100 steps on one batch,
+    the MSE term falling at least 2x.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -181,7 +199,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12  # dense, on the tensor cores: kernels C's and D's bf16 products
+BF16_FLOPS = 989e12  # dense, on the tensor cores: the bf16 variants' GEMM products (C, D, E, F, G)
 
 # The kernel's stated tolerances against its plain version.
 TOL_FP32 = 1e-4  # rtol = atol; fp32 sums in another order than the plain loop
@@ -2469,28 +2487,34 @@ def phase_mamba2_samplers(card: str) -> dict:
     return counts
 
 
-def phase_mamba2_trainer(card: str) -> dict:
+def phase_mamba2_trainer(card: str, autocast: bool = False) -> tuple[dict, float]:
+    """Phase 12, or with ``autocast`` phase 20b (the bf16 Mamba-2 model
+    through kernels E's and F's bf16 variants); returns the counts and the
+    logged steps/s."""
     import torch
 
     from diffma_tpu_torch.models.diffma import build_model
     from diffma_tpu_torch.train import sample, train
 
-    print("== phase 12: Mamba-2 trainer CLI on configs/brain.yaml --use-mamba2 (DiffMa-L/2, "
-          "batch 8, synthetic), 20 steps, checkpoint at step 20, sampled back", flush=True)
+    flags = ["--use-mamba2"] + (["--autocast"] if autocast else [])
+    print(f"== phase {'20b' if autocast else '12'}: Mamba-2 trainer CLI on configs/brain.yaml "
+          f"{' '.join(flags)} (DiffMa-L/2, batch 8, synthetic), 20 steps, checkpoint at step 20, "
+          f"sampled back", flush=True)
     cfg = brain_config()
     results = os.path.join(ROOT, "results", "chip_smoke_train_mamba2")
     shutil.rmtree(results, ignore_errors=True)
     reset_counts()
     t0 = time.perf_counter()
     state = train.cli([
-        "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--use-mamba2",
+        "--config", os.path.join(ROOT, "configs", "brain.yaml"), *flags,
         "--max-steps", "20", "--ckpt-every", "20", "--results-dir", results,
     ])
     seconds = time.perf_counter() - t0
     zero = {name: 0 for name in kernel_counters()}
     calls = 16 * 20  # blocks x steps: one E and one F call per block and step
-    counts = check_counts("the Mamba-2 trainer", {**zero, "ssd_mixer_fwd": calls,
-                                                  "ssd_mixer_bwd": calls})
+    suffix = "_bf16" if autocast else ""
+    counts = check_counts("the Mamba-2 trainer", {**zero, f"ssd_mixer_fwd{suffix}": calls,
+                                                  f"ssd_mixer_bwd{suffix}": calls})
     if int(state.step) != 20:
         fail(f"the Mamba-2 trainer counted {int(state.step)} finite steps of 20")
     if not state.model.blocks[0].use_mamba2 or state.model.blocks[0].scan_impl != "fused":
@@ -2505,28 +2529,36 @@ def phase_mamba2_trainer(card: str) -> dict:
     ckpt = os.path.join(results, exp, "checkpoints", "0000020.pt")
     if not os.path.exists(ckpt):
         fail(f"the Mamba-2 trainer wrote no checkpoint at {ckpt}")
-    loaded = sample.load_model(brain_config(ckpt=ckpt, use_mamba2=True), "cuda")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    if any(v.dtype != torch.float32 for k in ("model", "ema") for v in saved[k].values()):
+        fail("the Mamba-2 trainer's checkpoint holds a tensor that is not fp32")
+    loaded = sample.load_model(
+        brain_config(ckpt=ckpt, use_mamba2=True, autocast=autocast or None), "cuda")
+    if loaded.dtype != state.model.dtype:
+        fail(f"the sampler built a {loaded.dtype} model from a {state.model.dtype} trainer's")
     ema = state.ema.state_dict()
     for key, value in loaded.state_dict().items():
         if not torch.equal(value, ema[key]):
             fail(f"the sampler's model does not hold the Mamba-2 checkpoint's EMA {key}")
     steps_s, images_s = trainer_log_rate(os.path.join(results, exp))
     print(f"  20 steps, every loss finite; params and EMA moved; checkpoint "
-          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB read back by the sampler, EMA equal")
-    print(f"  [{card}] DiffMa-L/2 Mamba-2 fused training, batch 8, steps 11-20: {steps_s} "
-          f"steps/s, {images_s} images/s ({seconds:.1f} s for the whole CLI run, init included)")
+          f"{os.path.getsize(ckpt) / 2**20:.0f} MiB, every tensor fp32, read back by the sampler "
+          f"({loaded.dtype} model), EMA equal")
+    print(f"  [{card}] DiffMa-L/2 Mamba-2 fused training{' in bf16' if autocast else ''}, batch "
+          f"8, steps 11-20: {steps_s} steps/s ({1e3 / steps_s:.1f} ms a step), {images_s} "
+          f"images/s ({seconds:.1f} s for the whole CLI run, init included)")
     del state, loaded
     torch.cuda.empty_cache()
     reset_counts()
     images = sample.cli([
-        "--config", os.path.join(ROOT, "configs", "brain.yaml"), "--use-mamba2", "--ckpt", ckpt,
+        "--config", os.path.join(ROOT, "configs", "brain.yaml"), *flags, "--ckpt", ckpt,
         "--num-batches", "1",
     ])
     check_counts("the sampler on the Mamba-2 trainer's checkpoint",
-                 {**zero, "ssd_mixer_fwd": 16 * 250})  # blocks x steps, no backward
+                 {**zero, f"ssd_mixer_fwd{suffix}": 16 * 250})  # blocks x steps, no backward
     check_images(card, "the sampler on the Mamba-2 trainer's checkpoint", images, 1)
     shutil.rmtree(results, ignore_errors=True)
-    return counts
+    return counts, steps_s
 
 
 def phase_mamba2_sizes(card: str) -> None:
@@ -3413,10 +3445,11 @@ def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, d
     return fwd, bwd
 
 
-def phase_bf16_sampler(card: str) -> int:
-    """19c: the sampler's CLI with ``--autocast`` on DiffMa-B/2 from a seeded
-    checkpoint; the graphed image against the eager loop's in bits, and
-    against the fp32 model's by PSNR. Returns the CLI's bf16 C calls."""
+def phase_bf16_sampler(card: str, use_mamba2: bool = False) -> tuple[int, list]:
+    """19c, or with ``use_mamba2`` 20c: the sampler's CLI with ``--autocast``
+    on DiffMa-B/2 from a seeded checkpoint; the graphed image against the
+    eager loop's in bits, and against the fp32 model's by PSNR. Returns the
+    CLI's bf16 C (or E) calls and its images."""
     import tempfile
 
     import numpy as np
@@ -3424,24 +3457,26 @@ def phase_bf16_sampler(card: str) -> int:
     from diffma_tpu_torch.train import sample
 
     batches = 2
-    print(f"== phase 19c: sampler CLI on configs/brain.yaml --model DiffMa-B/2 --autocast from a "
-          f"checkpoint, DDPM-250, {batches} batches of 1; then the eager loop and the fp32 model "
-          f"on its seed", flush=True)
+    mixer = ["--use-mamba2"] if use_mamba2 else []
+    print(f"== phase {'20c' if use_mamba2 else '19c'}: sampler CLI on configs/brain.yaml --model "
+          f"DiffMa-B/2 {' '.join(mixer + ['--autocast'])} from a checkpoint, DDPM-250, {batches} "
+          f"batches of 1; then the eager loop and the fp32 model on its seed", flush=True)
     out_dir = os.path.join(ROOT, "result_sample")
     os.makedirs(out_dir, exist_ok=True)
     zero = {name: 0 for name in kernel_counters()}
-    calls = 8 * 250 * batches  # blocks x steps x batches: one C call per block
+    calls = 8 * 250 * batches  # blocks x steps x batches: one C (or E) call per block
+    kernel = "ssd_mixer_fwd_bf16" if use_mamba2 else "mixer_fused_fwd_bf16"
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         path = os.path.join(tmp, "0050000.pt")
-        write_checkpoint(path, "DiffMa-B/2", 19)
+        write_checkpoint(path, "DiffMa-B/2", 19, use_mamba2=use_mamba2)
         reset_counts()
         graphed = sample.cli(["--config", os.path.join(ROOT, "configs", "brain.yaml"), "--model",
                               "DiffMa-B/2", "--ckpt", path, "--num-batches", str(batches),
-                              "--autocast"])
-        check_counts("the bf16 sampler", {**zero, "mixer_fused_fwd_bf16": calls})
+                              "--autocast", *mixer])
+        check_counts("the bf16 sampler", {**zero, kernel: calls})
         check_images(card, "the bf16 sampler (graphed)", graphed, batches)
         cfg = dict(model="DiffMa-B/2", ckpt=path, sample_num_batches=batches,
-                   save_dir=os.path.join(tmp, "images"))
+                   save_dir=os.path.join(tmp, "images"), use_mamba2=use_mamba2 or None)
         model = sample.load_model(brain_config(**cfg, autocast=True), "cuda")
         eager = sample.sample_batches(model, brain_config(**cfg, autocast=True), "cuda",
                                       graphed=False)
@@ -3460,7 +3495,7 @@ def phase_bf16_sampler(card: str) -> int:
           + ", ".join(f"{r['seconds']:.3f}" for r in graphed) + "; bf16 eager "
           + ", ".join(f"{r['seconds']:.3f}" for r in eager) + "; fp32 graphed "
           + ", ".join(f"{r['seconds']:.3f}" for r in fp32))
-    return calls
+    return calls, graphed
 
 
 def phase_bf16_step_profile(card: str, fp32_report: dict) -> None:
@@ -3480,6 +3515,259 @@ def phase_bf16_step_profile(card: str, fp32_report: dict) -> None:
           f"{fp32_report['graphed']['device_busy_ms_per_call']:.2f} ms; idle share "
           f"{report['graphed']['device_idle_share']:.3f} against "
           f"{fp32_report['graphed']['device_idle_share']:.3f}")
+
+# ---- phase 20: bf16 Mamba-2
+
+
+def ssd_bf16_bound(work, act_bytes) -> tuple[float, str]:
+    """The bound of a bf16 variant of E or F from ``work`` = (products, other,
+    bytes) as the fp32 variant's work function gives them: every product, the
+    SSD's included, at the bf16 rate (bf16 operands, fp32 sums: the function
+    the variant computes, whatever units it runs them on), the rest at fp32,
+    and the activations' ``act_bytes`` fp32 bytes at 2 bytes an element."""
+    products, other, nbytes = work
+    return bound_from(products, other, nbytes - act_bytes // 2, product_flops=BF16_FLOPS)
+
+
+def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) -> tuple:
+    """20a: kernels E's, F's and G's bf16 variants against their bf16 plain
+    versions, each case twice with equal bits; their times, stages and
+    bounds (every product at the bf16 rate) beside the fp32 variants' (``ssd``,
+    ``epilogue``, ``ssd_bwd``: phases 2e, 2f and 2g of this run)."""
+    import torch
+
+    from diffma_tpu_torch.models.blocks import SpiralMambaBlock
+    from diffma_tpu_torch.ops.fused_ssd import (
+        Mamba2Weights,
+        Prologue,
+        mamba2_mixer_fused,
+        spiral_epilogue_cuda,
+        spiral_epilogue_ref,
+        ssd_mixer_bwd_ref,
+        ssd_mixer_fused_bwd_cuda,
+        ssd_mixer_fused_cuda,
+    )
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    print("== phase 20a: kernels E, F and G in bf16 against their bf16 plain versions on the "
+          "card", flush=True)
+    h, bf16 = 512, torch.bfloat16
+    no_limit = (0.0, float("inf"))
+
+    def case(family, grid_n, layer, batch, seed):
+        spec = build_scan_spec(family, grid_n, layer)
+        M = 2 if family == "spiral" else 1
+        ws = [m.weights() for m in mamba2_mixers(spec, seed)[:M]]
+        gen = torch.Generator().manual_seed(seed)
+        L = grid_n * grid_n
+        xs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+        gs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+        return spec, ws, xs, gs
+
+    def mean_rel(a, b) -> float:
+        return ((a.float() - b.float()).abs().mean() / b.float().abs().mean()).item()
+
+    def check(what, got, again, want) -> tuple[float, float]:
+        finite = bool(torch.isfinite(got.float()).all())
+        if got.dtype != bf16 or got.shape != want.shape or not finite:
+            fail(f"{what}: wrong dtype {got.dtype}, shape or a non-finite value")
+        if not torch.equal(got, again):
+            fail(f"{what}: a second call gave other bits")
+        err = (got.float() - want.float()).abs().max().item()
+        bar = TOL_C_BF16 * max(1.0, want.float().abs().max().item())
+        if err > bar or mean_rel(got, want) > TOL_C_BF16_MEAN:
+            fail(f"{what}: max |err| {err:.3e} (bar {bar:.2e}), mean-rel {mean_rel(got, want):.2e} "
+                 f"(bar {TOL_C_BF16_MEAN:g})")
+        return err, mean_rel(got, want)
+
+    fwd_err = bwd_err = tail_err = None
+    for label, family, grid_n, layer, batch in (
+            ("dual, B/2 sampler", "spiral", 14, 0, 1), ("dual, training", "spiral", 14, 3, 8),
+            ("EfficientVMamba partition", "eff", 14, 1, 1), ("zig", "zig", 14, 2, 2),
+            ("dual, 256 tokens", "spiral", 16, 1, 2)):
+        spec, ws, xs, _ = case(family, grid_n, layer, batch, 600 + layer)
+        with torch.no_grad():
+            got, again = (ssd_mixer_fused_cuda(spec, xs, ws) for _ in range(2))
+            want = [mamba2_mixer_fused(spec, x, w, impl="ref") for x, w in zip(xs, ws)]
+        torch.cuda.synchronize()
+        res = [check(f"E bf16, {label}, mixer {m}", g, a, w)
+               for m, (g, a, w) in enumerate(zip(got, again, want))]
+        print(f"  E bf16, {label}: B={batch} L={grid_n * grid_n}, {len(xs)} mixer(s): max|err| "
+              f"{max(r[0] for r in res):.3e}, mean-rel {max(r[1] for r in res):.2e}; equal bits on "
+              f"a second call")
+        if fwd_err is None:
+            fwd_err = max(r[0] for r in res)
+    # prologue mode and kernel G, from a bf16 block's own adaLN chunks
+    for batch in (1, 8):
+        spec = build_scan_spec("spiral", 14, 2)
+        torch.manual_seed(610)
+        block = random_(SpiralMambaBlock(h, spec, use_mamba2=True, dtype=bf16), 610).cuda().eval()
+        x, c, w = (t.to(bf16) for t in block_inputs(196, 610 + batch, batch))
+        an, fc1, _, fc2 = block.attention_network
+        with torch.no_grad():
+            mod = torch.nn.functional.linear(torch.nn.functional.silu(c),
+                                             block.adaLN_modulation[1].weight.to(bf16),
+                                             block.adaLN_modulation[1].bias.to(bf16))
+            shift, scale, gate = mod.chunk(3, dim=-1)
+            pro = Prologue(w, block.norm1.weight, block.norm1.bias, shift, scale)
+            ws = (block.mamba1.weights(), block.mamba2.weights())
+            outs, again = (ssd_mixer_fused_cuda(spec, (x,), ws, prologue=pro) for _ in range(2))
+            xm = torch.nn.functional.layer_norm(x.float(), (h,), pro.ln_w, pro.ln_b, 1e-5)
+            xm = xm * (1 + scale.float()[:, None]) + shift.float()[:, None]
+            want = [mamba2_mixer_fused(spec, xm.to(bf16), ws[0], impl="ref"),
+                    mamba2_mixer_fused(spec, (xm * w.float()).to(bf16), ws[1], impl="ref")]
+            tail = (gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+            g_out, g_again = (spiral_epilogue_cuda(*want, x, *tail) for _ in range(2))
+            g_want = spiral_epilogue_ref(*want, x, *tail)
+        torch.cuda.synchronize()
+        res = [check(f"E bf16 prologue, B={batch}, branch {m}", o, a, r)
+               for m, (o, a, r) in enumerate(zip(outs, again, want))]
+        g_res = check(f"G bf16, B={batch}", g_out, g_again, g_want)
+        print(f"  E bf16 prologue mode, B={batch} L=196: max|err| {max(r[0] for r in res):.3e}, "
+              f"mean-rel {max(r[1] for r in res):.2e}; G bf16: max|err| {g_res[0]:.3e}, mean-rel "
+              f"{g_res[1]:.2e}; each twice with equal bits")
+        if tail_err is None:
+            tail_err = g_res[0]
+    for label, family, grid_n, layer, batch in (
+            ("dual, training", "spiral", 14, 0, 8), ("EfficientVMamba partition", "eff", 14, 0, 8),
+            ("zig", "zig", 14, 2, 2), ("dual, 256 tokens", "spiral", 16, 1, 2)):
+        spec, ws, xs, gs = case(family, grid_n, layer, batch, 700 + layer)
+        with torch.no_grad():
+            _, zx = ssd_mixer_fused_cuda(spec, xs, ws, want_res=True)
+        got, again = (ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx) for _ in range(2))
+        torch.cuda.synchronize()
+        worst = ("", 0.0)
+        for m in range(len(xs)):
+            gx_ref, gw_ref = ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m])
+            names = ["gx", *(f"w{m}.{f}" for f in Mamba2Weights._fields)]
+            for name, a, b, ref in zip(names, (got[0][m], *got[1][m]), (again[0][m], *again[1][m]),
+                                       (gx_ref, *gw_ref)):
+                want_dtype = bf16 if name == "gx" else torch.float32
+                if a.dtype != want_dtype or not bool(torch.isfinite(a).all()):
+                    fail(f"F bf16, {label}: {name} is {a.dtype} (not {want_dtype}) or not finite")
+                if not torch.equal(a, b):
+                    fail(f"F bf16, {label}: a second call gave other bits in {name}")
+                rel = mean_rel(a, ref)
+                if rel > TOL_D_BF16:
+                    fail(f"F bf16, {label}: {name} mean-rel {rel:.2e} over {TOL_D_BF16:g}")
+                if rel > worst[1]:
+                    worst = (name, rel)
+                if label == "dual, training":
+                    bwd_err = max(bwd_err or 0.0, (a.float() - ref.float()).abs().max().item())
+        print(f"  F bf16, {label}: B={batch} L={grid_n * grid_n}, {9 * len(xs)} gradient tensors "
+              f"within mean-rel {TOL_D_BF16:g}; the largest {worst[0]} {worst[1]:.2e}; equal bits "
+              f"on a second call")
+
+    spec, ws, xs, gs = case("spiral", 14, 0, 1, 800)
+    _, _, x8, g8 = case("spiral", 14, 0, 8, 801)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws), reps=50)
+        plain_ms = cuda_ms(lambda: [mamba2_mixer_fused(spec, x, w, impl="ref")
+                                    for x, w in zip(xs, ws)], reps=5)
+        stages = stage_table(lambda: ssd_mixer_fused_cuda(spec, xs, ws), SSD_STAGES)
+        ms8 = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, x8, ws), reps=20)
+        stages8 = stage_table(lambda: ssd_mixer_fused_cuda(spec, x8, ws), SSD_STAGES)
+        _, zx8 = ssd_mixer_fused_cuda(spec, x8, ws, want_res=True)
+    bwd_ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, x8, g8, ws, zx8), reps=10)
+    bwd_plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w)
+                                    for x, g, w in zip(x8, g8, ws)], reps=5)
+    bwd_stages = stage_table(lambda: ssd_mixer_fused_bwd_cuda(spec, x8, g8, ws, zx8),
+                             SSD_BWD_STAGES)
+    dims = dict(M=2, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
+    bound = ssd_bf16_bound(ssd_mixer_work(B=1, **dims), 4 * 2 * 2 * 196 * h)
+    bound8 = ssd_bf16_bound(ssd_mixer_work(B=8, **dims), 4 * 2 * 2 * 8 * 196 * h)
+    bwd_bound = ssd_bf16_bound(ssd_mixer_bwd_work(B=8, **dims), 4 * 2 * 3 * 8 * 196 * h)
+    print(f"  [{card}] ssd_mixer_fwd bf16, both branches, B=1 L=196 h=512 d=1024: kernel "
+          f"{ms:.4f} ms (fp32 variant {ssd['ms']:.4f} ms, phase 2e), plain {plain_ms:.3f} ms, "
+          f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, every product, the SSD's "
+          f"included, at the bf16 rate)")
+    print(f"  [{card}] device ms per call by stage, B=1: {stage_line(stages)}")
+    print(f"  [{card}] ssd_mixer_fwd bf16, both branches, B=8: kernel {ms8:.4f} ms (fp32 variant "
+          f"{ssd['b8']['ms']:.4f} ms), bound {bound8[0] * 1e3:.2f} us ({bound8[1]})")
+    print(f"  [{card}] device ms per call by stage, B=8: {stage_line(stages8)}")
+    print(f"  [{card}] ssd_mixer_bwd bf16, both branches, B=8 L=196: kernel {bwd_ms:.4f} ms (fp32 "
+          f"variant {ssd_bwd['ms']:.4f} ms, phase 2g), plain {bwd_plain_ms:.3f} ms, bound "
+          f"{bwd_bound[0] * 1e3:.2f} us ({bwd_bound[1]}, every product at the "
+          f"bf16 rate)")
+    print(f"  [{card}] device ms per call by stage: {stage_line(bwd_stages)}")
+    g_times = {}
+    for batch in (1, 8):
+        tail = tuple(t.to(bf16) if i < 4 else t for i, t in enumerate(epilogue_inputs(batch)))
+        with torch.no_grad():
+            g_ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
+            g_stages = stage_table(lambda: spiral_epilogue_cuda(*tail), EPILOGUE_STAGES, calls=50)
+            g_plain = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
+        products, other, nbytes = epilogue_work(B=batch, L=196, h=h)
+        g_bound = bound_from(products, other, nbytes - 2 * (4 * batch * 196 * h + batch * h),
+                             product_flops=BF16_FLOPS)
+        fp32 = epilogue if batch == 1 else epilogue["b8"]
+        g_times[batch] = dict(ms=g_ms, busy_ms=g_stages["total"], plain_ms=g_plain,
+                              bound_ms=g_bound[0], bound_by=g_bound[1], stages_ms=g_stages)
+        print(f"  [{card}] spiral_epilogue bf16, B={batch} L=196 h=512: kernel {g_ms:.4f} ms "
+              f"(events), device busy {g_stages['total']:.4f} ms ({stage_line(g_stages)}; fp32 "
+              f"variant {fp32['ms']:.4f} ms, busy {fp32['busy_ms']:.4f}, phase 2f), plain "
+              f"{g_plain:.4f} ms, bound {g_bound[0] * 1e3:.2f} us ({g_bound[1]}, the product at "
+              f"the bf16 rate)")
+    print("  library_ms: none; no single PyTorch call computes the whole mixer, its backward or "
+          "the block's tail")
+    common = dict(route="cuda", library_ms=None)
+    fwd = {"name": "ssd_mixer_fwd_bf16", "source": "diffma_tpu_torch/csrc/fused_ssd_fwd.cu",
+           "replaces": "diffma_tpu/ops/fused_ssd.py:174", "max_abs_err": fwd_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], **common,
+           "fp32_ms": ssd["ms"], "stages_ms": stages,
+           "b8": {"ms": ms8, "bound_ms": bound8[0], "fp32_ms": ssd["b8"]["ms"],
+                  "stages_ms": stages8}}
+    bwd = {"name": "ssd_mixer_bwd_bf16", "source": "diffma_tpu_torch/csrc/fused_ssd_bwd.cu",
+           "replaces": "diffma_tpu/ops/fused_ssd.py:555", "max_abs_err": bwd_err, "ms": bwd_ms,
+           "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+           **common, "fp32_ms": ssd_bwd["ms"], "stages_ms": bwd_stages}
+    tail = {"name": "spiral_epilogue_bf16", "source": "diffma_tpu_torch/csrc/spiral_epilogue.cu",
+            "replaces": "diffma_tpu/ops/fused_ssd.py:1131", "max_abs_err": tail_err,
+            **{k: v for k, v in g_times[1].items() if k != "stages_ms"}, **common,
+            "fp32_ms": epilogue["ms"], "stages_ms": g_times[1]["stages_ms"], "b8": g_times[8]}
+    return fwd, bwd, tail
+
+
+def phase_bf16_fuse_block(card: str, dual_images: list) -> dict:
+    """20d: a bf16 ``fuse_block`` B/2 sampler, built as phase 11 builds it,
+    from phase 20c's checkpoint weights (the same seed); its counts of E's
+    and G's bf16 variants, and its image against phase 20c's dual route by
+    PSNR. Returns the counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import sample
+    from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
+
+    print("== phase 20d: block-fused bf16 Mamba-2 sampler (fuse_block: kernel E prologue + "
+          "kernel G, bf16), phase 20c's weights and seed, 1 batch of 1", flush=True)
+    out_dir = os.path.join(ROOT, "result_sample")
+    os.makedirs(out_dir, exist_ok=True)
+    calls = 8 * 250  # blocks x steps
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "0050000.pt")
+        write_checkpoint(path, "DiffMa-B/2", 19, use_mamba2=True)
+        cfg = brain_config(model="DiffMa-B/2", use_mamba2=True, autocast=True,
+                           sample_num_batches=1, save_dir=os.path.join(tmp, "images"))
+        model = build_model("DiffMa-B/2", input_size=28, scan_impl="fused", use_mamba2=True,
+                            fuse_block=True, dtype=torch.bfloat16)
+        load_diffma_checkpoint(model, path, "ema")
+        reset_counts()
+        whole = sample.sample_batches(model.cuda().eval(), cfg, device="cuda")
+        counts = check_counts("the block-fused bf16 Mamba-2 sampler",
+                              {name: 0 for name in kernel_counters()}
+                              | {"ssd_mixer_fwd_bf16": calls, "spiral_epilogue_bf16": calls})
+    check_images(card, "the block-fused bf16 Mamba-2 sampler", whole, 1)
+    a, b = whole[0]["images"], dual_images[0]["images"]
+    span = float(b.max() - b.min())
+    psnr = 10 * math.log10(span**2 / max(float(np.mean((a - b) ** 2)), 1e-30))
+    print(f"  its image against phase 20c's dual-route bf16 image, same weights and seed: PSNR "
+          f"{psnr:.2f} dB over that image's range {span:.3f} (the routes round in other places; "
+          f"information, no bar)")
+    return counts
 
 
 def main() -> int:
@@ -3527,7 +3815,8 @@ def main() -> int:
     phase_learning(card, 9, use_mamba2=False)
     counts = phase_mamba2_samplers(card)
     ssd["launches"], epilogue["launches"] = counts["ssd_mixer_fwd"], counts["spiral_epilogue"]
-    ssd_bwd["launches"] = phase_mamba2_trainer(card)["ssd_mixer_bwd"]
+    counts, fp32_mamba2_steps_s = phase_mamba2_trainer(card)
+    ssd_bwd["launches"] = counts["ssd_mixer_bwd"]
     phase_mamba2_sizes(card)
     phase_learning(card, 13, use_mamba2=True)
     phase_family_samplers(card)
@@ -3546,14 +3835,25 @@ def main() -> int:
     mixer_bwd_bf16["launches"] = counts["mixer_fused_bwd_bf16"]
     print(f"  [{card}] DiffMa-L/2 training step in the trainer's CLI, batch 8: bf16 "
           f"{1e3 / bf16_steps_s:.1f} ms, fp32 {1e3 / fp32_steps_s:.1f} ms (phase 7)")
-    mixer_bf16["launches"] = phase_bf16_sampler(card)
+    mixer_bf16["launches"], _ = phase_bf16_sampler(card)
     phase_learning(card, "19d", use_mamba2=False, autocast=True)
     phase_bf16_step_profile(card, fp32_step)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    ssd_bf16, ssd_bwd_bf16, epilogue_bf16 = phase_bf16_ssd_kernels(card, ssd, epilogue, ssd_bwd)
+    counts, bf16_mamba2_steps_s = phase_mamba2_trainer(card, autocast=True)
+    ssd_bwd_bf16["launches"] = counts["ssd_mixer_bwd_bf16"]
+    print(f"  [{card}] DiffMa-L/2 Mamba-2 training step in the trainer's CLI, batch 8: bf16 "
+          f"{1e3 / bf16_mamba2_steps_s:.1f} ms, fp32 {1e3 / fp32_mamba2_steps_s:.1f} ms (phase 12)")
+    ssd_bf16["launches"], dual_images = phase_bf16_sampler(card, use_mamba2=True)
+    epilogue_bf16["launches"] = phase_bf16_fuse_block(card, dual_images)["spiral_epilogue_bf16"]
+    phase_learning(card, "20e", use_mamba2=True, autocast=True)
+    print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
-                                  inner, core, mixer_bf16, mixer_bwd_bf16]}))
+                                  inner, core, mixer_bf16, mixer_bwd_bf16, ssd_bf16,
+                                  ssd_bwd_bf16, epilogue_bf16]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -115,12 +115,10 @@
 // stream's share is rounded to bf16 before the sum, but for a stream in
 // token order (`ident`). gx is rounded to bf16 once, after its product.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "gemm_tc.cuh"
 
@@ -248,31 +246,13 @@ __device__ __forceinline__ float* split_dst(const Params& p, int m) {
 
 __device__ __forceinline__ float silu(float x) { return x * sigmoid(x); }
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-// Rows of `stride` elements from p that 4-element loads can read: aligned to
-// 4 elements and a stride of whole groups of 4 (true at every DiffMa width).
-// A stage whose rows are not takes its scalar loads (gemm_tc.cuh's Loader,
-// `vec`).
-template <class T>
-__device__ __forceinline__ bool al(const T* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0 && stride % 4 == 0;
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-// v rounded to bf16 (to nearest even) and back
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-template <class T>
-constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+using bf16 = tc::bf16;
+using tc::al;
+using tc::kIsBf16;
+using tc::ld;
+using tc::ld4;
+using tc::put;
+using tc::round_bf16;
 __device__ __forceinline__ float dsilu(float x) {
   const float s = sigmoid(x);
   return s * (1.0f + x * (1.0f - s));

@@ -107,11 +107,8 @@
 // The backward, diffma_tpu/ops/fused_mixer.py:565 (_mixer_bwd_kernel), is
 // kernel D, fused_mixer_bwd.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "gemm_tc.cuh"
 
@@ -131,31 +128,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-// Rows of `stride` elements from p that 4-element loads can read: aligned to
-// 4 elements and a stride of whole groups of 4 (true at every DiffMa width).
-// A stage whose rows are not takes its scalar loads (gemm_tc.cuh's Loader,
-// `vec`).
-template <class T>
-__device__ __forceinline__ bool al(const T* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0 && stride % 4 == 0;
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-// v rounded to bf16 (to nearest even) and back
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-template <class T>
-constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
+using bf16 = tc::bf16;
+using tc::al;
+using tc::kIsBf16;
+using tc::ld;
+using tc::ld4;
+using tc::put;
+using tc::round_bf16;
 
 // softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
 __device__ __forceinline__ float softplus(float x) {
@@ -378,19 +357,6 @@ __global__ void __launch_bounds__(kEltThreads) merge_kernel(const Params p) {
     }
     ym[j] = kBf16 ? round_bf16(acc * p.scale) : acc * p.scale;
   }
-}
-
-// bf16 out[m][i] = sum over s < splits of part[m][s * n + i], in split order
-// (tc::sum_splits_kernel with a bf16 output). grid (ceil(n / 256), M).
-__global__ void sum_out_bf16_kernel(const Params p) {
-  const int m = blockIdx.y;
-  const size_t n = tokens(p) * p.h;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kEltThreads + threadIdx.x;
-  if (i >= n) return;
-  const float* part = p.out_part + static_cast<size_t>(m) * p.out_splits * n + i;
-  float acc = 0.0f;
-  for (int s = 0; s < p.out_splits; ++s) acc += part[static_cast<size_t>(s) * n];
-  put(static_cast<bf16*>(p.br[m].out) + i, acc);
 }
 
 // wcat[j, :] = [W_out[j, :] | W_out[h - 1 - j, :]]. grid ceil(h * 2d / 256).
@@ -616,21 +582,14 @@ int run(Params& p, int M, int quirk, cudaStream_t st) {
   }
   if (err == 0) err = tc::launch_gemm_tc<128, OutProj<T>>(p, T_, h, M, st, p.out_splits);
   if (err != 0 || p.out_splits == 1) return err;
-  if constexpr (kIsBf16<T>) {
-    const size_t n = static_cast<size_t>(T_) * h;
-    sum_out_bf16_kernel<<<dim3(static_cast<unsigned>((n + kEltThreads - 1) / kEltThreads), M),
-                          kEltThreads, 0, st>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    tc::SplitSum q{};
-    for (int m = 0; m < M; ++m) {
-      q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T_ * h;
-      q.out[m] = static_cast<float*>(p.br[m].out);
-    }
-    q.n = T_ * h;
-    q.splits = p.out_splits;
-    return tc::launch_sum_splits(q, M, st);
+  tc::SplitSumOf<T> q{};
+  for (int m = 0; m < M; ++m) {
+    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T_ * h;
+    q.out[m] = static_cast<T*>(p.br[m].out);
   }
+  q.n = T_ * h;
+  q.splits = p.out_splits;
+  return tc::launch_sum_splits(q, M, st);
 }
 
 }  // namespace

@@ -122,7 +122,24 @@
 // the states read a number that grows as the square of the chunks
 // (ssd_core.cuh).
 //
-// Several B/C groups and bf16 are not built: the wrapper raises for them.
+// bf16 (dtype 1: x, g and gx in bf16, the weights and their gradients
+// fp32), the TPU kernel at a compute dtype cd = bfloat16. The four GEMMs
+// multiply bf16 operands with fp32 sums (gemm_tc.cuh's kBf16 stages), each
+// operand rounded where the JAX kernel casts it: g and W_out for gm; merged
+// and g for gW_out; g_zx and W_in for gx, which is stored in bf16; x and g_zx
+// for gW_in. y is recomputed with kernel E's rounding (ssd_core.cuh), and
+// each stream's y and g_y are rounded to bf16 where E rounds y, for every
+// stream not in token order (`ident` as in kernel E). The SSD's head
+// products round their operands: M^T g_y takes M and g_y, and W's g_y xdt^T
+// g_y and xdt = dt X, each rounded at the product with fp32 sums. The
+// gradient of each non-identity stream's conv and dt columns is rounded
+// before it is added back to token order. g_C and g_B, which the TPU kernel
+// takes from the sum over heads of g_cb rounded to bf16, stay fp32 here:
+// each head's block holds its own W, and the heads' shares are summed
+// after. The rest (the norm's and the cumsum's adjoints, the conv, the
+// clip and softplus, the sums) is the fp32 variant's arithmetic.
+//
+// Several B/C groups are not built: the wrapper raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,10 +166,18 @@ using ssd::kRawFloats;
 using ssd::kState;
 using ssd::kThreads;
 using ssd::kXS;
+using ssd::Keep;
+using ssd::round_bf16;
 using ssd::sigmoid;
 using ssd::softplus;
 using ssd::Where;
 using ssd::zero;
+using tc::al;
+using tc::kIsBf16;
+using tc::ld;
+using tc::ld4;
+using tc::put;
+using bf16 = tc::bf16;
 
 constexpr int kBranchPtrs = 19;   // x, g, 8 weights, gx, 8 gradients
 constexpr int kRowThreads = 256;  // the gate + norm adjoint
@@ -161,8 +186,8 @@ constexpr int kSplits = 16;       // row splits of the column sums
 constexpr int kHeadParts = 3;     // per (sequence, head): gA, g_D, g_dt_bias
 
 struct Branch {
-  const float* x;        // (B, L, h)
-  const float* g;        // (B, L, h)
+  const void* x;         // (B, L, h), fp32 or bf16
+  const void* g;         // (B, L, h), x's dtype
   const float* in_w;     // (2d + 2n + H, h)
   const float* conv_w;   // (d + 2n, K)
   const float* conv_b;   // (d + 2n,)
@@ -171,7 +196,7 @@ struct Branch {
   const float* D;        // (H,)
   const float* norm_w;   // (d,)
   const float* out_w;    // (h, d)
-  float* gx;             // (B, L, h)
+  void* gx;              // (B, L, h), x's dtype
   float* g_in_w;         // the gradients, each shaped as its weight
   float* g_conv_w;
   float* g_conv_b;
@@ -215,6 +240,7 @@ struct Params {
   int splits;            // of the current product's depth
   int sp_inw, sp_outw;   // depth splits of gW_in and gW_out
   int B, L, Ls, h, d, H, S, ys, dproj, conv_dim, nc;
+  int ident;  // bf16: bit s set when stream s runs in token order (nothing of it rounds)
   float scale, eps, dt_lo, dt_hi;
 };
 
@@ -225,52 +251,49 @@ __device__ __forceinline__ size_t srows(const Params& p) {
 __device__ __forceinline__ float* split_dst(const Params& p, int m) {
   return p.splits == 1 ? p.dst[m] : p.part + m * p.part_size;
 }
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
-// stride of whole float4s (true at every DiffMa width). A stage whose rows
-// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
-__device__ __forceinline__ bool al(const float* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
-}
 
 // The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
-// branch.
+// branch; T is x's dtype, and with bf16 every stage multiplies in bf16.
+template <class T>
 struct RowPtr {  // a row-major a, contiguous along k
-  const float* p;
+  const T* p;
 };
 struct RowIdx {  // an a contiguous along row: a(row, k) = X[k * rows + row]
   int row;
 };
 
+template <class T>
 struct GradOutProj {  // gm = g W_out
-  static constexpr bool kAByRow = false, kBByRow = true;
+  static constexpr bool kAByRow = false, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
-  using ARow = RowPtr;
-  const float *g, *w;
+  using ARow = RowPtr<T>;
+  const T* g;
+  const float* w;
   float* c;
   int rows, cols, depth;
   __device__ GradOutProj(const Params& p, int m)
-      : g(p.br[m].g), w(p.br[m].out_w), c(p.gm + m * tokens(p) * p.d),
+      : g(static_cast<const T*>(p.br[m].g)), w(p.br[m].out_w), c(p.gm + m * tokens(p) * p.d),
         rows(static_cast<int>(tokens(p))), cols(p.d), depth(p.h) {
     vec = al(g, depth) && al(w, cols);
   }
   __device__ ARow arow(int row) const { return {g + static_cast<size_t>(row) * depth}; }
-  __device__ float a(const ARow& r, int k) const { return r.p[k]; }
+  __device__ float a(const ARow& r, int k) const { return ld(r.p + k); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
   __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
 };
 
-struct GradX {  // gx = g_zx W_in
-  static constexpr bool kAByRow = false, kBByRow = true;
+template <class T>
+struct GradX {  // gx = g_zx W_in, stored as T
+  static constexpr bool kAByRow = false, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
-  using ARow = RowPtr;
+  using ARow = RowPtr<float>;
   const float *gzx, *w;
-  float* c;
+  T* c;
   int rows, cols, depth;
   __device__ GradX(const Params& p, int m)
-      : gzx(p.gzx + m * tokens(p) * p.dproj), w(p.br[m].in_w), c(p.br[m].gx),
+      : gzx(p.gzx + m * tokens(p) * p.dproj), w(p.br[m].in_w), c(static_cast<T*>(p.br[m].gx)),
         rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.dproj) {
     vec = al(gzx, depth) && al(w, cols);
   }
@@ -279,45 +302,49 @@ struct GradX {  // gx = g_zx W_in
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.p + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(k) * cols + col]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(k) * cols + col); }
-  __device__ void store(int row, int col, int, float v) const { c[static_cast<size_t>(row) * cols + col] = v; }
+  __device__ void store(int row, int col, int, float v) const { put(c + static_cast<size_t>(row) * cols + col, v); }
 };
 
+template <class T>
 struct GradInW {  // gW_in = g_zx^T x
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
-  const float *gzx, *x;
+  const float* gzx;
+  const T* x;
   float* c;
   int rows, cols, depth;
   __device__ GradInW(const Params& p, int m)
-      : gzx(p.gzx + m * tokens(p) * p.dproj), x(p.br[m].x), c(split_dst(p, m)),
+      : gzx(p.gzx + m * tokens(p) * p.dproj), x(static_cast<const T*>(p.br[m].x)), c(split_dst(p, m)),
         rows(p.dproj), cols(p.h), depth(static_cast<int>(tokens(p))) {
     vec = al(gzx, rows) && al(x, cols);
   }
   __device__ ARow arow(int row) const { return {row}; }
   __device__ float a(const ARow& r, int k) const { return gzx[static_cast<size_t>(k) * rows + r.row]; }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(gzx + static_cast<size_t>(k) * rows + r.row); }
-  __device__ float b(int col, int k) const { return x[static_cast<size_t>(k) * cols + col]; }
+  __device__ float b(int col, int k) const { return ld(x + static_cast<size_t>(k) * cols + col); }
   __device__ float4 b4(int col, int k) const { return ld4(x + static_cast<size_t>(k) * cols + col); }
   __device__ void store(int row, int col, int split, float v) const {
     c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
   }
 };
 
+template <class T>
 struct GradOutW {  // gW_out = g^T merged
-  static constexpr bool kAByRow = true, kBByRow = true;
+  static constexpr bool kAByRow = true, kBByRow = true, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   using ARow = RowIdx;
-  const float *g, *merged;
+  const T* g;
+  const float* merged;
   float* c;
   int rows, cols, depth;
   __device__ GradOutW(const Params& p, int m)
-      : g(p.br[m].g), merged(p.merged + m * tokens(p) * p.d), c(split_dst(p, m)),
+      : g(static_cast<const T*>(p.br[m].g)), merged(p.merged + m * tokens(p) * p.d), c(split_dst(p, m)),
         rows(p.h), cols(p.d), depth(static_cast<int>(tokens(p))) {
     vec = al(g, rows) && al(merged, cols);
   }
   __device__ ARow arow(int row) const { return {row}; }
-  __device__ float a(const ARow& r, int k) const { return g[static_cast<size_t>(k) * rows + r.row]; }
+  __device__ float a(const ARow& r, int k) const { return ld(g + static_cast<size_t>(k) * rows + r.row); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(g + static_cast<size_t>(k) * rows + r.row); }
   __device__ float b(int col, int k) const { return merged[static_cast<size_t>(k) * cols + col]; }
   __device__ float4 b4(int col, int k) const { return ld4(merged + static_cast<size_t>(k) * cols + col); }
@@ -326,7 +353,9 @@ struct GradOutW {  // gW_out = g^T merged
   }
 };
 
-// 3. The gate + RMSNorm adjoint of one token row. grid (B * L, M).
+// 3. The gate + RMSNorm adjoint of one token row; kBf16: a non-identity
+// stream's y and g_y rounded, as kernel E rounds y. grid (B * L, M).
+template <bool kBf16>
 __global__ void __launch_bounds__(kRowThreads) gate_norm_bwd_kernel(const Params p) {
   __shared__ float red[kRowThreads / 32];
   const int row = blockIdx.x;  // b * L + l
@@ -353,12 +382,13 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_bwd_kernel(const Params
     const size_t srow = ((static_cast<size_t>(m) * p.B + b) * p.ys + s) * p.L + l;
     const float* y = p.y + srow * d;
     float* gy = p.gy + srow * d;
+    const bool round = kBf16 && !((p.ident >> s) & 1);
     float yv[kMaxPerThread], yg[kMaxPerThread];
     float q = 0.0f;
 #pragma unroll
     for (int i = 0; i < kMaxPerThread; ++i) {
       const int c = threadIdx.x + i * kRowThreads;
-      yv[i] = c < d ? y[c] : 0.0f;
+      yv[i] = c < d ? (round ? round_bf16(y[c]) : y[c]) : 0.0f;
       yg[i] = yv[i] * sz[i];
       q = fmaf(yg[i], yg[i], q);
     }
@@ -375,7 +405,7 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_bwd_kernel(const Params
     for (int i = 0; i < kMaxPerThread; ++i) {
       const int c = threadIdx.x + i * kRowThreads;
       const float g_yg = gn[i] * nw[i] * rms - coef * yg[i];
-      if (c < d) gy[c] = g_yg * sz[i];
+      if (c < d) gy[c] = round ? round_bf16(g_yg * sz[i]) : g_yg * sz[i];
       gz[i] += g_yg * yv[i] * dsz[i];
     }
   }
@@ -455,7 +485,9 @@ __device__ __forceinline__ T half_warp_sum(T v) {
 }
 
 // 4b. The chunk's adjoint: g_X, g_B, g_C, <X, g_xdt> and g_cs per step, and
-// its share of g_D.
+// its share of g_D. kBf16: M stored rounded, and g_y, dt X rounded where the
+// products read them (the causal products of kernel E's bf16 variant).
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p, const ssd::FwdArgs a) {
   __shared__ float red[kThreads / 32];
   const Where w = ssd::where(a, 0, a.nc);
@@ -487,7 +519,13 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p, c
     zero(cb);
     zero(gx);
     block_mm<4, 4, false, true, true>(cb, ch.Cs, kNS, ch.Bs, kNS, 0, kN);
-    block_mm<4, 4, false, true, true>(gx, GY, kHd, ch.X, kXS, 0, kHd);
+    if constexpr (kBf16) {  // g_y . xdt_u, xdt_u = dt_u X_u
+      block_mm<4, 4, false, true, true>(
+          gx, GY, kHd, ch.X, kXS, 0, kHd, [](float v, int, int) { return round_bf16(v); },
+          [dts](float v, int, int u) { return round_bf16(v * dts[u]); });
+    } else {
+      block_mm<4, 4, false, true, true>(gx, GY, kHd, ch.X, kXS, 0, kHd);
+    }
     double row[4] = {0.0, 0.0, 0.0, 0.0}, col[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -497,8 +535,8 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p, c
         float mv = 0.0f, wv = 0.0f;
         if (u <= t && t < q) {
           const float decay = expf(static_cast<float>(lcs[t] - lcs[u]));
-          mv = cb[i][j] * decay;
-          wv = gx[i][j] * decay * dts[u];
+          mv = kBf16 ? round_bf16(cb[i][j] * decay) : cb[i][j] * decay;
+          wv = kBf16 ? gx[i][j] * decay : gx[i][j] * decay * dts[u];
           if (u < t) {
             const double pv = static_cast<double>(wv * cb[i][j]);
             row[i] += pv;
@@ -539,7 +577,12 @@ __global__ void __launch_bounds__(kThreads) ssd_adjoint_kernel(const Params p, c
     zero(gxd);
     zero(gcr);
     zero(yo);
-    block_mm<4, 4, true, false>(gxd, Mt, kQS, GY, kHd, r_begin, kQ);  // t >= u
+    if constexpr (kBf16) {
+      block_mm<4, 4, true, false>(gxd, Mt, kQS, GY, kHd, r_begin, kQ, Keep(),
+                                  [](float v, int, int) { return round_bf16(v); });
+    } else {
+      block_mm<4, 4, true, false>(gxd, Mt, kQS, GY, kHd, r_begin, kQ);  // t >= u
+    }
     if (has_out) block_mm<4, 4, false, false>(gcr, ch.Bs, kNS, Gh, kXS, 0, kN);
     if (has_in) block_mm<4, 4, false, false>(yo, ch.Cs, kNS, Hin, kXS, 0, kN);
 #pragma unroll
@@ -690,7 +733,9 @@ __global__ void grad_preact_kernel(const Params p) {
 // channel j of token l, stream s holds the token at position pos (merge table
 // entry s * Ls + pos; a partition has one entry per token); tap k of the conv
 // read it for the output at pos + K - 1 - k, if that is inside the stream.
-// The dt columns sum g_p.
+// The dt columns sum g_p. kBf16: each non-identity stream's share rounded
+// before it is added.
+template <bool kBf16>
 __global__ void grad_zx_kernel(const Params p) {
   const int m = blockIdx.y;
   const size_t T = tokens(p);
@@ -708,16 +753,27 @@ __global__ void grad_zx_kernel(const Params p) {
     for (int q = 0; q < ys; ++q) {
       const int64_t e = p.merge[static_cast<size_t>(l) * ys + q];  // s * Ls + pos
       const int pos = static_cast<int>(e % Ls);
+      if constexpr (kBf16) {
+        float part = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kConv; ++k) {
-        const int out = pos + kConv - 1 - k;
-        if (out < Ls) acc = fmaf(w[k], p.gxbc[(seq0 + e + kConv - 1 - k) * p.conv_dim + j], acc);
+        for (int k = 0; k < kConv; ++k) {
+          const int out = pos + kConv - 1 - k;
+          if (out < Ls) part = fmaf(w[k], p.gxbc[(seq0 + e + kConv - 1 - k) * p.conv_dim + j], part);
+        }
+        acc += (p.ident >> (e / Ls)) & 1 ? part : round_bf16(part);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kConv; ++k) {
+          const int out = pos + kConv - 1 - k;
+          if (out < Ls) acc = fmaf(w[k], p.gxbc[(seq0 + e + kConv - 1 - k) * p.conv_dim + j], acc);
+        }
       }
     }
   } else {
     for (int q = 0; q < ys; ++q) {
       const int64_t e = p.merge[static_cast<size_t>(l) * ys + q];
-      acc += p.graw[(seq0 + e) * p.H + (j - p.conv_dim)];
+      const float v = p.graw[(seq0 + e) * p.H + (j - p.conv_dim)];
+      acc += kBf16 && !((p.ident >> (e / Ls)) & 1) ? round_bf16(v) : v;
     }
   }
   p.gzx[(static_cast<size_t>(m) * T + tok) * p.dproj + p.d + j] = acc;
@@ -899,58 +955,16 @@ int launch_split(Params p, float* dst0, float* dst1, int rows, int cols, int M, 
   return tc::launch_sum_splits(q, M, st);
 }
 
-}  // namespace
-
-// Floats of workspace that ssd_mixer_bwd needs for these shapes.
-extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int Ls, int h, int d,
-                                                    int H, int S) {
-  Params p{};
-  set_dims(p, M, B, L, Ls, h, d, H, S);
-  return static_cast<long long>(layout(p, nullptr, M));
-}
-
-// `ptrs` holds 19 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) and `merge`
-// (L, S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is
-// a permutation of 0 .. L-1, with Ls = L / S its rows partition them. `zx`
-// is the residual (M, B * L, dproj) that ssd_mixer_fwd wrote for the same x
-// and weights. Launches the chain on `stream`; returns the first launch's
-// cudaError_t that is not 0, or -1 for shapes that are not built.
-extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
-                             const void* zx, void* workspace, int B, int L, int Ls, int h,
-                             int d, int n, int H, int K, int S, float scale, float eps,
-                             float dt_lo, float dt_hi, void* stream) {
-  if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
-      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 || Ls < 1 ||
-      (Ls != L && Ls * S != L)) {
-    return -1;
-  }
-  Params p{};
-  for (int m = 0; m < M; ++m) {
-    void* const* q = ptrs + m * kBranchPtrs;
-    const float* in[10];
-    float* out[9];
-    for (int i = 0; i < 10; ++i) in[i] = static_cast<const float*>(q[i]);
-    for (int i = 0; i < 9; ++i) out[i] = static_cast<float*>(q[10 + i]);
-    p.br[m] = Branch{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-                     out[0], out[1], out[2], out[3], out[4], out[5], out[6], out[7], out[8]};
-  }
-  p.fwd = static_cast<const int64_t*>(fwd);
-  p.merge = static_cast<const int64_t*>(merge);
-  p.zx = static_cast<const float*>(zx);
-  set_dims(p, M, B, L, Ls, h, d, H, S);
-  p.scale = scale;
-  p.eps = eps;
-  p.dt_lo = dt_lo;
-  p.dt_hi = dt_hi;
-  layout(p, static_cast<float*>(workspace), M);
-  p.splits = 1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * L, R = B * S * Ls;
+// The chain of launches for x of type T (see ssd_mixer_bwd).
+template <class T>
+int run(Params& p, int M, cudaStream_t st) {
+  constexpr bool kB = kIsBf16<T>;
+  const int B = p.B, L = p.L, Ls = p.Ls, h = p.h, d = p.d, H = p.H, S = p.S;
+  const int T_ = B * L, R = B * S * Ls;
   static const cudaError_t attr[] = {
       cudaFuncSetAttribute(ssd_chunk_adj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kChunkAdjSmem),
-      cudaFuncSetAttribute(ssd_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(ssd_adjoint_kernel<kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kAdjSmem),
   };
   for (const cudaError_t e : attr) {
@@ -973,14 +987,15 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
   core.S = S;
   core.y_streams = p.ys;
   core.dproj = p.dproj;
-  core.dt_lo = dt_lo;
-  core.dt_hi = dt_hi;
+  core.bf16 = kB;
+  core.dt_lo = p.dt_lo;
+  core.dt_hi = p.dt_hi;
   ssd::set_state_workspace(core, p.states, M);
 
-  int err = tc::launch_gemm_tc<128, GradOutProj>(p, T, d, M, st);
+  int err = tc::launch_gemm_tc<128, GradOutProj<T>>(p, T_, d, M, st);
   if (err == 0) err = ssd::launch_ssd_fwd(core, M, st);
   if (err == 0) {
-    gate_norm_bwd_kernel<<<dim3(T, M), kRowThreads, 0, st>>>(p);
+    gate_norm_bwd_kernel<kB><<<dim3(T_, M), kRowThreads, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0 && p.nc > 1) {
@@ -988,7 +1003,7 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
-    ssd_adjoint_kernel<<<dim3(p.nc * H, B * S, M), kThreads, kAdjSmem, st>>>(p, core);
+    ssd_adjoint_kernel<kB><<<dim3(p.nc * H, B * S, M), kThreads, kAdjSmem, st>>>(p, core);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
@@ -1000,7 +1015,7 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
-    grad_zx_kernel<<<dim3(blocks_for(static_cast<size_t>(T) * (p.dproj - d), 256), M), 256, 0, st>>>(p);
+    grad_zx_kernel<kB><<<dim3(blocks_for(static_cast<size_t>(T_) * (p.dproj - d), 256), M), 256, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
   if (err == 0) {
@@ -1011,16 +1026,69 @@ extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const vo
     norm_w_partial_kernel<<<dim3(blocks_for(d, 128), kSplits, M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
-  if (err == 0) err = tc::launch_gemm_tc<128, GradX>(p, T, h, M, st);
+  if (err == 0) err = tc::launch_gemm_tc<128, GradX<T>>(p, T_, h, M, st);
   if (err == 0) {
-    err = launch_split<128, GradInW>(p, p.br[0].g_in_w, p.br[1].g_in_w, p.dproj, h, M, p.sp_inw, st);
+    err = launch_split<128, GradInW<T>>(p, p.br[0].g_in_w, p.br[1].g_in_w, p.dproj, h, M, p.sp_inw, st);
   }
   if (err == 0) {
-    err = launch_split<64, GradOutW>(p, p.br[0].g_out_w, p.br[1].g_out_w, h, d, M, p.sp_outw, st);
+    err = launch_split<64, GradOutW<T>>(p, p.br[0].g_out_w, p.br[1].g_out_w, h, d, M, p.sp_outw, st);
   }
   if (err == 0) {
     finalize_kernel<<<dim3(blocks_for(p.conv_dim, 128), M), 128, 0, st>>>(p);
     err = static_cast<int>(cudaGetLastError());
   }
   return err;
+}
+
+}  // namespace
+
+// Floats of workspace that ssd_mixer_bwd needs for these shapes.
+extern "C" long long ssd_mixer_bwd_workspace_floats(int M, int B, int L, int Ls, int h, int d,
+                                                    int H, int S) {
+  Params p{};
+  set_dims(p, M, B, L, Ls, h, d, H, S);
+  return static_cast<long long>(layout(p, nullptr, M));
+}
+
+// `ptrs` holds 19 pointers per branch, in the order of struct Branch, for
+// M = 1 or 2 branches, all contiguous: x, g and gx of `dtype` (0 fp32, 1
+// bf16), the weights and their gradients fp32. `fwd` (S, Ls) and `merge`
+// (L, S, or L, 1 for a partition) are int64: with Ls = L each row of fwd is
+// a permutation of 0 .. L-1, with Ls = L / S its rows partition them. `zx`
+// is the residual (M, B * L, dproj) that ssd_mixer_fwd wrote for the same x
+// and weights. `ident` (bf16 only) has bit s set when stream s is in token
+// order. Launches the chain on `stream`; returns the first launch's
+// cudaError_t that is not 0, or -1 for shapes or a dtype that are not built.
+extern "C" int ssd_mixer_bwd(void* const* ptrs, int M, const void* fwd, const void* merge,
+                             const void* zx, void* workspace, int B, int L, int Ls, int h,
+                             int d, int n, int H, int K, int S, float scale, float eps,
+                             float dt_lo, float dt_hi, int dtype, int ident, void* stream) {
+  if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
+      d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || L < 1 || Ls < 1 ||
+      (Ls != L && Ls * S != L) || dtype < 0 || dtype > 1) {
+    return -1;
+  }
+  Params p{};
+  for (int m = 0; m < M; ++m) {
+    void* const* q = ptrs + m * kBranchPtrs;
+    const float* in[8];
+    float* out[8];
+    for (int i = 0; i < 8; ++i) in[i] = static_cast<const float*>(q[2 + i]);
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float*>(q[11 + i]);
+    p.br[m] = Branch{q[0], q[1], in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7],
+                     q[10], out[0], out[1], out[2], out[3], out[4], out[5], out[6], out[7]};
+  }
+  p.fwd = static_cast<const int64_t*>(fwd);
+  p.merge = static_cast<const int64_t*>(merge);
+  p.zx = static_cast<const float*>(zx);
+  set_dims(p, M, B, L, Ls, h, d, H, S);
+  p.scale = scale;
+  p.eps = eps;
+  p.dt_lo = dt_lo;
+  p.dt_hi = dt_hi;
+  p.ident = ident;
+  layout(p, static_cast<float*>(workspace), M);
+  p.splits = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? run<bf16>(p, M, st) : run<float>(p, M, st);
 }

@@ -83,8 +83,24 @@
 // tensor the caller owns: a caller that needs the backward keeps it for
 // kernel F, any other drops it. The kernel does the same work either way.
 //
-// Several B/C groups, bf16 and a partition spec in prologue mode are not
-// built: the wrapper raises for them.
+// bf16 (dtype 1: x and out in bf16, and in prologue mode wmask, shift and
+// scale; the weights fp32), the TPU kernel at a compute dtype cd = bfloat16,
+// as the JAX package's bf16 model runs it. in_proj and out_proj multiply bf16
+// operands with fp32 sums (gemm_tc.cuh's kBf16 stages), each operand rounded
+// to bf16 (to nearest even) where the JAX kernel casts it: x (in prologue
+// mode LN + modulate + mask, computed in fp32), W_in, the merge and W_out.
+// zx is rounded to bf16 as in_proj stores it (the residual then holds bf16
+// values in fp32); the conv, dt and the cumsum are fp32 from it. The SSD
+// rounds its intra-chunk products' operands (ssd_core.cuh). y + D x is fp32
+// and is rounded to bf16 before the gate for every stream that does not run
+// in token order (`ident`, the TPU kernel's identity streams, whose y its
+// un-permute skips); the gate, the norm and the stream sum are fp32. out is
+// rounded to bf16 once, after out_proj's fp32 sum (and its splits' sum).
+// The workspaces stay fp32, holding bf16 values where the JAX kernel rounds,
+// so the SSD, conv and row kernels are those of the fp32 variant.
+//
+// Several B/C groups and a partition spec in prologue mode are not built:
+// the wrapper raises for them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,23 +115,22 @@ using ssd::kConv;
 using ssd::kHd;
 using ssd::kMaxStreams;
 using ssd::kN;
+using ssd::round_bf16;
 using ssd::silu;
+using tc::al;
+using tc::kIsBf16;
+using tc::ld;
+using tc::ld4;
+using tc::put;
+using bf16 = tc::bf16;
 
 constexpr int kBranchPtrs = 10;
 constexpr int kRowThreads = 256;  // gate + norm + merge
 constexpr int kMaxPerThread = 8;  // so d <= 2048
 constexpr int kProThreads = 128;
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-// Rows of `stride` floats from p that float4s can read: 16-byte aligned and a
-// stride of whole float4s (true at every DiffMa width). A stage whose rows
-// are not takes its scalar loads (gemm_tc.cuh's Loader, `vec`).
-__device__ __forceinline__ bool al(const float* p, int stride) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 4 == 0;
-}
-
 struct Branch {
-  const float* x;        // (B, L, h)
+  const void* x;         // (B, L, h), fp32 or bf16
   const float* in_w;     // (2d + 2n + H, h)
   const float* conv_w;   // (d + 2n, K)
   const float* conv_b;   // (d + 2n,)
@@ -124,7 +139,7 @@ struct Branch {
   const float* D;        // (H,)
   const float* norm_w;   // (d,)
   const float* out_w;    // (h, d)
-  float* out;            // (B, L, h)
+  void* out;             // (B, L, h), x's dtype
 };
 
 struct Params {
@@ -137,44 +152,47 @@ struct Params {
   float* merged;       // (M, B * L, d)
   float* states;       // the SSD's chunk states and sums (ssd::state_floats)
   float* out_part;     // (M, out_splits, B * L, h): out_proj's split partials, if split
-  // prologue mode
-  const float* wmask;  // (B, L)
+  // prologue mode; wmask, shift and scale of x's dtype
+  const void* wmask;   // (B, L)
   const float* ln_w;   // (h,)
   const float* ln_b;   // (h,)
-  const float* shift;  // (B, h), rows mod_stride apart
-  const float* scale_;  // (B, h), rows mod_stride apart
+  const void* shift;   // (B, h), rows mod_stride apart
+  const void* scale_;  // (B, h), rows mod_stride apart
   int mod_stride;
   float ln_eps;
   int B, L, Ls, h, d, H, S, y_streams, dproj, in_bn, out_splits;
+  int ident;  // bf16: bit s set when stream s runs in token order (its y is not rounded)
   float scale, eps, dt_lo, dt_hi;
 };
 
 __device__ __forceinline__ size_t tokens(const Params& p) { return static_cast<size_t>(p.B) * p.L; }
 
-// 0. LayerNorm + modulate (+ soft mask for branch 1). grid B * L.
+// 0. LayerNorm + modulate (+ soft mask for branch 1), in fp32 for either
+// dtype T of x (in_proj's bf16 stage rounds the result). grid B * L.
+template <class T>
 __global__ void __launch_bounds__(kProThreads) prologue_kernel(const Params p) {
   __shared__ float red[kProThreads / 32];
   const int row = blockIdx.x;  // b * L + l
   const int b = row / p.L;
   const int h = p.h;
-  const float* x = p.br[0].x + static_cast<size_t>(row) * h;
+  const T* x = static_cast<const T*>(p.br[0].x) + static_cast<size_t>(row) * h;
   float s = 0.0f;
-  for (int c = threadIdx.x; c < h; c += kProThreads) s += x[c];
+  for (int c = threadIdx.x; c < h; c += kProThreads) s += ld(x + c);
   const float mu = block_sum(s, red) / h;
   float q = 0.0f;
   for (int c = threadIdx.x; c < h; c += kProThreads) {
-    const float xc = x[c] - mu;
+    const float xc = ld(x + c) - mu;
     q += xc * xc;
   }
   const float r = rsqrtf(block_sum(q, red) / h + p.ln_eps);
-  const float* shift = p.shift + static_cast<size_t>(b) * p.mod_stride;
-  const float* scale = p.scale_ + static_cast<size_t>(b) * p.mod_stride;
-  const float wm = p.wmask[row];
+  const T* shift = static_cast<const T*>(p.shift) + static_cast<size_t>(b) * p.mod_stride;
+  const T* scale = static_cast<const T*>(p.scale_) + static_cast<size_t>(b) * p.mod_stride;
+  const float wm = ld(static_cast<const T*>(p.wmask) + row);
   float* x0 = p.xmod + static_cast<size_t>(row) * h;
   float* x1 = x0 + static_cast<size_t>(p.B) * p.L * h;
   for (int c = threadIdx.x; c < h; c += kProThreads) {
-    const float xn = (x[c] - mu) * r * p.ln_w[c] + p.ln_b[c];
-    const float xm = xn * (1.0f + scale[c]) + shift[c];
+    const float xn = (ld(x + c) - mu) * r * p.ln_w[c] + p.ln_b[c];
+    const float xm = xn * (1.0f + ld(scale + c)) + ld(shift + c);
     x0[c] = xm;
     x1[c] = xm * wm;
   }
@@ -183,44 +201,52 @@ __global__ void __launch_bounds__(kProThreads) prologue_kernel(const Params p) {
 // The stages of gemm_tc.cuh: c[row, col] = sum_k a(row, k) b(col, k) for one
 // branch. Rows resolve into an ARow once per thread, before the k-loop.
 
-struct InProj {  // zx = x . W_in^T
-  static constexpr bool kAByRow = false, kBByRow = false;
+// zx = x . W_in^T, x of type XT (the input, or fp32 xmod in prologue mode);
+// kB: the bf16 model, whose products take bf16 operands and whose zx rounds.
+template <class XT, bool kB>
+struct InProj {
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kB;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
-    const float* x;
+    const XT* x;
   };
-  const float *x, *w;
+  const XT* x;
+  const float* w;
   float* c;
   int rows, cols, depth;
   __device__ InProj(const Params& p, int m)
-      : x(p.xmod ? p.xmod + m * tokens(p) * p.h : p.br[m].x), w(p.br[m].in_w),
-        c(p.zx + m * tokens(p) * p.dproj), rows(static_cast<int>(tokens(p))), cols(p.dproj),
-        depth(p.h) {
+      : x(p.xmod ? reinterpret_cast<const XT*>(p.xmod + m * tokens(p) * p.h)
+                 : static_cast<const XT*>(p.br[m].x)),
+        w(p.br[m].in_w), c(p.zx + m * tokens(p) * p.dproj), rows(static_cast<int>(tokens(p))),
+        cols(p.dproj), depth(p.h) {
     vec = al(x, depth) && al(w, depth);
   }
   __device__ ARow arow(int i) const { return {x + static_cast<size_t>(i) * depth}; }
-  __device__ float a(const ARow& r, int k) const { return r.x[k]; }
+  __device__ float a(const ARow& r, int k) const { return ld(r.x + k); }
   __device__ float4 a4(const ARow& r, int k) const { return ld4(r.x + k); }
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
   __device__ void store(int row, int col, int, float v) const {
-    c[static_cast<size_t>(row) * cols + col] = v;
+    c[static_cast<size_t>(row) * cols + col] = kB ? round_bf16(v) : v;
   }
 };
 
-struct OutProj {  // out = merged . W_out^T
-  static constexpr bool kAByRow = false, kBByRow = false;
+// out = merged . W_out^T: out of type T, or its fp32 split partials.
+template <class T>
+struct OutProj {
+  static constexpr bool kAByRow = false, kBByRow = false, kBf16 = kIsBf16<T>;
   bool vec;  // float4 loads: every row aligned
   struct ARow {
     const float* a;
   };
   const float *merged, *w;
-  float* c;
+  T* out;
+  float* part;
   int rows, cols, depth;
   __device__ OutProj(const Params& p, int m)
-      : merged(p.merged + m * tokens(p) * p.d), w(p.br[m].out_w),
-        c(p.out_splits == 1 ? p.br[m].out
-                            : p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
+      : merged(p.merged + m * tokens(p) * p.d), w(p.br[m].out_w), out(static_cast<T*>(p.br[m].out)),
+        part(p.out_splits == 1 ? nullptr
+                               : p.out_part + static_cast<size_t>(m) * p.out_splits * tokens(p) * p.h),
         rows(static_cast<int>(tokens(p))), cols(p.h), depth(p.d) {
     vec = al(merged, depth) && al(w, depth);
   }
@@ -230,12 +256,17 @@ struct OutProj {  // out = merged . W_out^T
   __device__ float b(int col, int k) const { return w[static_cast<size_t>(col) * depth + k]; }
   __device__ float4 b4(int col, int k) const { return ld4(w + static_cast<size_t>(col) * depth + k); }
   __device__ void store(int row, int col, int split, float v) const {
-    c[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+    if (part != nullptr) {
+      part[(static_cast<size_t>(split) * rows + row) * cols + col] = v;
+    } else {
+      put(out + static_cast<size_t>(row) * cols + col, v);
+    }
   }
 };
 
-// 3. Gate with silu(z), RMSNorm over d per stream, sum over streams, * scale.
-// grid (B * L, M).
+// 3. Gate with silu(z), RMSNorm over d per stream, sum over streams, * scale;
+// kBf16: each stream's y rounded first but an identity stream's. grid (B * L, M).
+template <bool kBf16>
 __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Params p) {
   __shared__ float red[kRowThreads / 32];
   const int row = blockIdx.x;  // b * L + l
@@ -254,11 +285,12 @@ __global__ void __launch_bounds__(kRowThreads) gate_norm_merge_kernel(const Para
   for (int s = 0; s < p.y_streams; ++s) {
     const float* y =
         p.y + (((static_cast<size_t>(m) * p.B + b) * p.y_streams + s) * p.L + l) * d;
+    const bool round = kBf16 && !((p.ident >> s) & 1);
     float q = 0.0f;
 #pragma unroll
     for (int i = 0; i < kMaxPerThread; ++i) {
       const int c = threadIdx.x + i * kRowThreads;
-      g[i] = c < d ? y[c] * sz[i] : 0.0f;
+      g[i] = c < d ? (round ? round_bf16(y[c]) : y[c]) * sz[i] : 0.0f;
       q = fmaf(g[i], g[i], q);
     }
     const float rms = rsqrtf(block_sum(q, red) / d + p.eps);
@@ -338,6 +370,44 @@ ssd::FwdArgs core_args(const Params& p, int M) {
   return core;
 }
 
+// The chain of launches for x of type T (see ssd_mixer_fwd).
+template <class T>
+int run(Params& p, int M, bool prologue, cudaStream_t st) {
+  constexpr bool kB = kIsBf16<T>;
+  const int T_ = p.B * p.L, h = p.h;
+  int err = 0;
+  if (prologue) {
+    prologue_kernel<T><<<T_, kProThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) {
+    if (prologue) {
+      err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj<float, kB>>(p, T_, p.dproj, M, st)
+                          : tc::launch_gemm_tc<128, InProj<float, kB>>(p, T_, p.dproj, M, st);
+    } else {
+      err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj<T, kB>>(p, T_, p.dproj, M, st)
+                          : tc::launch_gemm_tc<128, InProj<T, kB>>(p, T_, p.dproj, M, st);
+    }
+  }
+  ssd::FwdArgs core = core_args(p, M);
+  core.bf16 = kB;
+  if (err == 0) err = ssd::launch_ssd_fwd(core, M, st);
+  if (err == 0) {
+    gate_norm_merge_kernel<kB><<<dim3(T_, M), kRowThreads, 0, st>>>(p);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  if (err == 0) err = tc::launch_gemm_tc<128, OutProj<T>>(p, T_, h, M, st, p.out_splits);
+  if (err != 0 || p.out_splits == 1) return err;
+  tc::SplitSumOf<T> q{};
+  for (int m = 0; m < M; ++m) {
+    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T_ * h;
+    q.out[m] = static_cast<T*>(p.br[m].out);
+  }
+  q.n = T_ * h;
+  q.splits = p.out_splits;
+  return tc::launch_sum_splits(q, M, st);
+}
+
 }  // namespace
 
 // Floats of workspace that ssd_mixer_fwd needs for these shapes.
@@ -349,45 +419,48 @@ extern "C" long long ssd_mixer_workspace_floats(int M, int B, int L, int Ls, int
 }
 
 // `ptrs` holds 10 pointers per branch, in the order of struct Branch, for
-// M = 1 or 2 branches; all fp32 and contiguous. `fwd` (S, Ls) is int64: with
-// Ls = L each of its rows is a permutation of 0 .. L-1, with Ls = L / S its
-// rows partition them (not in prologue mode). `pro` is null, or five
-// pointers for prologue mode (then M = 2 and both branches' x is the block's
-// input): wmask (B, L), ln_w (h,), ln_b (h,), shift and scale (B, h) whose
-// rows lie `mod_stride` floats apart. `zx` (M, B * L, dproj) takes in_proj's
-// output, the residual that kernel F reads. Launches its kernels on `stream`;
-// returns the first cudaError_t that is not 0, or -1 for shapes that are not
-// built.
+// M = 1 or 2 branches, all contiguous: x and out of `dtype` (0 fp32, 1
+// bf16), the weights fp32. `fwd` (S, Ls) is int64: with Ls = L each of its
+// rows is a permutation of 0 .. L-1, with Ls = L / S its rows partition
+// them (not in prologue mode). `pro` is null, or five pointers for prologue
+// mode (then M = 2 and both branches' x is the block's input): wmask (B, L),
+// ln_w (h,), ln_b (h,), shift and scale (B, h) whose rows lie `mod_stride`
+// elements apart; wmask, shift and scale of `dtype`, ln_w and ln_b fp32.
+// `zx` (M, B * L, dproj) fp32 takes in_proj's output, the residual that
+// kernel F reads. `ident` (bf16 only) has bit s set when stream s is in
+// token order. Launches its kernels on `stream`; returns the first
+// cudaError_t that is not 0, or -1 for shapes or a dtype that are not built.
 extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* workspace,
                              void* zx, void* const* pro, int mod_stride, float ln_eps,
                              int B, int L, int Ls,
                              int h, int d, int n, int H, int K, int S, float scale,
-                             float eps, float dt_lo, float dt_hi, void* stream) {
+                             float eps, float dt_lo, float dt_hi, int dtype, int ident,
+                             void* stream) {
   const bool partition = Ls != L;
   if (M < 1 || M > 2 || n != kN || K != kConv || H < 1 || d != H * kHd ||
       d > kRowThreads * kMaxPerThread || S < 1 || S > kMaxStreams || Ls < 1 ||
-      (partition && (Ls * S != L || pro)) || (pro && M != 2)) {
+      (partition && (Ls * S != L || pro)) || (pro && M != 2) || dtype < 0 || dtype > 1) {
     return -1;
   }
   Params p{};
   for (int m = 0; m < M; ++m) {
     void* const* q = ptrs + m * kBranchPtrs;
     p.br[m] = Branch{
-        static_cast<const float*>(q[0]), static_cast<const float*>(q[1]),
+        q[0], static_cast<const float*>(q[1]),
         static_cast<const float*>(q[2]), static_cast<const float*>(q[3]),
         static_cast<const float*>(q[4]), static_cast<const float*>(q[5]),
         static_cast<const float*>(q[6]), static_cast<const float*>(q[7]),
-        static_cast<const float*>(q[8]), static_cast<float*>(q[9])};
+        static_cast<const float*>(q[8]), q[9]};
   }
   p.fwd = static_cast<const int64_t*>(fwd);
   set_dims(p, B, L, Ls, h, d, H, S);
   layout(p, static_cast<float*>(workspace), M, pro != nullptr);
   if (pro) {
-    p.wmask = static_cast<const float*>(pro[0]);
+    p.wmask = pro[0];
     p.ln_w = static_cast<const float*>(pro[1]);
     p.ln_b = static_cast<const float*>(pro[2]);
-    p.shift = static_cast<const float*>(pro[3]);
-    p.scale_ = static_cast<const float*>(pro[4]);
+    p.shift = pro[3];
+    p.scale_ = pro[4];
     p.mod_stride = mod_stride;
     p.ln_eps = ln_eps;
   }
@@ -396,31 +469,7 @@ extern "C" int ssd_mixer_fwd(void* const* ptrs, int M, const void* fwd, void* wo
   p.eps = eps;
   p.dt_lo = dt_lo;
   p.dt_hi = dt_hi;
+  p.ident = ident;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int T = B * L;
-
-  int err = 0;
-  if (pro) {
-    prologue_kernel<<<T, kProThreads, 0, st>>>(p);
-    err = static_cast<int>(cudaGetLastError());
-  }
-  if (err == 0) {
-    err = p.in_bn == 64 ? tc::launch_gemm_tc<64, InProj>(p, T, p.dproj, M, st)
-                        : tc::launch_gemm_tc<128, InProj>(p, T, p.dproj, M, st);
-  }
-  if (err == 0) err = ssd::launch_ssd_fwd(core_args(p, M), M, st);
-  if (err == 0) {
-    gate_norm_merge_kernel<<<dim3(T, M), kRowThreads, 0, st>>>(p);
-    err = static_cast<int>(cudaGetLastError());
-  }
-  if (err == 0) err = tc::launch_gemm_tc<128, OutProj>(p, T, h, M, st, p.out_splits);
-  if (err != 0 || p.out_splits == 1) return err;
-  tc::SplitSum q{};
-  for (int m = 0; m < M; ++m) {
-    q.part[m] = p.out_part + static_cast<size_t>(m) * p.out_splits * T * h;
-    q.out[m] = p.br[m].out;
-  }
-  q.n = T * h;
-  q.splits = p.out_splits;
-  return tc::launch_sum_splits(q, M, st);
+  return dtype == 1 ? run<bf16>(p, M, pro != nullptr, st) : run<float>(p, M, pro != nullptr, st);
 }

@@ -73,9 +73,9 @@
 //
 // bf16 products. An operand class with `static constexpr bool kBf16 = true`
 // multiplies in bf16 instead, for the JAX package's bf16 model (the products
-// of kernels C and D at a compute dtype of bfloat16): the loaders hand the
-// same fp32 values, and the stash rounds each to bf16 (round to nearest
-// even, as XLA's convert) where 3xTF32 splits it. A value the class already
+// of kernels C, D, E, F and G at a compute dtype of bfloat16): the loaders
+// hand the same fp32 values, and the stash rounds each to bf16 (round to
+// nearest even, as XLA's convert) where 3xTF32 splits it. A value the class already
 // holds in bf16 passes unchanged. One wgmma.m64nBNk16.f32.bf16.bf16 per
 // 16-deep step accumulates in fp32, with no split: two a slab. The stage
 // layout is the same in bytes, core matrices of 8 rows x 16 bytes (here 8
@@ -88,6 +88,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "bf16_round.cuh"
 
 namespace tc {
 
@@ -228,6 +230,32 @@ __device__ __forceinline__ void bf16_store(__nv_bfloat16* tile, int off, const f
   *reinterpret_cast<uint2*>(tile + off) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
+
+// Element access for the stage classes of either dtype: T is float or bf16
+// (x's dtype), the loads hand fp32 values to the loaders.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+}
+// Rows of `stride` elements from p that 4-element loads can read: aligned to
+// 4 elements and a stride of whole groups of 4 (true at every DiffMa width).
+// A stage whose rows are not takes its scalar loads (Loader, `vec`).
+template <class T>
+__device__ __forceinline__ bool al(const T* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0 && stride % 4 == 0;
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+using ::round_bf16;
+template <class T>
+constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 
 __device__ __forceinline__ float comp4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -562,24 +590,29 @@ inline int splits_for(int tiles, int depth, int max_splits = 16) {
   return s;
 }
 
-// out[m][i] = sum over s < splits of part[m][s * n + i], in split order.
-struct SplitSum {
+// out[m][i] = sum over s < splits of part[m][s * n + i], in split order, in
+// fp32; a bf16 out takes the sum rounded.
+template <class T>
+struct SplitSumOf {
   const float* part[2];
-  float* out[2];
+  T* out[2];
   int n, splits;
 };
+using SplitSum = SplitSumOf<float>;
 
-static __global__ void sum_splits_kernel(const SplitSum q) {
+template <class T>
+static __global__ void sum_splits_kernel(const SplitSumOf<T> q) {
   const int m = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q.n) return;
   const float* part = q.part[m] + i;
   float acc = 0.0f;
   for (int s = 0; s < q.splits; ++s) acc += part[static_cast<size_t>(s) * q.n];
-  q.out[m][i] = acc;
+  put(q.out[m] + i, acc);
 }
 
-inline int launch_sum_splits(const SplitSum& q, int branches, cudaStream_t stream) {
+template <class T>
+inline int launch_sum_splits(const SplitSumOf<T>& q, int branches, cudaStream_t stream) {
   sum_splits_kernel<<<dim3((q.n + 255) / 256, branches), 256, 0, stream>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,13 @@
 // The TPU kernel's (B, 8, h) packing of shift/scale/gate and its 8-row
 // padding of L exist for VMEM's tiling; here the gate is a pointer with a row
 // stride and rows are exact.
+//
+// bf16 (dtype 1: o0, o1, x, the gate and out in bf16, the weights fp32), the
+// TPU kernel at a compute dtype cd = bfloat16: the LayerNorm is fp32 over the
+// bf16 values; fc1 multiplies the normed concat and fc1_w rounded to bf16
+// (gemm_tc.cuh's kBf16 stage) with fp32 sums, and fc1_b is added in fp32;
+// silu(h) and fc2_w are rounded to bf16 before the h -> 1 dot, which sums in
+// fp32; the mix and the gated residual are fp32, and out is rounded once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,18 +64,19 @@ namespace {
 constexpr int kLnWarps = 1;
 constexpr int kTailThreads = 128;
 
+// o0, o1, x, gate and out are of the call's dtype, fp32 or bf16.
 struct Params {
-  const float* o0;     // (B * L, h)
-  const float* o1;     // (B * L, h)
-  const float* x;      // (B * L, h)
-  const float* gate;   // (B, h), rows gate_stride apart
+  const void* o0;      // (B * L, h)
+  const void* o1;      // (B * L, h)
+  const void* x;       // (B * L, h)
+  const void* gate;    // (B, h), rows gate_stride apart
   const float* an_w;   // (2h,)
   const float* an_b;   // (2h,)
   const float* fc1_w;  // (h, 2h)
   const float* fc1_b;  // (h,)
   const float* fc2_w;  // (h,)
   const float* fc2_b;  // (1,)
-  float* out;          // (B * L, h)
+  void* out;           // (B * L, h)
   float* n;            // (B * L, 2h): the normed concat
   float* part;         // (splits, B * L, h): fc1's split partials, if split
   float* logit;        // (B * L, col_tiles): sum_c silu(hpre + fc1_b) fc2_w per column tile
@@ -77,8 +85,14 @@ struct Params {
   float ln_eps;
 };
 
+using bf16 = tc::bf16;
+using tc::kIsBf16;
+using tc::ld4;
+using tc::round_bf16;
+
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16* p, float4 v) { tc::bf16_store(p, 0, v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -87,7 +101,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // 1. grid ceil(rows / kLnWarps), one warp per row, h a multiple of 4; each
-// lane's sums over its float4s in order, then the warp's.
+// lane's sums over its groups of 4 in order, then the warp's.
+template <class T>
 __global__ void __launch_bounds__(kLnWarps * 32) ln_kernel(const Params p) {
   if (blockIdx.x == 0 && p.splits > 1) {
     const int tiles = (p.rows + tc::kBM - 1) / tc::kBM * p.col_tiles;
@@ -97,17 +112,17 @@ __global__ void __launch_bounds__(kLnWarps * 32) ln_kernel(const Params p) {
   const int lane = threadIdx.x % 32;
   if (row >= p.rows) return;
   const int h4 = p.h / 4;
-  const float4* o0 = reinterpret_cast<const float4*>(p.o0 + static_cast<size_t>(row) * p.h);
-  const float4* o1 = reinterpret_cast<const float4*>(p.o1 + static_cast<size_t>(row) * p.h);
+  const T* o0 = static_cast<const T*>(p.o0) + static_cast<size_t>(row) * p.h;
+  const T* o1 = static_cast<const T*>(p.o1) + static_cast<size_t>(row) * p.h;
   float s = 0.0f;
   for (int c = lane; c < h4; c += 32) {
-    const float4 a = o0[c], b = o1[c];
+    const float4 a = ld4(o0 + 4 * c), b = ld4(o1 + 4 * c);
     s += ((a.x + a.y) + (a.z + a.w)) + ((b.x + b.y) + (b.z + b.w));
   }
   const float mu = warp_sum(s) / (2 * p.h);
   float q = 0.0f;
   for (int c = lane; c < h4; c += 32) {
-    const float4 a = o0[c], b = o1[c];
+    const float4 a = ld4(o0 + 4 * c), b = ld4(o1 + 4 * c);
     const float v[8] = {a.x - mu, a.y - mu, a.z - mu, a.w - mu, b.x - mu, b.y - mu, b.z - mu, b.w - mu};
 #pragma unroll
     for (int e = 0; e < 8; ++e) q = fmaf(v[e], v[e], q);
@@ -117,15 +132,17 @@ __global__ void __launch_bounds__(kLnWarps * 32) ln_kernel(const Params p) {
   const float4* w = reinterpret_cast<const float4*>(p.an_w);
   const float4* b = reinterpret_cast<const float4*>(p.an_b);
   for (int c = lane; c < 2 * h4; c += 32) {
-    const float4 v = c < h4 ? o0[c] : o1[c - h4], g = w[c], bb = b[c];
+    const float4 v = c < h4 ? ld4(o0 + 4 * c) : ld4(o1 + 4 * (c - h4)), g = w[c], bb = b[c];
     n[c] = make_float4((v.x - mu) * r * g.x + bb.x, (v.y - mu) * r * g.y + bb.y,
                        (v.z - mu) * r * g.z + bb.z, (v.w - mu) * r * g.w + bb.w);
   }
 }
 
-// 2. hpre = n . fc1_w^T on gemm_tc.cuh, finished per tile into partial logits.
+// 2. hpre = n . fc1_w^T on gemm_tc.cuh, finished per tile into partial
+// logits; kB: the bf16 model's products (see the header).
+template <bool kB>
 struct Fc1 {
-  static constexpr bool kAByRow = false, kBByRow = false, kFinish = true;
+  static constexpr bool kAByRow = false, kBByRow = false, kFinish = true, kBf16 = kB;
   bool vec = true;  // h a multiple of 4 and every pointer 16-byte aligned (the wrapper checks)
   struct ARow {
     const float* n;
@@ -191,7 +208,9 @@ struct Fc1 {
               v += sp == split ? acc[j * 4 + i * 2 + c]
                                : __ldcg(p.part + sp * plane + static_cast<size_t>(row) * cols + col);
             }
-            s[i] = fmaf(silu(v + p.fc1_b[col]), p.fc2_w[col], s[i]);
+            const float a = silu(v + p.fc1_b[col]);
+            s[i] = kB ? fmaf(round_bf16(a), round_bf16(p.fc2_w[col]), s[i])
+                      : fmaf(a, p.fc2_w[col], s[i]);
           }
         }
 #pragma unroll
@@ -205,6 +224,7 @@ struct Fc1 {
 };
 
 // 3. grid rows.
+template <class T>
 __global__ void __launch_bounds__(kTailThreads) tail_kernel(const Params p) {
   const int row = blockIdx.x;
   const int h = p.h;
@@ -212,18 +232,18 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(const Params p) {
   float s = 0.0f;
   for (int t = 0; t < p.col_tiles; ++t) s += lp[t];
   const float alpha = 1.0f / (1.0f + expf(-(s + p.fc2_b[0])));
-  const float* o0 = p.o0 + static_cast<size_t>(row) * h;
-  const float* o1 = p.o1 + static_cast<size_t>(row) * h;
-  const float* x = p.x + static_cast<size_t>(row) * h;
-  const float* gate = p.gate + static_cast<size_t>(row / p.L) * p.gate_stride;
-  float* out = p.out + static_cast<size_t>(row) * h;
+  const T* o0 = static_cast<const T*>(p.o0) + static_cast<size_t>(row) * h;
+  const T* o1 = static_cast<const T*>(p.o1) + static_cast<size_t>(row) * h;
+  const T* x = static_cast<const T*>(p.x) + static_cast<size_t>(row) * h;
+  const T* gate = static_cast<const T*>(p.gate) + static_cast<size_t>(row / p.L) * p.gate_stride;
+  T* out = static_cast<T*>(p.out) + static_cast<size_t>(row) * h;
   for (int c = 4 * threadIdx.x; c < h; c += 4 * kTailThreads) {
     const float4 a = ld4(o0 + c), b = ld4(o1 + c), xv = ld4(x + c), g = ld4(gate + c);
-    *reinterpret_cast<float4*>(out + c) =
+    st4(out + c,
         make_float4(xv.x + g.x * (alpha * a.x + (1.0f - alpha) * b.x),
                     xv.y + g.y * (alpha * a.y + (1.0f - alpha) * b.y),
                     xv.z + g.z * (alpha * a.z + (1.0f - alpha) * b.z),
-                    xv.w + g.w * (alpha * a.w + (1.0f - alpha) * b.w));
+                    xv.w + g.w * (alpha * a.w + (1.0f - alpha) * b.w)));
   }
 }
 
@@ -273,39 +293,52 @@ extern "C" long long spiral_epilogue_workspace_floats(int B, int L, int h) {
   return static_cast<long long>(layout(p, nullptr));
 }
 
+namespace {
+
+// The three launches for rows of type T (see spiral_epilogue_fwd).
+template <class T>
+int run(const Params& p, cudaStream_t st) {
+  constexpr bool kB = kIsBf16<T>;
+  ln_kernel<T><<<(p.rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(p);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) {
+    err = p.bn == 32 ? tc::launch_gemm_tc<32, Fc1<kB>>(p, p.rows, p.h, 1, st, p.splits)
+                     : tc::launch_gemm_tc<64, Fc1<kB>>(p, p.rows, p.h, 1, st, p.splits);
+  }
+  if (err != 0) return err;
+  tail_kernel<T><<<p.rows, kTailThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // `ptrs` holds the 11 pointers of struct Params from o0 to out, in that
-// order; all fp32; gate's rows lie `gate_stride` floats apart, everything
-// else is contiguous, h and gate_stride multiples of 4 and every pointer
-// 16-byte aligned. Launches three kernels on `stream`; returns the first
-// cudaError_t that is not 0, or -1 for shapes that are not built.
+// order: o0, o1, x, gate and out of `dtype` (0 fp32, 1 bf16), the weights
+// fp32; gate's rows lie `gate_stride` elements apart, everything else is
+// contiguous, h and gate_stride multiples of 4 and every pointer 16-byte
+// aligned. Launches three kernels on `stream`; returns the first
+// cudaError_t that is not 0, or -1 for shapes or a dtype that are not built.
 extern "C" int spiral_epilogue_fwd(void* const* ptrs, void* workspace, int B, int L, int h,
-                                   int gate_stride, float ln_eps, void* stream) {
-  if (B < 1 || L < 1 || h < 4 || h % 4 != 0 || gate_stride % 4 != 0) return -1;
+                                   int gate_stride, float ln_eps, int dtype, void* stream) {
+  if (B < 1 || L < 1 || h < 4 || h % 4 != 0 || gate_stride % 4 != 0 || dtype < 0 || dtype > 1) {
+    return -1;
+  }
   Params p{};
-  p.o0 = static_cast<const float*>(ptrs[0]);
-  p.o1 = static_cast<const float*>(ptrs[1]);
-  p.x = static_cast<const float*>(ptrs[2]);
-  p.gate = static_cast<const float*>(ptrs[3]);
+  p.o0 = ptrs[0];
+  p.o1 = ptrs[1];
+  p.x = ptrs[2];
+  p.gate = ptrs[3];
   p.an_w = static_cast<const float*>(ptrs[4]);
   p.an_b = static_cast<const float*>(ptrs[5]);
   p.fc1_w = static_cast<const float*>(ptrs[6]);
   p.fc1_b = static_cast<const float*>(ptrs[7]);
   p.fc2_w = static_cast<const float*>(ptrs[8]);
   p.fc2_b = static_cast<const float*>(ptrs[9]);
-  p.out = static_cast<float*>(ptrs[10]);
+  p.out = ptrs[10];
   set_dims(p, B, L, h);
   layout(p, static_cast<float*>(workspace));
   p.gate_stride = gate_stride;
   p.ln_eps = ln_eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-
-  ln_kernel<<<(p.rows + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, st>>>(p);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err == 0) {
-    err = p.bn == 32 ? tc::launch_gemm_tc<32, Fc1>(p, p.rows, h, 1, st, p.splits)
-                     : tc::launch_gemm_tc<64, Fc1>(p, p.rows, h, 1, st, p.splits);
-  }
-  if (err != 0) return err;
-  tail_kernel<<<p.rows, kTailThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 1 ? run<bf16>(p, st) : run<float>(p, st);
 }

@@ -47,6 +47,13 @@
 // tile per thread (block_mm), each warp's causal products cut to the steps its
 // rows can see.
 //
+// bf16 (FwdArgs::bf16, kernels E and F at a compute dtype of bfloat16): the
+// output kernel rounds the chunk's masked decay (Cs_t . Bs_u) exp(lcs[t] -
+// lcs[u]) and xdt_u = dt_u xs_u to bf16 (to nearest even) at its product,
+// which sums in fp32, as the TPU kernel's bf16 head products do; the states,
+// the cross-chunk term and the D skip stay fp32, and so does everything
+// stage_chunk computes (zx holds bf16 values then).
+//
 // A stream has Ls steps over the Lt tokens of its batch element: Ls = Lt when
 // every stream visits every token, Ls = Lt / S when the streams partition
 // them (each stream then is a sequence of its own: the conv's pad and the
@@ -57,8 +64,11 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16_round.cuh"
 
 namespace ssd {
 
@@ -79,6 +89,8 @@ __device__ __forceinline__ float dsilu(float x) {
   const float s = sigmoid(x);
   return s * (1.0f + x * (1.0f - s));
 }
+
+using ::round_bf16;
 
 // softplus(x) = log(1 + exp(x)) without overflow: max(x, 0) + log1p(exp(-|x|)).
 __device__ __forceinline__ float softplus(float x) {
@@ -112,10 +124,16 @@ __device__ __forceinline__ float* dynamic_smem() {
 // or 16 rows of an odd stride (TB). A warp holds rows RI 2w .. RI (2w + 2) - 1,
 // so a causal product bounds k by the warp (rows_begin, rows_end below); with
 // kLower the column groups above the warp's last row are skipped (the causal
-// half of an outer product, c <= r).
-template <int RI, int CJ, bool TA, bool TB, bool kLower = false>
+// half of an outer product, c <= r). fa(a, r, k) and fb(b, k, c) map each
+// element as it is read (Keep: as it stands; the bf16 products round).
+struct Keep {
+  __device__ __forceinline__ float operator()(float v, int, int) const { return v; }
+};
+
+template <int RI, int CJ, bool TA, bool TB, bool kLower = false, class FA = Keep, class FB = Keep>
 __device__ __forceinline__ void block_mm(float (&acc)[RI][CJ], const float* A, int lda,
-                                         const float* B, int ldb, int k_begin, int k_end) {
+                                         const float* B, int ldb, int k_begin, int k_end,
+                                         FA fa = FA(), FB fb = FB()) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int last = RI * (threadIdx.x / 32 * 2 + 2) - 1;  // the warp's last row
 #pragma unroll 4
@@ -124,13 +142,13 @@ __device__ __forceinline__ void block_mm(float (&acc)[RI][CJ], const float* A, i
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int r = RI * ty + i;
-      a[i] = TA ? A[k * lda + r] : A[r * lda + k];
+      a[i] = fa(TA ? A[k * lda + r] : A[r * lda + k], r, k);
     }
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       if (kLower && 16 * j > last) continue;
       const int c = tx + 16 * j;
-      b[j] = TB ? B[c * ldb + k] : B[k * ldb + c];
+      b[j] = fb(TB ? B[c * ldb + k] : B[k * ldb + c], k, c);
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i)
@@ -340,6 +358,7 @@ struct FwdArgs {
   float* states;       // (M, B * S, H, nc, 16, 64): each chunk's h_c
   double* sums;        // (M, B * S, H, nc): each chunk's sum(c)
   int B, Ls, Lt, d, H, S, y_streams, dproj, nc;
+  int bf16;  // the output kernel's products on bf16 operands (see the header)
   float dt_lo, dt_hi;
 };
 
@@ -422,6 +441,8 @@ static __global__ void __launch_bounds__(kThreads) ssd_state_kernel(const FwdArg
 // y of one chunk: the chunk's own causal product, the state entering it and
 // the D skip, written back in token order (no two writes meet: a stream
 // visits a token once, and in a partition each token lies in one stream).
+// kBf16: the causal product on bf16 operands, M[t, u] and dt_u xs_u.
+template <bool kBf16>
 static __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const FwdArgs a) {
   const Where w = where(a, 0, a.nc);
   Chunk ch = chunk_of(a, w, a.mx[w.m]);
@@ -440,7 +461,10 @@ static __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const FwdArgs 
       for (int j = 0; j < 4; ++j) {
         const int t = 4 * ty + i, u = tx + 16 * j;
         float v = 0.0f;
-        if (u <= t && t < ch.q) v = cb[i][j] * expf(static_cast<float>(ch.lcs[t] - ch.lcs[u])) * ch.dts[u];
+        if (u <= t && t < ch.q) {
+          const float m = cb[i][j] * expf(static_cast<float>(ch.lcs[t] - ch.lcs[u]));
+          v = kBf16 ? round_bf16(m) : m * ch.dts[u];
+        }
         Mt[t * kQS + u] = v;
       }
   }
@@ -448,7 +472,13 @@ static __global__ void __launch_bounds__(kThreads) ssd_out_kernel(const FwdArgs 
   float acc[4][4], cross[4][4];
   zero(acc);
   zero(cross);
-  block_mm<4, 4, false, false>(acc, Mt, kQS, ch.X, kXS, 0, rows_end());  // u <= t
+  if constexpr (kBf16) {
+    const float* dts = ch.dts;
+    block_mm<4, 4, false, false>(acc, Mt, kQS, ch.X, kXS, 0, rows_end(), Keep(),
+                                 [dts](float v, int u, int) { return round_bf16(v * dts[u]); });
+  } else {
+    block_mm<4, 4, false, false>(acc, Mt, kQS, ch.X, kXS, 0, rows_end());  // u <= t
+  }
   if (w.c > 0) block_mm<4, 4, false, false>(cross, ch.Cs, kNS, Hin, kXS, 0, kN);
   const float Dh = ch.mx.D[w.head];
   const size_t y_seq = a.y_streams == 1 ? static_cast<size_t>(w.m) * a.B + w.b : w.seq;
@@ -476,7 +506,10 @@ static int launch_ssd_fwd(const FwdArgs& a, int M, cudaStream_t stream) {
   static const cudaError_t attr[] = {
       cudaFuncSetAttribute(ssd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kStateSmem),
-      cudaFuncSetAttribute(ssd_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kOutSmem),
+      cudaFuncSetAttribute(ssd_out_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kOutSmem),
+      cudaFuncSetAttribute(ssd_out_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kOutSmem),
   };
   for (const cudaError_t e : attr) {
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -486,7 +519,12 @@ static int launch_ssd_fwd(const FwdArgs& a, int M, cudaStream_t stream) {
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  ssd_out_kernel<<<dim3(a.nc * a.H, a.B * a.S, M), kThreads, kOutSmem, stream>>>(a);
+  const dim3 grid(a.nc * a.H, a.B * a.S, M);
+  if (a.bf16) {
+    ssd_out_kernel<true><<<grid, kThreads, kOutSmem, stream>>>(a);
+  } else {
+    ssd_out_kernel<false><<<grid, kThreads, kOutSmem, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

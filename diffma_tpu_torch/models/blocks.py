@@ -39,8 +39,8 @@ Every block takes the compute dtype ``dtype``, as its Flax module: the
 parameters stay fp32, each ``Dense`` runs in ``dtype`` (``layers.dense``),
 the LayerNorms keep fp32 statistics and return their input's dtype, the
 attention's softmax runs in fp32, and the residual stream keeps x's dtype.
-A Mamba-2 block refuses bfloat16: kernels E, F and G have no bf16 variant
-yet.
+The Mamba-2 Spiral block casts the mixers' inputs to ``dtype`` on its dual
+route and x on its ``fuse_block`` route, as the JAX block does.
 """
 
 from __future__ import annotations
@@ -70,15 +70,9 @@ __all__ = [
 ]
 
 
-def _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, fuse_block=False):
-    if use_mamba2 and dtype != torch.float32:
-        kernels = "E and G" if fuse_block else "E and F"
-        raise NotImplementedError(
-            f"{dtype} Mamba-2 mixers (use_mamba2{' with fuse_block' if fuse_block else ''}): "
-            f"kernels {kernels} have no bf16 variant yet")
-    if use_mamba2:
-        return Mamba2(hidden, spec, d_state=d_state, scan_impl=scan_impl)
-    return Mamba(hidden, spec, d_state=d_state, scan_impl=scan_impl, dtype=dtype)
+def _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype):
+    mixer = Mamba2 if use_mamba2 else Mamba
+    return mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl, dtype=dtype)
 
 
 def _adaln(block: nn.Module, c: torch.Tensor, k: int):
@@ -107,8 +101,7 @@ class SpiralMambaBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
         self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
         self.mamba1, self.mamba2 = (
-            _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, fuse_block)
-            for _ in range(2))
+            _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype) for _ in range(2))
         self.attention_network = nn.Sequential(
             nn.LayerNorm(2 * hidden, eps=1e-5),
             nn.Linear(2 * hidden, hidden),
@@ -126,7 +119,8 @@ class SpiralMambaBlock(nn.Module):
         m1, m2 = self.mamba1, self.mamba2
         if self.fuse_block and self.use_mamba2 and fused:
             return spiral_block_fused(
-                self.spec, x, w, shift, scale, gate, self.norm1.weight, self.norm1.bias,
+                self.spec, x.to(self.dtype), w.to(self.dtype), shift, scale, gate,
+                self.norm1.weight, self.norm1.bias,
                 an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
                 m1.weights(), m2.weights(), m1.dt_limit, m1.norm_eps,
             )
@@ -137,8 +131,8 @@ class SpiralMambaBlock(nn.Module):
         w_in = x_mod * w  # soft mask from the CT encoder
         if fused and self.use_mamba2:
             x_ssm, w_ssm = mamba2_dual_mixer_fused(
-                self.spec, x_mod, w_in, m1.weights(), m2.weights(), m1.dt_limit, m1.norm_eps,
-                m1.chunk_size,
+                self.spec, x_mod.to(self.dtype), w_in.to(self.dtype), m1.weights(), m2.weights(),
+                m1.dt_limit, m1.norm_eps, m1.chunk_size,
             )
         elif fused:
             x_ssm, w_ssm = mamba_dual_mixer_fused(

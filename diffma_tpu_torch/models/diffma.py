@@ -25,8 +25,9 @@ ignores all three.
 it in bfloat16): the parameters stay fp32, every module computes in
 ``dtype`` with the JAX package's fp32 islands, the conditioning is cast to
 it, and the output is in it (the loss and the sampler cast it to fp32).
-bfloat16 runs the Mamba-1 mixers (kernels C and D, or A and B) and DiT;
-the Mamba-2 mixers refuse it.
+bfloat16 runs every family: the Mamba-1 mixers (kernels C and D, or A and
+B), the Mamba-2 mixers (kernels E and F, and with ``fuse_block`` E and G)
+and DiT.
 """
 
 from __future__ import annotations

@@ -20,6 +20,11 @@ Parameter names follow mamba_ssm's ``Mamba2`` state dict, whatever the path:
 ``A_log`` and ``D`` per head, ``norm.weight`` of the gated RMSNorm, and
 ``out_proj.weight``. d_inner is 2 * d_model and the conv has 4 taps. The
 tensor- and sequence-parallel branches come with the parallel layer.
+
+``dtype`` is the compute dtype, as the JAX mixer's: the parameters stay
+fp32, x is cast to it, and the output is in it. At bfloat16 the composable
+path runs ``ssd_mixer_ref`` in bf16 and the fused path the bf16 variants of
+kernels E and F (``ops/fused_ssd.py`` says where each rounds).
 """
 
 from __future__ import annotations
@@ -50,10 +55,12 @@ class Mamba2(nn.Module):
         chunk_size: int = 256,
         dt_limit: Tuple[float, float] = (0.0, float("inf")),
         norm_eps: float = 1e-5,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.spec = spec
         self.scan_impl = check_scan_impl(scan_impl)
+        self.dtype = dtype
         d_in = 2 * d_model
         if d_in % headdim:
             raise ValueError(f"d_inner {d_in} is not a multiple of headdim {headdim}")
@@ -80,6 +87,7 @@ class Mamba2(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         fused = SCAN_IMPLS[check_scan_impl(self.scan_impl)] is None
         if fused and self.ngroups == 1:
             return mamba2_mixer_fused(

@@ -6,7 +6,7 @@ seconds, so it happens at first use in each process; the library's file name
 carries a hash of its source and of every header in ``csrc/`` (C, D, E, F,
 G and H include ``gemm_tc.cuh``, the 3xTF32 tensor-core GEMM; A and H
 ``scan_fwd.cuh``, the chunked forward scan; E, F and P ``ssd_core.cuh``, the
-chunked SSD), so an
+chunked SSD; the GEMM and the SSD ``bf16_round.cuh``), so an
 edited source or header is rebuilt and an unchanged one is
 reused. Libraries go into
 ``diffma_tpu_torch/_build/``, which git ignores.

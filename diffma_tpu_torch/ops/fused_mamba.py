@@ -79,6 +79,8 @@ def mamba_inner_ref(xz, conv_w, conv_b, xp_w, dt_w, dt_b, A, D, scan_impl: str =
 def _check_kernel_inputs(tensors) -> dict:
     """Raise on what kernel H does not take; return its dimensions."""
     xz, conv_w, _, xp_w, dt_w, _, A, _ = tensors
+    if xz.dtype != torch.float32:
+        raise ValueError(f"kernel H has no bf16 variant: xz must be float32, got {xz.dtype}")
     if xz.device.type != "cuda":
         raise ValueError(f"the CUDA fused Mamba inner needs CUDA tensors, got {xz.device}")
     if xz.dim() != 3 or xz.shape[-1] % 2:

@@ -20,7 +20,11 @@ and its differences, which are fp64 and rounded only after the exp, as in
 the fused kernels: in fp32, with dt * |A| in the thousands over a sequence,
 ``cs_t - cs_s`` loses the digits the decay needs, and the backward's sums
 over ``cs`` (rows less columns of one matrix, then a reverse cumsum) cancel
-to rounding noise as large as the gradients of A and dt. These functions
+to rounding noise as large as the gradients of A and dt. With ``lowp`` the
+products inside a chunk take the masked decay ``(C_t . B_s) exp(cs_t -
+cs_s)`` and ``dt_s x_s`` rounded to bf16, with fp32 sums (kernels E and F at
+a compute dtype of bfloat16, ``ops/fused_ssd.py``); the state path stays
+fp32. These functions
 are the composable Mamba-2 path (``models/mamba2.py``) and what the fused
 mixer's plain version is built on (``ops/fused_ssd.py``). The single-token
 ``ssd_state_update`` comes with decode.
@@ -33,9 +37,33 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ssd_chunked", "ssd_chunked_grouped", "ssd_ref"]
+__all__ = ["RoundedProduct", "ssd_chunked", "ssd_chunked_grouped", "ssd_ref"]
 
 _NO_LIMIT = (0.0, float("inf"))
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+class RoundedProduct(torch.autograd.Function):
+    """``a @ b`` (batched over the leading axes, which a and b share) on
+    operands rounded to bf16, summed in fp32: a product on bf16 operands with
+    an fp32 accumulator. Its backward's two products round their operands
+    the same way and return fp32, as the fused kernels' hand-derived
+    backwards compute them."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.matmul(_bf16(a), _bf16(b))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = _bf16(g)
+        return (torch.matmul(g, _bf16(b).transpose(-1, -2)),
+                torch.matmul(_bf16(a).transpose(-1, -2), g))
 
 
 def _dt(dt, dt_bias, dt_softplus: bool, dt_limit) -> torch.Tensor:
@@ -106,11 +134,13 @@ def ssd_chunked(
     chunk_size: int = 256,
     initial_state: Optional[torch.Tensor] = None,  # (G, H, P, N)
     return_final_state: bool = False,
+    lowp: bool = False,
 ):
     """``ssd_ref`` with the work in dense products; shapes as there.
 
     L is padded to a multiple of the chunk with x = B = C = 0 and dt = -30,
-    so that the padded steps decay by 1 and add nothing.
+    so that the padded steps decay by 1 and add nothing. ``lowp``: the
+    intra-chunk product on bf16-rounded operands (``RoundedProduct``).
     """
     out_dtype = x.dtype
     G, L0, H, P = x.shape
@@ -134,7 +164,11 @@ def ssd_chunked(
     # Inside the chunks: dense, causally masked products.
     cb = torch.einsum("gctn,gcsn->gcts", Cf, Bf)
     m = cb[:, :, None] * _segsum_decay(cs.permute(0, 1, 3, 2))  # (G, nc, H, Q, Q)
-    y_intra = torch.einsum("gchts,gcshp->gcthp", m, xf * dtf[..., None])
+    if lowp:
+        xdt = (xf * dtf[..., None]).permute(0, 1, 3, 2, 4)  # (G, nc, H, Q, P)
+        y_intra = RoundedProduct.apply(m, xdt).permute(0, 1, 3, 2, 4)
+    else:
+        y_intra = torch.einsum("gchts,gcshp->gcthp", m, xf * dtf[..., None])
 
     # Each chunk's state, and the recurrence from chunk to chunk.
     cs_last = cs[:, :, -1]  # (G, nc, H)

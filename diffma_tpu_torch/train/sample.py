@@ -38,11 +38,10 @@ stack's VAE; otherwise the conditioning is synthetic and the VAE random,
 drawn from ``seed``. Orbax checkpoints come in a later slice.
 
 ``autocast`` (``--autocast``) builds the model in bfloat16, as the JAX
-sampler does (the fused route through kernel C's bf16 variant); its weights
-load in fp32, its output is cast to fp32 for the chain, and the graphed
-chain runs as it does in fp32. The Mamba-2 mixers have no bf16 kernels yet:
-``autocast`` with ``use_mamba2`` raises (kernel E), and so does building a
-bf16 model with ``fuse_block`` (kernels E and G).
+sampler does (the fused route through kernel C's bf16 variant, with
+``use_mamba2`` kernel E's, and for a model built with ``fuse_block`` kernels
+E's and G's); its weights load in fp32, its output is cast to fp32 for the
+chain, and the graphed chain runs as it does in fp32.
 """
 
 from __future__ import annotations
@@ -120,9 +119,6 @@ def load_model(cfg, device="cuda"):
     """``cfg``'s denoiser on ``device``, in eval mode: the checkpoint's weights
     when ``cfg.ckpt`` names a file that exists, else random ones from ``seed``."""
     device = resolve_device(device)
-    if cfg.get("autocast") and cfg.get("use_mamba2"):
-        raise NotImplementedError("autocast with use_mamba2: bf16 Mamba-2 sampling needs kernel "
-                                  "E in bf16, which is not ported yet")
     model = build_model(
         str(cfg.model),
         input_size=cfg.image_size // 8,

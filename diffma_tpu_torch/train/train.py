@@ -16,11 +16,10 @@ which ``train/sample.py --ckpt`` reads. One device.
 ``autocast`` (``--autocast``) builds the model in bfloat16, as the JAX
 trainer does: its activations run in bf16 (the Mamba-1 mixers through the
 bf16 variants of kernels C and D on the fused route, kernels A and B in
-bf16 on the composable one) and its output is cast to fp32 for the loss;
-the parameters, their gradients, AdamW's moments, the EMA and the
-checkpoints stay fp32, and the conditioning stack stays fp32. The Mamba-2
-mixers have no bf16 kernels yet (E and F), and ``autocast`` with
-``use_mamba2`` raises.
+bf16 on the composable one; with ``use_mamba2`` the Mamba-2 mixers through
+the bf16 variants of kernels E and F) and its output is cast to fp32 for
+the loss; the parameters, their gradients, AdamW's moments, the EMA and
+the checkpoints stay fp32, and the conditioning stack stays fp32.
 
 On the card, at ``accumulation_steps`` 1 (the JAX trainer's fast path), the
 step runs as a CUDA graph (``state.GraphedTrainStep``): the loop draws each
@@ -237,9 +236,6 @@ def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator):
 
 
 def _refuse_unported(cfg) -> None:
-    if cfg.get("autocast") and cfg.get("use_mamba2"):
-        raise NotImplementedError("autocast with use_mamba2: bf16 Mamba-2 training needs kernels "
-                                  "E and F in bf16, which are not ported yet")
     for key, what in (("remat", "rematerialisation"),
                       ("resume_from", "resuming from Orbax checkpoints")):
         if cfg.get(key):

@@ -39,7 +39,8 @@ __all__ = ["Graph", "kernel_counters"]
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper by kernel name; its ``launches`` counts its launches
-    (kernels C's and D's bf16 variants: a count that their wrapper keeps)."""
+    (the bf16 variants of kernels C, D, E, F and G: a count that their wrapper
+    keeps)."""
     from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
     from diffma_tpu_torch.ops.fused_ssd import (
@@ -55,7 +56,10 @@ def kernel_counters() -> dict:
             "ssd_mixer_fwd": ssd_mixer_fused_cuda, "spiral_epilogue": spiral_epilogue_cuda,
             "ssd_mixer_bwd": ssd_mixer_fused_bwd_cuda, "mamba_inner_fwd": mamba_inner_fused_cuda,
             "ssd_core_fwd": ssd_core_cuda, "mixer_fused_fwd_bf16": mixer_fused_cuda.bf16,
-            "mixer_fused_bwd_bf16": mixer_fused_bwd_cuda.bf16}
+            "mixer_fused_bwd_bf16": mixer_fused_bwd_cuda.bf16,
+            "ssd_mixer_fwd_bf16": ssd_mixer_fused_cuda.bf16,
+            "ssd_mixer_bwd_bf16": ssd_mixer_fused_bwd_cuda.bf16,
+            "spiral_epilogue_bf16": spiral_epilogue_cuda.bf16}
 
 
 class Graph:

@@ -25,7 +25,8 @@ path with kernels A and B). ``--use-mamba2`` takes the Mamba-2 mixers
 (``fused`` is then kernel E, and kernel F in a training step), and with it
 the denoiser profile takes ``--fuse-block`` (kernels E and G). ``--autocast``
 builds the model in bfloat16, as the trainer's and the sampler's
-``--autocast`` do (Mamba-1 only: kernels C's and D's bf16 variants).
+``--autocast`` do (kernels C's and D's bf16 variants, with ``--use-mamba2``
+E's and F's, and with ``--fuse-block`` E's and G's).
 """
 
 from __future__ import annotations

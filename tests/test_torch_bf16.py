@@ -381,10 +381,40 @@ def test_embedder_cli_accepts_autocast_and_trains_in_fp32(tmp_path):
     assert all(v.dtype == torch.float32 and torch.equal(v, autocast[k]) for k, v in plain.items())
 
 
-@pytest.mark.parametrize("fuse_block,match", [(False, "kernels E and F"), (True, "kernels E and G")])
-def test_bf16_mamba2_models_are_refused(fuse_block, match):
-    """The Mamba-2 mixers have no bf16 kernels yet: a bf16 model on them
-    raises, on any device, naming the kernels."""
-    with pytest.raises(NotImplementedError, match=match):
-        build_model("DiffMa-S/2", input_size=8, hidden_size=32, use_mamba2=True,
-                    fuse_block=fuse_block, scan_impl="fused", dtype=BF16)
+@pytest.mark.parametrize("fuse_block", [False, True])
+def test_bf16_mamba2_models_build_and_run(fuse_block):
+    """A bf16 Mamba-2 model, on the dual route and with ``fuse_block``, builds
+    and runs a forward on the CPU (the plain versions of kernels E and F, or
+    E and G): a finite bf16 output, fp32 parameters."""
+    model = build_model("DiffMa-S/2", input_size=INPUT, hidden_size=HIDDEN, use_mamba2=True,
+                        fuse_block=fuse_block, scan_impl="fused", dtype=BF16)
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():  # adaLN and the final layer off zero
+            p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+        out = model(*(torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a)
+                      for a in _inputs()))
+    assert out.dtype == BF16 and out.shape == (2, 8, INPUT, INPUT)
+    assert bool(torch.isfinite(out).all())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("kernel", ["H", "P"])
+def test_kernels_without_bf16_variants_refuse_bf16(kernel):
+    """Kernels H (the Mamba-1 inner part) and P (the split SSD probe's
+    core) have no bf16 variant, and no registry model reaches them: their
+    wrappers refuse bf16 tensors, naming the kernel, on any device."""
+    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
+    from diffma_tpu_torch.ops.fused_ssd import Mamba2Weights, ssd_core_cuda
+
+    with pytest.raises(ValueError, match=f"kernel {kernel} has no bf16 variant"):
+        if kernel == "H":
+            d, n, r = 8, 16, 2
+            mamba_inner_fused_cuda(torch.zeros(1, 4, 2 * d, dtype=BF16), torch.zeros(d, 4),
+                                   torch.zeros(d), torch.zeros(r + 2 * n, d), torch.zeros(d, r),
+                                   torch.zeros(d), torch.zeros(d, n), torch.zeros(d))
+        else:
+            d, H = 64, 1
+            w = Mamba2Weights(None, torch.zeros(d + 32, 1, 4), torch.zeros(d + 32),
+                              torch.zeros(H), torch.zeros(H), torch.zeros(H), torch.zeros(d), None)
+            ssd_core_cuda(torch.zeros(1, 4, 2 * d + 32 + H, dtype=BF16), (w,))

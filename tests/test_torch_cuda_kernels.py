@@ -486,20 +486,21 @@ def test_fused_mixer_bf16_takes_fp32_weights_only(cuda):
         mixer_fused_bwd_cuda(spec, (xs[0].float(),), gs[:1], ws[:1])
 
 
-def test_bf16_mamba2_is_refused_on_the_card(cuda, tmp_path):
-    from diffma_tpu_torch.models.diffma import build_model
-    from diffma_tpu_torch.train import sample, train
-    from diffma_tpu_torch.utils.config import Config
-
-    cfg = Config(model="DiffMa-S/2", image_size=32, hidden_size=32, autocast=True,
-                 use_mamba2=True, results_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="kernels E and F"):
-        train.main(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="kernel E"):
-        sample.load_model(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="kernels E and G"):
-        build_model("DiffMa-S/2", input_size=4, hidden_size=32, use_mamba2=True,
-                    fuse_block=True, scan_impl="fused", dtype=torch.bfloat16).to(cuda)
+@pytest.mark.parametrize("kernel", ["H", "P"])
+def test_kernels_without_bf16_variants_refuse_bf16_on_the_card(cuda, kernel):
+    """Kernels H and P have no bf16 variant (no registry model reaches
+    them): their wrappers refuse bf16 CUDA tensors, naming the kernel."""
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match=f"kernel {kernel} has no bf16 variant"):
+        if kernel == "H":
+            xz, *weights = _inner_inputs(cuda, 1, 16, 0)
+            mamba_inner_fused_cuda(xz.to(bf16), *weights)
+        else:
+            spec = build_scan_spec("spiral", 4, 0)
+            (m,) = _mixers2(cuda, spec, seed=0, count=1)
+            w = m.weights()
+            zx = torch.zeros(1, 16, w.in_w.shape[0], device=cuda, dtype=bf16)
+            ssd_core_cuda(zx, (w,))
 
 
 # ---- kernel E (the fused Mamba-2 mixer) and kernel G (the Spiral block's tail)
@@ -682,7 +683,11 @@ def _assert_clip_sides_agree(xs, ws, zx, dt_limit):
     inside = lambda v: (v >= dt_limit[0]) & (v <= dt_limit[1])  # noqa: E731
     for m, (x, w) in enumerate(zip(xs, ws)):
         H = w.dt_bias.shape[0]
-        plain = torch.nn.functional.linear(x, w.in_w)[..., -H:].reshape(-1, H)
+        if x.dtype == torch.bfloat16:  # bf16 operands, fp32 sums, zx rounded
+            plain = torch.nn.functional.linear(x.float(), w.in_w.to(x.dtype).float())
+            plain = plain.to(x.dtype).float()[..., -H:].reshape(-1, H)
+        else:
+            plain = torch.nn.functional.linear(x, w.in_w)[..., -H:].reshape(-1, H)
         sp_plain = torch.nn.functional.softplus(plain + w.dt_bias)
         sp_kernel = torch.nn.functional.softplus(zx[m][:, -H:] + w.dt_bias)
         differ = int((inside(sp_plain) != inside(sp_kernel)).sum().item())
@@ -1181,3 +1186,177 @@ def test_mamba_inner_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match=r"\(G, L, 2d\)"):
         call(xz=args[0][0])
     assert mamba_inner_fused_cuda.launches == before
+
+
+# ---- kernels E, F and G in bf16 (the bf16 Mamba-2 model)
+
+# (family, grid, layer, batch, dt_limit): the Spiral block's dual call at the
+# sampler's and the trainer's batch, 25 tokens, a dt_limit that clips some
+# steps and not others, EfficientVMamba's partition, zig and vim (one mixer).
+# Every stream of 196 tokens is longer than the kernels' 64-step chunk.
+SSD_BF16_CASES = [("spiral", 14, 0, 1, NO_LIMIT), ("spiral", 14, 0, 8, NO_LIMIT),
+                  ("spiral", 5, 1, 2, NO_LIMIT), ("spiral", 14, 2, 1, (0.5, 0.9)),
+                  ("eff", 14, 1, 1, NO_LIMIT), ("eff", 10, 1, 2, NO_LIMIT),
+                  ("zig", 14, 2, 1, NO_LIMIT), ("vim", 14, 0, 2, NO_LIMIT)]
+
+
+def _ssd_bf16_case(device, family, grid_n, layer, batch):
+    """Both branches for the Spiral block, one mixer otherwise; x and g bf16."""
+    spec = build_scan_spec(family, grid_n, layer)
+    mixers = _mixers2(device, spec, seed=layer, count=2 if family == "spiral" else 1)
+    L = grid_n * grid_n
+    xs = [_x(device, L, 80 + i, batch).to(torch.bfloat16) for i in range(len(mixers))]
+    gs = [_x(device, L, 90 + i, batch).to(torch.bfloat16) for i in range(len(mixers))]
+    return spec, [m.weights() for m in mixers], xs, gs
+
+
+def _assert_bf16_close(got, want, what):
+    """max |err| <= 2e-2 max(1, max |ref|) and mean-rel <= 5e-3."""
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    assert got.shape == want.shape and torch.isfinite(got.float()).all(), what
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * max(1.0, want.float().abs().max().item()), (what, err)
+    assert _mean_rel(got, want) <= 5e-3, (what, _mean_rel(got, want))
+
+
+@pytest.mark.parametrize("family,grid_n,layer,batch,dt_limit", SSD_BF16_CASES)
+def test_fused_ssd_bf16_matches_plain(cuda, family, grid_n, layer, batch, dt_limit):
+    """Kernel E's bf16 variant against its bf16 plain version (kernel E's
+    rounding, ``mamba2_mixer_fused(impl="ref")``), the same bits on a second
+    call and in residual mode, whose zx holds bf16 values; counted as bf16
+    launches."""
+    spec, ws, xs, _ = _ssd_bf16_case(cuda, family, grid_n, layer, batch)
+    launches = (ssd_mixer_fused_cuda.launches, ssd_mixer_fused_cuda.bf16.launches)
+    with torch.no_grad():
+        got, again = (ssd_mixer_fused_cuda(spec, xs, ws, dt_limit) for _ in range(2))
+        res, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
+        want = [mamba2_mixer_fused(spec, x, w, dt_limit, impl="ref") for x, w in zip(xs, ws)]
+    torch.cuda.synchronize()
+    assert (ssd_mixer_fused_cuda.launches, ssd_mixer_fused_cuda.bf16.launches) == (
+        launches[0], launches[1] + 3)
+    assert zx.dtype == torch.float32 and torch.equal(zx, zx.to(torch.bfloat16).float())
+    if dt_limit != NO_LIMIT:
+        _assert_clip_sides_agree(xs, ws, zx, dt_limit)
+    for m, (g, a, r, w) in enumerate(zip(got, again, res, want)):
+        assert torch.equal(g, a) and torch.equal(g, r), m
+        _assert_bf16_close(g, w, f"E bf16 mixer {m}")
+
+
+@pytest.mark.parametrize("family,grid_n,layer,batch,dt_limit", SSD_BF16_CASES)
+def test_fused_ssd_bwd_bf16_matches_plain(cuda, family, grid_n, layer, batch, dt_limit):
+    """Kernel F's bf16 variant against autograd over kernel E's bf16 plain
+    version, every gradient within mean-rel 1e-2, gx bf16 and the weights'
+    gradients fp32, the same bits on a second call."""
+    spec, ws, xs, gs = _ssd_bf16_case(cuda, family, grid_n, layer, batch)
+    with torch.no_grad():
+        _, zx = ssd_mixer_fused_cuda(spec, xs, ws, dt_limit, want_res=True)
+    if dt_limit != NO_LIMIT:
+        _assert_clip_sides_agree(xs, ws, zx, dt_limit)
+    before = ssd_mixer_fused_bwd_cuda.bf16.launches
+    got, again = (ssd_mixer_fused_bwd_cuda(spec, xs, gs, ws, zx, dt_limit) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ssd_mixer_fused_bwd_cuda.bf16.launches == before + 2
+    for m in range(len(xs)):
+        gx_ref, gw_ref = ssd_mixer_bwd_ref(spec, xs[m], gs[m], ws[m], dt_limit)
+        pairs = [("gx", got[0][m], again[0][m], gx_ref)]
+        pairs += list(zip(gw_ref._fields, got[1][m], again[1][m], gw_ref))
+        for name, a, b, ref in pairs:
+            assert a.dtype == (torch.bfloat16 if name == "gx" else torch.float32), name
+            assert torch.equal(a, b), name
+            assert _mean_rel(a, ref) <= 1e-2, (m, name, _mean_rel(a, ref))
+
+
+@pytest.mark.parametrize("grid_n,layer,batch", [(14, 3, 1), (14, 0, 2), (5, 1, 2), (14, 1, 8)])
+def test_fused_ssd_prologue_and_epilogue_bf16_match_plain(cuda, grid_n, layer, batch):
+    """Kernel E's prologue mode and kernel G in bf16, each against its bf16
+    plain version, fed by a bf16 block's own adaLN chunks; each twice, with
+    equal bits; counted as bf16 launches."""
+    bf16 = torch.bfloat16
+    spec = build_scan_spec("spiral", grid_n, layer)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True, dtype=bf16), 8 + layer)
+    block = block.to(cuda).eval()
+    x, c, w = (t.to(bf16) for t in _block_inputs(cuda, grid_n * grid_n, 9 + layer, batch))
+    an, fc1, _, fc2 = block.attention_network
+    launches = (ssd_mixer_fused_cuda.bf16.launches, spiral_epilogue_cuda.bf16.launches)
+    with torch.no_grad():
+        mod = torch.nn.functional.linear(torch.nn.functional.silu(c),
+                                         block.adaLN_modulation[1].weight.to(bf16),
+                                         block.adaLN_modulation[1].bias.to(bf16))
+        shift, scale, gate = mod.chunk(3, dim=-1)
+        pro = Prologue(w, block.norm1.weight, block.norm1.bias, shift, scale)
+        ws = (block.mamba1.weights(), block.mamba2.weights())
+        (o0, o1), (a0, a1) = (ssd_mixer_fused_cuda(spec, (x,), ws, prologue=pro)
+                              for _ in range(2))
+        xm = torch.nn.functional.layer_norm(x.float(), (HIDDEN,), pro.ln_w, pro.ln_b, 1e-5)
+        xm = xm * (1 + scale.float()[:, None]) + shift.float()[:, None]
+        want0 = mamba2_mixer_fused(spec, xm.to(bf16), ws[0], impl="ref")
+        want1 = mamba2_mixer_fused(spec, (xm * w.float()).to(bf16), ws[1], impl="ref")
+        tail = (gate, an.weight, an.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        got_tail, again = (spiral_epilogue_cuda(want0, want1, x, *tail) for _ in range(2))
+        want_tail = spiral_epilogue_ref(want0, want1, x, *tail)
+    torch.cuda.synchronize()
+    assert (ssd_mixer_fused_cuda.bf16.launches, spiral_epilogue_cuda.bf16.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    assert torch.equal(o0, a0) and torch.equal(o1, a1) and torch.equal(got_tail, again)
+    _assert_bf16_close(o0, want0, "E bf16 prologue, branch 0")
+    _assert_bf16_close(o1, want1, "E bf16 prologue, branch 1")
+    _assert_bf16_close(got_tail, want_tail, "G bf16")
+
+
+def test_mamba2_bf16_block_routes_run_the_bf16_kernels(cuda):
+    """A bf16 Mamba-2 Spiral block on the dual route (E bf16; with a
+    gradient, E and F bf16) and on ``fuse_block`` (E bf16 in prologue mode and
+    G bf16; its backward E and F bf16): finite bf16 outputs that agree, bf16
+    gx and fp32 parameter gradients; no fp32 kernel runs."""
+    bf16 = torch.bfloat16
+    spec = build_scan_spec("spiral", 14, 3)
+    block = _random_(SpiralMambaBlock(HIDDEN, spec, use_mamba2=True, scan_impl="fused",
+                                      dtype=bf16), 3).to(cuda)
+    x, c, w = (t.to(bf16) for t in _block_inputs(cuda, 196, 4, 2))
+    names = ("ssd_mixer_fwd", "ssd_mixer_bwd", "spiral_epilogue")
+    wrappers = (ssd_mixer_fused_cuda, ssd_mixer_fused_bwd_cuda, spiral_epilogue_cuda)
+
+    def counts():
+        return {n: (f.launches, f.bf16.launches) for n, f in zip(names, wrappers)}
+
+    start = counts()
+    outs = {}
+    for fuse in (False, True):
+        block.fuse_block = fuse
+        with torch.no_grad():
+            outs[fuse] = block(x, c, w)
+        xi = x.clone().requires_grad_()
+        block(xi, c, w).float().sum().backward()
+        assert xi.grad.dtype == bf16 and all(p.grad.dtype == torch.float32
+                                             for p in block.parameters())
+        block.zero_grad(set_to_none=True)
+    end = counts()
+    # dual: 1 E, then 1 E + 1 F; fuse_block: 1 E + 1 G, then E + G forward, E + F backward
+    assert {n: (end[n][0] - start[n][0], end[n][1] - start[n][1]) for n in names} == {
+        "ssd_mixer_fwd": (0, 5), "ssd_mixer_bwd": (0, 2), "spiral_epilogue": (0, 2)}
+    for got in outs.values():
+        assert got.dtype == bf16 and torch.isfinite(got.float()).all()
+    # the two routes round in other places (the dual route's prologue in bf16)
+    assert _mean_rel(outs[True], outs[False]) <= 2e-2
+
+
+def test_fused_ssd_bf16_takes_fp32_weights_only(cuda):
+    """bf16 x with a bf16 weight raises, as does a bf16 g against fp32 x and
+    a bf16 epilogue input beside fp32 ones."""
+    spec, ws, xs, gs = _ssd_bf16_case(cuda, "spiral", 5, 0, 1)
+    w = ws[0]._replace(in_w=ws[0].in_w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32"):
+        ssd_mixer_fused_cuda(spec, xs[:1], (w,))
+    with torch.no_grad():
+        _, zx = ssd_mixer_fused_cuda(spec, xs[:1], ws[:1], want_res=True)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_mixer_fused_bwd_cuda(spec, xs[:1], gs[:1], (w,), zx)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_mixer_fused_bwd_cuda(spec, (xs[0].float(),), gs[:1], ws[:1], zx)
+    o = xs[0]
+    h = o.shape[-1]
+    tail = (torch.ones(2 * h, device=cuda), torch.zeros(2 * h, device=cuda),
+            torch.zeros(h, 2 * h, device=cuda), torch.zeros(h, device=cuda),
+            torch.zeros(1, h, device=cuda), torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        spiral_epilogue_cuda(o, o.float(), o, o[:, 0], *tail)

@@ -61,12 +61,17 @@ def test_sample_cli_parses_flags(tmp_path):
     mamba2 = sample.cli(["--config", str(cfg_path), "--model", "DiffMa-S/2", "--use-mamba2",
                          "--device", "cpu"])
     assert mamba2[0]["images"].shape == (1, 3, 32, 32) and np.isfinite(mamba2[0]["images"]).all()
-    # bf16 samples (tests/test_torch_bf16.py); the Mamba-2 mixers refuse it, naming the kernels
-    with pytest.raises(NotImplementedError, match="kernel E"):
-        sample.main(_tiny_cfg(tmp_path, autocast=True, use_mamba2=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="kernels E and G"):  # sample_batches' model
-        build_model("DiffMa-S/2", input_size=4, hidden_size=32, use_mamba2=True, fuse_block=True,
-                    scan_impl="fused", dtype=torch.bfloat16)
+    # bf16 samples (tests/test_torch_bf16.py), on the Mamba-2 mixers too: the
+    # dual route through load_model, and fuse_block through sample_batches
+    cfg = _tiny_cfg(tmp_path, autocast=True, use_mamba2=True, sample_num_batches=1,
+                    hidden_size=32, scan_impl="fused")
+    bf16 = sample.main(cfg, device="cpu")
+    assert bf16[0]["images"].shape == (2, 3, 32, 32) and np.isfinite(bf16[0]["images"]).all()
+    model = build_model("DiffMa-S/2", input_size=4, hidden_size=32, use_mamba2=True,
+                        fuse_block=True, scan_impl="fused", dtype=torch.bfloat16)
+    whole = sample.sample_batches(model.init_weights(torch.Generator().manual_seed(0)).eval(),
+                                  cfg, "cpu")
+    assert whole[0]["images"].shape == (2, 3, 32, 32) and np.isfinite(whole[0]["images"]).all()
 
 
 def test_load_model_builds_mamba2(tmp_path):

@@ -424,12 +424,24 @@ def test_trainer_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "override,match",
-    [({"autocast": True, "use_mamba2": True}, "kernels E and F"), ({"remat": True}, "remat"),
-     ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"), ({"sp": 2}, "parallel")],
+    [({"remat": True}, "remat"), ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"),
+     ({"sp": 2}, "parallel")],
 )
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(_train_cfg(tmp_path, **override), device="cpu")
+
+
+def test_trainer_takes_autocast_with_use_mamba2(tmp_path):
+    """``autocast`` with ``use_mamba2``: one step of the bf16 Mamba-2 model on
+    the CPU (the plain versions of kernels E and F), its loss finite, its
+    parameters and EMA fp32."""
+    state, history = train.main(
+        _train_cfg(tmp_path, autocast=True, use_mamba2=True, max_steps=1,
+                   return_loss_history=True), device="cpu")
+    assert int(state.step) == 1 and np.isfinite(history["loss"]).all()
+    assert state.model.dtype == torch.bfloat16 and isinstance(state.model.blocks[0].mamba1, Mamba2)
+    assert all(p.dtype == torch.float32 for m in (state.model, state.ema) for p in m.parameters())
 
 
 def test_trainer_refuses_real_data_folders(tmp_path):

@@ -2,7 +2,7 @@
 """Where the PyTorch port's trainer CLI spends its step, on the host's clock.
 
     python tools/port_trainer_step.py [--config configs/brain.yaml] [--steps 40] [--real-data]
-        [--autocast]
+        [--autocast] [--use-mamba2]
 
 Runs ``diffma_tpu_torch.train.train.main`` on the config (synthetic batches,
 ``--steps`` steps, a log every 10) three times in this process: as the CLI
@@ -41,7 +41,8 @@ first opens and closes N ``torch.profiler`` sessions around a small product,
 as a process that has profiled before (``chip_smoke.py``'s trainer phases
 run after its profiled phases) would. It needs an NVIDIA GPU with nvcc;
 ``--device cpu`` runs it on the CPU at the config's size. ``--autocast``
-trains the bf16 model, as the trainer's ``--autocast``.
+trains the bf16 model, as the trainer's ``--autocast``; ``--use-mamba2`` the
+Mamba-2 model (with ``--autocast`` kernels E's and F's bf16 variants).
 """
 
 from __future__ import annotations
@@ -193,6 +194,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--profiler-sessions", dest="profiler_sessions", type=int, default=0,
                         help="torch.profiler sessions to run before the trainer")
     parser.add_argument("--autocast", action="store_true", help="the model in bfloat16")
+    parser.add_argument("--use-mamba2", dest="use_mamba2", action="store_true",
+                        help="the Mamba-2 mixers")
     parser.add_argument("--out", default=None, help="also write the report here (JSON)")
     args = parser.parse_args(argv)
 
@@ -207,7 +210,8 @@ def main(argv=None) -> dict:
             "synthetic_data": not args.real_data, "max_steps": args.steps, "log_every": 10,
             "results_dir": os.path.join(tmp, "results"), "model": args.model,
             "hidden_size": args.hidden_size, "global_batch_size": args.batch, "ct_ckpt": "",
-            "autocast": args.autocast or None, **folders})
+            "autocast": args.autocast or None, "use_mamba2": args.use_mamba2 or None,
+            **folders})
         if args.device == "cuda":
             import subprocess
 
@@ -221,6 +225,7 @@ def main(argv=None) -> dict:
         report.update({"config": args.config, "model": str(cfg.model),
                        "batch": int(cfg.global_batch_size), "device": args.device,
                        "real_data": args.real_data, "autocast": args.autocast,
+                       "use_mamba2": args.use_mamba2,
                        "profiler_sessions": args.profiler_sessions})
         profile_sessions(args.profiler_sessions, args.device)
         report["cli"] = timed_run(cfg, args.device, with_loader=True)
