@@ -167,6 +167,22 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     builds it (2000 bf16 E and 2000 bf16 G calls), its image's PSNR against
     20c's; (20e) a bf16 Mamba-2 DiffMa-B/2 trained 100 steps on one batch,
     the MSE term falling at least 2x.
+21. resume, remat and the rest of the diffusion API: (21a) the trainer's
+    CLI on ``configs/brain.yaml`` (DiffMa-L/2, batch 8, graphed, C + D),
+    10 steps with a checkpoint every 5, against 5 steps and
+    ``--resume-from`` that run's checkpoints for 5 more: parameters, EMA,
+    AdamW's state and the step count equal in bits, the two step-5
+    checkpoints equal, 160 or 80 C and D calls a run; the restore's
+    seconds and each run's ms a step; (21b) the 10-step run with ``remat:
+    true``: losses and state equal in bits to 21a's, 32 C and 16 D calls a
+    step; the memory a forward keeps for the backward, the peak memory and
+    the graphed step's ms with and without ``remat``; (21c) DiffMa-B/2
+    through kernel C against the plain scan (its denoiser calls replayed as
+    CUDA graphs), batch 2: a ``forward_with_cfg``-guided DDIM-50 chain (400
+    C calls), ``calc_bpd_loop`` on a 250-step respacing (2000) and 50
+    ``ddim_reverse_sample`` steps with DDIM-50 back (800), each within
+    ``TOL_MODEL`` of the plain scan's, with their seconds. Nothing in it
+    is caught: a failure exits non-zero.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -3769,6 +3785,351 @@ def phase_bf16_fuse_block(card: str, dual_images: list) -> dict:
           f"information, no bar)")
     return counts
 
+# ---- phase 21: resume, remat, and the rest of the diffusion API
+
+
+def logged_rates(exp_dir: str) -> list:
+    """Every (step, steps/s) the trainer logged in ``exp_dir``: each over the
+    steps since the log before it, or since the loop began."""
+    with open(os.path.join(exp_dir, "log_0.txt")) as f:
+        text = f.read()
+    return [(int(s), float(r)) for s, r in
+            re.findall(r"\(step=(\d+)\) Train Loss: [^,]+, Train Steps/Sec: ([0-9.]+)", text)]
+
+
+def run_dir(results: str) -> str:
+    (exp,) = os.listdir(results)
+    return os.path.join(results, exp)
+
+
+def equal_states(what: str, got, want) -> int:
+    """Fails unless the two ``TrainState``s hold equal bits: parameters, EMA,
+    AdamW's ``exp_avg``, ``exp_avg_sq`` and ``step``, and the step count;
+    returns the number of tensors compared."""
+    import torch
+
+    n = 0
+    if int(got.step) != int(want.step):
+        fail(f"{what}: step count {int(got.step)}, not {int(want.step)}")
+    for part in ("model", "ema"):
+        ref = getattr(want, part).state_dict()
+        for key, value in getattr(got, part).state_dict().items():
+            if not torch.equal(value, ref[key]):
+                fail(f"{what}: {part} {key} differs, max |diff| "
+                     f"{(value - ref[key]).abs().max().item():.3e}")
+            n += 1
+    for (name, p), q in zip(got.model.named_parameters(), want.model.parameters()):
+        a, b = got.optimizer.state[p], want.optimizer.state[q]
+        if not a.keys() == b.keys() == {"step", "exp_avg", "exp_avg_sq"}:
+            fail(f"{what}: AdamW's state of {name} holds {sorted(a)} and {sorted(b)}")
+        for key in a:
+            if not torch.equal(a[key], b[key]):
+                fail(f"{what}: AdamW's {key} of {name} differs")
+            n += 1
+    return n
+
+
+def phase_resume(card: str, k: int = 5) -> dict:
+    """21a: the trainer's CLI on configs/brain.yaml, k steps and a resume for
+    k more, against 2k steps uninterrupted; returns the uninterrupted run's
+    state, losses, peak memory and ms a step."""
+    import torch
+
+    from diffma_tpu_torch.train import train
+    from diffma_tpu_torch.train.checkpoints import restore_checkpoint
+
+    print(f"== phase 21a: resume: the trainer's CLI on configs/brain.yaml (DiffMa-L/2, batch 8, "
+          f"graphed, fused C + D), {2 * k} steps uninterrupted against {k} steps and "
+          f"--resume-from for {k} more", flush=True)
+    if "scan_impl" in brain_config():
+        fail("configs/brain.yaml sets scan_impl; this phase trains with the default")
+    root = os.path.join(ROOT, "results", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    brain = os.path.join(ROOT, "configs", "brain.yaml")
+    zero = {name: 0 for name in kernel_counters()}
+
+    def expect(steps):
+        return {**zero, "mixer_fused_fwd": 16 * steps, "mixer_fused_bwd": 16 * steps}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    # the CLI's main on the CLI's config, with its per-step losses kept
+    full, losses = train.main(brain_config(
+        max_steps=2 * k, ckpt_every=k, log_every=k, return_loss_history=True,
+        results_dir=os.path.join(root, "full")), device="cuda")
+    full_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check_counts("the uninterrupted run", expect(2 * k))
+    if not losses["finite"].all():
+        fail(f"the uninterrupted run had a non-finite loss: {losses['loss']}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    train.cli(["--config", brain, "--max-steps", str(k), "--ckpt-every", str(k),
+               "--log-every", str(k), "--results-dir", os.path.join(root, "a")])
+    first_s = time.perf_counter() - t0
+    check_counts("the first half", expect(k))
+    ckpts = os.path.join(run_dir(os.path.join(root, "a")), "checkpoints")
+    mine = restore_checkpoint(ckpts, k)
+    theirs = restore_checkpoint(os.path.join(run_dir(os.path.join(root, "full")), "checkpoints"), k)
+    for key in ("model", "ema"):
+        for name, value in mine[key].items():
+            if not torch.equal(value, theirs[key][name]):
+                fail(f"the step-{k} checkpoints of the two runs differ in {key} {name}")
+    if not torch.equal(mine["rng"], theirs["rng"]):
+        fail(f"the step-{k} checkpoints of the two runs hold different generator states")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    resumed = train.cli(["--config", brain, "--max-steps", str(2 * k), "--resume-from", ckpts,
+                         "--log-every", str(k), "--results-dir", os.path.join(root, "b")])
+    second_s = time.perf_counter() - t0
+    check_counts("the resumed half", expect(k))
+    n = equal_states("resumed against uninterrupted", resumed, full)
+    with open(os.path.join(run_dir(os.path.join(root, "b")), "log_0.txt")) as f:
+        found = re.search(r"Resumed from .* at step (\d+) \(([0-9.]+) s\)", f.read())
+    if not found or int(found.group(1)) != k:
+        fail(f"the resumed run logged no resume from step {k}")
+    restore_s = float(found.group(2))
+    rates = {run: dict(logged_rates(run_dir(os.path.join(root, run))))
+             for run in ("full", "a", "b")}
+    ms = {run: {step: 1e3 / r for step, r in rs.items()} for run, rs in rates.items()}
+    size = os.path.getsize(os.path.join(ckpts, f"{k:07d}.pt")) / 2**20
+    print(f"  {k} steps + a resume for {k} more against {2 * k} uninterrupted: all {n} tensors "
+          f"(params, EMA, AdamW's exp_avg, exp_avg_sq and step) and the step count "
+          f"({int(resumed.step)}) equal in bits; the step-{k} checkpoints of both runs equal "
+          f"(model, EMA, generator state)")
+    print(f"  [{card}] restore of the step-{k} checkpoint ({size:.0f} MiB: model, EMA, AdamW, "
+          f"generator) {restore_s:.3f} s, as the trainer logs it; ms a step over each run's "
+          f"first {k} steps (eager warm-up, capture, {k - 2} replays): uninterrupted "
+          f"{ms['full'][k]:.1f}, first half {ms['a'][k]:.1f}, resumed {ms['b'][2 * k]:.1f}; "
+          f"whole CLI runs {full_s:.1f} s, {first_s:.1f} s, {second_s:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"state": full, "losses": losses["loss"], "peak": peak, "ms": ms["full"]}
+
+
+def graphed_step_memory_and_ms(remats=(False, True), steps: int = 10) -> dict:
+    """The L/2 Mamba-1 step at batch 8 with and without ``remat``: the memory
+    that an eager forward under autograd keeps for the backward; then,
+    graphed, the peak memory of its first three calls (warm-up, capture, a
+    replay) above what was allocated before them, and ms a step over
+    ``steps`` replays, timed in turns (off, on, on, off)."""
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
+    from diffma_tpu_torch.train.train import loss_draws, make_loss_fn, synthetic_batch
+
+    diffusion = create_diffusion("", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batches = []
+    for _ in range(4):
+        b = synthetic_batch(gen, 8, 28, 196)
+        b["t"], b["noise"] = loss_draws(diffusion, b["z"], gen)
+        batches.append(b)
+    runs, out = {}, {}
+    for remat in remats:
+        model = build_model("DiffMa-L/2", input_size=28, scan_impl="fused", remat=remat)
+        model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
+        optimizer = adamw(model.parameters(), 1e-4)
+        state = TrainState(model, optimizer)
+        loss_fn = make_loss_fn(model, diffusion)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss, _ = loss_fn(batches[0], None)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - before
+        del loss
+        step = GraphedTrainStep(make_train_step(loss_fn, optimizer), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for b in batches[:3]:
+            step(state, b)
+        torch.cuda.synchronize()
+        out[remat] = {"kept": kept, "peak": torch.cuda.max_memory_allocated() - base,
+                      "pool": step.graph.pool_bytes, "ms": []}
+        runs[remat] = (state, step)
+    for remat in list(remats) + list(reversed(remats)):
+        state, step = runs[remat]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        out[remat]["ms"].append((time.perf_counter() - t0) * 1e3 / steps)
+    return out
+
+
+def phase_remat(card: str, full: dict, k: int = 5) -> None:
+    """21b: ``remat: true`` on 21a's uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from diffma_tpu_torch.train import train
+
+    print(f"== phase 21b: remat: 21a's uninterrupted run ({2 * k} steps) with remat: true",
+          flush=True)
+    root = os.path.join(ROOT, "results", "chip_smoke_remat")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    state, losses = train.main(brain_config(
+        max_steps=2 * k, ckpt_every=k, log_every=k, return_loss_history=True, remat=True,
+        results_dir=os.path.join(root, "run")), device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = 2 * k
+    counts = check_counts("the remat run", {**{name: 0 for name in kernel_counters()},
+                                             "mixer_fused_fwd": 32 * steps,
+                                             "mixer_fused_bwd": 16 * steps})
+    if not state.model.remat:
+        fail("the trainer built the model without remat")
+    if not np.array_equal(losses["loss"], full["losses"]):
+        fail(f"remat's losses {losses['loss']} are not 21a's {full['losses']}")
+    n = equal_states("remat against 21a's run", state, full["state"])
+    ms = {step: 1e3 / r for step, r in logged_rates(run_dir(os.path.join(root, "run")))}
+    print(f"  all {steps} losses and all {n} tensors (params, EMA, AdamW's state) equal in bits "
+          f"to 21a's run without remat; a step launches C {counts['mixer_fused_fwd'] // steps} "
+          f"times (16 without remat) and D {counts['mixer_fused_bwd'] // steps} times")
+    print(f"  [{card}] trainer runs, peak memory above what was allocated before them: "
+          f"{full['peak'] / 2**20:.0f} MiB without remat, {peak / 2**20:.0f} MiB with; ms a "
+          f"step over steps 1-{k} (warm-up, capture, replays): {full['ms'][k]:.1f} without, "
+          f"{ms[k]:.1f} with")
+    del state, full
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    step = graphed_step_memory_and_ms()
+    print(f"  [{card}] the graphed L/2 step alone, batch 8: memory kept from the forward for "
+          f"the backward (an eager forward under autograd) {step[False]['kept'] / 2**20:.0f} "
+          f"MiB without remat, {step[True]['kept'] / 2**20:.0f} MiB with; peak memory of "
+          f"warm-up, capture and a replay {step[False]['peak'] / 2**20:.0f} and "
+          f"{step[True]['peak'] / 2**20:.0f} MiB (graph pools "
+          f"{step[False]['pool'] / 2**20:.0f} and {step[True]['pool'] / 2**20:.0f} MiB); ms a "
+          f"step over 10 replays, in turns off, on, on, off: "
+          f"{step[False]['ms'][0]:.2f}, {step[True]['ms'][0]:.2f}, {step[True]['ms'][1]:.2f}, "
+          f"{step[False]['ms'][1]:.2f}")
+    torch.cuda.empty_cache()
+
+
+def graphed_call(fn):
+    """``fn(x, t, **kw)`` as a CUDA graph (``utils/graphs.py::Graph``): the
+    first call warms it up and captures it at that call's shapes and
+    conditioning; every call replays it with x and t copied into its
+    buffers. The same kernels as the eager call, without the host's launch
+    time, which the plain scan's 196 steps a stream multiply."""
+    from diffma_tpu_torch.utils.graphs import Graph
+
+    graph, static = Graph("cuda"), {}
+
+    def call(x, t, **kw):
+        if not static:
+            static.update(x=x.clone(), t=t.clone(), kw=kw)
+            graph.warm_up(fn, static["x"], static["t"], **kw)
+            static["out"] = graph.capture(fn, static["x"], static["t"], **kw)
+        elif kw.keys() != static["kw"].keys() or any(
+                kw[k] is not v for k, v in static["kw"].items()):
+            fail("a graphed call takes the conditioning it was captured with")
+        static["x"].copy_(x)
+        static["t"].copy_(t)
+        graph.replay()
+        return static["out"].clone()
+
+    return call
+
+
+def phase_diffusion_api(card: str) -> None:
+    """21c: guidance, the bound and the reverse ODE on DiffMa-B/2, each
+    through kernel C against the plain scan on the card."""
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+
+    print("== phase 21c: DiffMa-B/2 at full width through kernel C against the plain scan: a "
+          "forward_with_cfg-guided DDIM-50 chain, calc_bpd_loop on 250 steps, "
+          "ddim_reverse_sample up and DDIM-50 back, batch 2", flush=True)
+    model = build_model("DiffMa-B/2", input_size=28)
+    gen = torch.Generator().manual_seed(21)
+    model.init_weights(gen)
+    with torch.no_grad():  # as phase 3: every parameter random, adaLN included
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    model = model.cuda().eval()
+    x0 = (0.5 * torch.randn(2, 4, 28, 28, generator=gen)).clamp(-1, 1).cuda()
+    z = torch.randn(2, 4, 28, 28, generator=gen).cuda()
+    y = torch.randn(1, 512, generator=gen).cuda()
+    y2 = torch.randn(1, 196, 512, generator=gen).cuda()
+    w = torch.sigmoid(torch.randn(1, 196, 1, generator=gen)).cuda()
+    # [cond, uncond] halves: the second half's conditioning is null
+    kw = {"y": torch.cat([y, torch.zeros_like(y)]), "y2": torch.cat([y2, torch.zeros_like(y2)]),
+          "w": torch.cat([w, torch.ones_like(w)])}
+    ddim, d250 = create_diffusion("ddim50", device="cuda"), create_diffusion("250", device="cuda")
+    noise = torch.randn((250, 2, 4, 28, 28), generator=gen).cuda()
+
+    def guided(x, t, **k):
+        return model.forward_with_cfg(x, t, k["y"], k["y2"], k["w"], 4.0)
+
+    def guided_chain(f):
+        return ddim.ddim_sample_loop(f["guided"], z.shape, noise=z, clip_denoised=False,
+                                     model_kwargs=kw)
+
+    def bpd(f):
+        return d250.calc_bpd_loop(f["model"], x0, clip_denoised=True, model_kwargs=kw,
+                                  noise=noise)
+
+    def reverse_and_back(f):
+        with torch.no_grad():
+            x = x0
+            for i in range(ddim.num_timesteps):
+                t = torch.full((2,), i, dtype=torch.long, device="cuda")
+                x = ddim.ddim_reverse_sample(f["model"], x, t, clip_denoised=False,
+                                             model_kwargs=kw)["sample"]
+        back = ddim.ddim_sample_loop(f["model"], x.shape, noise=x, clip_denoised=False,
+                                     model_kwargs=kw)
+        return {"x_T": x, "back": back}
+
+    zero = {name: 0 for name in kernel_counters()}
+    eager = {"model": model, "guided": guided}
+    graphed = {}
+    for what, fn, calls in (("guided DDIM-50", guided_chain, 50),
+                            ("calc_bpd_loop, 250 steps", bpd, 250),
+                            ("ddim_reverse_sample x50, DDIM-50 back", reverse_and_back, 100)):
+        results, seconds = {}, {}
+        for impl in ("fused", "ref"):
+            model.set_scan_impl(impl)
+            if impl == "ref" and not graphed:  # captured at the first call of each
+                graphed = {"model": graphed_call(model), "guided": graphed_call(guided)}
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(eager if impl == "fused" else graphed)
+            torch.cuda.synchronize()
+            seconds[impl] = time.perf_counter() - t0
+            check_counts(f"{what} ({impl})",
+                         {**zero, **({"mixer_fused_fwd": 8 * calls} if impl == "fused" else {})})
+            results[impl] = out if isinstance(out, dict) else {"out": out}
+        errs = {key: close_to_ref(f"{what}: {key}, kernel C against the plain scan", value,
+                                  results["ref"][key], TOL_MODEL)
+                for key, value in results["fused"].items()}
+        print(f"  {what}: max |kernel C - plain| " + ", ".join(
+            f"{key} {err:.3e} (max |ref| {results['ref'][key].abs().max().item():.3g})"
+            for key, err in errs.items()) + f"; bar {TOL_MODEL:g} of max(1, max |ref|)")
+        if what.startswith("calc_bpd"):
+            print(f"  total bits per dim {results['fused']['total_bpd'].tolist()} (random weights)")
+        if what.startswith("ddim_reverse"):
+            gap = (results["fused"]["back"] - x0).abs().max().item()
+            print(f"  DDIM-50 back from the reversed x_T: max |x_0' - x_0| {gap:.3e} "
+                  f"(random weights; reported, not held to a bar)")
+        print(f"  [{card}] {what}, batch 2: {seconds['fused']:.2f} s through kernel C, eager; "
+              f"the plain scan {seconds['ref']:.2f} s, its denoiser calls replayed as CUDA "
+              f"graphs (a first call's capture included)")
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
@@ -3849,6 +4210,10 @@ def main() -> int:
     epilogue_bf16["launches"] = phase_bf16_fuse_block(card, dual_images)["spiral_epilogue_bf16"]
     phase_learning(card, "20e", use_mamba2=True, autocast=True)
     print(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    phase_remat(card, phase_resume(card))
+    phase_diffusion_api(card)
+    print(f"phase 21 took {time.perf_counter() - t21:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,

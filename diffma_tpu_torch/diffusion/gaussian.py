@@ -1,32 +1,37 @@
-"""Gaussian diffusion: coefficient tables, the samplers and the hybrid loss.
+"""Gaussian diffusion: coefficient tables, the samplers, the losses and the bound.
 
-Counterpart of ``diffma_tpu/diffusion/gaussian.py`` for the configuration
-DiffMa trains and samples with: the model predicts epsilon and a
-learned-range variance (``learn_sigma``), which is the JAX package's default.
-The loss is the JAX package's ``LossType``: ``"mse"`` (MSE + VB, the
-default), ``"rescaled_mse"`` (the VB term times T / 1000) or ``"rescaled_kl"``
-(VB alone, times T). Tables are derived in float64 numpy and stored as
-float32 tensors on the chosen device. Respacing carries a ``timestep_map``:
-the model is called with the original timesteps.
+Counterpart of ``diffma_tpu/diffusion/gaussian.py``, with its types: the
+model predicts epsilon, x_0 or x_{t-1} (``ModelMeanType``), its variance is
+learned (``LEARNED``: the log-variance; ``LEARNED_RANGE``: a value placing it
+between the posterior's and beta's, DiffMa's default) or fixed
+(``FIXED_SMALL``: the posterior's; ``FIXED_LARGE``: beta, but at t = 0 the
+posterior's at t = 1), and the loss is ``LossType``'s MSE, rescaled MSE, KL
+or rescaled KL. Tables are derived in float64 numpy and stored as float32
+tensors on the chosen device.
+Respacing carries a ``timestep_map``: the model and ``cond_fn`` are called
+with the original timesteps.
 
-Noise is drawn from a caller-given ``torch.Generator``. The loops also take
-``step_noise``, a sequence of per-step noise tensors, and
-``training_losses`` takes ``noise``, so a test can feed the exact noise
-another implementation drew. The loops are Python loops; given a
-``ChainGraph`` they run on the card as a CUDA graph of one step, replayed
-once per step, as the JAX package runs its chain as one ``lax.scan``. The
-graphed chain draws its T step noises before the first replay, from the
-same generator and in the eager loop's order (JAX draws each with
-``fold_in(rng, i)``, in no order), so that it gives the eager loop's
-images for a seed.
+Noise is drawn from a caller-given ``torch.Generator`` where JAX takes a
+key. The loops also take ``step_noise``, a sequence of per-step noise
+tensors, ``training_losses`` takes ``noise`` and ``calc_bpd_loop`` the noise
+of every step, so a test can feed the exact noise another implementation
+drew. The loops are Python loops; given a ``ChainGraph`` they run on the
+card as a CUDA graph of one step, replayed once per step, as the JAX
+package runs its chain as one ``lax.scan``. The graphed chain draws its T
+step noises before the first replay, from the same generator and in the
+eager loop's order (JAX draws each with ``fold_in(rng, i)``, in no order),
+so that it gives the eager loop's images for a seed. A chain guided by
+``cond_fn`` or mapped by ``denoised_fn``, the progressive loops (Python
+generators, one dict a step, where JAX stacks them), ``ddim_reverse_sample``
+and ``calc_bpd_loop`` run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
+import enum
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Set
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -35,9 +40,11 @@ from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.graphs import Graph
 
 __all__ = [
-    "LOSS_TYPES",
     "ChainGraph",
     "GaussianDiffusion",
+    "LossType",
+    "ModelMeanType",
+    "ModelVarType",
     "approx_standard_normal_cdf",
     "discretized_gaussian_log_likelihood",
     "get_named_beta_schedule",
@@ -46,8 +53,27 @@ __all__ = [
     "space_timesteps",
 ]
 
-#: The JAX package's ``LossType`` values that a learned-range model trains with.
-LOSS_TYPES = ("mse", "rescaled_mse", "rescaled_kl")
+class ModelMeanType(enum.Enum):
+    PREVIOUS_X = enum.auto()
+    START_X = enum.auto()
+    EPSILON = enum.auto()
+
+
+class ModelVarType(enum.Enum):
+    LEARNED = enum.auto()
+    FIXED_SMALL = enum.auto()
+    FIXED_LARGE = enum.auto()
+    LEARNED_RANGE = enum.auto()
+
+
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self):
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +226,7 @@ class GaussianDiffusion:
     betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     alphas_cumprod_prev: torch.Tensor
+    alphas_cumprod_next: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     log_one_minus_alphas_cumprod: torch.Tensor
@@ -210,38 +237,47 @@ class GaussianDiffusion:
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
     log_betas: torch.Tensor
+    fixed_large_variance: torch.Tensor
+    fixed_large_log_variance: torch.Tensor
     timestep_map: Optional[torch.Tensor]  # respacing (None => identity)
-    loss_type: str = "mse"
+    model_mean_type: ModelMeanType = ModelMeanType.EPSILON
+    model_var_type: ModelVarType = ModelVarType.LEARNED_RANGE
+    loss_type: LossType = LossType.MSE
+    original_num_steps: int = 1000
 
     # -- construction -------------------------------------------------------
 
     @staticmethod
     def create(
         betas: np.ndarray,
+        model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
+        model_var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+        loss_type: LossType = LossType.MSE,
         timestep_map: Optional[Sequence[int]] = None,
+        original_num_steps: Optional[int] = None,
         device="cuda",
-        loss_type: str = "mse",
     ) -> "GaussianDiffusion":
         device = resolve_device(device)
-        if loss_type not in LOSS_TYPES:
-            raise ValueError(f"unknown loss_type {loss_type!r}; expected one of {LOSS_TYPES}")
         betas = np.asarray(betas, dtype=np.float64)
         if betas.ndim != 1 or not ((betas > 0).all() and (betas <= 1).all()):
             raise ValueError("betas must be a 1-D array in (0, 1]")
         alphas = 1.0 - betas
         acp = np.cumprod(alphas, axis=0)
         acp_prev = np.append(1.0, acp[:-1])
+        acp_next = np.append(acp[1:], 0.0)
         post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
         post_logvar = (
             np.log(np.append(post_var[1], post_var[1:]))
             if len(post_var) > 1
             else np.array([])
         )
+        fl_var = np.append(post_var[1], betas[1:])
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
         return GaussianDiffusion(
             betas=f32(betas),
             alphas_cumprod=f32(acp),
             alphas_cumprod_prev=f32(acp_prev),
+            alphas_cumprod_next=f32(acp_next),
             sqrt_alphas_cumprod=f32(np.sqrt(acp)),
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
             log_one_minus_alphas_cumprod=f32(np.log(1.0 - acp)),
@@ -252,12 +288,17 @@ class GaussianDiffusion:
             posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
             posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
             log_betas=f32(np.log(betas)),
+            fixed_large_variance=f32(fl_var),
+            fixed_large_log_variance=f32(np.log(fl_var)),
             timestep_map=(
                 torch.as_tensor(list(timestep_map), dtype=torch.long, device=device)
                 if timestep_map is not None
                 else None
             ),
-            loss_type=loss_type,
+            model_mean_type=ModelMeanType(model_mean_type),
+            model_var_type=ModelVarType(model_var_type),
+            loss_type=LossType(loss_type),
+            original_num_steps=original_num_steps or len(betas),
         )
 
     @property
@@ -268,7 +309,7 @@ class GaussianDiffusion:
         """Respaced step index -> the original timestep the model was trained on."""
         return t if self.timestep_map is None else self.timestep_map[t]
 
-    # -- q and p distributions -------------------------------------------------
+    # -- q distributions -------------------------------------------------------
 
     def q_mean_variance(self, x_start, t):
         nd = x_start.ndim
@@ -294,6 +335,8 @@ class GaussianDiffusion:
         log_variance = _extract(self.posterior_log_variance_clipped, t, nd)
         return mean, variance, log_variance
 
+    # -- p distributions -------------------------------------------------------
+
     def _predict_xstart_from_eps(self, x_t, t, eps):
         nd = x_t.ndim
         return (
@@ -307,39 +350,272 @@ class GaussianDiffusion:
             _extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
         ) / _extract(self.sqrt_recipm1_alphas_cumprod, t, nd)
 
+    def _predict_xstart_from_xprev(self, x_t, t, xprev):
+        nd = x_t.ndim
+        c1 = _extract(1.0 / self.posterior_mean_coef1, t, nd)
+        c2 = _extract(self.posterior_mean_coef2 / self.posterior_mean_coef1, t, nd)
+        return c1 * xprev - c2 * x_t
+
     def p_mean_variance(
         self,
         model: ModelFn,
         x,
         t,
         clip_denoised: bool = True,
+        denoised_fn: Optional[Callable] = None,
         model_kwargs: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Statistics of p(x_{t-1} | x_t); ``model`` gets the remapped
-        timesteps and returns [eps, v] on the channel axis, where v places the
-        log-variance between the posterior's and beta's. ``model`` may also be
-        that output itself, as the hybrid loss passes it."""
+        """Statistics of p(x_{t-1} | x_t). ``model`` gets the remapped
+        timesteps; a learned variance (``LEARNED``, ``LEARNED_RANGE``) makes
+        it return twice x's channels, the prediction then the variance's
+        values. ``model`` may also be that output itself, as the hybrid loss
+        passes it. ``denoised_fn`` maps the predicted x_0 before the clip."""
         if callable(model):
             model_output = model(x, self._map_t(t), **(model_kwargs or {}))
         else:
             model_output = model
         nd = x.ndim
-        eps, model_var_values = model_output.chunk(2, dim=1)
-        min_log = _extract(self.posterior_log_variance_clipped, t, nd)
-        max_log = _extract(self.log_betas, t, nd)
-        frac = (model_var_values + 1) / 2
-        model_log_variance = frac * max_log + (1 - frac) * min_log
 
-        pred_xstart = self._predict_xstart_from_eps(x, t, eps)
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, model_var_values = model_output.chunk(2, dim=1)
+            if self.model_var_type == ModelVarType.LEARNED:
+                model_log_variance = model_var_values
+            else:
+                min_log = _extract(self.posterior_log_variance_clipped, t, nd)
+                max_log = _extract(self.log_betas, t, nd)
+                frac = (model_var_values + 1) / 2
+                model_log_variance = frac * max_log + (1 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.FIXED_LARGE:
+            model_variance = _extract(self.fixed_large_variance, t, nd)
+            model_log_variance = _extract(self.fixed_large_log_variance, t, nd)
+        else:  # FIXED_SMALL
+            model_variance = _extract(self.posterior_variance, t, nd)
+            model_log_variance = _extract(self.posterior_log_variance_clipped, t, nd)
+
+        if self.model_mean_type == ModelMeanType.START_X:
+            pred_xstart = model_output
+        elif self.model_mean_type == ModelMeanType.EPSILON:
+            pred_xstart = self._predict_xstart_from_eps(x, t, model_output)
+        else:  # PREVIOUS_X
+            pred_xstart = self._predict_xstart_from_xprev(x, t, model_output)
+        if denoised_fn is not None:
+            pred_xstart = denoised_fn(pred_xstart)
         if clip_denoised:
             pred_xstart = pred_xstart.clamp(-1.0, 1.0)
         model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
         return {
             "mean": model_mean,
-            "variance": torch.exp(model_log_variance),
+            "variance": model_variance,
             "log_variance": model_log_variance,
             "pred_xstart": pred_xstart,
         }
+
+    # -- guidance ------------------------------------------------------------
+
+    def condition_mean(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """The posterior mean shifted by ``variance * cond_fn(x, t)``, where
+        ``cond_fn`` gives the gradient of log p(y | x) and gets the remapped
+        timesteps. The loops run under ``torch.no_grad``: a ``cond_fn`` that
+        differentiates turns grad mode on itself (``torch.enable_grad``)."""
+        gradient = cond_fn(x, self._map_t(t), **(model_kwargs or {}))
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """Condition the score instead of the mean: eps shifted by
+        ``-sqrt(1 - alphabar) * cond_fn(x, t)``, then pred_xstart and the
+        posterior mean derived again from it."""
+        nd = x.ndim
+        alpha_bar = _extract(self.alphas_cumprod, t, nd)
+        eps = self._predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(
+            x, self._map_t(t), **(model_kwargs or {})
+        )
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self._predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
+
+    # -- sampling ------------------------------------------------------------
+
+    @staticmethod
+    def _draw(x, generator, step_noise=None, i=0):
+        if step_noise is not None:
+            return step_noise[i].to(device=x.device, dtype=x.dtype)
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+    @staticmethod
+    def _init_noise(shape, generator, noise):
+        if noise is not None:
+            return noise
+        if generator is None:
+            raise ValueError("a sampling loop needs its start noise or a generator")
+        return torch.randn(shape, generator=generator, device=generator.device)
+
+    def p_sample(self, model, x, t, generator: Optional[torch.Generator] = None,
+                 clip_denoised=True, denoised_fn=None, cond_fn=None, model_kwargs=None,
+                 noise=None):
+        """One ancestral step from x_t; its noise is ``noise``, else drawn from
+        ``generator``. With ``cond_fn``, the mean is conditioned
+        (``condition_mean``)."""
+        out = self.p_mean_variance(
+            model, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+            model_kwargs=model_kwargs,
+        )
+        if noise is None:
+            noise = self._draw(x, generator)
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        mean = out["mean"]
+        if cond_fn is not None:
+            mean = self.condition_mean(cond_fn, out, x, t, model_kwargs=model_kwargs)
+        sample = mean + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_sample(self, model, x, t, generator: Optional[torch.Generator] = None,
+                    clip_denoised=True, denoised_fn=None, cond_fn=None, model_kwargs=None,
+                    eta=0.0, noise=None):
+        """One DDIM step from x_t; with ``cond_fn``, the score is conditioned
+        (``condition_score``)."""
+        out = self.p_mean_variance(
+            model, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+            model_kwargs=model_kwargs,
+        )
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs=model_kwargs)
+        nd = x.ndim
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar = _extract(self.alphas_cumprod, t, nd)
+        alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
+        sigma = (
+            eta
+            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+        )
+        if noise is None:
+            noise = self._draw(x, generator)
+        mean_pred = (
+            out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+            + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
+        )
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (nd - 1))
+        sample = mean_pred + nonzero * sigma * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(self, model, x, t, clip_denoised=True, denoised_fn=None,
+                            cond_fn=None, model_kwargs=None):
+        """The deterministic DDIM step the other way, x_t -> x_{t+1}: the ODE
+        that ``ddim_sample`` at eta 0 integrates down, integrated up."""
+        out = self.p_mean_variance(
+            model, x, t, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+            model_kwargs=model_kwargs,
+        )
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs=model_kwargs)
+        nd = x.ndim
+        eps = (
+            _extract(self.sqrt_recip_alphas_cumprod, t, nd) * x - out["pred_xstart"]
+        ) / _extract(self.sqrt_recipm1_alphas_cumprod, t, nd)
+        alpha_bar_next = _extract(self.alphas_cumprod_next, t, nd)
+        mean_pred = (
+            out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+            + torch.sqrt(1 - alpha_bar_next) * eps
+        )
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
+    def _steps(self, step, model, shape, generator, noise, model_kwargs, step_noise):
+        """Yields ``step(model, x, t, noise, model_kwargs)``'s dict at t = T-1
+        down to 0, each step from the last one's ``sample``."""
+        img = self._init_noise(shape, generator, noise)
+        T = self.num_timesteps
+        for i in range(T):
+            t = torch.full((shape[0],), T - 1 - i, dtype=torch.long, device=img.device)
+            out = step(model, img, t, self._draw(img, generator, step_noise, i), model_kwargs)
+            yield out
+            img = out["sample"]
+
+    def _chain(self, step, model, shape, generator, noise, model_kwargs, step_noise, graph,
+               eager_only):
+        """The last ``sample`` of ``_steps``; with ``graph``, its replays."""
+        if graph is None:
+            out = None
+            for out in self._steps(step, model, shape, generator, noise, model_kwargs,
+                                   step_noise):
+                pass
+            return out["sample"]
+        if eager_only:
+            raise ValueError("a chain with cond_fn or denoised_fn runs eagerly: pass no graph")
+        img = self._init_noise(shape, generator, noise)
+        noises = [self._draw(img, generator, step_noise, i) for i in range(self.num_timesteps)]
+
+        def sample(x, t, n, kw):
+            return step(model, x, t, n, kw)["sample"]
+
+        return graph.run(sample, img, noises, model_kwargs)
+
+    def _p_step(self, clip_denoised, denoised_fn, cond_fn):
+        def step(model, x, t, noise, kw):
+            return self.p_sample(model, x, t, clip_denoised=clip_denoised,
+                                 denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=kw,
+                                 noise=noise)
+
+        return step
+
+    def _ddim_step(self, clip_denoised, denoised_fn, cond_fn, eta):
+        def step(model, x, t, noise, kw):
+            return self.ddim_sample(model, x, t, clip_denoised=clip_denoised,
+                                    denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=kw,
+                                    eta=eta, noise=noise)
+
+        return step
+
+    @torch.no_grad()
+    def p_sample_loop(
+        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
+        clip_denoised=True, model_kwargs=None, denoised_fn=None, cond_fn=None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+        graph: Optional["ChainGraph"] = None,
+    ) -> torch.Tensor:
+        """Ancestral sampler: T steps from t = T-1 down to 0; with ``graph``,
+        its replays. A chain with ``cond_fn`` or ``denoised_fn`` runs
+        eagerly, and refuses a ``graph``."""
+        step = self._p_step(clip_denoised, denoised_fn, cond_fn)
+        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise,
+                           graph, cond_fn is not None or denoised_fn is not None)
+
+    @torch.no_grad()
+    def ddim_sample_loop(
+        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
+        clip_denoised=True, model_kwargs=None, eta=0.0, denoised_fn=None, cond_fn=None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+        graph: Optional["ChainGraph"] = None,
+    ) -> torch.Tensor:
+        """DDIM sampler, as ``p_sample_loop``; it draws each step's noise even
+        at eta 0, so that a generator's stream does not depend on eta."""
+        step = self._ddim_step(clip_denoised, denoised_fn, cond_fn, eta)
+        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise,
+                           graph, cond_fn is not None or denoised_fn is not None)
+
+    @torch.no_grad()
+    def p_sample_loop_progressive(
+        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
+        clip_denoised=True, model_kwargs=None, denoised_fn=None, cond_fn=None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> Iterator[Dict[str, torch.Tensor]]:
+        """``p_sample_loop`` that yields each step's ``{"sample",
+        "pred_xstart"}``, at t = T-1 first; eager. The JAX package stacks the
+        same dicts from its scan (``sample[i]`` is the i-th yield)."""
+        step = self._p_step(clip_denoised, denoised_fn, cond_fn)
+        yield from self._steps(step, model, shape, generator, noise, model_kwargs, step_noise)
+
+    @torch.no_grad()
+    def ddim_sample_loop_progressive(
+        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
+        clip_denoised=True, model_kwargs=None, eta=0.0, denoised_fn=None, cond_fn=None,
+        step_noise: Optional[Sequence[torch.Tensor]] = None,
+    ) -> Iterator[Dict[str, torch.Tensor]]:
+        """The DDIM counterpart of ``p_sample_loop_progressive``."""
+        step = self._ddim_step(clip_denoised, denoised_fn, cond_fn, eta)
+        yield from self._steps(step, model, shape, generator, noise, model_kwargs, step_noise)
 
     # -- losses ----------------------------------------------------------------
 
@@ -362,115 +638,82 @@ class GaussianDiffusion:
         self, model: ModelFn, x_start, t, generator: Optional[torch.Generator] = None,
         model_kwargs=None, noise=None,
     ) -> Dict[str, torch.Tensor]:
-        """Per-example terms of the hybrid loss at timesteps t: ``loss``, and
-        ``mse`` and ``vb`` unless the loss is VB alone. The VB term sees the
-        model's epsilon detached, so it trains the variance only."""
+        """Per-example loss terms at timesteps t. ``KL`` and ``RESCALED_KL``
+        give ``loss``, the VB term alone (times T when rescaled). ``MSE`` and
+        ``RESCALED_MSE`` give ``mse``, against the noise, x_0 or the
+        posterior mean by the mean type, and with a learned variance ``vb``
+        (times T / 1000 when rescaled), whose term sees the model's
+        prediction detached, so that it trains the variance only; ``loss``
+        is their sum."""
         model_kwargs = model_kwargs or {}
         if noise is None:
-            noise = torch.randn(
-                x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype
-            )
+            noise = self._draw(x_start, generator)
         x_t = self.q_sample(x_start, t, noise)
-        if self.loss_type == "rescaled_kl":
-            vb = self._vb_terms_bpd(
+        terms: Dict[str, torch.Tensor] = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(
                 model, x_start, x_t, t, clip_denoised=False, model_kwargs=model_kwargs
             )["output"]
-            return {"loss": vb * self.num_timesteps}
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
 
         model_output = model(x_t, self._map_t(t), **model_kwargs)
-        eps_pred, var_values = model_output.chunk(2, dim=1)
-        frozen = torch.cat([eps_pred.detach(), var_values], dim=1)
-        vb = self._vb_terms_bpd(frozen, x_start, x_t, t, clip_denoised=False)["output"]
-        if self.loss_type == "rescaled_mse":
-            vb = vb * (self.num_timesteps / 1000.0)
-        mse = mean_flat((noise - eps_pred) ** 2)
-        return {"loss": mse + vb, "mse": mse, "vb": vb}
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, var_values = model_output.chunk(2, dim=1)
+            frozen = torch.cat([model_output.detach(), var_values], dim=1)
+            terms["vb"] = self._vb_terms_bpd(frozen, x_start, x_t, t, clip_denoised=False)["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms
 
-    # -- sampling ------------------------------------------------------------
+    # -- evaluation ------------------------------------------------------------
 
-    @staticmethod
-    def _draw(x, generator, step_noise, i):
-        if step_noise is not None:
-            return step_noise[i].to(device=x.device, dtype=x.dtype)
-        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-
-    @staticmethod
-    def _init_noise(shape, generator, noise):
-        if noise is not None:
-            return noise
-        if generator is None:
-            raise ValueError("a sampling loop needs its start noise or a generator")
-        return torch.randn(shape, generator=generator, device=generator.device)
-
-    def p_sample(self, model, x, t, noise, clip_denoised=True, model_kwargs=None):
-        out = self.p_mean_variance(
-            model, x, t, clip_denoised=clip_denoised, model_kwargs=model_kwargs,
-        )
-        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-        sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
-        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
-
-    def _chain(self, step, model, shape, generator, noise, model_kwargs, step_noise, graph):
-        """``step(model, x, t, noise, model_kwargs)`` from t = T-1 down to 0."""
-        img = self._init_noise(shape, generator, noise)
-        T = self.num_timesteps
-        if graph is None:
-            for i in range(T):
-                t = torch.full((shape[0],), T - 1 - i, dtype=torch.long, device=img.device)
-                img = step(model, img, t, self._draw(img, generator, step_noise, i), model_kwargs)
-            return img
-        noises = [self._draw(img, generator, step_noise, i) for i in range(T)]
-        return graph.run(functools.partial(step, model), img, noises, model_kwargs)
+    def _prior_bpd(self, x_start):
+        """KL of q(x_T | x_0) to the standard normal prior, in bits per dim."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long,
+                       device=x_start.device)
+        qt_mean, _, qt_logvar = self.q_mean_variance(x_start, t)
+        kl = normal_kl(qt_mean, qt_logvar, torch.zeros_like(qt_mean), torch.zeros_like(qt_mean))
+        return mean_flat(kl) / math.log(2.0)
 
     @torch.no_grad()
-    def p_sample_loop(
-        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
-        clip_denoised=True, model_kwargs=None,
-        step_noise: Optional[Sequence[torch.Tensor]] = None,
-        graph: Optional["ChainGraph"] = None,
-    ) -> torch.Tensor:
-        """Ancestral sampler: T steps from t = T-1 down to 0; with ``graph``,
-        its replays."""
-        def step(model, x, t, noise, kw):
-            return self.p_sample(model, x, t, noise, clip_denoised=clip_denoised,
-                                 model_kwargs=kw)["sample"]
-
-        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise, graph)
-
-    def ddim_sample(self, model, x, t, noise, clip_denoised=True, model_kwargs=None,
-                    eta=0.0):
-        out = self.p_mean_variance(
-            model, x, t, clip_denoised=clip_denoised, model_kwargs=model_kwargs,
-        )
-        nd = x.ndim
-        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
-        alpha_bar = _extract(self.alphas_cumprod, t, nd)
-        alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
-        sigma = (
-            eta
-            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
-        )
-        mean_pred = (
-            out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
-            + torch.sqrt(1 - alpha_bar_prev - sigma**2) * eps
-        )
-        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (nd - 1))
-        sample = mean_pred + nonzero * sigma * noise
-        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
-
-    @torch.no_grad()
-    def ddim_sample_loop(
-        self, model, shape, generator: Optional[torch.Generator] = None, noise=None,
-        clip_denoised=True, model_kwargs=None, eta=0.0,
-        step_noise: Optional[Sequence[torch.Tensor]] = None,
-        graph: Optional["ChainGraph"] = None,
-    ) -> torch.Tensor:
-        def step(model, x, t, noise, kw):
-            return self.ddim_sample(model, x, t, noise, clip_denoised=clip_denoised,
-                                    model_kwargs=kw, eta=eta)["sample"]
-
-        return self._chain(step, model, shape, generator, noise, model_kwargs, step_noise, graph)
+    def calc_bpd_loop(self, model, x_start, generator: Optional[torch.Generator] = None,
+                      clip_denoised=True, model_kwargs=None, noise=None):
+        """The whole variational bound in bits per dim, over every timestep,
+        eagerly. ``noise[i]`` (a (T, *x_start.shape) tensor) is q_sample's
+        noise at loop step i, that is at t = T-1-i; without it each step's
+        is drawn from ``generator`` in that order. ``vb``, ``xstart_mse``
+        and ``mse`` are (B, T), column j at t = T-1-j."""
+        B, T = x_start.shape[0], self.num_timesteps
+        vb, xstart_mse, mse = [], [], []
+        for i in range(T):
+            t = torch.full((B,), T - 1 - i, dtype=torch.long, device=x_start.device)
+            eps_in = self._draw(x_start, generator, noise, i)
+            x_t = self.q_sample(x_start, t, eps_in)
+            out = self._vb_terms_bpd(model, x_start, x_t, t, clip_denoised=clip_denoised,
+                                     model_kwargs=model_kwargs)
+            eps = self._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            mse.append(mean_flat((eps - eps_in) ** 2))
+        vb, xstart_mse, mse = (torch.stack(a, dim=1) for a in (vb, xstart_mse, mse))
+        prior_bpd = self._prior_bpd(x_start)
+        return {
+            "total_bpd": vb.sum(dim=1) + prior_bpd,
+            "prior_bpd": prior_bpd,
+            "vb": vb,
+            "xstart_mse": xstart_mse,
+            "mse": mse,
+        }
 
 
 class ChainGraph:

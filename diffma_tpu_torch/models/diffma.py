@@ -28,6 +28,16 @@ it, and the output is in it (the loss and the sampler cast it to fp32).
 bfloat16 runs every family: the Mamba-1 mixers (kernels C and D, or A and
 B), the Mamba-2 mixers (kernels E and F, and with ``fuse_block`` E and G)
 and DiT.
+
+``in_channels`` is the latent's channels (4, the SD-VAE's); the output has
+twice as many with ``learn_sigma`` (the prediction, then the variance's
+values), else as many. ``remat`` recomputes each block's activations in the
+backward (``torch.utils.checkpoint``, as the JAX model's ``nn.remat`` per
+block); the blocks' outputs, which the U-skips read, stay. The kernels are
+deterministic, so the recomputed forward gives the same bits and the
+gradients equal those without ``remat``; on the fused route kernel C (or E)
+runs twice a block and step. ``forward_with_cfg`` is the classifier-free
+guidance helper.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffma_tpu_torch.models.blocks import BLOCKS
 from diffma_tpu_torch.models.mamba import check_scan_impl
@@ -66,6 +77,9 @@ class DiffMa(nn.Module):
         use_mamba2: bool = False,
         fuse_block: bool = False,
         dtype: torch.dtype = torch.float32,
+        in_channels: int = 4,
+        learn_sigma: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         del dt_rank
@@ -74,8 +88,11 @@ class DiffMa(nn.Module):
         check_scan_impl(scan_impl)
         self.block_type = block_type
         self.patch_size = patch_size
-        self.in_channels = 4  # SD-VAE latent
-        self.out_channels = 8  # epsilon and the learned-range variance
+        self.in_channels = in_channels
+        # the prediction, and with learn_sigma the variance's values after it
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.learn_sigma = learn_sigma
+        self.remat = remat
         self.grid_n = input_size // patch_size
         self.depth = depth
         self.hidden_size = hidden_size
@@ -177,8 +194,28 @@ class DiffMa(nn.Module):
                 inp = outputs[-1] + outputs[self.depth - i - 1]
             else:
                 inp = outputs[-1]
-            outputs.append(block(inp, c, w))
+            if self.remat and torch.is_grad_enabled():
+                # the block's activations are recomputed in the backward; its
+                # output stays, for the next block and the U-skips
+                outputs.append(checkpoint(block, inp, c, w, use_reentrant=False,
+                                          preserve_rng_state=False))
+            else:
+                outputs.append(block(inp, c, w))
         return self.unpatchify(self.final_layer(outputs[-1], c))
+
+    def forward_with_cfg(self, x, t, y, y2, w, cfg_scale: float) -> torch.Tensor:
+        """Classifier-free guidance: the batch is [cond, uncond] halves, the
+        first half of ``x`` runs in both, and the guided prediction
+        ``uncond + cfg_scale * (cond - uncond)`` replaces both halves' first
+        3 channels only; the other channels (the fourth latent channel and
+        the variance) stay as the model gave them. Upstream's quirk, kept as
+        the JAX package keeps it."""
+        half = x[: x.shape[0] // 2]
+        out = self(torch.cat([half, half], dim=0), t, y, y2, w)
+        eps, rest = out[:, :3], out[:, 3:]
+        cond, uncond = eps.chunk(2, dim=0)
+        guided = uncond + cfg_scale * (cond - uncond)
+        return torch.cat([torch.cat([guided, guided], dim=0), rest], dim=1)
 
     def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
         """(N, T, p*p*C) -> (N, C, H, W)."""

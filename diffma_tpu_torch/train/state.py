@@ -24,6 +24,11 @@ the iteration updates, the sum of gradients where the loss was finite, as
 JAX's ``lax.cond`` path. Nothing in the step reads a device value on the
 host, so on the card it is captured whole in a CUDA graph
 (``GraphedTrainStep``, at ``accumulation_steps == 1``).
+
+``restore_train_state`` loads a checkpoint's model, EMA and AdamW state into
+a ``TrainState``, as the JAX trainer's ``resume_from`` does: before the
+graphed step's first call, since a capture holds the optimizer state's
+addresses, which loading replaces.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from torch import nn
 
 from diffma_tpu_torch.utils.graphs import Graph
 
-__all__ = ["GraphedTrainStep", "TrainState", "adamw", "make_train_step", "update_ema"]
+__all__ = ["GraphedTrainStep", "TrainState", "adamw", "make_train_step", "restore_train_state",
+           "update_ema"]
 
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -64,6 +70,36 @@ class TrainState:
         self.accum_grads: Optional[List[torch.Tensor]] = None  # made when first needed
         device = next(model.parameters()).device
         self.step = torch.tensor(int(step), dtype=torch.long, device=device)
+
+
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict) -> None:
+    """Load the per-parameter state of ``saved`` (an optimizer ``state_dict``
+    over the same parameters in the same order) into ``optimizer``. Its
+    hyperparameters stay the optimizer's own, as the JAX trainer takes the
+    learning rate from the config; with ``capturable`` each ``step`` lands
+    on its parameter's device."""
+    current = optimizer.state_dict()
+    n = sum(len(g["params"]) for g in current["param_groups"])
+    if not set(saved["state"]) <= set(range(n)):
+        raise KeyError(f"the optimizer state holds parameter {max(saved['state'])}; the model "
+                       f"has {n}")
+    optimizer.load_state_dict({"state": saved["state"], "param_groups": current["param_groups"]})
+
+
+def restore_train_state(state: TrainState, tree: Dict, step: int) -> None:
+    """``tree``'s ``model``, ``ema`` and ``opt`` into ``state``, in place:
+    the parameters and the EMA copied into the modules, AdamW's state
+    replaced; the count of finite steps set to ``step`` (the JAX trainer
+    sets it to the checkpoint's step, the loop's count of iterations, which
+    exceeds the count of finite steps after a skipped batch); the
+    accumulated gradients zero, since no checkpoint holds them."""
+    state.model.load_state_dict(tree["model"], strict=True)
+    state.ema.load_state_dict(tree["ema"], strict=True)
+    _load_optimizer_state(state.optimizer, tree["opt"])
+    state.step.fill_(int(step))
+    if state.accum_grads is not None:
+        for g in state.accum_grads:
+            g.zero_()
 
 
 @torch.no_grad()

@@ -44,9 +44,22 @@ trainer reads the ``.npy`` triplets (``NpyDataset``, resized to
 embedding ``y`` and, through its VAE latent, to the CT encoder's tokens
 ``y2`` and soft mask ``w``. The encode is timed as a span of its own
 (``Encode ms/step`` in the log: device time on the card). Otherwise it runs
-on synthetic batches, as the JAX trainer falls back to them. ``remat``,
-``resume_from`` (Orbax) and ``tp``/``sp`` above 1 are not ported, and asking
-for them raises.
+on synthetic batches, as the JAX trainer falls back to them.
+
+``resume_from`` (a ``checkpoints/`` directory) continues a run from its
+checkpoint at ``resume_step`` (by default the latest): the model, the EMA,
+AdamW's state and the step count, and the generator that draws the
+synthetic batches, the loss's ``t`` and noise and the posterior's draws,
+whose state the trainer saves beside them under ``rng``. A synthetic run
+of k steps resumed for k more gives the bits of 2k steps uninterrupted. A
+checkpoint converted from the JAX package's Orbax directory
+(``tools/orbax_to_torch.py``) has no such state, and the run starts its
+stream from the seed. Two of the JAX trainer's quirks are kept: the
+real-data loader starts again at epoch 0, and the step count is set to
+the checkpoint's step, the count of iterations, which exceeds the count of
+finite steps after a skipped batch. ``remat`` recomputes each block in the
+backward (``DiffMa(remat=True)``): less memory, the same bits. ``tp`` and
+``sp`` above 1 wait for the parallel layer, and asking for them raises.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -71,8 +85,19 @@ from diffma_tpu_torch.models.clip_vit import biomedclip_vit_b16
 from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import AutoencoderKL
-from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint, save_checkpoint
-from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
+from diffma_tpu_torch.train.checkpoints import (
+    latest_step,
+    load_diffma_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from diffma_tpu_torch.train.state import (
+    GraphedTrainStep,
+    TrainState,
+    adamw,
+    make_train_step,
+    restore_train_state,
+)
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.logging import WandbShim, create_experiment_dir, create_logger
@@ -236,10 +261,6 @@ def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator):
 
 
 def _refuse_unported(cfg) -> None:
-    for key, what in (("remat", "rematerialisation"),
-                      ("resume_from", "resuming from Orbax checkpoints")):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: {what} is not ported yet")
     for key in ("tp", "sp"):
         if int(cfg.get(key) or 1) > 1:
             raise NotImplementedError(f"{key} > 1: the parallel layer is not ported yet")
@@ -268,6 +289,7 @@ def main(cfg, device="cuda"):
         scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
         use_mamba2=bool(cfg.get("use_mamba2")),
         dtype=compute_dtype(cfg),
+        remat=bool(cfg.get("remat")),
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -289,6 +311,20 @@ def main(cfg, device="cuda"):
     diffusion = create_diffusion("", device=device)
     optimizer = adamw(model.parameters(), lr)
     state = TrainState(model, optimizer, step=start_step)
+    resumed = None
+    if cfg.get("resume_from"):
+        resume_dir = str(cfg.resume_from)
+        r_step = cfg.get("resume_step") or latest_step(resume_dir)
+        if r_step is None:
+            raise FileNotFoundError(f"resume_from: {resume_dir} holds no checkpoint")
+        t0 = time.perf_counter()
+        resumed = restore_checkpoint(resume_dir, int(r_step))
+        restore_train_state(state, resumed, int(r_step))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        start_step = int(r_step)
+        logger.info(f"Resumed from {resume_dir} at step {start_step} "
+                    f"({time.perf_counter() - t0:.3f} s)")
     accumulation_steps = int(cfg.get("accumulation_steps", 1))
     train_step = make_train_step(make_loss_fn(model, diffusion), optimizer,
                                  accumulation_steps=accumulation_steps)
@@ -308,6 +344,14 @@ def main(cfg, device="cuda"):
     batch_size = int(cfg.global_batch_size)
     tokens = (latent // model.patch_size) ** 2
     generator = torch.Generator(device=device).manual_seed(seed)
+    if resumed is not None:
+        rng = resumed.get("rng")
+        if rng is not None and rng.numel() == generator.get_state().numel():
+            generator.set_state(rng)
+        else:
+            logger.info("the checkpoint holds no generator state of this device (a run "
+                        "converted from Orbax, or one on another device): the batches and "
+                        "draws start from the seed")
     fixed_batch = None
     if cond is None and cfg.get("overfit_fixed_batch"):
         fixed_gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -365,6 +409,7 @@ def main(cfg, device="cuda"):
                         "ema": state.ema.state_dict(),
                         "opt": state.optimizer.state_dict(),
                         "args": dict(cfg),
+                        "rng": generator.get_state(),
                     })
                     logger.info(f"Saved checkpoint to {path}")
                 if max_steps is not None and train_steps >= int(max_steps):
@@ -398,7 +443,10 @@ def cli(argv=None):
     parser.add_argument("--max-steps", dest="max_steps", type=int, default=None,
                         help="stop after this many steps")
     parser.add_argument("--ckpt-every", dest="ckpt_every", type=int, default=None)
+    parser.add_argument("--log-every", dest="log_every", type=int, default=None)
     parser.add_argument("--results-dir", dest="results_dir", type=str, default=None)
+    parser.add_argument("--resume-from", dest="resume_from", type=str, default=None,
+                        help="a run's checkpoints/ directory to continue from")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
     cfg = parse_cli(parser, argv)

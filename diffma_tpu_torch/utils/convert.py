@@ -16,6 +16,7 @@ port's modules, with upstream key names. Layout changes:
 The mapping changes layouts only, so it applies to a tree of JAX gradients as
 well (``jax.grad`` of the same parameters) and gives them the port's
 parameter names; the tests compare the two packages' gradients that way.
+``adamw_state_from_optax`` puts AdamW's moments through it the same way.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["clip_params_from_jax", "ct_encoder_params_from_jax", "diffma_params_from_jax",
-           "vae_params_from_jax"]
+__all__ = ["adamw_state_from_optax", "clip_params_from_jax", "ct_encoder_params_from_jax",
+           "diffma_params_from_jax", "vae_params_from_jax"]
 
 
 def _t(a) -> torch.Tensor:
@@ -119,16 +120,17 @@ def _patch_conv(out: dict, key: str, kernel, bias, channels: int) -> None:
 
 
 def diffma_params_from_jax(
-    params: Dict, depth: int, use_mamba2: bool = False
+    params: Dict, depth: int, use_mamba2: bool = False, in_channels: int = 4
 ) -> Dict[str, torch.Tensor]:
     """JAX ``DiffMa`` params of any block family (Mamba-1 mixers, or Mamba-2
     with ``use_mamba2``) -> port ``DiffMa`` state dict, with upstream's key
     names (``blocks.{i}.mamba1``/``mamba2`` and ``attention_network`` in a
     Spiral block, ``blocks.{i}.mamba`` in the single-mixer families,
-    ``blocks.{i}.attn.{qkv,proj}`` and ``mlp.{fc1,fc2}`` in DiT)."""
+    ``blocks.{i}.attn.{qkv,proj}`` and ``mlp.{fc1,fc2}`` in DiT);
+    ``in_channels`` is the model's latent channels."""
     out: Dict[str, torch.Tensor] = {}
     _patch_conv(out, "x_embedder.proj", params["x_embedder"]["kernel"],
-                params["x_embedder"]["bias"], channels=4)
+                params["x_embedder"]["bias"], channels=in_channels)
     _linear(out, "t_embedder.mlp.0", params["t_embedder"]["fc1"])
     _linear(out, "t_embedder.mlp.2", params["t_embedder"]["fc2"])
     for i in range(depth):
@@ -136,6 +138,35 @@ def diffma_params_from_jax(
     _linear(out, "final_layer.adaLN_modulation.1", params["final_layer"]["adaLN"])
     _linear(out, "final_layer.linear", params["final_layer"]["linear"])
     return out
+
+
+def adamw_state_from_optax(opt_state, param_names, depth: int, use_mamba2: bool = False,
+                           in_channels: int = 4) -> Dict:
+    """The JAX trainer's ``optax.adamw`` state, ``(ScaleByAdamState(count,
+    mu, nu), EmptyState(), EmptyState())`` as numpy trees, -> a
+    ``torch.optim.AdamW`` ``state_dict`` over ``param_names``, the port
+    model's ``named_parameters()`` names in their order. ``mu`` and ``nu``
+    have the parameters' tree and go through ``diffma_params_from_jax``
+    (whose transposes and reshapes only move elements) to ``exp_avg`` and
+    ``exp_avg_sq``; ``count``, the number of updates, is each parameter's
+    ``step``, as a float32 scalar, torch's. ``param_groups`` holds the
+    parameters' indices only: the hyperparameters are the trainer's."""
+    adam = next((s for s in opt_state if all(hasattr(s, k) for k in ("count", "mu", "nu"))),
+                None)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in this optimizer state")
+    count, mu, nu = adam.count, adam.mu, adam.nu
+    kw = dict(depth=depth, use_mamba2=use_mamba2, in_channels=in_channels)
+    exp_avg, exp_avg_sq = diffma_params_from_jax(mu, **kw), diffma_params_from_jax(nu, **kw)
+    names = list(param_names)
+    if set(names) != set(exp_avg):
+        raise KeyError(f"the optimizer state does not fit the model: missing "
+                       f"{sorted(set(names) - set(exp_avg))}, unexpected "
+                       f"{sorted(set(exp_avg) - set(names))}")
+    step = float(np.asarray(count))
+    state = {i: {"step": torch.tensor(step, dtype=torch.float32), "exp_avg": exp_avg[name],
+                 "exp_avg_sq": exp_avg_sq[name]} for i, name in enumerate(names)}
+    return {"state": state, "param_groups": [{"params": list(range(len(names)))}]}
 
 
 def _resnet(out: dict, key: str, p: dict) -> None:

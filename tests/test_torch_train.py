@@ -424,10 +424,16 @@ def test_trainer_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize(
     "override,match",
-    [({"remat": True}, "remat"), ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"),
-     ({"sp": 2}, "parallel")],
+    [pytest.param({"remat": True, "tp": 2}, "parallel", id="override0-remat"),
+     ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"), ({"sp": 2}, "parallel")],
 )
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):
+    """``tp`` and ``sp`` above 1 wait for the parallel layer, with ``remat``
+    (which the trainer takes) too; ``resume_from`` a directory of the JAX
+    package's Orbax steps is refused, naming the converter."""
+    if "resume_from" in override:
+        (tmp_path / override["resume_from"] / "0000004").mkdir(parents=True)
+        override = {"resume_from": str(tmp_path / override["resume_from"])}
     with pytest.raises(NotImplementedError, match=match):
         train.main(_train_cfg(tmp_path, **override), device="cpu")
 
