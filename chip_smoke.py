@@ -183,6 +183,27 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     ``ddim_reverse_sample`` steps with DDIM-50 back (800), each within
     ``TOL_MODEL`` of the plain scan's, with their seconds. Nothing in it
     is caught: a failure exits non-zero.
+22. decode, the associative scan and the plumbing: (22a) at DiffMa-B/2's
+    mixer width (d_model 512, d_inner 1024, d_state 16, conv 4; Mamba-2
+    headdim 64), batch 8, 196 tokens, ``models/decode.py``'s
+    ``mamba_step`` iterated over the tokens against ``Mamba`` on an
+    identity spec through kernel C (``scan_impl="fused"``) and kernel A
+    (``"auto"``), and ``mamba2_step`` against ``Mamba2`` through kernel E,
+    within ``TOL_DECODE``, one launch of each kernel and none in the steps;
+    then one step captured as a CUDA graph over static cache buffers and
+    replayed once per token, outputs and caches equal to the eager loop's
+    in bits; the ms a token eager and graphed; (22b)
+    ``selective_scan(impl="assoc")`` at G=24, L=196, d=1024, n=16 against
+    kernel A within ``TOL_FP32``, both times and the assoc forward's peak
+    memory; a DiffMa-B/2 training step's forward and backward at batch 8 on
+    ``scan_impl: assoc`` (no kernel) against kernels A + B, its loss and
+    every gradient within ``TOL_MODEL``, the ms and the peak memory of
+    each; (22c) the native loader (``data/native.py``) built with g++,
+    a batch of 8 at 224 from 224² files equal in bits to the Python path
+    and from 256² files (the trainer's case) with its differences
+    reported, host ms a batch on both paths; then
+    ``tools/compute_metrics_torch.py``, PIL made unimportable, on phase
+    17e's PNGs. Nothing in it is caught.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -3004,7 +3025,8 @@ def trainer_log_encode(exp_dir: str) -> list:
         return [float(v) for v in re.findall(r"Encode ms/step: ([0-9.]+)", f.read())]
 
 
-def phase_real_data(card: str) -> None:
+def phase_real_data(card: str) -> str:
+    """17b-17e; returns the directory where 17e's PNGs are kept."""
     import tempfile
 
     import numpy as np
@@ -3105,8 +3127,12 @@ def phase_real_data(card: str) -> None:
                     fail(f"image {i}: PSNR/SSIM not finite: {q}")
                 print(f"  image {i}: PSNR {q['psnr_db']:.2f} dB, SSIM {q['ssim']:.4f} against "
                       f"the val MRI (random conditioning weights, 20 training steps)")
+            kept = os.path.join(ROOT, "results", "phase17e_samples")  # for phase 22c's tool
+            shutil.rmtree(kept, ignore_errors=True)
+            shutil.copytree(cfg.save_dir, kept)
         finally:
             os.chdir(here)
+    return kept
 
 
 GRAPH_ROUTES = (  # route, use_mamba2, scan_impl, fuse_block, kernel calls per forward
@@ -4131,6 +4157,297 @@ def phase_diffusion_api(card: str) -> None:
               f"graphs (a first call's capture included)")
 
 
+def identity_spec(L: int):
+    """One stream over the tokens in order: the scan order decode is defined on."""
+    import numpy as np
+
+    from diffma_tpu_torch.ops.scan_orders import ScanSpec
+
+    ident = np.arange(L, dtype=np.int32)
+    return ScanSpec(fwd=ident[None], merge=ident[:, None], scale=1.0)
+
+
+def decode_loop(step, cache, x):
+    """``step`` over every token of x (B, L, h) from ``cache``: (B, L, h), last cache."""
+    import torch
+
+    ys = []
+    for t in range(x.shape[1]):
+        y, cache = step(x[:, t], cache)
+        ys.append(y)
+    return torch.stack(ys, 1), cache
+
+
+def graphed_decode(step, cache, x):
+    """One step captured as a CUDA graph that reads the token and the cache
+    from static buffers and copies the new cache into them, replayed once
+    per token: ((B, L, h), last cache, seconds of the replays)."""
+    import torch
+
+    from diffma_tpu_torch.models.decode import MixerCache
+    from diffma_tpu_torch.utils.graphs import Graph
+
+    graph, token = Graph("cuda"), x[:, 0].clone()
+    static = MixerCache(*(t.clone() for t in cache))
+
+    def one_step():
+        y, new = step(token, static)
+        for buf, value in zip(static, new):
+            buf.copy_(value)
+        return y
+
+    graph.warm_up(one_step)
+    out = graph.capture(one_step)
+    seconds = []
+    for _ in range(2):  # the second loop is timed
+        for buf, value in zip(static, cache):
+            buf.copy_(value)
+        ys = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(x.shape[1]):
+            token.copy_(x[:, t])
+            graph.replay()
+            ys.append(out.clone())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return torch.stack(ys, 1), static, seconds[-1]
+
+
+def timed_decode_loop(step, cache, x):
+    """``decode_loop`` run twice; the second is timed: (ys, cache, seconds)."""
+    import torch
+
+    decode_loop(step, cache, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, last = decode_loop(step, cache, x)
+    torch.cuda.synchronize()
+    return ys, last, time.perf_counter() - t0
+
+
+# The iterated decode step against a full mixer forward on the card: rtol =
+# atol = 2e-4, the JAX package's decode bar (tests/test_decode.py). The full
+# forward's kernels C and E do their products in 3xTF32 (about fp32's
+# accuracy) and sum them in another order than the step's cuBLAS fp32
+# products, and kernel A scans in chunks; each token's differences are fp32
+# rounding, carried through 196 steps of the state.
+TOL_DECODE = 2e-4
+
+
+def phase_decode(card: str) -> None:
+    """22a: incremental decode against the mixers' forwards through C, A and E."""
+    import torch
+
+    from diffma_tpu_torch.models import decode
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.models.mamba2 import Mamba2
+
+    B, L, h = 8, 196, 512
+    print(f"== phase 22a: decode at DiffMa-B/2's mixer width (d_model {h}, d_inner 1024, "
+          f"d_state 16, conv 4; Mamba-2 headdim 64), batch {B}, {L} tokens: the iterated "
+          f"step against the full mixer on an identity spec", flush=True)
+    spec = identity_spec(L)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(B, L, h, generator=gen, device="cuda")
+    zero = {name: 0 for name in kernel_counters()}
+    torch.manual_seed(22)  # the mixers' own inits, before random_'s seeded noise
+    mixers = (
+        ("Mamba-1", random_(Mamba(h, spec, scan_impl="fused"), 221).cuda().eval(),
+         lambda: decode.allocate_mamba_cache(B, 2 * h, device="cuda"), decode.mamba_step,
+         (("fused", "kernel C", "mixer_fused_fwd"), ("auto", "kernel A", "selective_scan_fwd"))),
+        ("Mamba-2", random_(Mamba2(h, spec, scan_impl="fused"), 222).cuda().eval(),
+         lambda: decode.allocate_mamba2_cache(B, 2 * h, headdim=64, device="cuda"),
+         decode.mamba2_step, (("fused", "kernel E", "ssd_mixer_fwd"),)),
+    )
+    with torch.no_grad():
+        for what, mixer, allocate, step_fn, routes in mixers:
+            def step(x_t, cache, mixer=mixer, step_fn=step_fn):
+                return step_fn(mixer, x_t, cache)
+
+            reset_counts()
+            ys, last, eager_s = timed_decode_loop(step, allocate(), x)
+            check_counts(f"the {what} decode loop", zero)  # plain operators only
+            if tuple(ys.shape) != (B, L, h) or not bool(torch.isfinite(ys).all()):
+                fail(f"the {what} decode gave a wrong shape or a non-finite value")
+            for impl, name, counter in routes:
+                mixer.scan_impl = impl
+                reset_counts()
+                full = mixer(x)
+                torch.cuda.synchronize()
+                check_counts(f"the {what} forward through {name}", {**zero, counter: 1})
+                err = (ys - full).abs().max().item()
+                ok = torch.allclose(ys, full, rtol=TOL_DECODE, atol=TOL_DECODE)
+                print(f"  {what}: {L} steps against the forward through {name}: max |err| "
+                      f"{err:.3e} (max |ref| {full.abs().max().item():.3g}; rtol=atol="
+                      f"{TOL_DECODE:g}) {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"the {what} decode disagrees with the forward through {name}")
+            reset_counts()
+            gys, glast, graph_s = graphed_decode(step, allocate(), x)
+            check_counts(f"the graphed {what} decode", zero)
+            if not torch.equal(gys, ys) or not all(torch.equal(a, b) for a, b in zip(glast, last)):
+                fail(f"the graphed {what} decode differs from the eager loop")
+            print(f"  [{card}] {what} decode, batch {B}: eager {eager_s * 1e3 / L:.4f} ms a "
+                  f"token, one step as a CUDA graph {graph_s * 1e3 / L:.4f} ms a token "
+                  f"({L} replays; outputs and caches equal to the eager loop's in bits)")
+
+
+def phase_assoc(card: str) -> None:
+    """22b: the associative scan against kernel A, and a DiffMa-B/2 training
+    step's forward and backward on ``scan_impl: assoc`` against kernels A + B."""
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.ops.selective_scan import selective_scan, selective_scan_cuda
+    from diffma_tpu_torch.train.train import loss_draws, make_loss_fn, synthetic_batch
+
+    print("== phase 22b: selective_scan(impl=\"assoc\") against kernel A at G=24, L=196, "
+          "d=1024, n=16", flush=True)
+    zero = {name: 0 for name in kernel_counters()}
+    xs = scan_inputs(24, 196, 1024, 16, torch.float32, torch.float32, seed=22)
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = selective_scan(**xs, impl="assoc")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_counts("the assoc scan", zero)
+        want = selective_scan_cuda(**xs)
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=TOL_FP32, atol=TOL_FP32):
+            fail(f"the assoc scan disagrees with kernel A: max |err| {err:.3e}")
+        assoc_ms = cuda_ms(lambda: selective_scan(**xs, impl="assoc"), reps=10)
+        a_ms = cuda_ms(lambda: selective_scan_cuda(**xs), reps=50)
+    print(f"  max |assoc - kernel A| {err:.3e} (rtol=atol={TOL_FP32:g}) ok; [{card}] assoc "
+          f"{assoc_ms:.3f} ms, kernel A {a_ms:.4f} ms; the assoc forward's peak memory "
+          f"{peak / 2**20:.0f} MiB above its inputs (a and b: "
+          f"{24 * 196 * 1024 * 16 * 4 / 2**20:.0f} MiB each)")
+    del xs, got, want
+
+    # One training step's forward and backward at DiffMa-B/2, batch 8: 16
+    # scans of G=24 whose levels autograd keeps until the backward.
+    B = 8
+    model = build_model("DiffMa-B/2", input_size=28)
+    model = random_(model.init_weights(torch.Generator().manual_seed(3)), 3, scale=0.3).cuda()
+    diffusion = create_diffusion("", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    batch = synthetic_batch(gen, B, 28, 196)
+    batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"], gen)
+    loss_fn = make_loss_fn(model, diffusion)
+    print(f"  DiffMa-B/2 training step, batch {B}, forward and backward: scan_impl assoc "
+          f"against kernels A + B (\"pallas\")", flush=True)
+    result = {}
+    for impl, expect in (("assoc", zero),
+                         ("pallas", {**zero, "selective_scan_fwd": 16, "selective_scan_bwd": 16})):
+        model.set_scan_impl(impl)
+        for timed in (False, True):  # the second step, on the allocator's cached blocks
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(batch, None)
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            check_counts(f"the {impl} training step", expect)
+        result[impl] = (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                        torch.cuda.max_memory_allocated() - base, seconds)
+        print(f"  {impl}: loss {result[impl][0]:.6f}; [{card}] {seconds * 1e3:.1f} ms, peak "
+              f"memory {result[impl][2] / 2**30:.2f} GiB above the weights")
+    rows = grad_errors(result["assoc"][1], result["pallas"][1], TOL_MODEL)
+    loss_err = abs(result["assoc"][0] - result["pallas"][0])
+    print(f"  assoc against kernels A + B: loss |err| {loss_err:.2e}, {len(rows)} gradients "
+          f"within rtol=atol={TOL_MODEL:g}, max |err| {max(e for _, e, _ in rows):.3e}; the "
+          f"parameters {sum(p.numel() for p in model.parameters()) * 4 / 2**20:.0f} MiB")
+    if not math.isfinite(result["assoc"][0]) or loss_err > TOL_MODEL * max(1.0, abs(
+            result["pallas"][0])):
+        fail("the assoc training loss disagrees with kernels A + B's")
+    del model, result
+    torch.cuda.empty_cache()
+
+
+def phase_plumbing(card: str, samples_dir: str) -> None:
+    """22c: the native loader against the Python path, and the metrics tool."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from diffma_tpu_torch.data import native
+    from diffma_tpu_torch.data.npy_dataset import (
+        NpyDataset,
+        transform_train,
+        write_triplet_folders,
+    )
+
+    print("== phase 22c: the native loader built with g++ here, a batch of 8 at 224 against "
+          "the Python path; tools/compute_metrics_torch.py on phase 17e's PNGs", flush=True)
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"  built {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.2f} s "
+          f"(g++ at {shutil.which('g++')})")
+    os.makedirs(os.path.join(ROOT, "results"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "results")) as tmp:
+        idx = list(range(8))
+        for size in (224, 256):
+            folders = write_triplet_folders(os.path.join(tmp, str(size)), 8, "train", size=size,
+                                            mri_outside=2)
+            dirs = [folders[f"{k}_image_folder_train"] for k in ("ct", "mask", "mir")]
+            loader = native.NativeTripletLoader(*dirs, size=224)
+            python = NpyDataset(*dirs, transform=transform_train)
+
+            def python_batch():
+                items = [python[i] for i in idx]
+                return tuple(np.stack([it[k] for it in items]) for k in range(3))
+
+            got, want = loader.load_batch(idx), python_batch()
+            diffs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+            if any(a.shape != (8, 1, 224, 224) or a.dtype != np.float32 for a in got):
+                fail("the native loader gave a wrong shape or dtype")
+            times = {}
+            for what, fn in (("native", lambda: loader.load_batch(idx)),
+                             ("python", python_batch)) * 2:  # in turns; the second of each kept
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                times[what] = (time.perf_counter() - t0) * 1e3 / 5
+            if size == 224:
+                if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                    fail(f"the native loader's 224 batch differs from the Python path: {diffs}")
+                note = "equal in bits"
+            else:  # the trainer's case on phase 17's folders: a resize on both paths
+                moved = [float((a != b).mean()) for a, b in zip(got[1:], want[1:])]
+                note = (f"max |native - python| CT {diffs[0]:.3e}; the nearest resize picks "
+                        f"another pixel at {moved[0]:.2%} of the mask's and {moved[1]:.2%} of "
+                        f"the MRI's (the native resize, not PIL's; reported)")
+            print(f"  {size} -> 224, batch 8: {note}; [{card}] host ms a batch: native "
+                  f"{times['native']:.2f}, Python path {times['python']:.2f}")
+
+    # The tool runs with PIL made unimportable, whether or not this machine has it.
+    report_path = os.path.join(ROOT, "results", "phase22c_metrics.json")
+    tool = os.path.join(ROOT, "tools", "compute_metrics_torch.py")
+    no_pil = ("import runpy, sys; sys.modules['PIL'] = None; sys.argv = sys.argv[1:]; "
+              "runpy.run_path(sys.argv[0], run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", no_pil, tool, samples_dir, "--json",
+                           report_path], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"tools/compute_metrics_torch.py failed: {proc.stdout}\n{proc.stderr}")
+    with open(report_path) as f:
+        report = json.load(f)
+    if report["n"] != 2 or not np.isfinite([report["psnr_db_mean"], report["ssim_mean"]]).all():
+        fail(f"tools/compute_metrics_torch.py reported {report}")
+    print(f"  tools/compute_metrics_torch.py on phase 17e's grids, PIL unimportable (this "
+          f"machine has PIL: {importlib.util.find_spec('PIL') is not None}): {report['n']} "
+          f"pairs, PSNR {report['psnr_db_mean']:.3f} dB, SSIM {report['ssim_mean']:.4f} (gen "
+          f"against ori)")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
@@ -4187,7 +4504,7 @@ def main() -> int:
     ssd_bwd["branches"]["partition"]["launches"] = counts["EMamba-B/2 --use-mamba2"]["ssd_mixer_bwd"]
     phase_learning(card, 16, use_mamba2=False, model="ViM-B/2")
     phase_conditioning(card)
-    phase_real_data(card)
+    samples_17e = phase_real_data(card)
     phase_graphed_chains(card)
     fp32_step = phase_graphed_steps(card)
     t19 = time.perf_counter()
@@ -4214,6 +4531,11 @@ def main() -> int:
     phase_remat(card, phase_resume(card))
     phase_diffusion_api(card)
     print(f"phase 21 took {time.perf_counter() - t21:.1f} s")
+    t22 = time.perf_counter()
+    phase_decode(card)
+    phase_assoc(card)
+    phase_plumbing(card, samples_17e)
+    print(f"phase 22 took {time.perf_counter() - t22:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,

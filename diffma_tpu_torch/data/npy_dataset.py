@@ -15,7 +15,9 @@ Counterpart of ``diffma_tpu/data/npy_dataset.py``:
   the source pixel under each destination pixel's centre, the centres summed
   step by step in double as PIL sums them;
 * ``SyntheticTriplets``: the same seeded numpy draws as the JAX package's;
-* ``make_loader``: the same batch order as the JAX package's loader.
+* ``make_loader``: the same batch order as the JAX package's loader; a
+  dataset with ``load_batch`` (``data/native.py::NativeTripletLoader``)
+  gives each batch in one call, as in the JAX package.
 
 ``write_triplet_folders`` writes seeded SynthRAD-like folders for runs that
 have no dataset.
@@ -172,7 +174,8 @@ def make_loader(
 
     The order is the JAX package's: the indices shuffled with (seed, epoch)
     when ``shuffle``, then every ``process_count``-th from ``process_index``;
-    ``drop_last`` drops a short last batch. A background thread builds up to
+    ``drop_last`` drops a short last batch. A dataset with ``load_batch``
+    is asked for each batch's indices at once. A background thread builds up to
     ``prefetch`` batches ahead; it stops when the iterator is closed or
     exhausted. An exception that the dataset raises in that thread is raised
     by the iterator, after the batches before it.
@@ -185,6 +188,7 @@ def make_loader(
     done = object()
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
+    batched = hasattr(dataset, "load_batch")  # the native loader's fast path
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -198,8 +202,13 @@ def make_loader(
     def produce():
         try:
             for b in range(n_batches):
-                items = [dataset[int(i)] for i in shard[b * batch_size : (b + 1) * batch_size]]
-                if not put(tuple(np.stack([it[k] for it in items]) for k in range(3))):
+                idx = shard[b * batch_size : (b + 1) * batch_size]
+                if batched:
+                    batch = dataset.load_batch(idx)
+                else:
+                    items = [dataset[int(i)] for i in idx]
+                    batch = tuple(np.stack([it[k] for it in items]) for k in range(3))
+                if not put(batch):
                     return
         except Exception as e:  # handed to the consumer, which raises it
             put(e)

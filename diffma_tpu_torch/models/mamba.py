@@ -9,6 +9,10 @@ JAX package's values:
   A (forward) and B (backward) on CUDA tensors and the plain scan on CPU
   tensors;
 * ``"ref"``: the composable path with the plain scan on any device;
+* ``"assoc"``: the composable path with the parallel prefix scan
+  (``ops/selective_scan.py::selective_scan_assoc``) on any device, as the
+  JAX package's ``assoc``: plain PyTorch operators on the card too, taken
+  only when a config asks for it, never as a fallback;
 * ``"fused"``: the whole mixer in one call of kernel C forward and one of
   kernel D backward (``ops/fused_mixer.py::mamba_mixer_fused``) on CUDA
   tensors, its plain version on CPU tensors. Every scan spec that
@@ -50,7 +54,7 @@ from diffma_tpu_torch.ops.scan_orders import ScanSpec
 __all__ = ["Mamba", "SCAN_IMPLS", "check_scan_impl"]
 
 #: ``scan_impl`` -> the ``selective_scan`` impl of the composable path (None: fused).
-SCAN_IMPLS = {"auto": "auto", "pallas": "auto", "ref": "ref", "fused": None}
+SCAN_IMPLS = {"auto": "auto", "pallas": "auto", "ref": "ref", "assoc": "assoc", "fused": None}
 
 
 def check_scan_impl(scan_impl: str) -> str:

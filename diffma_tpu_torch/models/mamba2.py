@@ -4,7 +4,7 @@ Counterpart of the single-device paths of
 ``diffma_tpu/models/mamba2.py::Mamba2``. ``scan_impl`` picks the path, with
 the JAX package's values:
 
-* ``"auto"``, ``"pallas"`` or ``"ref"``: the composable path
+* ``"auto"``, ``"pallas"``, ``"ref"`` or ``"assoc"``: the composable path
   (``ops/fused_ssd.py::ssd_mixer_ref``: in_proj, stream gather, conv,
   ``ssd_chunked_grouped``, gated RMSNorm per stream, merge, out_proj) from
   PyTorch operators on any device; it carries gradients;

@@ -25,13 +25,18 @@ Two implementations of each direction, one signature each:
 ``SelectiveScanFn`` joins them for autograd: forward through kernel A,
 backward through kernel B. ``selective_scan(impl="auto")`` takes it for CUDA
 tensors and the plain version (plain autograd) for CPU tensors.
+
+``selective_scan_assoc`` is the JAX package's parallel form: a prefix scan
+over the affine maps ``h -> a h + b`` from PyTorch operators, on any device,
+with autograd's gradients (``impl="assoc"``). ``selective_state_update`` is
+the single-token step of incremental decode (``models/decode.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +46,12 @@ from diffma_tpu_torch.ops import cuda_build
 __all__ = [
     "SelectiveScanFn",
     "selective_scan",
+    "selective_scan_assoc",
     "selective_scan_bwd_cuda",
     "selective_scan_bwd_ref",
     "selective_scan_cuda",
     "selective_scan_ref",
+    "selective_state_update",
 ]
 
 _KERNEL_SOURCE = "selective_scan_fwd"
@@ -88,6 +95,96 @@ def selective_scan_ref(
     if z is not None:
         y = y * F.silu(z.float())
     return y.to(out_dtype)
+
+
+def _combine(a_l, b_l, a_r, b_r):
+    """The map h -> a_r (a_l h + b_l) + b_r: (a_l) then (a_r)."""
+    return a_l * a_r, a_r * b_l + b_r
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[e0, o0, e1, o1, ...] along dim 1; ``even`` has as many items as
+    ``odd`` or one more."""
+    n = odd.shape[1]
+    pairs = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([pairs, even[:, n:]], dim=1)
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive prefix compositions of the maps (a_t, b_t) along dim 1,
+    by ``lax.associative_scan``'s odd/even recursion: adjacent pairs are
+    composed, the half-length sequence is scanned, and the even steps take
+    the odd prefix before them. 2 L combines and log2 L levels whose lengths
+    halve, so autograd keeps O(L) per call."""
+    L = a.shape[1]
+    if L < 2:
+        return a, b
+    a_odd, b_odd = _associative_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
+    m = (L - 1) // 2  # steps 2, 4, ... : each after the odd prefix at step 2i - 1
+    a_even, b_even = _combine(a_odd[:, :m], b_odd[:, :m], a[:, 2::2], b[:, 2::2])
+    return (_interleave(torch.cat([a[:, :1], a_even], dim=1), a_odd),
+            _interleave(torch.cat([b[:, :1], b_even], dim=1), b_odd))
+
+
+def selective_scan_assoc(
+    u: torch.Tensor,
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    z: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The scan as a parallel prefix scan over the affine maps h -> a h + b
+    (``diffma_tpu/ops/selective_scan.py::selective_scan_assoc``), fp32;
+    returns u.dtype.
+
+    The port has no ``lax.associative_scan``; ``_associative_scan`` is its
+    recursion, so the maps are composed in JAX's order. Plain PyTorch
+    operators on any device, on the card too; gradients come from autograd
+    through the levels. ``a`` and ``b`` are (G, L, d, n) fp32; autograd
+    keeps under eight tensors of that size per call, at any L.
+    """
+    out_dtype = u.dtype
+    u = u.float()
+    dt = _softplus(delta.float())
+    a = torch.exp(dt[..., None] * A.float())  # (G, L, d, n)
+    b = (dt * u)[..., None] * B.float()[:, :, None, :]
+    _, h = _associative_scan(a, b)
+    y = torch.einsum("gldn,gln->gld", h, C.float()) + u * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(out_dtype)
+
+
+def selective_state_update(
+    ssm_state: torch.Tensor,  # (G, d, n) fp32 carried state
+    x: torch.Tensor,  # (G, d) post-conv token
+    dt: torch.Tensor,  # (G, d) raw delta, before the bias
+    A: torch.Tensor,  # (d, n), negative
+    B: torch.Tensor,  # (G, n)
+    C: torch.Tensor,  # (G, n)
+    D: torch.Tensor,  # (d,)
+    z: Optional[torch.Tensor] = None,  # (G, d) gate
+    dt_bias: Optional[torch.Tensor] = None,  # (d,)
+    dt_softplus: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence for incremental decode
+    (``diffma_tpu/ops/selective_scan.py::selective_state_update``). Returns
+    ``(y in x's dtype, the new fp32 state)``; the state passed in is not
+    changed."""
+    xf = x.float()
+    dtf = dt.float()
+    if dt_bias is not None:
+        dtf = dtf + dt_bias.float()
+    if dt_softplus:
+        dtf = _softplus(dtf)
+    dA = torch.exp(dtf[..., None] * A.float())  # (G, d, n)
+    s = dA * ssm_state.float() + (dtf * xf)[..., None] * B.float()[:, None, :]
+    y = torch.einsum("gdn,gn->gd", s, C.float()) + D.float() * xf
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(x.dtype), s
 
 
 def _check_kernel_inputs(u, delta, A, B, C, D, z):
@@ -269,12 +366,16 @@ def selective_scan(
     ``impl="auto"`` takes ``SelectiveScanFn`` (kernels A and B) for CUDA
     tensors and runs the plain version for CPU tensors; ``"kernel"`` always
     takes the kernels (and raises on CPU tensors); ``"ref"`` always runs the
-    plain version. Either way the result carries its gradient.
+    plain version; ``"assoc"`` always runs ``selective_scan_assoc``, plain
+    PyTorch operators on the card too, and only when asked for. Either way
+    the result carries its gradient.
     """
     if impl == "auto":
         impl = "kernel" if u.device.type == "cuda" else "ref"
     if impl == "ref":
         return selective_scan_ref(u, delta, A, B, C, D, z)
+    if impl == "assoc":
+        return selective_scan_assoc(u, delta, A, B, C, D, z)
     if impl == "kernel":
         return SelectiveScanFn.apply(u, delta, A, B, C, D, z)
     raise ValueError(f"unknown impl: {impl!r}")

@@ -26,8 +26,9 @@ cs_s)`` and ``dt_s x_s`` rounded to bf16, with fp32 sums (kernels E and F at
 a compute dtype of bfloat16, ``ops/fused_ssd.py``); the state path stays
 fp32. These functions
 are the composable Mamba-2 path (``models/mamba2.py``) and what the fused
-mixer's plain version is built on (``ops/fused_ssd.py``). The single-token
-``ssd_state_update`` comes with decode.
+mixer's plain version is built on (``ops/fused_ssd.py``).
+``ssd_state_update`` is the single-token step of incremental decode
+(``models/decode.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["RoundedProduct", "ssd_chunked", "ssd_chunked_grouped", "ssd_ref"]
+__all__ = ["RoundedProduct", "ssd_chunked", "ssd_chunked_grouped", "ssd_ref", "ssd_state_update"]
 
 _NO_LIMIT = (0.0, float("inf"))
 
@@ -109,6 +110,34 @@ def ssd_ref(
         ys.append(torch.einsum("ghpn,gn->ghp", state, Cf[:, t]))
     y = (torch.stack(ys, dim=1) + _skip(D) * xf).to(out_dtype)
     return (y, state) if return_final_state else y
+
+
+def ssd_state_update(
+    ssm_state: torch.Tensor,  # (G, H, P, N) fp32 carried state
+    x: torch.Tensor,  # (G, H, P) post-conv token
+    dt: torch.Tensor,  # (G, H) raw delta, before the bias
+    A: torch.Tensor,  # (H,), negative
+    B: torch.Tensor,  # (G, N)
+    C: torch.Tensor,  # (G, N)
+    D: torch.Tensor,  # (H,) or (H, P)
+    dt_bias: Optional[torch.Tensor] = None,  # (H,)
+    dt_softplus: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence for incremental decode
+    (``diffma_tpu/ops/ssd.py::ssd_state_update``): one scalar decay per
+    head, no ``dt_limit`` clip, as in JAX. Returns ``(y in x's dtype, the new
+    fp32 state)``; the state passed in is not changed."""
+    xf = x.float()
+    dtf = dt.float()
+    if dt_bias is not None:
+        dtf = dtf + dt_bias.float()
+    if dt_softplus:
+        dtf = torch.logaddexp(dtf, torch.zeros_like(dtf))
+    dA = torch.exp(dtf * A.float())  # (G, H)
+    dBx = torch.einsum("gh,gn,ghp->ghpn", dtf, B.float(), xf)
+    s = dA[..., None, None] * ssm_state.float() + dBx
+    y = torch.einsum("ghpn,gn->ghp", s, C.float()) + _skip(D) * xf
+    return y.to(x.dtype), s
 
 
 def _segsum_decay(cs: torch.Tensor) -> torch.Tensor:

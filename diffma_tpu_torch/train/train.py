@@ -38,11 +38,12 @@ ViM, VMamba and EfficientVMamba mixers on both Mamba versions, and DiT,
 which has no mixer).
 
 When the three train folders exist and ``synthetic_data`` is false, the
-trainer reads the ``.npy`` triplets (``NpyDataset``, resized to
-``image_size``), shuffled per epoch, and encodes every batch with the frozen
-``Conditioning`` stack: the MRI to the latent ``z``, the CT to the CLIP
-embedding ``y`` and, through its VAE latent, to the CT encoder's tokens
-``y2`` and soft mask ``w``. The encode is timed as a span of its own
+trainer reads the ``.npy`` triplets, resized to ``image_size``, through the
+native C++ loader (``data/native.py``; ``NpyDataset`` when its library
+cannot be built, with the reason in the log), shuffled per epoch, and
+encodes every batch with the frozen ``Conditioning`` stack: the MRI to the
+latent ``z``, the CT to the CLIP embedding ``y`` and, through its VAE
+latent, to the CT encoder's tokens ``y2`` and soft mask ``w``. The encode is timed as a span of its own
 (``Encode ms/step`` in the log: device time on the card). Otherwise it runs
 on synthetic batches, as the JAX trainer falls back to them.
 
@@ -67,12 +68,14 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import subprocess
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from diffma_tpu_torch.data.native import NativeTripletLoader
 from diffma_tpu_torch.data.npy_dataset import (
     NpyDataset,
     SyntheticTriplets,
@@ -172,15 +175,34 @@ class Conditioning:
         return self(rgb(x_ct), rgb(z_mri), generator)
 
 
-def make_dataset(cfg, split: str, synthetic_size: int):
+def make_dataset(cfg, split: str, synthetic_size: int, native: bool = False, logger=None):
     """The config's ``.npy`` triplets for ``split`` ("train" or "val"),
     resized to ``image_size``, when its three folders exist and
-    ``synthetic_data`` is false; else ``SyntheticTriplets``."""
+    ``synthetic_data`` is false; else ``SyntheticTriplets``.
+
+    With ``native`` the train split takes the native C++ loader
+    (``data/native.py::NativeTripletLoader``) when its library builds and
+    loads, as the JAX trainer does (``diffma_tpu/train/train.py:353-360``),
+    and ``NpyDataset`` otherwise; ``logger`` gets one line naming the path
+    taken and, when it is not the native one, why. The val split always
+    takes ``NpyDataset``, as the JAX sampler does."""
     folders = [cfg.get(f"{k}_image_folder_{split}") for k in ("ct", "mask", "mir")]
     size = int(cfg.image_size)
     if cfg.get("synthetic_data") or not all(f and os.path.isdir(str(f)) for f in folders):
         return SyntheticTriplets(n=int(cfg.get("synthetic_dataset_size", synthetic_size)),
                                  size=size)
+    if native and split == "train":
+        try:
+            dataset = NativeTripletLoader(*map(str, folders), size=size)
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            if logger is not None:
+                first = (str(e).splitlines() or [""])[0]
+                logger.info(f"train data: Python loader (the native loader is unavailable: "
+                            f"{type(e).__name__}: {first})")
+        else:
+            if logger is not None:
+                logger.info("train data: native C++ triplet loader")
+            return dataset
     transform = transform_train if split == "train" else transform_test
     return NpyDataset(*map(str, folders), transform=functools.partial(transform,
                                                                       size=(size, size)))
@@ -332,9 +354,9 @@ def main(cfg, device="cuda"):
     if graphed:
         train_step = GraphedTrainStep(train_step, device)
 
-    dataset = make_dataset(cfg, "train", synthetic_size=64)
+    dataset = make_dataset(cfg, "train", synthetic_size=64, native=True, logger=logger)
     cond = None
-    if isinstance(dataset, NpyDataset):
+    if not isinstance(dataset, SyntheticTriplets):
         check_width(model)
         cond = Conditioning(cfg, logger, device, seed)
         logger.info(f"Dataset contains {len(dataset)}.")

@@ -11,7 +11,9 @@ writes it as a Chrome trace. ``profile_denoiser`` runs a few DiffMa forwards, an
 graph the trainer replays, under ``torch.profiler``; each reports the
 host-clock time per call, the device's busy time (the union of kernel
 intervals), its idle share, the kernels launched per call, and the kernels
-that take the most device time.
+that take the most device time. ``model_flops`` is the JAX package's
+analytic count of a denoiser call's FLOPs (``tools/compute_gflops_torch.py``
+prints it).
 
     python -m diffma_tpu_torch.utils.profiling --batch 1 --scan-impl fused
     python -m diffma_tpu_torch.utils.profiling --train --model DiffMa-L/2 --batch 8 [--real-data]
@@ -48,8 +50,8 @@ from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.mamba import SCAN_IMPLS
 from diffma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["SpanTimer", "StepProfiler", "Throughput", "profile_calls", "profile_denoiser",
-           "profile_train_step"]
+__all__ = ["SpanTimer", "StepProfiler", "Throughput", "model_flops", "profile_calls",
+           "profile_denoiser", "profile_train_step"]
 
 
 class StepProfiler:
@@ -141,6 +143,32 @@ class SpanTimer:
             spans[-1][1].synchronize()
             return sum(start.elapsed_time(end) for start, end in spans) / len(spans)
         return sum(spans) * 1e3 / len(spans)
+
+
+def model_flops(
+    depth: int,
+    hidden: int = 512,
+    tokens: int = 196,
+    d_state: int = 16,
+    streams: int = 3,
+    dual_branch: bool = True,
+) -> float:
+    """Analytic forward FLOPs of one DiffMa denoiser call at batch 1, the JAX
+    package's count (``diffma_tpu/utils/profiling.py::model_flops``).
+
+    Counts the mixer matmuls (in, x, dt and out projections) and the
+    selective scan's elementwise recurrence per stream; the dual-branch
+    Spiral block runs two mixers. Attention and MLP terms are left out.
+    """
+    d_in = 2 * hidden
+    rank = -(-hidden // 16)
+    # per mixer and token: in_proj, x_proj, dt_proj and out_proj
+    proj = 2 * hidden * (2 * d_in) + streams * (
+        2 * d_in * (rank + 2 * d_state) + 2 * rank * d_in
+    ) + 2 * d_in * hidden
+    scan = streams * 9 * d_in * d_state  # about 9 per (token, channel, state) and stream
+    mixers = 2 if dual_branch else 1
+    return float(depth * mixers * tokens * (proj + scan))
 
 
 def _union_us(intervals) -> float:

@@ -171,7 +171,7 @@ def loader_alone(cfg, batches: int = 16) -> float:
     from diffma_tpu_torch.data.npy_dataset import make_loader
     from diffma_tpu_torch.train.train import make_dataset
 
-    dataset = make_dataset(cfg, "train", synthetic_size=64)
+    dataset = make_dataset(cfg, "train", synthetic_size=64, native=True)
     batch_size, n, t0 = int(cfg.global_batch_size), 0, time.perf_counter()
     for epoch in range(batches):
         for _ in make_loader(dataset, batch_size, seed=0, epoch=epoch):
