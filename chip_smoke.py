@@ -205,6 +205,28 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     ``tools/compute_metrics_torch.py``, PIL made unimportable, on phase
     17e's PNGs. Nothing in it is caught.
 
+23. the parallel layer (``diffma_tpu_torch/parallel/``): ranks launched by
+    ``python -m torch.distributed.run`` running this script with
+    ``--parallel-worker``, over gloo (``DIFFMA_DIST_BACKEND=gloo``), every
+    rank on cuda:0; 4 ranks, then 2. (23a) ``enter``, ``psum_out``,
+    ``psum_mid`` and ``all_gather`` on CUDA tensors at world 4 and 2, values
+    and gradients exact; (23b) both mixers at DiffMa-B/2 width (hidden 512,
+    196 tokens, spiral, batch 8) at tp 2, sp 2 and tp 2 x sp 2 against the
+    one-process composable mixer on the card, the output within
+    ``TOL_FP32`` and every gradient within ``TOL_GRAD`` on every rank,
+    kernels A and B once each a rank at Mamba-1's tp 2 and no kernel
+    elsewhere; (23c) the trainer's CLI on ``configs/brain.yaml`` at dp 2,
+    3 steps, Mamba-1 (48 C + 48 D calls a rank) and ``--use-mamba2`` (48 E +
+    48 F), rank 0's checkpoint within ``TOL_STEP`` of one process fed both
+    ranks' rows; (23d) the trainer's CLI with ``--model DiffMa-B/2 --tp 2``,
+    3 steps, Mamba-1 (48 A + 48 B a rank) and ``--use-mamba2`` (no kernel),
+    against one process at ``tests/test_parallel.py``'s 5e-3; (23e) a NaN in
+    one rank's rows: both ranks skip, parameters and EMA equal in bits;
+    (23f) the sampler's CLI at dp 2, DiffMa-B/2, DDPM-250, graphed on each
+    rank (2000 C calls a rank), each rank's image equal in bits to one
+    process on its shard; each rank's eager dp step ms and gloo's all-reduce
+    ms of the L/2 gradient's size. Nothing in it is caught.
+
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
 path says. The sampler's and the trainer's CLIs run their chains and steps
@@ -4448,6 +4470,429 @@ def phase_plumbing(card: str, samples_dir: str) -> None:
           f"against ori)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the parallel layer, ranks launched by torch.distributed.run over
+# gloo, every rank on the one card
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3
+TOL_TP_STEP = 5e-3  # tp against one process: tests/test_parallel.py's bar, of each tensor's max
+
+
+def par_mixer(use_mamba2: bool, seed: int, mesh=None, tp: int = 1, sp: int = 1,
+              device="cuda"):
+    """A DiffMa-B/2-width mixer (hidden 512, spiral layer 0 on the 14 x 14
+    grid) with seeded weights, on the card; ``scan_impl="auto"``, the
+    trainer's default under tp or sp."""
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.models.mamba2 import Mamba2
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    torch.manual_seed(seed)
+    cls = Mamba2 if use_mamba2 else Mamba
+    mixer = cls(512, build_scan_spec("spiral", 14, 0), mesh=mesh,
+                tp_axis="tp" if tp > 1 else None, sp_axis="sp" if sp > 1 else None)
+    return random_(mixer, seed).to(device)
+
+
+def par_mixer_grads(mixer, seed: int, device="cuda") -> dict:
+    """The mixer's output at batch 8 and the gradients of x and every
+    parameter of <g, out>, x and g seeded."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(8, 196, 512, generator=gen).to(device).requires_grad_()
+    g = torch.randn(8, 196, 512, generator=gen).to(device)
+    y = mixer(x)
+    y.backward(g)
+    return {"y": y.detach().cpu(), "x": x.grad.cpu(),
+            **{k: p.grad.cpu() for k, p in mixer.named_parameters()}}
+
+
+def par_collectives(rank: int, world: int, device="cuda") -> dict:
+    """23a: each op on CUDA tensors of integer values (exact in fp32):
+    x_r = r + 1 + arange, the cotangent c_r = 2 r + 1 + arange."""
+    import torch
+    import torch.distributed as dist
+
+    from diffma_tpu_torch.parallel.collectives import all_gather, enter, psum_mid, psum_out
+
+    group = dist.group.WORLD
+    out = {}
+    for op, fn in (("enter", lambda t: enter(t, group)), ("psum_out", lambda t: psum_out(t, group)),
+                   ("psum_mid", lambda t: psum_mid(t, group)),
+                   ("all_gather", lambda t: all_gather(t, rank, world, group))):
+        x = (rank + 1 + torch.arange(6.0, device=device)).requires_grad_()
+        y = fn(x)
+        c = 2 * rank + 1 + torch.arange(float(y.numel()), device=device).view_as(y)
+        (y * c).sum().backward()
+        out[op] = (y.detach().cpu(), x.grad.cpu())
+    return out
+
+
+def par_digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def par_nan(mesh) -> dict:
+    """23e: a DiffMa-B/2 step at dp 2 (the fused route: C and D) whose rows
+    hold a NaN on rank 1 only."""
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.parallel.mesh import shard_params
+    from diffma_tpu_torch.train import train
+    from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
+
+    model = seeded_model("DiffMa-B/2", 23, scan_impl="fused").to(mesh.device).train()
+    shard_params(model.parameters(), mesh)
+    opt = adamw(model.parameters(), 1e-4)
+    state = TrainState(model, opt)
+    diffusion = create_diffusion("", device=mesh.device)
+    step = make_train_step(train.make_loss_fn(model, diffusion), opt, group=mesh.group("dp"))
+    gen = torch.Generator(mesh.device).manual_seed(230 + mesh.rank)
+    batch = train.synthetic_batch(gen, 4, 28, 196)
+    if mesh.rank == 1:
+        batch["z"][2, 1, 3, 4] = float("nan")
+    before = par_digest(list(model.parameters()) + list(state.ema.parameters()))
+    metrics = step(state, batch, gen)
+    after = par_digest(list(model.parameters()) + list(state.ema.parameters()))
+    return {"finite": bool(metrics["finite"]), "loss": float(metrics["loss"]),
+            "step": int(state.step), "before": before, "after": after}
+
+
+def par_timing(mesh) -> dict:
+    """Each rank's eager dp step ms (configs/brain.yaml's DiffMa-L/2, 4 rows a
+    rank, the fused route) and the ms of gloo's all-reduce of a flat buffer
+    of its parameters' size, on CUDA tensors of the shared card."""
+    import torch
+    import torch.distributed as dist
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.train import train
+    from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
+
+    model = seeded_model("DiffMa-L/2", 0, scan_impl="fused").cuda().train()
+    opt = adamw(model.parameters(), 1e-4)
+    state = TrainState(model, opt)
+    diffusion = create_diffusion("", device="cuda")
+    step = make_train_step(train.make_loss_fn(model, diffusion), opt, group=mesh.group("dp"))
+    gen = torch.Generator("cuda").manual_seed(0)
+    times = []
+    for i in range(5):
+        batch = train.synthetic_batch(gen, 4, 28, 196)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    flat = torch.zeros(sum(p.numel() for p in model.parameters()), device="cuda")
+    reduce_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, group=mesh.group("dp"))
+        torch.cuda.synchronize()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+    return {"step_ms": times[2:], "all_reduce_ms": reduce_ms[1:], "floats": flat.numel()}
+
+
+def par_cli(run, argv) -> dict:
+    """One CLI run on every rank with the kernels' counts set to 0 just
+    before it; this rank's counts just after."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run(argv)
+    seconds = time.perf_counter() - t0
+    return {"counts": {k: c.launches for k, c in kernel_counters().items()}, "seconds": seconds,
+            "out": out}
+
+
+def parallel_worker(out_dir: str) -> int:
+    """One rank of phase 23, launched by ``torch.distributed.run``: the
+    cases of its world size, its results written to
+    ``<out_dir>/rank<r>.pt``."""
+    if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
+        fail("run chip_smoke.py from the root of a checkout of the repository")
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from diffma_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from diffma_tpu_torch.train import sample, train
+    from diffma_tpu_torch.utils.device import resolve_device
+
+    device = init_distributed(resolve_device("cuda"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    brain = os.path.join(ROOT, "configs", "brain.yaml")
+    res = {"device": str(device), "backend": dist.get_backend(),
+           "collectives": par_collectives(rank, world, device), "mixers": {}}
+    layouts = {"tp2sp2": (2, 2)} if world == 4 else {"tp2": (2, 1), "sp2": (1, 2)}
+    for name, (tp, sp) in layouts.items():
+        mesh = make_mesh(dp=1, tp=tp, sp=sp, device=device)
+        for use_mamba2 in (False, True):
+            reset_counts()
+            grads = par_mixer_grads(par_mixer(use_mamba2, 2300, mesh, tp, sp, device), 2301,
+                                    device)
+            counts = {k: c.launches for k, c in kernel_counters().items()}
+            res["mixers"][(name, use_mamba2)] = (grads, counts)
+    if world == 2:
+        dp = make_mesh(dp=2, device=device)
+        res["nan"] = par_nan(dp)
+        runs = {}
+        for key, extra in (("dp2", []), ("dp2 --use-mamba2", ["--use-mamba2"]),
+                           ("tp2", ["--model", "DiffMa-B/2", "--tp", "2"]),
+                           ("tp2 --use-mamba2", ["--model", "DiffMa-B/2", "--tp", "2",
+                                                 "--use-mamba2"])):
+            results = os.path.join(out_dir, "runs", key.replace(" ", "_"))
+            r = par_cli(train.cli, ["--config", brain, "--max-steps", str(PAR_STEPS),
+                                    "--ckpt-every", str(PAR_STEPS), "--log-every", "1",
+                                    "--results-dir", results, *extra])
+            r["step"], r["out"] = int(r["out"].step), None
+            r["results"] = results
+            runs[key] = r
+        res["trainer"] = runs
+        cwd = os.getcwd()
+        os.chdir(out_dir)  # the config's relative paths name no folder here: synthetic data
+        try:
+            r = par_cli(sample.cli, ["--config", brain, "--model", "DiffMa-B/2",
+                                     "--num-batches", "1"])
+        finally:
+            os.chdir(cwd)
+        r["images"] = [b["images"] for b in r.pop("out")]
+        res["sampler"] = r
+        res["timing"] = par_timing(dp)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_dir(root: str, name: str) -> str:
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    return path
+
+
+def par_launch(world: int, out_dir: str, timeout: int = 300) -> list:
+    """``python -m torch.distributed.run --nproc_per_node world chip_smoke.py
+    --parallel-worker out_dir`` over gloo; each rank's results."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, DIFFMA_DIST_BACKEND="gloo", OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(world), "--master_addr", "127.0.0.1", "--master_port",
+           str(port), os.path.abspath(__file__), "--parallel-worker", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout,
+                          cwd=ROOT)
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:])
+        print(proc.stderr[-6000:])
+        fail(f"torch.distributed.run of {world} ranks exited with {proc.returncode}")
+    print(f"  {world} ranks over gloo on the card ran in {time.perf_counter() - t0:.1f} s")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def par_check_collectives(res: list) -> None:
+    import torch
+
+    world = len(res)
+    xs = [r + 1 + torch.arange(6.0) for r in range(world)]
+    for op in ("enter", "psum_out", "psum_mid", "all_gather"):
+        n = world * 6 if op == "all_gather" else 6
+        cs = [(2 * r + 1 + torch.arange(float(n))).view(world, 6) if op == "all_gather"
+              else 2 * r + 1 + torch.arange(float(n)) for r in range(world)]
+        for r, out in enumerate(res):
+            y, g = out["collectives"][op]
+            want_y = {"enter": lambda: xs[r], "psum_out": lambda: sum(xs),
+                      "psum_mid": lambda: sum(xs), "all_gather": lambda: torch.stack(xs)}[op]()
+            want_g = {"enter": lambda: sum(cs), "psum_out": lambda: cs[r],
+                      "psum_mid": lambda: sum(cs),
+                      "all_gather": lambda: sum(c[r] for c in cs)}[op]()
+            if not (torch.equal(y, want_y) and torch.equal(g, want_g)):
+                fail(f"23a: {op} at world {world} on rank {r}: value or gradient not exact")
+    print(f"  23a: enter, psum_out, psum_mid and all_gather on CUDA tensors at world {world}: "
+          f"values and gradients exact on every rank ({res[0]['backend']}, "
+          f"{', '.join(sorted({o['device'] for o in res}))})")
+
+
+def par_check_mixers(card: str, res: list) -> None:
+    """23b: every rank's output and gradients against the one-process
+    composable mixer on the card (kernels A + B for Mamba-1)."""
+    zero = {name: 0 for name in kernel_counters()}
+    for (name, use_mamba2), _ in res[0]["mixers"].items():
+        reset_counts()
+        want = par_mixer_grads(par_mixer(use_mamba2, 2300), 2301)
+        a_b = 1 if name == "tp2" and not use_mamba2 else 0  # a shard's scan: kernels A and B
+        for r, out in enumerate(res):
+            got, counts = out["mixers"][(name, use_mamba2)]
+            err = close_to_ref(f"23b {name} {'Mamba-2' if use_mamba2 else 'Mamba-1'} rank {r}",
+                               got.pop("y"), want["y"], TOL_FP32)
+            grads = grad_errors(got, {k: v for k, v in want.items() if k != "y"}, TOL_GRAD)
+            expect = {**zero, "selective_scan_fwd": a_b, "selective_scan_bwd": a_b}
+            if counts != expect:
+                fail(f"23b {name} rank {r}: kernel counts {counts}, not {expect}")
+        worst = max(grads, key=lambda row: row[1] / row[2])
+        print(f"  23b: {'Mamba-2' if use_mamba2 else 'Mamba-1'} at {name}, B/2 width, batch 8: "
+              f"every rank within {err:.2e} of the one-process mixer (bar {TOL_FP32:g} x "
+              f"max(1, max |ref|)), {len(grads)} gradients within their bars ({TOL_GRAD:g} x "
+              f"max(1, max |ref|); nearest {worst[0]}, {worst[1]:.2e} of {worst[2]:.2e}); "
+              f"kernels A and B {a_b} call each a rank")
+
+
+def par_replica_dp(use_mamba2: bool):
+    """One process fed both dp ranks' rows of the trainer's first
+    ``PAR_STEPS`` steps on configs/brain.yaml: every rank draws the same 4
+    rows, so the global batch is them twice; the loss's draws cover it."""
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.train import train
+    from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
+
+    cfg = brain_config()
+    seed = int(cfg.global_seed)
+    model = build_model(cfg.model, input_size=28, d_state=int(cfg.d_state), scan_impl="fused",
+                        use_mamba2=use_mamba2)
+    model = model.init_weights(torch.Generator().manual_seed(seed)).cuda().train()
+    opt = adamw(model.parameters(), float(cfg.lr))
+    state = TrainState(model, opt)
+    diffusion = create_diffusion("", device="cuda")
+    step = make_train_step(train.make_loss_fn(model, diffusion), opt)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    for _ in range(PAR_STEPS):
+        host = train.synthetic_batch(gen, 4, 28, 196)
+        batch = {k: torch.cat([v, v]) for k, v in host.items()}
+        batch["t"], batch["noise"] = train.loss_draws(diffusion, batch["z"], gen)
+        step(state, batch, None)
+    return state
+
+
+def par_checkpoint(run: dict):
+    import torch
+
+    (exp,) = os.listdir(run["results"])
+    path = os.path.join(run["results"], exp, "checkpoints", f"{PAR_STEPS:07d}.pt")
+    if not os.path.exists(path):
+        fail(f"rank 0 wrote no checkpoint at {path}")
+    return torch.load(path, map_location="cuda", weights_only=False)
+
+
+def par_check_trainers(card: str, res: list) -> None:
+    """23c, 23d: the trainer's CLI at dp 2 (L/2) against one process fed both
+    ranks' rows, and at tp 2 (B/2) against one process; each rank's kernels."""
+    import torch
+
+    from diffma_tpu_torch.train import train
+
+    zero = {name: 0 for name in kernel_counters()}
+    n = PAR_STEPS
+    expects = {"dp2": {"mixer_fused_fwd": 16 * n, "mixer_fused_bwd": 16 * n},
+               "dp2 --use-mamba2": {"ssd_mixer_fwd": 16 * n, "ssd_mixer_bwd": 16 * n},
+               "tp2": {"selective_scan_fwd": 16 * n, "selective_scan_bwd": 16 * n},
+               "tp2 --use-mamba2": {}}
+    for key, expect in expects.items():
+        for r, out in enumerate(res):
+            run = out["trainer"][key]
+            if run["counts"] != {**zero, **expect}:
+                fail(f"23 {key} rank {r}: kernel counts {run['counts']}, not {expect}")
+            if run["step"] != n:
+                fail(f"23 {key} rank {r}: {run['step']} finite steps of {n}")
+        saved = par_checkpoint(res[0]["trainer"][key])
+        use_mamba2 = "mamba2" in key
+        if key.startswith("dp2"):
+            want = par_replica_dp(use_mamba2)
+            errs = [close_to_ref(f"23c {key} {part} {k}", saved[part][k].float(), v, TOL_STEP)
+                    for part, mod in (("model", want.model), ("ema", want.ema))
+                    for k, v in mod.state_dict().items()]
+            what = f"within {max(errs):.2e} of one process fed both ranks' rows (bar {TOL_STEP:g})"
+        else:
+            results = os.path.join(ROOT, "results", "chip_smoke_tp_ref")
+            shutil.rmtree(results, ignore_errors=True)
+            state = train.main(brain_config(model="DiffMa-B/2", scan_impl="auto",
+                                            use_mamba2=use_mamba2, max_steps=n, log_every=n,
+                                            ckpt_every=10 ** 9, results_dir=results), "cuda")
+            shutil.rmtree(results, ignore_errors=True)
+            worst = 0.0
+            for k, v in state.model.state_dict().items():
+                rel = (saved["model"][k] - v).abs().max().item() / (v.abs().max().item() + 1e-9)
+                worst = max(worst, rel)
+            if worst > TOL_TP_STEP:
+                fail(f"23d {key}: parameters {worst:.2e} of their largest value from one "
+                     f"process (bar {TOL_TP_STEP:g})")
+            what = f"parameters within {worst:.2e} of their max of one process (bar {TOL_TP_STEP:g})"
+        counts = ", ".join(f"{k} {v}" for k, v in expect.items()) or "no kernel"
+        secs = " / ".join(f"{out['trainer'][key]['seconds']:.1f}" for out in res)
+        print(f"  23{'c' if key.startswith('dp') else 'd'}: trainer CLI {key}, {n} steps: {what}; "
+              f"each rank {counts} ({PAR_STEPS} steps); {secs} s a rank, build included")
+
+
+def phase_parallel(card: str) -> None:
+    """Phase 23: the parallel layer over gloo, every rank on the one card."""
+    import tempfile
+
+    import numpy
+
+    from diffma_tpu_torch.train import sample
+
+    print("== phase 23: the parallel layer: torch.distributed.run over gloo, all ranks on "
+          "cuda:0", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res4 = par_launch(4, par_dir(tmp, "w4"))
+        res2 = par_launch(2, par_dir(tmp, "w2"))
+        par_check_collectives(res4)
+        par_check_collectives(res2)
+        par_check_mixers(card, res4)
+        par_check_mixers(card, res2)
+        par_check_trainers(card, res2)
+        a, b = (out["nan"] for out in res2)
+        if a["finite"] or b["finite"] or a["step"] or b["step"]:
+            fail("23e: a NaN on rank 1 did not make both ranks skip the step")
+        if not (a["before"] == a["after"] == b["before"] == b["after"]):
+            fail("23e: a skipped step changed a parameter, or the ranks differ")
+        print("  23e: a NaN in rank 1's rows: the global loss NaN on both ranks, both skipped, "
+              "parameters and EMA as before and equal in bits across the ranks")
+        zero = {name: 0 for name in kernel_counters()}
+        cfg = brain_config(model="DiffMa-B/2", sample_num_batches=1,
+                           save_dir=os.path.join(tmp, "ref_samples"))
+        model = sample.load_model(cfg, "cuda")
+        for r, out in enumerate(res2):
+            got = out["sampler"]
+            if got["counts"] != {**zero, "mixer_fused_fwd": 2000}:
+                fail(f"23f rank {r}: kernel counts {got['counts']}, not 2000 C calls")
+            want = sample.sample_batches(model, cfg, "cuda", process_index=r, process_count=2)
+            for g, w in zip(got["images"], want):
+                if not numpy.array_equal(g, w["images"]):
+                    fail(f"23f rank {r}: its image differs from one process sampling its shard")
+        print("  23f: sampler CLI at dp 2, DiffMa-B/2, DDPM-250, graphed on each rank: each "
+              "rank's image equal in bits to one process's on that rank's shard; 2000 C calls "
+              "a rank")
+        for r, out in enumerate(res2):
+            t = out["timing"]
+            print(f"  [{card}] rank {r}: eager DiffMa-L/2 dp step, 4 rows a rank: "
+                  f"{', '.join(f'{v:.1f}' for v in t['step_ms'])} ms; gloo all-reduce of "
+                  f"{t['floats']:,} fp32 on CUDA tensors: "
+                  f"{', '.join(f'{v:.1f}' for v in t['all_reduce_ms'])} ms "
+                  f"(gloo over one shared card, through host memory: says nothing of NCCL)")
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
@@ -4536,6 +4981,7 @@ def main() -> int:
     phase_assoc(card)
     phase_plumbing(card, samples_17e)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s")
+    phase_parallel(card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
@@ -4554,4 +5000,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2]))
     sys.exit(main())

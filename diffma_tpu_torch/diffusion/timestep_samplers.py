@@ -4,10 +4,10 @@ Counterpart of ``diffma_tpu/diffusion/timestep_samplers.py``.
 ``UniformSampler`` draws from a caller-given ``torch.Generator`` where JAX
 takes a key. ``LossSecondMomentResampler`` keeps its loss history on the
 host in numpy, as the JAX package does, and weights each timestep by the
-root mean square of its last losses. One process: gathering the losses of
-several processes waits for the port's parallel layer, and
-``LossAwareSampler.update_with_local_losses`` raises in a process group of
-more than one.
+root mean square of its last losses. Over several processes
+``LossAwareSampler.update_with_local_losses`` gathers every dp rank's
+timesteps and losses, in rank order, before it updates, as the JAX
+package's gathers every process's (``process_allgather``).
 """
 
 from __future__ import annotations
@@ -64,17 +64,33 @@ class UniformSampler(ScheduleSampler):
         return self._weights
 
 
+def _gather(values: np.ndarray, group) -> np.ndarray:
+    """Every rank's ``values`` (one shape on every rank), end to end in rank
+    order: a zero buffer with this rank's at its slot, summed over
+    ``group`` in fp64 (exact for the timesteps) on the backend's device."""
+    dist = torch.distributed
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    buf = torch.zeros((n, values.size), dtype=torch.float64, device=device)
+    buf[i] = torch.from_numpy(values.astype(np.float64).reshape(-1)).to(device)
+    dist.all_reduce(buf, group=group)
+    return buf.cpu().numpy().reshape(-1)
+
+
 class LossAwareSampler(ScheduleSampler):
-    def update_with_local_losses(self, local_ts, local_losses):
-        """Update with this process's timesteps and losses. Gathering them
-        from every process waits for the parallel layer, so a process group
-        of more than one raises."""
+    def update_with_local_losses(self, local_ts, local_losses, group=None):
+        """Update with every dp rank's timesteps and losses: this rank's are
+        gathered with the others' over ``group`` (a mesh's ``group("dp")``;
+        by default, in a process group of more than one, all its ranks),
+        each rank giving as many. One process updates with its own."""
         dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError("gathering the losses of several processes waits for the "
-                                      "port's parallel layer")
         ts = np.asarray(torch.as_tensor(local_ts).cpu()).reshape(-1)
         losses = np.asarray(torch.as_tensor(local_losses).detach().cpu(), np.float64).reshape(-1)
+        if group is not None or (dist.is_available() and dist.is_initialized()
+                                 and dist.get_world_size() > 1):
+            ts = _gather(ts, group).astype(np.int64)
+            losses = _gather(losses, group)
         self.update_with_all_losses(ts.tolist(), losses.tolist())
 
     @abc.abstractmethod

@@ -16,7 +16,9 @@ weight, and a gated residual. Three routes, as in the JAX block:
 * ``scan_impl="fused"``: both branches in one call of the fused mixer
   (Mamba-1: kernel C, and kernel D in the backward; Mamba-2: kernel E, and
   kernel F in the backward);
-* otherwise each mixer runs its own path.
+* otherwise, and always under a mesh (``mesh``, ``tp_axis``, ``sp_axis``,
+  which every Mamba block hands to its mixers), each mixer runs its own
+  path.
 
 Parameter names follow upstream DiffMa's ``block/mamba_block.py``
 (``adaLN_modulation.1``, ``norm1``, ``mamba1``, ``mamba2``,
@@ -70,9 +72,11 @@ __all__ = [
 ]
 
 
-def _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype):
+def _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, mesh=None, tp_axis=None,
+           sp_axis=None):
     mixer = Mamba2 if use_mamba2 else Mamba
-    return mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl, dtype=dtype)
+    return mixer(hidden, spec, d_state=d_state, scan_impl=scan_impl, dtype=dtype, mesh=mesh,
+                 tp_axis=tp_axis, sp_axis=sp_axis)
 
 
 def _adaln(block: nn.Module, c: torch.Tensor, k: int):
@@ -91,6 +95,9 @@ class SpiralMambaBlock(nn.Module):
         use_mamba2: bool = False,
         fuse_block: bool = False,
         dtype: torch.dtype = torch.float32,
+        mesh=None,
+        tp_axis=None,
+        sp_axis=None,
     ):
         super().__init__()
         self.spec = spec
@@ -98,10 +105,12 @@ class SpiralMambaBlock(nn.Module):
         self.use_mamba2 = bool(use_mamba2)
         self.fuse_block = bool(fuse_block)
         self.dtype = dtype
+        self.mesh = mesh
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
         self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
         self.mamba1, self.mamba2 = (
-            _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype) for _ in range(2))
+            _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, mesh, tp_axis, sp_axis)
+            for _ in range(2))
         self.attention_network = nn.Sequential(
             nn.LayerNorm(2 * hidden, eps=1e-5),
             nn.Linear(2 * hidden, hidden),
@@ -114,7 +123,9 @@ class SpiralMambaBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = _adaln(self, c, 3)
-        fused = check_scan_impl(self.scan_impl) == "fused"
+        # under a mesh neither fused route runs: each branch calls its own
+        # mixer (diffma_tpu/models/blocks.py:134,166)
+        fused = check_scan_impl(self.scan_impl) == "fused" and self.mesh is None
         an, fc1, _, fc2 = self.attention_network
         m1, m2 = self.mamba1, self.mamba2
         if self.fuse_block and self.use_mamba2 and fused:
@@ -159,6 +170,9 @@ class _SingleMixerBlock(nn.Module):
         scan_impl: str = "auto",
         use_mamba2: bool = False,
         dtype: torch.dtype = torch.float32,
+        mesh=None,
+        tp_axis=None,
+        sp_axis=None,
     ):
         super().__init__()
         self.spec = spec
@@ -167,7 +181,8 @@ class _SingleMixerBlock(nn.Module):
         self.dtype = dtype
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(2 * hidden, 3 * hidden))
         self.norm1 = nn.LayerNorm(hidden, eps=1e-5)
-        self.mamba = _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype)
+        self.mamba = _mixer(hidden, spec, d_state, scan_impl, use_mamba2, dtype, mesh, tp_axis,
+                            sp_axis)
 
     def mixers(self):
         return (self.mamba,)

@@ -38,6 +38,12 @@ deterministic, so the recomputed forward gives the same bits and the
 gradients equal those without ``remat``; on the fused route kernel C (or E)
 runs twice a block and step. ``forward_with_cfg`` is the classifier-free
 guidance helper.
+
+``mesh`` (``parallel/mesh.py::Mesh``) with ``tp_axis`` and ``sp_axis``
+shards every Mamba mixer over tensor- and sequence-parallel ranks
+(``models/mamba.py``, ``models/mamba2.py``), as the JAX model's ``mesh``,
+``tp_axis`` and ``sp_axis``; the rest of the model is replicated. DiT
+ignores them.
 """
 
 from __future__ import annotations
@@ -80,6 +86,9 @@ class DiffMa(nn.Module):
         in_channels: int = 4,
         learn_sigma: bool = True,
         remat: bool = False,
+        mesh=None,
+        tp_axis: Optional[str] = None,
+        sp_axis: Optional[str] = None,
     ):
         super().__init__()
         del dt_rank
@@ -105,7 +114,8 @@ class DiffMa(nn.Module):
             persistent=False,
         )
         self.t_embedder = TimestepEmbed(hidden_size, dtype=dtype)
-        mixer_kw = dict(d_state=d_state, scan_impl=scan_impl, use_mamba2=use_mamba2, dtype=dtype)
+        mixer_kw = dict(d_state=d_state, scan_impl=scan_impl, use_mamba2=use_mamba2, dtype=dtype,
+                        mesh=mesh, tp_axis=tp_axis, sp_axis=sp_axis)
         if block_type == "spiral":
             mixer_kw["fuse_block"] = fuse_block
         self.blocks = nn.ModuleList(

@@ -142,9 +142,11 @@ def index_tables(spec: ScanSpec, device: torch.device) -> Tuple[torch.Tensor, to
 
 def mixer_composable(
     spec: ScanSpec, x: torch.Tensor, w: MixerWeights, scan_impl: str = "auto",
-    fused_inner: bool = False,
+    fused_inner: bool = False, scan=None,
 ) -> torch.Tensor:
-    """The mixer from PyTorch operators, with ``selective_scan(impl=scan_impl)``.
+    """The mixer from PyTorch operators, with ``selective_scan(impl=scan_impl)``,
+    or ``scan(u, delta, A, B, C, D, z)`` where one is given (the
+    sequence-parallel scan).
 
     The streams are gathered before in_proj (a per-token matmul commutes with
     the token permutation), and merged before out_proj (it has no bias). With
@@ -170,10 +172,10 @@ def mixer_composable(
         u = causal_conv1d(u, w.conv_w[:, 0, :], w.conv_b)
         dt_r, B_ssm, C_ssm = F.linear(u, w.xp_w.to(cd)).split([r, n, n], dim=-1)
         delta = F.linear(dt_r.float(), w.dt_w.float(), w.dt_b.float())
-        y = selective_scan(
-            u, delta, A, B_ssm.contiguous(), C_ssm.contiguous(), w.D.float(),
-            z=z.contiguous(), impl=scan_impl,
-        )
+        if scan is None:
+            scan = functools.partial(selective_scan, impl=scan_impl)
+        y = scan(u, delta, A, B_ssm.contiguous(), C_ssm.contiguous(), w.D.float(),
+                 z=z.contiguous())
     out_w = w.out_w.to(cd)
     if spec.mamba1_vim_quirk:
         ys = y.reshape(B_, S, Ls, d_in)

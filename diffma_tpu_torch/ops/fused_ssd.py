@@ -188,12 +188,14 @@ def ssd_mixer_ref(
     eps: float = 1e-5,
     chunk_size: int = 256,
     ngroups: int = 1,
+    scan=None,
 ) -> torch.Tensor:
     """The mixer from PyTorch operators: project, then fan out the streams (a
     per-token matmul commutes with the token permutation, and projecting first
-    is S times less work), conv, ``ssd_chunked``, the gated norm per stream,
-    merge, out_proj; in x's dtype, with the weights cast to it at the
-    projections (the composable route)."""
+    is S times less work), conv, ``ssd_chunked`` (or ``scan``, with its
+    arguments, where one is given: the sequence-parallel scan), the gated
+    norm per stream, merge, out_proj; in x's dtype, with the weights cast to
+    it at the projections (the composable route)."""
     B_, L, _ = x.shape
     S, Ls = spec.fwd.shape
     d = w.out_w.shape[1]
@@ -201,25 +203,28 @@ def ssd_mixer_ref(
 
     zxbcdt = F.linear(x, w.in_w.to(x.dtype))  # (B, L, 2d + 2gn + H)
     xs = zxbcdt.index_select(1, fwd).reshape(B_ * S, Ls, -1)
-    y = _core(xs, w, dt_limit, eps, chunk_size, ngroups)
+    y = _core(xs, w, dt_limit, eps, chunk_size, ngroups, scan=scan)
     merged = y.reshape(B_, S * Ls, d).index_select(1, merge)
     merged = merged.reshape(B_, L, spec.merge.shape[1], d).sum(dim=2) * spec.scale
     return F.linear(merged, w.out_w.to(x.dtype))
 
 
-def _core(zx: torch.Tensor, w, dt_limit, eps: float, chunk_size: int, ngroups: int) -> torch.Tensor:
+def _core(zx: torch.Tensor, w, dt_limit, eps: float, chunk_size: int, ngroups: int,
+          **ssd_kw) -> torch.Tensor:
     """The mixer's middle on gathered streams ``zx (N, Ls, 2d + 2gn + H)``
     with one weight set ``w`` (its core fields): conv, ``ssd_chunked``, the
     gated norm; ``(N, Ls, d)``."""
     d = w.norm_w.shape[0]
-    z, y = _conv_ssd(zx, w, dt_limit, chunk_size, ngroups)
+    z, y = _conv_ssd(zx, w, dt_limit, chunk_size, ngroups, **ssd_kw)
     return rms_norm_gated(y, w.norm_w, z, eps=eps, group_size=d // ngroups, norm_before_gate=False)
 
 
-def _conv_ssd(zx: torch.Tensor, w, dt_limit, chunk_size: int, ngroups: int, **ssd_kw):
+def _conv_ssd(zx: torch.Tensor, w, dt_limit, chunk_size: int, ngroups: int, scan=None,
+              **ssd_kw):
     """z and the pre-gate SSD output y ``(N, Ls, d)`` of gathered streams
     ``zx``; ``ssd_kw`` goes to ``ssd_chunked`` (``lowp=True``: the SSD's
-    intra-chunk products on bf16 operands)."""
+    intra-chunk products on bf16 operands); ``scan``, one B/C group's scan
+    with ``ssd_chunked``'s arguments, replaces ``ssd_chunked_grouped``."""
     N, Ls, _ = zx.shape
     d = w.norm_w.shape[0]
     H = w.A_log.shape[0]
@@ -227,9 +232,11 @@ def _conv_ssd(zx: torch.Tensor, w, dt_limit, chunk_size: int, ngroups: int, **ss
     z, xBC, dt = zx.split([d, d + 2 * gn, H], dim=-1)
     xBC = causal_conv1d(xBC, w.conv_w[:, 0, :], w.conv_b)
     x_ssm, B_ssm, C_ssm = xBC.split([d, gn, gn], dim=-1)
-    y = ssd_chunked_grouped(
+    if scan is None:
+        scan = functools.partial(ssd_chunked_grouped, ngroups=ngroups)
+    y = scan(
         x_ssm.reshape(N, Ls, H, d // H), dt.float(), -torch.exp(w.A_log.float()),
-        B_ssm, C_ssm, w.D, ngroups=ngroups, dt_bias=w.dt_bias, dt_softplus=True,
+        B_ssm, C_ssm, w.D, dt_bias=w.dt_bias, dt_softplus=True,
         dt_limit=dt_limit, chunk_size=chunk_size, **ssd_kw,
     ).reshape(N, Ls, d)
     return z, y

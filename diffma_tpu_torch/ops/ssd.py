@@ -168,8 +168,13 @@ def ssd_chunked(
     """``ssd_ref`` with the work in dense products; shapes as there.
 
     L is padded to a multiple of the chunk with x = B = C = 0 and dt = -30,
-    so that the padded steps decay by 1 and add nothing. ``lowp``: the
-    intra-chunk product on bf16-rounded operands (``RoundedProduct``).
+    so that the padded steps add nothing; their dt is then set to 0 after
+    the clip to ``dt_limit``, so that they decay nothing either and the
+    final state is the state after the last real step, as ``ssd_ref``'s.
+    JAX's ``ssd_chunked`` keeps the clipped dt, which decays its final state
+    where ``dt_limit[0] > 0``; y is the same either way, since the padding
+    lies after every real step. ``lowp``: the intra-chunk product on
+    bf16-rounded operands (``RoundedProduct``).
     """
     out_dtype = x.dtype
     G, L0, H, P = x.shape
@@ -185,7 +190,10 @@ def ssd_chunked(
     nc = L // Q
 
     xf = x.float().reshape(G, nc, Q, H, P)
-    dtf = _dt(dt, dt_bias, dt_softplus, dt_limit).reshape(G, nc, Q, H)
+    dtf = _dt(dt, dt_bias, dt_softplus, dt_limit)
+    if L != L0:
+        dtf = F.pad(dtf[:, :L0], (0, 0, 0, L - L0))
+    dtf = dtf.reshape(G, nc, Q, H)
     Bf = B.float().reshape(G, nc, Q, N)
     Cf = C.float().reshape(G, nc, Q, N)
     cs = torch.cumsum((dtf * A.float()).double(), dim=2)  # (G, nc, Q, H), inside each chunk

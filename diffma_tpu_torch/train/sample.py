@@ -42,6 +42,18 @@ sampler does (the fused route through kernel C's bf16 variant, with
 ``use_mamba2`` kernel E's, and for a model built with ``fuse_block`` kernels
 E's and G's); its weights load in fp32, its output is cast to fp32 for the
 chain, and the graphed chain runs as it does in fp32.
+
+Several processes (``python -m torch.distributed.run --nproc_per_node N -m
+diffma_tpu_torch.train.sample ...``; ``parallel/mesh.py::init_distributed``):
+each rank samples its shard of the loader (``make_loader``'s
+``process_index`` and ``process_count``, the rank and the world, as the JAX
+sampler's ``train/sample.py:145-159``) and keeps its own graphed chain: the
+chain needs no collective. Every rank draws z and the synthetic
+conditioning from the same seed, as every JAX process draws them from the
+same key. Every JAX process writes the same ``{item}_sample_gen.png`` names
+into one ``save_dir``, so the processes overwrite each other; here each
+rank's files are named apart (``rank{r}_{item}_sample_gen.png``) when there
+are several.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from diffma_tpu_torch.diffusion import create_diffusion
 from diffma_tpu_torch.diffusion.gaussian import ChainGraph
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import SD_VAE_SCALE, AutoencoderKL
+from diffma_tpu_torch.parallel.mesh import init_distributed, world_rank, world_size
 from diffma_tpu_torch.train.checkpoints import load_diffma_checkpoint
 from diffma_tpu_torch.train.train import (
     Conditioning,
@@ -143,17 +156,23 @@ def load_model(cfg, device="cuda"):
 def main(cfg, device="cuda"):
     """Sample ``cfg``'s model; returns one dict per batch with the decoded
     ``images`` (N, 3, H, W), the batch's wall ``seconds`` and its ``quality``."""
-    device = resolve_device(device)
+    device = init_distributed(resolve_device(device))
     return sample_batches(load_model(cfg, device), cfg, device)
 
 
-def sample_batches(model, cfg, device="cuda", graphed=None):
+def sample_batches(model, cfg, device="cuda", graphed=None, process_index=None,
+                   process_count=None):
     """``main``'s loop over ``cfg``'s batches with ``model``, a denoiser on
     ``device`` in eval mode; returns what ``main`` returns. The chain is
     graphed unless ``graphed`` is false, by default on the card; a batch
     whose chain captured its graph also carries the graph's
-    ``capture_seconds`` and ``pool_bytes``."""
+    ``capture_seconds`` and ``pool_bytes``. The loader's shard is
+    ``process_index`` of ``process_count``, by default this rank of the
+    process group's ranks."""
     device = resolve_device(device)
+    process_index = world_rank() if process_index is None else process_index
+    process_count = world_size() if process_count is None else process_count
+    prefix = f"rank{world_rank()}_" if world_size() > 1 else ""
     graphed = device.type == "cuda" if graphed is None else bool(graphed)
     seed = int(cfg.get("seed", 0))
     latent = cfg.image_size // 8
@@ -179,7 +198,8 @@ def sample_batches(model, cfg, device="cuda", graphed=None):
 
     results = []
     chains = {}  # batch size -> ChainGraph, all in the first one's memory pool
-    loader = make_loader(dataset, batch_size, shuffle=False, drop_last=False)
+    loader = make_loader(dataset, batch_size, shuffle=False, drop_last=False,
+                         process_index=process_index, process_count=process_count)
     for item, (x_ct, _mask, z_mri) in enumerate(loader, start=1):
         n = x_ct.shape[0]
         t0 = time.perf_counter()
@@ -203,9 +223,10 @@ def sample_batches(model, cfg, device="cuda", graphed=None):
             images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
         seconds = time.perf_counter() - t0
         mri3 = np.concatenate([z_mri] * 3, axis=1)
-        save_image_grid(images, f"{save_dir}/{item}_sample_gen.png")
-        save_image_grid(mri3, f"{save_dir}/{item}_sample_ori.png")
-        save_image_grid(np.concatenate([x_ct] * 3, axis=1), f"{save_dir}/{item}_sample_ct.png")
+        save_image_grid(images, f"{save_dir}/{prefix}{item}_sample_gen.png")
+        save_image_grid(mri3, f"{save_dir}/{prefix}{item}_sample_ori.png")
+        save_image_grid(np.concatenate([x_ct] * 3, axis=1),
+                        f"{save_dir}/{prefix}{item}_sample_ct.png")
         q = quality_report(images, mri3)
         logger.info(
             f"saved sample grid {item} in {seconds:.3f} s  "

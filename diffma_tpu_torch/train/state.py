@@ -25,6 +25,18 @@ JAX's ``lax.cond`` path. Nothing in the step reads a device value on the
 host, so on the card it is captured whole in a CUDA graph
 (``GraphedTrainStep``, at ``accumulation_steps == 1``).
 
+Over several processes ``make_train_step`` takes the dp ranks' process group:
+after the backward one ``all_reduce`` of the loss, its aux terms and the flat
+gradients averages them over the group, as JAX's loss and gradients are
+means over the global batch (each dp rank's batch has as many rows). The
+NaN skip then reads the global loss, so every rank keeps or skips the step
+together: with a local predicate, a rank whose own loss is finite would
+apply the NaN gradient averaged in from another. At ``accumulation_steps >
+1`` each micro-step is averaged so, as JAX's jitted step is. Tensor- and
+sequence-parallel weights are whole before it (``parallel/collectives.py``).
+A gloo collective cannot be captured in a CUDA graph, so a step over
+several processes runs eagerly.
+
 ``restore_train_state`` loads a checkpoint's model, EMA and AdamW state into
 a ``TrainState``, as the JAX trainer's ``resume_from`` does: before the
 graphed step's first call, since a capture holds the optimizer state's
@@ -37,6 +49,7 @@ import copy
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from diffma_tpu_torch.utils.graphs import Graph
@@ -61,7 +74,9 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
 
 class TrainState:
     """The model, its EMA copy, the optimizer, the accumulated gradients and
-    the count of finite steps (an int64 tensor on the model's device)."""
+    the count of finite steps (an int64 tensor on the model's device); the
+    trainer sets ``generator``, the generator that drew its batches and the
+    loss's draws, when it returns the state."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, step: int = 0):
         self.model = model
@@ -70,6 +85,7 @@ class TrainState:
         self.accum_grads: Optional[List[torch.Tensor]] = None  # made when first needed
         device = next(model.parameters()).device
         self.step = torch.tensor(int(step), dtype=torch.long, device=device)
+        self.generator: Optional[torch.Generator] = None
 
 
 def _load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict) -> None:
@@ -158,18 +174,37 @@ def _predicated_update(state: TrainState, optimizer, keep: torch.Tensor, params,
         _keep_where(keep, _optimizer_tensors(optimizer, made), 0.0)
 
 
+def _mean_over(group, params, loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
+    """The loss, the aux terms and ``params``' gradients (a missing one as
+    zeros) averaged over ``group`` by one ``all_reduce`` of a flat buffer;
+    the gradients in place, the loss and the aux terms returned."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    scalars = [loss.detach().float(), *(v.float() for v in aux.values())]
+    flat = _flat([t.reshape(1) for t in scalars] + grads)
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    _scatter(grads, flat[len(scalars):])
+    return flat[0], {k: flat[1 + i] for i, k in enumerate(aux)}
+
+
 def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
-                    accumulation_steps: int = 1, ema_decay: float = 0.999):
+                    accumulation_steps: int = 1, ema_decay: float = 0.999, group=None):
     """The step ``train_step(state, batch, generator) -> metrics``, where
     ``loss_fn(batch, generator) -> (loss, aux)`` is the loss of
     ``state.model`` and ``optimizer`` steps its parameters. ``metrics`` holds
     the loss, ``finite`` (a bool tensor) and the aux terms, all on the
-    device."""
+    device. ``group``: the dp ranks' process group, over which the loss,
+    the aux terms and the gradients are averaged after the backward (None:
+    one process)."""
     k = int(accumulation_steps)
     if k < 1:
         raise ValueError(f"accumulation_steps must be at least 1, got {k}")
-    for group in optimizer.param_groups:
-        if any(p.is_cuda for p in group["params"]) and not group.get("capturable", True):
+    for param_group in optimizer.param_groups:
+        if (any(p.is_cuda for p in param_group["params"])
+                and not param_group.get("capturable", True)):
             raise ValueError("on the card the step needs an optimizer whose state stays on the "
                              "device: AdamW(capturable=True), as state.adamw makes it")
 
@@ -177,6 +212,8 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(batch, generator)
         loss.backward()
+        if group is not None:
+            loss, aux = _mean_over(group, list(state.model.parameters()), loss, aux)
         finite = torch.isfinite(loss.detach())
         metrics = {"loss": loss.detach(), "finite": finite, **aux}
         with torch.no_grad():

@@ -11,7 +11,8 @@ weight decay, as ``optax.adamw`` there), an EMA of decay 0.999 and the NaN
 skip (``train/state.py``), log the loss and the throughput every
 ``log_every`` steps, and write a checkpoint every ``ckpt_every`` steps in the
 reference's torch layout, ``<results_dir>/NNN-<model>/checkpoints/<step>.pt``,
-which ``train/sample.py --ckpt`` reads. One device.
+which ``train/sample.py --ckpt`` reads. One device a rank (several
+processes: below).
 
 ``autocast`` (``--autocast``) builds the model in bfloat16, as the JAX
 trainer does: its activations run in bf16 (the Mamba-1 mixers through the
@@ -59,14 +60,40 @@ stream from the seed. Two of the JAX trainer's quirks are kept: the
 real-data loader starts again at epoch 0, and the step count is set to
 the checkpoint's step, the count of iterations, which exceeds the count of
 finite steps after a skipped batch. ``remat`` recomputes each block in the
-backward (``DiffMa(remat=True)``): less memory, the same bits. ``tp`` and
-``sp`` above 1 wait for the parallel layer, and asking for them raises.
+backward (``DiffMa(remat=True)``): less memory, the same bits.
+
+Several processes, as the JAX trainer runs over ``jax.distributed``: launch
+with ``python -m torch.distributed.run --nproc_per_node N -m
+diffma_tpu_torch.train.train ...`` (``parallel/mesh.py::init_distributed``;
+``DIFFMA_DIST_BACKEND=gloo`` where ranks share a card). The ranks form a
+``(dp, tp, sp)`` mesh with ``tp`` and ``sp`` from the config and dp the rest
+(``parallel/mesh.py``); ``global_batch_size`` must be divisible by dp, and
+each dp rank reads its shard of the loader with ``global_batch_size / dp``
+rows, the same shard over its tp and sp ranks. Every rank builds the model
+from the seed and takes rank 0's parameters (on a resume its EMA and AdamW
+state too); the step averages the loss and the gradients over dp
+(``state.make_train_step``'s ``group``) and runs eagerly. Under tp or sp
+the mixers are sharded (``models/mamba.py``, ``models/mamba2.py``) and
+``scan_impl`` defaults to ``"auto"``, as the JAX trainer's
+(``train.py:240-248``). Rank 0 makes the experiment directory, logs and
+writes the checkpoints, and the others wait for each write. The draws
+copy the JAX trainer's: every dp rank draws the same synthetic batch from
+the same generator (``train.py:425-429``), the loss's t and noise are drawn
+over the global batch, of which each dp rank takes its rows (JAX draws them
+inside its step over the global batch), and the posterior's draws come
+from the same generator on every rank (``train.py:419-422``). So every
+rank's generator stays in lockstep, and the generator state that rank 0
+saves resumes every rank. Each rank takes as many batches an epoch, the
+count of the smallest shard: JAX's loader gives one more batch to some
+processes when the dataset's size falls so, and its collectives then
+wait for ever.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import os
 import subprocess
 import time
@@ -88,6 +115,13 @@ from diffma_tpu_torch.models.clip_vit import biomedclip_vit_b16
 from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.vae import AutoencoderKL
+from diffma_tpu_torch.parallel.mesh import (
+    broadcast_bytes,
+    init_distributed,
+    make_mesh,
+    shard_batch,
+    shard_params,
+)
 from diffma_tpu_torch.train.checkpoints import (
     latest_step,
     load_diffma_checkpoint,
@@ -272,33 +306,46 @@ def make_loss_fn(model, diffusion):
     return loss_fn
 
 
-def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator):
+def loss_draws(diffusion, z: torch.Tensor, generator: torch.Generator, mesh=None):
     """The timesteps and the noise that ``make_loss_fn``'s loss draws for the
     latents ``z`` from ``generator``, drawn as it draws them and in its
-    order: a graphed step takes them in its batch."""
+    order: a graphed step takes them in its batch. With a ``mesh`` of dp
+    ranks, ``z`` is one dp rank's rows: the draws are made for the global
+    batch, dp times as many rows, and this rank's rows of them returned."""
     z = z.float()
-    t = torch.randint(0, diffusion.num_timesteps, (z.shape[0],), generator=generator,
+    dp = 1 if mesh is None else mesh.dp
+    shape = (z.shape[0] * dp, *z.shape[1:])
+    t = torch.randint(0, diffusion.num_timesteps, shape[:1], generator=generator,
                       device=z.device)
-    return t, torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+    noise = torch.randn(shape, generator=generator, device=z.device, dtype=z.dtype)
+    if mesh is not None:
+        t, noise = shard_batch({"t": t, "noise": noise}, mesh).values()
+    return t, noise
 
 
-def _refuse_unported(cfg) -> None:
-    for key in ("tp", "sp"):
-        if int(cfg.get(key) or 1) > 1:
-            raise NotImplementedError(f"{key} > 1: the parallel layer is not ported yet")
+def _state_tensors(state: TrainState):
+    """Every tensor a rank must hold as rank 0 does: parameters, EMA, AdamW's state."""
+    opt = [v for s in state.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
+    return [*state.model.parameters(), *state.ema.parameters(), *opt]
 
 
 def main(cfg, device="cuda"):
     """Train ``cfg``'s model; returns the ``TrainState``, or with
     ``return_loss_history: true`` the pair (state, per-step metrics as
     float32 arrays)."""
-    device = resolve_device(device)
-    _refuse_unported(cfg)
+    device = init_distributed(resolve_device(device))
+    tp, sp = int(cfg.get("tp") or 1), int(cfg.get("sp") or 1)
+    mesh = make_mesh(tp=tp, sp=sp, device=device)
+    rank, world = mesh.rank, mesh.size(("dp", "tp", "sp"))
     seed = int(cfg.get("global_seed", 0))
-    exp_dir = create_experiment_dir(str(cfg.results_dir), str(cfg.model))
-    logger = create_logger(exp_dir)
+    exp_dir = None
+    if rank == 0:
+        exp_dir = create_experiment_dir(str(cfg.results_dir), str(cfg.model))
+    if world > 1:  # rank 0's directory, made once (diffma_tpu/train/train.py:209-224)
+        exp_dir = broadcast_bytes(exp_dir and os.path.abspath(exp_dir).encode(), mesh).decode()
+    logger = create_logger(exp_dir if rank == 0 else None, rank)
     logger.info(f"Experiment directory created at {exp_dir}")
-    wandb = WandbShim(bool(cfg.get("wandb")), str(cfg.model).replace("/", "_"))
+    wandb = WandbShim(bool(cfg.get("wandb")) and rank == 0, str(cfg.model).replace("/", "_"))
 
     if cfg.image_size % 8:
         raise ValueError("image_size must be divisible by 8 (the VAE's factor)")
@@ -308,10 +355,14 @@ def main(cfg, device="cuda"):
         input_size=latent,
         dt_rank=int(cfg.get("dt_rank", 16)),
         d_state=int(cfg.get("d_state", 16)),
-        scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" else "auto")),
+        scan_impl=str(cfg.get("scan_impl", "fused" if device.type == "cuda" and tp == sp == 1
+                              else "auto")),
         use_mamba2=bool(cfg.get("use_mamba2")),
         dtype=compute_dtype(cfg),
         remat=bool(cfg.get("remat")),
+        mesh=mesh if tp > 1 or sp > 1 else None,
+        tp_axis="tp" if tp > 1 else None,
+        sp_axis="sp" if sp > 1 else None,
         **({"hidden_size": int(cfg.hidden_size)} if cfg.get("hidden_size") else {}),
     )
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -324,7 +375,9 @@ def main(cfg, device="cuda"):
         lr = float(cfg.lr)
         start_step = 0
     model = model.to(device).train()
+    shard_params(model.parameters(), mesh)
     logger.info(f"DiffMa Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    logger.info(f"mesh: dp {mesh.dp}, tp {mesh.tp}, sp {mesh.sp} over {world} ranks")
     logger.info(f"Use bf16 training? {bool(cfg.get('autocast'))}")
     logger.info(f"blocks: {model.block_type}; mixer path: "
                 f"scan_impl={getattr(model.blocks[0], 'scan_impl', None)}, "
@@ -342,6 +395,7 @@ def main(cfg, device="cuda"):
         t0 = time.perf_counter()
         resumed = restore_checkpoint(resume_dir, int(r_step))
         restore_train_state(state, resumed, int(r_step))
+        shard_params(_state_tensors(state), mesh)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         start_step = int(r_step)
@@ -349,8 +403,9 @@ def main(cfg, device="cuda"):
                     f"({time.perf_counter() - t0:.3f} s)")
     accumulation_steps = int(cfg.get("accumulation_steps", 1))
     train_step = make_train_step(make_loss_fn(model, diffusion), optimizer,
-                                 accumulation_steps=accumulation_steps)
-    graphed = device.type == "cuda" and accumulation_steps == 1
+                                 accumulation_steps=accumulation_steps, group=mesh.group("dp"))
+    # gloo's collectives cannot be captured: over several ranks the step is eager
+    graphed = device.type == "cuda" and accumulation_steps == 1 and world == 1
     if graphed:
         train_step = GraphedTrainStep(train_step, device)
 
@@ -363,7 +418,11 @@ def main(cfg, device="cuda"):
     else:
         logger.info("dataset folders unavailable or not used; training on synthetic data")
     encode_timer = SpanTimer(device)
-    batch_size = int(cfg.global_batch_size)
+    global_batch = int(cfg.global_batch_size)
+    if global_batch % mesh.dp:
+        raise ValueError(f"global_batch_size {global_batch} is not divisible by dp {mesh.dp}")
+    batch_size = global_batch // mesh.dp  # this dp rank's rows
+    steps_per_epoch = len(dataset) // mesh.dp // batch_size
     tokens = (latent // model.patch_size) ** 2
     generator = torch.Generator(device=device).manual_seed(seed)
     if resumed is not None:
@@ -388,23 +447,28 @@ def main(cfg, device="cuda"):
     train_steps = start_step
     profiler = StepProfiler(cfg.get("profile_dir"), int(cfg.get("profile_start_step", 10)),
                             int(cfg.get("profile_steps", 5)))
-    throughput = Throughput(batch_size)
+    throughput = Throughput(global_batch)
     logger.info(f"Training for {cfg.epochs} epochs...")
     try:
         for epoch in range(int(cfg.epochs)):
             logger.info(f"Beginning epoch {epoch}...")
-            for x_ct, _mask, z_mri in make_loader(dataset, batch_size, seed=seed, epoch=epoch):
+            loader = make_loader(dataset, batch_size, seed=seed, epoch=epoch,
+                                 process_index=mesh.index("dp"), process_count=mesh.dp)
+            for x_ct, _mask, z_mri in itertools.islice(loader, steps_per_epoch):
                 if cond is not None:
                     with encode_timer.span():
                         batch = cond.encode_triplets(x_ct, z_mri, generator)
                 elif fixed_batch is not None:
                     batch = fixed_batch
                 else:
+                    # every dp rank draws the same batch (diffma_tpu/train/train.py:425-429)
                     batch = synthetic_batch(generator, batch_size, latent, tokens,
                                             dim=model.hidden_size)
-                if graphed:
+                if graphed or mesh.dp > 1:
+                    # JAX draws t and the noise over the global batch in its step
                     batch = dict(batch)
-                    batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"], generator)
+                    batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"], generator,
+                                                            mesh)
                 metrics = train_step(state, batch, generator)
                 running.append(metrics["loss"])
                 if history is not None:
@@ -426,17 +490,20 @@ def main(cfg, device="cuda"):
                     )
                     running = []
                 if train_steps % ckpt_every == 0 and train_steps > 0:
-                    path = save_checkpoint(os.path.join(exp_dir, "checkpoints"), train_steps, {
-                        "model": state.model.state_dict(),
-                        "ema": state.ema.state_dict(),
-                        "opt": state.optimizer.state_dict(),
-                        "args": dict(cfg),
-                        "rng": generator.get_state(),
-                    })
-                    logger.info(f"Saved checkpoint to {path}")
+                    if rank == 0:
+                        path = save_checkpoint(os.path.join(exp_dir, "checkpoints"), train_steps, {
+                            "model": state.model.state_dict(),
+                            "ema": state.ema.state_dict(),
+                            "opt": state.optimizer.state_dict(),
+                            "args": dict(cfg),
+                            "rng": generator.get_state(),
+                        })
+                        logger.info(f"Saved checkpoint to {path}")
+                    if world > 1:  # dist.barrier() parity (diffma_tpu/train/train.py:475-478)
+                        torch.distributed.barrier()
                 if max_steps is not None and train_steps >= int(max_steps):
-                    return _finish(state, history)
-        return _finish(state, history)
+                    return _finish(state, history, generator)
+        return _finish(state, history, generator)
     finally:
         profiler.close()
         logger.info("Done!")
@@ -444,7 +511,8 @@ def main(cfg, device="cuda"):
         logger.close()
 
 
-def _finish(state: TrainState, history: Optional[list]):
+def _finish(state: TrainState, history: Optional[list], generator: torch.Generator):
+    state.generator = generator  # what drew the batches and the loss's draws
     if history is None:
         return state
     stacked: Dict[str, np.ndarray] = {}
@@ -469,6 +537,10 @@ def cli(argv=None):
     parser.add_argument("--results-dir", dest="results_dir", type=str, default=None)
     parser.add_argument("--resume-from", dest="resume_from", type=str, default=None,
                         help="a run's checkpoints/ directory to continue from")
+    parser.add_argument("--tp", type=int, default=None,
+                        help="tensor-parallel ranks of each mixer (the config's tp)")
+    parser.add_argument("--sp", type=int, default=None,
+                        help="sequence-parallel ranks of each scan (the config's sp)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch versions")
     cfg = parse_cli(parser, argv)

@@ -16,11 +16,23 @@ layout ``{"model", "ema", "opt", "args"}``, with the CT encoder's key names,
 to ``<embedder_results_dir>/NNN-vision_encoder/checkpoints/<step:07d>.pt``,
 which ``ct_ckpt`` reads in both packages. The CLI takes ``--autocast`` and
 nothing reads it, as in the JAX package: the CT encoder trains in fp32.
+
+Several processes (``python -m torch.distributed.run ...``;
+``parallel/mesh.py::init_distributed``): every rank is a dp rank; it reads
+its shard of the loader with ``embedder_global_batch_size / world`` rows
+(``diffma_tpu/train/train_embedder.py:108,120``), as many batches an epoch
+as every other rank, and rank 0 writes the checkpoints (``:137``) while the
+others wait. The JAX step sums no gradient over processes, so each JAX
+process trains its own copy and rank 0 saves one that saw 1/dp of the
+data; here the gradients (and the logged loss) are averaged over the ranks
+as the trainer's are, and every rank holds the same model. The InfoNCE
+negatives stay those of each rank's own batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 
 import numpy as np
@@ -30,6 +42,12 @@ import torch.nn.functional as F
 from diffma_tpu_torch.data.npy_dataset import NpyDataset, make_loader
 from diffma_tpu_torch.models.ct_encoder import CTEncoder
 from diffma_tpu_torch.models.vae import AutoencoderKL
+from diffma_tpu_torch.parallel.mesh import (
+    broadcast_bytes,
+    init_distributed,
+    make_mesh,
+    shard_params,
+)
 from diffma_tpu_torch.train.checkpoints import save_checkpoint
 from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
 from diffma_tpu_torch.train.train import make_dataset
@@ -52,10 +70,16 @@ def info_nce_loss_b(x: torch.Tensor, tau: float = 0.07) -> torch.Tensor:
 
 def main(cfg, device="cuda"):
     """Train the CT encoder; returns the ``TrainState``."""
-    device = resolve_device(device)
+    device = init_distributed(resolve_device(device))
+    mesh = make_mesh(device=device)
+    rank, world = mesh.rank, mesh.dp
     seed = int(cfg.get("embedder_global_seed", 0))
-    exp_dir = create_experiment_dir(str(cfg.embedder_results_dir), "vision_encoder")
-    logger = create_logger(exp_dir)
+    exp_dir = None
+    if rank == 0:
+        exp_dir = create_experiment_dir(str(cfg.embedder_results_dir), "vision_encoder")
+    if world > 1:
+        exp_dir = broadcast_bytes(exp_dir and os.path.abspath(exp_dir).encode(), mesh).decode()
+    logger = create_logger(exp_dir if rank == 0 else None, rank)
     logger.info(f"Experiment directory created at {exp_dir}")
 
     model = CTEncoder(img_size=int(cfg.image_size) // 8,
@@ -63,6 +87,7 @@ def main(cfg, device="cuda"):
                       embed_dim=int(cfg.get("embedder_embed_dim", 512)), contain_mask_token=True)
     model.init_weights(torch.Generator().manual_seed(seed))
     model = model.to(device).train()
+    shard_params(model.parameters(), mesh)
     logger.info(f"Parameters: {sum(p.numel() for p in model.parameters()):,}")
 
     vae = AutoencoderKL(with_encoder=True)
@@ -81,7 +106,7 @@ def main(cfg, device="cuda"):
     def loss_fn(batch, generator):
         return info_nce_loss_b(model(batch["lat"])[1]), {}
 
-    train_step = make_train_step(loss_fn, optimizer, ema_decay=0.9999)
+    train_step = make_train_step(loss_fn, optimizer, ema_decay=0.9999, group=mesh.group("dp"))
 
     dataset = make_dataset(cfg, "train", synthetic_size=64)
     if isinstance(dataset, NpyDataset):
@@ -89,18 +114,25 @@ def main(cfg, device="cuda"):
     else:
         logger.info("dataset folders unavailable; synthetic data")
 
-    batch_size = int(cfg.get("embedder_global_batch_size", 32))
+    global_batch = int(cfg.get("embedder_global_batch_size", 32))
+    if global_batch % world:
+        raise ValueError(f"embedder_global_batch_size {global_batch} is not divisible by the "
+                         f"{world} ranks")
+    batch_size = global_batch // world  # this rank's rows
+    steps_per_epoch = len(dataset) // world // batch_size
     max_steps = cfg.get("max_steps")
     log_every = int(cfg.get("log_every", 10))
     ckpt_every = int(cfg.get("embedder_ckpt_every", 5000))
     generator = torch.Generator(device=device).manual_seed(seed)
-    throughput = Throughput(batch_size)
+    throughput = Throughput(global_batch)
     running, train_steps = [], 0
     logger.info(f"Training for {cfg.embedder_epoch} epochs...")
     try:
         for epoch in range(int(cfg.embedder_epoch)):
             logger.info(f"Beginning epoch {epoch}...")
-            for x_ct, _mask, _mri in make_loader(dataset, batch_size, seed=seed, epoch=epoch):
+            loader = make_loader(dataset, batch_size, seed=seed, epoch=epoch,
+                                 process_index=rank, process_count=world)
+            for x_ct, _mask, _mri in itertools.islice(loader, steps_per_epoch):
                 x3 = torch.from_numpy(x_ct).to(device).repeat(1, 3, 1, 1)
                 with torch.no_grad():
                     lat = vae.encode_sample(x3, generator)
@@ -114,13 +146,16 @@ def main(cfg, device="cuda"):
                                 f"Train Steps/Sec: {throughput.report()['steps_per_sec']:.2f}")
                     running = []
                 if train_steps % ckpt_every == 0:
-                    path = save_checkpoint(os.path.join(exp_dir, "checkpoints"), train_steps, {
-                        "model": state.model.state_dict(),
-                        "ema": state.ema.state_dict(),
-                        "opt": state.optimizer.state_dict(),
-                        "args": dict(cfg),
-                    })
-                    logger.info(f"Saved checkpoint to {path}")
+                    if rank == 0:
+                        path = save_checkpoint(os.path.join(exp_dir, "checkpoints"), train_steps, {
+                            "model": state.model.state_dict(),
+                            "ema": state.ema.state_dict(),
+                            "opt": state.optimizer.state_dict(),
+                            "args": dict(cfg),
+                        })
+                        logger.info(f"Saved checkpoint to {path}")
+                    if world > 1:
+                        torch.distributed.barrier()
                 if max_steps is not None and train_steps >= int(max_steps):
                     return state
         return state

@@ -1,7 +1,7 @@
 """Experiment logging.
 
 Counterpart of ``diffma_tpu/utils/logging.py``: a timestamped logger that
-writes to stdout and to ``<exp_dir>/log_0.txt``, auto-numbered experiment
+writes to stdout and to ``<exp_dir>/log_0.txt`` on rank 0 only, auto-numbered experiment
 directories ``NNN-<model-name>``, and a wandb shim that does nothing when
 wandb is not installed or not asked for.
 """
@@ -17,11 +17,16 @@ __all__ = ["WandbShim", "create_experiment_dir", "create_logger"]
 
 
 class _Logger:
-    def __init__(self, logging_dir: str):
-        os.makedirs(logging_dir, exist_ok=True)
-        self._file = open(os.path.join(logging_dir, "log_0.txt"), "a")
+    def __init__(self, logging_dir: Optional[str], enabled: bool = True):
+        self.enabled = enabled
+        self._file = None
+        if enabled and logging_dir is not None:
+            os.makedirs(logging_dir, exist_ok=True)
+            self._file = open(os.path.join(logging_dir, "log_0.txt"), "a")
 
     def info(self, msg: str) -> None:
+        if not self.enabled:
+            return
         stamp = datetime.datetime.now().strftime("%Y-%m-%d at %H:%M:%S")
         line = f"{stamp} | INFO | {msg}"
         print(line, flush=True)
@@ -35,8 +40,9 @@ class _Logger:
             self._file = None
 
 
-def create_logger(logging_dir: str) -> _Logger:
-    return _Logger(logging_dir)
+def create_logger(logging_dir: Optional[str], rank: int = 0) -> _Logger:
+    """A logger on rank 0; on every other rank one that writes nothing."""
+    return _Logger(logging_dir, enabled=(rank == 0))
 
 
 def create_experiment_dir(results_dir: str, model_name: str) -> str:

@@ -77,21 +77,26 @@ def test_ssd_ref_matches_jax(dt_limit):
 )
 def test_ssd_chunked_matches_jax_and_the_recurrence(L, chunk_size, dt_limit):
     """Values and the final state, from an initial state, against JAX's
-    ``ssd_chunked``; the values against the port's own step-by-step
-    ``ssd_ref`` too."""
+    ``ssd_chunked``; the values and the final state against the port's own
+    step-by-step ``ssd_ref`` too, and JAX's ``ssd_ref``."""
     a = _scan_inputs(2, L=L)
     kw = dict(dt_limit=dt_limit, chunk_size=chunk_size)
     want_y, want_state = _call(jax_ssd.ssd_chunked, a, jnp.asarray, **kw)
     got_y, got_state = _call(ssd.ssd_chunked, a, torch.from_numpy, **kw)
     np.testing.assert_allclose(got_y, want_y, **TOL)
-    np.testing.assert_allclose(got_state, want_state, **TOL)
     ref_y, ref_state = _call(ssd.ssd_ref, a, torch.from_numpy, dt_limit=dt_limit)
     np.testing.assert_allclose(got_y, ref_y, **TOL)
+    np.testing.assert_allclose(got_state, ref_state, **TOL)
+    _, jax_ref_state = _call(jax_ssd.ssd_ref, a, jnp.asarray, dt_limit=dt_limit)
+    np.testing.assert_allclose(got_state, jax_ref_state, **TOL)
     if dt_limit[0] == 0.0:
-        # The steps that pad the last chunk (dt = -30) decay by 1 and add
-        # nothing only while the lower limit is 0; above it the final state
-        # has decayed further, in the JAX package as here.
-        np.testing.assert_allclose(got_state, ref_state, **TOL)
+        np.testing.assert_allclose(got_state, want_state, **TOL)
+    else:
+        # JAX's ssd_chunked keeps the clipped dt of the steps that pad the
+        # last chunk (dt = -30 raised to dt_limit[0]), so its final state has
+        # decayed by them; the port's leaves them out (a fault of the
+        # reference, not copied: the sequence-parallel SSD reads the state).
+        assert np.abs(got_state - want_state).max() > 1e-2
 
 
 def test_ssd_chunked_without_state_arguments():

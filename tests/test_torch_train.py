@@ -428,13 +428,17 @@ def test_trainer_cli_on_cpu(tmp_path):
      ({"resume_from": "x"}, "Orbax"), ({"tp": 2}, "parallel"), ({"sp": 2}, "parallel")],
 )
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, match):
-    """``tp`` and ``sp`` above 1 wait for the parallel layer, with ``remat``
-    (which the trainer takes) too; ``resume_from`` a directory of the JAX
-    package's Orbax steps is refused, naming the converter."""
+    """``tp`` and ``sp`` above 1 need a process group of tp · sp ranks or a
+    multiple of it (``parallel/mesh.py::make_mesh``): one process raises
+    ``ValueError``, with ``remat`` (which the trainer takes) too;
+    ``resume_from`` a directory of the JAX package's Orbax steps is
+    refused, naming the converter."""
+    error = ValueError
     if "resume_from" in override:
         (tmp_path / override["resume_from"] / "0000004").mkdir(parents=True)
         override = {"resume_from": str(tmp_path / override["resume_from"])}
-    with pytest.raises(NotImplementedError, match=match):
+        error = NotImplementedError
+    with pytest.raises(error, match=match):
         train.main(_train_cfg(tmp_path, **override), device="cpu")
 
 
