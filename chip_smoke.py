@@ -38,7 +38,9 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
    equal bits, with D and norm_w off one, at a wide decay span and at 25
    steps, the probe's split form against whole kernel E, and the times of P
    (by kernel), of E's SSD and gate stages inside E and of whole E (2m); the probe's entry point,
-   ``tools/probes/probe_split_ssd_torch.py``, 52 calls of each form (2n);
+   ``tools/probes/probe_split_ssd_torch.py``, as it runs by default, bf16
+   then fp32, 52 calls of each form in each dtype (2n, whose bf16 half is
+   24d);
 3. forward: one full-width DiffMa-B/2 forward through the plain scan,
    through kernel A (``scan_impl="pallas"``) and through kernel C
    (``scan_impl="fused"``), with the same random weights; 3b: one
@@ -117,8 +119,9 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     VAE: 8000 kernel C calls, the grids written, PSNR and SSIM against the
     MRI;
 18. the graphs: (18a) DiffMa-B/2's sampler on four routes (Mamba-1 fused:
-    C; Mamba-2 dual: E; ``fuse_block``: E + G; composable: A), DDPM-250 and
-    DDIM-50 at batch 1 and 2, 2 batches each, with its chain as a CUDA graph
+    C; Mamba-2 dual: E; ``fuse_block``: E + G; composable: A), DDPM-250 at
+    batch 1 and DDIM-50 at batch 1 and 2 (DDPM-250 at batch 2 is left out
+    for the time limit), 2 batches each, with its chain as a CUDA graph
     against the eager loop on the same seed and weights: the images equal in
     bits (or within ``TOL_IMAGE``), the launches counted through the
     replays, the seconds a batch both ways with the capture's time and
@@ -136,8 +139,10 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     with equal bits: C dual at the B/2 sampler's shape (batch 1) and the
     training batch 8, and its one-mixer forms on the vim quirk, the
     EfficientVMamba partition and zig; D on the same forms at batch 8 (zig
-    2), every gradient tensor; event ms, device ms by stage and a bound at
-    the bf16 rate beside the fp32 variants' ms from phases 2b and 2d;
+    2), every gradient tensor; event ms, device ms by stage (torch.profiler
+    in a process of its own, ``--bf16-stages``, as for 20a, 24a and 24c: the
+    smoke's process loses kernel records as it ages) and a bound at the
+    bf16 rate beside the fp32 variants' ms from phases 2b and 2d;
     (19b) the trainer's CLI on ``configs/brain.yaml --autocast`` as phase 7
     runs it (DiffMa-L/2, batch 8, 20 steps: 320 bf16 C and 320 bf16 D
     calls, none of the fp32 ones), its checkpoint fp32, its ms a step
@@ -156,7 +161,7 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     at batch 1 and 8 from a bf16 block's adaLN chunks, F on the dual,
     partition, zig and 256-token forms, every gradient tensor (streams of
     196 and 256 steps: longer than the kernels' 64-step chunk); event ms,
-    device ms by stage and a bound with every product at the bf16 rate
+    device ms by stage (``--bf16-stages``) and a bound with every product at the bf16 rate
     beside the fp32 variants' ms from phases 2e, 2f and 2g; (20b) the trainer's
     CLI on ``configs/brain.yaml --use-mamba2 --autocast`` as phase 12 runs
     it (320 bf16 E and 320 bf16 F calls, none of the fp32 ones; its
@@ -227,14 +232,36 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     process on its shard; each rank's eager dp step ms and gloo's all-reduce
     ms of the L/2 gradient's size. Nothing in it is caught.
 
+24. the last bf16 variants and the import tool: (24a) kernel H in bf16
+    against its bf16 plain version (the TPU kernel's rounding) at the
+    atrous streams' (8, 49) and the training batch's (24, 196), d 1024,
+    at H and P bf16's bars (``TOL_HP_BF16``, ``TOL_HP_BF16_MEAN``), twice
+    with equal bits, with its device ms by stage (torch.profiler in a
+    process of its own, ``--bf16-stages``) and a bound at the bf16 rate
+    beside phase 2h's fp32 times; (24b)
+    the bf16 ``Mamba(512)`` on the doubled-atrous spec at batch 8, forward
+    and backward against the plain route (every gradient within 1e-2
+    mean-rel; one bf16 H, one A and one B launch, no C), then 2000 bf16
+    forwards at batch 1 (2000 bf16 H calls); (24c) kernel P in bf16
+    against its bf16 plain version on the probe's zx (48, 196, 2096) and
+    at 25 steps, at the same bars, twice with equal bits, times and stages
+    as 24a's beside phase 2m's; (24d) the probe's entry point at bf16 runs
+    in phase 2n; (24e) ``tools/validate_imports_torch.py``
+    on seeded full-width stand-ins of the SD-VAE, BiomedCLIP, CT-encoder and
+    DiffMa-B/2 files in the upstream layouts: exit 0 with the forwards on
+    the card, exit 1 with one ``FAIL`` line on a CT checkpoint without a key
+    and on a DiffMa checkpoint with a wrongly shaped tensor. Nothing in it
+    is caught.
+
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
 path says. The sampler's and the trainer's CLIs run their chains and steps
 as CUDA graphs (``diffma_tpu_torch/utils/graphs.py``), whose replays add to
 each kernel's count what their capture recorded.
 
-The third line from the end is a JSON object with one entry per kernel, the
-second the card's name and power limit, the last ``{"ok": true, "device":
+The third line from the end is a JSON object with one entry per kernel (the
+nine kernels, then the bf16 variants of C, D, E, F, G, H and P), the second
+the card's name and power limit, the last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before those lines are printed.
 """
 
@@ -286,6 +313,15 @@ TOL_STEP = 1e-5
 TOL_C_BF16 = 2e-2
 TOL_C_BF16_MEAN = 5e-3
 TOL_D_BF16 = 1e-2
+# Kernels H and P in bf16 against their bf16 plain versions: max |err| <=
+# TOL_HP_BF16 * max(1, max |ref|) (two bf16 ulps of the largest element) and
+# mean-rel <= TOL_HP_BF16_MEAN. Both kernels round the same operands as their
+# plain versions and keep the rest fp32, so only a rounding flipped by the
+# order of fp32 sums parts them (H 6e-8 to 5e-7 mean-rel, P 3e-7 to 1.7e-6 on
+# the card); a product that skips one of the rounds moves H 1.9e-5 (dt_proj)
+# to 3.6e-4 (x_proj) and P 3e-5 (M) to 5e-5 (dt x) (PERF.md section 2).
+TOL_HP_BF16 = 2.0**-6
+TOL_HP_BF16_MEAN = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -690,6 +726,8 @@ def stage_table(fn, stages, calls: int = 10) -> dict:
              for label, pattern in stages}
     table["other"] = sum(kernels.values()) - sum(table.values())
     table["total"] = sum(kernels.values())
+    if not table["total"] > 0:  # fn launches kernels: the profiler recorded none
+        fail("torch.profiler recorded no device kernel for a call that launches some")
     return table
 
 
@@ -1939,24 +1977,33 @@ def phase_ssd_core(card: str) -> dict:
     }
 
 
-def phase_split_probe(card: str) -> int:
-    """The probe's entry point on the card; returns kernel P's launches."""
-    print("== phase 2n: the split SSD probe's entry point (tools/probes/probe_split_ssd_torch.py), "
-          "batch 8, 50 chained calls of each form", flush=True)
+def phase_split_probe(card: str) -> tuple[int, int]:
+    """The probe's entry point on the card as it runs by default, bf16 then
+    fp32 (24d: its bf16 half); returns kernel P's fp32 and bf16 launches."""
+    print("== phase 2n (and 24d): the split SSD probe's entry point "
+          "(tools/probes/probe_split_ssd_torch.py) at both dtypes, bf16 first, batch 8, 50 "
+          "chained calls of each form", flush=True)
     probe = load_split_probe()
     zero = {name: 0 for name in kernel_counters()}
     reset_counts()
     out = probe.main(["--batch", "8"])
     calls = probe.CHAIN + 2  # the comparison call, the warm-up, the chain
-    counts = check_counts("the split probe", {**zero, "ssd_mixer_fwd": calls,
-                                              "ssd_core_fwd": calls})
-    bar = TOL_MODEL * max(1.0, out["max_abs_ref"])
-    if not out["max_abs_diff"] <= bar:
-        fail(f"the probe's split form differs from whole kernel E by {out['max_abs_diff']:.3e}")
-    print(f"  [{card}] whole (kernel E) {out['whole_ms']:.4f} ms, split (kernel P) "
-          f"{out['split_ms']:.4f} ms per dual-mixer call; max|diff| {out['max_abs_diff']:.3e} "
-          f"(bar {bar:.1e})")
-    return counts["ssd_core_fwd"]
+    if list(out) != ["bfloat16", "float32"]:
+        fail(f"the probe ran {list(out)}, not bf16 then fp32")
+    counts = check_counts("the split probe at both dtypes", {
+        **zero, "ssd_mixer_fwd": calls, "ssd_core_fwd": calls, "ssd_mixer_fwd_bf16": calls,
+        "ssd_core_fwd_bf16": calls})
+    for name, tol, mean_tol in (("bfloat16", TOL_C_BF16, TOL_C_BF16_MEAN),
+                                ("float32", TOL_MODEL, None)):
+        res = out[name]
+        bar = tol * max(1.0, res["max_abs_ref"])
+        if not res["max_abs_diff"] <= bar or (mean_tol is not None and not res["rel"] <= mean_tol):
+            fail(f"the probe's split form differs from whole kernel E at {name}: max |diff| "
+                 f"{res['max_abs_diff']:.3e} (bar {bar:.1e}), mean-rel {res['rel']:.2e}")
+        print(f"  [{card}] {name}: whole (kernel E) {res['whole_ms']:.4f} ms, split (kernel P) "
+              f"{res['split_ms']:.4f} ms per dual-mixer call; max|diff| {res['max_abs_diff']:.3e} "
+              f"(bar {bar:.1e}), mean-rel {res['rel']:.2e}")
+    return counts["ssd_core_fwd"], counts["ssd_core_fwd_bf16"]
 
 
 def phase_inner_path(card: str) -> int:
@@ -3183,14 +3230,14 @@ def phase_graphed_chains(card: str) -> None:
     from diffma_tpu_torch.utils.profiling import profile_calls
 
     print("== phase 18a: the B/2 sampler's chain as a CUDA graph against the eager loop, same "
-          "seed and weights: DDPM-250 and DDIM-50, batch 1 and 2, 2 batches each, on four "
-          "routes", flush=True)
+          "seed and weights: DDPM-250 at batch 1, DDIM-50 at batch 1 and 2, 2 batches each, on "
+          "four routes", flush=True)
     zero = {name: 0 for name in kernel_counters()}
     for route, use_mamba2, impl, fuse, per_forward in GRAPH_ROUTES:
         model = route_model(use_mamba2, impl, fuse)
-        for steps, ddim in ((250, False), (50, True)):
+        for steps, ddim, batches in ((250, False, (1,)), (50, True, (1, 2))):
             loop = f"DDIM-{steps}" if ddim else f"DDPM-{steps}"
-            for batch in (1, 2):
+            for batch in batches:
                 cfg = brain_config(
                     model="DiffMa-B/2", synthetic_data=True, sample_global_batch_size=batch,
                     sample_num_steps=steps, use_ddim=ddim, sample_num_batches=2,
@@ -3376,14 +3423,32 @@ def print_step_report(card: str, what: str, report: dict) -> None:
 # ---- phase 19: bf16
 
 
-def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, dict]:
-    """19a: kernels C's and D's bf16 variants against their bf16 plain
-    versions, each case twice with equal bits; their times, stages and
-    bounds at the bf16 rate beside the fp32 variants' (``mixer``,
-    ``mixer_bwd``: phases 2b and 2d of this run)."""
+def mixer_bf16_case(family: str, layer: int, batch: int, seed: int) -> tuple:
+    """Phase 19a's case: the spec of ``family`` at grid 14, its mixers'
+    weights (two for spiral) and x and g in bf16 for each mixer."""
     import torch
 
     from diffma_tpu_torch.models.mamba import Mamba
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    h, bf16 = 512, torch.bfloat16
+    spec = build_scan_spec(family, 14, layer)
+    M = 2 if family == "spiral" else 1
+    ws = [random_(Mamba(h, spec), seed + m).cuda().weights() for m in range(M)]
+    gen = torch.Generator().manual_seed(seed)
+    xs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+    gs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+    return spec, ws, xs, gs
+
+
+def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict,
+                       stage_tables: dict) -> tuple[dict, dict]:
+    """19a: kernels C's and D's bf16 variants against their bf16 plain
+    versions, each case twice with equal bits; their times, stages
+    (``stage_tables``) and bounds at the bf16 rate beside the fp32 variants'
+    (``mixer``, ``mixer_bwd``: phases 2b and 2d of this run)."""
+    import torch
+
     from diffma_tpu_torch.ops.fused_mixer import (
         MixerWeights,
         mixer_bwd_ref,
@@ -3391,20 +3456,11 @@ def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, d
         mixer_fused_cuda,
         mixer_ref,
     )
-    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
 
     print("== phase 19a: kernels C and D in bf16 against their bf16 plain versions on the card",
           flush=True)
     h, bf16 = 512, torch.bfloat16
-
-    def case(family, layer, batch, seed):
-        spec = build_scan_spec(family, 14, layer)
-        M = 2 if family == "spiral" else 1
-        ws = [random_(Mamba(h, spec), seed + m).cuda().weights() for m in range(M)]
-        gen = torch.Generator().manual_seed(seed)
-        xs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
-        gs = [torch.randn(batch, 196, h, generator=gen).cuda().to(bf16) for _ in range(M)]
-        return spec, ws, xs, gs
+    case = mixer_bf16_case
 
     def mean_rel(a, b) -> float:
         return ((a.float() - b.float()).abs().mean() / b.float().abs().mean()).item()
@@ -3472,13 +3528,11 @@ def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, d
     with torch.no_grad():
         ms = cuda_ms(lambda: mixer_fused_cuda(spec, xs, ws), reps=50)
         plain_ms = cuda_ms(lambda: [mixer_ref(spec, x, w) for x, w in zip(xs, ws)], reps=5)
-        stages = stage_table(lambda: mixer_fused_cuda(spec, xs, ws), MIXER_STAGES)
         ms8 = cuda_ms(lambda: mixer_fused_cuda(spec, x8, ws), reps=20)
-        stages8 = stage_table(lambda: mixer_fused_cuda(spec, x8, ws), MIXER_STAGES)
     bwd_ms = cuda_ms(lambda: mixer_fused_bwd_cuda(spec, x8, g8, ws), reps=10)
     bwd_plain_ms = cuda_ms(lambda: [mixer_bwd_ref(spec, x, g, w) for x, g, w in zip(x8, g8, ws)],
                            reps=5)
-    bwd_stages = stage_table(lambda: mixer_fused_bwd_cuda(spec, x8, g8, ws), MIXER_BWD_STAGES)
+    stages, stages8, bwd_stages = (stage_tables[k] for k in ("C", "C_B8", "D"))
     dims = dict(M=2, L=196, h=h, d=1024, n=16, r=32, S=3, K=4, act_bytes=2)
     bound = bound_from(*mixer_work(B=1, **dims), product_flops=BF16_FLOPS)
     bound8 = bound_from(*mixer_work(B=8, **dims), product_flops=BF16_FLOPS)
@@ -3486,14 +3540,14 @@ def phase_bf16_kernels(card: str, mixer: dict, mixer_bwd: dict) -> tuple[dict, d
     print(f"  [{card}] mixer_fused_fwd bf16, both branches, B=1 L=196 h=512 d=1024: kernel "
           f"{ms:.4f} ms (fp32 variant {mixer['ms']:.4f} ms, phase 2b), plain {plain_ms:.3f} ms, "
           f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, products at the bf16 rate)")
-    print(f"  [{card}] device ms per call by stage, B=1: {stage_line(stages)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process), B=1: {stage_line(stages)}")
     print(f"  [{card}] mixer_fused_fwd bf16, both branches, B=8: kernel {ms8:.4f} ms (fp32 "
           f"variant {mixer['b8']['ms']:.4f} ms), bound {bound8[0] * 1e3:.2f} us ({bound8[1]})")
-    print(f"  [{card}] device ms per call by stage, B=8: {stage_line(stages8)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process), B=8: {stage_line(stages8)}")
     print(f"  [{card}] mixer_fused_bwd bf16, both branches, B=8 L=196: kernel {bwd_ms:.4f} ms "
           f"(fp32 variant {mixer_bwd['ms']:.4f} ms, phase 2d), plain {bwd_plain_ms:.3f} ms, bound "
           f"{bwd_bound[0] * 1e3:.2f} us ({bwd_bound[1]}, products at the bf16 rate)")
-    print(f"  [{card}] device ms per call by stage: {stage_line(bwd_stages)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process): {stage_line(bwd_stages)}")
     print("  library_ms: none; no single PyTorch call computes the whole mixer or its backward")
     common = dict(route="cuda", library_ms=None)
     fwd = {"name": "mixer_fused_fwd_bf16", "source": "diffma_tpu_torch/csrc/fused_mixer_fwd.cu",
@@ -3583,6 +3637,27 @@ def phase_bf16_step_profile(card: str, fp32_report: dict) -> None:
 # ---- phase 20: bf16 Mamba-2
 
 
+def bf16_close(what: str, got, again, want, tol=TOL_C_BF16,
+               mean_tol=TOL_C_BF16_MEAN) -> tuple[float, float]:
+    """A bf16 variant's output against its bf16 plain version at ``tol`` of
+    max(1, max |ref|) and ``mean_tol`` mean-rel (kernel C bf16's bars by
+    default) and against a second call in bits; (max |err|, mean-rel)."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or got.shape != want.shape or not bool(
+            torch.isfinite(got.float()).all()):
+        fail(f"{what}: wrong dtype {got.dtype}, shape or a non-finite value")
+    if not torch.equal(got, again):
+        fail(f"{what}: a second call gave other bits")
+    diff = (got.float() - want.float()).abs()
+    err, rel = diff.max().item(), (diff.mean() / want.float().abs().mean()).item()
+    bar = tol * max(1.0, want.float().abs().max().item())
+    if err > bar or rel > mean_tol:
+        fail(f"{what}: max |err| {err:.3e} (bar {bar:.2e}), mean-rel {rel:.2e} "
+             f"(bar {mean_tol:g})")
+    return err, rel
+
+
 def ssd_bf16_bound(work, act_bytes) -> tuple[float, str]:
     """The bound of a bf16 variant of E or F from ``work`` = (products, other,
     bytes) as the fp32 variant's work function gives them: every product, the
@@ -3593,11 +3668,39 @@ def ssd_bf16_bound(work, act_bytes) -> tuple[float, str]:
     return bound_from(products, other, nbytes - act_bytes // 2, product_flops=BF16_FLOPS)
 
 
-def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) -> tuple:
+def ssd_bf16_case(family: str, grid_n: int, layer: int, batch: int, seed: int) -> tuple:
+    """Phase 20a's case: the spec of ``family``, its Mamba-2 mixers' weights
+    (two for spiral) and x and g in bf16 for each mixer."""
+    import torch
+
+    from diffma_tpu_torch.ops.scan_orders import build_scan_spec
+
+    h, bf16 = 512, torch.bfloat16
+    spec = build_scan_spec(family, grid_n, layer)
+    M = 2 if family == "spiral" else 1
+    ws = [m.weights() for m in mamba2_mixers(spec, seed)[:M]]
+    gen = torch.Generator().manual_seed(seed)
+    L = grid_n * grid_n
+    xs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+    gs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
+    return spec, ws, xs, gs
+
+
+def epilogue_bf16_inputs(batch: int) -> tuple:
+    """Phase 20a's inputs of kernel G's bf16 variant: o0, o1, x and the gate
+    in bf16, the weights fp32."""
+    import torch
+
+    return tuple(t.to(torch.bfloat16) if i < 4 else t for i, t in enumerate(epilogue_inputs(batch)))
+
+
+def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict,
+                           stage_tables: dict) -> tuple:
     """20a: kernels E's, F's and G's bf16 variants against their bf16 plain
-    versions, each case twice with equal bits; their times, stages and
-    bounds (every product at the bf16 rate) beside the fp32 variants' (``ssd``,
-    ``epilogue``, ``ssd_bwd``: phases 2e, 2f and 2g of this run)."""
+    versions, each case twice with equal bits; their times, stages
+    (``stage_tables``) and bounds (every product at the bf16 rate) beside the
+    fp32 variants' (``ssd``, ``epilogue``, ``ssd_bwd``: phases 2e, 2f and 2g
+    of this run)."""
     import torch
 
     from diffma_tpu_torch.models.blocks import SpiralMambaBlock
@@ -3617,32 +3720,10 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
           "card", flush=True)
     h, bf16 = 512, torch.bfloat16
     no_limit = (0.0, float("inf"))
-
-    def case(family, grid_n, layer, batch, seed):
-        spec = build_scan_spec(family, grid_n, layer)
-        M = 2 if family == "spiral" else 1
-        ws = [m.weights() for m in mamba2_mixers(spec, seed)[:M]]
-        gen = torch.Generator().manual_seed(seed)
-        L = grid_n * grid_n
-        xs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
-        gs = [torch.randn(batch, L, h, generator=gen).cuda().to(bf16) for _ in range(M)]
-        return spec, ws, xs, gs
+    case = ssd_bf16_case
 
     def mean_rel(a, b) -> float:
         return ((a.float() - b.float()).abs().mean() / b.float().abs().mean()).item()
-
-    def check(what, got, again, want) -> tuple[float, float]:
-        finite = bool(torch.isfinite(got.float()).all())
-        if got.dtype != bf16 or got.shape != want.shape or not finite:
-            fail(f"{what}: wrong dtype {got.dtype}, shape or a non-finite value")
-        if not torch.equal(got, again):
-            fail(f"{what}: a second call gave other bits")
-        err = (got.float() - want.float()).abs().max().item()
-        bar = TOL_C_BF16 * max(1.0, want.float().abs().max().item())
-        if err > bar or mean_rel(got, want) > TOL_C_BF16_MEAN:
-            fail(f"{what}: max |err| {err:.3e} (bar {bar:.2e}), mean-rel {mean_rel(got, want):.2e} "
-                 f"(bar {TOL_C_BF16_MEAN:g})")
-        return err, mean_rel(got, want)
 
     fwd_err = bwd_err = tail_err = None
     for label, family, grid_n, layer, batch in (
@@ -3654,7 +3735,7 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
             got, again = (ssd_mixer_fused_cuda(spec, xs, ws) for _ in range(2))
             want = [mamba2_mixer_fused(spec, x, w, impl="ref") for x, w in zip(xs, ws)]
         torch.cuda.synchronize()
-        res = [check(f"E bf16, {label}, mixer {m}", g, a, w)
+        res = [bf16_close(f"E bf16, {label}, mixer {m}", g, a, w)
                for m, (g, a, w) in enumerate(zip(got, again, want))]
         print(f"  E bf16, {label}: B={batch} L={grid_n * grid_n}, {len(xs)} mixer(s): max|err| "
               f"{max(r[0] for r in res):.3e}, mean-rel {max(r[1] for r in res):.2e}; equal bits on "
@@ -3684,9 +3765,9 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
             g_out, g_again = (spiral_epilogue_cuda(*want, x, *tail) for _ in range(2))
             g_want = spiral_epilogue_ref(*want, x, *tail)
         torch.cuda.synchronize()
-        res = [check(f"E bf16 prologue, B={batch}, branch {m}", o, a, r)
+        res = [bf16_close(f"E bf16 prologue, B={batch}, branch {m}", o, a, r)
                for m, (o, a, r) in enumerate(zip(outs, again, want))]
-        g_res = check(f"G bf16, B={batch}", g_out, g_again, g_want)
+        g_res = bf16_close(f"G bf16, B={batch}", g_out, g_again, g_want)
         print(f"  E bf16 prologue mode, B={batch} L=196: max|err| {max(r[0] for r in res):.3e}, "
               f"mean-rel {max(r[1] for r in res):.2e}; G bf16: max|err| {g_res[0]:.3e}, mean-rel "
               f"{g_res[1]:.2e}; each twice with equal bits")
@@ -3728,15 +3809,12 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
         ms = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, xs, ws), reps=50)
         plain_ms = cuda_ms(lambda: [mamba2_mixer_fused(spec, x, w, impl="ref")
                                     for x, w in zip(xs, ws)], reps=5)
-        stages = stage_table(lambda: ssd_mixer_fused_cuda(spec, xs, ws), SSD_STAGES)
         ms8 = cuda_ms(lambda: ssd_mixer_fused_cuda(spec, x8, ws), reps=20)
-        stages8 = stage_table(lambda: ssd_mixer_fused_cuda(spec, x8, ws), SSD_STAGES)
         _, zx8 = ssd_mixer_fused_cuda(spec, x8, ws, want_res=True)
     bwd_ms = cuda_ms(lambda: ssd_mixer_fused_bwd_cuda(spec, x8, g8, ws, zx8), reps=10)
     bwd_plain_ms = cuda_ms(lambda: [ssd_mixer_bwd_ref(spec, x, g, w)
                                     for x, g, w in zip(x8, g8, ws)], reps=5)
-    bwd_stages = stage_table(lambda: ssd_mixer_fused_bwd_cuda(spec, x8, g8, ws, zx8),
-                             SSD_BWD_STAGES)
+    stages, stages8, bwd_stages = (stage_tables[k] for k in ("E", "E_B8", "F"))
     dims = dict(M=2, L=196, h=h, d=1024, n=16, H=16, S=3, K=4)
     bound = ssd_bf16_bound(ssd_mixer_work(B=1, **dims), 4 * 2 * 2 * 196 * h)
     bound8 = ssd_bf16_bound(ssd_mixer_work(B=8, **dims), 4 * 2 * 2 * 8 * 196 * h)
@@ -3745,21 +3823,21 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
           f"{ms:.4f} ms (fp32 variant {ssd['ms']:.4f} ms, phase 2e), plain {plain_ms:.3f} ms, "
           f"bound {bound[0] * 1e3:.2f} us ({bound[1]}, every product, the SSD's "
           f"included, at the bf16 rate)")
-    print(f"  [{card}] device ms per call by stage, B=1: {stage_line(stages)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process), B=1: {stage_line(stages)}")
     print(f"  [{card}] ssd_mixer_fwd bf16, both branches, B=8: kernel {ms8:.4f} ms (fp32 variant "
           f"{ssd['b8']['ms']:.4f} ms), bound {bound8[0] * 1e3:.2f} us ({bound8[1]})")
-    print(f"  [{card}] device ms per call by stage, B=8: {stage_line(stages8)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process), B=8: {stage_line(stages8)}")
     print(f"  [{card}] ssd_mixer_bwd bf16, both branches, B=8 L=196: kernel {bwd_ms:.4f} ms (fp32 "
           f"variant {ssd_bwd['ms']:.4f} ms, phase 2g), plain {bwd_plain_ms:.3f} ms, bound "
           f"{bwd_bound[0] * 1e3:.2f} us ({bwd_bound[1]}, every product at the "
           f"bf16 rate)")
-    print(f"  [{card}] device ms per call by stage: {stage_line(bwd_stages)}")
+    print(f"  [{card}] device ms per call by stage (a fresh process): {stage_line(bwd_stages)}")
     g_times = {}
     for batch in (1, 8):
-        tail = tuple(t.to(bf16) if i < 4 else t for i, t in enumerate(epilogue_inputs(batch)))
+        tail = epilogue_bf16_inputs(batch)
         with torch.no_grad():
             g_ms = cuda_ms(lambda: spiral_epilogue_cuda(*tail), reps=50)
-            g_stages = stage_table(lambda: spiral_epilogue_cuda(*tail), EPILOGUE_STAGES, calls=50)
+            g_stages = stage_tables[f"G_B{batch}"]
             g_plain = cuda_ms(lambda: spiral_epilogue_ref(*tail), reps=50)
         products, other, nbytes = epilogue_work(B=batch, L=196, h=h)
         g_bound = bound_from(products, other, nbytes - 2 * (4 * batch * 196 * h + batch * h),
@@ -3768,7 +3846,8 @@ def phase_bf16_ssd_kernels(card: str, ssd: dict, epilogue: dict, ssd_bwd: dict) 
         g_times[batch] = dict(ms=g_ms, busy_ms=g_stages["total"], plain_ms=g_plain,
                               bound_ms=g_bound[0], bound_by=g_bound[1], stages_ms=g_stages)
         print(f"  [{card}] spiral_epilogue bf16, B={batch} L=196 h=512: kernel {g_ms:.4f} ms "
-              f"(events), device busy {g_stages['total']:.4f} ms ({stage_line(g_stages)}; fp32 "
+              f"(events), device busy {g_stages['total']:.4f} ms, a fresh process "
+              f"({stage_line(g_stages)}; fp32 "
               f"variant {fp32['ms']:.4f} ms, busy {fp32['busy_ms']:.4f}, phase 2f), plain "
               f"{g_plain:.4f} ms, bound {g_bound[0] * 1e3:.2f} us ({g_bound[1]}, the product at "
               f"the bf16 rate)")
@@ -4893,6 +4972,309 @@ def phase_parallel(card: str) -> None:
     print(f"phase 23 took {time.perf_counter() - t0:.1f} s")
 
 
+INNER_BF16_SHAPES = ((8, 49), (24, 196))  # phase 24a's (G, L): the atrous streams, the batch
+
+
+def inner_bf16_args(G: int, L: int) -> tuple:
+    """Phase 24a's inputs of kernel H's bf16 variant: xz in bf16."""
+    import torch
+
+    xz, *weights = inner_inputs(G, L, seed=2400 + G)
+    return (xz.to(torch.bfloat16), *weights)
+
+
+def core_bf16_args() -> tuple:
+    """Phase 24c's inputs of kernel P's bf16 variant: the probe's gathered
+    streams zx (48, 196, 2096) in bf16 and both branches' weights."""
+    import torch
+
+    probe = load_split_probe()
+    x12, ws = probe.inputs(8, seed=2420, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        return probe.gathered_streams(x12, ws), ws
+
+
+def bf16_stage_worker() -> int:
+    """The bf16 variants' stage tables, in a process of their own
+    (``--bf16-stages``): device ms per call by stage of C and D (phase 19a's
+    timed cases), E, F and G (20a's), H at each of ``INNER_BF16_SHAPES``
+    and P at 24c's zx; one JSON line."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
+    from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
+    from diffma_tpu_torch.ops.fused_ssd import (
+        spiral_epilogue_cuda,
+        ssd_core_cuda,
+        ssd_mixer_fused_bwd_cuda,
+        ssd_mixer_fused_cuda,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    spec, ws, xs, _ = mixer_bf16_case("spiral", 0, 1, 500)
+    _, _, x8, g8 = mixer_bf16_case("spiral", 0, 8, 501)
+    with torch.no_grad():
+        out["C"] = stage_table(lambda: mixer_fused_cuda(spec, xs, ws), MIXER_STAGES)
+        out["C_B8"] = stage_table(lambda: mixer_fused_cuda(spec, x8, ws), MIXER_STAGES)
+    out["D"] = stage_table(lambda: mixer_fused_bwd_cuda(spec, x8, g8, ws), MIXER_BWD_STAGES)
+    spec, ws, xs, _ = ssd_bf16_case("spiral", 14, 0, 1, 800)
+    _, _, x8, g8 = ssd_bf16_case("spiral", 14, 0, 8, 801)
+    with torch.no_grad():
+        out["E"] = stage_table(lambda: ssd_mixer_fused_cuda(spec, xs, ws), SSD_STAGES)
+        out["E_B8"] = stage_table(lambda: ssd_mixer_fused_cuda(spec, x8, ws), SSD_STAGES)
+        _, zx8 = ssd_mixer_fused_cuda(spec, x8, ws, want_res=True)
+    out["F"] = stage_table(lambda: ssd_mixer_fused_bwd_cuda(spec, x8, g8, ws, zx8),
+                           SSD_BWD_STAGES)
+    with torch.no_grad():
+        for batch in (1, 8):
+            tail = epilogue_bf16_inputs(batch)
+            out[f"G_B{batch}"] = stage_table(lambda: spiral_epilogue_cuda(*tail),
+                                             EPILOGUE_STAGES, calls=50)
+        for G, L in INNER_BF16_SHAPES:
+            args = inner_bf16_args(G, L)
+            out[f"H_G{G}_L{L}"] = stage_table(lambda: mamba_inner_fused_cuda(*args), INNER_STAGES)
+        zxs, ws = core_bf16_args()
+        out["P"] = stage_table(lambda: ssd_core_cuda(zxs, ws), CORE_STAGES)
+    print(json.dumps(out))
+    return 0
+
+
+def bf16_stage_tables() -> dict:
+    """``bf16_stage_worker``'s tables. In this process torch.profiler loses
+    more of the repo's kernels' records the longer it has run (a probe of H
+    bf16: all 5 kernels a call through phase 3, 1.8 after phase 18, 0 after
+    phase 23; PERF.md section 7), so a fresh process reads them."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--bf16-stages"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:])
+        fail(f"the stage tables of phase 24 exited {res.returncode}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_bf16_inner(card: str, inner: dict, stage_tables: dict) -> dict:
+    """24a: kernel H's bf16 variant against its bf16 plain version at the
+    atrous streams' shape and the training batch's, twice with equal bits;
+    its ms, device ms by stage (``stage_tables``) and a bound (products at
+    the bf16 rate, xz and out at 2 bytes) beside the fp32 variant's
+    (``inner``: phase 2h)."""
+    import torch
+
+    from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda, mamba_inner_plain
+
+    print("== phase 24a: kernel H in bf16 against its bf16 plain version on the card", flush=True)
+    times, path_err = {}, None
+    for G, L in INNER_BF16_SHAPES:
+        args = inner_bf16_args(G, L)
+        with torch.no_grad():
+            got, again = (mamba_inner_fused_cuda(*args) for _ in range(2))
+            want = mamba_inner_plain(*args)
+            torch.cuda.synchronize()
+            err, rel = bf16_close(f"H bf16, G={G} L={L}", got, again, want, TOL_HP_BF16,
+                                  TOL_HP_BF16_MEAN)
+            products, other, nbytes = inner_work(G, L, 1024, 16, 32, 4)
+            bound = bound_from(products, other, nbytes - 2 * G * L * 3 * 1024,
+                               product_flops=BF16_FLOPS)
+            times[G, L] = (cuda_ms(lambda: mamba_inner_fused_cuda(*args), reps=50),
+                           cuda_ms(lambda: mamba_inner_plain(*args), reps=5), *bound,
+                           stage_tables[f"H_G{G}_L{L}"])
+        fp32 = inner if (G, L) == (8, 49) else inner["other_shapes"][f"G{G}_L{L}"]
+        ms, plain_ms, bound_ms, bound_by, stages = times[G, L]
+        print(f"  G={G} L={L} d=1024: max|err| {err:.3e}, mean-rel {rel:.2e}; equal bits on a "
+              f"second call")
+        print(f"  [{card}] mamba_inner_fwd bf16 G={G} L={L}: kernel {ms:.4f} ms (fp32 variant "
+              f"{fp32['ms']:.4f} ms, phase 2h), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}, products at the bf16 rate); device ms per "
+              f"call by stage (torch.profiler, a fresh process): {stage_line(stages)}")
+        if path_err is None:
+            path_err = err
+    print("  library_ms: none; no single PyTorch call computes the mixer's inner part")
+    ms, plain_ms, bound_ms, bound_by, stages = times[8, 49]
+    t24 = times[24, 196]
+    return {"name": "mamba_inner_fwd_bf16", "route": "cuda",
+            "source": "diffma_tpu_torch/csrc/fused_mamba_fwd.cu",
+            "replaces": "diffma_tpu/ops/fused_mamba.py:42", "max_abs_err": path_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "fp32_ms": inner["ms"], "busy_ms": stages["total"], "stages_ms": stages,
+            "G24_L196": {"ms": t24[0], "plain_ms": t24[1], "bound_ms": t24[2],
+                         "stages_ms": t24[4]}}
+
+
+def phase_bf16_inner_path(card: str) -> int:
+    """24b: the bf16 ``Mamba`` on the doubled-atrous spec through kernel H's
+    bf16 variant, forward and backward at batch 8 against the plain route,
+    then 2000 forwards at batch 1; returns the bf16 H launches of those."""
+    import torch
+
+    from diffma_tpu_torch.models.mamba import Mamba
+
+    print("== phase 24b: Mamba(512, scan_impl='fused', dtype=bfloat16) on the doubled-atrous "
+          "spec: kernel H's bf16 variant on the path", flush=True)
+    bf16 = torch.bfloat16
+    m = random_(Mamba(512, doubled_atrous_spec(14), scan_impl="fused", dtype=bf16), 2410).cuda()
+    gen = torch.Generator().manual_seed(2411)
+    x = torch.randn(8, 196, 512, generator=gen).cuda()
+    g = torch.randn(8, 196, 512, generator=gen).cuda().to(bf16)
+    zero = {name: 0 for name in kernel_counters()}
+    # the fused route: H bf16 forward, then A and B (in bf16) in MambaInnerFn's
+    # backward; the plain route (scan_impl "ref") no kernel
+    expect = {"fused": {**zero, "mamba_inner_fwd_bf16": 1, "selective_scan_fwd": 1,
+                        "selective_scan_bwd": 1}, "ref": zero}
+    runs = {}
+    for impl in ("fused", "ref"):
+        m.scan_impl = impl
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        reset_counts()
+        out = m(xi)
+        out.backward(g)
+        torch.cuda.synchronize()
+        check_counts(f"the bf16 Mamba on the doubled-atrous spec, {impl} route, forward and "
+                     f"backward", expect[impl])
+        if out.dtype != bf16:
+            fail(f"the bf16 Mamba returned {out.dtype} on the {impl} route")
+        runs[impl] = {"out": out.detach(), "x": xi.grad,
+                      **{k: p.grad for k, p in m.named_parameters()}}
+    worst = ("", 0.0)
+    for name, want in runs["ref"].items():
+        got = runs["fused"][name]
+        if got is None or not bool(torch.isfinite(got.float()).all()):
+            fail(f"the bf16 Mamba through kernel H: {name} is missing or not finite")
+        rel = ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+        if rel > TOL_D_BF16:
+            fail(f"the bf16 Mamba through kernel H: {name} mean-rel {rel:.2e} over {TOL_D_BF16:g}")
+        if rel > worst[1]:
+            worst = (name, rel)
+    print(f"  B=8 L=196, 8 streams of 49 steps: the output and {len(runs['ref']) - 1} gradients "
+          f"against the plain route within mean-rel {TOL_D_BF16:g}, the largest {worst[0]} "
+          f"{worst[1]:.2e}")
+    calls = 8 * 250  # blocks x steps: a DDPM-250 chain's worth of one B/2 model's mixers
+    m.scan_impl = "fused"
+    m.eval()
+    xb = torch.randn(1, 196, 512, generator=gen).cuda()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(calls):
+            xb = xb + 0.01 * m(xb).float()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = check_counts("2000 bf16 Mamba forwards through kernel H",
+                          {**zero, "mamba_inner_fwd_bf16": calls})
+    if not bool(torch.isfinite(xb).all()):
+        fail("2000 bf16 Mamba forwards through kernel H left a non-finite value")
+    print(f"  [{card}] {calls} bf16 forwards at batch 1 in {seconds:.3f} s "
+          f"({seconds / calls * 1e3:.4f} ms each, host clock), every one through kernel H's bf16 "
+          f"variant, none through kernel C")
+    return counts["mamba_inner_fwd_bf16"]
+
+
+def phase_bf16_core(card: str, core: dict, stage_tables: dict) -> dict:
+    """24c: kernel P's bf16 variant against its bf16 plain version on the
+    probe's zx (48, 196, 2096) and at 25 steps, twice with equal bits; its
+    ms, device ms by stage (``stage_tables``) and a bound beside the fp32
+    variant's (``core``: phase 2m)."""
+    import torch
+
+    from diffma_tpu_torch.ops.fused_ssd import ssd_core_cuda, ssd_core_ref
+
+    print("== phase 24c: kernel P in bf16 against its bf16 plain version on the card", flush=True)
+    zxs, ws = core_bf16_args()
+    with torch.no_grad():
+        path_err = None
+        for label, zx in (("zx (48, 196, 2096)", zxs), ("zx (4, 25, 2096)",
+                                                        zxs[:4, :25].contiguous())):
+            got, again = (ssd_core_cuda(zx, ws) for _ in range(2))
+            want = ssd_core_ref(zx, ws)
+            torch.cuda.synchronize()
+            err, rel = bf16_close(f"P bf16, {label}", got, again, want, TOL_HP_BF16,
+                                  TOL_HP_BF16_MEAN)
+            print(f"  {label}: max|err| {err:.3e}, mean-rel {rel:.2e}; equal bits on a second "
+                  f"call")
+            if path_err is None:
+                path_err = err
+        ms = cuda_ms(lambda: ssd_core_cuda(zxs, ws), reps=50)
+        plain_ms = cuda_ms(lambda: ssd_core_ref(zxs, ws), reps=5)
+    stages = stage_tables["P"]
+    G, L, d, H = 48, 196, 1024, 16
+    bound_ms, bound_by = ssd_bf16_bound(ssd_core_work(G, L, d, 16, H, 4),
+                                        4 * G * L * (2 * d + 32 + H + d))
+    print(f"  [{card}] ssd_core_fwd bf16, zx (48, 196, 2096): kernel {ms:.4f} ms (fp32 variant "
+          f"{core['ms']:.4f} ms, phase 2m), plain {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}, products at the bf16 rate); device ms per call by stage "
+          f"(torch.profiler, a fresh process): {stage_line(stages)}")
+    print("  library_ms: none; no single PyTorch call computes the SSD core")
+    return {"name": "ssd_core_fwd_bf16", "route": "cuda",
+            "source": "diffma_tpu_torch/csrc/ssd_core_fwd.cu",
+            "replaces": "tools/probes/probe_split_ssd.py:44", "max_abs_err": path_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "fp32_ms": core["ms"], "busy_ms": stages["total"], "stages_ms": stages}
+
+
+def phase_validate_imports(card: str) -> None:
+    """24e: ``tools/validate_imports_torch.py`` on seeded full-width
+    stand-ins of the four files in the upstream layouts: exit 0 with every
+    forward on the card; exit 1 with a ``FAIL`` line on a CT checkpoint with
+    a key removed and on a DiffMa checkpoint with one tensor of a wrong
+    shape."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    print("== phase 24e: tools/validate_imports_torch.py on seeded full-width stand-ins "
+          "(SD-VAE, BiomedCLIP, CT encoder, DiffMa-B/2)", flush=True)
+    tool = os.path.join(ROOT, "tools", "validate_imports_torch.py")
+    spec = importlib.util.spec_from_file_location("validate_imports_torch", tool)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+
+    def run(what, expect, fails, *argv):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, tool, *argv], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = [line.strip().split(":")[0] for line in res.stdout.splitlines()
+                 if line.strip().startswith("FAIL ")]
+        if res.returncode != expect or lines != fails:
+            print(res.stdout[-4000:], res.stderr[-4000:])
+            fail(f"validate_imports_torch.py on {what}: exit {res.returncode} with {lines}, "
+                 f"expected {expect} with {fails}")
+        return res.stdout, seconds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = module.write_stand_ins(tmp, seed=2430)
+        out, seconds = run("the stand-ins", 0, [], "--vae", paths["vae"], "--clip", paths["clip"],
+                           "--ct", paths["ct"], "--diffma", paths["diffma"])
+        for needle in ("latent (mode): shape (1, 4, 8, 8), finite=True",
+                       "decode: shape (1, 3, 64, 64), finite=True",
+                       "embedding: shape (2, 512), finite=True",
+                       "tokens: shape (2, 196, 512), finite=True",
+                       "denoiser output: shape (2, 8, 28, 28), finite=True"):
+            if needle not in out:
+                fail(f"validate_imports_torch.py did not print {needle!r}")
+        print(f"  [{card}] the four stand-ins validated, forwards on cuda, in {seconds:.1f} s "
+              f"(exit 0)")
+        ckpt = torch.load(paths["ct"])
+        for sd in ckpt.values():
+            del sd["norm.weight"]
+        torch.save(ckpt, os.path.join(tmp, "ct_missing.pt"))
+        out, _ = run("a CT checkpoint without norm.weight", 1, ["FAIL ct"],
+                     "--ct", os.path.join(tmp, "ct_missing.pt"))
+        ckpt = torch.load(paths["diffma"], weights_only=False)
+        ckpt["ema"]["final_layer.linear.weight"] = ckpt["ema"]["final_layer.linear.weight"][:-1]
+        torch.save(ckpt, os.path.join(tmp, "diffma_shape.pt"))
+        out2, _ = run("a DiffMa checkpoint with a wrong shape", 1, ["FAIL diffma"],
+                      "--diffma", os.path.join(tmp, "diffma_shape.pt"))
+    print("  a key removed: exit 1, " + next(line.strip() for line in out.splitlines()
+                                            if line.strip().startswith("FAIL")))
+    print("  a wrong shape: exit 1, " + next(line.strip() for line in out2.splitlines()
+                                            if line.strip().startswith("FAIL")))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
@@ -4921,7 +5303,7 @@ def main() -> int:
     mixer_bwd["branches"] = phase_mixer_bwd_branches(card)
     ssd_bwd["branches"] = phase_ssd_bwd_partition(card)
     core = phase_ssd_core(card)
-    core["launches"] = phase_split_probe(card)
+    core["launches"], core_bf16_launches = phase_split_probe(card)
     phase_forward(card)
     phase_train_step(card)
     phase_mamba2_forward(card)
@@ -4953,7 +5335,8 @@ def main() -> int:
     phase_graphed_chains(card)
     fp32_step = phase_graphed_steps(card)
     t19 = time.perf_counter()
-    mixer_bf16, mixer_bwd_bf16 = phase_bf16_kernels(card, mixer, mixer_bwd)
+    stage_tables = bf16_stage_tables()
+    mixer_bf16, mixer_bwd_bf16 = phase_bf16_kernels(card, mixer, mixer_bwd, stage_tables)
     counts, bf16_steps_s = phase_trainer(card, autocast=True)
     mixer_bwd_bf16["launches"] = counts["mixer_fused_bwd_bf16"]
     print(f"  [{card}] DiffMa-L/2 training step in the trainer's CLI, batch 8: bf16 "
@@ -4963,7 +5346,8 @@ def main() -> int:
     phase_bf16_step_profile(card, fp32_step)
     print(f"phase 19 took {time.perf_counter() - t19:.1f} s")
     t20 = time.perf_counter()
-    ssd_bf16, ssd_bwd_bf16, epilogue_bf16 = phase_bf16_ssd_kernels(card, ssd, epilogue, ssd_bwd)
+    ssd_bf16, ssd_bwd_bf16, epilogue_bf16 = phase_bf16_ssd_kernels(card, ssd, epilogue, ssd_bwd,
+                                                                   stage_tables)
     counts, bf16_mamba2_steps_s = phase_mamba2_trainer(card, autocast=True)
     ssd_bwd_bf16["launches"] = counts["ssd_mixer_bwd_bf16"]
     print(f"  [{card}] DiffMa-L/2 Mamba-2 training step in the trainer's CLI, batch 8: bf16 "
@@ -4982,11 +5366,18 @@ def main() -> int:
     phase_plumbing(card, samples_17e)
     print(f"phase 22 took {time.perf_counter() - t22:.1f} s")
     phase_parallel(card)
+    t24 = time.perf_counter()
+    inner_bf16 = phase_bf16_inner(card, inner, stage_tables)
+    inner_bf16["launches"] = phase_bf16_inner_path(card)
+    core_bf16 = phase_bf16_core(card, core, stage_tables)
+    core_bf16["launches"] = core_bf16_launches
+    phase_validate_imports(card)
+    print(f"phase 24 took {time.perf_counter() - t24:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
                                   inner, core, mixer_bf16, mixer_bwd_bf16, ssd_bf16,
-                                  ssd_bwd_bf16, epilogue_bf16]}))
+                                  ssd_bwd_bf16, epilogue_bf16, inner_bf16, core_bf16]}))
     print(card)
     print(json.dumps({
         "ok": True,
@@ -5002,4 +5393,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.exit(parallel_worker(sys.argv[2]))
+    if sys.argv[1:] == ["--bf16-stages"]:
+        sys.exit(bf16_stage_worker())
     sys.exit(main())

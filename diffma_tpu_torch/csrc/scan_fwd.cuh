@@ -91,10 +91,12 @@ template <class Seq>
 struct Batch {
   using TB = decltype(std::declval<const Seq&>().B(0, 0));  // B's and C's storage type
   using TD = decltype(std::declval<const Seq&>().dt(0));
-  using TU = decltype(std::declval<const Seq&>().u(0));  // u's and z's
+  using TU = decltype(std::declval<const Seq&>().u(0));
+  using TZ = decltype(std::declval<const Seq&>().z(0));
   TB b[kPerLane], c[kPerLane];
   TD dt[kSub];
-  TU u[kSub], z[kSub];
+  TU u[kSub];
+  TZ z[kSub];
 };
 
 // grid (ceil(d / 32), streams), block (32, chunks), chunks * sizeof(WarpSmem)
@@ -136,7 +138,7 @@ __global__ void __launch_bounds__(kLanes * kMaxChunks)
       const bool ok = q < steps && active;
       x.dt[q] = ok ? seq.dt(t0 + q) : typename X::TD{};
       x.u[q] = ok ? seq.u(t0 + q) : typename X::TU{};
-      if constexpr (kOut && kGated) x.z[q] = ok ? seq.z(t0 + q) : typename X::TU{};
+      if constexpr (kOut && kGated) x.z[q] = ok ? seq.z(t0 + q) : typename X::TZ{};
     }
   };
 

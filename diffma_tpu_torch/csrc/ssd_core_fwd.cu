@@ -58,10 +58,24 @@
 //   was timed and what did not move it.
 // Both kernels launch with cudaLaunchKernelEx and a cluster dimension; the
 // grid's x, H / 2 per chunk, is a multiple of it.
+//
+// bf16 (dtype 1: zx and out bf16, the weights fp32), the TPU kernel at a zx
+// of bfloat16: it rounds where kernel E's bf16 variant rounds (ssd_core.cuh):
+// inside each chunk the masked decay (Cs_t . Bs_u) exp(lcs[t] - lcs[u]) and
+// dt_u xs_u are rounded to bf16 (to nearest even) at the heads' product,
+// which sums in fp32; the conv, dt, the cumsums, the states, the cross-chunk
+// term, the D skip, the gate and the norm stay fp32, and out is rounded to
+// bf16 once. The TPU kernel's one quadratic block per stream rounds its
+// cross-chunk terms too; here they go through the fp32 states. Bound at the
+// probe's shapes: 59 MB of zx read and out written, 0.018 ms at the memory
+// rate, the products at 989 TFLOP/s.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ssd_core.cuh"
 
@@ -75,8 +89,10 @@ using ssd::kN;
 using ssd::kQ;
 using ssd::kState;
 using ssd::kThreads;
+using ssd::round_bf16;
 using ssd::silu;
 using ssd::softplus;
+using bf16 = __nv_bfloat16;
 
 constexpr int kHeads = 2;          // heads a block owns
 constexpr int kCh = kHeads * kHd;  // its x channels, X's row stride
@@ -93,8 +109,8 @@ struct Args {
   const float* A_log[2];
   const float* D[2];
   const float* norm_w[2];  // (d,)
-  const float* zx;         // (G, L, dproj)
-  float* out;              // (G, L, d)
+  const void* zx;          // (G, L, dproj), fp32 or bf16
+  void* out;               // (G, L, d), zx's dtype
   float* states;           // (G, H, nc, 16, 64): each chunk's end state, chunks 0 .. nc - 2
   double* sums;            // (G, H, nc): each chunk's sum of dt * A
   int G, per, L, d, H, dproj, nc, Qc, csize, rpr;  // rpr: B/C rows a rank convolves
@@ -132,6 +148,20 @@ __device__ __forceinline__ Stage stage_layout(float* smem, int rpr) {
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+}
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st4(float* p, const float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(bf16* p, const float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
 
 // conv + SiLU of four channels at one step: bias + w.x raw[0] + ... + w.w raw[3],
 // raw[0] the earliest step.
@@ -156,13 +186,15 @@ __device__ __forceinline__ float4 conv4(const float4 (&w)[4], const float4 b, co
   return o;
 }
 
+template <class T>
 struct Where {
   int g, m, c, rank, head0, t0, q;
-  const float* zx_g;  // sequence g's rows (L, dproj)
+  const T* zx_g;  // sequence g's rows (L, dproj)
 };
 
-__device__ __forceinline__ Where where(const Args& a) {
-  Where w;
+template <class T>
+__device__ __forceinline__ Where<T> where(const Args& a) {
+  Where<T> w;
   w.rank = static_cast<int>(cg::this_cluster().block_rank());
   w.c = blockIdx.x / a.csize;
   w.g = blockIdx.y;
@@ -170,7 +202,7 @@ __device__ __forceinline__ Where where(const Args& a) {
   w.head0 = kHeads * w.rank;
   w.t0 = w.c * a.Qc;
   w.q = min(a.Qc, a.L - w.t0);
-  w.zx_g = a.zx + static_cast<size_t>(w.g) * a.L * a.dproj;
+  w.zx_g = static_cast<const T*>(a.zx) + static_cast<size_t>(w.g) * a.L * a.dproj;
   return w;
 }
 
@@ -179,7 +211,9 @@ __device__ __forceinline__ Where where(const Args& a) {
 // CsT. All threads of all the cluster's blocks call it; it ends with the block
 // synchronised and the cluster's shares read (each block must reach a later
 // cluster.sync() before it exits).
-__device__ void stage_chunk(const Args& a, const Where& w, const Stage& s, cg::cluster_group& cl) {
+template <class T>
+__device__ void stage_chunk(const Args& a, const Where<T>& w, const Stage& s,
+                            cg::cluster_group& cl) {
   const int tid = threadIdx.x, d = a.d;
   const float* conv_w = a.conv_w[w.m];
   const float* conv_b = a.conv_b[w.m];
@@ -213,7 +247,8 @@ __device__ void stage_chunk(const Args& a, const Where& w, const Stage& s, cg::c
   const int dt_hh = tid / kQ, dt_r = tid % kQ;
   const bool dt_live = tid < kHeads * kQ && dt_r < w.q;
   const float dt_raw = dt_live
-      ? w.zx_g[static_cast<size_t>(w.t0 + dt_r) * a.dproj + 2 * d + kBC + w.head0 + dt_hh] : 0.0f;
+      ? ld1(w.zx_g + static_cast<size_t>(w.t0 + dt_r) * a.dproj + 2 * d + kBC + w.head0 + dt_hh)
+      : 0.0f;
 
   float4 wk[4];
 #pragma unroll
@@ -278,13 +313,21 @@ __device__ void stage_chunk(const Args& a, const Where& w, const Stage& s, cg::c
 // block's 16 x 16 threads (tx = thread % 16, ty = thread / 16): both operands
 // k-major in shared memory, each thread's four rows and four columns one
 // float4 apiece (a warp's two ty read two float4s of A, its 16 tx 256
-// contiguous bytes of B).
+// contiguous bytes of B). kXdt: each element of B's row k is scaled by
+// dts[k] and rounded to bf16 as it is read (the bf16 product's dt_u xs_u).
+template <bool kXdt = false>
 __device__ __forceinline__ void mm4(float (&acc)[4][4], const float* A, int lda, const float* B,
-                                    int ldb, int k0, int k1) {
+                                    int ldb, int k0, int k1, const float* dts = nullptr) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll 4
   for (int k = k0; k < k1; ++k) {
-    const float4 a = ld4(A + k * lda + 4 * ty), b = ld4(B + k * ldb + 4 * tx);
+    const float4 a = ld4(A + k * lda + 4 * ty);
+    float4 b = ld4(B + k * ldb + 4 * tx);
+    if constexpr (kXdt) {
+      const float s = dts[k];
+      b = make_float4(round_bf16(b.x * s), round_bf16(b.y * s), round_bf16(b.z * s),
+                      round_bf16(b.w * s));
+    }
     const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -298,7 +341,8 @@ __device__ __forceinline__ void mm4(float (&acc)[4][4], const float* A, int lda,
 // st[c'], the offset in fp64; each thread four consecutive of a head's 1024
 // elements, into out (kHeads, 16, 64). The next chunk's states are loaded
 // before the current ones are added.
-__device__ __forceinline__ void fold_heads(const Args& a, const Where& w, float* out) {
+template <class T>
+__device__ __forceinline__ void fold_heads(const Args& a, const Where<T>& w, float* out) {
   const size_t unit = static_cast<size_t>(w.g) * a.H + w.head0;
   const float* st[kHeads];
   const double* sums[kHeads];
@@ -333,10 +377,11 @@ __device__ __forceinline__ void fold_heads(const Args& a, const Where& w, float*
 // (w_u Bs[u, k]) xs[u, j], w_u = exp(sum(c) - lcs[u]) dt_u, and sum(c). Thread
 // (tx, ty) takes state row k = ty and channels 8 tx .. 8 tx + 7 of the block's
 // 128 (head tx / 8).
+template <class T>
 __global__ void __launch_bounds__(kThreads, 3) core_states_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cl = cg::this_cluster();
-  const Where w = where(a);
+  const Where<T> w = where<T>(a);
   const Stage s = stage_layout(reinterpret_cast<float*>(smem4), a.rpr);
   float* Bw = s.rest;  // (kHeads, kQ, kN): w_u Bs[u, k] per head
   stage_chunk(a, w, s, cl);
@@ -369,10 +414,13 @@ __global__ void __launch_bounds__(kThreads, 3) core_states_kernel(const Args a) 
 // y of the chunk for the block's heads, gated, and the RMSNorm over all d
 // channels across the cluster; out written in place of y. Thread (tx, ty)
 // takes steps 4 ty .. 4 ty + 3 and channels 4 tx .. 4 tx + 3 of each head.
+// At bf16 (T) the chunk's product takes M and dt_u xs_u rounded to bf16.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   extern __shared__ float4 smem4[];
   cg::cluster_group cl = cg::this_cluster();
-  const Where w = where(a);
+  const Where<T> w = where<T>(a);
   const Stage s = stage_layout(reinterpret_cast<float*>(smem4), a.rpr);
   float* MT = s.rest;                 // (kQ, kQ): M[t, u] of one head at MT[u kQ + t]
   float* Hin = MT + kQ * kQ;          // (kHeads, 16, 64): h_in(c) per head
@@ -382,7 +430,7 @@ __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, warp = threadIdx.x / 32;
   const bool live = kGroupRows * warp < w.q;     // the warp holds a step of the chunk
   const int k_end = min(w.q, 8 * warp + 8);       // its last step + 1
-  const float* z_g = w.zx_g + w.head0 * kHd + 4 * tx;
+  const T* z_g = w.zx_g + w.head0 * kHd + 4 * tx;
   float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f};         // the thread's sums of squares per row
 #pragma unroll
   for (int hh = 0; hh < kHeads; ++hh) {
@@ -399,9 +447,8 @@ __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int t = 4 * tx + j;
-          v[j] = u <= t && t < w.q
-                     ? cbT[i][j] * expf(static_cast<float>(lcs[t] - lcs[u])) * dts[u]
-                     : 0.0f;
+          const float m = cbT[i][j] * expf(static_cast<float>(lcs[t] - lcs[u]));
+          v[j] = u <= t && t < w.q ? (kBf16 ? round_bf16(m) : m * dts[u]) : 0.0f;
         }
         *reinterpret_cast<float4*>(MT + u * kQ + 4 * tx) = make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -419,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a
     ssd::zero(cross);
     float* Xh = s.X + hh * kHd;
     if (live) {
-      mm4(acc, MT, kQ, Xh, kCh, 0, k_end);  // u <= t
+      mm4<kBf16>(acc, MT, kQ, Xh, kCh, 0, k_end, dts);  // u <= t
       if (w.c > 0) mm4(cross, s.CsT, kQ, Hin + hh * kState, kHd, 0, kN);
     }
     __syncthreads();  // Xh and MT read: g overwrites xs in place, M the next head's
@@ -451,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a
   }
   cl.sync();  // every rank's partials written
   const float* norm_w = a.norm_w[w.m] + w.head0 * kHd + 4 * tx;
-  float* out_g = a.out + static_cast<size_t>(w.g) * a.L * a.d + w.head0 * kHd + 4 * tx;
+  T* out_g = static_cast<T*>(a.out) + static_cast<size_t>(w.g) * a.L * a.d + w.head0 * kHd + 4 * tx;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = 4 * ty + i;
@@ -459,12 +506,12 @@ __global__ void __launch_bounds__(kThreads, 3) core_out_norm_kernel(const Args a
     float total = 0.0f;
     for (int r = 0; r < a.csize; ++r) total += cl.map_shared_rank(part, r)[t];  // rank order
     const float rms = rsqrtf(total / a.d + a.eps);
-    float* orow = out_g + static_cast<size_t>(w.t0 + t) * a.d;
+    T* orow = out_g + static_cast<size_t>(w.t0 + t) * a.d;
 #pragma unroll
     for (int hh = 0; hh < kHeads; ++hh) {
       const float4 g = ld4(s.X + t * kCh + hh * kHd + 4 * tx), nw = ld4(norm_w + hh * kHd);
-      *reinterpret_cast<float4*>(orow + hh * kHd) =
-          make_float4(g.x * rms * nw.x, g.y * rms * nw.y, g.z * rms * nw.z, g.w * rms * nw.w);
+      st4(orow + hh * kHd,
+          make_float4(g.x * rms * nw.x, g.y * rms * nw.y, g.z * rms * nw.z, g.w * rms * nw.w));
     }
   }
   cl.sync();  // no block leaves while another may still read its partials
@@ -516,19 +563,47 @@ extern "C" long long ssd_core_workspace_floats(int M, int G, int L, int d, int H
   return static_cast<long long>(workspace_floats(a));
 }
 
+namespace {
+
+// The two launches for zx of type T (see ssd_core_fwd).
+template <class T>
+int run(const Args& a, cudaStream_t st) {
+  constexpr int kMaxStates = stage_floats(kQ) + kStatesExtra;
+  constexpr int kMaxOut = stage_floats(kQ) + kOutExtra;
+  static const cudaError_t attr[] = {
+      cudaFuncSetAttribute(core_states_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxStates * 4),
+      cudaFuncSetAttribute(core_out_norm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxOut * 4),
+  };
+  for (const cudaError_t e : attr) {
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (a.nc > 1) {
+    const int err = launch_cluster(core_states_kernel<T>, a, a.nc - 1,
+                                   stage_floats(a.rpr) + kStatesExtra, st);
+    if (err != 0) return err;
+  }
+  return launch_cluster(core_out_norm_kernel<T>, a, a.nc, stage_floats(a.rpr) + kOutExtra, st);
+}
+
+}  // namespace
+
 // `ptrs` holds 6 pointers per branch: conv_w (d + 2n, K), conv_b (d + 2n,),
 // dt_bias, A_log, D (H,) and norm_w (d,), for M = 1 or 2 branches; all fp32
 // and contiguous, conv_w and zx 16-byte aligned. `zx` (G, L, dproj) and `out`
-// (G, L, d), G a multiple of M, sequence g taking branch g / (G / M);
-// `workspace` ssd_core_workspace_floats floats. Launches two kernels on
-// `stream` (one for L <= 64); returns the first cudaError_t that is not 0, or
-// -1 for shapes that are not built (up to 16 heads of 64 channels, H a
-// multiple of 4 so that zx's rows are whole float4s).
+// (G, L, d) of `dtype` (0 fp32, 1 bf16), G a multiple of M, sequence g taking
+// branch g / (G / M); `workspace` ssd_core_workspace_floats floats. Launches
+// two kernels on `stream` (one for L <= 64); returns the first cudaError_t
+// that is not 0, or -1 for shapes or a dtype that are not built (up to 16
+// heads of 64 channels, H a multiple of 4 so that zx's rows are whole groups
+// of 4).
 extern "C" int ssd_core_fwd(void* const* ptrs, int M, const void* zx, void* out,
                             void* workspace, int G, int L, int d, int n, int H, int K,
-                            float eps, float dt_lo, float dt_hi, void* stream) {
+                            float eps, float dt_lo, float dt_hi, int dtype, void* stream) {
   if (M < 1 || M > 2 || G < M || G % M != 0 || n != kN || K != kConv || H < 1 ||
-      H > kHeads * kMaxCluster || H % 4 != 0 || d != H * kHd || L < 1) {
+      H > kHeads * kMaxCluster || H % 4 != 0 || d != H * kHd || L < 1 || dtype < 0 ||
+      dtype > 1) {
     return -1;
   }
   Args a{};
@@ -542,29 +617,13 @@ extern "C" int ssd_core_fwd(void* const* ptrs, int M, const void* zx, void* out,
     a.norm_w[m] = static_cast<const float*>(q[5]);
   }
   set_dims(a, G, M, L, d, H);
-  a.zx = static_cast<const float*>(zx);
-  a.out = static_cast<float*>(out);
+  a.zx = zx;
+  a.out = out;
   a.states = static_cast<float*>(workspace);
   a.sums = reinterpret_cast<double*>(a.states + static_cast<size_t>(G) * H * a.nc * kState);
   a.eps = eps;
   a.dt_lo = dt_lo;
   a.dt_hi = dt_hi;
-  constexpr int kMaxStates = stage_floats(kQ) + kStatesExtra;
-  constexpr int kMaxOut = stage_floats(kQ) + kOutExtra;
-  static const cudaError_t attr[] = {
-      cudaFuncSetAttribute(core_states_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxStates * 4),
-      cudaFuncSetAttribute(core_out_norm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxOut * 4),
-  };
-  for (const cudaError_t e : attr) {
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.nc > 1) {
-    const int err = launch_cluster(core_states_kernel, a, a.nc - 1,
-                                   stage_floats(a.rpr) + kStatesExtra, st);
-    if (err != 0) return err;
-  }
-  return launch_cluster(core_out_norm_kernel, a, a.nc, stage_floats(a.rpr) + kOutExtra, st);
+  return dtype == 1 ? run<bf16>(a, st) : run<float>(a, st);
 }

@@ -53,8 +53,8 @@ Under a mesh (``parallel/mesh.py::Mesh``; ``mesh``, ``tp_axis``,
 ``dtype`` is the compute dtype, as the JAX mixer's: the parameters stay
 fp32, x is cast to it, and the output is in it. At bfloat16 the composable
 path runs kernels A and B in bf16 and the fused path the bf16 variants of
-kernels C and D (``ops/fused_mixer.py`` says where each rounds); kernel H
-has no bf16 variant and refuses bf16 on the card.
+kernels C and D, or on a spec that C cannot take that of kernel H
+(``ops/fused_mixer.py`` and ``ops/fused_mamba.py`` say where each rounds).
 
 Parameter names follow mamba_ssm's ``Mamba`` state dict, whatever the path.
 d_inner is 2 * d_model, the conv has 4 taps, and ``dt_rank`` is

@@ -25,7 +25,8 @@ import tempfile
 import time
 from typing import NamedTuple
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "BuildResult", "build", "build_all", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "BuildResult", "LaunchCount", "build", "build_all",
+           "load"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -105,3 +106,16 @@ def build_all(names=SOURCES) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     return ctypes.CDLL(build(name).path)
+
+
+class LaunchCount:
+    """The launch count of a kernel's variant that shares its wrapper with
+    another (the bf16 variants of kernels C, D, E, F, G, H and P)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _count(wrapper, dtype: int) -> None:
+    """One launch of ``wrapper``'s kernel, counted on its bf16 variant at dtype 1."""
+    (wrapper.bf16 if dtype else wrapper).launches += 1

@@ -66,7 +66,8 @@ import torch.nn.functional as F
 
 from diffma_tpu_torch.ops import cuda_build
 from diffma_tpu_torch.ops.conv import causal_conv1d
-from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused
+from diffma_tpu_torch.ops.cuda_build import LaunchCount, _count
+from diffma_tpu_torch.ops.fused_mamba import _dot, mamba_inner_fused
 from diffma_tpu_torch.ops.scan_orders import ScanSpec
 from diffma_tpu_torch.ops.selective_scan import _DTYPE_CODE, selective_scan
 
@@ -186,11 +187,6 @@ def mixer_composable(
     return F.linear(merged, out_w)
 
 
-def _dot(a: torch.Tensor, weight: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """``a . weight^T`` on operands rounded to ``cd``, summed in fp32."""
-    return F.linear(a.to(cd).float(), weight.to(cd).float())
-
-
 def _mixer_fused_lowp(spec: ScanSpec, x: torch.Tensor, w: MixerWeights) -> torch.Tensor:
     """Kernel C's arithmetic at x's low-precision dtype cd, with the plain
     scan: where ``diffma_tpu/ops/fused_mixer.py::_mixer_kernel`` casts, it
@@ -303,18 +299,6 @@ def _check_kernel_inputs(spec: ScanSpec, xs, ws) -> dict:
     return dict(B=B_, L=L, Ls=spec.stream_len, h=h, d=d, n=n, r=r, K=K, S=spec.n_streams,
                 quirk=int(spec.mamba1_vim_quirk), dtype=_DTYPE_CODE[x0.dtype],
                 ident=sum(1 << s for s, i in enumerate(_identity_streams(spec)) if i))
-
-
-class LaunchCount:
-    """The launch count of a kernel's variant that shares its wrapper with
-    another (kernels C's and D's bf16 variants)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-def _count(wrapper, dtype: int) -> None:
-    (wrapper.bf16 if dtype else wrapper).launches += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -39,7 +39,9 @@ Two implementations of each:
   which replaces ``tools/probes/probe_split_ssd.py::_core_kernel``: the
   mixer's middle alone (conv, dt, the SSD, the gate and the norm, no merge)
   on gathered streams ``zx (G, L, 2d + 2n + H)``; ``ssd_core_ref`` is its
-  plain version, the middle of ``ssd_mixer_ref``. Their ``launches``
+  plain version, the middle of ``ssd_mixer_ref`` (at a bf16 zx the TPU
+  kernel's rounding, ``_ssd_core_lowp``; the CUDA variant rounds the same
+  head products inside each 64-step chunk, as E bf16). Their ``launches``
   attributes count calls (each launches a chain of device kernels).
 
 ``FusedSsdFn`` joins E and F for autograd: forward through kernel E in
@@ -101,6 +103,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -108,9 +111,8 @@ import torch.nn.functional as F
 
 from diffma_tpu_torch.ops import cuda_build
 from diffma_tpu_torch.ops.conv import causal_conv1d
+from diffma_tpu_torch.ops.cuda_build import LaunchCount, _count
 from diffma_tpu_torch.ops.fused_mixer import (
-    LaunchCount,
-    _count,
     _identity_streams,
     index_tables,
     mixer_fused_eligible,
@@ -316,10 +318,40 @@ def ssd_core_ref(
     H)``, G gathered streams in stream order, sequence g taking the core
     weights (``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``, ``D``,
     ``norm_w``; ``Mamba2Weights`` serve) of ``ws[g // (G / len(ws))]``.
-    Returns the normed streams ``(G, L, d)``, not merged."""
+    Returns the normed streams ``(G, L, d)``, not merged, in zx's dtype; at
+    bf16 with the rounding of the TPU kernel (``_ssd_core_lowp``)."""
     per = zx.shape[0] // len(ws)
-    return torch.cat([_core(zx[m * per : (m + 1) * per], w, dt_limit, eps, chunk_size, 1)
+    core = _ssd_core_lowp if zx.dtype == BF16 else functools.partial(
+        _core, chunk_size=chunk_size, ngroups=1)
+    return torch.cat([core(zx[m * per : (m + 1) * per], w, dt_limit, eps)
                       for m, w in enumerate(ws)])
+
+
+def _ssd_core_lowp(zx: torch.Tensor, w, dt_limit, eps: float) -> torch.Tensor:
+    """Kernel P's arithmetic at zx's dtype bf16, as
+    ``tools/probes/probe_split_ssd.py::_core_kernel`` rounds at a bf16 zx:
+    the conv, dt, the cumsum of dt * A (taken in fp64, rounded once), the
+    masked decay ``(C_t . B_u) exp(cs_t - cs_u)`` and ``dt_u x_u`` in fp32,
+    each of those two rounded to bf16 at the heads' products, which sum in
+    fp32 over the whole stream (the TPU kernel's quadratic form); the D skip,
+    the gate on z and the RMSNorm fp32; the output bf16."""
+    G, L, _ = zx.shape
+    d = w.norm_w.shape[0]
+    H = w.A_log.shape[0]
+    n = (w.conv_w.shape[0] - d) // 2
+    z, xBC, dt = zx.float().split([d, d + 2 * n, H], dim=-1)
+    x, B_ssm, C_ssm = causal_conv1d(xBC, w.conv_w[:, 0, :], w.conv_b).split([d, n, n], dim=-1)
+    dt = F.softplus(dt + w.dt_bias.float()).clamp(*dt_limit)
+    cs = torch.cumsum(dt.double() * -torch.exp(w.A_log.double()), dim=1).float()  # (G, L, H)
+    causal = torch.ones(L, L, dtype=torch.bool, device=zx.device).tril()[None, :, :, None]
+    decay = torch.exp((cs[:, :, None] - cs[:, None]).masked_fill(~causal, -math.inf))
+    mh = (torch.einsum("gtn,gun->gtu", C_ssm, B_ssm)[..., None] * decay).to(BF16).float()
+    xdt = (x.reshape(G, L, H, -1) * dt[..., None]).to(BF16).float()
+    y = torch.einsum("gtuh,guhc->gthc", mh, xdt).reshape(G, L, d)
+    y = y + w.D.float().repeat_interleave(d // H) * x
+    yg = y * F.silu(z)
+    rms = torch.rsqrt(yg.square().mean(dim=-1, keepdim=True) + eps)
+    return (yg * rms * w.norm_w.float()).to(BF16)
 
 
 def ssd_mixer_bwd_ref(
@@ -776,7 +808,7 @@ def _core_kernel_fns():
         + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 6
         + [ctypes.c_float] * 3
-        + [ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     size = lib.ssd_core_workspace_floats
@@ -790,15 +822,16 @@ def ssd_core_cuda(
 ) -> torch.Tensor:
     """Launch kernel P on the current stream: ``ssd_core_ref`` of the same
     arguments, ``ws`` one or two weight sets (``Mamba2Weights``; in_w and
-    out_w are not read).
+    out_w are not read); zx and the output float32 or bfloat16, the weights
+    float32.
 
     Raises on inputs the kernel does not take; ``ssd_core_cuda.launches``
-    counts the calls.
+    counts the fp32 calls, ``ssd_core_cuda.bf16.launches`` the bf16 ones.
     """
-    if zx.dtype != torch.float32:
-        raise ValueError(f"kernel P has no bf16 variant: zx must be float32, got {zx.dtype}")
+    if zx.dtype not in _DTYPE_CODE:
+        raise ValueError(f"kernel P takes zx in float32 or bfloat16, got {zx.dtype}")
     if zx.device.type != "cuda":
-        raise ValueError(f"the CUDA SSD core needs CUDA tensors, got {zx.device}")
+        raise ValueError(f"kernel P, the CUDA SSD core, needs CUDA tensors, got {zx.device}")
     M = len(ws)
     if M not in (1, 2) or zx.dim() != 3 or zx.shape[0] % M:
         raise ValueError(f"zx must be (G, L, dproj) with G a multiple of {M} weight sets, got "
@@ -815,7 +848,7 @@ def ssd_core_cuda(
         raise ValueError(f"the kernel is built for headdim {_KERNEL_HEADDIM} and a multiple of 4 "
                          f"heads up to {_KERNEL_MAX_CORE_HEADS}, got d {d}, H {H}")
     conv_dim = d + 2 * n
-    named = [("zx", zx, (G, L, 2 * d + 2 * n + H))]
+    named = [("zx", zx, (G, L, 2 * d + 2 * n + H), zx.dtype)]
     for i, w in enumerate(ws):
         named += [(f"w{i}.conv_w", w.conv_w, (conv_dim, 1, K)),
                   (f"w{i}.conv_b", w.conv_b, (conv_dim,)), (f"w{i}.dt_bias", w.dt_bias, (H,)),
@@ -827,22 +860,24 @@ def ssd_core_cuda(
         if t.data_ptr() % 16:  # read in float4s
             raise ValueError(f"{name} must be 16-byte aligned")
     fwd_fn, size_fn = _core_kernel_fns()
-    out = torch.empty((G, L, d), dtype=torch.float32, device=zx.device)
+    out = torch.empty((G, L, d), dtype=zx.dtype, device=zx.device)
     workspace = torch.empty(size_fn(M, G, L, d, H), dtype=torch.float32, device=zx.device)
     ptrs = [t.data_ptr() for w in ws
             for t in (w.conv_w, w.conv_b, w.dt_bias, w.A_log, w.D, w.norm_w)]
     err = fwd_fn(
         (ctypes.c_void_p * len(ptrs))(*ptrs), M, zx.data_ptr(), out.data_ptr(),
         workspace.data_ptr(), G, L, d, n, H, K, float(eps), float(dt_limit[0]),
-        float(dt_limit[1]), torch.cuda.current_stream(zx.device).cuda_stream,
+        float(dt_limit[1]), _DTYPE_CODE[zx.dtype],
+        torch.cuda.current_stream(zx.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_core_fwd launch failed: error {err}")
-    ssd_core_cuda.launches += 1
+    _count(ssd_core_cuda, _DTYPE_CODE[zx.dtype])
     return out
 
 
 ssd_core_cuda.launches = 0
+ssd_core_cuda.bf16 = LaunchCount()
 
 
 def _use_kernels(impl: str, tensors) -> bool:

@@ -166,10 +166,12 @@ def _groups_along(names: Sequence[str], shape: Dict[str, int]) -> Iterable[list]
                      for c in (dict(base, **v) for v in coords(names)))
 
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, device="cpu") -> Mesh:
+def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, device="cuda") -> Mesh:
     """The ``(dp, tp, sp)`` mesh over the process group's ranks (``dp``
-    defaults to world // (tp · sp)); every rank of the group calls it, in
-    the same order as every other call that makes groups."""
+    defaults to world // (tp · sp)) on ``device`` (the card by default, as
+    every entry point; ``"cpu"`` for gloo ranks on the CPU); every rank of
+    the group calls it, in the same order as every other call that makes
+    groups."""
     world, rank = world_size(), world_rank()
     if dp is None:
         if world % (tp * sp):

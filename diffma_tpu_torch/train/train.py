@@ -345,7 +345,8 @@ def main(cfg, device="cuda"):
         exp_dir = broadcast_bytes(exp_dir and os.path.abspath(exp_dir).encode(), mesh).decode()
     logger = create_logger(exp_dir if rank == 0 else None, rank)
     logger.info(f"Experiment directory created at {exp_dir}")
-    wandb = WandbShim(bool(cfg.get("wandb")) and rank == 0, str(cfg.model).replace("/", "_"))
+    wandb = WandbShim(bool(cfg.get("wandb")) and rank == 0, str(cfg.model).replace("/", "_"),
+                      logger)
 
     if cfg.image_size % 8:
         raise ValueError("image_size must be divisible by 8 (the VAE's factor)")

@@ -171,6 +171,9 @@ def cli(argv=None):
                         help="stop after this many steps")
     parser.add_argument("--ckpt-every", dest="embedder_ckpt_every", type=int, default=None)
     parser.add_argument("--results-dir", dest="embedder_results_dir", type=str, default=None)
+    parser.add_argument("--wandb", action="store_true", default=None,
+                        help="accepted and unused, as in the JAX package: the embedder logs no "
+                             "metrics to wandb")
     parser.add_argument("--autocast", action="store_true", default=None,
                         help="accepted and unused: the CT encoder trains in fp32")
     parser.add_argument("--device", type=str, default="cuda",

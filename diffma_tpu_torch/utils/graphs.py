@@ -39,8 +39,8 @@ __all__ = ["Graph", "kernel_counters"]
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper by kernel name; its ``launches`` counts its launches
-    (the bf16 variants of kernels C, D, E, F and G: a count that their wrapper
-    keeps)."""
+    (the bf16 variants of kernels C, D, E, F, G, H and P: a count that their
+    wrapper keeps)."""
     from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
     from diffma_tpu_torch.ops.fused_ssd import (
@@ -59,7 +59,9 @@ def kernel_counters() -> dict:
             "mixer_fused_bwd_bf16": mixer_fused_bwd_cuda.bf16,
             "ssd_mixer_fwd_bf16": ssd_mixer_fused_cuda.bf16,
             "ssd_mixer_bwd_bf16": ssd_mixer_fused_bwd_cuda.bf16,
-            "spiral_epilogue_bf16": spiral_epilogue_cuda.bf16}
+            "spiral_epilogue_bf16": spiral_epilogue_cuda.bf16,
+            "mamba_inner_fwd_bf16": mamba_inner_fused_cuda.bf16,
+            "ssd_core_fwd_bf16": ssd_core_cuda.bf16}
 
 
 class Graph:

@@ -3,7 +3,7 @@
 Counterpart of ``diffma_tpu/utils/logging.py``: a timestamped logger that
 writes to stdout and to ``<exp_dir>/log_0.txt`` on rank 0 only, auto-numbered experiment
 directories ``NNN-<model-name>``, and a wandb shim that does nothing when
-wandb is not installed or not asked for.
+wandb is not asked for, not installed or fails to start.
 """
 
 from __future__ import annotations
@@ -55,17 +55,24 @@ def create_experiment_dir(results_dir: str, model_name: str) -> str:
 
 
 class WandbShim:
-    """wandb if it is installed and asked for, else a no-op."""
+    """wandb if it is installed, asked for and starts, else a no-op. As the
+    JAX package's shim, any exception from the import or from ``wandb.init``
+    turns it off; ``logger`` (else stdout) gets one line saying why."""
 
-    def __init__(self, enabled: bool, project: str):
+    def __init__(self, enabled: bool, project: str, logger: Optional[_Logger] = None):
         self._w = None
         if enabled:
             try:
                 import wandb
-            except ImportError:
-                return
-            wandb.init(project=project)
-            self._w = wandb
+
+                wandb.init(project=project)
+                self._w = wandb
+            except Exception as e:
+                msg = f"wandb is off: {type(e).__name__}: {e}"
+                if logger is not None:
+                    logger.info(msg)
+                else:
+                    print(msg, flush=True)
 
     def log(self, data: dict, step: Optional[int] = None) -> None:
         if self._w is not None:

@@ -400,21 +400,23 @@ def test_bf16_mamba2_models_build_and_run(fuse_block):
 
 
 @pytest.mark.parametrize("kernel", ["H", "P"])
-def test_kernels_without_bf16_variants_refuse_bf16(kernel):
+@pytest.mark.parametrize("dtype", [BF16, torch.float16])
+def test_kernels_h_and_p_refuse_cpu_tensors_and_float16(kernel, dtype):
     """Kernels H (the Mamba-1 inner part) and P (the split SSD probe's
-    core) have no bf16 variant, and no registry model reaches them: their
-    wrappers refuse bf16 tensors, naming the kernel, on any device."""
+    core) run float32 and bfloat16 on the card: their wrappers refuse a CPU
+    tensor of either (here bf16) and float16 anywhere, naming the kernel."""
     from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
     from diffma_tpu_torch.ops.fused_ssd import Mamba2Weights, ssd_core_cuda
 
-    with pytest.raises(ValueError, match=f"kernel {kernel} has no bf16 variant"):
+    why = "needs CUDA tensors" if dtype == BF16 else "takes"
+    with pytest.raises(ValueError, match=f"kernel {kernel}.*{why}"):
         if kernel == "H":
             d, n, r = 8, 16, 2
-            mamba_inner_fused_cuda(torch.zeros(1, 4, 2 * d, dtype=BF16), torch.zeros(d, 4),
+            mamba_inner_fused_cuda(torch.zeros(1, 4, 2 * d, dtype=dtype), torch.zeros(d, 4),
                                    torch.zeros(d), torch.zeros(r + 2 * n, d), torch.zeros(d, r),
                                    torch.zeros(d), torch.zeros(d, n), torch.zeros(d))
         else:
             d, H = 64, 1
             w = Mamba2Weights(None, torch.zeros(d + 32, 1, 4), torch.zeros(d + 32),
                               torch.zeros(H), torch.zeros(H), torch.zeros(H), torch.zeros(d), None)
-            ssd_core_cuda(torch.zeros(1, 4, 2 * d + 32 + H, dtype=BF16), (w,))
+            ssd_core_cuda(torch.zeros(1, 4, 2 * d + 32 + H, dtype=dtype), (w,))

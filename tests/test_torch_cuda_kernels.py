@@ -9,7 +9,10 @@ mixer's inner part, and the ``Mamba`` route that reaches it) and kernel P
 (the split SSD probe's core) are held against their plain versions at the
 model's widths;
 the tolerance of C, E, G, H and P is max |err| <= 1e-4 * max(1, max |ref|), since
-their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's.
+their fp32 sums over K = 512 or 1024 run in another order than cuBLAS's; their
+bf16 variants' is 2e-2 * max(1, max |ref|) and 5e-3 mean-rel against their
+bf16 plain versions, which round at the same places, and H's and P's 2^-6 *
+max(1, max |ref|) and 1e-5 mean-rel (``chip_smoke.py``'s ``TOL_HP_BF16``).
 Gradients, from B, D, F and the autograd Functions, are
 held per tensor to 2e-4 * max(1, max |ref|), the JAX package's gradient bar
 (``tests/test_selective_scan.py``).
@@ -32,6 +35,7 @@ from diffma_tpu_torch.models.mamba2 import Mamba2
 from diffma_tpu_torch.ops.fused_mamba import (
     mamba_inner_fused,
     mamba_inner_fused_cuda,
+    mamba_inner_plain,
     mamba_inner_ref,
 )
 from diffma_tpu_torch.ops.fused_mixer import (
@@ -487,19 +491,19 @@ def test_fused_mixer_bf16_takes_fp32_weights_only(cuda):
 
 
 @pytest.mark.parametrize("kernel", ["H", "P"])
-def test_kernels_without_bf16_variants_refuse_bf16_on_the_card(cuda, kernel):
-    """Kernels H and P have no bf16 variant (no registry model reaches
-    them): their wrappers refuse bf16 CUDA tensors, naming the kernel."""
-    bf16 = torch.bfloat16
-    with pytest.raises(ValueError, match=f"kernel {kernel} has no bf16 variant"):
+def test_kernels_h_and_p_refuse_float16_on_the_card(cuda, kernel):
+    """Kernels H and P take float32 and bfloat16: their wrappers refuse a
+    float16 CUDA tensor, naming the kernel, and launch nothing."""
+    f16 = torch.float16
+    with pytest.raises(ValueError, match=f"kernel {kernel} takes"):
         if kernel == "H":
             xz, *weights = _inner_inputs(cuda, 1, 16, 0)
-            mamba_inner_fused_cuda(xz.to(bf16), *weights)
+            mamba_inner_fused_cuda(xz.to(f16), *weights)
         else:
             spec = build_scan_spec("spiral", 4, 0)
             (m,) = _mixers2(cuda, spec, seed=0, count=1)
             w = m.weights()
-            zx = torch.zeros(1, 16, w.in_w.shape[0], device=cuda, dtype=bf16)
+            zx = torch.zeros(1, 16, w.in_w.shape[0], device=cuda, dtype=f16)
             ssd_core_cuda(zx, (w,))
 
 
@@ -1186,6 +1190,97 @@ def test_mamba_inner_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match=r"\(G, L, 2d\)"):
         call(xz=args[0][0])
     assert mamba_inner_fused_cuda.launches == before
+
+
+# ---- kernels H and P in bf16: against their bf16 plain versions at their
+# own bars (max |err| <= 2^-6 max(1, max |ref|), two bf16 ulps of the
+# largest, and mean-rel <= 1e-5: a product that skips one of the TPU
+# kernel's rounds moves the output 2e-5 to 4e-4 mean-rel), two calls in
+# equal bits; gradients through MambaInnerFn at 1e-2 mean-rel.
+HP_BF16, HP_BF16_MEAN = 2.0**-6, 1e-5
+
+
+@pytest.mark.parametrize("G,L", [(8, 49), (24, 196), (2, 25), (1, 1)])
+def test_mamba_inner_bf16_matches_plain(cuda, G, L):
+    """Kernel H's bf16 variant against ``mamba_inner_plain`` at bf16 (the
+    TPU kernel's rounding), counted as a bf16 launch; its gradients through
+    ``MambaInnerFn`` (kernels A and B in bf16) against autograd over
+    ``mamba_inner_ref``."""
+    xz, *weights = _inner_inputs(cuda, G, L, seed=G + L)
+    args = (xz.to(torch.bfloat16), *weights)
+    launches = (mamba_inner_fused_cuda.launches, mamba_inner_fused_cuda.bf16.launches)
+    with torch.no_grad():
+        got, again = (mamba_inner_fused_cuda(*args) for _ in range(2))
+        want = mamba_inner_plain(*args)
+    torch.cuda.synchronize()
+    assert (mamba_inner_fused_cuda.launches, mamba_inner_fused_cuda.bf16.launches) == (
+        launches[0], launches[1] + 2)
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= HP_BF16 * max(
+        1.0, want.float().abs().max().item())
+    assert _mean_rel(got, want) <= HP_BF16_MEAN
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in args]
+    refs = [t.clone().requires_grad_() for t in args]
+    mamba_inner_fused(*leaves).backward(g)
+    mamba_inner_ref(*refs).backward(g)
+    for name, a, b in zip("xz conv_w conv_b xp_w dt_w dt_b A D".split(), leaves, refs):
+        assert a.grad.dtype == b.grad.dtype and torch.isfinite(a.grad.float()).all(), name
+        # mean-rel, written so that a gradient that is 0 on both sides (A's at
+        # one step, where no earlier state decays) passes
+        err = (a.grad.float() - b.grad.float()).abs().mean().item()
+        assert err <= 1e-2 * b.grad.float().abs().mean().item(), name
+
+
+def test_mamba_bf16_route_through_kernel_h(cuda):
+    """``Mamba(dtype=bfloat16, scan_impl="fused")`` on a spec kernel C cannot
+    run: kernel H's bf16 variant and no kernel C; the output against the
+    plain route's at 1e-2 mean-rel, every gradient too."""
+    spec = _doubled_atrous(14)
+    (m,) = _mixers(cuda, spec, seed=2, count=1)
+    m.dtype = torch.bfloat16
+    x, g = _x(cuda, 196, 3, 8), _x(cuda, 196, 4, 8).to(torch.bfloat16)
+    grads = {}
+    for impl in ("fused", "ref"):
+        m.scan_impl = impl
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        h0, c0 = mamba_inner_fused_cuda.bf16.launches, mixer_fused_cuda.bf16.launches
+        out = m(xi)
+        assert out.dtype == torch.bfloat16
+        assert (mamba_inner_fused_cuda.bf16.launches, mixer_fused_cuda.bf16.launches) == (
+            h0 + (impl == "fused"), c0)
+        out.backward(g)
+        grads[impl] = {"out": out.detach(), "x": xi.grad,
+                       **{k: p.grad for k, p in m.named_parameters()}}
+    for name, want in grads["ref"].items():
+        assert _mean_rel(grads["fused"][name], want) <= 1e-2, name
+
+
+@pytest.mark.parametrize("G,L,M", [(48, 196, 2), (4, 25, 1), (6, 197, 2)])
+def test_ssd_core_bf16_matches_plain(cuda, G, L, M):
+    """Kernel P's bf16 variant against ``ssd_core_ref`` at bf16 (the TPU
+    kernel's quadratic form, rounded as it rounds), counted as a bf16
+    launch."""
+    spec = build_scan_spec("spiral", 14, 3)
+    ws = [m.weights() for m in _mixers2(cuda, spec, seed=G + L, count=M)]
+    x = torch.randn(G, L, HIDDEN, generator=torch.Generator().manual_seed(G)).to(cuda)
+    per = G // M
+    with torch.no_grad():
+        zx = torch.cat([torch.nn.functional.linear(x[m * per:(m + 1) * per], w.in_w)
+                        for m, w in enumerate(ws)]).to(torch.bfloat16)
+        launches = (ssd_core_cuda.launches, ssd_core_cuda.bf16.launches)
+        got, again = (ssd_core_cuda(zx, ws) for _ in range(2))
+        want = ssd_core_ref(zx, ws)
+    torch.cuda.synchronize()
+    assert (ssd_core_cuda.launches, ssd_core_cuda.bf16.launches) == (launches[0],
+                                                                      launches[1] + 2)
+    assert got.dtype == want.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= HP_BF16 * max(
+        1.0, want.float().abs().max().item())
+    assert _mean_rel(got, want) <= HP_BF16_MEAN
 
 
 # ---- kernels E, F and G in bf16 (the bf16 Mamba-2 model)

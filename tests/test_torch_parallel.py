@@ -166,7 +166,7 @@ def _scan_case(kind: str, gated, sp: int, dt_floor: float) -> dict:
         ssd_sequence_parallel,
     )
 
-    mesh = make_mesh(dp=1, tp=1, sp=sp)
+    mesh = make_mesh(dp=1, tp=1, sp=sp, device="cpu")
     a = _scan_inputs(kind, gated)
     names = [k for k in SCAN_ORDER[kind] if k in a]
     t = {k: torch.from_numpy(a[k]).requires_grad_() for k in names}
@@ -236,7 +236,7 @@ def _mixer_case(use_mamba2: bool, family: str, tp: int, sp: int, scan_impl="auto
     of x and of every parameter."""
     from diffma_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(dp=dist.get_world_size() // (tp * sp), tp=tp, sp=sp)
+    mesh = make_mesh(dp=dist.get_world_size() // (tp * sp), tp=tp, sp=sp, device="cpu")
     mixer = _port_mixer(use_mamba2, family, mesh, tp, sp, scan_impl)
     io = _mixer_io(use_mamba2)
     x = torch.from_numpy(io["x"]).requires_grad_()
@@ -263,7 +263,7 @@ def _step_case(use_mamba2: bool, dp: int, tp: int, state_dict: dict, batch: dict
     from diffma_tpu_torch.train import train
     from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
 
-    mesh = make_mesh(dp=dp, tp=tp, sp=1)
+    mesh = make_mesh(dp=dp, tp=tp, sp=1, device="cpu")
     model = _step_model(use_mamba2, mesh, tp)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()}, strict=True)
     opt = adamw(model.parameters(), 1e-3)
@@ -286,7 +286,7 @@ def _nan_case(rank: int) -> dict:
     from diffma_tpu_torch.train import train
     from diffma_tpu_torch.train.state import TrainState, adamw, make_train_step
 
-    mesh = make_mesh(dp=2)
+    mesh = make_mesh(dp=2, device="cpu")
     model = build_model("DiffMa-S/2", input_size=8, hidden_size=32, d_state=4)
     model.init_weights(torch.Generator().manual_seed(rank))  # made equal by the broadcast
     shard_params(model.parameters(), mesh)

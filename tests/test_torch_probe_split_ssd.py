@@ -69,14 +69,19 @@ def test_split_form_matches_jax_probe(probes):
     assert np.abs(whole - want).max() <= _bar(want)  # the whole mixer agrees too
 
 
-def test_ssd_core_ref_matches_jax_core_kernel(probes):
-    """``ssd_core_ref`` on 6 gathered streams (B = 1, both branches, 3
-    streams) against the JAX kernel on the same rows padded to 200 as the
-    probe pads them (after each stream: the conv is causal), rows 0-195."""
-    jp, _ = probes
-    w = _weights(jp, 2)
-    G, L, Lp = 6, jp.L0, 200
-    zx = (np.random.default_rng(3).standard_normal((G, L, jp.dproj)) * 0.3).astype(np.float32)
+def core_inputs(jp, seed=2):
+    """The probe's weights and 6 gathered streams (B = 1, both branches, 3
+    streams) of zx, drawn with numpy."""
+    zx = np.random.default_rng(seed + 1).standard_normal((6, jp.L0, jp.dproj)) * 0.3
+    return _weights(jp, seed), zx.astype(np.float32)
+
+
+def jax_core(jp, w, zx, dtype=jnp.float32):
+    """The JAX kernel ``_core_kernel`` in interpret mode on zx in ``dtype``,
+    its rows padded to 200 as the probe pads them (after each stream: the
+    conv is causal); rows 0-195, as float32."""
+    G, L = zx.shape[:2]
+    Lp = 200
     padded = np.concatenate([zx, np.zeros((G, Lp - L, jp.dproj), np.float32)], axis=1)
     in_w, conv_w, conv_b, dt_bias, A_log, D, norm_w, _ = map(jnp.asarray, w)
     kern = functools.partial(jp._core_kernel, L=Lp, eps=1e-5, dt_lo=0.0, dt_hi=float("inf"),
@@ -89,26 +94,39 @@ def test_ssd_core_ref_matches_jax_core_kernel(probes):
         kern, grid=(G,),
         in_specs=[pl.BlockSpec((1, Lp, jp.dproj), lambda i: (i, 0, 0)), *wspecs],
         out_specs=pl.BlockSpec((1, Lp, jp.d), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((G, Lp, jp.d), jnp.float32),
+        out_shape=jax.ShapeDtypeStruct((G, Lp, jp.d), dtype),
         scratch_shapes=[jp.pltpu.VMEM((Lp, jp.conv_dim), jnp.float32),
                         jp.pltpu.VMEM((Lp, jp.H), jnp.float32),
                         jp.pltpu.VMEM((Lp, jp.d), jnp.float32)],
         interpret=True,
-    )(jnp.asarray(padded), jnp.swapaxes(conv_w, -1, -2), conv_b[:, None], dt_bias[:, None],
-      -jnp.exp(A_log)[:, None], D[:, None], norm_w[:, None])
-    want = np.asarray(want)[:, :L]
-    _, tp = probes
+    )(jnp.asarray(padded).astype(dtype), jnp.swapaxes(conv_w, -1, -2), conv_b[:, None],
+      dt_bias[:, None], -jnp.exp(A_log)[:, None], D[:, None], norm_w[:, None])
+    return np.asarray(want.astype(jnp.float32))[:, :L]
+
+
+def test_ssd_core_ref_matches_jax_core_kernel(probes):
+    """``ssd_core_ref`` on 6 gathered streams (B = 1, both branches, 3
+    streams) against the JAX kernel on the same rows padded to 200 as the
+    probe pads them (after each stream: the conv is causal), rows 0-195."""
+    jp, tp = probes
+    w, zx = core_inputs(jp)
+    want = jax_core(jp, w, zx)
     ws = tp.mixer_weights(tuple(map(torch.from_numpy, w)))
     got = ssd_core_ref(torch.from_numpy(zx), ws).numpy()
-    assert got.shape == want.shape == (G, L, jp.d)
+    assert got.shape == want.shape == (6, jp.L0, jp.d)
     assert np.abs(got - want).max() <= _bar(want)
 
 
 def test_probe_tool_runs_on_cpu(probes):
-    """The probe tool's entry point with ``--device cpu --batch 1``: both
-    forms take their plain versions, agree, and no time is taken."""
+    """The probe tool's entry point with ``--device cpu --batch 1``: bf16,
+    then fp32, as the JAX probe; both forms take their plain versions, agree
+    (fp32 here, bf16's bars in ``tests/test_torch_bf16_tail.py``), and no
+    time is taken."""
     _, tp = probes
-    out = tp.main(["--device", "cpu", "--batch", "1"])
+    res = tp.main(["--device", "cpu", "--batch", "1"])
+    assert list(res) == ["bfloat16", "float32"]
+    assert np.isfinite(res["bfloat16"]["max_abs_diff"]) and "whole_ms" not in res["bfloat16"]
+    out = res["float32"]
     assert np.isfinite(out["max_abs_ref"]) and out["max_abs_ref"] > 0.1
     assert out["max_abs_diff"] <= TOL * max(1.0, out["max_abs_ref"])
     assert "whole_ms" not in out and "split_ms" not in out

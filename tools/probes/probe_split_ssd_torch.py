@@ -14,8 +14,13 @@ is one call of ``mamba2_dual_mixer_fused``. Both run the Spiral spec of
 grid 14, layer 3 (non-identity orders), DiffMa's width (hidden 512, d_inner
 1024, 16 heads of 64, d_state 16), both branches, with weights drawn as the
 JAX probe's ``make_weights`` draws them, from a ``torch.Generator`` seeded
-with ``--seed``. It prints the two forms' largest difference and, on the
-card, ms per dual-mixer call over ``CHAIN`` chained calls of each.
+with ``--seed``. As the JAX probe, it runs bf16 first, then fp32: at bf16
+x and the two projections' weights hold bf16 values,
+in_proj sums in fp32 and rounds zx to bf16, kernel P and the whole form run
+their bf16 variants, the merge sums in fp32 and out_proj takes operands
+rounded to bf16. For each dtype it prints the two forms' largest difference
+and, on the card, ms per dual-mixer call over ``CHAIN`` chained calls of
+each.
 
 On the CPU (``--device cpu``) both forms take their plain versions, and no
 time is printed.
@@ -53,19 +58,24 @@ SPEC = build_scan_spec("spiral", GRID, LAYER)
 CHAIN = 50  # chained calls per timing, as the JAX probe's N_CHAIN
 
 
-def make_weights(seed: int, device) -> Tuple[torch.Tensor, ...]:
+def make_weights(seed: int, device, dtype=torch.float32) -> Tuple[torch.Tensor, ...]:
     """Both branches' weights stacked, in the JAX probe's layout and scales:
     in_w (2, h, dproj), conv_w (2, conv_dim, K), conv_b (2, conv_dim),
-    dt_bias (2, H), A_log (2, H), D (2, H), norm_w (2, d), out_w (2, d, h)."""
+    dt_bias (2, H), A_log (2, H), D (2, H), norm_w (2, d), out_w (2, d, h);
+    all fp32, in_w and out_w holding values of ``dtype`` (the JAX probe casts
+    those two to it)."""
     gen = torch.Generator().manual_seed(seed)
 
     def u(shape, scale):
         return torch.randn(shape, generator=gen) * scale
 
+    def rounded(shape, scale):
+        return u(shape, scale).to(dtype).float()
+
     weights = (
-        u((2, H_MODEL, DPROJ), 0.03), u((2, CONV_DIM, CONV), 0.3), u((2, CONV_DIM), 0.1),
+        rounded((2, H_MODEL, DPROJ), 0.03), u((2, CONV_DIM, CONV), 0.3), u((2, CONV_DIM), 0.1),
         u((2, HEADS), 0.1), u((2, HEADS), 0.5), torch.ones(2, HEADS), torch.ones(2, D_INNER),
-        u((2, D_INNER, H_MODEL), 0.03),
+        rounded((2, D_INNER, H_MODEL), 0.03),
     )
     return tuple(w.to(device) for w in weights)
 
@@ -82,41 +92,46 @@ def mixer_weights(weights) -> Tuple[Mamba2Weights, Mamba2Weights]:
 
 def whole_dual(x12: torch.Tensor, ws: Sequence[Mamba2Weights]) -> torch.Tensor:
     """Both branches through one call of kernel E (its plain version on the
-    CPU); (2, B, L, h)."""
+    CPU) at x12's dtype; (2, B, L, h)."""
     return torch.stack(mamba2_dual_mixer_fused(SPEC, x12[0], x12[1], ws[0], ws[1], eps=EPS))
 
 
 def gathered_streams(x12: torch.Tensor, ws: Sequence[Mamba2Weights]) -> torch.Tensor:
     """in_proj over the (branch, batch) grid, then the stream gathers: the
     (branch, batch, stream) sequences ``(2 * B * S, L, dproj)`` that kernel P
-    takes."""
+    takes, in x12's dtype (fp32 sums, rounded to it, as the JAX probe's
+    ``split_dual``)."""
     M, B, L, _ = x12.shape
-    in_w = torch.stack([w.in_w for w in ws])
-    zx = torch.matmul(x12, in_w.transpose(1, 2)[:, None])  # (M, B, L, dproj)
+    in_w = torch.stack([w.in_w for w in ws]).to(x12.dtype).float()
+    zx = torch.matmul(x12.float(), in_w.transpose(1, 2)[:, None]).to(x12.dtype)
     fwd, _ = index_tables(SPEC, x12.device)
     return zx.index_select(2, fwd).reshape(M * B * SPEC.n_streams, L, DPROJ)
 
 
 def split_dual(x12: torch.Tensor, ws: Sequence[Mamba2Weights]) -> torch.Tensor:
     """The split form: ``gathered_streams``, kernel P (its plain version on
-    the CPU), the merge and out_proj; (2, B, L, h)."""
+    the CPU), the merge (summed in fp32) and out_proj (operands rounded to
+    x12's dtype, fp32 sums); (2, B, L, h) in x12's dtype."""
     M, B, L, _ = x12.shape
     S = SPEC.n_streams
     zxs = gathered_streams(x12, ws)
     core = ssd_core_cuda if zxs.device.type == "cuda" else ssd_core_ref
     yn = core(zxs, ws, eps=EPS).reshape(M, B, S * L, D_INNER)
     _, merge = index_tables(SPEC, x12.device)
-    merged = yn.index_select(2, merge).reshape(M, B, L, S, D_INNER).sum(dim=3) * SPEC.scale
-    out_w = torch.stack([w.out_w for w in ws])
-    return torch.matmul(merged, out_w.transpose(1, 2)[:, None])
+    merged = yn.float().index_select(2, merge).reshape(M, B, L, S, D_INNER).sum(dim=3)
+    cd = x12.dtype
+    out_w = torch.stack([w.out_w for w in ws]).to(cd).float()
+    merged = (merged * SPEC.scale).to(cd).float()
+    return torch.matmul(merged, out_w.transpose(1, 2)[:, None]).to(cd)
 
 
-def inputs(batch: int, seed: int, device) -> Tuple[torch.Tensor, Tuple[Mamba2Weights, ...]]:
-    """x12 (2, B, 196, h), normal times 0.5 as the JAX probe draws it, and
-    both branches' weights."""
+def inputs(batch: int, seed: int, device,
+           dtype=torch.float32) -> Tuple[torch.Tensor, Tuple[Mamba2Weights, ...]]:
+    """x12 (2, B, 196, h) in ``dtype``, normal times 0.5 as the JAX probe
+    draws it, and both branches' weights (``make_weights``)."""
     gen = torch.Generator().manual_seed(seed + 1)
-    x12 = (torch.randn(2, batch, GRID * GRID, H_MODEL, generator=gen) * 0.5).to(device)
-    return x12, mixer_weights(make_weights(seed, device))
+    x12 = (torch.randn(2, batch, GRID * GRID, H_MODEL, generator=gen) * 0.5).to(device, dtype)
+    return x12, mixer_weights(make_weights(seed, device, dtype))
 
 
 def chained_ms(fn, x12: torch.Tensor, calls: int) -> float:
@@ -132,7 +147,10 @@ def chained_ms(fn, x12: torch.Tensor, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
-def main(argv=None) -> Dict[str, float]:
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}  # in the JAX probe's order
+
+
+def main(argv=None) -> Dict[str, Dict[str, float]]:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
@@ -140,22 +158,28 @@ def main(argv=None) -> Dict[str, float]:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    x12, ws = inputs(args.batch, args.seed, device)
+    return {name: _compare(name, *inputs(args.batch, args.seed, device, dtype))
+            for name, dtype in DTYPES.items()}
+
+
+def _compare(name: str, x12: torch.Tensor, ws) -> Dict[str, float]:
+    """The two forms on x12 at its dtype: their difference and, on the card,
+    their ms per call."""
     with torch.no_grad():
-        cur = whole_dual(x12, ws)
-        new = split_dual(x12, ws)
+        cur = whole_dual(x12, ws).float()
+        new = split_dual(x12, ws).float()
         diff = (cur - new).abs()
         out = {"max_abs_ref": cur.abs().max().item(), "max_abs_diff": diff.max().item(),
                "rel": (diff.mean() / cur.abs().mean()).item()}
-        print(f"[fp32, B={args.batch}, {device}] mean|whole|={cur.abs().mean().item():.4f} "
+        print(f"[{name}, B={x12.shape[1]}, {x12.device}] mean|whole|={cur.abs().mean().item():.4f} "
               f"max|diff|={out['max_abs_diff']:.3e} rel={out['rel']:.2e}")
-        if device.type == "cuda":
-            for name, fn in (("whole_ms", lambda x: whole_dual(x, ws)),
-                             ("split_ms", lambda x: split_dual(x, ws))):
+        if x12.device.type == "cuda":
+            for key, fn in (("whole_ms", lambda x: whole_dual(x, ws)),
+                            ("split_ms", lambda x: split_dual(x, ws))):
                 fn(x12)  # warm-up
-                out[name] = chained_ms(fn, x12, CHAIN)
-            print(f"  [{torch.cuda.get_device_name(0)}] chained dual-mixer: whole (kernel E) "
-                  f"{out['whole_ms']:.4f} ms  split (in_proj, gathers, kernel P, merge, "
+                out[key] = chained_ms(fn, x12, CHAIN)
+            print(f"  [{torch.cuda.get_device_name(0)}] chained dual-mixer, {name}: whole (kernel "
+                  f"E) {out['whole_ms']:.4f} ms  split (in_proj, gathers, kernel P, merge, "
                   f"out_proj) {out['split_ms']:.4f} ms  ({out['whole_ms'] / out['split_ms']:.2f}x)")
     return out
 
