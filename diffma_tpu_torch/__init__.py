@@ -26,9 +26,9 @@ mirrors the JAX package's module paths and names:
                                     the batch loader, the native C++ loader's
                                     binding and the dataset splitter.
 - ``diffma_tpu_torch.utils``     -- config, metrics, device choice, CUDA
-                                    graphs, logging, profiling and FLOP
-                                    counts, and weight conversion from the JAX
-                                    package.
+                                    graphs, the tracer's spans and counters,
+                                    logging, profiling and FLOP counts, and
+                                    weight conversion from the JAX package.
 
 It imports neither JAX nor ``diffma_tpu``. Entry points run on ``cuda``
 unless the caller asks for ``device="cpu"``.

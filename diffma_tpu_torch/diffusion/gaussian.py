@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Set
 import numpy as np
 import torch
 
+from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.graphs import Graph
 
@@ -535,22 +536,25 @@ class GaussianDiffusion:
 
     def _chain(self, step, model, shape, generator, noise, model_kwargs, step_noise, graph,
                eager_only):
-        """The last ``sample`` of ``_steps``; with ``graph``, its replays."""
-        if graph is None:
-            out = None
-            for out in self._steps(step, model, shape, generator, noise, model_kwargs,
-                                   step_noise):
-                pass
-            return out["sample"]
-        if eager_only:
+        """The last ``sample`` of ``_steps``; with ``graph``, its replays. A
+        span, ``diffusion.chain``, from the first draw to the last launch."""
+        if graph is not None and eager_only:
             raise ValueError("a chain with cond_fn or denoised_fn runs eagerly: pass no graph")
-        img = self._init_noise(shape, generator, noise)
-        noises = [self._draw(img, generator, step_noise, i) for i in range(self.num_timesteps)]
+        with trace.span("diffusion.chain", device=True, alloc=True):
+            if graph is None:
+                out = None
+                for out in self._steps(step, model, shape, generator, noise, model_kwargs,
+                                       step_noise):
+                    pass
+                return out["sample"]
+            img = self._init_noise(shape, generator, noise)
+            noises = [self._draw(img, generator, step_noise, i)
+                      for i in range(self.num_timesteps)]
 
-        def sample(x, t, n, kw):
-            return step(model, x, t, n, kw)["sample"]
+            def sample(x, t, n, kw):
+                return step(model, x, t, n, kw)["sample"]
 
-        return graph.run(sample, img, noises, model_kwargs)
+            return graph.run(sample, img, noises, model_kwargs)
 
     def _p_step(self, clip_denoised, denoised_fn, cond_fn):
         def step(model, x, t, noise, kw):
@@ -729,7 +733,7 @@ class ChainGraph:
     and ``graph.pool_bytes`` say what the capture took."""
 
     def __init__(self, device, pool=None):
-        self.graph = Graph(device, pool)
+        self.graph = Graph(device, pool, name="chain_step")
         self.x = self.t = self.noise = self.kwargs = None
 
     def run(self, step, img, noises, model_kwargs=None) -> torch.Tensor:

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffma_tpu_torch.utils import trace
+
 __all__ = ["AutoencoderKL", "DiagonalGaussian", "SD_VAE_SCALE"]
 
 SD_VAE_SCALE = 0.18215
@@ -238,4 +240,5 @@ class AutoencoderKL(nn.Module):
         return self.encode(x).sample(generator, noise) * scale
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z))
+        with trace.span("vae.decode", device=True, alloc=True):
+            return self.decoder(self.post_quant_conv(z))

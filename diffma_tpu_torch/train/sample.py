@@ -30,6 +30,15 @@ conditioning encode and the VAE decode stay outside the graph.
 ``sample_batches(..., graphed=False)`` runs the eager loop on the card, for
 a comparison; the CPU always runs it.
 
+Each batch is one group of the tracer's spans (``utils/trace.py``):
+``sample.request`` around ``sample.encode`` (the start noise and the
+conditioning), ``diffusion.chain`` (its ``graph.replay`` spans inside),
+``vae.decode`` and ``sample.report`` (the PNG grids and PSNR/SSIM). The log
+line takes the request's seconds from these spans' totals and splits them
+into the encode's and the report's (host time) and the chain's and the
+decode's (device time on the card); a result's ``seconds`` is the request's
+less its report.
+
 When the three val folders exist and ``synthetic_data`` is false, the
 sampler reads their ``.npy`` triplets in order (``NpyDataset``, resized to
 ``image_size``; the last batch may be short), takes y, y2 and w from the
@@ -62,7 +71,6 @@ import argparse
 import logging
 import os
 import struct
-import time
 import zlib
 
 import numpy as np
@@ -83,6 +91,7 @@ from diffma_tpu_torch.train.train import (
     make_dataset,
     synthetic_batch,
 )
+from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.metrics import quality_report
@@ -200,38 +209,44 @@ def sample_batches(model, cfg, device="cuda", graphed=None, process_index=None,
     chains = {}  # batch size -> ChainGraph, all in the first one's memory pool
     loader = make_loader(dataset, batch_size, shuffle=False, drop_last=False,
                          process_index=process_index, process_count=process_count)
+    _take_request()  # the totals of chains and decodes run before this call
     for item, (x_ct, _mask, z_mri) in enumerate(loader, start=1):
         n = x_ct.shape[0]
-        t0 = time.perf_counter()
-        z = torch.randn((n, 4, latent, latent), generator=gen, device=device)
-        if cond is not None:
-            b = cond.encode_triplets(x_ct, z_mri, gen)
-        else:
-            b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
-        chain = None
-        if graphed:
-            if n not in chains:
-                pool = next(iter(chains.values())).graph.pool if chains else None
-                chains[n] = ChainGraph(device, pool)
-            chain = chains[n]
-        captured = chain is not None and chain.graph.graph is None
-        with torch.no_grad():
-            samples = loop(
-                fp32_output(model), z.shape, gen, noise=z, clip_denoised=False,
-                model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]}, graph=chain,
-            )
-            images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
-        seconds = time.perf_counter() - t0
-        mri3 = np.concatenate([z_mri] * 3, axis=1)
-        save_image_grid(images, f"{save_dir}/{prefix}{item}_sample_gen.png")
-        save_image_grid(mri3, f"{save_dir}/{prefix}{item}_sample_ori.png")
-        save_image_grid(np.concatenate([x_ct] * 3, axis=1),
-                        f"{save_dir}/{prefix}{item}_sample_ct.png")
-        q = quality_report(images, mri3)
+        trace.group()
+        with trace.span("sample.request"):
+            with trace.span("sample.encode"):
+                z = torch.randn((n, 4, latent, latent), generator=gen, device=device)
+                if cond is not None:
+                    b = cond.encode_triplets(x_ct, z_mri, gen)
+                else:
+                    b = synthetic_batch(gen, n, latent, tokens, dim=model.hidden_size)
+            chain = None
+            if graphed:
+                if n not in chains:
+                    pool = next(iter(chains.values())).graph.pool if chains else None
+                    chains[n] = ChainGraph(device, pool)
+                chain = chains[n]
+            captured = chain is not None and chain.graph.graph is None
+            with torch.no_grad():
+                samples = loop(
+                    fp32_output(model), z.shape, gen, noise=z, clip_denoised=False,
+                    model_kwargs={"y": b["y"], "y2": b["y2"], "w": b["w"]}, graph=chain,
+                )
+                images = vae.decode(samples / SD_VAE_SCALE).cpu().numpy()
+            with trace.span("sample.report"):
+                mri3 = np.concatenate([z_mri] * 3, axis=1)
+                save_image_grid(images, f"{save_dir}/{prefix}{item}_sample_gen.png")
+                save_image_grid(mri3, f"{save_dir}/{prefix}{item}_sample_ori.png")
+                save_image_grid(np.concatenate([x_ct] * 3, axis=1),
+                                f"{save_dir}/{prefix}{item}_sample_ct.png")
+                q = quality_report(images, mri3)
+        parts = _take_request()
+        split = ", ".join(f"{label} {parts[label]:.3f} s" for label, _ in _PARTS)
         logger.info(
-            f"saved sample grid {item} in {seconds:.3f} s  "
+            f"saved sample grid {item} in {parts['request']:.3f} s ({split})  "
             f"PSNR {q['psnr_db']:.2f} dB  SSIM {q['ssim']:.4f}"
         )
+        seconds = parts["request"] - parts["report"]
         results.append({"images": images, "seconds": seconds, "quality": q})
         if captured and chain.graph.graph is not None:
             results[-1].update(capture_seconds=chain.graph.capture_seconds,
@@ -246,6 +261,20 @@ def sample_batches(model, cfg, device="cuda", graphed=None, process_index=None,
             float(np.mean([r["quality"]["ssim"] for r in results])),
         )
     return results
+
+
+_PARTS = (("encode", "sample.encode"), ("chain", "diffusion.chain"),
+          ("decode", "vae.decode"), ("report", "sample.report"))
+
+
+def _take_request() -> dict:
+    """The seconds of the spans since the last call, by label: the request's
+    and its parts' (device time on the card where the span has it)."""
+    out = {"request": trace.take("sample.request").host_ms / 1e3}
+    for label, name in _PARTS:
+        tot = trace.take(name)
+        out[label] = (tot.device_ms if tot.device_ms is not None else tot.host_ms) / 1e3
+    return out
 
 
 def cli(argv=None):

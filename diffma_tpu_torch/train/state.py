@@ -52,6 +52,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.graphs import Graph
 
 __all__ = ["GraphedTrainStep", "TrainState", "adamw", "make_train_step", "restore_train_state",
@@ -256,7 +257,7 @@ class GraphedTrainStep:
 
     def __init__(self, train_step, device):
         self.train_step = train_step
-        self.graph = Graph(device)
+        self.graph = Graph(device, name="train_step")
         self.state = self.batch = self.metrics = None
 
     def __call__(self, state: TrainState, batch, generator=None) -> Dict[str, torch.Tensor]:
@@ -267,8 +268,9 @@ class GraphedTrainStep:
             return self.graph.warm_up(self.train_step, state, batch, None)
         if state is not self.state or batch.keys() != self.batch.keys():
             raise ValueError("a graphed step serves one TrainState and one batch layout")
-        for k, v in batch.items():
-            self.batch[k].copy_(v)
+        with trace.span("train_step.copy_in"):
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
         if self.metrics is None:
             self.metrics = self.graph.capture(self.train_step, state, self.batch, None)
         self.graph.replay()

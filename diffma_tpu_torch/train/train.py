@@ -44,9 +44,18 @@ native C++ loader (``data/native.py``; ``NpyDataset`` when its library
 cannot be built, with the reason in the log), shuffled per epoch, and
 encodes every batch with the frozen ``Conditioning`` stack: the MRI to the
 latent ``z``, the CT to the CLIP embedding ``y`` and, through its VAE
-latent, to the CT encoder's tokens ``y2`` and soft mask ``w``. The encode is timed as a span of its own
-(``Encode ms/step`` in the log: device time on the card). Otherwise it runs
-on synthetic batches, as the JAX trainer falls back to them.
+latent, to the CT encoder's tokens ``y2`` and soft mask ``w``. Otherwise it
+runs on synthetic batches, as the JAX trainer falls back to them.
+
+Each iteration is one group of the tracer's spans (``utils/trace.py``):
+``train.data_wait`` (the ``next`` on the loader), ``train.encode`` (timed
+by CUDA events too), ``train.step`` (the batch, the loss's draws and the
+step: ``train_step.copy_in`` and ``graph.replay`` inside it) and, where it
+logs, ``train.log`` (the losses read to the host). The log line gives the
+loader's wait (``Loader wait ms/step``, host time) and the encode's
+(``Encode ms/step``, device time on the card) since the last log. Under
+``profile_dir`` the trace the profiler writes holds the spans as a host
+track beside the device's.
 
 ``resume_from`` (a ``checkpoints/`` directory) continues a run from its
 checkpoint at ``resume_step`` (by default the latest): the model, the EMA,
@@ -135,10 +144,11 @@ from diffma_tpu_torch.train.state import (
     make_train_step,
     restore_train_state,
 )
+from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.config import parse_cli
 from diffma_tpu_torch.utils.device import resolve_device
 from diffma_tpu_torch.utils.logging import WandbShim, create_experiment_dir, create_logger
-from diffma_tpu_torch.utils.profiling import SpanTimer, StepProfiler, Throughput
+from diffma_tpu_torch.utils.profiling import StepProfiler, Throughput
 from diffma_tpu_torch.utils.torch_io import load_weights
 
 __all__ = ["Conditioning", "check_width", "cli", "compute_dtype", "fp32_output", "loss_draws",
@@ -418,7 +428,6 @@ def main(cfg, device="cuda"):
         logger.info(f"Dataset contains {len(dataset)}.")
     else:
         logger.info("dataset folders unavailable or not used; training on synthetic data")
-    encode_timer = SpanTimer(device)
     global_batch = int(cfg.global_batch_size)
     if global_batch % mesh.dp:
         raise ValueError(f"global_batch_size {global_batch} is not divisible by dp {mesh.dp}")
@@ -455,22 +464,30 @@ def main(cfg, device="cuda"):
             logger.info(f"Beginning epoch {epoch}...")
             loader = make_loader(dataset, batch_size, seed=seed, epoch=epoch,
                                  process_index=mesh.index("dp"), process_count=mesh.dp)
-            for x_ct, _mask, z_mri in itertools.islice(loader, steps_per_epoch):
+            batches = itertools.islice(loader, steps_per_epoch)
+            while True:
+                trace.group()
+                with trace.span("train.data_wait"):
+                    item = next(batches, None)
+                if item is None:
+                    break
+                x_ct, _mask, z_mri = item
                 if cond is not None:
-                    with encode_timer.span():
+                    with trace.span("train.encode", device=True):
                         batch = cond.encode_triplets(x_ct, z_mri, generator)
-                elif fixed_batch is not None:
-                    batch = fixed_batch
-                else:
-                    # every dp rank draws the same batch (diffma_tpu/train/train.py:425-429)
-                    batch = synthetic_batch(generator, batch_size, latent, tokens,
-                                            dim=model.hidden_size)
-                if graphed or mesh.dp > 1:
-                    # JAX draws t and the noise over the global batch in its step
-                    batch = dict(batch)
-                    batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"], generator,
-                                                            mesh)
-                metrics = train_step(state, batch, generator)
+                with trace.span("train.step"):
+                    if fixed_batch is not None:
+                        batch = fixed_batch
+                    elif cond is None:
+                        # every dp rank draws the same batch (diffma_tpu/train/train.py:425-429)
+                        batch = synthetic_batch(generator, batch_size, latent, tokens,
+                                                dim=model.hidden_size)
+                    if graphed or mesh.dp > 1:
+                        # JAX draws t and the noise over the global batch in its step
+                        batch = dict(batch)
+                        batch["t"], batch["noise"] = loss_draws(diffusion, batch["z"],
+                                                                generator, mesh)
+                    metrics = train_step(state, batch, generator)
                 running.append(metrics["loss"])
                 if history is not None:
                     history.append(metrics)
@@ -478,16 +495,15 @@ def main(cfg, device="cuda"):
                 profiler.step(train_steps)
                 throughput.tick()
                 if train_steps % log_every == 0:
-                    losses = torch.stack(running).float().cpu().numpy()
+                    with trace.span("train.log"):
+                        losses = torch.stack(running).float().cpu().numpy()
                     for j, v in enumerate(losses):
                         wandb.log({"loss": float(v)}, step=train_steps - len(losses) + 1 + j)
                     tp = throughput.report()
-                    encode = (f", Encode ms/step: {encode_timer.read():.2f}"
-                              if cond is not None else "")
                     logger.info(
                         f"(step={train_steps:07d}) Train Loss: {np.nanmean(losses):.4f}, "
                         f"Train Steps/Sec: {tp['steps_per_sec']:.2f}, "
-                        f"Images/Sec: {tp['images_per_sec']:.2f}{encode}"
+                        f"Images/Sec: {tp['images_per_sec']:.2f}{_stage_ms(cond is not None)}"
                     )
                     running = []
                 if train_steps % ckpt_every == 0 and train_steps > 0:
@@ -510,6 +526,18 @@ def main(cfg, device="cuda"):
         logger.info("Done!")
         wandb.finish()
         logger.close()
+
+
+def _stage_ms(encodes: bool) -> str:
+    """The log line's loader wait (host ms) and, where batches are encoded,
+    encode (device ms on the card) per step since the last log."""
+    wait = trace.take("train.data_wait")
+    out = f", Loader wait ms/step: {wait.host_ms / max(wait.count, 1):.2f}"
+    if encodes:
+        enc = trace.take("train.encode")
+        ms = enc.device_ms if enc.device_ms is not None else enc.host_ms
+        out += f", Encode ms/step: {ms / max(enc.count, 1):.2f}"
+    return out
 
 
 def _finish(state: TrainState, history: Optional[list], generator: torch.Generator):

@@ -21,7 +21,18 @@ Each kernel wrapper counts its launches in its ``launches`` attribute. The
 capture sets the counts back to what they were before it, since nothing
 ran, and keeps what it added to each as the graph's ``launches``; every
 replay adds that again, so the counts are those of the eager calls that the
-replays stand for.
+replays stand for. The capture resolves the wrappers once; a replay adds to
+them and looks nothing up.
+
+Each ``Graph`` has a name (``train_step``, ``chain_step``). Its capture
+keeps the CUDA graph beside its instantiation (``keep_graph``) and counts
+its nodes by type (``nodes``; ``kernels`` the kernel nodes, every one of
+which runs once a replay: cuBLAS's and ATen's as well as the wrappers'),
+through the CUDA runtime that torch loaded (``cudaGraphGetNodes``,
+``cudaGraphNodeGetType``, by ``ctypes``). The tracer (``utils/trace.py``)
+keeps those counts by the graph's name, and records each capture and replay
+as a span, ``graph.capture`` and ``graph.replay`` (the host's launch of the
+captured program), tagged with the graph's name.
 
 A ``Graph`` raises on a device that is not CUDA, and a capture that fails
 raises: nothing here falls back to eager calls.
@@ -29,12 +40,16 @@ raises: nothing here falls back to eager calls.
 
 from __future__ import annotations
 
+import ctypes
+import os
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 
-__all__ = ["Graph", "kernel_counters"]
+from diffma_tpu_torch.utils import trace
+
+__all__ = ["Graph", "graph_nodes", "kernel_counters"]
 
 
 def kernel_counters() -> dict:
@@ -64,15 +79,56 @@ def kernel_counters() -> dict:
             "ssd_core_fwd_bf16": ssd_core_cuda.bf16}
 
 
+#: cudaGraphNodeType: the kinds counted apart; the rest are ``other``.
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_graph_api = None
+
+
+def _runtime():
+    """(get_nodes, node_type) of the CUDA runtime that torch loaded."""
+    global _graph_api
+    if _graph_api is None:
+        major = (torch.version.cuda or "12").split(".")[0]
+        lib = ctypes.CDLL(f"libcudart.so.{major}", mode=os.RTLD_NOLOAD)
+        get, kind = lib.cudaGraphGetNodes, lib.cudaGraphNodeGetType
+        ptr = ctypes.c_void_p
+        get.argtypes = [ptr, ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_size_t)]
+        kind.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+        get.restype = kind.restype = ctypes.c_int
+        _graph_api = (get, kind)
+    return _graph_api
+
+
+def graph_nodes(raw: int) -> Dict[str, int]:
+    """The nodes of the CUDA graph at ``raw`` (a ``cudaGraph_t``) by kind:
+    ``kernel``, ``memcpy``, ``memset`` and ``other``."""
+    get, kind = _runtime()
+    counts = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    n = ctypes.c_size_t(0)
+    if get(ctypes.c_void_p(raw), None, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and get(ctypes.c_void_p(raw), nodes, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    for node in nodes[: n.value]:
+        t = ctypes.c_int(-1)
+        if kind(node, ctypes.byref(t)):
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        counts[_NODE_KINDS.get(t.value, "other")] += 1
+    return counts
+
+
 class Graph:
     """One function's call captured on ``device`` and replayed; ``pool`` is
-    the memory pool of the entry point's graphs (a new one by default)."""
+    the memory pool of the entry point's graphs (a new one by default);
+    ``name`` names it to the tracer."""
 
-    def __init__(self, device, pool=None):
+    def __init__(self, device, pool=None, name: str = "graph"):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         self.device = device
+        self.name = name
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -81,6 +137,14 @@ class Graph:
         #: allocator reserved during it (the pool's growth).
         self.capture_seconds: Optional[float] = None
         self.pool_bytes: Optional[int] = None
+        #: The captured graph's nodes by kind (``graph_nodes``).
+        self.nodes: Dict[str, int] = {}
+        self._counted = []  # (wrapper, launches a replay)
+
+    @property
+    def kernels(self) -> Optional[int]:
+        """The captured graph's kernel nodes, each of which a replay runs once."""
+        return self.nodes.get("kernel")
 
     def _on_stream(self, fn: Callable, *args, **kw):
         current = torch.cuda.current_stream(self.device)
@@ -100,21 +164,26 @@ class Graph:
             raise RuntimeError("this graph has been captured already")
         counters = kernel_counters()
         before = {name: c.launches for name, c in counters.items()}
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as the capture does first, so that the growth is the pool's
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                out = fn(*args, **kw)
-        finally:
-            added = {name: c.launches - before[name] for name, c in counters.items()}
-            for name, c in counters.items():
-                c.launches = before[name]
+        with trace.span("graph.capture", graph=self.name):
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                    out = fn(*args, **kw)
+            finally:
+                added = {name: c.launches - before[name] for name, c in counters.items()}
+                for name, c in counters.items():
+                    c.launches = before[name]
+            graph.instantiate()
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.launches = {name: n for name, n in added.items() if n}
+        self._counted = [(counters[name], n) for name, n in self.launches.items()]
+        self.nodes = graph_nodes(graph.raw_cuda_graph())
+        trace.tracer.graph_nodes[self.name] = dict(self.nodes)
         self.graph = graph
         return out
 
@@ -122,7 +191,7 @@ class Graph:
         """Launch the captured program on the current stream; count its kernels."""
         if self.graph is None:
             raise RuntimeError("replay before capture")
-        self.graph.replay()
-        counters = kernel_counters()
-        for name, n in self.launches.items():
-            counters[name].launches += n
+        with trace.span("graph.replay", alloc=True, graph=self.name):
+            self.graph.replay()
+        for wrapper, n in self._counted:
+            wrapper.launches += n

@@ -2,11 +2,11 @@
 
 Counterpart of ``diffma_tpu/utils/profiling.py`` (which drives
 ``jax.profiler``). ``Throughput`` reports training steps/s and images/s
-between log points, ``SpanTimer`` the time of one span of the step (the
-trainer's conditioning encode); ``StepProfiler`` records a
-``torch.profiler`` trace over a window of training steps (the trainer's
-``profile_dir``, ``profile_start_step`` and ``profile_steps`` keys) and
-writes it as a Chrome trace. ``profile_denoiser`` runs a few DiffMa forwards, and
+between log points; ``StepProfiler`` records a ``torch.profiler`` trace
+over a window of training steps (the trainer's ``profile_dir``,
+``profile_start_step`` and ``profile_steps`` keys) and writes it as a
+Chrome trace, with the tracer's spans of the window (``utils/trace.py``) as a
+host track on the same clock. ``profile_denoiser`` runs a few DiffMa forwards, and
 ``profile_train_step`` a few of the trainer's steps, eager and as the CUDA
 graph the trainer replays, under ``torch.profiler``; each reports the
 host-clock time per call, the device's busy time (the union of kernel
@@ -34,7 +34,6 @@ E's and F's, and with ``--fuse-block`` E's and G's).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import json
 import logging
@@ -48,9 +47,10 @@ import torch
 
 from diffma_tpu_torch.models.diffma import build_model
 from diffma_tpu_torch.models.mamba import SCAN_IMPLS
+from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.device import resolve_device
 
-__all__ = ["SpanTimer", "StepProfiler", "Throughput", "model_flops", "profile_calls",
+__all__ = ["StepProfiler", "Throughput", "model_flops", "profile_calls",
            "profile_denoiser", "profile_train_step"]
 
 
@@ -76,6 +76,7 @@ class StepProfiler:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.__enter__()
+            self._since_ns = time.time_ns()
             self._first = step + 1
         elif self._prof is not None and step >= self._first + self.num_steps - 1:
             self.close()
@@ -89,7 +90,9 @@ class StepProfiler:
         self._prof.__exit__(None, None, None)
         os.makedirs(self.dir, exist_ok=True)
         last = self._first + self.num_steps - 1
-        self._prof.export_chrome_trace(os.path.join(self.dir, f"trace_{self._first}-{last}.json"))
+        path = os.path.join(self.dir, f"trace_{self._first}-{last}.json")
+        self._prof.export_chrome_trace(path)
+        trace.tracer.add_to_chrome_trace(path, since_ns=self._since_ns)
         self._prof = None
 
 
@@ -111,38 +114,6 @@ class Throughput:
         self._t0 = time.perf_counter()
         self._steps = 0
         return {"steps_per_sec": steps_s, "images_per_sec": steps_s * self.global_batch}
-
-
-class SpanTimer:
-    """The time of one span of each step, in ms per step over the spans since
-    the last ``read``: device time between CUDA events on the card (read
-    after the device has passed them), host time on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = torch.device(device).type == "cuda"
-        self._spans = []
-
-    @contextlib.contextmanager
-    def span(self):
-        if self.cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            yield
-            end.record()
-            self._spans.append((start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._spans.append(time.perf_counter() - t0)
-
-    def read(self) -> float:
-        spans, self._spans = self._spans, []
-        if not spans:
-            return 0.0
-        if self.cuda:
-            spans[-1][1].synchronize()
-            return sum(start.elapsed_time(end) for start, end in spans) / len(spans)
-        return sum(spans) * 1e3 / len(spans)
 
 
 def model_flops(

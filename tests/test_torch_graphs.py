@@ -38,7 +38,7 @@ class EagerGraph:
     captures = 0
     capture_seconds = pool_bytes = None
 
-    def __init__(self, device, pool=None):
+    def __init__(self, device, pool=None, name=None):
         self.graph = None
         self.pool = pool if pool is not None else object()
 

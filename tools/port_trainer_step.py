@@ -22,7 +22,7 @@ only, the spans that the loop is made of:
 * ``batch``: ``synthetic_batch``, the batch drawn on the card;
 * ``encode``: ``Conditioning.__call__``, the real batch encoded, queued
   (``encode_device_ms`` is the same span's device time, from the trainer's
-  ``SpanTimer``, over the same steps);
+  ``train.encode`` span, over the same steps);
 * ``draws``: ``loss_draws``, the loss's t and noise drawn on the card;
 * ``graph``: ``GraphedTrainStep.__call__``, the batch copied into the
   graph's buffers and the step replayed, queued (the spans below run inside
@@ -67,10 +67,11 @@ def timed_run(cfg, device: str, with_loader: bool, graphed: bool = True) -> dict
 
     from diffma_tpu_torch.train import state as state_mod
     from diffma_tpu_torch.train import train as train_mod
+    from diffma_tpu_torch.utils import trace as trace_mod
 
     events = []  # (span, start, seconds outside the spans inside it)
     reports = []  # (time, steps, seconds) of each Throughput window
-    encode_reads = []  # (time, device ms per step) of each SpanTimer read
+    encode_reads = []  # (time, device ms per step) of each read of the encode's span
     inner = []  # seconds of the spans inside each open span
 
     def timed_call(span, fn, *args, **kw):
@@ -104,19 +105,21 @@ def timed_run(cfg, device: str, with_loader: bool, graphed: bool = True) -> dict
     def make_loss_fn(*args, **kw):
         return wrap("forward", orig["make_loss_fn"](*args, **kw))
 
-    def read_encode(timer):
-        ms = orig["read"](timer)
-        encode_reads.append((time.perf_counter(), ms))
-        return ms
+    def take(name):
+        tot = orig["take"](name)
+        if name == "train.encode" and tot.count:
+            ms = tot.device_ms if tot.device_ms is not None else tot.host_ms
+            encode_reads.append((time.perf_counter(), ms / tot.count))
+        return tot
 
     orig = {"make_loader": train_mod.make_loader, "make_loss_fn": train_mod.make_loss_fn,
-            "read": train_mod.SpanTimer.read}
+            "take": trace_mod.take}
     patches = [
         (train_mod, "make_loader", timed_loader),
         (train_mod, "make_loss_fn", make_loss_fn),
         (train_mod, "synthetic_batch", wrap("batch", train_mod.synthetic_batch)),
         (train_mod.Conditioning, "__call__", wrap("encode", train_mod.Conditioning.__call__)),
-        (train_mod.SpanTimer, "read", read_encode),
+        (trace_mod, "take", take),
         (train_mod, "Throughput", Throughput),
         (train_mod, "loss_draws", wrap("draws", train_mod.loss_draws)),
         (train_mod.GraphedTrainStep, "__call__",
