@@ -252,6 +252,20 @@ needs neither JAX nor the JAX package, PyYAML or PIL. Phases:
     the card, exit 1 with one ``FAIL`` line on a CT checkpoint without a key
     and on a DiffMa checkpoint with a wrongly shaped tensor. Nothing in it
     is caught.
+25. the training step's optimizer update (``csrc/masked_adamw.cu``): (25a)
+    the kernel against its plain version at DiffMa-L/2's parameter shapes,
+    Mamba-1 and Mamba-2, every seventh tensor taking the EMA alone and the
+    largest off 16-byte alignment (at most ``MAX_ADAMW_ULPS`` apart, and
+    mean-rel at ``TOL_ADAMW_MEAN`` in each of p, m, v, the steps and the
+    EMA), a call with ``keep`` false that writes nothing, each timed as a
+    CUDA graph
+    beside its bound (36 bytes a parameter), its plain version and torch's
+    ``_fused_adamw_`` with ``found_inf`` plus a foreach EMA (a yardstick the
+    port never calls); (25b) the L/2 Mamba-1 step graphed and eager over 4
+    batches, the third NaN: the NaN step leaves every tensor in bits, the
+    two runs end equal in bits, one update launched a step. Phase 18b also
+    counts one update a step. Alone: ``c.phase_build();
+    c.phase_masked_adamw(card); c.phase_masked_adamw_step(card)``.
 
 Each sampler and trainer phase sets the kernels' counts to 0 just before it
 and checks them just after: every kernel of the path ran, as often as the
@@ -260,7 +274,8 @@ as CUDA graphs (``diffma_tpu_torch/utils/graphs.py``), whose replays add to
 each kernel's count what their capture recorded.
 
 The third line from the end is a JSON object with one entry per kernel (the
-nine kernels, then the bf16 variants of C, D, E, F, G, H and P), the second
+nine kernels, then the bf16 variants of C, D, E, F, G, H and P, then the
+masked AdamW + EMA update at both configurations' shapes), the second
 the card's name and power limit, the last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before those lines are printed.
 """
@@ -484,15 +499,19 @@ def phase_kernels(card: str) -> dict:
 
 
 def kernel_counters() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches (a graph's
-    replay adds what its capture recorded)."""
+    """Each mixer kernel's wrapper, whose ``launches`` counts its launches (a
+    graph's replay adds what its capture recorded). The optimizer's update,
+    ``masked_adamw``, runs once in every training step; phases 18b and 25
+    count it."""
     from diffma_tpu_torch.utils.graphs import kernel_counters as counters
 
-    return counters()
+    return {name: c for name, c in counters().items() if name != "masked_adamw"}
 
 
 def reset_counts() -> None:
-    for counter in kernel_counters().values():
+    from diffma_tpu_torch.utils.graphs import kernel_counters as counters
+
+    for counter in counters().values():
         counter.launches = 0
 
 
@@ -3317,6 +3336,7 @@ def phase_graphed_steps(card: str) -> dict:
 
     from diffma_tpu_torch.diffusion import create_diffusion
     from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.ops.masked_adamw import masked_adamw_cuda
     from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
     from diffma_tpu_torch.train.train import loss_draws, make_loss_fn, synthetic_batch
     from diffma_tpu_torch.utils.profiling import profile_train_step
@@ -3371,6 +3391,9 @@ def phase_graphed_steps(card: str) -> dict:
             mode = "graphed" if graphed else "eager"
             check_counts(f"the {label} {mode} steps", {**zero, **{k: v * steps for k, v in
                                                                    per_step.items()}})
+            if masked_adamw_cuda.launches != steps:
+                fail(f"the {label} {mode} steps ran masked_adamw {masked_adamw_cuda.launches} "
+                     f"times, not {steps}")
             flags = torch.stack(finite).tolist()
             if flags != [i != nan_at for i in range(steps)] or int(st.step) != steps - 1:
                 fail(f"{label} {mode}: finite flags {flags}, step count {int(st.step)}")
@@ -5275,6 +5298,236 @@ def phase_validate_imports(card: str) -> None:
                                             if line.strip().startswith("FAIL")))
 
 
+# ---- phase 25: the masked AdamW + EMA update
+
+# The kernel against its plain version (csrc/masked_adamw.cu rounds each
+# operation as the plain version's torch operations do): the largest
+# distance in ulps of any element, and mean |err| / mean |ref| of each list
+# the update writes (p, m, v, the step counts, the EMA).
+MAX_ADAMW_ULPS = 4
+TOL_ADAMW_MEAN = 1e-7
+ADAMW_HYPER = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, ema_decay=0.999)
+
+
+def bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def adamw_inputs(shapes, seed: int) -> list:
+    """An update's tensors at ``shapes`` on the card, as ``masked_adamw``
+    takes them: params, grads, exp_avg, exp_avg_sq (>= 0), step counts (3)
+    and the EMA. Every seventh tensor has no gradient and no AdamW state
+    (the EMA alone), and the largest lies 4 bytes off 16-byte alignment (the
+    kernel's element-by-element path)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+
+    def place(x, i):
+        if i != big:
+            return x
+        return torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+
+    def draw(scale=1.0):
+        return [place(scale * torch.randn(s, generator=gen, device="cuda"), i)
+                for i, s in enumerate(shapes)]
+
+    p, g, m, v, e = draw(), draw(), draw(0.1), [x.square_() for x in draw(0.1)], draw()
+    steps = [torch.full((), 3.0, device="cuda") for _ in shapes]
+    for i in range(3, len(shapes), 7):
+        g[i] = m[i] = v[i] = steps[i] = None
+    return [p, g, m, v, steps, e]
+
+
+def clone_all(lists) -> list:
+    """``lists`` of tensors cloned with their strides (so the misaligned
+    tensor stays misaligned), None kept."""
+    import torch
+
+    def clone(x):
+        if x is None:
+            return None
+        return torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x).copy_(x) \
+            if x.data_ptr() % 16 else x.clone()
+
+    return [[clone(x) for x in xs] for xs in lists]
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms of one call of ``fn`` captured alone in a CUDA graph (so the
+    host's per-call work is not timed); ``fn`` runs once eagerly first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def phase_masked_adamw(card: str) -> dict:
+    """25a: the kernel against its plain version at DiffMa-L/2's parameter
+    shapes on both mixers, a skip that writes nothing, and its time beside
+    its bound, its plain version's and torch's fused AdamW's; returns its
+    entry for the kernels line."""
+    import torch
+
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.ops.masked_adamw import masked_adamw_cuda, masked_adamw_plain
+
+    print("== phase 25a: the masked AdamW + EMA update against its plain version, DiffMa-L/2's "
+          "parameters", flush=True)
+    entry = {"name": "masked_adamw", "route": "cuda",
+             "source": "diffma_tpu_torch/csrc/masked_adamw.cu", "replaces": None}
+    for label, use_mamba2 in (("Mamba-1", False), ("Mamba-2", True)):
+        shapes = [p.shape for p in build_model("DiffMa-L/2", input_size=28,
+                                               use_mamba2=use_mamba2).parameters()]
+        n = sum(math.prod(s) for s in shapes)
+        base = adamw_inputs(shapes, 25)
+        alone = sum(g is None for g in base[1])
+        sides = []
+        for fn in (masked_adamw_cuda, masked_adamw_plain):
+            args = clone_all(base)
+            before = clone_all(args)
+            fn(torch.tensor(False, device="cuda"), *args, **ADAMW_HYPER)
+            if not all(torch.equal(bits(x), bits(y)) for xs, ys in zip(args, before)
+                       for x, y in zip(xs, ys) if x is not None):
+                fail(f"{label}: {fn.__name__} with keep false wrote a tensor")
+            fn(torch.tensor(True, device="cuda"), *args, **ADAMW_HYPER)
+            sides.append(args)
+        torch.cuda.synchronize()
+        worst, mean_rel = 0, {}
+        for name, got, want in zip(("p", "g", "m", "v", "step", "ema"), *sides):
+            if name == "g":  # read only, by both sides
+                continue
+            got = torch.cat([x.flatten() for x in got if x is not None])
+            want = torch.cat([x.flatten() for x in want if x is not None])
+            order = [torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+                     for i in (got.view(torch.int32).long(), want.view(torch.int32).long())]
+            worst = max(worst, int((order[0] - order[1]).abs().max()))
+            mean_rel[name] = float((got - want).abs().mean() / want.abs().mean())
+        if worst > MAX_ADAMW_ULPS:
+            fail(f"{label}: the kernel is {worst} ulps from its plain version "
+                 f"(bar {MAX_ADAMW_ULPS})")
+        far = {k: r for k, r in mean_rel.items() if r > TOL_ADAMW_MEAN}
+        if far:
+            fail(f"{label}: the kernel's mean-rel from its plain version is over "
+                 f"{TOL_ADAMW_MEAN:g} in {far}")
+        keep = torch.tensor(True, device="cuda")
+        args = clone_all(base)
+        ms = graph_ms(lambda: masked_adamw_cuda(keep, *args, **ADAMW_HYPER), 50)
+        plain_ms = graph_ms(lambda: masked_adamw_plain(keep, *args, **ADAMW_HYPER), 10)
+        bound_ms = 36 * n / HBM_BYTES_PER_S * 1e3
+        try:  # torch's fused AdamW with found_inf and a foreach EMA: a yardstick only
+            e = args[5]
+            p, g, m, v, steps = ([x for x, y in zip(xs, args[1]) if y is not None]
+                                 for xs in args[:5])
+            found_inf = torch.zeros((), device="cuda")
+            h = ADAMW_HYPER
+
+            def library():
+                torch._fused_adamw_(p, g, m, v, [], steps, lr=h["lr"], beta1=h["betas"][0],
+                                    beta2=h["betas"][1], weight_decay=h["weight_decay"],
+                                    eps=h["eps"], amsgrad=False, maximize=False,
+                                    grad_scale=None, found_inf=found_inf)
+                torch._foreach_mul_(e, h["ema_decay"])
+                torch._foreach_add_(e, args[0], alpha=1 - h["ema_decay"])
+
+            library_ms = graph_ms(library, 50)
+        except (RuntimeError, TypeError) as exc:
+            library_ms = None
+            print(f"  library_ms not measured: {exc}")
+        print(f"  [{card}] {label}: {len(shapes)} tensors ({alone} the EMA alone), {n} "
+              f"parameters; kernel against plain: max {worst} ulp (bar {MAX_ADAMW_ULPS}), "
+              f"mean-rel " + ", ".join(f"{k} {r:.2e}" for k, r in mean_rel.items())
+              + f" (bar {TOL_ADAMW_MEAN:g} each); keep false "
+              f"wrote nothing on either; {ms:.4f} ms a step, bound {bound_ms:.4f} ms (bytes, "
+              f"36 a parameter at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / ms:.1%} of it; "
+              f"plain {plain_ms:.4f} ms; library (_fused_adamw_ + foreach EMA) "
+              + (f"{library_ms:.4f} ms" if library_ms is not None else "not measured"))
+        entry[label] = {"tensors": len(shapes), "parameters": n, "max_ulp": worst,
+                        "mean_rel": mean_rel, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+        del base, sides, args
+        torch.cuda.empty_cache()
+    return entry
+
+
+def phase_masked_adamw_step(card: str) -> None:
+    """25b: the L/2 Mamba-1 step, graphed and eager, over 3 finite batches
+    and a NaN one: the NaN step leaves every tensor as it was, and the two
+    runs end equal in bits, one update launched a step."""
+    import copy
+
+    import torch
+
+    from diffma_tpu_torch.diffusion import create_diffusion
+    from diffma_tpu_torch.models.diffma import build_model
+    from diffma_tpu_torch.ops.masked_adamw import masked_adamw_cuda
+    from diffma_tpu_torch.train.state import GraphedTrainStep, TrainState, adamw, make_train_step
+    from diffma_tpu_torch.train.train import loss_draws, make_loss_fn, synthetic_batch
+
+    nan_at = 2
+    print("== phase 25b: the L/2 step graphed against eager over 4 batches, a NaN batch third",
+          flush=True)
+    diffusion = create_diffusion("", device="cuda")
+    model = build_model("DiffMa-L/2", input_size=28, scan_impl="fused")
+    model = model.init_weights(torch.Generator().manual_seed(0)).cuda().train()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    batches = []
+    for i in range(4):
+        b = synthetic_batch(gen, 8, 28, 196)
+        b["t"], b["noise"] = loss_draws(diffusion, b["z"], gen)
+        if i == nan_at:
+            b["z"][0, 0, 0, 0] = float("nan")
+        batches.append(b)
+
+    def tensors(st):
+        return ([p.detach() for p in st.model.parameters()] + list(st.ema.parameters())
+                + [v for p in st.model.parameters() for v in st.optimizer.state[p].values()]
+                + [st.step])
+
+    ends = []
+    for graphed in (False, True):
+        m = copy.deepcopy(model)
+        optimizer = adamw(m.parameters(), 1e-4)
+        st = TrainState(m, optimizer)
+        step = make_train_step(make_loss_fn(m, diffusion), optimizer)
+        if graphed:
+            step = GraphedTrainStep(step, "cuda")
+        masked_adamw_cuda.launches = 0
+        for i, b in enumerate(batches):
+            if i == nan_at:
+                before = [t.clone() for t in tensors(st)]
+            finite = bool(step(st, b, None)["finite"])
+            if finite != (i != nan_at):
+                fail(f"step {i + 1}: finite {finite}")
+            if i == nan_at:
+                moved = sum(not torch.equal(bits(x), bits(y)) for x, y in zip(before, tensors(st)))
+                if moved:
+                    fail(f"the NaN step changed {moved} of {len(before)} tensors")
+        mode = "graphed" if graphed else "eager"
+        if masked_adamw_cuda.launches != len(batches):
+            fail(f"the {mode} steps ran masked_adamw {masked_adamw_cuda.launches} times")
+        ends.append([t.clone() for t in tensors(st)])
+        print(f"  {mode}: the NaN step left all {len(before)} tensors (params, EMA, exp_avg, "
+              f"exp_avg_sq, every step count, the step count) equal in bits; "
+              f"{masked_adamw_cuda.launches} masked_adamw launches")
+        del m, optimizer, st, step
+    differ = sum(not torch.equal(bits(x), bits(y)) for x, y in zip(*ends))
+    if differ:
+        fail(f"graphed against eager after {len(batches)} steps: {differ} of {len(ends[0])} "
+             f"tensors differ in bits")
+    print(f"  [{card}] graphed against eager after {len(batches)} steps: all {len(ends[0])} "
+          f"tensors equal in bits")
+    del model, ends, batches
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "diffma_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
@@ -5373,11 +5626,16 @@ def main() -> int:
     core_bf16["launches"] = core_bf16_launches
     phase_validate_imports(card)
     print(f"phase 24 took {time.perf_counter() - t24:.1f} s")
+    t25 = time.perf_counter()
+    adamw_entry = phase_masked_adamw(card)
+    phase_masked_adamw_step(card)
+    print(f"phase 25 took {time.perf_counter() - t25:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [scan, mixer, scan_bwd, mixer_bwd, ssd, epilogue, ssd_bwd,
                                   inner, core, mixer_bf16, mixer_bwd_bf16, ssd_bf16,
-                                  ssd_bwd_bf16, epilogue_bf16, inner_bf16, core_bf16]}))
+                                  ssd_bwd_bf16, epilogue_bf16, inner_bf16, core_bf16,
+                                  adamw_entry]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -8,7 +8,9 @@ G and H include ``gemm_tc.cuh``, the 3xTF32 tensor-core GEMM; A and H
 ``scan_fwd.cuh``, the chunked forward scan; E, F and P ``ssd_core.cuh``, the
 chunked SSD; the GEMM and the SSD ``bf16_round.cuh``), so an
 edited source or header is rebuilt and an unchanged one is
-reused. Libraries go into
+reused. ``masked_adamw.cu`` is the training step's optimizer update (AdamW
+and the EMA masked by the step's finite flag), which replaces no TPU kernel.
+Libraries go into
 ``diffma_tpu_torch/_build/``, which git ignores.
 """
 
@@ -33,10 +35,10 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: Every kernel source of the port: kernels A, C, B, D, E, G, F, H and P (the
-#: split SSD probe's core).
+#: split SSD probe's core), and the masked AdamW + EMA update.
 SOURCES = ("selective_scan_fwd", "fused_mixer_fwd", "selective_scan_bwd", "fused_mixer_bwd",
            "fused_ssd_fwd", "spiral_epilogue", "fused_ssd_bwd", "fused_mamba_fwd",
-           "ssd_core_fwd")
+           "ssd_core_fwd", "masked_adamw")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

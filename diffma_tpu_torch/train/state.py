@@ -13,11 +13,13 @@ Counterpart of ``diffma_tpu/train/state.py``, with its semantics:
   parameter, and starts as a copy of the model.
 
 PyTorch updates the state in place where JAX returns a new one. The step
-decides on the device, as JAX's ``train_step_predicated`` does: it zeroes
-the gradients of a non-finite loss, steps the optimizer and the EMA
-unconditionally, and then puts back, with ``torch.where`` over flat copies,
-the parameters, the EMA and every tensor of the optimizer's state (AdamW's
-``exp_avg``, ``exp_avg_sq`` and ``step``) where the loss was not finite. The
+decides on the device, as JAX's ``train_step_predicated`` does: one masked
+update (``ops/masked_adamw.py``: AdamW over the parameters with gradients,
+the EMA over every parameter) writes the parameters, the EMA and AdamW's
+``exp_avg``, ``exp_avg_sq`` and ``step`` only where the loss was finite, so
+a non-finite gradient never reaches the state. ``torch.optim.AdamW`` holds
+that state (its ``param_groups`` give lr, betas, eps and weight decay; its
+``state_dict`` is the checkpoints'), but its ``step()`` is not called. The
 count of finite steps, ``TrainState.step``, is a device tensor. With
 ``accumulation_steps > 1`` the update is kept where the loss was finite and
 the iteration updates, the sum of gradients where the loss was finite, as
@@ -52,11 +54,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from diffma_tpu_torch.ops.masked_adamw import masked_adamw
 from diffma_tpu_torch.utils import trace
 from diffma_tpu_torch.utils.graphs import Graph
 
-__all__ = ["GraphedTrainStep", "TrainState", "adamw", "make_train_step", "restore_train_state",
-           "update_ema"]
+__all__ = ["GraphedTrainStep", "TrainState", "adamw", "make_train_step", "restore_train_state"]
 
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -64,10 +66,10 @@ LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
 
 def adamw(params, lr: float) -> torch.optim.AdamW:
     """The trainers' AdamW: betas 0.9 / 0.999, eps 1e-8, no weight decay, as
-    ``optax.adamw`` in the JAX package. On the card it keeps its step counts
-    on the device (``capturable``), so that the step reads none on the host;
-    its arithmetic stays the foreach one there and the for-loop one on the
-    CPU."""
+    ``optax.adamw`` in the JAX package. It holds the state that the step's
+    masked update (``ops/masked_adamw.py``) steps; on the card it is
+    ``capturable``, so that a loaded checkpoint's step counts land on the
+    device, where the update reads them."""
     params = list(params)
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
                              capturable=any(p.is_cuda for p in params))
@@ -94,13 +96,19 @@ def _load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Dict) -> None
     over the same parameters in the same order) into ``optimizer``. Its
     hyperparameters stay the optimizer's own, as the JAX trainer takes the
     learning rate from the config; with ``capturable`` each ``step`` lands
-    on its parameter's device."""
+    on its parameter's device. A moment saved in another layout (a
+    converted Orbax checkpoint's transposes) is made contiguous, as the
+    step's update takes it."""
     current = optimizer.state_dict()
     n = sum(len(g["params"]) for g in current["param_groups"])
     if not set(saved["state"]) <= set(range(n)):
         raise KeyError(f"the optimizer state holds parameter {max(saved['state'])}; the model "
                        f"has {n}")
     optimizer.load_state_dict({"state": saved["state"], "param_groups": current["param_groups"]})
+    for state in optimizer.state.values():
+        for key, value in state.items():
+            if torch.is_tensor(value) and not value.is_contiguous():
+                state[key] = value.contiguous()
 
 
 def restore_train_state(state: TrainState, tree: Dict, step: int) -> None:
@@ -117,15 +125,6 @@ def restore_train_state(state: TrainState, tree: Dict, step: int) -> None:
     if state.accum_grads is not None:
         for g in state.accum_grads:
             g.zero_()
-
-
-@torch.no_grad()
-def update_ema(ema: nn.Module, model: nn.Module, decay: float = 0.999) -> None:
-    """ema = decay * ema + (1 - decay) * params, over every parameter."""
-    ema_params = list(ema.parameters())
-    params = [p.to(e.dtype) for e, p in zip(ema_params, model.parameters())]
-    torch._foreach_mul_(ema_params, decay)
-    torch._foreach_add_(ema_params, params, alpha=1 - decay)
 
 
 def _pieces(flat: torch.Tensor, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -146,33 +145,36 @@ def _scatter(tensors: List[torch.Tensor], flat: torch.Tensor) -> None:
     torch._foreach_copy_(tensors, _pieces(flat, tensors))
 
 
-def _keep_where(keep: torch.Tensor, tensors: List[torch.Tensor], other) -> None:
-    """``tensors = where(keep, tensors, other)`` in place, ``other`` a flat
-    tensor of their consecutive values or a scalar."""
-    flat = _flat(tensors)
-    if not torch.is_tensor(other):
-        other = flat.new_full((), other)
-    _scatter(tensors, torch.where(keep, flat, other, out=flat))
-
-
-def _optimizer_tensors(optimizer: torch.optim.Optimizer, params) -> List[torch.Tensor]:
-    return [v for p in params for v in optimizer.state[p].values() if torch.is_tensor(v)]
+def _adamw_state(optimizer: torch.optim.Optimizer, p: torch.Tensor) -> Dict:
+    """AdamW's state of ``p``, made where it is missing as torch's AdamW
+    makes it at its first step: a 0-d fp32 ``step`` on ``p``'s device and
+    zero ``exp_avg`` and ``exp_avg_sq``."""
+    state = optimizer.state[p]
+    if not state:
+        state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return state
 
 
 def _predicated_update(state: TrainState, optimizer, keep: torch.Tensor, params, ema_decay):
-    """Step ``optimizer`` over ``params`` (their ``.grad`` set) and the EMA,
-    then put every tensor they changed back where ``keep`` is false. The
-    state that AdamW makes at its first step was zeros before it."""
-    made = [p for p in params if not optimizer.state[p]]
-    held = [p for p in params if optimizer.state[p]]
-    ema = list(state.ema.parameters())
-    tensors = list(params) + ema + _optimizer_tensors(optimizer, held)
-    old = _flat(tensors)
-    optimizer.step()
-    update_ema(state.ema, state.model, ema_decay)
-    _keep_where(keep, tensors, old)
-    if made:
-        _keep_where(keep, _optimizer_tensors(optimizer, made), 0.0)
+    """AdamW over ``params`` (their ``.grad`` set) with each param group's
+    hyperparameters, and the EMA over every parameter, written only where
+    ``keep``. A skipped first step leaves AdamW's state made and zero."""
+    stepped = {id(p) for p in params}
+    model = list(state.model.parameters())
+    ema_of = dict(zip(map(id, model), state.ema.parameters()))
+    ema_only = [p for p in model if id(p) not in stepped]
+    for group in optimizer.param_groups:
+        ps = [p for p in group["params"] if id(p) in stepped]
+        adam = [_adamw_state(optimizer, p) for p in ps]
+        none = [None] * len(ema_only)
+        masked_adamw(keep, ps + ema_only, [p.grad for p in ps] + none,
+                     [s["exp_avg"] for s in adam] + none, [s["exp_avg_sq"] for s in adam] + none,
+                     [s["step"] for s in adam] + none, [ema_of[id(p)] for p in ps + ema_only],
+                     lr=float(group["lr"]), betas=group["betas"], eps=group["eps"],
+                     weight_decay=group["weight_decay"], ema_decay=ema_decay)
+        ema_only = []  # in the first group's launch
 
 
 def _mean_over(group, params, loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
@@ -208,6 +210,8 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
                 and not param_group.get("capturable", True)):
             raise ValueError("on the card the step needs an optimizer whose state stays on the "
                              "device: AdamW(capturable=True), as state.adamw makes it")
+        if param_group.get("amsgrad") or param_group.get("maximize"):
+            raise ValueError("the step's update is AdamW's without amsgrad or maximize")
 
     def train_step(state: TrainState, batch, generator) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -220,7 +224,6 @@ def make_train_step(loss_fn: LossFn, optimizer: torch.optim.Optimizer,
         with torch.no_grad():
             if k == 1:
                 params = [p for p in state.model.parameters() if p.grad is not None]
-                _keep_where(finite, [p.grad for p in params], 0.0)
                 _predicated_update(state, optimizer, finite, params, ema_decay)
             else:
                 params = [p for p in state.model.parameters() if p.requires_grad]

@@ -55,9 +55,10 @@ __all__ = ["Graph", "graph_nodes", "kernel_counters"]
 def kernel_counters() -> dict:
     """Each kernel's wrapper by kernel name; its ``launches`` counts its launches
     (the bf16 variants of kernels C, D, E, F, G, H and P: a count that their
-    wrapper keeps)."""
+    wrapper keeps; ``masked_adamw``: the training step's optimizer update)."""
     from diffma_tpu_torch.ops.fused_mamba import mamba_inner_fused_cuda
     from diffma_tpu_torch.ops.fused_mixer import mixer_fused_bwd_cuda, mixer_fused_cuda
+    from diffma_tpu_torch.ops.masked_adamw import masked_adamw_cuda
     from diffma_tpu_torch.ops.fused_ssd import (
         spiral_epilogue_cuda,
         ssd_core_cuda,
@@ -76,7 +77,7 @@ def kernel_counters() -> dict:
             "ssd_mixer_bwd_bf16": ssd_mixer_fused_bwd_cuda.bf16,
             "spiral_epilogue_bf16": spiral_epilogue_cuda.bf16,
             "mamba_inner_fwd_bf16": mamba_inner_fused_cuda.bf16,
-            "ssd_core_fwd_bf16": ssd_core_cuda.bf16}
+            "ssd_core_fwd_bf16": ssd_core_cuda.bf16, "masked_adamw": masked_adamw_cuda}
 
 
 #: cudaGraphNodeType: the kinds counted apart; the rest are ``other``.

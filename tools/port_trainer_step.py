@@ -29,7 +29,8 @@ only, the spans that the loop is made of:
   it only at its warm-up and capture, in the first window);
 * ``forward``: the loss, queued;
 * ``backward``: ``loss.backward()``, queued;
-* ``optimizer``: ``AdamW.step``, queued; ``ema``: ``update_ema``, queued;
+* ``optimizer``: ``_predicated_update``, the masked AdamW and EMA update
+  (``ops/masked_adamw.py``), queued;
 * ``sync``: ``Tensor.cpu``, the log's read of the losses: the host's wait
   for the device (the step itself never waits);
 * ``rest``: the remainder of the wall time (logging, the loop itself).
@@ -58,8 +59,7 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SPANS = ("loader", "batch", "encode", "draws", "graph", "forward", "backward", "optimizer", "ema",
-         "sync")
+SPANS = ("loader", "batch", "encode", "draws", "graph", "forward", "backward", "optimizer", "sync")
 
 
 def timed_run(cfg, device: str, with_loader: bool, graphed: bool = True) -> dict:
@@ -124,10 +124,9 @@ def timed_run(cfg, device: str, with_loader: bool, graphed: bool = True) -> dict
         (train_mod, "loss_draws", wrap("draws", train_mod.loss_draws)),
         (train_mod.GraphedTrainStep, "__call__",
          wrap("graph", train_mod.GraphedTrainStep.__call__)),
-        (state_mod, "update_ema", wrap("ema", state_mod.update_ema)),
         (torch.Tensor, "backward", wrap("backward", torch.Tensor.backward)),
         (torch.Tensor, "cpu", wrap("sync", torch.Tensor.cpu)),
-        (torch.optim.AdamW, "step", wrap("optimizer", torch.optim.AdamW.step)),
+        (state_mod, "_predicated_update", wrap("optimizer", state_mod._predicated_update)),
     ]
     if not graphed:
         patches.append((train_mod, "GraphedTrainStep", lambda step, device: step))
